@@ -1,0 +1,33 @@
+"""nmpc_tpu_torch — the PyTorch + CUDA port of `nmpc_tpu`.
+
+The same multiple-shooting NMPC engine (batched augmented-Lagrangian iLQR for
+1..10 unicycle robots with pairwise collision and box constraints), written
+for PyTorch on an NVIDIA Hopper GPU. The JAX package `nmpc_tpu` is the
+reference: each module here has one counterpart there with the same
+subpackage path and module name, and the tests hold each against it.
+
+Layer map (mirrors nmpc_tpu):
+    models/    unicycle dynamics and analytic Euler Jacobians
+    ocp/       OCP dataclass, costs, c >= 0 constraints, constraint Jacobians
+    scenarios/ frozen registry of every reference configuration (own copy)
+    parallel/  batch construction (batch_ocp, random_starts)
+    solver/    AL-iLQR config/result types and the batched main path
+    ops/       the hand-written CUDA kernels (csrc/) with their plain
+               PyTorch versions, build and ctypes binding
+
+Precision: every contraction runs in full f32. TF32 keeps ~3 decimal digits,
+and a Riccati recursion iterated at reduced precision diverges (the JAX
+package pins f32 matmuls for the same reason, nmpc_tpu/__init__.py).
+"""
+
+__version__ = "0.1.0"
+
+import torch as _torch
+
+_torch.backends.cuda.matmul.allow_tf32 = False
+_torch.backends.cudnn.allow_tf32 = False
+_torch.set_float32_matmul_precision("highest")
+
+from nmpc_tpu_torch.ocp.problem import OCP, default_weights  # noqa: E402,F401
+from nmpc_tpu_torch.solver.alilqr import ALILQRConfig, SolveResult, WarmStart  # noqa: E402,F401
+from nmpc_tpu_torch.solver.alilqr_batched import solve_batched, solve_one  # noqa: E402,F401

@@ -1,0 +1,70 @@
+// Small dense factorizations of the backward Riccati sweep.
+//
+// Ported from nmpc_tpu/ops/riccati_pallas.py (_chol, _chol_solve, _mtm). The
+// TPU versions factor 128 scenarios at once, one [rows, 128-lane] op per
+// column; here each thread factors its own scenario's block.
+#pragma once
+
+#ifndef NMPC_DEV
+#define NMPC_DEV __device__ __forceinline__
+#endif
+
+#include <math.h>
+
+namespace nmpc {
+
+// In-place left-looking Cholesky of the lower triangle of an SPD [M, M]
+// row-major block, with `reg` added to the diagonal inside the square root
+// (Quu + reg I). Entries above the diagonal are neither read nor written.
+// inv receives the reciprocals of the diagonal, so the substitutions
+// multiply instead of dividing.
+template <int M>
+NMPC_DEV void chol(float* A, float reg, float* inv) {
+#pragma unroll 1
+  for (int i = 0; i < M; ++i) {
+    for (int j = i; j < M; ++j) {
+      float v = A[j * M + i];
+      for (int k = 0; k < i; ++k) v = v - A[j * M + k] * A[i * M + k];
+      A[j * M + i] = v;
+    }
+    const float d = sqrtf(A[i * M + i] + reg);
+    const float iv = 1.f / d;
+    inv[i] = iv;
+    A[i * M + i] = d;
+    for (int j = i + 1; j < M; ++j) A[j * M + i] = A[j * M + i] * iv;
+  }
+}
+
+// Solve (L L^T) y = rhs in place for one right-hand side, L from chol().
+template <int M>
+NMPC_DEV void chol_solve(const float* L, const float* inv, float* y) {
+#pragma unroll 1
+  for (int i = 0; i < M; ++i) {
+    float s = y[i];
+    for (int k = 0; k < i; ++k) s = s - L[i * M + k] * y[k];
+    y[i] = s * inv[i];
+  }
+#pragma unroll 1
+  for (int i = M - 1; i >= 0; --i) {
+    float s = y[i];
+    for (int k = i + 1; k < M; ++k) s = s - L[k * M + i] * y[k];
+    y[i] = s * inv[i];
+  }
+}
+
+// out[a, c] += (X^T Y)[a, c] for X [R, A], Y [R, C], all row-major; the
+// product is summed first and then added, as _mtm's callers do.
+template <int R, int A, int C>
+NMPC_DEV void mtm_add(const float* X, const float* Y, float* out) {
+#pragma unroll 1
+  for (int a = 0; a < A; ++a) {
+    for (int c = 0; c < C; ++c) {
+      float acc = X[a] * Y[c];
+#pragma unroll
+      for (int k = 1; k < R; ++k) acc = acc + X[k * A + a] * Y[k * C + c];
+      out[a * C + c] = out[a * C + c] + acc;
+    }
+  }
+}
+
+}  // namespace nmpc

@@ -1,0 +1,9 @@
+from nmpc_tpu_torch.ops.megasolve import (  # noqa: F401
+    al_update_lanes,
+    al_update_plain,
+    cuda_unsupported,
+    inner_solve_fused,
+    inner_solve_plain,
+    launch_counts,
+    reset_launch_counts,
+)

@@ -1,0 +1,323 @@
+"""The two kernels of the batched AL-iLQR main path, each with its plain
+PyTorch version. Port of nmpc_tpu/ops/megasolve_pallas.py.
+
+  K1 `inner_solve_fused`: the whole inner iLQR solve (n_inner iterations of
+     backward Riccati sweep with on-the-fly expansions, line search and
+     accepted rollout) per scenario, in one launch per AL outer step.
+     CUDA: csrc/megasolve.cuh::inner_solve_thread. Replaces the Pallas
+     megakernel (megasolve_pallas.py:_make_megakernel / inner_solve_fused).
+  K2 `al_update_lanes`: the AL multiplier update and the largest constraint
+     violation. CUDA: csrc/megasolve.cuh::al_update_thread. Replaces
+     megasolve_pallas.py:_make_al_update_kernel / al_update_lanes.
+
+Both wrappers take and return the standard layout [B, N, ...]. On a CPU
+tensor they run the plain version; on a CUDA tensor they launch the kernel
+(on the current stream, after moving the batch axis innermost so the
+one-thread-per-scenario kernels read coalesced) or raise NotImplementedError
+naming what the kernel does not cover. There is no fallback from a CUDA
+tensor to the plain version.
+
+What bounds the kernels on an H100, and what the first design does about
+it: each thread's per-stage Q-blocks do not fit in registers and live in
+thread-local memory, and every line-search candidate re-reads the stage
+gains from global memory; the lane-major layout keeps all of those accesses
+coalesced. Shared-memory staging, several threads per scenario and tensor
+cores are later work.
+
+Admission (replaces the TPU's VMEM estimate `mega_fits`): the CUDA kernels
+are built for m in cuda_build.ROBOT_COUNTS robots, any N, pair and box rows,
+Euler dynamics, up to 32 alphas; see `cuda_unsupported`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+
+import torch
+
+from nmpc_tpu_torch.ocp import problem as P
+from nmpc_tpu_torch.ocp.problem import OCP
+from nmpc_tpu_torch.ops import cuda_build
+from nmpc_tpu_torch.ops.rollout import _P, _pack_params
+from nmpc_tpu_torch.solver.alilqr import ALILQRConfig, _backward_pass
+
+# Kernel launches since the last reset: each wrapper adds one where it
+# launches its CUDA kernel, and nowhere else.
+launch_counts = {"inner_solve_fused": 0, "al_update_lanes": 0}
+
+_MAX_ALPHAS = 32
+
+
+def reset_launch_counts() -> None:
+    for k in launch_counts:
+        launch_counts[k] = 0
+
+
+def cuda_unsupported(ocp: OCP, cfg: ALILQRConfig | None = None) -> str | None:
+    """Why the CUDA kernels cannot take this problem/config, or None."""
+    if ocp.dyn_fn is not None or ocp.integrator != "euler":
+        return "dynamics other than the Euler unicycle (dyn_fn or rk4)"
+    if ocp.num_rays:
+        return "LiDAR ray states (num_rays > 0)"
+    if ocp.n_obs:
+        return "static-obstacle rows (n_obs > 0)"
+    if ocp.n_mov:
+        return "moving-obstacle rows (n_mov > 0)"
+    if ocp.m not in cuda_build.ROBOT_COUNTS:
+        return f"m={ocp.m} robots (kernels are built for m in {cuda_build.ROBOT_COUNTS})"
+    if cfg is not None:
+        if cfg.compact:
+            return "compact=True"
+        if cfg.sweep == "scan":
+            return "sweep='scan'"
+        if cfg.ls not in ("cascade", "adaptive"):
+            return f"line search {cfg.ls!r}"
+        if len(cfg.alphas) > _MAX_ALPHAS:
+            return f"more than {_MAX_ALPHAS} line-search alphas"
+    return None
+
+
+def _require_cuda(ocp: OCP, cfg: ALILQRConfig | None, what: str) -> None:
+    why = cuda_unsupported(ocp, cfg)
+    if why is not None:
+        raise NotImplementedError(f"{what}: the CUDA kernel does not cover {why}")
+
+
+def _check(name: str, t: torch.Tensor, shape: tuple, device) -> None:
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != torch.float32:
+        raise TypeError(f"{name} has dtype {t.dtype}, the kernels take float32")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+
+
+def _lane(t: torch.Tensor) -> torch.Tensor:
+    """Standard [B, ...] -> lane-major [..., B], contiguous."""
+    return t.movedim(0, -1).contiguous()
+
+
+def _std(t: torch.Tensor) -> torch.Tensor:
+    """Lane-major [..., B] -> standard [B, ...], contiguous."""
+    return t.movedim(-1, 0).contiguous()
+
+
+def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    assert t.is_contiguous()
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def _params(ocp: OCP, alphas, device) -> torch.Tensor:
+    """The parameter block on `device`, checked against the layout the
+    kernels read (csrc/rollout.cuh::Dims mirrors _P with n_obs = 0)."""
+    prm = _pack_params(ocp, alphas).to(device=device, dtype=torch.float32).contiguous()
+    if prm.numel() != _P(ocp.nx, ocp.nu, len(alphas)).size:
+        raise ValueError(f"parameter block has {prm.numel()} entries, the kernels expect "
+                         f"{_P(ocp.nx, ocp.nu, len(alphas)).size}")
+    return prm
+
+
+def _stream(device) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+# ---------------------------------------------------------------------------
+# K2: AL multiplier update
+# ---------------------------------------------------------------------------
+
+
+def al_update_plain(ocp: OCP, Xs, U, lam, mu, lam_max: float):
+    """Plain PyTorch K2. Xs [B, N, nx] stage states 0..N-1, U [B, N, nu],
+    lam [B, N, n_con], mu [B] -> (lam_new [B, N, n_con], viol [B]).
+
+    c = masked_trajectory_constraints (stage-0 state rows set to BIG);
+    lam_new = min(max(0, lam - mu c), lam_max); viol = max(0, -min c)."""
+    mov = ocp.mov_obs if ocp.n_mov else None
+    c = P.stage_constraints(ocp, Xs, U, mov)
+    c = torch.where(P.constraint_mask(ocp) > 0, c, torch.full_like(c, P.BIG))
+    # lam - mu c with one rounding, as the kernels' fused multiply-add gives
+    # it (the product is exact in f64); two roundings would differ by ~1 ulp
+    # of mu c where that nearly cancels lam
+    step = (lam.double() - mu.double()[:, None, None] * c.double()).to(lam.dtype)
+    act = torch.clamp(step, min=0.0)
+    lam_new = torch.clamp(act, max=lam_max)
+    viol = torch.clamp(-torch.amin(c, dim=(1, 2)), min=0.0)
+    return lam_new, viol
+
+
+def al_update_lanes(ocp: OCP, Xs, U, lam, mu, lam_max: float):
+    """K2 wrapper: the CUDA kernel for CUDA tensors, the plain version for
+    CPU tensors. Same arguments and results as `al_update_plain`."""
+    if Xs.device.type == "cpu":
+        return al_update_plain(ocp, Xs, U, lam, mu, lam_max)
+    if Xs.device.type != "cuda":
+        raise NotImplementedError(f"al_update_lanes: no kernel for {Xs.device}")
+    _require_cuda(ocp, None, "al_update_lanes")
+    B, N, n, nu, nc = Xs.shape[0], ocp.N, ocp.nx, ocp.nu, ocp.n_con
+    dev = Xs.device
+    for name, t, shape in (("Xs", Xs, (B, N, n)), ("U", U, (B, N, nu)),
+                           ("lam", lam, (B, N, nc)), ("mu", mu, (B,))):
+        _check(name, t, shape, dev)
+    lam_new = torch.empty((B, N, nc), dtype=torch.float32, device=dev)
+    viol = torch.empty((B,), dtype=torch.float32, device=dev)
+    if B == 0:
+        return lam_new, viol
+    lib = cuda_build.load(ocp.m)
+    prm = _params(ocp, (), dev)
+    Xs_l, U_l, lam_l = _lane(Xs), _lane(U), _lane(lam)
+    mu_c = mu.contiguous()
+    lam_out_l = torch.empty((N, nc, B), dtype=torch.float32, device=dev)
+    err = lib.nmpc_al_update(
+        _ptr(prm), _ptr(Xs_l), _ptr(U_l), _ptr(lam_l), _ptr(mu_c),
+        _ptr(lam_out_l), _ptr(viol), B, N, int(ocp.n_pairs > 0),
+        float(lam_max), _stream(dev))
+    cuda_build.check(lib, err, "al_update_lanes")
+    launch_counts["al_update_lanes"] += 1
+    lam_new.copy_(lam_out_l.movedim(-1, 0))
+    return lam_new, viol
+
+
+# ---------------------------------------------------------------------------
+# K1: fused inner iLQR solve
+# ---------------------------------------------------------------------------
+
+
+def _forward(ocp: OCP, X, U, kff, Kfb, alpha):
+    """Closed-loop rollout u = ubar + alpha kff + K (x - xbar) with a
+    per-scenario alpha [B]: -> X [B, N+1, nx], U [B, N, nu]."""
+    x = X[:, 0]
+    xs, us = [x], []
+    for k in range(ocp.N):
+        u = (U[:, k] + alpha[:, None] * kff[:, k]
+             + (Kfb[:, k] @ (x - X[:, k])[..., None])[..., 0])
+        x = P.step_dynamics(ocp, x, u)
+        xs.append(x)
+        us.append(u)
+    return torch.stack(xs, dim=1), torch.stack(us, dim=1)
+
+
+def inner_solve_plain(ocp: OCP, x0, xref, lam, mu, U, cfg: ALILQRConfig):
+    """Plain PyTorch K1: n_inner iLQR iterations per scenario on the AL merit.
+
+    x0 [B, nx], xref [B, N, nx], lam [B, N, n_con], mu [B], U [B, N, nu]
+    (warm controls) -> (Xs [B, N, nx] stage states 0..N-1, U [B, N, nu],
+    cost [B] merit of the returned iterate, iters [B] int32).
+
+    Written from the dense formulation (Euler Jacobians, dense stage
+    expansions, Cholesky of Quu + reg I: solver.alilqr._backward_pass) with
+    the megakernel's control flow: its two line searches, done rules and
+    iteration counting (an iteration counts only if the scenario is still
+    not done after it)."""
+    if cfg.ls not in ("adaptive", "cascade"):
+        raise ValueError(f"unknown line search {cfg.ls!r}")
+    adaptive = cfg.ls == "adaptive"
+    o = dataclasses.replace(ocp, x0=x0, xref=xref)
+    B = x0.shape[0]
+    dev, dtype = x0.device, x0.dtype
+    mask = P.constraint_mask(o) > 0  # [N, n_con]; False = stage-0 state rows
+
+    def merit(X, U):
+        # AL merit with the stage-0 state rows masked hard (a NaN dual there
+        # must not leak into the merit)
+        c = P.trajectory_constraints(o, X, U)
+        act = torch.clamp(lam - mu[:, None, None] * c, min=0.0)
+        act = torch.where(mask, act, torch.zeros_like(act))
+        return P.total_cost(o, X, U) + torch.sum(act * act, dim=(1, 2)) / (2.0 * mu)
+
+    # the masked rows only feed the stage-0 value function, which nothing
+    # reads; zero their duals so a non-finite warm start cannot reach the gains
+    lam_bp = torch.where(mask, lam, torch.zeros_like(lam))
+    X = P.rollout(o, U)
+    cost = merit(X, U)
+    done = torch.zeros(B, dtype=torch.bool, device=dev)
+    iters = torch.zeros(B, dtype=torch.int32, device=dev)
+    trial = torch.ones(B, dtype=dtype, device=dev)
+    zero = torch.zeros(B, dtype=dtype, device=dev)
+
+    for _ in range(cfg.n_inner):
+        if bool(done.all()):
+            break
+        kff, Kfb, dV1, _ = _backward_pass(o, cfg, X, U, lam_bp, mu)
+        slope = torch.clamp(-dV1, min=0.0)
+
+        def cost_of(alpha):
+            return merit(*_forward(o, X, U, kff, Kfb, alpha))
+
+        if adaptive:
+            acc = torch.zeros(B, dtype=torch.bool, device=dev)
+            best_cost, best_alpha = cost.clone(), zero.clone()
+            for _ in range(cfg.ls_rounds):
+                if bool(acc.all()):
+                    break
+                a = torch.where(acc, zero, trial)
+                ca = cost_of(a)
+                ok = (~acc) & ((cost - ca) >= cfg.armijo * a * slope) & (ca < cost)
+                best_cost = torch.where(ok, ca, best_cost)
+                best_alpha = torch.where(ok, a, best_alpha)
+                acc = acc | ok
+                trial = torch.where(acc, trial, trial * cfg.ls_beta)
+            trial = torch.where(best_alpha > 0,
+                                torch.clamp(best_alpha * cfg.ls_grow, max=1.0), trial)
+        else:
+            best_cost, best_alpha = cost, zero
+            for a in cfg.alphas:
+                a_t = torch.full((B,), a, dtype=dtype, device=dev)
+                ca = cost_of(a_t)
+                ok = ((cost - ca) >= cfg.armijo * a_t * slope) & (ca < best_cost)
+                best_cost = torch.where(ok, ca, best_cost)
+                best_alpha = torch.where(ok, a_t, best_alpha)
+
+        improved = best_alpha > 0
+        X, U = _forward(o, X, U, kff, Kfb, torch.where(done, zero, best_alpha))
+        cost_new = torch.where(done | ~improved, cost, best_cost)
+        rel = (cost - cost_new) / (1.0 + torch.abs(cost))
+        if adaptive:
+            give_up = (~improved) & (trial <= cfg.ls_trial_min)
+            stop = (improved & (rel < cfg.tol_cost)) | give_up
+        else:
+            stop = (~improved) | (rel < cfg.tol_cost)
+        done = done | stop
+        iters = iters + (~done).to(torch.int32)
+        cost = cost_new
+    return X[:, :-1].contiguous(), U, cost, iters
+
+
+def inner_solve_fused(ocp: OCP, x0, xref, lam, mu, U, cfg: ALILQRConfig):
+    """K1 wrapper: the CUDA kernel for CUDA tensors, the plain version for
+    CPU tensors. Same arguments and results as `inner_solve_plain`."""
+    if x0.device.type == "cpu":
+        return inner_solve_plain(ocp, x0, xref, lam, mu, U, cfg)
+    if x0.device.type != "cuda":
+        raise NotImplementedError(f"inner_solve_fused: no kernel for {x0.device}")
+    _require_cuda(ocp, cfg, "inner_solve_fused")
+    B, N, n, nu, nc = x0.shape[0], ocp.N, ocp.nx, ocp.nu, ocp.n_con
+    dev = x0.device
+    for name, t, shape in (("x0", x0, (B, n)), ("xref", xref, (B, N, n)),
+                           ("lam", lam, (B, N, nc)), ("mu", mu, (B,)),
+                           ("U", U, (B, N, nu))):
+        _check(name, t, shape, dev)
+    f32 = dict(dtype=torch.float32, device=dev)
+    cost = torch.empty((B,), **f32)
+    iters = torch.empty((B,), dtype=torch.int32, device=dev)
+    if B == 0:
+        return torch.empty((B, N, n), **f32), U.clone(), cost, iters
+    lib = cuda_build.load(ocp.m)
+    prm = _params(ocp, cfg.alphas, dev)
+    x0_l, xref_l, lam_l, U_l = _lane(x0), _lane(xref), _lane(lam), _lane(U)
+    mu_c = mu.contiguous()
+    Xs_l = torch.empty((N, n, B), **f32)
+    Uo_l = torch.empty((N, nu, B), **f32)
+    kff_l = torch.empty((N, nu, B), **f32)       # scratch: gains
+    Kfb_l = torch.empty((N, nu, n, B), **f32)
+    err = lib.nmpc_inner_solve(
+        _ptr(prm), _ptr(x0_l), _ptr(xref_l), _ptr(lam_l), _ptr(mu_c),
+        _ptr(U_l), _ptr(Xs_l), _ptr(Uo_l), _ptr(cost), _ptr(iters),
+        _ptr(kff_l), _ptr(Kfb_l),
+        B, N, cfg.n_inner, int(cfg.ls == "adaptive"), len(cfg.alphas),
+        cfg.ls_rounds, int(ocp.n_pairs > 0),
+        cfg.reg, cfg.armijo, cfg.tol_cost, cfg.ls_beta, cfg.ls_grow,
+        cfg.ls_trial_min, _stream(dev))
+    cuda_build.check(lib, err, "inner_solve_fused")
+    launch_counts["inner_solve_fused"] += 1
+    return _std(Xs_l), _std(Uo_l), cost, iters

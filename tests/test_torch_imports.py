@@ -1,0 +1,40 @@
+"""Import hygiene of the port: no module of nmpc_tpu_torch loads JAX or the
+JAX package, and importing builds nothing."""
+
+import pkgutil
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+
+
+def test_port_modules_import_without_jax():
+    import nmpc_tpu_torch
+
+    names = sorted(m.name for m in pkgutil.walk_packages(
+        nmpc_tpu_torch.__path__, prefix="nmpc_tpu_torch."))
+    assert "nmpc_tpu_torch.ops.megasolve" in names and len(names) >= 15
+    code = (
+        "import importlib, sys\n"
+        f"for name in {['nmpc_tpu_torch', *names]!r}:\n"
+        "    importlib.import_module(name)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
+        "             or m == 'nmpc_tpu' or m.startswith('nmpc_tpu.'))\n"
+        "assert not bad, bad\n"
+        "from nmpc_tpu_torch.ops import cuda_build\n"
+        "assert not cuda_build.build_info\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_precision_pins():
+    import torch
+
+    import nmpc_tpu_torch  # noqa: F401
+
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    assert torch.backends.cudnn.allow_tf32 is False
+    assert torch.get_float32_matmul_precision() == "highest"
