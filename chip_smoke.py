@@ -2,31 +2,45 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path — the batched AL-iLQR solve of the
-six_robot_antipodal swap at N=10, B=32768 jittered starts, with the
-benchmark's ALILQRConfig(n_outer=6, n_inner=12, tol_con=1e-3,
-ls="adaptive") — through the hand-written CUDA kernels K1 (fused inner
-solve) and K2 (AL multiplier update), after building them from
-nmpc_tpu_torch/csrc and holding each against its plain PyTorch version on
-the card. Phases:
+Drives the port's two batched routes through the hand-written CUDA kernels,
+after building them from nmpc_tpu_torch/csrc and holding each against its
+plain PyTorch version on the card:
 
-  0 device and toolchain        4 main path at B=32768 (launch counts checked)
-  1 build every kernel          5 first 64 scenarios re-solved on the CPU
-  2 K2 vs plain, B=32768        6 timings (solve, K1, K2 vs plain versions)
-  3 K1 vs plain, B=1024
+* the main path, the megakernel route: the six_robot_antipodal swap at
+  N=10, B=32768 jittered starts, with the benchmark's ALILQRConfig(n_outer=6,
+  n_inner=12, tol_con=1e-3, ls="adaptive"), through K1 (fused inner solve)
+  and K2 (AL multiplier update);
+* the staged route, through K4 (expansions), K3 (Riccati sweep), K5
+  (line-search merits) and K6 (accepted rollout), at full width on three
+  paths: (a) the main-path batch with mega=False; (b) a family-H fleet,
+  obstacle_scenario_3 (six static obstacles) at its registry horizon N=100,
+  B=32768, which K1 refuses; (c) B=4096 per-robot subproblems of one
+  decentralized six-robot round (one robot, five moving obstacles, N=30).
 
-Any failed check raises, so the exit code is non-zero. Without a CUDA card,
-or without the package beside this script, it fails before printing any
-result. Output: one line per phase; before the last line, the kernels'
+Phases:
+
+  0 device and toolchain            7 path (a), staged, launch counts checked
+  1 build every kernel              8 path (b), obstacles, routing checked
+  2 K2 vs plain, B=32768            9 path (c), moving obstacles
+  3 K1 vs plain, B=1024            10 K3-K6 vs plain at the shapes of (a)-(c)
+  4 main path at B=32768           11 staged timings (solves, K3-K6 vs plain)
+  5 first 64 scenarios re-solved on the CPU
+  6 timings (solve, K1, K2 vs plain versions)
+
+Phases 5, 7, 8 and 9 re-solve the first scenarios with the plain path on the
+CPU. Any failed check raises, so the exit code is non-zero. Without a CUDA
+card, or without the package beside this script, it fails before printing
+any result. Output: one line per phase; before the last line, the kernels'
 JSON record and the nvidia-smi name/power-limit line; last line
 {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
-import re
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -36,6 +50,15 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 BENCH_B = 32768
 K1_B = 1024
 CROSS_B = 64
+OBS_CROSS_B = 32
+MOV_B = 4096
+# K1's `-Xptxas -v` line at each m as recorded in PERF.md (regs, stack, spill
+# stores, spill loads): K1 does not change when the staged kernels are added
+K1_PTXAS = {1: (64, 304, 0, 0), 2: (96, 704, 0, 0), 3: (128, 1344, 0, 0),
+            4: (168, 2192, 0, 0), 5: (254, 3440, 0, 0), 6: (255, 4880, 156, 200),
+            8: (255, 8016, 0, 0), 10: (254, 12160, 0, 0)}
+KERNELS = {"inner_solve": "K1", "al_update": "K2", "riccati": "K3", "expansions": "K4",
+           "linesearch_costs": "K5", "rollout_alpha": "K6"}
 
 
 def log(msg: str) -> None:
@@ -61,22 +84,145 @@ def cuda_ms(fn, reps: int) -> float:
     return t0.elapsed_time(t1) / reps
 
 
-def ptxas_summary(text: str) -> str:
-    """'kernel: N regs, S B stack, spill a/b B' for each kernel of a build log."""
-    out, name, frame = [], "?", ""
+def ptxas(text: str) -> dict:
+    """{'K1': (regs, stack, spill stores, spill loads), ...} of a build log."""
+    out, name, frame = {}, "?", (0, 0, 0)
     for line in text.splitlines():
         if "Compiling entry function" in line:
-            name = "K1" if "inner_solve" in line else "K2" if "al_update" in line else "?"
+            name = next((k for key, k in KERNELS.items() if key in line), "?")
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if m:
-            frame = f"stack {m[1]} B, spill stores {m[2]} B, loads {m[3]} B"
+            frame = tuple(int(g) for g in m.groups())
         m = re.search(r"Used (\d+) registers", line)
         if m:
-            out.append(f"{name} {m[1]} regs, {frame}")
-    return "; ".join(out) or text.strip().replace("\n", " | ")
+            out[name] = (int(m[1]), *frame)
+    return dict(sorted(out.items()))
+
+
+def ptxas_summary(text: str) -> str:
+    """'K1 N regs, stack S B, spill stores a B, loads b B; K2 ...'"""
+    return "; ".join(f"{k} {r} regs, stack {st} B, spill stores {a} B, loads {b} B"
+                     for k, (r, st, a, b) in ptxas(text).items())
+
+
+def cross_check(tag: str, res, sub, cfg, n: int, u_share: float = 0.75) -> None:
+    """Re-solve the first n scenarios of a solve on the card (res) with the
+    plain path on the CPU (sub: their problem on the CPU) and hold the two to
+    phase 5's criteria. Per scenario the full solve is path-sensitive in f32:
+    a near-tied alpha pick or a stop rule that flips moves a scenario to
+    another point of a flat cost valley (the plain path alone, solving the
+    same scenarios at two batch sizes, differs by 1e-3 in cost on some). So
+    most scenarios must agree at the tight tolerances (U on a share u_share),
+    and the batch at the aggregate ones of tests/test_batched_solver.py."""
+    from nmpc_tpu_torch.solver import solve_batched
+
+    ref = solve_batched(sub, cfg=cfg)
+    gc, gu = res.cost[:n].cpu(), res.U[:n].cpu()
+    rel = (gc - ref.cost).abs() / ref.cost.abs()
+    du = (gu - ref.U).abs().amax(dim=(1, 2))
+    n_cost, n_u = int((rel <= 1e-4).sum()), int((du <= 5e-3).sum())
+    conv_g = float(res.converged[:n].float().mean())
+    conv_r = float(ref.converged.float().mean())
+    mean_ratio = float(gc.mean() / ref.cost.mean())
+    log(f"{tag}: first {n} scenarios re-solved by the plain path on the CPU: cost within "
+        f"rtol 1e-4 on {n_cost}/{n} (max rel {float(rel.max()):.3e}), U within atol 5e-3 on "
+        f"{n_u}/{n} (max {float(du.max()):.3e}); converged {conv_g:.4f} vs {conv_r:.4f}; "
+        f"mean cost ratio {mean_ratio:.6f}")
+    assert n_cost >= 0.9 * n, n_cost
+    assert n_u >= u_share * n, n_u
+    assert abs(conv_g - conv_r) <= 1.0 / n + 1e-9, (conv_g, conv_r)
+    assert abs(mean_ratio - 1.0) <= 1e-3, mean_ratio
+
+
+def timed(fn):
+    """(result, seconds) of fn() on the host clock, ending in a synchronize."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def summary(res) -> str:
+    import torch
+
+    return (f"converged {float(res.converged.float().mean()):.4f}, viol p99 "
+            f"{float(torch.quantile(res.viol, 0.99)):.3e}, max {float(res.viol.max()):.3e}, "
+            f"mean inner iters {float(res.inner_iters.float().mean()):.2f}, "
+            f"mean cost {float(res.cost.mean()):.4f}")
+
+
+def check_staged(tag: str, counts: dict, res, cfg) -> None:
+    """The staged route ran: no K1 or K2 launch; one K4, K3 and K5 launch per
+    inner iteration run; K6 once more (the initial rollout); finite output."""
+    import torch
+
+    it = counts["riccati_lanes"]
+    assert counts["inner_solve_fused"] == 0 and counts["al_update_lanes"] == 0, (tag, counts)
+    assert counts["expansions_fused"] == it and counts["linesearch_costs_lanes"] == it, (tag, counts)
+    assert counts["rollout_alpha_lanes"] == it + 1, (tag, counts)
+    # every scenario counts each iteration run while it is not done, so the
+    # largest count is at most the number run, at most n_inner per outer step
+    assert int(res.inner_iters.max()) <= it <= cfg.n_inner * int(res.outer_iters.max()), (tag, counts)
+    assert it > 0, (tag, counts)
+    for name in ("X", "U", "cost", "viol", "lam"):
+        assert torch.isfinite(getattr(res, name)).all(), (tag, name)
+
+
+def decentralized_round(make_ocp, dev, gen, B: int):
+    """B per-robot subproblems of one decentralized six-robot round, the
+    shape of nmpc_tpu/parallel/decentralized.py::robot_template(30, 0.1, 0.3,
+    6): one unicycle, N=30, T=0.1, dmin=0.3, its five neighbours' exchanged
+    plans as moving obstacles ([B, N, 5, 2], one schedule per scenario). The
+    robot crosses a unit circle to the antipodal point; each neighbour starts
+    0.5-1.5 from it and drives straight at 0.2 m/s in a random direction."""
+    import dataclasses
+
+    import torch
+
+    N, T, n_mov = 30, 0.1, 5
+    kw = dict(device=dev)
+    tpl = make_ocp(m=1, N=N, T=T, x0=[0.0, 0.0, 0.0], x_goal=[0.0, 0.0, 0.0], dmin=0.3,
+                   mov_obs=torch.zeros((N, n_mov, 2), **kw), device=dev)
+    u = lambda *shape: torch.rand(shape, generator=gen, **kw)  # noqa: E731
+    ang = 2 * torch.pi * u(B)
+    start = torch.stack([torch.cos(ang), torch.sin(ang), ang + torch.pi], -1)
+    goal = torch.stack([-torch.cos(ang), -torch.sin(ang), ang + torch.pi], -1)
+    r, psi, phi = 0.5 + u(B, n_mov), 2 * torch.pi * u(B, n_mov), 2 * torch.pi * u(B, n_mov)
+    p0 = start[:, None, :2] + r[..., None] * torch.stack([torch.cos(psi), torch.sin(psi)], -1)
+    vel = 0.2 * torch.stack([torch.cos(phi), torch.sin(phi)], -1)
+    steps = T * torch.arange(1, N + 1, **kw).float()
+    plans = p0[:, None] + steps[None, :, None, None] * vel[:, None]   # [B, N, 5, 2]
+    return dataclasses.replace(tpl, x0=start, xref=goal[:, None].expand(B, N, 3).contiguous(),
+                               mov_obs=plans.contiguous())
+
+
+def staged_vs_plain(ocp_b, X, U, lam, mu, cfg):
+    """K4, K3, K5 and K6 on the card against their plain versions at the
+    state (X [B, N+1, n], U, lam, mu): K4 on it, K3 on K4's output, K5 (the
+    merits of cfg's alpha grid) and K6 (one alpha of the grid per scenario)
+    on K3's gains, by the rule of nmpc_tpu_torch/ops/kernel_check.py: the
+    CPU tests' tolerances, relative to each scenario's largest magnitude,
+    plus for K3 and K6 the scenario's f32 spread; a rollout that diverges (a
+    position or control beyond 10 in f64) is left out and counted. Returns
+    (verdicts, {kernel: (kernel call, plain call)})."""
+    import torch
+
+    from nmpc_tpu_torch.ops.cuda_build import lane
+    from nmpc_tpu_torch.ops.kernel_check import staged_vs_plain as check
+    from nmpc_tpu_torch.solver.alilqr_batched import _mov_lanes
+
+    B = ocp_b.x0.shape[0]
+    grid = torch.tensor(cfg.alphas, device=mu.device)
+    alpha = grid[torch.arange(B, device=mu.device) % len(cfg.alphas)]
+    return check(ocp_b, lane(X[:, :-1]), lane(U), lane(ocp_b.xref), lane(lam), mu.contiguous(),
+                 _mov_lanes(ocp_b, B), (0.0,) + tuple(cfg.alphas), alpha, cfg.reg)
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     import torch
 
     # ---- phase 0: device ------------------------------------------------
@@ -120,7 +266,11 @@ def main() -> int:
     log(f"phase 1 build: {len(cuda_build.ROBOT_COUNTS)} libraries in {wall:.1f}s wall "
         f"(parallel nvcc; {per_m})")
     for m in cuda_build.ROBOT_COUNTS:
-        log(f"  ptxas m={m}: {ptxas_summary(cuda_build.build_info[m]['ptxas'])}")
+        text = cuda_build.build_info[m]["ptxas"]
+        same = ptxas(text).get("K1") == K1_PTXAS[m]
+        log(f"  ptxas m={m}: {ptxas_summary(text)} (K1 as recorded in PERF.md: {'yes' if same else 'NO'})")
+        assert same, (m, ptxas(text).get("K1"))
+        assert set(ptxas(text)) == set(KERNELS.values()), ptxas(text)
 
     gen = torch.Generator(device=dev).manual_seed(0)
     base = get("six_robot_antipodal").make(N=10, device=dev)
@@ -185,13 +335,14 @@ def main() -> int:
     # ---- phase 4: the main path ------------------------------------------
     ob = batch(base, BENCH_B)
     torch.cuda.synchronize()
-    megasolve.reset_launch_counts()
+    cuda_build.reset_launch_counts()
     res = solve_batched(ob, cfg=bench_cfg)
     torch.cuda.synchronize()
-    counts = dict(megasolve.launch_counts)
+    counts = dict(cuda_build.launch_counts)
     steps = int(res.outer_iters.max())
     assert counts["inner_solve_fused"] == steps, (counts, steps)
     assert counts["al_update_lanes"] == steps, (counts, steps)
+    assert sum(counts.values()) == 2 * steps, counts  # no staged kernel on this route
     assert torch.isfinite(res.cost).all() and torch.isfinite(res.viol).all()
     assert torch.isfinite(res.X).all() and torch.isfinite(res.U).all()
     conv = float(res.converged.float().mean())
@@ -205,29 +356,8 @@ def main() -> int:
 
     # ---- phase 5: CPU cross-check of the first scenarios ------------------
     cpu = torch.device("cpu")
-    sub = batch_ocp(base.to(cpu), ob.x0[:CROSS_B].to(cpu))
-    ref = solve_batched(sub, cfg=bench_cfg)
-    gc, gu = res.cost[:CROSS_B].cpu(), res.U[:CROSS_B].cpu()
-    rel = (gc - ref.cost).abs() / ref.cost.abs()
-    du = (gu - ref.U).abs().amax(dim=(1, 2))
-    n_cost, n_u = int((rel <= 1e-4).sum()), int((du <= 5e-3).sum())
-    conv_g = float(res.converged[:CROSS_B].float().mean())
-    conv_r = float(ref.converged.float().mean())
-    mean_ratio = float(gc.mean() / ref.cost.mean())
-    log(f"phase 5 CPU cross-check: first {CROSS_B} scenarios re-solved by the plain path: "
-        f"cost within rtol 1e-4 on {n_cost}/{CROSS_B} (max rel {float(rel.max()):.3e}), "
-        f"U within atol 5e-3 on {n_u}/{CROSS_B} (max {float(du.max()):.3e}); converged "
-        f"{conv_g:.4f} vs {conv_r:.4f}; mean cost ratio {mean_ratio:.6f}")
-    # Per scenario the full solve is path-sensitive in f32: a near-tied
-    # alpha pick or a rel < tol_cost stop that flips moves a scenario to
-    # another point of a flat cost valley (the plain path alone, solving the
-    # same scenarios at two batch sizes, differs by 1e-3 in cost on some).
-    # So most scenarios must agree at the tight tolerances, and the batch
-    # at the aggregate ones of tests/test_batched_solver.py.
-    assert n_cost >= 0.9 * CROSS_B, n_cost
-    assert n_u >= 0.75 * CROSS_B, n_u
-    assert abs(conv_g - conv_r) <= 1.0 / CROSS_B + 1e-9, (conv_g, conv_r)
-    assert abs(mean_ratio - 1.0) <= 1e-3, mean_ratio
+    cross_check("phase 5 CPU cross-check", res, batch_ocp(base.to(cpu), ob.x0[:CROSS_B].to(cpu)),
+                bench_cfg, CROSS_B)
 
     # ---- phase 6: timings ---------------------------------------------------
     times = []
@@ -249,16 +379,107 @@ def main() -> int:
     U0 = torch.zeros((BENCH_B, base.N, base.nu), **kw)
     lam0 = torch.zeros((BENCH_B, base.N, base.n_con), **kw)
     mu0 = torch.full((BENCH_B,), bench_cfg.mu_init, **kw)
-    before = dict(megasolve.launch_counts)
+    before = dict(cuda_build.launch_counts)
     k1_ms = cuda_ms(lambda: megasolve.inner_solve_fused(ob, ob.x0, ob.xref, lam0, mu0, U0, bench_cfg), 3)
     k1_plain_ms = cuda_ms(lambda: megasolve.inner_solve_plain(ob, ob.x0, ob.xref, lam0, mu0, U0, bench_cfg), 1)
     Xs1, U1 = res.X[:, :-1].contiguous(), res.U
     k2_ms = cuda_ms(lambda: megasolve.al_update_lanes(ob, Xs1, U1, res.lam, res.mu, bench_cfg.lam_max), 20)
     k2_plain_ms = cuda_ms(lambda: megasolve.al_update_plain(ob, Xs1, U1, res.lam, res.mu, bench_cfg.lam_max), 20)
-    assert megasolve.launch_counts["inner_solve_fused"] > before["inner_solve_fused"]
+    assert cuda_build.launch_counts["inner_solve_fused"] > before["inner_solve_fused"]
     log(f"phase 6 kernels at B={BENCH_B}: K1 {k1_ms:.2f} ms vs plain {k1_plain_ms:.2f} ms; "
         f"K2 {k2_ms:.3f} ms vs plain {k2_plain_ms:.3f} ms {card}")
 
+    # ---- phase 7: path (a), the main-path batch on the staged route ----------
+    staged_cfg = dataclasses.replace(bench_cfg, mega=False)
+    cuda_build.reset_launch_counts()
+    res_a, t_a = timed(lambda: solve_batched(ob, cfg=staged_cfg))
+    counts_a = dict(cuda_build.launch_counts)
+    check_staged("phase 7 path (a)", counts_a, res_a, staged_cfg)
+    log(f"phase 7 path (a): six_robot_antipodal N=10 B={BENCH_B}, bench config with "
+        f"mega=False: launches {counts_a}; {summary(res_a)}; {t_a * 1e3:.1f} ms")
+    log(f"  main path on the same batch (phase 4): {summary(res)}")
+    assert float(res_a.converged.float().mean()) >= 0.8  # gross-fault floor
+    cross_check("  path (a)", res_a, batch_ocp(base.to(cpu), ob.x0[:CROSS_B].to(cpu)),
+                staged_cfg, CROSS_B)
+
+    # ---- phase 8: path (b), a family-H fleet: six static obstacles ---------
+    obs_base = get("obstacle_scenario_3").make(device=dev)      # registry horizon N=100
+    obs_cfg = ALILQRConfig(n_outer=12, n_inner=25, tol_con=1e-3)  # mega=True: K1 refuses n_obs
+    ob_b = batch(obs_base, BENCH_B, spread=0.05)
+    cuda_build.reset_launch_counts()
+    res_b, t_b = timed(lambda: solve_batched(ob_b, cfg=obs_cfg))
+    counts_b = dict(cuda_build.launch_counts)
+    check_staged("phase 8 path (b)", counts_b, res_b, obs_cfg)
+    log(f"phase 8 path (b): obstacle_scenario_3 N={obs_base.N} B={BENCH_B}, n_obs="
+        f"{obs_base.n_obs}, default mega=True: launches {counts_b}; {summary(res_b)}; "
+        f"{t_b * 1e3:.1f} ms")
+    assert float(res_b.converged.float().mean()) >= 0.9
+    # U on 60%: the slalom's turn rates are flat in the cost, so U agrees to
+    # 5e-3 on only ~69% of scenarios even between the plain path in f32 and
+    # in f64 (22/32 on a CPU batch like this one, costs within 1.6e-5)
+    cross_check("  path (b)", res_b, batch_ocp(obs_base.to(cpu), ob_b.x0[:OBS_CROSS_B].to(cpu)),
+                obs_cfg, OBS_CROSS_B, u_share=0.6)
+
+    # ---- phase 9: path (c), one decentralized six-robot round ---------------
+    mov_cfg = ALILQRConfig(n_outer=6, n_inner=12, tol_con=1e-4)
+    ob_c = decentralized_round(P.make_ocp, dev, gen, MOV_B)
+    cuda_build.reset_launch_counts()
+    res_c, t_c = timed(lambda: solve_batched(ob_c, cfg=mov_cfg))
+    counts_c = dict(cuda_build.launch_counts)
+    check_staged("phase 9 path (c)", counts_c, res_c, mov_cfg)
+    log(f"phase 9 path (c): one robot, {ob_c.n_mov} moving obstacles (per-scenario "
+        f"schedules), N={ob_c.N} B={MOV_B}: launches {counts_c}; {summary(res_c)}; "
+        f"{t_c * 1e3:.1f} ms")
+    sub_c = dataclasses.replace(ob_c, x0=ob_c.x0[:OBS_CROSS_B], xref=ob_c.xref[:OBS_CROSS_B],
+                                mov_obs=ob_c.mov_obs[:OBS_CROSS_B]).to(cpu)
+    cross_check("  path (c)", res_c, sub_c, mov_cfg, OBS_CROSS_B)
+
+    # ---- phase 10: K3-K6 against their plain versions -----------------------
+    # at each path's shape, on its last iterate: (i) with fresh multipliers of
+    # the CPU tests' kind (|N(0, 0.5)|, zero on the masked rows, mu in {10,
+    # 100}), where every unit must pass at the CPU tolerance without the f32
+    # spread; (ii) with the solve's own multipliers and penalty weights (mu
+    # up to 1e4), where K3 and K6 may need it. At most 1% of the units may
+    # diverge at either.
+    errs, ms = {}, {}
+    for tag, ocp_b, r, cfg in (("a", ob, res_a, staged_cfg), ("b", ob_b, res_b, obs_cfg),
+                               ("c", ob_c, res_c, mov_cfg)):
+        Bp = ocp_b.x0.shape[0]
+        lam_i = 0.5 * torch.randn(r.lam.shape, generator=gen, device=dev).abs()
+        lam_i = lam_i * (P.constraint_mask(ocp_b) > 0)
+        mu_i = torch.tensor([10.0, 100.0], device=dev)[
+            torch.randint(0, 2, (Bp,), generator=gen, device=dev)]
+        for state, lam_s, mu_s in (("i", lam_i, mu_i), ("ii", r.lam, r.mu)):
+            v, calls = staged_vs_plain(ocp_b, r.X, r.U, lam_s, mu_s, cfg)
+            if state == "ii" and tag in ("a", "b"):
+                ms[tag] = {k: (cuda_ms(c[0], 5), cuda_ms(c[1], 1)) for k, c in calls.items()}
+            log(f"phase 10 K3-K6 vs plain at path ({tag}) B={Bp} N={ocp_b.N}, state ({state}): "
+                + "; ".join(f"{k} max |err| {x.err:.3e} (relative to max(1, |plain|) "
+                            f"{x.rel:.3e}) on the held units, diverged "
+                            f"{x.n_diverged}/{x.units}, passing by the f32 spread alone "
+                            f"{x.n_widened}/{x.units}"
+                            for k, x in v.items()) + " ok")
+            for k, x in v.items():
+                errs[k] = max(errs.get(k, 0.0), x.err)
+                assert x.n_diverged <= 0.01 * x.units, (tag, state, k, x.n_diverged)
+                assert state == "ii" or x.n_widened == 0, (tag, state, k, x.n_widened)
+
+    # ---- phase 11: staged timings --------------------------------------------
+    turns = []
+    for cfg in (bench_cfg, staged_cfg, staged_cfg, bench_cfg):
+        turns.append(timed(lambda: solve_batched(ob, cfg=cfg))[1] * 1e3)
+    log(f"phase 11 solve at B={BENCH_B} on the main-path batch, in turns: megakernel "
+        f"{turns[0]:.1f}, {turns[3]:.1f} ms; staged {turns[1]:.1f}, {turns[2]:.1f} ms {card}")
+    log(f"phase 11 staged solves (phases 7-9, one run each): (a) {t_a * 1e3:.1f} ms, (b) "
+        f"{t_b * 1e3:.1f} ms, (c) {t_c * 1e3:.1f} ms {card}")
+    for tag in ("a", "b"):
+        log(f"phase 11 kernels at path ({tag}): " + "; ".join(
+            f"{k} {v[0]:.3f} ms vs plain {v[1]:.3f} ms" for k, v in ms[tag].items()) + f" {card}")
+
+    staged = (("riccati_lanes", "K3", "nmpc_tpu/ops/riccati_pallas.py:311"),
+              ("expansions_fused", "K4", "nmpc_tpu/ops/expansions_pallas.py:212"),
+              ("linesearch_costs_lanes", "K5", "nmpc_tpu/ops/rollout_pallas.py:287"),
+              ("rollout_alpha_lanes", "K6", "nmpc_tpu/ops/rollout_pallas.py:360"))
     record = {"kernels": [
         {"name": "inner_solve_fused", "route": "cuda",
          "source": "nmpc_tpu_torch/csrc/megasolve.cuh",
@@ -270,7 +491,13 @@ def main() -> int:
          "replaces": "nmpc_tpu/ops/megasolve_pallas.py:870",
          "launches": counts["al_update_lanes"], "max_abs_err": k2_err,
          "ms": k2_ms, "plain_ms": k2_plain_ms},
+    ] + [
+        {"name": name, "route": "cuda", "source": "nmpc_tpu_torch/csrc/staged.cuh",
+         "replaces": where, "launches": counts_a[name], "max_abs_err": errs[k],
+         "ms": ms["a"][k][0], "plain_ms": ms["a"][k][1]}
+        for name, k, where in staged
     ]}
+    log(f"total wall time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(record))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -29,7 +29,9 @@ struct Dims {
   static constexpr int nu = 2 * NR;              // control width
   static constexpr int np = NR * (NR - 1) / 2;   // pair rows
   // offsets into the parameter block (nmpc_tpu_torch/ops/rollout.py::_P,
-  // n_obs = 0): q, r, u_lo, u_hi, x_lo, x_hi, dmin2, dt, alphas
+  // n_obs = 0): q, r, u_lo, u_hi, x_lo, x_hi, dmin2, dt, alphas. With
+  // n_obs > 0 (staged kernels only) the 3 n_obs obstacle entries start at
+  // `alphas` and the alphas follow them.
   static constexpr int q = 0;
   static constexpr int r = q + n;
   static constexpr int u_lo = r + nu;
@@ -59,8 +61,31 @@ NMPC_DEV float pair_c(float dx, float dy, float dmin2) {
 #endif
 }
 
+// Static-obstacle row c = sqrt(dx^2 + dy^2 + 1e-12) - keepout, each operation
+// rounded on its own as in the plain version (keepout = r_obs + r_rob +
+// margin, folded into the parameter block). Returns dist through *dist.
+NMPC_DEV float obs_c(float dx, float dy, float keepout, float* dist) {
+#ifdef __CUDA_ARCH__
+  *dist = sqrtf(__fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)), 1e-12f));
+#else
+  *dist = sqrtf(dx * dx + dy * dy + 1e-12f);
+#endif
+  return *dist - keepout;
+}
+
 // lam - mu c, rounded once
 NMPC_DEV float al_step(float lam, float mu, float c) { return fmaf(-mu, c, lam); }
+
+// Static- and moving-obstacle rows of one stage, taken by the staged kernels
+// only (K1 and K2 are built for problems without them). obs: n_obs rows
+// (ox, oy, keepout) of the parameter block; mov: the thread's view of stage
+// k of the [N, 2 n_mov, B] schedule, slot o at rows 2o (x) and 2o+1 (y).
+// Rows are robot-major, obstacle-minor, after the pair rows.
+struct ObsRows {
+  int n_obs = 0, n_mov = 0;
+  const float* obs = nullptr;
+  const float* mov = nullptr;
+};
 
 // Row order of the c >= 0 rows of one stage: pairs (when collision rows are
 // on), u_lo, u_hi, x_lo, x_hi.
@@ -108,11 +133,13 @@ NMPC_DEV void feedback_u(const float* x, const float* xbar, const float* ubar,
 // sum(max(0, lam - mu c)^2) / (2 mu). At stage 0 (gate false) the
 // state-dependent rows are masked hard: a non-finite activation there (NaN
 // warm-start duals) must not leak into the merit. xr and lam are the
-// thread's views of stage k of xref and lam.
-template <int NR>
+// thread's views of stage k of xref and lam. kObs adds the rows of `ob`
+// after the pair rows; K1's instantiation (kObs = false) compiles them out.
+template <int NR, bool kObs = false>
 NMPC_DEV float stage_merit(const float* sp, bool gate, bool pairs,
                            const float* x, const float* u, const float* xr,
-                           const float* lam, size_t B, float mu) {
+                           const float* lam, size_t B, float mu,
+                           const ObsRows& ob = ObsRows{}) {
   using D = Dims<NR>;
   float cq = 0.f, cr = 0.f;
 #pragma unroll
@@ -133,6 +160,32 @@ NMPC_DEV float stage_merit(const float* sp, bool gate, bool pairs,
 #pragma unroll
       for (int j = i + 1; j < NR; ++j) {
         const float c = pair_c(x[3 * i] - x[3 * j], x[3 * i + 1] - x[3 * j + 1], sp[D::dmin2]);
+        float act = relu(al_step(lam[(size_t)row * B], mu, c));
+        act = gate ? act : 0.f;
+        s += act * act;
+        ++row;
+      }
+    }
+    pen += s;
+  }
+  if constexpr (kObs) {
+    float s = 0.f, dist;
+    for (int i = 0; i < NR; ++i) {
+      for (int o = 0; o < ob.n_obs; ++o) {
+        const float c = obs_c(x[3 * i] - ob.obs[3 * o], x[3 * i + 1] - ob.obs[3 * o + 1],
+                              ob.obs[3 * o + 2], &dist);
+        float act = relu(al_step(lam[(size_t)row * B], mu, c));
+        act = gate ? act : 0.f;
+        s += act * act;
+        ++row;
+      }
+    }
+    pen += s;
+    s = 0.f;
+    for (int i = 0; i < NR; ++i) {
+      for (int o = 0; o < ob.n_mov; ++o) {
+        const float c = pair_c(x[3 * i] - ob.mov[(size_t)(2 * o) * B],
+                               x[3 * i + 1] - ob.mov[(size_t)(2 * o + 1) * B], sp[D::dmin2]);
         float act = relu(al_step(lam[(size_t)row * B], mu, c));
         act = gate ? act : 0.f;
         s += act * act;

@@ -26,46 +26,36 @@ cores are later work.
 
 Admission (replaces the TPU's VMEM estimate `mega_fits`): the CUDA kernels
 are built for m in cuda_build.ROBOT_COUNTS robots, any N, pair and box rows,
-Euler dynamics, up to 32 alphas; see `cuda_unsupported`.
+Euler dynamics, up to 32 alphas; see `cuda_unsupported`. solve_batched
+sends what they refuse (static and moving obstacles) to the staged kernels.
 """
 
 from __future__ import annotations
 
-import ctypes
 import dataclasses
 
 import torch
 
 from nmpc_tpu_torch.ocp import problem as P
 from nmpc_tpu_torch.ocp.problem import OCP
-from nmpc_tpu_torch.ops import cuda_build
-from nmpc_tpu_torch.ops.rollout import _P, _pack_params
+from nmpc_tpu_torch.ops import cuda_build, rollout
+from nmpc_tpu_torch.ops.cuda_build import check_arg, lane, ptr, std
 from nmpc_tpu_torch.solver.alilqr import ALILQRConfig, _backward_pass
-
-# Kernel launches since the last reset: each wrapper adds one where it
-# launches its CUDA kernel, and nowhere else.
-launch_counts = {"inner_solve_fused": 0, "al_update_lanes": 0}
 
 _MAX_ALPHAS = 32
 
 
-def reset_launch_counts() -> None:
-    for k in launch_counts:
-        launch_counts[k] = 0
-
-
 def cuda_unsupported(ocp: OCP, cfg: ALILQRConfig | None = None) -> str | None:
-    """Why the CUDA kernels cannot take this problem/config, or None."""
-    if ocp.dyn_fn is not None or ocp.integrator != "euler":
-        return "dynamics other than the Euler unicycle (dyn_fn or rk4)"
-    if ocp.num_rays:
-        return "LiDAR ray states (num_rays > 0)"
+    """Why K1 and K2 cannot take this problem/config, or None. Beyond the
+    staged kernels' rule (rollout.unsupported), they take no static or
+    moving obstacles; solve_batched sends those to the staged path."""
+    why = rollout.unsupported(ocp)
+    if why is not None:
+        return why
     if ocp.n_obs:
         return "static-obstacle rows (n_obs > 0)"
     if ocp.n_mov:
         return "moving-obstacle rows (n_mov > 0)"
-    if ocp.m not in cuda_build.ROBOT_COUNTS:
-        return f"m={ocp.m} robots (kernels are built for m in {cuda_build.ROBOT_COUNTS})"
     if cfg is not None:
         if cfg.compact:
             return "compact=True"
@@ -84,44 +74,6 @@ def _require_cuda(ocp: OCP, cfg: ALILQRConfig | None, what: str) -> None:
         raise NotImplementedError(f"{what}: the CUDA kernel does not cover {why}")
 
 
-def _check(name: str, t: torch.Tensor, shape: tuple, device) -> None:
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name} has dtype {t.dtype}, the kernels take float32")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
-
-
-def _lane(t: torch.Tensor) -> torch.Tensor:
-    """Standard [B, ...] -> lane-major [..., B], contiguous."""
-    return t.movedim(0, -1).contiguous()
-
-
-def _std(t: torch.Tensor) -> torch.Tensor:
-    """Lane-major [..., B] -> standard [B, ...], contiguous."""
-    return t.movedim(-1, 0).contiguous()
-
-
-def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    assert t.is_contiguous()
-    return ctypes.c_void_p(t.data_ptr())
-
-
-def _params(ocp: OCP, alphas, device) -> torch.Tensor:
-    """The parameter block on `device`, checked against the layout the
-    kernels read (csrc/rollout.cuh::Dims mirrors _P with n_obs = 0)."""
-    prm = _pack_params(ocp, alphas).to(device=device, dtype=torch.float32).contiguous()
-    if prm.numel() != _P(ocp.nx, ocp.nu, len(alphas)).size:
-        raise ValueError(f"parameter block has {prm.numel()} entries, the kernels expect "
-                         f"{_P(ocp.nx, ocp.nu, len(alphas)).size}")
-    return prm
-
-
-def _stream(device) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
-
-
 # ---------------------------------------------------------------------------
 # K2: AL multiplier update
 # ---------------------------------------------------------------------------
@@ -136,11 +88,8 @@ def al_update_plain(ocp: OCP, Xs, U, lam, mu, lam_max: float):
     mov = ocp.mov_obs if ocp.n_mov else None
     c = P.stage_constraints(ocp, Xs, U, mov)
     c = torch.where(P.constraint_mask(ocp) > 0, c, torch.full_like(c, P.BIG))
-    # lam - mu c with one rounding, as the kernels' fused multiply-add gives
-    # it (the product is exact in f64); two roundings would differ by ~1 ulp
-    # of mu c where that nearly cancels lam
-    step = (lam.double() - mu.double()[:, None, None] * c.double()).to(lam.dtype)
-    act = torch.clamp(step, min=0.0)
+    # lam - mu c rounded once, as the kernel's fused multiply-add gives it
+    act = torch.clamp(rollout.al_step(lam, mu[:, None, None], c), min=0.0)
     lam_new = torch.clamp(act, max=lam_max)
     viol = torch.clamp(-torch.amin(c, dim=(1, 2)), min=0.0)
     return lam_new, viol
@@ -158,22 +107,22 @@ def al_update_lanes(ocp: OCP, Xs, U, lam, mu, lam_max: float):
     dev = Xs.device
     for name, t, shape in (("Xs", Xs, (B, N, n)), ("U", U, (B, N, nu)),
                            ("lam", lam, (B, N, nc)), ("mu", mu, (B,))):
-        _check(name, t, shape, dev)
+        check_arg(name, t, shape, dev)
     lam_new = torch.empty((B, N, nc), dtype=torch.float32, device=dev)
     viol = torch.empty((B,), dtype=torch.float32, device=dev)
     if B == 0:
         return lam_new, viol
     lib = cuda_build.load(ocp.m)
-    prm = _params(ocp, (), dev)
-    Xs_l, U_l, lam_l = _lane(Xs), _lane(U), _lane(lam)
+    prm = rollout.params(ocp, (), dev)
+    Xs_l, U_l, lam_l = lane(Xs), lane(U), lane(lam)
     mu_c = mu.contiguous()
     lam_out_l = torch.empty((N, nc, B), dtype=torch.float32, device=dev)
     err = lib.nmpc_al_update(
-        _ptr(prm), _ptr(Xs_l), _ptr(U_l), _ptr(lam_l), _ptr(mu_c),
-        _ptr(lam_out_l), _ptr(viol), B, N, int(ocp.n_pairs > 0),
-        float(lam_max), _stream(dev))
+        ptr(prm), ptr(Xs_l), ptr(U_l), ptr(lam_l), ptr(mu_c),
+        ptr(lam_out_l), ptr(viol), B, N, int(ocp.n_pairs > 0),
+        float(lam_max), cuda_build.stream(dev))
     cuda_build.check(lib, err, "al_update_lanes")
-    launch_counts["al_update_lanes"] += 1
+    cuda_build.launch_counts["al_update_lanes"] += 1
     lam_new.copy_(lam_out_l.movedim(-1, 0))
     return lam_new, viol
 
@@ -296,28 +245,28 @@ def inner_solve_fused(ocp: OCP, x0, xref, lam, mu, U, cfg: ALILQRConfig):
     for name, t, shape in (("x0", x0, (B, n)), ("xref", xref, (B, N, n)),
                            ("lam", lam, (B, N, nc)), ("mu", mu, (B,)),
                            ("U", U, (B, N, nu))):
-        _check(name, t, shape, dev)
+        check_arg(name, t, shape, dev)
     f32 = dict(dtype=torch.float32, device=dev)
     cost = torch.empty((B,), **f32)
     iters = torch.empty((B,), dtype=torch.int32, device=dev)
     if B == 0:
         return torch.empty((B, N, n), **f32), U.clone(), cost, iters
     lib = cuda_build.load(ocp.m)
-    prm = _params(ocp, cfg.alphas, dev)
-    x0_l, xref_l, lam_l, U_l = _lane(x0), _lane(xref), _lane(lam), _lane(U)
+    prm = rollout.params(ocp, cfg.alphas, dev)
+    x0_l, xref_l, lam_l, U_l = lane(x0), lane(xref), lane(lam), lane(U)
     mu_c = mu.contiguous()
     Xs_l = torch.empty((N, n, B), **f32)
     Uo_l = torch.empty((N, nu, B), **f32)
     kff_l = torch.empty((N, nu, B), **f32)       # scratch: gains
     Kfb_l = torch.empty((N, nu, n, B), **f32)
     err = lib.nmpc_inner_solve(
-        _ptr(prm), _ptr(x0_l), _ptr(xref_l), _ptr(lam_l), _ptr(mu_c),
-        _ptr(U_l), _ptr(Xs_l), _ptr(Uo_l), _ptr(cost), _ptr(iters),
-        _ptr(kff_l), _ptr(Kfb_l),
+        ptr(prm), ptr(x0_l), ptr(xref_l), ptr(lam_l), ptr(mu_c),
+        ptr(U_l), ptr(Xs_l), ptr(Uo_l), ptr(cost), ptr(iters),
+        ptr(kff_l), ptr(Kfb_l),
         B, N, cfg.n_inner, int(cfg.ls == "adaptive"), len(cfg.alphas),
         cfg.ls_rounds, int(ocp.n_pairs > 0),
         cfg.reg, cfg.armijo, cfg.tol_cost, cfg.ls_beta, cfg.ls_grow,
-        cfg.ls_trial_min, _stream(dev))
+        cfg.ls_trial_min, cuda_build.stream(dev))
     cuda_build.check(lib, err, "inner_solve_fused")
-    launch_counts["inner_solve_fused"] += 1
-    return _std(Xs_l), _std(Uo_l), cost, iters
+    cuda_build.launch_counts["inner_solve_fused"] += 1
+    return std(Xs_l), std(Uo_l), cost, iters

@@ -10,7 +10,11 @@ neither need nor import.)
 Tolerances: K2 rtol/atol 1e-6 (the kernel rounds each row as the plain
 version does); K1 at n_inner=4 cost rtol 1e-4, U atol 5e-3 and equal
 iteration counts on 99% of scenarios (past the first iterations f32
-rounding can flip near-tied alpha picks).
+rounding can flip near-tied alpha picks). K3-K6: the CPU tests' tolerances
+(tests/test_torch_staged_ops.py), relative to each scenario's largest
+magnitude of an output where that exceeds 1, by the rule of
+nmpc_tpu_torch/ops/kernel_check.py that chip_smoke.py phase 10 applies too;
+at these inputs no scenario may diverge or pass by the f32 spread alone.
 """
 
 import dataclasses
@@ -19,7 +23,11 @@ import pytest
 import torch
 
 from nmpc_tpu_torch.ocp import problem as P
-from nmpc_tpu_torch.ops import megasolve
+from nmpc_tpu_torch.ops import cuda_build, megasolve
+from nmpc_tpu_torch.ops import rollout as R
+from nmpc_tpu_torch.ops.expansions import expansions_fused
+from nmpc_tpu_torch.ops.kernel_check import staged_vs_plain
+from nmpc_tpu_torch.ops.riccati import riccati_lanes
 from nmpc_tpu_torch.parallel import batch_ocp
 from nmpc_tpu_torch.scenarios import get
 from nmpc_tpu_torch.solver import ALILQRConfig, solve_batched
@@ -67,9 +75,9 @@ def test_inner_solve_kernel_matches_plain(dev, name, ls):
     B = 300
     ob, U, lam, mu = _case(name, B, dev, seed=1)
     cfg = ALILQRConfig(n_inner=4, ls=ls)
-    before = megasolve.launch_counts["inner_solve_fused"]
+    before = cuda_build.launch_counts["inner_solve_fused"]
     got = megasolve.inner_solve_fused(ob, ob.x0, ob.xref, lam, mu, U, cfg)
-    assert megasolve.launch_counts["inner_solve_fused"] == before + 1
+    assert cuda_build.launch_counts["inner_solve_fused"] == before + 1
     want = megasolve.inner_solve_plain(ob, ob.x0, ob.xref, lam, mu, U, cfg)
     torch.testing.assert_close(got[2], want[2], rtol=1e-4, atol=0.0)
     torch.testing.assert_close(got[1], want[1], rtol=0.0, atol=5e-3)
@@ -80,10 +88,12 @@ def test_inner_solve_kernel_matches_plain(dev, name, ls):
 def test_solve_batched_on_the_card(dev):
     ob, _, _, _ = _case("six_robot_antipodal", 512, dev)
     cfg = ALILQRConfig(n_outer=6, n_inner=12, tol_con=1e-3, ls="adaptive")
-    megasolve.reset_launch_counts()
+    cuda_build.reset_launch_counts()
     res = solve_batched(ob, cfg=cfg)
     steps = int(res.outer_iters.max())
-    assert megasolve.launch_counts == {"inner_solve_fused": steps, "al_update_lanes": steps}
+    assert cuda_build.launch_counts == {
+        "inner_solve_fused": steps, "al_update_lanes": steps, "expansions_fused": 0,
+        "riccati_lanes": 0, "linesearch_costs_lanes": 0, "rollout_alpha_lanes": 0}
     assert torch.isfinite(res.cost).all() and res.X.shape == (512, 11, 18)
     assert float(res.converged.float().mean()) >= 0.9
 
@@ -109,3 +119,90 @@ def test_wrappers_refuse_what_the_kernels_do_not_cover(dev):
         megasolve.al_update_lanes(obs_b, z((4, 10, 3), device=dev), z((4, 10, 2), device=dev),
                                   z((4, 10, obs.n_con), device=dev),
                                   torch.full((4,), 10.0, device=dev), 1e6)
+
+
+def _staged_problem(name, dev):
+    if name == "moving":  # one robot, two moving-obstacle slots, per-scenario
+        return P.make_ocp(m=1, N=8, T=0.1, x0=[0.0, 0.0, 0.0], x_goal=[0.6, 0.0, 0.0],
+                          dmin=0.3, mov_obs=torch.zeros((8, 2, 2), device=dev), device=dev)
+    if name == "all rows":  # two robots: pairs, obstacles and moving obstacles
+        return P.make_ocp(m=2, N=5, T=0.1, x0=[0, 0, 0, 0.5, 0, 0], x_goal=[1, 1, 0, -1, 1, 0],
+                          dmin=0.3, collision=True, obstacles=[[0.2, 0.1, 0.1], [0.4, -0.2, 0.15]],
+                          mov_obs=torch.zeros((5, 2, 2), device=dev), device=dev)
+    return get(name).make(N=10 if name != "obstacle_scenario_3" else 20, device=dev)
+
+
+def _lanes(ocp, B, dev, seed=0):
+    """Lane-major inputs [N, rows, B] near the constraints, duals |N(0, 0.5)|
+    (zero on the masked rows), mu in {10, 100}."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    rnd = lambda *s: torch.randn(s, generator=g, device=dev)  # noqa: E731
+    N, n, nu = ocp.N, ocp.nx, ocp.nu
+    X = ocp.x0[None, None] + 0.4 * rnd(B, N, n)
+    if ocp.n_obs:
+        X[..., 0::3] = ocp.obstacles[0, 0] + 0.3 * rnd(B, N, ocp.m)
+        X[..., 1::3] = ocp.obstacles[0, 1] + 0.3 * rnd(B, N, ocp.m)
+    lam = 0.5 * rnd(B, N, ocp.n_con).abs() * (P.constraint_mask(ocp) > 0)
+    d = dict(X=X, U=0.1 * rnd(B, N, nu), xref=ocp.xref[None].expand(B, N, n), lam=lam,
+             kff=0.1 * rnd(B, N, nu), Kfb=0.1 * rnd(B, N, nu, n))
+    if ocp.n_mov:
+        d["mov"] = (X[..., :2].reshape(B, N, 1, 2).repeat(1, 1, ocp.n_mov, 1)
+                    + 0.3 * rnd(B, N, ocp.n_mov, 2)).reshape(B, N, 2 * ocp.n_mov)
+    L = {k: v.movedim(0, -1).contiguous() for k, v in d.items()}
+    L["x0"] = L["X"][0].contiguous()
+    L["mu"] = torch.tensor([10.0, 100.0], device=dev)[torch.randint(0, 2, (B,), generator=g, device=dev)]
+    L["alpha"] = torch.rand(B, generator=g, device=dev)
+    return L
+
+
+@pytest.mark.parametrize("name", ["two_robot_swap", "six_robot_antipodal", "ten_robot",
+                                  "obstacle_scenario_3", "moving", "all rows"])
+def test_staged_kernels_match_plain(dev, name):
+    ocp = _staged_problem(name, dev)
+    L = _lanes(ocp, 300, dev)  # 300: a ragged last block
+    cuda_build.reset_launch_counts()
+    verdicts, _ = staged_vs_plain(ocp, L["X"], L["U"], L["xref"], L["lam"], L["mu"], L.get("mov"),
+                                  (0.0, 1.0, 0.5, 0.25, 0.1), L["alpha"], 1e-6,
+                                  gains=(L["kff"], L["Kfb"]))
+    for k, v in verdicts.items():
+        assert v.units > 0 and v.n_diverged == 0 and v.n_widened == 0, k
+    assert cuda_build.launch_counts == {
+        "inner_solve_fused": 0, "al_update_lanes": 0, "expansions_fused": 1,
+        "riccati_lanes": 1, "linesearch_costs_lanes": 1, "rollout_alpha_lanes": 1}
+
+
+@pytest.mark.parametrize("name", ["six_robot_antipodal", "obstacle_scenario_3"])
+def test_staged_route_on_the_card(dev, name):
+    """six_robot_antipodal with mega=False, and an obstacle problem with the
+    default mega=True (K1 refuses obstacle rows): both take the staged route,
+    one K4, K3 and K5 launch per inner iteration and one more K6."""
+    ob, _, _, _ = _case(name, 512, dev)
+    cfg = ALILQRConfig(n_outer=6, n_inner=12, tol_con=1e-3, ls="adaptive",
+                       mega=name != "six_robot_antipodal")
+    cuda_build.reset_launch_counts()
+    res = solve_batched(ob, cfg=cfg)
+    c = dict(cuda_build.launch_counts)
+    it = c["riccati_lanes"]
+    assert c["inner_solve_fused"] == c["al_update_lanes"] == 0
+    assert c["expansions_fused"] == c["linesearch_costs_lanes"] == it > 0
+    assert c["rollout_alpha_lanes"] == it + 1
+    assert int(res.inner_iters.max()) <= it <= cfg.n_inner * int(res.outer_iters.max())
+    assert torch.isfinite(res.cost).all() and torch.isfinite(res.X).all()
+    assert float(res.converged.float().mean()) >= 0.8
+
+
+def test_staged_wrappers_refuse_what_the_kernels_do_not_cover(dev):
+    ocp = _staged_problem("two_robot_swap", dev)
+    L = _lanes(ocp, 64, dev)
+    with pytest.raises(TypeError):
+        R.rollout_alpha_lanes(ocp, L["x0"].double(), L["X"], L["U"], L["kff"], L["Kfb"],
+                              L["alpha"])
+    with pytest.raises(ValueError):
+        expansions_fused(ocp, L["X"], L["U"], L["xref"], L["lam"][:, :3], L["mu"])
+    seven = dataclasses.replace(ocp, m=7)
+    with pytest.raises(NotImplementedError, match="m=7"):
+        R.linesearch_costs_lanes(seven, L["x0"], L["X"], L["U"], L["kff"], L["Kfb"],
+                                 L["xref"], L["lam"], L["mu"], (0.0, 1.0))
+    bad = tuple(torch.zeros((5, 4, 4, 64), device=dev) for _ in range(7))
+    with pytest.raises(NotImplementedError, match="n = 3m"):
+        riccati_lanes(bad)

@@ -28,7 +28,7 @@ from nmpc_tpu.parallel.batch import batch_ocp as jax_batch_ocp
 from nmpc_tpu.scenarios import get as jax_get
 from nmpc_tpu.solver.alilqr import ALILQRConfig as JaxConfig
 from nmpc_tpu_torch.ocp import problem as TP
-from nmpc_tpu_torch.ops import megasolve
+from nmpc_tpu_torch.ops import cuda_build, megasolve
 from nmpc_tpu_torch.solver.alilqr import ALILQRConfig
 
 B = 128
@@ -122,13 +122,15 @@ def test_cpu_wrappers_take_the_plain_versions():
     ob, U, lam, mu = _problem("two_robot_swap", seed=2)
     o = port_ocp(ob)
     cfg = ALILQRConfig(n_inner=2, ls="adaptive")
-    megasolve.reset_launch_counts()
+    cuda_build.reset_launch_counts()
     got = megasolve.inner_solve_fused(o, o.x0, o.xref, _t(lam), _t(mu), _t(U), cfg)
     want = megasolve.inner_solve_plain(o, o.x0, o.xref, _t(lam), _t(mu), _t(U), cfg)
     for a, b in zip(got, want):
         assert torch.equal(a, b)
     megasolve.al_update_lanes(o, got[0], got[1], _t(lam), _t(mu), 1e6)
-    assert megasolve.launch_counts == {"inner_solve_fused": 0, "al_update_lanes": 0}
+    assert cuda_build.launch_counts == {
+        "inner_solve_fused": 0, "al_update_lanes": 0, "expansions_fused": 0,
+        "riccati_lanes": 0, "linesearch_costs_lanes": 0, "rollout_alpha_lanes": 0}
 
 
 def test_cuda_admission_rule():

@@ -31,7 +31,7 @@ from nmpc_tpu.solver.alilqr import ALILQRConfig as JaxConfig
 from nmpc_tpu.solver.alilqr import WarmStart as JaxWarm
 from nmpc_tpu.solver.alilqr_batched import solve_batched as jax_solve_batched
 from nmpc_tpu_torch.ocp import problem as TP
-from nmpc_tpu_torch.ops import megasolve
+from nmpc_tpu_torch.ops import cuda_build
 from nmpc_tpu_torch.solver.alilqr import ALILQRConfig, warm_from_numpy
 from nmpc_tpu_torch.solver.alilqr_batched import solve_batched, solve_one
 
@@ -133,16 +133,17 @@ def test_warm_started_element_needs_fewer_inner_iterations():
 
 
 def test_cpu_main_path_launches_no_kernel():
-    megasolve.reset_launch_counts()
+    cuda_build.reset_launch_counts()
     ob = port_ocp(_batch("two_robot_swap", 2, 0.05, seed=5))
     res = solve_batched(ob, cfg=ALILQRConfig(n_outer=2, n_inner=3))
     assert torch.isfinite(res.cost).all()
-    assert megasolve.launch_counts == {"inner_solve_fused": 0, "al_update_lanes": 0}
+    assert cuda_build.launch_counts == {
+        "inner_solve_fused": 0, "al_update_lanes": 0, "expansions_fused": 0,
+        "riccati_lanes": 0, "linesearch_costs_lanes": 0, "rollout_alpha_lanes": 0}
 
 
 def test_unported_options_raise():
     ob = port_ocp(_batch("two_robot_swap", 2, 0.05, seed=6))
-    for kw in (dict(compact=True), dict(sweep="scan"), dict(mega=False),
-               dict(cold_seed="polar")):
+    for kw in (dict(compact=True), dict(sweep="scan"), dict(cold_seed="polar")):
         with pytest.raises(NotImplementedError):
             solve_batched(ob, cfg=ALILQRConfig(**kw))
