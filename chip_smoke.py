@@ -15,7 +15,10 @@ plain PyTorch version on the card:
   paths: (a) the main-path batch with mega=False; (b) a family-H fleet,
   obstacle_scenario_3 (six static obstacles) at its registry horizon N=100,
   B=32768, which K1 refuses; (c) B=4096 per-robot subproblems of one
-  decentralized six-robot round (one robot, five moving obstacles, N=30).
+  decentralized six-robot round (one robot, five moving obstacles, N=30);
+* the roofline path (nmpc_tpu_torch/tools), through K7 (FMA-peak probe), K8
+  (K1 with one phase ablated at a fixed count) and K9 (K1 with the
+  structured or the dense expansion layout), then the bound of every kernel.
 
 Phases:
 
@@ -24,8 +27,15 @@ Phases:
   2 K2 vs plain, B=32768            9 path (c), moving obstacles
   3 K1 vs plain, B=1024            10 K3-K6 vs plain at the shapes of (a)-(c)
   4 main path at B=32768           11 staged timings (solves, K3-K6 vs plain)
-  5 first 64 scenarios re-solved on the CPU
-  6 timings (solve, K1, K2 vs plain versions)
+  5 first 64 scenarios re-solved   12 K7: FMA peak over C chains, vs plain
+    on the CPU                        bit for bit (also at the timed shape)
+  6 timings (solve, K1, K2 vs      13 K8: bit-for-bit against K1; the undamped
+    plain versions)                   modes beside f64 at phase 3's inputs;
+                                      each mode vs plain; the six modes timed
+                                      in turns; full vs plain at its timed shape
+                                   14 K9 vs plain (also at the timed shape),
+                                      both layouts timed in turns; the
+                                      roofline of K1-K9
 
 Phases 5, 7, 8 and 9 re-solve the first scenarios with the plain path on the
 CPU. Any failed check raises, so the exit code is non-zero. Without a CUDA
@@ -53,10 +63,24 @@ CROSS_B = 64
 OBS_CROSS_B = 32
 MOV_B = 4096
 # K1's `-Xptxas -v` line at each m as recorded in PERF.md (regs, stack, spill
-# stores, spill loads): K1 does not change when the staged kernels are added
+# stores, spill loads): K1 does not change when the staged kernels or the
+# tools' template flags are added
 K1_PTXAS = {1: (64, 304, 0, 0), 2: (96, 704, 0, 0), 3: (128, 1344, 0, 0),
             4: (168, 2192, 0, 0), 5: (254, 3440, 0, 0), 6: (255, 4880, 156, 200),
             8: (255, 8016, 0, 0), 10: (254, 12160, 0, 0)}
+# K3-K6's lines at each m as recorded in PERF.md: they do not change either
+STAGED_PTXAS = {
+    1: {"K3": (32, 176, 0, 0), "K4": (64, 80, 0, 0), "K5": (72, 0, 0, 0), "K6": (32, 56, 0, 0)},
+    2: {"K3": (40, 576, 0, 0), "K4": (74, 320, 0, 0), "K5": (89, 80, 0, 0), "K6": (48, 80, 0, 0)},
+    3: {"K3": (72, 1200, 0, 0), "K4": (80, 552, 0, 0), "K5": (56, 104, 0, 0), "K6": (48, 104, 0, 0)},
+    4: {"K3": (128, 2016, 0, 0), "K4": (118, 864, 0, 0), "K5": (64, 128, 0, 0), "K6": (56, 128, 0, 0)},
+    5: {"K3": (200, 3088, 0, 0), "K4": (96, 1280, 20, 28), "K5": (64, 152, 0, 0),
+        "K6": (56, 152, 0, 0)},
+    6: {"K3": (255, 4384, 0, 0), "K4": (108, 1728, 0, 0), "K5": (72, 176, 0, 0), "K6": (72, 176, 0, 0)},
+    8: {"K3": (90, 7616, 0, 0), "K4": (128, 2848, 0, 0), "K5": (96, 224, 0, 0), "K6": (80, 224, 0, 0)},
+    10: {"K3": (96, 11776, 0, 0), "K4": (130, 4288, 0, 0), "K5": (96, 272, 0, 0),
+         "K6": (108, 272, 0, 0)},
+}
 KERNELS = {"inner_solve": "K1", "al_update": "K2", "riccati": "K3", "expansions": "K4",
            "linesearch_costs": "K5", "rollout_alpha": "K6"}
 
@@ -69,27 +93,16 @@ def sh(cmd: list[str]) -> str:
     return subprocess.run(cmd, capture_output=True, text=True, check=True).stdout.strip()
 
 
-def cuda_ms(fn, reps: int) -> float:
-    """Mean milliseconds of fn() on the card (CUDA events, after one warm-up)."""
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    t0.record()
-    for _ in range(reps):
-        fn()
-    t1.record()
-    torch.cuda.synchronize()
-    return t0.elapsed_time(t1) / reps
-
-
-def ptxas(text: str) -> dict:
-    """{'K1': (regs, stack, spill stores, spill loads), ...} of a build log."""
+def ptxas(text: str, part: str = "?") -> dict:
+    """{'K1': (regs, stack, spill stores, spill loads), ...} of a build log.
+    The tools' entries: K7's per chain count C ('K7 C=8'), a K1 variant by
+    the name of the part of csrc/tools.cu that built it."""
     out, name, frame = {}, "?", (0, 0, 0)
     for line in text.splitlines():
         if "Compiling entry function" in line:
-            name = next((k for key, k in KERNELS.items() if key in line), "?")
+            c = re.search(r"fma_peak_kernelILi(\d+)E", line)
+            name = (f"K7 C={c[1]}" if c else part if "variant_kernel" in line
+                    else next((k for key, k in KERNELS.items() if key in line), "?"))
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if m:
             frame = tuple(int(g) for g in m.groups())
@@ -99,10 +112,10 @@ def ptxas(text: str) -> dict:
     return dict(sorted(out.items()))
 
 
-def ptxas_summary(text: str) -> str:
+def ptxas_summary(text: str, part: str = "?") -> str:
     """'K1 N regs, stack S B, spill stores a B, loads b B; K2 ...'"""
     return "; ".join(f"{k} {r} regs, stack {st} B, spill stores {a} B, loads {b} B"
-                     for k, (r, st, a, b) in ptxas(text).items())
+                     for k, (r, st, a, b) in ptxas(text, part).items())
 
 
 def cross_check(tag: str, res, sub, cfg, n: int, u_share: float = 0.75) -> None:
@@ -143,6 +156,33 @@ def timed(fn):
     out = fn()
     torch.cuda.synchronize()
     return out, time.perf_counter() - t0
+
+
+def once(fn):
+    """(fn(), its ms on CUDA events): one call, no warm-up."""
+    from nmpc_tpu_torch.utils.timing import cuda_ms
+
+    out = []
+    ms = cuda_ms(lambda: out.append(fn()), 1, warmup=0)
+    return out[0], ms
+
+
+def hold_solve(tag: str, got, want, allow: float = 0.0) -> tuple:
+    """K1-like results (Xs, U, cost, iters) against their plain version at
+    phase 3's tolerances, per scenario: cost rtol 1e-4, U and Xs atol 5e-3.
+    Past a few iterations an f32 tie in the line search can send a scenario
+    another way, so a share `allow` of the scenarios may miss them (0: none).
+    Returns (scenarios missed, max cost rel, max |dU|, max |dXs|), the
+    maxima over every scenario."""
+    import torch
+
+    rel = (got[2] - want[2]).abs() / want[2].abs().clamp(min=1e-30)
+    du = (got[1] - want[1]).abs().amax(dim=(1, 2))
+    dx = (got[0] - want[0]).abs().amax(dim=(1, 2))
+    missed = int((~((rel <= 1e-4) & (du <= 5e-3) & (dx <= 5e-3))).sum())
+    assert all(torch.isfinite(t).all() for t in got[:3]), tag
+    assert missed <= allow * rel.numel(), (tag, missed, rel.numel())
+    return missed, float(rel.max()), float(du.max()), float(dx.max())
 
 
 def summary(res) -> str:
@@ -240,6 +280,10 @@ def main() -> int:
     from nmpc_tpu_torch.parallel import batch_ocp
     from nmpc_tpu_torch.scenarios import get
     from nmpc_tpu_torch.solver import ALILQRConfig, solve_batched
+    from nmpc_tpu_torch.tools import exp_blocked_expansions as K9
+    from nmpc_tpu_torch.tools import exp_mega_phases as K8
+    from nmpc_tpu_torch.tools import roofline as RL
+    from nmpc_tpu_torch.utils.timing import cuda_ms
 
     assert "jax" not in sys.modules and "nmpc_tpu" not in sys.modules
     dev = torch.device("cuda", 0)
@@ -263,14 +307,28 @@ def main() -> int:
     wall = time.perf_counter() - t0
     per_m = ", ".join(f"m={m} {cuda_build.build_info[m]['seconds']:.1f}s"
                       for m in cuda_build.ROBOT_COUNTS)
-    log(f"phase 1 build: {len(cuda_build.ROBOT_COUNTS)} libraries in {wall:.1f}s wall "
-        f"(parallel nvcc; {per_m})")
+    tools = cuda_build.tools_build_info[cuda_build.BENCH_ROBOTS]
+    log(f"phase 1 build: {len(cuda_build.ROBOT_COUNTS)} solver libraries and the tools library "
+        f"(m={cuda_build.BENCH_ROBOTS}, {len(cuda_build.TOOLS_PARTS)} parts) in {wall:.1f}s wall "
+        f"(parallel nvcc; {per_m}; tools {tools['seconds']:.1f}s)")
     for m in cuda_build.ROBOT_COUNTS:
         text = cuda_build.build_info[m]["ptxas"]
-        same = ptxas(text).get("K1") == K1_PTXAS[m]
-        log(f"  ptxas m={m}: {ptxas_summary(text)} (K1 as recorded in PERF.md: {'yes' if same else 'NO'})")
-        assert same, (m, ptxas(text).get("K1"))
-        assert set(ptxas(text)) == set(KERNELS.values()), ptxas(text)
+        got = ptxas(text)
+        same = got.get("K1") == K1_PTXAS[m]
+        staged_same = {k: got.get(k) for k in STAGED_PTXAS[m]} == STAGED_PTXAS[m]
+        log(f"  ptxas m={m}: {ptxas_summary(text)} (K1 as recorded in PERF.md: "
+            f"{'yes' if same else 'NO'}; K3-K6: {'yes' if staged_same else 'NO'})")
+        assert same, (m, got.get("K1"))
+        assert staged_same, (m, got)
+        assert set(got) == set(KERNELS.values()), got
+    tool_lines = {}
+    for part, text in tools["ptxas"].items():
+        log(f"  ptxas tools m={cuda_build.BENCH_ROBOTS} {part}: {ptxas_summary(text, part)}")
+        tool_lines.update(ptxas(text, part))
+    want_names = {f"K7 C={c}" for c in (4, 8, 16, 32)} | set(cuda_build.TOOLS_PARTS[1:])
+    assert set(tool_lines) == want_names, sorted(tool_lines)
+    log(f"  K8 'full, early exit' (K1's code in the tools library) has K1's line: "
+        f"{'yes' if tool_lines['K8 full, early exit'] == K1_PTXAS[6] else 'no'}")
 
     gen = torch.Generator(device=dev).manual_seed(0)
     base = get("six_robot_antipodal").make(N=10, device=dev)
@@ -331,6 +389,8 @@ def main() -> int:
         assert same_it >= 0.99 * K1_B, same_it
         assert torch.isfinite(got[0]).all()
         k1_err = max(k1_err, float(du.max()))
+        if name == "six_robot_antipodal" and ls == "adaptive":
+            k1_case = (obk, U, lam, mu, cfg, got)   # phase 13's bit-for-bit check
 
     # ---- phase 4: the main path ------------------------------------------
     ob = batch(base, BENCH_B)
@@ -386,6 +446,8 @@ def main() -> int:
     k2_ms = cuda_ms(lambda: megasolve.al_update_lanes(ob, Xs1, U1, res.lam, res.mu, bench_cfg.lam_max), 20)
     k2_plain_ms = cuda_ms(lambda: megasolve.al_update_plain(ob, Xs1, U1, res.lam, res.mu, bench_cfg.lam_max), 20)
     assert cuda_build.launch_counts["inner_solve_fused"] > before["inner_solve_fused"]
+    # the iterations that timed call ran, for its bound (phase 14)
+    k1_iters = megasolve.inner_solve_fused(ob, ob.x0, ob.xref, lam0, mu0, U0, bench_cfg)[3]
     log(f"phase 6 kernels at B={BENCH_B}: K1 {k1_ms:.2f} ms vs plain {k1_plain_ms:.2f} ms; "
         f"K2 {k2_ms:.3f} ms vs plain {k2_plain_ms:.3f} ms {card}")
 
@@ -476,26 +538,221 @@ def main() -> int:
         log(f"phase 11 kernels at path ({tag}): " + "; ".join(
             f"{k} {v[0]:.3f} ms vs plain {v[1]:.3f} ms" for k, v in ms[tag].items()) + f" {card}")
 
+    # ---- phase 12: K7, the attainable FMA rate ------------------------------
+    # bit for bit: each f64 step of the plain chain is exact for these
+    # constants near 1 and rounds once to f32, as the FMA does
+    a7, b7, R7 = RL.FMA_A, RL.FMA_B, RL.FMA_STEPS
+    for C in RL.FMA_CHAINS:
+        x0 = 1.0 + 1e-3 * torch.rand((C, 1000), generator=gen, device=dev)
+        got = RL.fma_peak(x0, a7, b7, 64)
+        torch.cuda.synchronize()
+        want = RL.fma_chain_plain(x0, a7, b7, 64)
+        assert torch.equal(got, want), (C, float((got - want).abs().max()))
+    log(f"phase 12 K7 vs plain: C in {RL.FMA_CHAINS}, 1000 threads, 64 steps: bit for bit")
+    cuda_build.reset_launch_counts()
+    peak = RL.measure_fma_peak()
+    k7_launches = cuda_build.launch_counts["fma_peak"]
+    best = peak["best"]
+    T7 = RL.FMA_THREADS
+    x7 = RL.fma_inputs(best["chains"], T7, dev)
+    # the card's clocks and power under the probe: ~1 s of it enqueued, sampled, then waited for
+    for _ in range(max(1, int(1000 / (16 * best["ms"])))):
+        RL.fma_peak(x7, a7, b7, 16 * R7)
+    clocks = sh(["nvidia-smi", "--query-gpu=clocks.sm,power.draw,power.limit",
+                 "--format=csv,noheader"]).splitlines()[0]
+    torch.cuda.synchronize()
+    # kernel and plain version at the timed shape, bit for bit
+    want7, k7_plain_ms = once(lambda: RL.fma_chain_plain(x7, a7, b7, R7))
+    got7 = RL.fma_peak(x7, a7, b7, R7)
+    k7_err = float((got7 - want7).abs().max())
+    assert torch.equal(got7, want7), k7_err
+    log(f"phase 12 K7 vs plain at the timed shape (C={best['chains']}, {T7} threads, {R7} "
+        f"steps): bit for bit")
+    del want7, got7
+    log(f"phase 12 K7 sweep, {T7} threads x C chains x {R7} steps: " + ", ".join(
+        f"C={c} {peak[c]['tflops']:.2f} TFLOP/s ({peak[c]['ms']:.3f} ms)" for c in RL.FMA_CHAINS)
+        + f"; best C={best['chains']}: {best['tflops']:.2f} TFLOP/s = "
+        f"{best['tflops'] / RL.PUBLISHED_FMA_TFLOPS:.3f} of the published "
+        f"{RL.PUBLISHED_FMA_TFLOPS:.0f}; plain {k7_plain_ms:.1f} ms; launches {k7_launches}; "
+        f"under load: clocks.sm, power.draw, power.limit = {clocks} {card}")
+    # above 1.05x the compiler removed work; below 0.5x the probe is latency-bound
+    assert 0.5 * RL.PUBLISHED_FMA_TFLOPS <= best["tflops"] <= 1.05 * RL.PUBLISHED_FMA_TFLOPS, best
+
+    # ---- phase 13: K8, K1 with one phase ablated -------------------------------
+    obk, U3, lam3, mu3, cfg3, k1_out = k1_case
+    full_ee = K8.phase_ablation(obk, obk.x0, obk.xref, lam3, mu3, U3, cfg3, "full", cfg3.n_inner,
+                                early_exit=True)
+    assert all(torch.equal(a, b) for a, b in zip(full_ee, k1_out))
+    log(f"phase 13 K8 'full' with the early exit reproduces K1 bit for bit on phase 3's batch "
+        f"(six_robot_antipodal N=10 B={K1_B} adaptive, n_inner={cfg3.n_inner})")
+    # at phase 3's inputs (mu up to 1e4) the undamped alpha = 1 steps of the
+    # modes without a line search diverge on many scenarios: there the plain
+    # version in f32 parts from itself in f64 as far as from the kernel. The
+    # kernel may miss the f64 run on no more scenarios than the plain f32
+    # version does, plus 2% of those not diverged
+    for mode in ("inv_solve", "no_ls"):
+        got = K8.phase_ablation(obk, obk.x0, obk.xref, lam3, mu3, U3, cfg3, mode, 4)
+        w = K8.f64_witness(obk, obk.x0, obk.xref, lam3, mu3, U3, cfg3, mode, 4, got)
+        held = w["scenarios"] - w["diverged"]
+        log(f"phase 13 K8 {mode} at phase 3's inputs (B={K1_B}, 4 fixed iterations, mu up to "
+            f"1e4): diverged in f64 {w['diverged']}/{w['scenarios']}; on the other {held}, U "
+            f"parts from f64 by > 5e-3 on {w['plain_missed']} (plain f32) and "
+            f"{w['kernel_missed']} (kernel); max |dU| kernel vs plain {w['kernel_vs_plain']:.3e}, "
+            f"plain vs f64 {w['plain_vs_f64']:.3e}, kernel vs f64 {w['kernel_vs_f64']:.3e}")
+        assert w["kernel_missed"] <= w["plain_missed"] + max(2, 0.02 * held), w
+    # each mode at the ablation's own inputs (lam 0, mu 10, U 0) on phase 3's
+    # starts, where no scenario diverges: Xs, U and cost at phase 3's
+    # tolerances (every mode but full returns the initial merit as its cost,
+    # so Xs and U are what test the ablated sweep)
+    lam0k, mu10k, U0k = torch.zeros_like(lam3), torch.full_like(mu3, 10.0), torch.zeros_like(U3)
+    for mode in K8.MODES:
+        got = K8.phase_ablation(obk, obk.x0, obk.xref, lam0k, mu10k, U0k, cfg3, mode, 4)
+        torch.cuda.synchronize()
+        want = K8.phase_ablation_plain(obk, obk.x0, obk.xref, lam0k, mu10k, U0k, cfg3, mode, 4)
+        _, rel, du, dx = hold_solve(f"K8 {mode}", got, want)
+        log(f"phase 13 K8 {mode} vs plain, B={K1_B}, 4 fixed iterations, lam 0, mu 10, U 0: cost "
+            f"rel max {rel:.3e}, U max |err| {du:.3e}, Xs max |err| {dx:.3e}, mean cost "
+            f"{float(got[2].mean()):.4f}")
+        assert (got[3] == 4).all()
+    kw = dict(dtype=torch.float32, device=dev)
+    n72 = bench_cfg.n_outer * bench_cfg.n_inner
+    lam8 = torch.zeros((BENCH_B, base.N, base.n_con), **kw)
+    mu8 = torch.full((BENCH_B,), 10.0, **kw)
+    U8 = torch.zeros((BENCH_B, base.N, base.nu), **kw)
+    cuda_build.reset_launch_counts()
+    summ8 = K8.summarize(K8.time_modes(ob, lam8, mu8, U8, bench_cfg, n72))
+    k8_launches = cuda_build.launch_counts["phase_ablation"]
+    save8 = K8.savings(summ8)
+    log(f"phase 13 K8 at B={BENCH_B}, {n72} fixed iterations, lam 0, mu 10, U 0, in turns "
+        f"(3 rounds, full first and last), min / median ms: " + "; ".join(
+            f"{k} {v[0]:.1f} / {v[1]:.1f}" + ("" if k == "full" else f" (saves {save8[k]:.1f}%)")
+            for k, v in summ8.items())
+        + f"; inv_solve against no_ls saves {save8['inv_solve vs no_ls']:.1f}%; launches "
+        f"{k8_launches} {card}")
+    log(f"  (K1 itself, early exit, at the main path's first outer step: {k1_ms:.2f} ms for at "
+        f"most {bench_cfg.n_inner} iterations; not a ratio with the fixed-count runs)")
+    # the kernels line's K8 and K9 entries: one shape and one set of inputs
+    # for the check against plain, the kernel's time, the plain time and the bound
+    lam9, mu9, U9 = K9.ab_inputs(ob)
+    want89, k89_plain_ms = once(lambda: K8.phase_ablation_plain(ob, ob.x0, ob.xref, lam9, mu9, U9,
+                                                                bench_cfg, "full", 4))
+    k8_ms = cuda_ms(lambda: K8.phase_ablation(ob, ob.x0, ob.xref, lam9, mu9, U9, bench_cfg,
+                                              "full", 4), 3)
+    # at this batch f32 alone parts a few scenarios through line-search ties:
+    # the plain version against itself with inputs moved by 2^-21 (4-8 ulp)
+    # shows how many; the kernel may miss on at most 0.1% of the scenarios
+    jitter = lambda t: t * (1.0 + 2.0 ** -21 * torch.randn(t.shape, generator=gen, device=dev))  # noqa: E731
+    spread = K8.phase_ablation_plain(ob, jitter(ob.x0), ob.xref, lam9, mu9, jitter(U9), bench_cfg,
+                                     "full", 4)
+    n_spread = hold_solve("plain vs itself", spread, want89, allow=1.0)[0]
+    got = K8.phase_ablation(ob, ob.x0, ob.xref, lam9, mu9, U9, bench_cfg, "full", 4)
+    n8, rel, k8_err, dx = hold_solve("K8 full at the timed shape", got, want89, allow=1e-3)
+    log(f"phase 13 K8 full vs plain at the timed shape (B={BENCH_B}, 4 fixed iterations, lam "
+        f"|0.1 N(0,1)|, mu 10, U 0.01 N(0,1)): outside cost rtol 1e-4 / U, Xs atol 5e-3 on "
+        f"{n8}/{BENCH_B} scenarios (the plain version against itself under 2^-21 input noise: "
+        f"{n_spread}); over all, cost rel max {rel:.3e}, U max |err| {k8_err:.3e}, Xs max |err| "
+        f"{dx:.3e}; {k8_ms:.2f} ms vs plain {k89_plain_ms:.1f} ms")
+    del spread
+
+    # ---- phase 14: K9, the expansion-layout A/B; the roofline of K1-K9 ----------
+    lam9s, mu9s, U9s = K9.ab_inputs(obk)
+    want = K9.expansion_ab_plain(obk, obk.x0, obk.xref, lam9s, mu9s, U9s, cfg3, 4)
+    outs, small_err = {}, 0.0
+    for lay in K9.LAYOUTS:
+        got = K9.expansion_ab(obk, obk.x0, obk.xref, lam9s, mu9s, U9s, cfg3, lay, 4)
+        outs[lay] = got
+        small_err = max(small_err, hold_solve(f"K9 {lay}", got, want)[2])
+    full4 = K8.phase_ablation(obk, obk.x0, obk.xref, lam9s, mu9s, U9s, cfg3, "full", 4)
+    assert all(torch.equal(a, b) for a, b in zip(outs["structured"], full4))
+    dU = float((outs["dense"][1] - outs["structured"][1]).abs().max())
+    dc = float(((outs["dense"][2] - outs["structured"][2]).abs() / outs["structured"][2].abs()).max())
+    assert dU <= 5e-3 and dc <= 1e-4, (dU, dc)
+    log(f"phase 14 K9 vs plain, B={K1_B}, 4 fixed iterations, lam |0.1 N(0,1)|, mu 10, U 0.01 "
+        f"N(0,1): U max |err| {small_err:.3e}; dense vs structured max |dU| {dU:.3e}, cost rel "
+        f"{dc:.3e}; structured = K8 'full' bit for bit")
+    cfg40 = ALILQRConfig(n_outer=1, n_inner=40, tol_con=1e-3, ls="adaptive")
+    cuda_build.reset_launch_counts()
+    summ9 = K8.summarize(K9.time_layouts(ob, lam9, mu9, U9, cfg40, 40))
+    k9_launches = cuda_build.launch_counts["expansion_ab"]
+    ab = {lay: K9.expansion_ab(ob, ob.x0, ob.xref, lam9, mu9, U9, cfg40, lay, 40) for lay in K9.LAYOUTS}
+    assert all(torch.isfinite(t).all() for r in ab.values() for t in r[:3])
+    log(f"phase 14 K9 at B={BENCH_B}, 40 fixed iterations, in turns (2 rounds of structured, "
+        f"dense, dense, structured), min / median ms: " + "; ".join(
+            f"{k} {v[0]:.1f} / {v[1]:.1f}" for k, v in summ9.items())
+        + f" (dense / structured {summ9['dense'][1] / summ9['structured'][1]:.3f}); max |dU| "
+        f"{float((ab['dense'][1] - ab['structured'][1]).abs().max()):.3e}, max |dcost| "
+        f"{float((ab['dense'][2] - ab['structured'][2]).abs().max()):.3e}; launches {k9_launches} {card}")
+    k9_ms = cuda_ms(lambda: K9.expansion_ab(ob, ob.x0, ob.xref, lam9, mu9, U9, bench_cfg,
+                                            "dense", 4), 3)
+    got = K9.expansion_ab(ob, ob.x0, ob.xref, lam9, mu9, U9, bench_cfg, "dense", 4)
+    n9, rel, k9_err, dx = hold_solve("K9 dense at the timed shape", got, want89, allow=1e-3)
+    log(f"phase 14 K9 dense vs plain at K8's timed shape and inputs: outside the tolerances on "
+        f"{n9}/{BENCH_B} scenarios (f32 spread {n_spread}, phase 13); over all, cost rel max "
+        f"{rel:.3e}, U max |err| {k9_err:.3e}, Xs max |err| {dx:.3e}; {k9_ms:.2f} ms")
+    del want89, got
+
+    # the roofline: times from phases 6, 11, 12-14, work counted from this run's inputs
     staged = (("riccati_lanes", "K3", "nmpc_tpu/ops/riccati_pallas.py:311"),
               ("expansions_fused", "K4", "nmpc_tpu/ops/expansions_pallas.py:212"),
               ("linesearch_costs_lanes", "K5", "nmpc_tpu/ops/rollout_pallas.py:287"),
               ("rollout_alpha_lanes", "K6", "nmpc_tpu/ops/rollout_pallas.py:360"))
+    peak_flops = best["tflops"] * 1e12
+    bounds = {}
+
+    def roof(key, what, ms_, launches, work):
+        flops, nbytes = work
+        b_ms, by = RL.bound(flops, nbytes)
+        bounds[key] = (b_ms, by)
+        log(f"phase 14 roofline {what}: {ms_:.3f} ms per launch, "
+            f"{'-' if launches is None else launches} launches per solve, {flops / 1e9:.3f} GFLOP, "
+            f"{nbytes / 1e6:.1f} MB, bound {b_ms:.4f} ms ({by}), {100 * b_ms / ms_:.2f}% of the bound "
+            f"reached; FLOPs at K7's measured peak {flops / peak_flops * 1e3:.4f} ms")
+
+    executed = int(RL.k1_executed(k1_iters, bench_cfg.n_inner).sum())
+    roof("K1", f"K1 main path (first outer step, {executed / BENCH_B:.2f} iterations run per "
+         f"scenario)", k1_ms, counts["inner_solve_fused"],
+         RL.kernel_work("K1", base, BENCH_B, bench_cfg, iters=executed))
+    roof("K2", "K2 main path", k2_ms, counts["al_update_lanes"], RL.kernel_work("K2", base, BENCH_B))
+    for tag, ocp_p, cnt, cfg_p in (("a", base, counts_a, staged_cfg), ("b", obs_base, counts_b, obs_cfg)):
+        for name, k, _ in staged:
+            roof(f"{k} {tag}", f"{k} path ({tag})", ms[tag][k][0], cnt[name],
+                 RL.kernel_work(k, ocp_p, BENCH_B, n_alphas=len(cfg_p.alphas) + 1))
+    roof("K7", f"K7 (C={best['chains']}, {R7} steps)", best["ms"], None,
+         RL.kernel_work("K7", base, 0, chains=best["chains"], R=R7, threads=T7))
+    for mode in K8.MODES:
+        roof(f"K8 {mode}", f"K8 {mode} ({n72} iterations, median)", summ8[mode][1], None,
+             RL.kernel_work("K8", base, BENCH_B, bench_cfg, iters=n72 * BENCH_B, phase=mode))
+    for lay in K9.LAYOUTS:
+        roof(f"K9 {lay}", f"K9 {lay} (40 iterations, median)", summ9[lay][1], None,
+             RL.kernel_work("K9", base, BENCH_B, cfg40, iters=40 * BENCH_B))
+    line_work = RL.kernel_work("K8", base, BENCH_B, bench_cfg, iters=4 * BENCH_B)
+    roof("K8 line", "K8 full (4 iterations, lam |0.1 N|, U 0.01 N)", k8_ms, None, line_work)
+    roof("K9 line", "K9 dense (the same inputs)", k9_ms, None, line_work)
+
+    def entry(name, source, where, launches, err, ms_, plain_ms, key):
+        return {"name": name, "route": "cuda", "source": source, "replaces": where,
+                "launches": launches, "max_abs_err": err, "ms": ms_, "plain_ms": plain_ms,
+                "bound_ms": bounds[key][0], "bound_by": bounds[key][1], "library_ms": None}
+
     record = {"kernels": [
-        {"name": "inner_solve_fused", "route": "cuda",
-         "source": "nmpc_tpu_torch/csrc/megasolve.cuh",
-         "replaces": "nmpc_tpu/ops/megasolve_pallas.py:911",
-         "launches": counts["inner_solve_fused"], "max_abs_err": k1_err,
-         "ms": k1_ms, "plain_ms": k1_plain_ms},
-        {"name": "al_update_lanes", "route": "cuda",
-         "source": "nmpc_tpu_torch/csrc/megasolve.cuh",
-         "replaces": "nmpc_tpu/ops/megasolve_pallas.py:870",
-         "launches": counts["al_update_lanes"], "max_abs_err": k2_err,
-         "ms": k2_ms, "plain_ms": k2_plain_ms},
+        entry("inner_solve_fused", "nmpc_tpu_torch/csrc/megasolve.cuh",
+              "nmpc_tpu/ops/megasolve_pallas.py:911", counts["inner_solve_fused"], k1_err,
+              k1_ms, k1_plain_ms, "K1"),
+        entry("al_update_lanes", "nmpc_tpu_torch/csrc/megasolve.cuh",
+              "nmpc_tpu/ops/megasolve_pallas.py:870", counts["al_update_lanes"], k2_err,
+              k2_ms, k2_plain_ms, "K2"),
     ] + [
-        {"name": name, "route": "cuda", "source": "nmpc_tpu_torch/csrc/staged.cuh",
-         "replaces": where, "launches": counts_a[name], "max_abs_err": errs[k],
-         "ms": ms["a"][k][0], "plain_ms": ms["a"][k][1]}
+        entry(name, "nmpc_tpu_torch/csrc/staged.cuh", where, counts_a[name], errs[k],
+              ms["a"][k][0], ms["a"][k][1], f"{k} a")
         for name, k, where in staged
+    ] + [
+        entry("fma_peak", "nmpc_tpu_torch/csrc/tools.cu", "tools/roofline.py:46", k7_launches,
+              k7_err, best["ms"], k7_plain_ms, "K7"),
+        entry("phase_ablation", "nmpc_tpu_torch/csrc/tools.cu", "tools/exp_mega_phases.py:298",
+              k8_launches, k8_err, k8_ms, k89_plain_ms, "K8 line"),
+        entry("expansion_ab", "nmpc_tpu_torch/csrc/tools.cuh",
+              "tools/exp_blocked_expansions.py:551", k9_launches, k9_err, k9_ms, k89_plain_ms,
+              "K9 line"),
     ]}
     log(f"total wall time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(record))

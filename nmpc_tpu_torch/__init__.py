@@ -14,6 +14,11 @@ Layer map (mirrors nmpc_tpu):
     solver/    AL-iLQR config/result types and the batched main path
     ops/       the hand-written CUDA kernels (csrc/) with their plain
                PyTorch versions, build and ctypes binding
+    tools/     the roofline tools: FMA-peak probe, K1's phase ablation and
+               expansion-layout A/B (their kernels in csrc/tools.cu), the
+               work model and bound of every kernel
+    utils/     timing (host clock with device sync, CUDA events)
+    device.py  DEVICE, every builder's default: the card
 
 Precision: every contraction runs in full f32. TF32 keeps ~3 decimal digits,
 and a Riccati recursion iterated at reduced precision diverges (the JAX

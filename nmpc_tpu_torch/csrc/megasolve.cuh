@@ -56,6 +56,19 @@ NMPC_DEV int pair_row(int i, int j) {
   return i * (2 * NR - i - 1) / 2 + (j - i - 1);
 }
 
+// Which phases of the inner solve run. K1 is `full` with the early exit;
+// the other values are the phase ablations of csrc/tools.cu (K8, port of
+// tools/exp_mega_phases.py), which run a fixed iteration count:
+//   inv_solve   gains through the explicit L^-1 (chol_inverse), alpha = 1
+//   no_ls       no candidate rollouts: alpha = 1
+//   no_solve    diagonal gains -Qu / (Quu_ii + reg), alpha = 1
+//   no_expcon   LQR-only expansions (no constraint rows, box rows included),
+//               alpha = 1
+//   sweep_only  no merit, no rollouts: X and U never change
+// Every mode but `full` keeps the initial merit as its cost (the reference
+// ablation's semantics: only `full` line-searches).
+enum class Phase : int { full = 0, inv_solve, no_ls, no_solve, no_expcon, sweep_only };
+
 // Gauss-Newton expansion of one stage's AL merit, kept in structured form:
 // A = I + E with E[3r, 3r+2] = e1[r], E[3r+1, 3r+2] = e2[r]; B has
 // B[3r, 2r] = bc[r], B[3r+1, 2r] = bs[r], B[3r+2, 2r+1] = dt; lxx is its
@@ -83,11 +96,21 @@ struct Expansion {
     }
     return v;
   }
+
+  // entry (i, j) of luu
+  NMPC_DEV float luu(int i, int j) const { return (i == j) ? luu_d[i] : 0.f; }
+
+  // this stage's expansion (stage_expansion below); kCon = false: without
+  // any constraint row (Phase::no_expcon)
+  template <bool kCon>
+  NMPC_DEV void fill(const float* sp, bool gate, bool pairs, const float* x,
+                     const float* u, const float* xr, const float* lam, size_t B,
+                     float mu);
 };
 
 // nmpc_tpu/ops/megasolve_pallas.py::_expansion_regs (both of its TPU layouts
 // compute this). xr and lam are the thread's views of stage k.
-template <int NR>
+template <int NR, bool kCon = true>
 NMPC_DEV void stage_expansion(const float* sp, bool gate, bool pairs,
                               const float* x, const float* u, const float* xr,
                               const float* lam, size_t B, float mu,
@@ -108,6 +131,16 @@ NMPC_DEV void stage_expansion(const float* sp, bool gate, bool pairs,
   for (int i = 0; i < D::n; ++i) e.lx[i] = 2.f * sp[D::q + i] * (x[i] - xr[(size_t)i * B]);
 #pragma unroll
   for (int i = 0; i < D::nu; ++i) e.lu[i] = 2.f * sp[D::r + i] * u[i];
+  if constexpr (!kCon) {
+    // LQR-only: the quadratic cost's curvature and nothing else
+#pragma unroll
+    for (int i = 0; i < D::nu; ++i) e.luu_d[i] = 2.f * sp[D::r + i];
+#pragma unroll
+    for (int i = 0; i < D::n; ++i) e.lxx_d[i] = 2.f * sp[D::q + i];
+#pragma unroll
+    for (int r = 0; r < NR; ++r) e.Dxx[r] = e.Dyy[r] = e.Dxy[r] = 0.f;
+    return;
+  }
 
   int row = pairs ? D::np : 0;
   // u-box rows (never gated)
@@ -164,19 +197,30 @@ NMPC_DEV void stage_expansion(const float* sp, bool gate, bool pairs,
   }
 }
 
+template <int NR>
+template <bool kCon>
+NMPC_DEV void Expansion<NR>::fill(const float* sp, bool gate, bool pairs, const float* x,
+                                  const float* u, const float* xr, const float* lam,
+                                  size_t B, float mu) {
+  stage_expansion<NR, kCon>(sp, gate, pairs, x, u, xr, lam, B, mu, *this);
+}
+
 // Backward Riccati sweep over the stages of the current iterate (a.Xs, a.U)
 // with expansions computed on the fly; writes the gains to a.kff / a.Kfb and
 // returns the expected-decrease term dV1 = sum_k kff_k . Qu_k.
 //   Vx' = Qx + Qux^T kff,  Vxx' = Qxx + Qux^T Kfb
 // (Qux^T Kfb = -Qux^T Quu^-1 Qux is symmetric by construction.)
-template <int NR>
+// Exp is the expansion's layout (K1: the structured Expansion; the layout
+// A/B of csrc/tools.cu also runs a dense one); kPhase selects the phase
+// ablation's expansions and gains (Phase::full is K1's).
+template <int NR, class Exp = Expansion<NR>, Phase kPhase = Phase::full>
 NMPC_DEV float backward_sweep(const InnerArgs& a, const float* sp, int b,
                               float mu, int nc) {
   using D = Dims<NR>;
   constexpr int n = D::n, nu = D::nu;
   const size_t B = a.B;
   const float dt = sp[D::dt];
-  const bool pairs = a.pairs != 0;
+  const bool pairs = kPhase != Phase::no_expcon && a.pairs != 0;
   const float* Xs = a.Xs + b;
   const float* U = a.U + b;
   const float* xref = a.xref + b;
@@ -190,7 +234,7 @@ NMPC_DEV float backward_sweep(const InnerArgs& a, const float* sp, int b,
   for (int i = 0; i < n * n; ++i) Vxx[i] = 0.f;
   float dV1 = 0.f;
 
-  Expansion<NR> e;
+  Exp e;
   float x[n], u[nu], Qx[n], Qu[nu], Quu[nu * nu], Qux[nu * n], K[nu * n];
   float kf[nu], inv[nu], col[nu];
 #pragma unroll 1
@@ -199,8 +243,8 @@ NMPC_DEV float backward_sweep(const InnerArgs& a, const float* sp, int b,
     for (int i = 0; i < n; ++i) x[i] = Xs[(size_t)(k * n + i) * B];
 #pragma unroll
     for (int i = 0; i < nu; ++i) u[i] = U[(size_t)(k * nu + i) * B];
-    stage_expansion<NR>(sp, k > 0, pairs, x, u, xref + (size_t)k * n * B,
-                        lam + (size_t)k * nc * B, B, mu, e);
+    e.template fill<kPhase != Phase::no_expcon>(sp, k > 0, pairs, x, u, xref + (size_t)k * n * B,
+                                                lam + (size_t)k * nc * B, B, mu);
 
     // Qx = lx + A^T Vx: rows 3r+2 pick up the E corrections
 #pragma unroll
@@ -227,7 +271,7 @@ NMPC_DEV float backward_sweep(const InnerArgs& a, const float* sp, int b,
                                : dt * row[3 * s + 2];
         }
         const float v = (j % 2 == 0) ? e.bc[r] * vb[0] + e.bs[r] * vb[1] : dt * vb[2];
-        Quu[j * nu + i] = (i == j ? e.luu_d[j] : 0.f) + v;
+        Quu[j * nu + i] = e.luu(j, i) + v;
       }
     }
     // per robot block r: VA = Vxx A rows 3r..3r+2, then Qux = B^T VA rows
@@ -258,24 +302,60 @@ NMPC_DEV float backward_sweep(const InnerArgs& a, const float* sp, int b,
     }
 
     // gains: [kff | Kfb] = -(Quu + reg I)^-1 [Qu | Qux]
-    chol<nu>(Quu, a.reg, inv);
-#pragma unroll
-    for (int i = 0; i < nu; ++i) kf[i] = Qu[i];
-    chol_solve<nu>(Quu, inv, kf);
-#pragma unroll
-    for (int i = 0; i < nu; ++i) {
-      kf[i] = -kf[i];
-      kff[(size_t)(k * nu + i) * B] = kf[i];
-    }
+    if constexpr (kPhase == Phase::no_solve) {
+      // diagonal gains: the factorization and substitutions ablated
+      for (int i = 0; i < nu; ++i) {
+        inv[i] = 1.f / (Quu[i * nu + i] + a.reg);
+        kf[i] = -(inv[i] * Qu[i]);
+        kff[(size_t)(k * nu + i) * B] = kf[i];
+      }
 #pragma unroll 1
-    for (int c = 0; c < n; ++c) {
+      for (int c = 0; c < n; ++c) {
+        for (int i = 0; i < nu; ++i) {
+          K[i * n + c] = -(inv[i] * Qux[i * n + c]);
+          Kfb[(size_t)((k * nu + i) * n + c) * B] = K[i * n + c];
+        }
+      }
+    } else if constexpr (kPhase == Phase::inv_solve) {
+      // substitutions through the explicit inverse of the factor
+      float Linv[nu * nu];
+      chol<nu>(Quu, a.reg, inv);
+      chol_inverse<nu>(Quu, inv, Linv);
+      for (int i = 0; i < nu; ++i) kf[i] = Qu[i];
+      inv_solve<nu>(Linv, kf);
+      for (int i = 0; i < nu; ++i) {
+        kf[i] = -kf[i];
+        kff[(size_t)(k * nu + i) * B] = kf[i];
+      }
+#pragma unroll 1
+      for (int c = 0; c < n; ++c) {
+        for (int i = 0; i < nu; ++i) col[i] = Qux[i * n + c];
+        inv_solve<nu>(Linv, col);
+        for (int i = 0; i < nu; ++i) {
+          K[i * n + c] = -col[i];
+          Kfb[(size_t)((k * nu + i) * n + c) * B] = -col[i];
+        }
+      }
+    } else {  // K1's gains
+      chol<nu>(Quu, a.reg, inv);
 #pragma unroll
-      for (int i = 0; i < nu; ++i) col[i] = Qux[i * n + c];
-      chol_solve<nu>(Quu, inv, col);
+      for (int i = 0; i < nu; ++i) kf[i] = Qu[i];
+      chol_solve<nu>(Quu, inv, kf);
 #pragma unroll
       for (int i = 0; i < nu; ++i) {
-        K[i * n + c] = -col[i];
-        Kfb[(size_t)((k * nu + i) * n + c) * B] = -col[i];
+        kf[i] = -kf[i];
+        kff[(size_t)(k * nu + i) * B] = kf[i];
+      }
+#pragma unroll 1
+      for (int c = 0; c < n; ++c) {
+#pragma unroll
+        for (int i = 0; i < nu; ++i) col[i] = Qux[i * n + c];
+        chol_solve<nu>(Quu, inv, col);
+#pragma unroll
+        for (int i = 0; i < nu; ++i) {
+          K[i * n + c] = -col[i];
+          Kfb[(size_t)((k * nu + i) * n + c) * B] = -col[i];
+        }
       }
     }
 
@@ -352,7 +432,12 @@ NMPC_DEV float closed_loop_rollout(const InnerArgs& a, const float* sp, int b,
 // A done scenario leaves the loop: its further iterations would be no-ops
 // (alpha = 0 reproduces the nominal exactly), which is also why an
 // unimproved step skips the accepted rollout.
-template <int NR>
+//
+// The defaults of Exp, kPhase and kEarlyExit are K1. The phase ablation and
+// the layout A/B of csrc/tools.cu instantiate the same body with another
+// expansion layout or Phase, and with kEarlyExit = false: every scenario then
+// runs n_inner iterations and counts each, as the reference's ablations do.
+template <int NR, class Exp = Expansion<NR>, Phase kPhase = Phase::full, bool kEarlyExit = true>
 NMPC_DEV void inner_solve_thread(const InnerArgs& a, const float* sp, int b) {
   using D = Dims<NR>;
   constexpr int n = D::n, nu = D::nu;
@@ -376,8 +461,9 @@ NMPC_DEV void inner_solve_thread(const InnerArgs& a, const float* sp, int b) {
     }
 #pragma unroll
     for (int i = 0; i < n; ++i) a.Xs[(size_t)(k * n + i) * B + b] = x[i];
-    cost += stage_merit<NR>(sp, k > 0, pairs, x, u, a.xref + b + (size_t)k * n * B,
-                            a.lam + b + (size_t)k * nc * B, B, mu);
+    if constexpr (kPhase != Phase::sweep_only)
+      cost += stage_merit<NR>(sp, k > 0, pairs, x, u, a.xref + b + (size_t)k * n * B,
+                              a.lam + b + (size_t)k * nc * B, B, mu);
     euler_rows<NR>(x, u, dt, x);
   }
 
@@ -385,8 +471,16 @@ NMPC_DEV void inner_solve_thread(const InnerArgs& a, const float* sp, int b) {
   float trial = 1.f;
 #pragma unroll 1
   for (int it = 0; it < a.n_inner; ++it) {
-    const float dV1 = backward_sweep<NR>(a, sp, b, mu, nc);
+    const float dV1 = backward_sweep<NR, Exp, kPhase>(a, sp, b, mu, nc);
     const float slope = relu(-dV1);
+    if constexpr (kPhase == Phase::sweep_only) {
+      ++iters;
+      continue;
+    } else if constexpr (kPhase != Phase::full) {
+      closed_loop_rollout<NR>(a, sp, b, mu, nc, 1.f, true);
+      ++iters;
+      continue;
+    }
 
     float best_cost = cost, best_alpha = 0.f;
     if (a.adaptive) {
@@ -419,12 +513,16 @@ NMPC_DEV void inner_solve_thread(const InnerArgs& a, const float* sp, int b) {
     const bool improved = best_alpha > 0.f;
     if (improved) closed_loop_rollout<NR>(a, sp, b, mu, nc, best_alpha, true);
     const float cost_new = improved ? best_cost : cost;
-    const float rel = (cost - cost_new) / (1.f + fabsf(cost));
-    const bool stop = a.adaptive
-        ? ((improved && rel < a.tol_cost) || (!improved && trial <= a.ls_trial_min))
-        : (!improved || rel < a.tol_cost);
-    cost = cost_new;
-    if (stop) break;
+    if constexpr (kEarlyExit) {
+      const float rel = (cost - cost_new) / (1.f + fabsf(cost));
+      const bool stop = a.adaptive
+          ? ((improved && rel < a.tol_cost) || (!improved && trial <= a.ls_trial_min))
+          : (!improved || rel < a.tol_cost);
+      cost = cost_new;
+      if (stop) break;
+    } else {
+      cost = cost_new;
+    }
     ++iters;
   }
   a.cost[b] = cost;

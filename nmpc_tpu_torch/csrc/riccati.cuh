@@ -52,6 +52,42 @@ NMPC_DEV void chol_solve(const float* L, const float* inv, float* y) {
   }
 }
 
+// Explicit inverse of the lower factor from chol(): Linv [M, M] row-major,
+// lower triangle written (port of riccati_pallas.py::_chol_solve_inv, the
+// reference's recorded negative result). Only the phase ablation
+// (Phase::inv_solve, csrc/tools.cu) calls it; no production kernel does.
+template <int M>
+NMPC_DEV void chol_inverse(const float* L, const float* inv, float* Linv) {
+#pragma unroll 1
+  for (int j = 0; j < M; ++j) {
+    Linv[j * M + j] = inv[j];
+    for (int i = j + 1; i < M; ++i) {
+      float acc = L[i * M + j] * Linv[j * M + j];
+      for (int k = j + 1; k < i; ++k) acc = acc + L[i * M + k] * Linv[k * M + j];
+      Linv[i * M + j] = -inv[i] * acc;
+    }
+  }
+}
+
+// Solve (L L^T) y = rhs in place through Linv from chol_inverse():
+// y = Linv^T (Linv rhs), each sum in the reference's order.
+template <int M>
+NMPC_DEV void inv_solve(const float* Linv, float* y) {
+  float t[M];
+#pragma unroll 1
+  for (int i = 0; i < M; ++i) {
+    float acc = Linv[i * M] * y[0];
+    for (int k = 1; k <= i; ++k) acc = acc + Linv[i * M + k] * y[k];
+    t[i] = acc;
+  }
+#pragma unroll 1
+  for (int i = 0; i < M; ++i) {
+    float acc = Linv[i * M + i] * t[i];
+    for (int k = i + 1; k < M; ++k) acc = acc + Linv[k * M + i] * t[k];
+    y[i] = acc;
+  }
+}
+
 // out[a, c] += (X^T Y)[a, c] for X [R, A], Y [R, C], all row-major; the
 // product is summed first and then added, as _mtm's callers do.
 template <int R, int A, int C>

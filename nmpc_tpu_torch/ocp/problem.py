@@ -20,6 +20,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from nmpc_tpu_torch.device import DEVICE
 from nmpc_tpu_torch.models.unicycle import discrete_dynamics
 
 # A finite stand-in for +inf bounds: keeps AL arithmetic NaN-free while making
@@ -134,7 +135,7 @@ class OCP:
         })
 
 
-def default_weights(m: int, dtype=torch.float32, device=None):
+def default_weights(m: int, dtype=torch.float32, device=DEVICE):
     """Per-robot Q = diag(1, 5, 0.1), R = diag(0.5, 0.05)."""
     Q = torch.tensor([1.0, 5.0, 0.1], dtype=dtype, device=device).repeat(m)
     R = torch.tensor([0.5, 0.05], dtype=dtype, device=device).repeat(m)
@@ -168,7 +169,7 @@ def make_ocp(
     mov_obs=None,
     integrator: str = "euler",
     dtype=torch.float32,
-    device=None,
+    device=DEVICE,
 ) -> OCP:
     """Convenience constructor mirroring the knobs of the reference scripts."""
     kw = dict(dtype=dtype, device=device)
@@ -250,7 +251,7 @@ def make_ocp(
     )
 
 
-def ocp_from_numpy(arrays: dict, device=None, **meta) -> OCP:
+def ocp_from_numpy(arrays: dict, device=DEVICE, **meta) -> OCP:
     """The port's OCP from the data fields of a reference OCP, each given as
     a numpy array, plus its static metadata (the OCP_META fields). This is
     how a problem built by `nmpc_tpu` crosses to the port unchanged."""

@@ -3,12 +3,16 @@ a plain C interface, loaded with ctypes), and what every kernel wrapper
 shares: the launch counters, argument checks, pointers and the lane-major
 layout.
 
-One library per robot count m: `csrc/megasolve.cu` (K1, K2) and
-`csrc/staged.cu` (K3-K6), each compiled by its own nvcc process with
--DNMPC_NR=m, linked together. A library is built at its first use from the
-sources in the checkout into `nmpc_tpu_torch/_build/`, named by a hash of
-the sources and flags so a stale build is never loaded, and reused from
-there afterwards. Nothing here runs at import time.
+The solver's kernels: one library per robot count m, `csrc/megasolve.cu`
+(K1, K2) and `csrc/staged.cu` (K3-K6), each compiled by its own nvcc
+process with -DNMPC_NR=m, linked together (`load`). The roofline tools' K7-K9
+(`csrc/tools.cu`) are a library of their own (`load_tools`), so the solver
+library's kernel set, build time and code generation stay as they are: nine
+nvcc processes, one per part of tools.cu. A library is built at its first use
+from the sources in the checkout into `nmpc_tpu_torch/_build/`, named by a
+hash of the sources (the headers they include too) and flags so a stale build
+is never loaded, and reused from there afterwards. Nothing here runs at
+import time.
 """
 
 from __future__ import annotations
@@ -30,21 +34,31 @@ SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 UNITS = ("megasolve.cu", "staged.cu")       # one nvcc process each
 SOURCES = (*UNITS, "megasolve.cuh", "staged.cuh", "riccati.cuh", "rollout.cuh")
+TOOLS_SOURCES = ("tools.cu", "tools.cuh", "megasolve.cuh", "riccati.cuh", "rollout.cuh")
+# the parts of tools.cu (-DNMPC_TOOLS_PART=i), one nvcc process each
+TOOLS_PARTS = ("K7", "K8 full, early exit", "K8 full", "K8 inv_solve", "K8 no_ls",
+               "K8 no_solve", "K8 no_expcon", "K8 sweep_only", "K9 dense")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # robot counts of the scenario registry; one library each
 ROBOT_COUNTS = (1, 2, 3, 4, 5, 6, 8, 10)
+# robot count of the main path (six_robot_antipodal): the tools library
+# that load_all builds
+BENCH_ROBOTS = 6
 
 # Kernel launches since the last reset: each wrapper adds one where it
 # launches its CUDA kernel, and nowhere else.
 launch_counts = {"inner_solve_fused": 0, "al_update_lanes": 0,
                  "expansions_fused": 0, "riccati_lanes": 0,
-                 "linesearch_costs_lanes": 0, "rollout_alpha_lanes": 0}
+                 "linesearch_costs_lanes": 0, "rollout_alpha_lanes": 0,
+                 "fma_peak": 0, "phase_ablation": 0, "expansion_ab": 0}
 
-_locks = {m: threading.Lock() for m in ROBOT_COUNTS}
-_libs: dict[int, ctypes.CDLL] = {}
+_locks = {(kind, m): threading.Lock() for kind in ("solver", "tools") for m in ROBOT_COUNTS}
+_libs: dict[tuple[str, int], ctypes.CDLL] = {}
 # per m: {"path", "seconds" (0.0 when reused), "ptxas" (compiler report)}
 build_info: dict[int, dict] = {}
+# per m: the same for the tools library, "ptxas" per part {TOOLS_PARTS[i]: report}
+tools_build_info: dict[int, dict] = {}
 
 
 def reset_launch_counts() -> None:
@@ -65,9 +79,9 @@ def nvcc() -> str:
     return found
 
 
-def _key(m: int) -> str:
+def _key(sources: tuple, m: int) -> str:
     h = hashlib.sha256()
-    for name in SOURCES:
+    for name in sources:
         h.update(name.encode())
         h.update((SRC_DIR / name).read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
@@ -96,6 +110,22 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     return lib
 
 
+def _bind_tools(lib: ctypes.CDLL) -> ctypes.CDLL:
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    inner = [P] * 12 + [I] * 7 + [F] * 6 + [P]   # K1's argument list
+    lib.nmpc_robots.argtypes = []
+    lib.nmpc_robots.restype = I
+    lib.nmpc_error_string.argtypes = [I]
+    lib.nmpc_error_string.restype = ctypes.c_char_p
+    lib.nmpc_fma_peak.argtypes = [P, P, F, F, I, I, ctypes.c_longlong, P]
+    lib.nmpc_fma_peak.restype = I
+    lib.nmpc_phase_ablation.argtypes = [I, I] + inner
+    lib.nmpc_phase_ablation.restype = I
+    lib.nmpc_expansion_ab.argtypes = [I] + inner
+    lib.nmpc_expansion_ab.restype = I
+    return lib
+
+
 def _run(cmd: list[str], what: str) -> str:
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
@@ -104,45 +134,83 @@ def _run(cmd: list[str], what: str) -> str:
     return proc.stdout + proc.stderr
 
 
+def _build(stem: str, jobs: list, what: str) -> tuple:
+    """Compile each (source, extra nvcc flags) job in its own nvcc process,
+    all at once, and link the objects into BUILD_DIR/<stem>.so, unless that
+    exists. Returns (path, seconds (0.0 when reused), the compiler report of
+    each job)."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    path = BUILD_DIR / f"{stem}.so"
+    logs = [BUILD_DIR / f"{stem}.{i}.log" for i in range(len(jobs))]
+    seconds = 0.0
+    if not path.exists():
+        tmp = f"{stem}.{os.getpid()}.{threading.get_ident()}"
+        objs = [BUILD_DIR / f"{tmp}.{i}.o" for i in range(len(jobs))]
+        t0 = time.perf_counter()
+
+        def compile_one(obj, job):
+            src, flags = job
+            return _run([nvcc(), *NVCC_FLAGS, *flags, "-c", "-o", str(obj), str(SRC_DIR / src)],
+                        f"{src} {' '.join(flags)} ({what})")
+
+        try:
+            with ThreadPoolExecutor(max_workers=len(jobs)) as pool:
+                texts = list(pool.map(compile_one, objs, jobs))
+            so = BUILD_DIR / f"{tmp}.so"
+            _run([nvcc(), "-shared", "-gencode", "arch=compute_90a,code=sm_90a",
+                  "-o", str(so), *map(str, objs)], f"linking {what}")
+        finally:
+            for o in objs:
+                o.unlink(missing_ok=True)
+        seconds = time.perf_counter() - t0
+        for log, text in zip(logs, texts):
+            log.write_text(text)
+        os.replace(so, path)  # atomic: a concurrent loader sees all or nothing
+    return path, seconds, [log.read_text() if log.exists() else "" for log in logs]
+
+
+def _check_robots(lib: ctypes.CDLL, path, m: int) -> None:
+    if lib.nmpc_robots() != m:
+        raise RuntimeError(f"{path} was built for m={lib.nmpc_robots()}, not {m}")
+
+
 def load(m: int) -> ctypes.CDLL:
-    """The kernel library for m robots, built first if needed."""
+    """The solver's kernel library (K1-K6) for m robots, built first if
+    needed."""
     if m not in ROBOT_COUNTS:
         raise NotImplementedError(
             f"CUDA kernels are instantiated for m in {ROBOT_COUNTS}, not m={m}")
-    with _locks[m]:
-        if m in _libs:
-            return _libs[m]
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        stem = f"libnmpc_m{m}_{_key(m)}"
-        path = BUILD_DIR / f"{stem}.so"
-        log = BUILD_DIR / f"{stem}.log"
-        seconds = 0.0
-        if not path.exists():
-            tmp = f"{stem}.{os.getpid()}.{threading.get_ident()}"
-            objs = [BUILD_DIR / f"{tmp}.{unit}.o" for unit in UNITS]
-            t0 = time.perf_counter()
-            try:
-                with ThreadPoolExecutor(max_workers=len(UNITS)) as pool:
-                    logs = list(pool.map(
-                        lambda uo: _run([nvcc(), *NVCC_FLAGS, f"-DNMPC_NR={m}", "-c",
-                                         "-o", str(uo[1]), str(SRC_DIR / uo[0])],
-                                        f"{uo[0]}, m={m}"),
-                        zip(UNITS, objs)))
-                so = BUILD_DIR / f"{tmp}.so"
-                _run([nvcc(), "-shared", "-gencode", "arch=compute_90a,code=sm_90a",
-                      "-o", str(so), *map(str, objs)], f"linking m={m}")
-            finally:
-                for o in objs:
-                    o.unlink(missing_ok=True)
-            seconds = time.perf_counter() - t0
-            log.write_text("".join(logs))
-            os.replace(so, path)  # atomic: a concurrent loader sees all or nothing
+    with _locks["solver", m]:
+        if ("solver", m) in _libs:
+            return _libs["solver", m]
+        path, seconds, texts = _build(
+            f"libnmpc_m{m}_{_key(SOURCES, m)}",
+            [(unit, [f"-DNMPC_NR={m}"]) for unit in UNITS], f"m={m}")
         lib = _bind(ctypes.CDLL(str(path)))
-        if lib.nmpc_robots() != m:
-            raise RuntimeError(f"{path} was built for m={lib.nmpc_robots()}, not {m}")
-        build_info[m] = {"path": str(path), "seconds": seconds,
-                         "ptxas": log.read_text() if log.exists() else ""}
-        _libs[m] = lib
+        _check_robots(lib, path, m)
+        build_info[m] = {"path": str(path), "seconds": seconds, "ptxas": "".join(texts)}
+        _libs["solver", m] = lib
+        return lib
+
+
+def load_tools(m: int) -> ctypes.CDLL:
+    """The roofline tools' kernel library (K7-K9) for m robots, built first
+    if needed: the nine parts of csrc/tools.cu, one nvcc process each."""
+    if m not in ROBOT_COUNTS:
+        raise NotImplementedError(
+            f"CUDA kernels are instantiated for m in {ROBOT_COUNTS}, not m={m}")
+    with _locks["tools", m]:
+        if ("tools", m) in _libs:
+            return _libs["tools", m]
+        path, seconds, texts = _build(
+            f"libnmpc_tools_m{m}_{_key(TOOLS_SOURCES, m)}",
+            [("tools.cu", [f"-DNMPC_NR={m}", f"-DNMPC_TOOLS_PART={i}"])
+             for i in range(len(TOOLS_PARTS))], f"tools, m={m}")
+        lib = _bind_tools(ctypes.CDLL(str(path)))
+        _check_robots(lib, path, m)
+        tools_build_info[m] = {"path": str(path), "seconds": seconds,
+                               "ptxas": dict(zip(TOOLS_PARTS, texts))}
+        _libs["tools", m] = lib
         return lib
 
 
@@ -155,9 +223,13 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
 
 def load_all() -> dict[int, ctypes.CDLL]:
     """Build (every source of every instantiation in its own nvcc process,
-    all started together) and load every instantiation."""
-    with ThreadPoolExecutor(max_workers=len(ROBOT_COUNTS)) as pool:
+    all started together) and load every solver instantiation and the tools
+    library for the main path's BENCH_ROBOTS. Returns the solver libraries
+    by m."""
+    with ThreadPoolExecutor(max_workers=len(ROBOT_COUNTS) + 1) as pool:
+        tools = pool.submit(load_tools, BENCH_ROBOTS)
         libs = list(pool.map(load, ROBOT_COUNTS))
+        tools.result()
     return dict(zip(ROBOT_COUNTS, libs))
 
 

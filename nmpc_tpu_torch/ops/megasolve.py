@@ -146,6 +146,17 @@ def _forward(ocp: OCP, X, U, kff, Kfb, alpha):
     return torch.stack(xs, dim=1), torch.stack(us, dim=1)
 
 
+def al_merit(o: OCP, X, U, lam, mu):
+    """AL merit [B] of trajectories X [B, N+1, nx], U [B, N, nu] under duals
+    lam [B, N, n_con] and penalty weights mu [B], with the stage-0 state rows
+    masked hard (a NaN dual there must not leak into the merit)."""
+    mask = P.constraint_mask(o) > 0
+    c = P.trajectory_constraints(o, X, U)
+    act = torch.clamp(lam - mu[:, None, None] * c, min=0.0)
+    act = torch.where(mask, act, torch.zeros_like(act))
+    return P.total_cost(o, X, U) + torch.sum(act * act, dim=(1, 2)) / (2.0 * mu)
+
+
 def inner_solve_plain(ocp: OCP, x0, xref, lam, mu, U, cfg: ALILQRConfig):
     """Plain PyTorch K1: n_inner iLQR iterations per scenario on the AL merit.
 
@@ -167,12 +178,7 @@ def inner_solve_plain(ocp: OCP, x0, xref, lam, mu, U, cfg: ALILQRConfig):
     mask = P.constraint_mask(o) > 0  # [N, n_con]; False = stage-0 state rows
 
     def merit(X, U):
-        # AL merit with the stage-0 state rows masked hard (a NaN dual there
-        # must not leak into the merit)
-        c = P.trajectory_constraints(o, X, U)
-        act = torch.clamp(lam - mu[:, None, None] * c, min=0.0)
-        act = torch.where(mask, act, torch.zeros_like(act))
-        return P.total_cost(o, X, U) + torch.sum(act * act, dim=(1, 2)) / (2.0 * mu)
+        return al_merit(o, X, U, lam, mu)
 
     # the masked rows only feed the stage-0 value function, which nothing
     # reads; zero their duals so a non-finite warm start cannot reach the gains
@@ -237,9 +243,21 @@ def inner_solve_fused(ocp: OCP, x0, xref, lam, mu, U, cfg: ALILQRConfig):
     CPU tensors. Same arguments and results as `inner_solve_plain`."""
     if x0.device.type == "cpu":
         return inner_solve_plain(ocp, x0, xref, lam, mu, U, cfg)
+    return inner_launch(ocp, x0, xref, lam, mu, U, cfg, "inner_solve_fused",
+                        cuda_build.load, lambda lib: lib.nmpc_inner_solve)
+
+
+def inner_launch(ocp: OCP, x0, xref, lam, mu, U, cfg: ALILQRConfig, what: str,
+                 load, entry):
+    """Launch K1, or a variant of it with K1's argument list (the phase
+    ablation and layout A/B of the roofline tools), on CUDA tensors: checks
+    the arguments, moves them to the lane-major layout, calls
+    entry(load(ocp.m))(*K1's arguments), raises if the launch failed and
+    counts it under `what`. Returns (Xs, U, cost, iters) in the standard
+    layout."""
     if x0.device.type != "cuda":
-        raise NotImplementedError(f"inner_solve_fused: no kernel for {x0.device}")
-    _require_cuda(ocp, cfg, "inner_solve_fused")
+        raise NotImplementedError(f"{what}: no kernel for {x0.device}")
+    _require_cuda(ocp, cfg, what)
     B, N, n, nu, nc = x0.shape[0], ocp.N, ocp.nx, ocp.nu, ocp.n_con
     dev = x0.device
     for name, t, shape in (("x0", x0, (B, n)), ("xref", xref, (B, N, n)),
@@ -251,7 +269,7 @@ def inner_solve_fused(ocp: OCP, x0, xref, lam, mu, U, cfg: ALILQRConfig):
     iters = torch.empty((B,), dtype=torch.int32, device=dev)
     if B == 0:
         return torch.empty((B, N, n), **f32), U.clone(), cost, iters
-    lib = cuda_build.load(ocp.m)
+    lib = load(ocp.m)
     prm = rollout.params(ocp, cfg.alphas, dev)
     x0_l, xref_l, lam_l, U_l = lane(x0), lane(xref), lane(lam), lane(U)
     mu_c = mu.contiguous()
@@ -259,7 +277,7 @@ def inner_solve_fused(ocp: OCP, x0, xref, lam, mu, U, cfg: ALILQRConfig):
     Uo_l = torch.empty((N, nu, B), **f32)
     kff_l = torch.empty((N, nu, B), **f32)       # scratch: gains
     Kfb_l = torch.empty((N, nu, n, B), **f32)
-    err = lib.nmpc_inner_solve(
+    err = entry(lib)(
         ptr(prm), ptr(x0_l), ptr(xref_l), ptr(lam_l), ptr(mu_c),
         ptr(U_l), ptr(Xs_l), ptr(Uo_l), ptr(cost), ptr(iters),
         ptr(kff_l), ptr(Kfb_l),
@@ -267,6 +285,6 @@ def inner_solve_fused(ocp: OCP, x0, xref, lam, mu, U, cfg: ALILQRConfig):
         cfg.ls_rounds, int(ocp.n_pairs > 0),
         cfg.reg, cfg.armijo, cfg.tol_cost, cfg.ls_beta, cfg.ls_grow,
         cfg.ls_trial_min, cuda_build.stream(dev))
-    cuda_build.check(lib, err, "inner_solve_fused")
-    cuda_build.launch_counts["inner_solve_fused"] += 1
+    cuda_build.check(lib, err, what)
+    cuda_build.launch_counts[what] += 1
     return std(Xs_l), std(Uo_l), cost, iters

@@ -20,6 +20,7 @@ import math
 
 import torch
 
+from nmpc_tpu_torch.device import DEVICE
 from nmpc_tpu_torch.ocp.problem import OCP, make_ocp
 
 _PI = math.pi
@@ -52,7 +53,7 @@ class Scenario:
     inv_dist_weight: float = 0.0
     notes: str = ""
 
-    def make(self, dtype=torch.float32, device=None, **overrides) -> OCP:
+    def make(self, dtype=torch.float32, device=DEVICE, **overrides) -> OCP:
         goal = self.x_goal
         if goal is None:
             assert self.waypoints, f"{self.name}: no goal or waypoints"

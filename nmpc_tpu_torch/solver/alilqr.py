@@ -16,6 +16,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from nmpc_tpu_torch.device import DEVICE
 from nmpc_tpu_torch.models.unicycle import euler_jacobians
 from nmpc_tpu_torch.ocp import problem as P
 from nmpc_tpu_torch.ocp.jacobians import stage_constraint_jacobians
@@ -106,7 +107,7 @@ def cold_start(ocp: OCP, cfg: ALILQRConfig = ALILQRConfig()) -> WarmStart:
     )
 
 
-def warm_from_numpy(U, lam, mu, device=None) -> WarmStart:
+def warm_from_numpy(U, lam, mu, device=DEVICE) -> WarmStart:
     """The port's WarmStart from numpy arrays (e.g. a reference result)."""
     return WarmStart(*(torch.as_tensor(np.array(a), device=device)
                        for a in (U, lam, mu)))

@@ -1,0 +1,98 @@
+"""Compare the machine code (SASS) of the solver's kernels between two
+checkouts: does a change of the sources change what the card runs?
+
+    python -m nmpc_tpu_torch.tools.sass_diff OTHER_CHECKOUT [M]
+
+builds the solver library for M robots (default 6, the main path) in this
+checkout and in OTHER_CHECKOUT, each with its own nmpc_tpu_torch/ops/cuda_build
+(a subprocess for the other), disassembles both with cuobjdump -sass and
+prints, per kernel, its instruction count in each and whether the two listings
+are identical (addresses and encodings included), else how many lines differ.
+Needs nvcc and cuobjdump (the CUDA toolkit), not a card.
+"""
+
+from __future__ import annotations
+
+import difflib
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+from nmpc_tpu_torch.ops import cuda_build
+
+ROOT = Path(__file__).resolve().parents[2]
+
+
+def functions(sass: str) -> dict[str, list[str]]:
+    """{mangled kernel name: its SASS lines, stripped} of a cuobjdump -sass
+    listing."""
+    out, name = {}, None
+    for line in sass.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            name = m[1]
+            out[name] = []
+        elif name is not None and line.strip().startswith("/*"):
+            out[name].append(line.strip())
+    return out
+
+
+def instructions(lines: list[str]) -> int:
+    """Instructions in a function's lines: those with an address."""
+    return sum(1 for line in lines if re.match(r"/\*[0-9a-f]{4,}\*/", line))
+
+
+def compare(a: dict, b: dict) -> dict[str, tuple]:
+    """Per kernel of either listing: (instructions in a, instructions in b,
+    lines that differ; None where one side lacks the kernel)."""
+    out = {}
+    for name in sorted(a.keys() | b.keys()):
+        if name not in a or name not in b:
+            out[name] = (instructions(a.get(name, [])), instructions(b.get(name, [])), None)
+            continue
+        diff = difflib.unified_diff(a[name], b[name], lineterm="", n=0)
+        changed = sum(1 for d in diff if d[:1] in "+-" and d[:3] not in ("+++", "---"))
+        out[name] = (instructions(a[name]), instructions(b[name]), changed)
+    return out
+
+
+def library(root: Path, m: int) -> str:
+    """Path of the solver library for m robots built by root's own sources."""
+    if root.resolve() == ROOT:
+        cuda_build.load(m)
+        return cuda_build.build_info[m]["path"]
+    code = ("from nmpc_tpu_torch.ops import cuda_build\n"
+            f"cuda_build.load({m})\nprint(cuda_build.build_info[{m}]['path'])\n")
+    env = dict(os.environ, PYTHONPATH=str(root))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=root, env=env,
+                          capture_output=True, text=True, check=True)
+    return proc.stdout.strip().splitlines()[-1]
+
+
+def sass(path: str) -> str:
+    tool = os.path.join(os.path.dirname(cuda_build.nvcc()), "cuobjdump")
+    return subprocess.run([tool, "-sass", path], capture_output=True, text=True,
+                          check=True).stdout
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    if not argv:
+        print(__doc__, file=sys.stderr)
+        return 2
+    other, m = Path(argv[0]), int(argv[1]) if len(argv) > 1 else cuda_build.BENCH_ROBOTS
+    rows = compare(functions(sass(library(ROOT, m))), functions(sass(library(other, m))))
+    print(f"SASS of the m={m} solver library: this checkout against {other}")
+    for name, (na, nb, changed) in rows.items():
+        verdict = ("missing on one side" if changed is None
+                   else "identical" if changed == 0 else f"{changed} lines differ")
+        print(f"  {name}: {na} / {nb} instructions, {verdict}")
+    same = all(c == 0 for *_, c in rows.values())
+    print(f"all kernels identical: {'yes' if same else 'no'}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

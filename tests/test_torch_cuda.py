@@ -15,6 +15,10 @@ rounding can flip near-tied alpha picks). K3-K6: the CPU tests' tolerances
 magnitude of an output where that exceeds 1, by the rule of
 nmpc_tpu_torch/ops/kernel_check.py that chip_smoke.py phase 10 applies too;
 at these inputs no scenario may diverge or pass by the f32 spread alone.
+K7 bit for bit (the plain chain rounds each exact f64 step once, as the
+FMA); K8's modes and K9's layouts at 4 fixed iterations as K1; K8 `full`
+with the early exit against K1, and K9 structured against K8 `full`, bit for
+bit (the same device code).
 """
 
 import dataclasses
@@ -93,7 +97,8 @@ def test_solve_batched_on_the_card(dev):
     steps = int(res.outer_iters.max())
     assert cuda_build.launch_counts == {
         "inner_solve_fused": steps, "al_update_lanes": steps, "expansions_fused": 0,
-        "riccati_lanes": 0, "linesearch_costs_lanes": 0, "rollout_alpha_lanes": 0}
+        "riccati_lanes": 0, "linesearch_costs_lanes": 0, "rollout_alpha_lanes": 0,
+        "fma_peak": 0, "phase_ablation": 0, "expansion_ab": 0}
     assert torch.isfinite(res.cost).all() and res.X.shape == (512, 11, 18)
     assert float(res.converged.float().mean()) >= 0.9
 
@@ -168,7 +173,8 @@ def test_staged_kernels_match_plain(dev, name):
         assert v.units > 0 and v.n_diverged == 0 and v.n_widened == 0, k
     assert cuda_build.launch_counts == {
         "inner_solve_fused": 0, "al_update_lanes": 0, "expansions_fused": 1,
-        "riccati_lanes": 1, "linesearch_costs_lanes": 1, "rollout_alpha_lanes": 1}
+        "riccati_lanes": 1, "linesearch_costs_lanes": 1, "rollout_alpha_lanes": 1,
+        "fma_peak": 0, "phase_ablation": 0, "expansion_ab": 0}
 
 
 @pytest.mark.parametrize("name", ["six_robot_antipodal", "obstacle_scenario_3"])
@@ -206,3 +212,69 @@ def test_staged_wrappers_refuse_what_the_kernels_do_not_cover(dev):
     bad = tuple(torch.zeros((5, 4, 4, 64), device=dev) for _ in range(7))
     with pytest.raises(NotImplementedError, match="n = 3m"):
         riccati_lanes(bad)
+
+
+# ---------------------------------------------------------------------------
+# The roofline tools (K7-K9) and the default device
+# ---------------------------------------------------------------------------
+
+
+def test_builders_put_tensors_on_the_card(dev):
+    ocp = get("six_robot_antipodal").make(N=10)
+    assert all(t.device.type == "cuda" for t in (ocp.x0, ocp.xref, ocp.Qdiag, ocp.u_hi))
+    assert P.make_ocp(m=1, N=3, T=0.1, x0=[0, 0, 0], x_goal=[1, 0, 0]).x0.device.type == "cuda"
+    assert P.default_weights(2)[0].device.type == "cuda"
+
+
+def test_fma_peak_kernel_matches_plain(dev):
+    from nmpc_tpu_torch.tools import roofline as RL
+
+    for C in RL.FMA_CHAINS:
+        x0 = 1.0 + 1e-3 * torch.rand((C, 300), device=dev)
+        got = RL.fma_peak(x0, 1.0000001, 1e-7, 64)
+        want = RL.fma_chain_plain(x0, 1.0000001, 1e-7, 64)
+        assert torch.equal(got, want), C
+
+
+@pytest.mark.parametrize("mode", ["full", "inv_solve", "no_ls", "no_solve", "no_expcon",
+                                  "sweep_only"])
+def test_phase_ablation_kernel_matches_plain(dev, mode):
+    from nmpc_tpu_torch.tools import exp_mega_phases as K8
+
+    # the ablation's own inputs: lam 0, mu 10, U 0 (at mu up to 1e4 the
+    # modes' undamped alpha = 1 steps diverge, and kernel and plain part)
+    ob, U, lam, mu = _case("six_robot_antipodal", 256, dev, seed=2)
+    U, lam, mu = torch.zeros_like(U), torch.zeros_like(lam), torch.full_like(mu, 10.0)
+    cfg = ALILQRConfig(ls="adaptive")
+    got = K8.phase_ablation(ob, ob.x0, ob.xref, lam, mu, U, cfg, mode, 4)
+    want = K8.phase_ablation_plain(ob, ob.x0, ob.xref, lam, mu, U, cfg, mode, 4)
+    torch.testing.assert_close(got[2], want[2], rtol=1e-4, atol=0.0)
+    torch.testing.assert_close(got[1], want[1], rtol=0.0, atol=5e-3)
+    assert (got[3] == 4).all() and torch.isfinite(got[0]).all()
+
+
+def test_phase_ablation_with_the_early_exit_is_k1(dev):
+    from nmpc_tpu_torch.tools import exp_mega_phases as K8
+
+    ob, U, lam, mu = _case("six_robot_antipodal", 256, dev, seed=3)
+    cfg = ALILQRConfig(n_inner=6, ls="adaptive")
+    k1 = megasolve.inner_solve_fused(ob, ob.x0, ob.xref, lam, mu, U, cfg)
+    got = K8.phase_ablation(ob, ob.x0, ob.xref, lam, mu, U, cfg, "full", 6, early_exit=True)
+    assert all(torch.equal(a, b) for a, b in zip(got, k1))
+
+
+@pytest.mark.parametrize("layout", ["structured", "dense"])
+def test_expansion_ab_kernel_matches_plain(dev, layout):
+    from nmpc_tpu_torch.tools import exp_blocked_expansions as K9
+    from nmpc_tpu_torch.tools import exp_mega_phases as K8
+
+    ob, _, _, _ = _case("six_robot_antipodal", 256, dev, seed=4)
+    lam, mu, U = K9.ab_inputs(ob)
+    cfg = ALILQRConfig(ls="adaptive")
+    got = K9.expansion_ab(ob, ob.x0, ob.xref, lam, mu, U, cfg, layout, 4)
+    want = K9.expansion_ab_plain(ob, ob.x0, ob.xref, lam, mu, U, cfg, 4)
+    torch.testing.assert_close(got[2], want[2], rtol=1e-4, atol=0.0)
+    torch.testing.assert_close(got[1], want[1], rtol=0.0, atol=5e-3)
+    if layout == "structured":   # K8's full mode, bit for bit
+        full = K8.phase_ablation(ob, ob.x0, ob.xref, lam, mu, U, cfg, "full", 4)
+        assert all(torch.equal(a, b) for a, b in zip(got, full))

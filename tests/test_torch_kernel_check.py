@@ -82,9 +82,9 @@ def _iterate(name, B, N, seed=0):
     g = torch.Generator().manual_seed(seed)
     if name == "moving":
         ocp = P.make_ocp(m=1, N=N, T=0.1, x0=[0.0, 0.0, 0.0], x_goal=[0.6, 0.0, 0.0], dmin=0.3,
-                         mov_obs=torch.zeros((N, 2, 2)))
+                         mov_obs=torch.zeros((N, 2, 2)), device="cpu")
     else:
-        ocp = get(name).make(N=N)
+        ocp = get(name).make(N=N, device="cpu")
     x0 = ocp.x0[None] + 0.05 * torch.randn((B, ocp.nx), generator=g)
     ob = dataclasses.replace(ocp, x0=x0, xref=ocp.xref[None].expand(B, N, ocp.nx).contiguous())
     if ocp.n_mov:

@@ -37,7 +37,7 @@ B = 128
 def port_ocp(o):
     data = {f.name: np.asarray(getattr(o, f.name))
             for f in dataclasses.fields(o) if f.name not in JP.OCP_META}
-    return TP.ocp_from_numpy(data, **{k: getattr(o, k) for k in JP.OCP_META})
+    return TP.ocp_from_numpy(data, device="cpu", **{k: getattr(o, k) for k in JP.OCP_META})
 
 
 def _t(a):
@@ -130,19 +130,20 @@ def test_cpu_wrappers_take_the_plain_versions():
     megasolve.al_update_lanes(o, got[0], got[1], _t(lam), _t(mu), 1e6)
     assert cuda_build.launch_counts == {
         "inner_solve_fused": 0, "al_update_lanes": 0, "expansions_fused": 0,
-        "riccati_lanes": 0, "linesearch_costs_lanes": 0, "rollout_alpha_lanes": 0}
+        "riccati_lanes": 0, "linesearch_costs_lanes": 0, "rollout_alpha_lanes": 0,
+        "fma_peak": 0, "phase_ablation": 0, "expansion_ab": 0}
 
 
 def test_cuda_admission_rule():
     from nmpc_tpu_torch.scenarios import get
 
     cfg = ALILQRConfig(ls="adaptive")
-    assert megasolve.cuda_unsupported(get("six_robot_antipodal").make(N=10), cfg) is None
-    assert megasolve.cuda_unsupported(get("ten_robot").make(), cfg) is None
-    assert megasolve.cuda_unsupported(get("two_robot_centralized").make(), cfg) is None
-    assert "n_obs" in megasolve.cuda_unsupported(get("obstacle_scenario_1").make(), cfg)
-    assert "num_rays" in megasolve.cuda_unsupported(get("lidar_v4").make(), cfg)
-    six = get("six_robot_antipodal").make(N=10)
+    assert megasolve.cuda_unsupported(get("six_robot_antipodal").make(N=10, device="cpu"), cfg) is None
+    assert megasolve.cuda_unsupported(get("ten_robot").make(device="cpu"), cfg) is None
+    assert megasolve.cuda_unsupported(get("two_robot_centralized").make(device="cpu"), cfg) is None
+    assert "n_obs" in megasolve.cuda_unsupported(get("obstacle_scenario_1").make(device="cpu"), cfg)
+    assert "num_rays" in megasolve.cuda_unsupported(get("lidar_v4").make(device="cpu"), cfg)
+    six = get("six_robot_antipodal").make(N=10, device="cpu")
     assert "compact" in megasolve.cuda_unsupported(six, dataclasses.replace(cfg, compact=True))
     assert "scan" in megasolve.cuda_unsupported(six, dataclasses.replace(cfg, sweep="scan"))
     seven = dataclasses.replace(six, m=7)

@@ -30,7 +30,7 @@ def port_ocp(o):
     data = {f.name: np.asarray(getattr(o, f.name))
             for f in dataclasses.fields(o) if f.name not in JP.OCP_META}
     meta = {k: getattr(o, k) for k in JP.OCP_META}
-    return TP.ocp_from_numpy(data, **meta)
+    return TP.ocp_from_numpy(data, device="cpu", **meta)
 
 
 def test_registry_has_the_same_entries():
@@ -43,7 +43,7 @@ def test_registry_has_the_same_entries():
 @pytest.mark.parametrize("name", list(JAX_REGISTRY))
 def test_registry_make_matches_reference(name):
     ref = JAX_REGISTRY[name].make()
-    got = REGISTRY[name].make()
+    got = REGISTRY[name].make(device="cpu")
     for f in dataclasses.fields(ref):
         a, b = getattr(ref, f.name), getattr(got, f.name)
         if f.name in JP.OCP_META:
@@ -170,7 +170,7 @@ def test_batch_helpers_and_cold_start():
     from nmpc_tpu_torch.parallel.batch import batch_ocp, random_starts
     from nmpc_tpu_torch.solver.alilqr import ALILQRConfig, cold_start
 
-    base = REGISTRY["six_robot_antipodal"].make(N=10)
+    base = REGISTRY["six_robot_antipodal"].make(N=10, device="cpu")
     ob = random_starts(base, torch.Generator().manual_seed(0), 64, spread=0.2)
     assert ob.x0.shape == (64, 18) and ob.xref.shape == (64, 10, 18)
     d = (ob.x0 - base.x0).reshape(64, 6, 3).abs().amax(dim=(0, 1))

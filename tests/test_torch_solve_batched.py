@@ -42,7 +42,7 @@ BENCH = dict(n_outer=6, n_inner=12, tol_con=1e-3, ls="adaptive")   # bench.py
 def port_ocp(o):
     data = {f.name: np.asarray(getattr(o, f.name))
             for f in dataclasses.fields(o) if f.name not in JP.OCP_META}
-    return TP.ocp_from_numpy(data, **{k: getattr(o, k) for k in JP.OCP_META})
+    return TP.ocp_from_numpy(data, device="cpu", **{k: getattr(o, k) for k in JP.OCP_META})
 
 
 def _batch(name, B, spread, seed, N=10):
@@ -56,7 +56,7 @@ def _batch(name, B, spread, seed, N=10):
 def _both(ob, cfg_kw, warm=None):
     jr = jax.jit(functools.partial(jax_solve_batched, cfg=JaxConfig(**cfg_kw)))(
         ob, None if warm is None else JaxWarm(*(jnp.asarray(a) for a in warm)))
-    tr = solve_batched(port_ocp(ob), None if warm is None else warm_from_numpy(*warm),
+    tr = solve_batched(port_ocp(ob), None if warm is None else warm_from_numpy(*warm, device="cpu"),
                        ALILQRConfig(**cfg_kw))
     return jr, tr
 
@@ -139,7 +139,8 @@ def test_cpu_main_path_launches_no_kernel():
     assert torch.isfinite(res.cost).all()
     assert cuda_build.launch_counts == {
         "inner_solve_fused": 0, "al_update_lanes": 0, "expansions_fused": 0,
-        "riccati_lanes": 0, "linesearch_costs_lanes": 0, "rollout_alpha_lanes": 0}
+        "riccati_lanes": 0, "linesearch_costs_lanes": 0, "rollout_alpha_lanes": 0,
+        "fma_peak": 0, "phase_ablation": 0, "expansion_ab": 0}
 
 
 def test_unported_options_raise():

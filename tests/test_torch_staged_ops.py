@@ -46,7 +46,7 @@ PROBLEMS = ["pairs", "obstacles", "moving"]
 def port_ocp(o):
     data = {f.name: np.asarray(getattr(o, f.name))
             for f in dataclasses.fields(o) if f.name not in JP.OCP_META}
-    return TP.ocp_from_numpy(data, **{k: getattr(o, k) for k in JP.OCP_META})
+    return TP.ocp_from_numpy(data, device="cpu", **{k: getattr(o, k) for k in JP.OCP_META})
 
 
 def _t(a):
