@@ -9,21 +9,17 @@
 //
 // Replaces nmpc_tpu/ops/megasolve_pallas.py::inner_solve_fused (K1) and
 // ::al_update_lanes (K2). The TPU megakernel keeps a 128-scenario tile's
-// whole solve in VMEM and does the small-matrix algebra as lane-vector ops;
-// here one thread runs one scenario's solve and the grid covers the batch.
-// What bounds it on an H100: the per-stage Q-blocks (Vxx is n^2 = 324 floats
-// at six robots) exceed the register file, so they live in thread-local
-// memory (L1/L2-backed), and each line-search candidate re-reads the stage's
-// gains (nu * n floats) from global memory. The lane-major layout keeps every
-// global access coalesced; local arrays are interleaved per thread by the
-// hardware, so those accesses are coalesced too. A warp lasts as long as its
-// slowest scenario: a launch costs the per-warp maximum of the inner
-// iteration counts, not their mean (measured on an H100 80GB HBM3 at
-// B=32768: ~55 ms per launch whether the mean is 12 or 3.6 iterations).
+// whole solve in VMEM; here one warp runs one scenario, with the stage-local
+// blocks in a per-warp slot of shared memory and the N-proportional arrays
+// in device memory in the standard layout [B, N, ...] (csrc/inner_warp.cuh,
+// whose note says what bounds the design and what it does about it). The
+// first design, one thread per scenario on the lane-major layout
+// (csrc/megasolve.cuh::inner_solve_thread), is built only by the roofline
+// tools (csrc/tools.cu), as K1's A/B baseline.
 
 #include <cuda_runtime.h>
 
-#include "megasolve.cuh"
+#include "inner_warp.cuh"
 
 #ifndef NMPC_NR
 #error "compile with -DNMPC_NR=<robot count>"
@@ -31,24 +27,40 @@
 
 namespace nmpc {
 
-constexpr int kThreads = 128;
+constexpr int kMaxWarps = 4;   // K1: scenarios (warps) per block, at most
+constexpr int kAlWarps = 8;    // K2: scenarios (warps) per block
+// K1's register cap, as the blocks of kMaxWarps warps per SM that the
+// registers must allow (65,536 / (128 x this) registers a thread): more
+// resident warps hide more of a scenario's serial latency, until the spills
+// cost more. Picked per m by `python -m nmpc_tpu_torch.tools.k1_launch`
+// (PERF.md); -DNMPC_K1_MIN_BLOCKS=<c> overrides it for that sweep only.
+#ifdef NMPC_K1_MIN_BLOCKS
+template <int NR>
+constexpr int kK1MinBlocks = NMPC_K1_MIN_BLOCKS;
+#else
+template <int NR>
+constexpr int kK1MinBlocks = NR <= 2 ? 8 : NR == 3 ? 6 : NR <= 6 ? 5 : NR == 8 ? 4 : 1;
+#endif
 
 template <int NR>
-__global__ void __launch_bounds__(kThreads) inner_solve_kernel(InnerArgs a) {
+__global__ void __launch_bounds__(kMaxWarps * kWarp, kK1MinBlocks<NR>) inner_solve_kernel(WarpArgs a) {
   __shared__ float sp[Dims<NR>::alphas + kMaxAlphas];
+  extern __shared__ float4 slot_mem[];  // 16-byte aligned: the slots' vector loads
+  float* slots = reinterpret_cast<float*>(slot_mem);
   for (int i = threadIdx.x; i < Dims<NR>::alphas + a.n_alphas; i += blockDim.x) sp[i] = a.prm[i];
   __syncthreads();
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b < a.B) inner_solve_thread<NR>(a, sp, b);
+  const int warp = threadIdx.x / kWarp;
+  const int b = blockIdx.x * (blockDim.x / kWarp) + warp;
+  if (b < a.B) inner_solve_warp<NR>(a, sp, slots + warp * a.slot_floats, b, threadIdx.x % kWarp);
 }
 
 template <int NR>
-__global__ void __launch_bounds__(kThreads) al_update_kernel(ALUpdateArgs a) {
+__global__ void __launch_bounds__(kAlWarps * kWarp) al_update_kernel(ALArgs a) {
   __shared__ float sp[Dims<NR>::alphas];
   for (int i = threadIdx.x; i < Dims<NR>::alphas; i += blockDim.x) sp[i] = a.prm[i];
   __syncthreads();
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b < a.B) al_update_thread<NR>(a, sp, b);
+  const int b = blockIdx.x * kAlWarps + threadIdx.x / kWarp;
+  if (b < a.B) al_update_warp<NR>(a, sp, b, threadIdx.x % kWarp);
 }
 
 }  // namespace nmpc
@@ -61,21 +73,35 @@ const char* nmpc_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// K1. Returns cudaGetLastError() after the launch (0 = launched).
+// Shared bytes of K1's per-warp slot (the stage-local blocks; it does not
+// grow with N).
+int nmpc_k1_slot_bytes() { return nmpc::Slot<NMPC_NR>::bytes; }
+
+// K1 with `warps` scenarios per block, each with a slot of
+// nmpc_k1_slot_bytes() of dynamic shared memory. Returns cudaGetLastError()
+// after the launch (0 = launched).
 int nmpc_inner_solve(const float* prm, const float* x0, const float* xref,
                      const float* lam, const float* mu, const float* Uin,
                      float* Xs, float* U, float* cost, int* iters, float* kff,
-                     float* Kfb, int B, int N, int n_inner, int adaptive,
-                     int n_alphas, int ls_rounds, int pairs, float reg,
-                     float armijo, float tol_cost, float ls_beta,
-                     float ls_grow, float ls_trial_min, void* stream) {
-  if (B <= 0 || N <= 0 || n_alphas < 0 || n_alphas > nmpc::kMaxAlphas)
+                     float* Kfb, float* Xw, float* Uw, int B, int N, int n_inner, int adaptive,
+                     int n_alphas, int ls_rounds, int pairs, int warps, float reg,
+                     float armijo, float tol_cost, float ls_beta, float ls_grow,
+                     float ls_trial_min, void* stream) {
+  using S = nmpc::Slot<NMPC_NR>;
+  if (B <= 0 || N <= 0 || n_alphas < 0 || n_alphas > nmpc::kMaxAlphas || warps < 1 ||
+      warps > nmpc::kMaxWarps)
     return static_cast<int>(cudaErrorInvalidValue);
-  nmpc::InnerArgs a{prm, x0, xref, lam, mu, Uin, Xs, U, cost, iters, kff, Kfb,
-                    B, N, n_inner, adaptive, n_alphas, ls_rounds, pairs,
-                    reg, armijo, tol_cost, ls_beta, ls_grow, ls_trial_min};
-  const int grid = (B + nmpc::kThreads - 1) / nmpc::kThreads;
-  nmpc::inner_solve_kernel<NMPC_NR><<<grid, nmpc::kThreads, 0,
+  nmpc::WarpArgs a{prm, x0, xref, lam, mu, Uin, Xs, U, cost, iters, kff, Kfb, Xw, Uw,
+                   B, N, n_inner, adaptive, n_alphas, ls_rounds, pairs, S::floats,
+                   reg, armijo, tol_cost, ls_beta, ls_grow, ls_trial_min};
+  const int smem = warps * S::bytes;
+  if (smem > 48 * 1024) {  // above 48 KB only by opting in
+    const cudaError_t err = cudaFuncSetAttribute(
+        nmpc::inner_solve_kernel<NMPC_NR>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const int grid = (B + warps - 1) / warps;
+  nmpc::inner_solve_kernel<NMPC_NR><<<grid, warps * nmpc::kWarp, smem,
                                       static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
@@ -86,11 +112,23 @@ int nmpc_al_update(const float* prm, const float* Xs, const float* U,
                    float* viol, int B, int N, int pairs, float lam_max,
                    void* stream) {
   if (B <= 0 || N <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  nmpc::ALUpdateArgs a{prm, Xs, U, lam, mu, lam_out, viol, B, N, pairs, lam_max};
-  const int grid = (B + nmpc::kThreads - 1) / nmpc::kThreads;
-  nmpc::al_update_kernel<NMPC_NR><<<grid, nmpc::kThreads, 0,
+  nmpc::ALArgs a{prm, Xs, U, lam, mu, lam_out, viol, B, N, pairs, lam_max};
+  const int grid = (B + nmpc::kAlWarps - 1) / nmpc::kAlWarps;
+  nmpc::al_update_kernel<NMPC_NR><<<grid, nmpc::kAlWarps * nmpc::kWarp, 0,
                                     static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
+
+#ifdef NMPC_K1_PROBES
+// K1's phase counters (inner_warp.cuh, tools/k1_phases.py): reset = 1 zeroes
+// them, else the 16 sums are copied to `out`. Returns the CUDA error (0 = ok).
+int nmpc_phases(unsigned long long* out, int reset) {
+  if (reset) {
+    const unsigned long long zero[16] = {};
+    return static_cast<int>(cudaMemcpyToSymbol(nmpc::g_phase, zero, sizeof zero));
+  }
+  return static_cast<int>(cudaMemcpyFromSymbol(out, nmpc::g_phase, sizeof(nmpc::g_phase)));
+}
+#endif
 
 }  // extern "C"

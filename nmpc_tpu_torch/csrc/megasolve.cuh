@@ -1,10 +1,11 @@
-// Per-scenario bodies of the two kernels of the batched AL-iLQR main path.
-//
-//   K1 inner_solve_thread: the whole inner iLQR solve of one scenario,
-//      replacing the Pallas megakernel nmpc_tpu/ops/megasolve_pallas.py
-//      (_make_megakernel, wrapper inner_solve_fused).
-//   K2 al_update_thread: the AL multiplier update and the largest violation,
-//      replacing _make_al_update_kernel / al_update_lanes of the same file.
+// K1's first design: the whole inner iLQR solve of one scenario on one
+// thread (inner_solve_thread), replacing the Pallas megakernel
+// nmpc_tpu/ops/megasolve_pallas.py (_make_megakernel, wrapper
+// inner_solve_fused). The solver library runs K1's second design
+// (csrc/inner_warp.cuh, one warp per scenario); this one is built only by the
+// roofline tools (csrc/tools.cu), where K8 `full` with the early exit is this
+// body unchanged: K1's A/B baseline, and the code the phase ablation (K8) and
+// the expansion-layout A/B (K9) vary under template flags.
 //
 // Problem class: NR stacked Euler unicycles with pair rows (optional) and
 // u/x box rows; no static or moving obstacles, no LiDAR rays.
@@ -36,18 +37,6 @@ struct InnerArgs {
   float* Kfb;         // [N, nu, n, B] scratch: feedback gains
   int B, N, n_inner, adaptive, n_alphas, ls_rounds, pairs;
   float reg, armijo, tol_cost, ls_beta, ls_grow, ls_trial_min;
-};
-
-struct ALUpdateArgs {
-  const float* prm;   // parameter block
-  const float* Xs;    // [N, n, B] stage states 0..N-1
-  const float* U;     // [N, nu, B]
-  const float* lam;   // [N, nc, B]
-  const float* mu;    // [B]
-  float* lam_out;     // [N, nc, B]
-  float* viol;        // [B]
-  int B, N, pairs;
-  float lam_max;
 };
 
 // row of pair (i, j), i < j, in the order d12, d13, ..., d(m-1)m
@@ -527,57 +516,6 @@ NMPC_DEV void inner_solve_thread(const InnerArgs& a, const float* sp, int b) {
   }
   a.cost[b] = cost;
   a.iters[b] = iters;
-}
-
-// K2: lam <- min(max(0, lam - mu c), lam_max) over every c >= 0 row, with the
-// state-dependent rows of stage 0 set to BIG (constraint_mask), and
-// viol = max(0, -min c).
-template <int NR>
-NMPC_DEV void al_update_thread(const ALUpdateArgs& a, const float* sp, int b) {
-  using D = Dims<NR>;
-  constexpr int n = D::n, nu = D::nu;
-  const size_t B = a.B;
-  const float mu = a.mu[b];
-  const bool pairs = a.pairs != 0;
-  const int nc = n_rows<NR>(pairs);
-  float cmin = kBig;
-  float x[n], u[nu];
-#pragma unroll 1
-  for (int k = 0; k < a.N; ++k) {
-#pragma unroll
-    for (int i = 0; i < n; ++i) x[i] = a.Xs[(size_t)(k * n + i) * B + b];
-#pragma unroll
-    for (int i = 0; i < nu; ++i) u[i] = a.U[(size_t)(k * nu + i) * B + b];
-    const float* lam = a.lam + b + (size_t)k * nc * B;
-    float* out = a.lam_out + b + (size_t)k * nc * B;
-    const bool first = k == 0;
-    int row = 0;
-    auto put = [&](float c) {
-      out[(size_t)row * B] = min_nan(relu(al_step(lam[(size_t)row * B], mu, c)), a.lam_max);
-      cmin = min_nan(cmin, c);
-      ++row;
-    };
-    if (pairs) {
-#pragma unroll
-      for (int i = 0; i < NR; ++i) {
-#pragma unroll
-        for (int j = i + 1; j < NR; ++j) {
-          const float dx = x[3 * i] - x[3 * j];
-          const float dy = x[3 * i + 1] - x[3 * j + 1];
-          put(first ? kBig : pair_c(dx, dy, sp[D::dmin2]));
-        }
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < nu; ++i) put(u[i] - sp[D::u_lo + i]);
-#pragma unroll
-    for (int i = 0; i < nu; ++i) put(sp[D::u_hi + i] - u[i]);
-#pragma unroll
-    for (int i = 0; i < n; ++i) put(first ? kBig : x[i] - sp[D::x_lo + i]);
-#pragma unroll
-    for (int i = 0; i < n; ++i) put(first ? kBig : sp[D::x_hi + i] - x[i]);
-  }
-  a.viol[b] = relu(-cmin);
 }
 
 }  // namespace nmpc

@@ -4,8 +4,9 @@ shares: the launch counters, argument checks, pointers and the lane-major
 layout.
 
 The solver's kernels: one library per robot count m, `csrc/megasolve.cu`
-(K1, K2) and `csrc/staged.cu` (K3-K6), each compiled by its own nvcc
-process with -DNMPC_NR=m, linked together (`load`). The roofline tools' K7-K9
+(K1, K2; device code in `csrc/inner_warp.cuh`) and `csrc/staged.cu`
+(K3-K6), each compiled by its own nvcc process with -DNMPC_NR=m, linked
+together (`load`). The roofline tools' K7-K9
 (`csrc/tools.cu`) are a library of their own (`load_tools`), so the solver
 library's kernel set, build time and code generation stay as they are: nine
 nvcc processes, one per part of tools.cu. A library is built at its first use
@@ -33,7 +34,7 @@ _PKG = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 UNITS = ("megasolve.cu", "staged.cu")       # one nvcc process each
-SOURCES = (*UNITS, "megasolve.cuh", "staged.cuh", "riccati.cuh", "rollout.cuh")
+SOURCES = (*UNITS, "inner_warp.cuh", "staged.cuh", "riccati.cuh", "rollout.cuh")
 TOOLS_SOURCES = ("tools.cu", "tools.cuh", "megasolve.cuh", "riccati.cuh", "rollout.cuh")
 # the parts of tools.cu (-DNMPC_TOOLS_PART=i), one nvcc process each
 TOOLS_PARTS = ("K7", "K8 full, early exit", "K8 full", "K8 inv_solve", "K8 no_ls",
@@ -89,16 +90,25 @@ def _key(sources: tuple, m: int) -> str:
     return h.hexdigest()[:16]
 
 
-def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+def _bind_mega(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """The entry points of megasolve.cu (K1, K2)."""
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.nmpc_robots.argtypes = []
     lib.nmpc_robots.restype = I
     lib.nmpc_error_string.argtypes = [I]
     lib.nmpc_error_string.restype = ctypes.c_char_p
-    lib.nmpc_inner_solve.argtypes = [P] * 12 + [I] * 7 + [F] * 6 + [P]
+    lib.nmpc_k1_slot_bytes.argtypes = []
+    lib.nmpc_k1_slot_bytes.restype = I
+    lib.nmpc_inner_solve.argtypes = [P] * 14 + [I] * 8 + [F] * 6 + [P]
     lib.nmpc_inner_solve.restype = I
     lib.nmpc_al_update.argtypes = [P] * 7 + [I] * 3 + [F] + [P]
     lib.nmpc_al_update.restype = I
+    return lib
+
+
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    _bind_mega(lib)
     lib.nmpc_expansions.argtypes = [P, I] + [P] * 13 + [I] * 5 + [P]
     lib.nmpc_expansions.restype = I
     lib.nmpc_riccati.argtypes = [P] * 10 + [I] * 2 + [F] + [P]
@@ -212,6 +222,33 @@ def load_tools(m: int) -> ctypes.CDLL:
                                "ptxas": dict(zip(TOOLS_PARTS, texts))}
         _libs["tools", m] = lib
         return lib
+
+
+def load_k1_variant(m: int, min_blocks: int | None = None, probes: bool = False) -> tuple:
+    """megasolve.cu alone for m robots, built with K1's register cap set to
+    `min_blocks` blocks of 128 threads per SM (-DNMPC_K1_MIN_BLOCKS; the
+    launch-geometry sweep of tools/k1_launch.py) and/or with K1's phase
+    probes (-DNMPC_K1_PROBES, which adds `nmpc_phases`; tools/k1_phases.py).
+    Returns (library, compiler report)."""
+    if m not in ROBOT_COUNTS:
+        raise NotImplementedError(
+            f"CUDA kernels are instantiated for m in {ROBOT_COUNTS}, not m={m}")
+    flags = [f"-DNMPC_NR={m}"]
+    tag = ""
+    if min_blocks is not None:
+        flags.append(f"-DNMPC_K1_MIN_BLOCKS={min_blocks}")
+        tag += f"_c{min_blocks}"
+    if probes:
+        flags.append("-DNMPC_K1_PROBES")
+        tag += "_probes"
+    path, _, texts = _build(f"libnmpc_k1_m{m}{tag}_{_key(SOURCES, m)}",
+                            [("megasolve.cu", flags)], f"K1, m={m} {' '.join(flags[1:])}")
+    lib = _bind_mega(ctypes.CDLL(str(path)))
+    if probes:
+        lib.nmpc_phases.argtypes = [ctypes.c_void_p, ctypes.c_int]
+        lib.nmpc_phases.restype = ctypes.c_int
+    _check_robots(lib, path, m)
+    return lib, texts[0]
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:

@@ -4,25 +4,24 @@ PyTorch version. Port of nmpc_tpu/ops/megasolve_pallas.py.
   K1 `inner_solve_fused`: the whole inner iLQR solve (n_inner iterations of
      backward Riccati sweep with on-the-fly expansions, line search and
      accepted rollout) per scenario, in one launch per AL outer step.
-     CUDA: csrc/megasolve.cuh::inner_solve_thread. Replaces the Pallas
+     CUDA: csrc/inner_warp.cuh::inner_solve_warp. Replaces the Pallas
      megakernel (megasolve_pallas.py:_make_megakernel / inner_solve_fused).
   K2 `al_update_lanes`: the AL multiplier update and the largest constraint
-     violation. CUDA: csrc/megasolve.cuh::al_update_thread. Replaces
+     violation. CUDA: csrc/inner_warp.cuh::al_update_warp. Replaces
      megasolve_pallas.py:_make_al_update_kernel / al_update_lanes.
 
-Both wrappers take and return the standard layout [B, N, ...]. On a CPU
-tensor they run the plain version; on a CUDA tensor they launch the kernel
-(on the current stream, after moving the batch axis innermost so the
-one-thread-per-scenario kernels read coalesced) or raise NotImplementedError
-naming what the kernel does not cover. There is no fallback from a CUDA
-tensor to the plain version.
+Both wrappers take and return the standard layout [B, N, ...], which the
+kernels read and write directly: no layout copies. On a CPU tensor they run
+the plain version; on a CUDA tensor they launch the kernel on the current
+stream or raise NotImplementedError naming what the kernel does not cover.
+There is no fallback from a CUDA tensor to the plain version.
 
-What bounds the kernels on an H100, and what the first design does about
-it: each thread's per-stage Q-blocks do not fit in registers and live in
-thread-local memory, and every line-search candidate re-reads the stage
-gains from global memory; the lane-major layout keeps all of those accesses
-coalesced. Shared-memory staging, several threads per scenario and tensor
-cores are later work.
+Design on an H100 (the note of csrc/inner_warp.cuh says more): one warp per
+scenario; K1's stage-local blocks in a per-warp slot of shared memory whose
+size depends on m only (sized by the library: `nmpc_k1_slot_bytes`), the
+N-proportional arrays in device memory. K1's first design, one thread per scenario on the lane-major layout
+(csrc/megasolve.cuh::inner_solve_thread), is launched by `inner_launch` for
+the roofline tools only (K8 `full` with the early exit is that design).
 
 Admission (replaces the TPU's VMEM estimate `mega_fits`): the CUDA kernels
 are built for m in cuda_build.ROBOT_COUNTS robots, any N, pair and box rows,
@@ -43,6 +42,9 @@ from nmpc_tpu_torch.ops.cuda_build import check_arg, lane, ptr, std
 from nmpc_tpu_torch.solver.alilqr import ALILQRConfig, _backward_pass
 
 _MAX_ALPHAS = 32
+# K1's scenarios (warps) per block, picked with the register cap by
+# `python -m nmpc_tpu_torch.tools.k1_launch` (PERF.md)
+K1_WARPS = 2
 
 
 def cuda_unsupported(ocp: OCP, cfg: ALILQRConfig | None = None) -> str | None:
@@ -114,16 +116,12 @@ def al_update_lanes(ocp: OCP, Xs, U, lam, mu, lam_max: float):
         return lam_new, viol
     lib = cuda_build.load(ocp.m)
     prm = rollout.params(ocp, (), dev)
-    Xs_l, U_l, lam_l = lane(Xs), lane(U), lane(lam)
-    mu_c = mu.contiguous()
-    lam_out_l = torch.empty((N, nc, B), dtype=torch.float32, device=dev)
+    Xs, U, lam, mu = Xs.contiguous(), U.contiguous(), lam.contiguous(), mu.contiguous()
     err = lib.nmpc_al_update(
-        ptr(prm), ptr(Xs_l), ptr(U_l), ptr(lam_l), ptr(mu_c),
-        ptr(lam_out_l), ptr(viol), B, N, int(ocp.n_pairs > 0),
-        float(lam_max), cuda_build.stream(dev))
+        ptr(prm), ptr(Xs), ptr(U), ptr(lam), ptr(mu), ptr(lam_new), ptr(viol),
+        B, N, int(ocp.n_pairs > 0), float(lam_max), cuda_build.stream(dev))
     cuda_build.check(lib, err, "al_update_lanes")
     cuda_build.launch_counts["al_update_lanes"] += 1
-    lam_new.copy_(lam_out_l.movedim(-1, 0))
     return lam_new, viol
 
 
@@ -157,12 +155,18 @@ def al_merit(o: OCP, X, U, lam, mu):
     return P.total_cost(o, X, U) + torch.sum(act * act, dim=(1, 2)) / (2.0 * mu)
 
 
-def inner_solve_plain(ocp: OCP, x0, xref, lam, mu, U, cfg: ALILQRConfig):
+def inner_solve_plain(ocp: OCP, x0, xref, lam, mu, U, cfg: ALILQRConfig, *,
+                      candidates: torch.Tensor | None = None):
     """Plain PyTorch K1: n_inner iLQR iterations per scenario on the AL merit.
 
     x0 [B, nx], xref [B, N, nx], lam [B, N, n_con], mu [B], U [B, N, nu]
     (warm controls) -> (Xs [B, N, nx] stage states 0..N-1, U [B, N, nu],
     cost [B] merit of the returned iterate, iters [B] int32).
+
+    candidates: an optional integer tensor [B] to which each scenario's
+    line-search rollouts are added, those its iterations need: none once it
+    is done; cascade every alpha; adaptive one a round until one passes.
+    tools/roofline.py counts K1's work from them.
 
     Written from the dense formulation (Euler Jacobians, dense stage
     expansions, Cholesky of Quu + reg I: solver.alilqr._backward_pass) with
@@ -205,6 +209,8 @@ def inner_solve_plain(ocp: OCP, x0, xref, lam, mu, U, cfg: ALILQRConfig):
             for _ in range(cfg.ls_rounds):
                 if bool(acc.all()):
                     break
+                if candidates is not None:
+                    candidates += (~done & ~acc).to(candidates.dtype)
                 a = torch.where(acc, zero, trial)
                 ca = cost_of(a)
                 ok = (~acc) & ((cost - ca) >= cfg.armijo * a * slope) & (ca < cost)
@@ -216,6 +222,8 @@ def inner_solve_plain(ocp: OCP, x0, xref, lam, mu, U, cfg: ALILQRConfig):
                                 torch.clamp(best_alpha * cfg.ls_grow, max=1.0), trial)
         else:
             best_cost, best_alpha = cost, zero
+            if candidates is not None:
+                candidates += len(cfg.alphas) * (~done).to(candidates.dtype)
             for a in cfg.alphas:
                 a_t = torch.full((B,), a, dtype=dtype, device=dev)
                 ca = cost_of(a_t)
@@ -243,27 +251,65 @@ def inner_solve_fused(ocp: OCP, x0, xref, lam, mu, U, cfg: ALILQRConfig):
     CPU tensors. Same arguments and results as `inner_solve_plain`."""
     if x0.device.type == "cpu":
         return inner_solve_plain(ocp, x0, xref, lam, mu, U, cfg)
-    return inner_launch(ocp, x0, xref, lam, mu, U, cfg, "inner_solve_fused",
-                        cuda_build.load, lambda lib: lib.nmpc_inner_solve)
+    return warp_launch(ocp, x0, xref, lam, mu, U, cfg, "inner_solve_fused", cuda_build.load,
+                       K1_WARPS)
 
 
-def inner_launch(ocp: OCP, x0, xref, lam, mu, U, cfg: ALILQRConfig, what: str,
-                 load, entry):
-    """Launch K1, or a variant of it with K1's argument list (the phase
-    ablation and layout A/B of the roofline tools), on CUDA tensors: checks
-    the arguments, moves them to the lane-major layout, calls
-    entry(load(ocp.m))(*K1's arguments), raises if the launch failed and
-    counts it under `what`. Returns (Xs, U, cost, iters) in the standard
-    layout."""
+def warp_launch(ocp: OCP, x0, xref, lam, mu, U, cfg: ALILQRConfig, what: str, load,
+                warps: int):
+    """Launch K1 (csrc/inner_warp.cuh, one warp per scenario) from the
+    library load(ocp.m) with `warps` scenarios per block on CUDA tensors in
+    the standard layout: checks the arguments, raises if the launch failed
+    and counts it under `what`. Returns (Xs, U, cost, iters)."""
+    x0, xref, lam, mu, U = _checked(ocp, cfg, what, x0, xref, lam, mu, U)
+    B, N, n, nu = x0.shape[0], ocp.N, ocp.nx, ocp.nu
+    f32 = dict(dtype=torch.float32, device=x0.device)
+    Xs = torch.empty((B, N, n), **f32)
+    cost = torch.empty((B,), **f32)
+    iters = torch.empty((B,), dtype=torch.int32, device=x0.device)
+    if B == 0:
+        return Xs, U.clone(), cost, iters
+    Uo = torch.empty((B, N, nu), **f32)
+    kff = torch.empty((B, N, nu), **f32)        # scratch: the gains, K transposed
+    Kfb = torch.empty((B, N, n, nu), **f32)
+    Xw = torch.empty((2, B, N, n), **f32)       # scratch: candidate trajectories
+    Uw = torch.empty((2, B, N, nu), **f32)
+    lib = load(ocp.m)
+    err = lib.nmpc_inner_solve(
+        ptr(rollout.params(ocp, cfg.alphas, x0.device)), ptr(x0), ptr(xref), ptr(lam), ptr(mu),
+        ptr(U), ptr(Xs), ptr(Uo), ptr(cost), ptr(iters), ptr(kff), ptr(Kfb), ptr(Xw), ptr(Uw),
+        B, N, cfg.n_inner, int(cfg.ls == "adaptive"), len(cfg.alphas), cfg.ls_rounds,
+        int(ocp.n_pairs > 0), warps, cfg.reg, cfg.armijo, cfg.tol_cost, cfg.ls_beta,
+        cfg.ls_grow, cfg.ls_trial_min, cuda_build.stream(x0.device))
+    cuda_build.check(lib, err, what)
+    cuda_build.launch_counts[what] += 1
+    return Xs, Uo, cost, iters
+
+
+def _checked(ocp: OCP, cfg: ALILQRConfig, what: str, x0, xref, lam, mu, U) -> tuple:
+    """K1's arguments on a CUDA device, checked and contiguous, or raise."""
     if x0.device.type != "cuda":
         raise NotImplementedError(f"{what}: no kernel for {x0.device}")
     _require_cuda(ocp, cfg, what)
     B, N, n, nu, nc = x0.shape[0], ocp.N, ocp.nx, ocp.nu, ocp.n_con
-    dev = x0.device
     for name, t, shape in (("x0", x0, (B, n)), ("xref", xref, (B, N, n)),
                            ("lam", lam, (B, N, nc)), ("mu", mu, (B,)),
                            ("U", U, (B, N, nu))):
-        check_arg(name, t, shape, dev)
+        check_arg(name, t, shape, x0.device)
+    return tuple(t.contiguous() for t in (x0, xref, lam, mu, U))
+
+
+def inner_launch(ocp: OCP, x0, xref, lam, mu, U, cfg: ALILQRConfig, what: str,
+                 load, entry):
+    """Launch a variant of K1's first design (csrc/megasolve.cuh, one thread
+    per scenario on the lane-major layout: the phase ablation and layout A/B
+    of the roofline tools) on CUDA tensors: checks the arguments, moves them
+    to the lane-major layout, calls entry(load(ocp.m))(*the first design's
+    arguments), raises if the launch failed and counts it under `what`.
+    Returns (Xs, U, cost, iters) in the standard layout."""
+    x0, xref, lam, mu, U = _checked(ocp, cfg, what, x0, xref, lam, mu, U)
+    B, N, n, nu = x0.shape[0], ocp.N, ocp.nx, ocp.nu
+    dev = x0.device
     f32 = dict(dtype=torch.float32, device=dev)
     cost = torch.empty((B,), **f32)
     iters = torch.empty((B,), dtype=torch.int32, device=dev)
@@ -272,13 +318,12 @@ def inner_launch(ocp: OCP, x0, xref, lam, mu, U, cfg: ALILQRConfig, what: str,
     lib = load(ocp.m)
     prm = rollout.params(ocp, cfg.alphas, dev)
     x0_l, xref_l, lam_l, U_l = lane(x0), lane(xref), lane(lam), lane(U)
-    mu_c = mu.contiguous()
     Xs_l = torch.empty((N, n, B), **f32)
     Uo_l = torch.empty((N, nu, B), **f32)
     kff_l = torch.empty((N, nu, B), **f32)       # scratch: gains
     Kfb_l = torch.empty((N, nu, n, B), **f32)
     err = entry(lib)(
-        ptr(prm), ptr(x0_l), ptr(xref_l), ptr(lam_l), ptr(mu_c),
+        ptr(prm), ptr(x0_l), ptr(xref_l), ptr(lam_l), ptr(mu),
         ptr(U_l), ptr(Xs_l), ptr(Uo_l), ptr(cost), ptr(iters),
         ptr(kff_l), ptr(Kfb_l),
         B, N, cfg.n_inner, int(cfg.ls == "adaptive"), len(cfg.alphas),

@@ -264,20 +264,35 @@ def _sweep_stage(d, phase: str = "full") -> int:
     return vprop + gains + value
 
 
-def inner_iteration_flops(ocp, cfg, phase: str = "full") -> float:
-    """FLOPs per scenario of one iteration of K1 (phase 'full') or of a K8
-    phase ablation: expansions and sweep over the N stages, then the
-    candidate rollouts with their merits and the accepted rollout."""
+def sweep_flops(ocp, phase: str = "full") -> float:
+    """FLOPs per scenario of one backward sweep: the expansions and the
+    sweep (of a K8 phase ablation: `phase`) over the N stages."""
     d = _dims(ocp)
-    N = d["N"]
-    fb, eu, me = _feedback(d), _euler(d), _merit(d)
-    sweep = N * (_expansion(d, phase != "no_expcon") + _sweep_stage(d, phase))
+    return d["N"] * (_expansion(d, phase != "no_expcon") + _sweep_stage(d, phase))
+
+
+def candidate_flops(ocp) -> float:
+    """FLOPs per scenario of one line-search candidate: a closed-loop
+    rollout over the N stages with its AL merit."""
+    d = _dims(ocp)
+    return d["N"] * (_feedback(d) + _merit(d) + _euler(d))
+
+
+def inner_iteration_flops(ocp, cfg, phase: str = "full") -> float:
+    """FLOPs per scenario of one iteration of K1's first design (phase
+    'full') or of a K8 phase ablation, as that design runs it: the sweep,
+    then the candidates (2 an adaptive iteration, every alpha of a cascade)
+    and the accepted rollout, or the alpha = 1 rollout without a line
+    search."""
+    d = _dims(ocp)
+    sweep = sweep_flops(ocp, phase)
     if phase == "sweep_only":
         return sweep
+    accepted = d["N"] * (_feedback(d) + _euler(d))
     if phase != "full":
-        return sweep + N * (fb + eu)                     # the alpha = 1 rollout
+        return sweep + accepted
     evals = 2.0 if cfg.ls == "adaptive" else len(cfg.alphas)
-    return sweep + evals * N * (fb + me + eu) + N * (fb + eu)
+    return sweep + evals * candidate_flops(ocp) + accepted
 
 
 def k1_executed(iters: torch.Tensor, n_inner: int) -> torch.Tensor:
@@ -287,22 +302,32 @@ def k1_executed(iters: torch.Tensor, n_inner: int) -> torch.Tensor:
     return torch.clamp(iters.long() + 1, max=n_inner)
 
 
-def kernel_work(kernel: str, ocp, B: int, cfg=None, *, iters=None, n_alphas=None,
-                phase: str = "full", chains=None, R=None, threads=None) -> tuple:
+def kernel_work(kernel: str, ocp, B: int, cfg=None, *, iters=None, candidates=None,
+                n_alphas=None, phase: str = "full", chains=None, R=None,
+                threads=None) -> tuple:
     """(FLOPs, bytes) of one launch of `kernel` ('K1' ... 'K9') at the
     problem `ocp` (N stages, m robots, its rows) and batch B.
 
     K1, K8, K9: `iters` = iterations run, summed over the scenarios (K1:
     `k1_executed(...).sum()`; K8 and K9 at a fixed count: B n_iter), `cfg`
-    the config, `phase` the K8 mode. K5: `n_alphas` candidates. K7:
-    `chains`, `R`, `threads`. f32 and int32 are 4 bytes."""
+    the config, `phase` the K8 mode. K1: `candidates` = the line-search
+    rollouts its iterations needed, summed over the scenarios
+    (`megasolve.inner_solve_plain(..., candidates=)`); it needs no
+    accepted rollout (the accepted trajectory is its candidate's). K8 and
+    K9 count per iteration as K1's first design runs it
+    (`inner_iteration_flops`). K5: `n_alphas` candidates. K7: `chains`, `R`,
+    `threads`. f32 and int32 are 4 bytes."""
     d = _dims(ocp)
     n, nu, nc, N = d["n"], d["nu"], d["nc"], d["N"]
     mov = 2 * d["n_mov"]
     f = 4.0
     if kernel in ("K1", "K8", "K9"):
         init = N * ((0 if phase == "sweep_only" else _merit(d)) + _euler(d))
-        flops = B * init + float(iters) * inner_iteration_flops(ocp, cfg, phase)
+        if kernel == "K1":
+            step = float(iters) * sweep_flops(ocp) + float(candidates) * candidate_flops(ocp)
+        else:
+            step = float(iters) * inner_iteration_flops(ocp, cfg, phase)
+        flops = B * init + step
         read = n + N * n + N * nc + 1 + N * nu           # x0, xref, lam, mu, U
         write = N * n + N * nu + 1 + 1                   # Xs, U, cost, iters
         return flops, f * B * (read + write)

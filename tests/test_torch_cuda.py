@@ -10,15 +10,17 @@ neither need nor import.)
 Tolerances: K2 rtol/atol 1e-6 (the kernel rounds each row as the plain
 version does); K1 at n_inner=4 cost rtol 1e-4, U atol 5e-3 and equal
 iteration counts on 99% of scenarios (past the first iterations f32
-rounding can flip near-tied alpha picks). K3-K6: the CPU tests' tolerances
-(tests/test_torch_staged_ops.py), relative to each scenario's largest
-magnitude of an output where that exceeds 1, by the rule of
-nmpc_tpu_torch/ops/kernel_check.py that chip_smoke.py phase 10 applies too;
+rounding can flip near-tied alpha picks), at every robot count and at the
+edges of its launch geometry (a ragged last block, B=1, N=1, N=20). K3-K6:
+the CPU tests' tolerances (tests/test_torch_staged_ops.py), relative to each
+scenario's largest magnitude of an output where that exceeds 1, by the rule
+of nmpc_tpu_torch/ops/kernel_check.py that chip_smoke.py phase 10 applies too;
 at these inputs no scenario may diverge or pass by the f32 spread alone.
 K7 bit for bit (the plain chain rounds each exact f64 step once, as the
 FMA); K8's modes and K9's layouts at 4 fixed iterations as K1; K8 `full`
-with the early exit against K1, and K9 structured against K8 `full`, bit for
-bit (the same device code).
+with the early exit (K1's first design) against plain as K1, and K1 against
+it at the same tolerances; K9 structured against K8 `full`, bit for bit
+(the same device code).
 """
 
 import dataclasses
@@ -58,8 +60,23 @@ def _case(name, B, dev, seed=0):
     return ob, U, lam, mu
 
 
-@pytest.mark.parametrize("name", ["six_robot_antipodal", "two_robot_swap",
-                                  "two_robot_centralized", "ten_robot"])
+# one scenario per robot count of cuda_build.ROBOT_COUNTS, with pair rows
+# where m > 1, and two_robot_centralized without them. One robot:
+# slsqp_pose (T=0.5). At single_robot's T=0.01 the controls barely move the
+# 10-stage cost, and U at equal cost differs by ~1.5e-2 between any two of
+# the kernel, its plain version and the reference
+BY_ROBOTS = ["slsqp_pose", "two_robot_swap", "third_scenario", "fourth_scenario", "five_robot",
+             "six_robot_antipodal", "eight_robot", "ten_robot"]
+
+
+def _hold_k1(got, want, B):
+    torch.testing.assert_close(got[2], want[2], rtol=1e-4, atol=0.0)
+    torch.testing.assert_close(got[1], want[1], rtol=0.0, atol=5e-3)
+    torch.testing.assert_close(got[0], want[0], rtol=0.0, atol=5e-3)
+    assert int((got[3] == want[3]).sum()) >= 0.99 * B
+
+
+@pytest.mark.parametrize("name", BY_ROBOTS + ["two_robot_centralized"])
 def test_al_update_kernel_matches_plain(dev, name):
     ob, U, lam, mu = _case(name, 300, dev)  # 300: a ragged last block
     Xs = ob.x0[:, None] + 0.3 * torch.randn((300, ob.N, ob.nx), device=dev)
@@ -70,12 +87,8 @@ def test_al_update_kernel_matches_plain(dev, name):
 
 
 @pytest.mark.parametrize("ls", ["adaptive", "cascade"])
-@pytest.mark.parametrize("name", ["slsqp_pose", "two_robot_swap", "five_robot",
-                                  "six_robot_antipodal", "eight_robot", "ten_robot"])
+@pytest.mark.parametrize("name", BY_ROBOTS)
 def test_inner_solve_kernel_matches_plain(dev, name, ls):
-    # one robot: slsqp_pose (T=0.5). At single_robot's T=0.01 the controls
-    # barely move the 10-stage cost, and U at equal cost differs by ~1.5e-2
-    # between any two of this kernel, its plain version and the reference
     B = 300
     ob, U, lam, mu = _case(name, B, dev, seed=1)
     cfg = ALILQRConfig(n_inner=4, ls=ls)
@@ -83,10 +96,67 @@ def test_inner_solve_kernel_matches_plain(dev, name, ls):
     got = megasolve.inner_solve_fused(ob, ob.x0, ob.xref, lam, mu, U, cfg)
     assert cuda_build.launch_counts["inner_solve_fused"] == before + 1
     want = megasolve.inner_solve_plain(ob, ob.x0, ob.xref, lam, mu, U, cfg)
-    torch.testing.assert_close(got[2], want[2], rtol=1e-4, atol=0.0)
-    torch.testing.assert_close(got[1], want[1], rtol=0.0, atol=5e-3)
-    torch.testing.assert_close(got[0], want[0], rtol=0.0, atol=5e-3)
-    assert int((got[3] == want[3]).sum()) >= 0.99 * B
+    _hold_k1(got, want, B)
+
+
+@pytest.mark.parametrize("case", ["ragged B=33", "B=1", "N=1", "ten_robot N=20",
+                                  "NaN duals on masked rows"])
+def test_inner_solve_kernel_at_the_edges(dev, case):
+    """K1's launch geometry at its edges: a batch that fills no whole block,
+    one scenario, one stage, a long ten-robot horizon (the largest slot);
+    and non-finite warm duals on the stage-0 rows that constraint_mask
+    drops, which must reach neither merit nor gains."""
+    name, B, N = {"ragged B=33": ("six_robot_antipodal", 33, 10), "B=1": ("six_robot_antipodal", 1, 10),
+                  "N=1": ("six_robot_antipodal", 64, 1), "ten_robot N=20": ("ten_robot", 64, 20),
+                  "NaN duals on masked rows": ("six_robot_antipodal", 64, 10)}[case]
+    g = torch.Generator(device=dev).manual_seed(5)
+    base = get(name).make(N=N, device=dev)
+    ob = batch_ocp(base, base.x0[None] + 0.1 * torch.randn((B, base.nx), generator=g, device=dev))
+    U = 0.05 * torch.randn((B, N, base.nu), generator=g, device=dev)
+    keep = P.constraint_mask(base) > 0
+    lam = 0.5 * torch.randn((B, N, base.n_con), generator=g, device=dev).abs() * keep
+    if case.startswith("NaN"):
+        lam = torch.where(keep, lam, torch.full_like(lam, float("nan")))
+    mu = torch.full((B,), 100.0, device=dev)
+    for ls in ("adaptive", "cascade"):
+        cfg = ALILQRConfig(n_inner=4, ls=ls)
+        got = megasolve.inner_solve_fused(ob, ob.x0, ob.xref, lam, mu, U, cfg)
+        want = megasolve.inner_solve_plain(ob, ob.x0, ob.xref, lam, mu, U, cfg)
+        assert all(torch.isfinite(t).all() for t in got[:3])
+        _hold_k1(got, want, B)
+
+
+def test_k1_slot_fits_the_block(dev):
+    """K1's per-warp slot, sized by the library from the robot count alone:
+    16-byte aligned, room for Vxx twice, Qux, Quu and the stage's duals,
+    and K1_WARPS slots within the H100's 227 KB of shared memory a block;
+    one lane per right-hand side of the gain solve (n + 1 <= 32)."""
+    for m in cuda_build.ROBOT_COUNTS:
+        slot = cuda_build.load(m).nmpc_k1_slot_bytes()
+        n, nu = 3 * m, 2 * m
+        n_con = m * (m - 1) // 2 + 2 * nu + 2 * n
+        assert n + 1 <= 32 and slot % 16 == 0
+        assert slot >= 4 * (2 * n * n + nu * n + nu * nu + n_con)
+        assert megasolve.K1_WARPS * slot <= 227 * 1024
+
+
+def test_k1_phase_probes_count_every_phase(dev):
+    """K1 built with its phase probes (tools/k1_phases.py) still agrees with
+    the plain version, and every phase it runs gets cycles."""
+    from nmpc_tpu_torch.tools import k1_phases as K1P
+
+    B = 64
+    ob, U, lam, mu = _case("two_robot_swap", B, dev, seed=4)
+    cfg = ALILQRConfig(n_inner=4, ls="adaptive")
+    lib, _ = cuda_build.load_k1_variant(ob.m, probes=True)
+
+    def run():
+        return megasolve.warp_launch(ob, ob.x0, ob.xref, lam, mu, U, cfg, "inner_solve_fused",
+                                     lambda _: lib, megasolve.K1_WARPS)
+
+    cycles, executed = K1P.split(lib, run, cfg.n_inner)
+    assert executed >= B and all(c > 0 for c in cycles.values()), cycles
+    _hold_k1(run(), megasolve.inner_solve_plain(ob, ob.x0, ob.xref, lam, mu, U, cfg), B)
 
 
 def test_solve_batched_on_the_card(dev):
@@ -254,13 +324,19 @@ def test_phase_ablation_kernel_matches_plain(dev, mode):
 
 
 def test_phase_ablation_with_the_early_exit_is_k1(dev):
+    """K8 `full` with the early exit is K1's first design (one thread per
+    scenario, csrc/megasolve.cuh): it agrees with the plain K1 at K1's
+    tolerances, and K1 (one warp per scenario) agrees with it."""
     from nmpc_tpu_torch.tools import exp_mega_phases as K8
 
-    ob, U, lam, mu = _case("six_robot_antipodal", 256, dev, seed=3)
+    B = 256
+    ob, U, lam, mu = _case("six_robot_antipodal", B, dev, seed=3)
     cfg = ALILQRConfig(n_inner=6, ls="adaptive")
+    first = K8.phase_ablation(ob, ob.x0, ob.xref, lam, mu, U, cfg, "full", 6, early_exit=True)
+    want = megasolve.inner_solve_plain(ob, ob.x0, ob.xref, lam, mu, U, cfg)
+    _hold_k1(first, want, B)
     k1 = megasolve.inner_solve_fused(ob, ob.x0, ob.xref, lam, mu, U, cfg)
-    got = K8.phase_ablation(ob, ob.x0, ob.xref, lam, mu, U, cfg, "full", 6, early_exit=True)
-    assert all(torch.equal(a, b) for a, b in zip(got, k1))
+    _hold_k1(k1, first, B)
 
 
 @pytest.mark.parametrize("layout", ["structured", "dense"])

@@ -16,7 +16,9 @@ def test_port_modules_import_without_jax():
         nmpc_tpu_torch.__path__, prefix="nmpc_tpu_torch."))
     assert "nmpc_tpu_torch.ops.megasolve" in names and len(names) >= 15
     assert {"nmpc_tpu_torch.tools.roofline", "nmpc_tpu_torch.tools.exp_mega_phases",
-            "nmpc_tpu_torch.tools.exp_blocked_expansions", "nmpc_tpu_torch.utils.timing",
+            "nmpc_tpu_torch.tools.exp_blocked_expansions", "nmpc_tpu_torch.tools.k1_launch",
+            "nmpc_tpu_torch.tools.k1_phases",
+            "nmpc_tpu_torch.utils.timing",
             "nmpc_tpu_torch.device"} <= set(names)
     code = (
         "import importlib, sys\n"

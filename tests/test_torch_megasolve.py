@@ -29,7 +29,11 @@ from nmpc_tpu.scenarios import get as jax_get
 from nmpc_tpu.solver.alilqr import ALILQRConfig as JaxConfig
 from nmpc_tpu_torch.ocp import problem as TP
 from nmpc_tpu_torch.ops import cuda_build, megasolve
+from nmpc_tpu_torch.parallel import batch_ocp
+from nmpc_tpu_torch.scenarios import get
 from nmpc_tpu_torch.solver.alilqr import ALILQRConfig
+from nmpc_tpu_torch.tools.k1_launch import SCENARIOS
+from nmpc_tpu_torch.tools.roofline import k1_executed
 
 B = 128
 
@@ -135,8 +139,6 @@ def test_cpu_wrappers_take_the_plain_versions():
 
 
 def test_cuda_admission_rule():
-    from nmpc_tpu_torch.scenarios import get
-
     cfg = ALILQRConfig(ls="adaptive")
     assert megasolve.cuda_unsupported(get("six_robot_antipodal").make(N=10, device="cpu"), cfg) is None
     assert megasolve.cuda_unsupported(get("ten_robot").make(device="cpu"), cfg) is None
@@ -150,3 +152,33 @@ def test_cuda_admission_rule():
     assert "m=7" in megasolve.cuda_unsupported(seven, cfg)
     mov = dataclasses.replace(six, n_mov=1, mov_obs=torch.zeros((10, 1, 2)))
     assert "n_mov" in megasolve.cuda_unsupported(mov, cfg)
+
+
+@pytest.mark.parametrize("ls", ["adaptive", "cascade"])
+@pytest.mark.parametrize("m", cuda_build.ROBOT_COUNTS)
+def test_inner_solve_plain_counts_the_candidates_it_needs(m, ls):
+    """The line-search rollouts the plain K1 counts for the bound of
+    tools/roofline.py: none once a scenario is done, every alpha of a
+    cascade iteration, one to ls_rounds an adaptive one; counting leaves
+    the results as they are."""
+    rng = np.random.default_rng(7)
+    base = get(SCENARIOS[m]).make(N=10, device="cpu")
+    nb = 32
+    noise = (0.1 * rng.standard_normal((nb, base.nx))).astype(np.float32)
+    o = batch_ocp(base, base.x0[None] + _t(noise))
+    U = _t((0.05 * rng.standard_normal((nb, base.N, base.nu))).astype(np.float32))
+    lam = _t((0.5 * np.abs(rng.standard_normal((nb, base.N, base.n_con)))).astype(np.float32))
+    lam = lam * (TP.constraint_mask(base) > 0)
+    mu = _t(rng.choice([10.0, 100.0], nb).astype(np.float32))
+    cfg = ALILQRConfig(n_inner=4, ls=ls)
+    cand = torch.zeros(nb, dtype=torch.int64)
+    got = megasolve.inner_solve_plain(o, o.x0, o.xref, lam, mu, U, cfg, candidates=cand)
+    want = megasolve.inner_solve_plain(o, o.x0, o.xref, lam, mu, U, cfg)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    run = k1_executed(got[3], cfg.n_inner)
+    if ls == "cascade":
+        assert torch.equal(cand, len(cfg.alphas) * run)
+    else:
+        assert (run <= cand).all() and (cand <= cfg.ls_rounds * run).all()
+    assert int(run.min()) >= 1

@@ -35,6 +35,8 @@ from nmpc_tpu_torch.scenarios import get
 from nmpc_tpu_torch.solver.alilqr import ALILQRConfig, warm_from_numpy
 from nmpc_tpu_torch.tools import exp_blocked_expansions as K9
 from nmpc_tpu_torch.tools import exp_mega_phases as K8
+from nmpc_tpu_torch.tools import k1_launch as K1L
+from nmpc_tpu_torch.tools import k1_phases as K1P
 from nmpc_tpu_torch.tools import roofline as RL
 from nmpc_tpu_torch.tools import sass_diff as SD
 from nmpc_tpu_torch.utils import timing
@@ -200,6 +202,24 @@ def test_sass_listing_parsed_and_compared():
     assert SD.main([]) == 2
 
 
+def test_k1_launch_reads_the_report():
+    report = """ptxas info    : Compiling entry function '_ZN4nmpc16al_update_kernelILi6EEEvNS_6ALArgsE' for 'sm_90a'
+ptxas info    : Function properties for _ZN4nmpc16al_update_kernelILi6EEEvNS_6ALArgsE
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 28 registers, used 1 barriers, 368 bytes smem
+ptxas info    : Compiling entry function '_ZN4nmpc18inner_solve_kernelILi6EEEvNS_8WarpArgsE' for 'sm_90a'
+ptxas info    : Function properties for _ZN4nmpc18inner_solve_kernelILi6EEEvNS_8WarpArgsE
+    152 bytes stack frame, 348 bytes spill stores, 568 bytes spill loads
+ptxas info    : Used 80 registers, used 1 barriers, 152 bytes cumulative stack size, 496 bytes smem
+"""
+    assert K1L.k1_ptxas(report) == (
+        "152 bytes stack frame, 348 bytes spill stores, 568 bytes spill loads; Used 80 "
+        "registers, used 1 barriers, 152 bytes cumulative stack size, 496 bytes smem")
+    assert set(K1L.SCENARIOS) == set(cuda_build.ROBOT_COUNTS)
+    assert all(get(name).make(N=10, device="cpu").m == m for m, name in K1L.SCENARIOS.items())
+    assert K1L.batch_size(6) == 32768 and K1L.batch_size(10) == 16384
+
+
 @pytest.mark.parametrize("m", [1, 2, 6, 10])
 def test_analytic_model_matches_reference(m):
     ref = _reference_tool("roofline")
@@ -222,7 +242,7 @@ def test_kernel_work_hand_counted():
     _, k3 = RL.kernel_work("K3", six, Bs)
     assert k3 == 4 * Bs * (10 * (1254 + 12 + 216) + 1)
     # K1 reads x0, xref, lam, mu, U and writes Xs, U, cost, iters
-    f1, k1 = RL.kernel_work("K1", six, Bs, cfg, iters=12 * Bs)
+    f1, k1 = RL.kernel_work("K1", six, Bs, cfg, iters=12 * Bs, candidates=14 * Bs)
     assert k1 == 4 * Bs * (18 + 10 * (18 + 75 + 12) + 1 + 10 * (18 + 12) + 2)
     # K2: Xs, U, lam, mu in; lam, viol out
     _, k2 = RL.kernel_work("K2", six, Bs)
@@ -235,10 +255,17 @@ def test_kernel_work_hand_counted():
     assert k6 == 4 * 7 * (3 + 5 * (3 + 2 + 2 + 6) + 1 + 5 * (3 + 2))
     # K7: an FMA is two FLOPs
     assert RL.kernel_work("K7", six, 0, chains=8, R=100, threads=1000) == (1.6e6, 4 * 1000 * 8 * 2)
-    # K1's FLOPs follow the iterations run; K8's ablations do less than full
-    f1b, _ = RL.kernel_work("K1", six, Bs, cfg, iters=6 * Bs)
+    # K1's FLOPs follow the iterations run and the candidates its line
+    # search needed; it rolls no accepted step out again, so an iteration
+    # with one candidate is less work than the first design's (K8 full: two
+    # candidates and the accepted rollout); K8's ablations do less than full
+    f1b, _ = RL.kernel_work("K1", six, Bs, cfg, iters=6 * Bs, candidates=7 * Bs)
+    sweep, cand = RL.sweep_flops(six), RL.candidate_flops(six)
+    assert f1 - f1b == pytest.approx(6 * Bs * sweep + 7 * Bs * cand)
     per_it = RL.inner_iteration_flops(six, cfg)
-    assert f1 - f1b == pytest.approx(6 * Bs * per_it)
+    assert sweep + cand < sweep + 2 * cand < per_it
+    f8, _ = RL.kernel_work("K8", six, Bs, cfg, iters=6 * Bs)
+    assert f8 - f1b == pytest.approx(6 * Bs * per_it - 6 * Bs * sweep - 7 * Bs * cand)
     flops = {mode: RL.inner_iteration_flops(six, cfg, mode) for mode in K8.MODES}
     assert flops["sweep_only"] < flops["no_ls"] < flops["full"]
     assert flops["no_solve"] < flops["no_ls"] < flops["inv_solve"]
@@ -287,7 +314,7 @@ def test_measurements_refuse_without_a_card():
         pytest.skip("a card is present: the tools measure")
     with pytest.raises(RuntimeError, match="CUDA card"):
         RL.measure_fma_peak()
-    for main in (RL.main, K8.main, K9.main):
+    for main in (RL.main, K8.main, K9.main, K1L.main, K1P.main):
         with pytest.raises(RuntimeError, match="CUDA card"):
             main([])
 
