@@ -14,10 +14,14 @@ plain PyTorch version on the card:
   csrc/megasolve.cuh) is timed beside it through the tools library;
 * the staged route, through K4 (expansions), K3 (Riccati sweep), K5
   (line-search merits) and K6 (accepted rollout), at full width on three
-  paths: (a) the main-path batch with mega=False; (b) a family-H fleet,
-  obstacle_scenario_3 (six static obstacles) at its registry horizon N=100,
-  B=32768, which K1 refuses; (c) B=4096 per-robot subproblems of one
-  decentralized six-robot round (one robot, five moving obstacles, N=30);
+  paths (K3 and K5 run a tile of scenarios per block through a ring of
+  stage tiles in shared memory, csrc/staged_tiles.cuh; their first designs,
+  one thread per scenario, are held against them bit for bit and timed
+  beside them through tools/staged_launch.py): (a) the main-path batch
+  with mega=False; (b) a family-H fleet, obstacle_scenario_3 (six static
+  obstacles) at its registry horizon N=100, B=32768, which K1 refuses; (c)
+  B=4096 per-robot subproblems of one decentralized six-robot round (one
+  robot, five moving obstacles, N=30);
 * the roofline path (nmpc_tpu_torch/tools), through K7 (FMA-peak probe), K8
   (K1 with one phase ablated at a fixed count) and K9 (K1 with the
   structured or the dense expansion layout), then the bound of every kernel.
@@ -27,8 +31,11 @@ Phases:
   0 device and toolchain            7 path (a), staged, launch counts checked
   1 build every kernel              8 path (b), obstacles, routing checked
   2 K2 vs plain, B=32768            9 path (c), moving obstacles
-  3 K1 vs plain, B=1024, and a     10 K3-K6 vs plain at the shapes of (a)-(c)
-    ragged B=33                    11 staged timings (solves, K3-K6 vs plain)
+  3 K1 vs plain, B=1024, and a     10 K3-K6 vs plain at the shapes of (a)-(c);
+    ragged B=33                       K3, K5 vs their first designs there
+                                   11 staged timings (solves, also with K3's
+                                      and K5's first designs, in turns; K3-K6
+                                      vs plain; K3, K5 vs first designs)
   4 main path at B=32768, no       12 K7: FMA peak over C chains, vs plain
     layout copies                     bit for bit (also at the timed shape)
   5 first 64 scenarios re-solved   13 K8: 'full' with the early exit is K1's
@@ -82,19 +89,31 @@ FIRST_K1_PTXAS = (255, 4880, 156, 200)
 # removed) at the main path's shape, ms per launch as PERF.md records it
 # (NVIDIA H100 80GB HBM3, 700.00 W)
 FIRST_K2_MS = 0.844
-# K3-K6's lines at each m as recorded in PERF.md: they do not change either
+# K3-K6's lines at each m as recorded in PERF.md (K4's and K6's do not
+# change with K3 and K5; K3 and K5 the tile design, with a fifth entry: the
+# dynamic shared bytes of a block, K5's at the main path's rows without
+# obstacles and a parameter block with nine alphas)
 STAGED_PTXAS = {
-    1: {"K3": (32, 176, 0, 0), "K4": (64, 80, 0, 0), "K5": (72, 0, 0, 0), "K6": (32, 56, 0, 0)},
-    2: {"K3": (40, 576, 0, 0), "K4": (74, 320, 0, 0), "K5": (89, 80, 0, 0), "K6": (48, 80, 0, 0)},
-    3: {"K3": (72, 1200, 0, 0), "K4": (80, 552, 0, 0), "K5": (56, 104, 0, 0), "K6": (48, 104, 0, 0)},
-    4: {"K3": (128, 2016, 0, 0), "K4": (118, 864, 0, 0), "K5": (64, 128, 0, 0), "K6": (56, 128, 0, 0)},
-    5: {"K3": (200, 3088, 0, 0), "K4": (96, 1280, 20, 28), "K5": (64, 152, 0, 0),
+    1: {"K3": (95, 0, 0, 0, 44032), "K4": (64, 80, 0, 0), "K5": (40, 56, 0, 0, 6768),
+        "K6": (32, 56, 0, 0)},
+    2: {"K3": (168, 0, 0, 0, 163840), "K4": (74, 320, 0, 0), "K5": (44, 80, 0, 0, 16816),
+        "K6": (48, 80, 0, 0)},
+    3: {"K3": (56, 0, 0, 0, 75152), "K4": (80, 552, 0, 0), "K5": (52, 104, 0, 0, 30176),
+        "K6": (48, 104, 0, 0)},
+    4: {"K3": (80, 0, 0, 0, 63296), "K4": (118, 864, 0, 0), "K5": (61, 128, 0, 0, 23584),
+        "K6": (56, 128, 0, 0)},
+    5: {"K3": (96, 0, 0, 0, 100128), "K4": (96, 1280, 20, 28), "K5": (63, 152, 0, 0, 33632),
         "K6": (56, 152, 0, 0)},
-    6: {"K3": (255, 4384, 0, 0), "K4": (108, 1728, 0, 0), "K5": (72, 176, 0, 0), "K6": (72, 176, 0, 0)},
-    8: {"K3": (90, 7616, 0, 0), "K4": (128, 2848, 0, 0), "K5": (96, 224, 0, 0), "K6": (80, 224, 0, 0)},
-    10: {"K3": (96, 11776, 0, 0), "K4": (130, 4288, 0, 0), "K5": (96, 272, 0, 0),
+    6: {"K3": (128, 0, 0, 0, 143184), "K4": (108, 1728, 0, 0), "K5": (86, 176, 0, 0, 90272),
+        "K6": (72, 176, 0, 0)},
+    8: {"K3": (204, 0, 0, 0, 227328), "K4": (128, 2848, 0, 0), "K5": (81, 224, 0, 0, 73744),
+        "K6": (80, 224, 0, 0)},
+    10: {"K3": (255, 0, 0, 0, 220800), "K4": (130, 4288, 0, 0), "K5": (101, 400, 0, 0, 54736),
          "K6": (108, 272, 0, 0)},
 }
+# K3's and K5's first designs (csrc/staged_first.cu), as PERF.md records them
+FIRST_STAGED_PTXAS = {1: {"K3": (32, 176, 0, 0), "K5": (72, 0, 0, 0)},
+                      6: {"K3": (255, 4384, 0, 0), "K5": (72, 176, 0, 0)}}
 KERNELS = {"inner_solve": "K1", "al_update": "K2", "riccati": "K3", "expansions": "K4",
            "linesearch_costs": "K5", "rollout_alpha": "K6"}
 
@@ -287,6 +306,34 @@ def staged_vs_plain(ocp_b, X, U, lam, mu, cfg):
                  _mov_lanes(ocp_b, B), (0.0,) + tuple(cfg.alphas), alpha, cfg.reg)
 
 
+def first_vs_tiles(ocp_b, X, U, lam, mu, cfg):
+    """K3 (on K4's output at the state) and K5 (the merits of cfg's grid on
+    K3's gains) of the tile design against their first designs
+    (tools/staged_launch.py) on the same inputs. Returns ({'K3': units that
+    differ, 'K5': ...}, {'K3': (tile call, first-design call), ...})."""
+    from nmpc_tpu_torch.ops import rollout as R
+    from nmpc_tpu_torch.ops.cuda_build import lane
+    from nmpc_tpu_torch.ops.expansions import expansions_fused
+    from nmpc_tpu_torch.ops.riccati import riccati_lanes
+    from nmpc_tpu_torch.solver.alilqr_batched import _mov_lanes
+    from nmpc_tpu_torch.tools import staged_launch as SL
+
+    B = ocp_b.x0.shape[0]
+    X_l, U_l, xref_l, lam_l = lane(X[:, :-1]), lane(U), lane(ocp_b.xref), lane(lam)
+    mov_l, alphas = _mov_lanes(ocp_b, B), (0.0,) + tuple(cfg.alphas)
+    exp = expansions_fused(ocp_b, X_l, U_l, xref_l, lam_l, mu.contiguous(), mov_l)
+    calls = {"K3": (lambda: riccati_lanes(exp, cfg.reg), lambda: SL.riccati_first(exp, cfg.reg))}
+    new3, first3 = calls["K3"][0](), calls["K3"][1]()
+    args = (X_l[0].contiguous(), X_l, U_l, new3[0], new3[1], xref_l, lam_l, mu.contiguous())
+    calls["K5"] = (lambda: R.linesearch_costs_lanes(ocp_b, *args, alphas, mov_l),
+                   lambda: SL.linesearch_costs_first(ocp_b, *args, alphas, mov_l))
+    new5, first5 = calls["K5"][0](), calls["K5"][1]()
+    differ = lambda a, b: ~((a == b) | (a.isnan() & b.isnan()))  # noqa: E731
+    off3 = differ(new3[0], first3[0]).any(dim=(0, 1)) | differ(new3[1], first3[1]).any(
+        dim=(0, 1, 2)) | differ(new3[2], first3[2])
+    return {"K3": int(off3.sum()), "K5": int(differ(new5, first5).sum())}, calls
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -302,7 +349,8 @@ def main() -> int:
     if pkg_dir != HERE:
         raise RuntimeError(f"nmpc_tpu_torch imported from {pkg_dir}, not beside this script")
     from nmpc_tpu_torch.ocp import problem as P
-    from nmpc_tpu_torch.ops import cuda_build, megasolve
+    from nmpc_tpu_torch.ops import cuda_build, megasolve, staged_tiles
+    from nmpc_tpu_torch.ops import rollout as rollout_ops
     from nmpc_tpu_torch.ops.cuda_build import lane, std
     from nmpc_tpu_torch.parallel import batch_ocp
     from nmpc_tpu_torch.solver import alilqr_batched as AB
@@ -336,26 +384,41 @@ def main() -> int:
     per_m = ", ".join(f"m={m} {cuda_build.build_info[m]['seconds']:.1f}s"
                       for m in cuda_build.ROBOT_COUNTS)
     tools = cuda_build.tools_build_info[cuda_build.BENCH_ROBOTS]
-    log(f"phase 1 build: {len(cuda_build.ROBOT_COUNTS)} solver libraries and the tools library "
-        f"(m={cuda_build.BENCH_ROBOTS}, {len(cuda_build.TOOLS_PARTS)} parts) in {wall:.1f}s wall "
+    log(f"phase 1 build: {len(cuda_build.ROBOT_COUNTS)} solver libraries, the tools library "
+        f"(m={cuda_build.BENCH_ROBOTS}, {len(cuda_build.TOOLS_PARTS)} parts) and K3's and K5's "
+        f"first designs (m in {cuda_build.FIRST_ROBOTS}) in {wall:.1f}s wall "
         f"(parallel nvcc; {per_m}; tools {tools['seconds']:.1f}s)")
     lines = {}
     for m in cuda_build.ROBOT_COUNTS:   # every line logged before any is held
         text = cuda_build.build_info[m]["ptxas"]
         got = ptxas(text)
         k1 = (*got.get("K1", ()), ptxas_smem(text).get("K1"))
-        slot = cuda_build.load(m).nmpc_k1_slot_bytes()
+        lib = cuda_build.load(m)
+        slot = lib.nmpc_k1_slot_bytes()
         block = k1[-1] + megasolve.K1_WARPS * slot
-        lines[m] = (got, k1, block)
+        k3g = cuda_build.k3_geometry(lib)
+        k5g = cuda_build.k5_geometry(lib, staged_tiles.k5_rows(m, m > 1, 0, 0),
+                                     rollout_ops._P(3 * m, 2 * m, 9).size)
+        staged = {"K3": (*got.get("K3", ()), k3g["smem_bytes"]), "K4": got.get("K4"),
+                  "K5": (*got.get("K5", ()), k5g["smem_bytes"]), "K6": got.get("K6")}
+        lines[m] = (got, k1, block, staged)
         log(f"  ptxas m={m}: {ptxas_summary(text)}; K1 static shared {k1[-1]} B + "
-            f"{megasolve.K1_WARPS} warps x {slot} B slot = {block} B a block "
-            f"(K1 as recorded in PERF.md: {'yes' if k1 == K1_PTXAS[m] else 'NO'}; K3-K6: "
-            f"{'yes' if {k: got.get(k) for k in STAGED_PTXAS[m]} == STAGED_PTXAS[m] else 'NO'})")
-    for m, (got, k1, block) in lines.items():
+            f"{megasolve.K1_WARPS} warps x {slot} B slot = {block} B a block; K3 {staged['K3']}, "
+            f"K5 {staged['K5']} (regs, stack, spills, dynamic shared B a block; K3 S={k3g['S']} "
+            f"D={k3g['D']} T={k3g['T']} P={k3g['P']} spill={k3g['spill']}, K5 S={k5g['S']} "
+            f"D={k5g['D']}) (K1 as recorded in PERF.md: {'yes' if k1 == K1_PTXAS[m] else 'NO'}; "
+            f"K3-K6: {'yes' if staged == STAGED_PTXAS[m] else 'NO'})")
+    for m in cuda_build.FIRST_ROBOTS:
+        first = ptxas(cuda_build.first_build_info[m]["ptxas"])
+        log(f"  ptxas first designs m={m}: K3 {first.get('K3')}, K5 {first.get('K5')} (as "
+            f"recorded in PERF.md: {'yes' if first == FIRST_STAGED_PTXAS[m] else 'NO'})")
+        assert first == FIRST_STAGED_PTXAS[m], (m, first)
+    for m, (got, k1, block, staged) in lines.items():
         assert k1 == K1_PTXAS[m], (m, k1)
-        assert {k: got.get(k) for k in STAGED_PTXAS[m]} == STAGED_PTXAS[m], (m, got)
+        assert staged == STAGED_PTXAS[m], (m, staged)
         assert set(got) == set(KERNELS.values()), got
         assert block <= 227 * 1024, (m, block)   # the H100's shared memory per block
+        assert staged["K3"][-1] <= 227 * 1024 and staged["K5"][-1] <= 227 * 1024, (m, staged)
     tool_lines = {}
     for part, text in tools["ptxas"].items():
         log(f"  ptxas tools m={cuda_build.BENCH_ROBOTS} {part}: {ptxas_summary(text, part)}")
@@ -673,7 +736,7 @@ def main() -> int:
     # spread; (ii) with the solve's own multipliers and penalty weights (mu
     # up to 1e4), where K3 and K6 may need it. At most 1% of the units may
     # diverge at either.
-    errs, ms = {}, {}
+    errs, ms, turns_ab = {}, {}, {}
     for tag, ocp_b, r, cfg in (("a", ob, res_a, staged_cfg), ("b", ob_b, res_b, obs_cfg),
                                ("c", ob_c, res_c, mov_cfg)):
         Bp = ocp_b.x0.shape[0]
@@ -683,14 +746,19 @@ def main() -> int:
             torch.randint(0, 2, (Bp,), generator=gen, device=dev)]
         for state, lam_s, mu_s in (("i", lam_i, mu_i), ("ii", r.lam, r.mu)):
             v, calls = staged_vs_plain(ocp_b, r.X, r.U, lam_s, mu_s, cfg)
+            off, ab = first_vs_tiles(ocp_b, r.X, r.U, lam_s, mu_s, cfg)
             if state == "ii" and tag in ("a", "b"):
                 ms[tag] = {k: (cuda_ms(c[0], 5), cuda_ms(c[1], 1)) for k, c in calls.items()}
+                turns_ab[tag] = ab
             log(f"phase 10 K3-K6 vs plain at path ({tag}) B={Bp} N={ocp_b.N}, state ({state}): "
                 + "; ".join(f"{k} max |err| {x.err:.3e} (relative to max(1, |plain|) "
                             f"{x.rel:.3e}) on the held units, diverged "
                             f"{x.n_diverged}/{x.units}, passing by the f32 spread alone "
                             f"{x.n_widened}/{x.units}"
-                            for k, x in v.items()) + " ok")
+                            for k, x in v.items())
+                + f"; against the first designs, units that differ: K3 {off['K3']}/{Bp}, K5 "
+                f"{off['K5']}/{Bp * (len(cfg.alphas) + 1)} (bit for bit: 0) ok")
+            assert off == {"K3": 0, "K5": 0}, (tag, state, off)
             for k, x in v.items():
                 errs[k] = max(errs.get(k, 0.0), x.err)
                 assert x.n_diverged <= 0.01 * x.units, (tag, state, k, x.n_diverged)
@@ -707,6 +775,76 @@ def main() -> int:
     for tag in ("a", "b"):
         log(f"phase 11 kernels at path ({tag}): " + "; ".join(
             f"{k} {v[0]:.3f} ms vs plain {v[1]:.3f} ms" for k, v in ms[tag].items()) + f" {card}")
+    # K3 and K5 against their first designs, in turns (tile, first, first,
+    # tile, twice; median of 4) at phase 10's state (ii) of (a) and (b); then
+    # the staged solves of (a) and (b) with the first designs swapped in
+    from nmpc_tpu_torch.tools import staged_launch as SL
+
+    first_ms = {}
+    for tag in ("a", "b"):
+        for k, (new_call, first_call) in turns_ab[tag].items():
+            t = K8.time_in_turns({"tile": new_call, "first": first_call},
+                                 ("tile", "first", "first", "tile"), 2)
+            first_ms[tag, k] = {d: statistics.median(v) for d, v in t.items()}
+        log(f"phase 11 K3 and K5 at path ({tag}), in turns, median of 4: " + "; ".join(
+            f"{k} {v['tile']:.3f} ms, first design {v['first']:.3f} ms "
+            f"({v['first'] / v['tile']:.2f}x)" for k in ("K3", "K5") for v in [first_ms[tag, k]])
+            + f" {card}")
+        for k in ("K3", "K5"):
+            assert first_ms[tag, k]["tile"] < first_ms[tag, k]["first"], (tag, k, first_ms[tag, k])
+
+    def staged_solve(ocp_b, cfg, first):
+        """solve_batched's ms with K3 and K5 or their first designs."""
+        real = AB.riccati_lanes, rollout_ops.linesearch_costs_lanes
+        if first:
+            AB.riccati_lanes, rollout_ops.linesearch_costs_lanes = (SL.riccati_first,
+                                                                    SL.linesearch_costs_first)
+        try:
+            return timed(lambda: solve_batched(ocp_b, cfg=cfg))[1] * 1e3
+        finally:
+            AB.riccati_lanes, rollout_ops.linesearch_costs_lanes = real
+
+    for tag, ocp_b, cfg in (("a", ob, staged_cfg), ("b", ob_b, obs_cfg)):
+        sol = {False: [], True: []}
+        for first in (False, True, True, False):
+            sol[first].append(staged_solve(ocp_b, cfg, first))
+        log(f"phase 11 staged solve of path ({tag}) in turns (tile, first, first, tile): K3 and K5 "
+            f"{', '.join(f'{t:.1f}' for t in sol[False])} ms; with their first designs "
+            f"{', '.join(f'{t:.1f}' for t in sol[True])} ms {card}")
+
+    # where one staged solve's time goes: CUDA events around each staged
+    # kernel's wrapper (the wrappers' own host work included), the rest is
+    # the host loop and the plain PyTorch ops between the kernels
+    owners = {"expansions_fused": AB, "riccati_lanes": AB, "linesearch_costs_lanes": rollout_ops,
+              "rollout_alpha_lanes": rollout_ops}
+    names = {"expansions_fused": "K4", "riccati_lanes": "K3", "linesearch_costs_lanes": "K5",
+             "rollout_alpha_lanes": "K6"}
+    for tag, ocp_b, cfg in (("a", ob, staged_cfg), ("b", ob_b, obs_cfg)):
+        events = {k: [] for k in owners}
+        real = {k: getattr(mod, k) for k, mod in owners.items()}
+
+        def evented_staged(name):
+            def wrapped(*args):
+                e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                e0.record()
+                out = real[name](*args)
+                e1.record()
+                events[name].append((e0, e1))
+                return out
+            return wrapped
+
+        for k, mod in owners.items():
+            setattr(mod, k, evented_staged(k))
+        try:
+            wall = timed(lambda: solve_batched(ocp_b, cfg=cfg))[1] * 1e3
+        finally:
+            for k, mod in owners.items():
+                setattr(mod, k, real[k])
+        spent = {names[k]: sum(e0.elapsed_time(e1) for e0, e1 in v) for k, v in events.items()}
+        rest = wall - sum(spent.values())
+        log(f"phase 11 one staged solve of path ({tag}): {wall:.1f} ms; " + ", ".join(
+            f"{k} {t:.1f} ms ({100 * t / wall:.1f}%)" for k, t in spent.items())
+            + f"; the rest {rest:.1f} ms ({100 * rest / wall:.1f}%) {card}")
 
     # ---- phase 12: K7, the attainable FMA rate ------------------------------
     # bit for bit: each f64 step of the plain chain is exact for these
@@ -928,8 +1066,8 @@ def main() -> int:
               "nmpc_tpu/ops/megasolve_pallas.py:870", counts["al_update_lanes"], k2_err,
               k2_ms, k2_plain_ms, "K2"),
     ] + [
-        entry(name, "nmpc_tpu_torch/csrc/staged.cuh", where, counts_a[name], errs[k],
-              ms["a"][k][0], ms["a"][k][1], f"{k} a")
+        entry(name, f"nmpc_tpu_torch/csrc/{'staged_tiles' if k in ('K3', 'K5') else 'staged'}.cuh",
+              where, counts_a[name], errs[k], ms["a"][k][0], ms["a"][k][1], f"{k} a")
         for name, k, where in staged
     ] + [
         entry("fma_peak", "nmpc_tpu_torch/csrc/tools.cu", "tools/roofline.py:46", k7_launches,

@@ -5,8 +5,13 @@ layout.
 
 The solver's kernels: one library per robot count m, `csrc/megasolve.cu`
 (K1, K2; device code in `csrc/inner_warp.cuh`) and `csrc/staged.cu`
-(K3-K6), each compiled by its own nvcc process with -DNMPC_NR=m, linked
-together (`load`). The roofline tools' K7-K9
+(K3-K6; K3's and K5's device code in `csrc/staged_tiles.cuh`), each compiled
+by its own nvcc process with -DNMPC_NR=m (staged.cu also with K3's and K5's
+launch geometry from ops/staged_tiles.py), linked together (`load`). K3's
+and K5's first designs (`csrc/staged_first.cu`, the A/B baselines of
+tools/staged_launch.py) are a library of their own per m (`load_first`),
+and so is staged.cu at another geometry (`load_staged_variant`, the sweep's).
+The roofline tools' K7-K9
 (`csrc/tools.cu`) are a library of their own (`load_tools`), so the solver
 library's kernel set, build time and code generation stay as they are: nine
 nvcc processes, one per part of tools.cu. A library is built at its first use
@@ -30,11 +35,15 @@ from pathlib import Path
 
 import torch
 
+from nmpc_tpu_torch.ops import staged_tiles
+
 _PKG = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 UNITS = ("megasolve.cu", "staged.cu")       # one nvcc process each
-SOURCES = (*UNITS, "inner_warp.cuh", "staged.cuh", "riccati.cuh", "rollout.cuh")
+SOURCES = (*UNITS, "inner_warp.cuh", "staged.cuh", "staged_tiles.cuh", "riccati.cuh",
+           "rollout.cuh")
+FIRST_SOURCES = ("staged_first.cu", "staged.cuh", "riccati.cuh", "rollout.cuh")
 TOOLS_SOURCES = ("tools.cu", "tools.cuh", "megasolve.cuh", "riccati.cuh", "rollout.cuh")
 # the parts of tools.cu (-DNMPC_TOOLS_PART=i), one nvcc process each
 TOOLS_PARTS = ("K7", "K8 full, early exit", "K8 full", "K8 inv_solve", "K8 no_ls",
@@ -46,6 +55,9 @@ ROBOT_COUNTS = (1, 2, 3, 4, 5, 6, 8, 10)
 # robot count of the main path (six_robot_antipodal): the tools library
 # that load_all builds
 BENCH_ROBOTS = 6
+# robot counts whose K3 and K5 first designs load_all builds: the main path's
+# (path (a)) and one robot (paths (b) and (c))
+FIRST_ROBOTS = (1, 6)
 
 # Kernel launches since the last reset: each wrapper adds one where it
 # launches its CUDA kernel, and nowhere else.
@@ -54,12 +66,15 @@ launch_counts = {"inner_solve_fused": 0, "al_update_lanes": 0,
                  "linesearch_costs_lanes": 0, "rollout_alpha_lanes": 0,
                  "fma_peak": 0, "phase_ablation": 0, "expansion_ab": 0}
 
-_locks = {(kind, m): threading.Lock() for kind in ("solver", "tools") for m in ROBOT_COUNTS}
+_locks = {(kind, m): threading.Lock() for kind in ("solver", "tools", "first")
+          for m in ROBOT_COUNTS}
 _libs: dict[tuple[str, int], ctypes.CDLL] = {}
 # per m: {"path", "seconds" (0.0 when reused), "ptxas" (compiler report)}
 build_info: dict[int, dict] = {}
 # per m: the same for the tools library, "ptxas" per part {TOOLS_PARTS[i]: report}
 tools_build_info: dict[int, dict] = {}
+# per m: the same for the first designs' library
+first_build_info: dict[int, dict] = {}
 
 
 def reset_launch_counts() -> None:
@@ -80,12 +95,12 @@ def nvcc() -> str:
     return found
 
 
-def _key(sources: tuple, m: int) -> str:
+def _key(sources: tuple, m: int, flags: tuple = ()) -> str:
     h = hashlib.sha256()
     for name in sources:
         h.update(name.encode())
         h.update((SRC_DIR / name).read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join((*NVCC_FLAGS, *flags)).encode())
     h.update(str(m).encode())
     return h.hexdigest()[:16]
 
@@ -93,10 +108,7 @@ def _key(sources: tuple, m: int) -> str:
 def _bind_mega(lib: ctypes.CDLL) -> ctypes.CDLL:
     """The entry points of megasolve.cu (K1, K2)."""
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.nmpc_robots.argtypes = []
-    lib.nmpc_robots.restype = I
-    lib.nmpc_error_string.argtypes = [I]
-    lib.nmpc_error_string.restype = ctypes.c_char_p
+    _bind_errors(lib)
     lib.nmpc_k1_slot_bytes.argtypes = []
     lib.nmpc_k1_slot_bytes.restype = I
     lib.nmpc_inner_solve.argtypes = [P] * 14 + [I] * 8 + [F] * 6 + [P]
@@ -106,12 +118,24 @@ def _bind_mega(lib: ctypes.CDLL) -> ctypes.CDLL:
     return lib
 
 
-def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+def _bind_errors(lib: ctypes.CDLL) -> ctypes.CDLL:
+    lib.nmpc_robots.argtypes = []
+    lib.nmpc_robots.restype = ctypes.c_int
+    lib.nmpc_error_string.argtypes = [ctypes.c_int]
+    lib.nmpc_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _bind_staged(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """The entry points of staged.cu (K3-K6)."""
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    _bind_mega(lib)
     lib.nmpc_expansions.argtypes = [P, I] + [P] * 13 + [I] * 5 + [P]
     lib.nmpc_expansions.restype = I
-    lib.nmpc_riccati.argtypes = [P] * 10 + [I] * 2 + [F] + [P]
+    lib.nmpc_k3_geometry.argtypes = [P]
+    lib.nmpc_k3_geometry.restype = None
+    lib.nmpc_k5_geometry.argtypes = [I, I, P]
+    lib.nmpc_k5_geometry.restype = None
+    lib.nmpc_riccati.argtypes = [P] * 11 + [I] * 2 + [F] + [P]
     lib.nmpc_riccati.restype = I
     lib.nmpc_linesearch_costs.argtypes = [P, I] + [P] * 10 + [I] * 6 + [P]
     lib.nmpc_linesearch_costs.restype = I
@@ -120,13 +144,24 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     return lib
 
 
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    return _bind_staged(_bind_mega(lib))
+
+
+def _bind_first(lib: ctypes.CDLL) -> ctypes.CDLL:
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    _bind_errors(lib)
+    lib.nmpc_riccati_first.argtypes = [P] * 10 + [I] * 2 + [F] + [P]
+    lib.nmpc_riccati_first.restype = I
+    lib.nmpc_linesearch_costs_first.argtypes = [P, I] + [P] * 10 + [I] * 6 + [P]
+    lib.nmpc_linesearch_costs_first.restype = I
+    return lib
+
+
 def _bind_tools(lib: ctypes.CDLL) -> ctypes.CDLL:
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     inner = [P] * 12 + [I] * 7 + [F] * 6 + [P]   # K1's argument list
-    lib.nmpc_robots.argtypes = []
-    lib.nmpc_robots.restype = I
-    lib.nmpc_error_string.argtypes = [I]
-    lib.nmpc_error_string.restype = ctypes.c_char_p
+    _bind_errors(lib)
     lib.nmpc_fma_peak.argtypes = [P, P, F, F, I, I, ctypes.c_longlong, P]
     lib.nmpc_fma_peak.restype = I
     lib.nmpc_phase_ablation.argtypes = [I, I] + inner
@@ -184,6 +219,36 @@ def _check_robots(lib: ctypes.CDLL, path, m: int) -> None:
         raise RuntimeError(f"{path} was built for m={lib.nmpc_robots()}, not {m}")
 
 
+def k3_geometry(lib: ctypes.CDLL) -> dict:
+    """K3's geometry as a library was built with (nmpc_k3_geometry)."""
+    g = (ctypes.c_int * 8)()
+    lib.nmpc_k3_geometry(g)
+    return dict(zip(("S", "D", "T", "P", "spill", "threads", "smem_bytes", "scratch_floats"), g))
+
+
+def k5_geometry(lib: ctypes.CDLL, rows: int, prm_size: int) -> dict:
+    """K5's geometry as a library was built with, and its shared bytes at
+    `rows` stage rows and a parameter block of prm_size floats."""
+    g = (ctypes.c_int * 4)()
+    lib.nmpc_k5_geometry(rows, prm_size, g)
+    return dict(zip(("S", "D", "max_alphas", "smem_bytes"), g))
+
+
+def _check_geometry(lib: ctypes.CDLL, path, m: int, k3, k5) -> None:
+    """Raise unless the library's K3 and K5 constants are the ones
+    ops/staged_tiles.py asked for and sizes."""
+    lay = staged_tiles.k3_layout(m, k3)
+    want = {"S": k3.S, "D": k3.D, "T": k3.T, "P": k3.P, "spill": int(k3.spill),
+            "threads": lay["threads"], "smem_bytes": lay["smem_bytes"],
+            "scratch_floats": lay["scratch_floats"]}
+    rows = staged_tiles.k5_rows(m, True, 1, 1)
+    want5 = {"S": k5.S, "D": k5.D, "max_alphas": staged_tiles.K5_THREADS // k5.S,
+             "smem_bytes": staged_tiles.k5_layout(m, rows, 100, 1, k5)["smem_bytes"]}
+    if k3_geometry(lib) != want or k5_geometry(lib, rows, 100) != want5:
+        raise RuntimeError(f"{path}: K3/K5 geometry {k3_geometry(lib)}, "
+                           f"{k5_geometry(lib, rows, 100)}, expected {want}, {want5}")
+
+
 def load(m: int) -> ctypes.CDLL:
     """The solver's kernel library (K1-K6) for m robots, built first if
     needed."""
@@ -193,11 +258,14 @@ def load(m: int) -> ctypes.CDLL:
     with _locks["solver", m]:
         if ("solver", m) in _libs:
             return _libs["solver", m]
+        geom = staged_tiles.nvcc_flags(m)
         path, seconds, texts = _build(
-            f"libnmpc_m{m}_{_key(SOURCES, m)}",
-            [(unit, [f"-DNMPC_NR={m}"]) for unit in UNITS], f"m={m}")
+            f"libnmpc_m{m}_{_key(SOURCES, m, tuple(geom))}",
+            [("megasolve.cu", [f"-DNMPC_NR={m}"]), ("staged.cu", [f"-DNMPC_NR={m}", *geom])],
+            f"m={m}")
         lib = _bind(ctypes.CDLL(str(path)))
         _check_robots(lib, path, m)
+        _check_geometry(lib, path, m, staged_tiles.K3_GEOMETRY[m], staged_tiles.K5_GEOMETRY[m])
         build_info[m] = {"path": str(path), "seconds": seconds, "ptxas": "".join(texts)}
         _libs["solver", m] = lib
         return lib
@@ -222,6 +290,41 @@ def load_tools(m: int) -> ctypes.CDLL:
                                "ptxas": dict(zip(TOOLS_PARTS, texts))}
         _libs["tools", m] = lib
         return lib
+
+
+def load_first(m: int) -> ctypes.CDLL:
+    """The library of K3's and K5's first designs (csrc/staged_first.cu) for
+    m robots, built first if needed."""
+    if m not in ROBOT_COUNTS:
+        raise NotImplementedError(
+            f"CUDA kernels are instantiated for m in {ROBOT_COUNTS}, not m={m}")
+    with _locks["first", m]:
+        if ("first", m) in _libs:
+            return _libs["first", m]
+        path, seconds, texts = _build(f"libnmpc_first_m{m}_{_key(FIRST_SOURCES, m)}",
+                                      [("staged_first.cu", [f"-DNMPC_NR={m}"])], f"first, m={m}")
+        lib = _bind_first(ctypes.CDLL(str(path)))
+        _check_robots(lib, path, m)
+        first_build_info[m] = {"path": str(path), "seconds": seconds, "ptxas": texts[0]}
+        _libs["first", m] = lib
+        return lib
+
+
+def load_staged_variant(m: int, k3, k5) -> tuple:
+    """staged.cu alone for m robots at K3 geometry k3 and K5 geometry k5
+    (staged_tiles.K3Geometry, K5Geometry; the sweep of
+    tools/staged_launch.py). Returns (library, compiler report)."""
+    if m not in ROBOT_COUNTS:
+        raise NotImplementedError(
+            f"CUDA kernels are instantiated for m in {ROBOT_COUNTS}, not m={m}")
+    flags = [f"-DNMPC_NR={m}", "-DNMPC_STAGED_ALONE", *staged_tiles.nvcc_flags(m, k3, k5)]
+    tag = "_".join(f.split("=")[1] for f in flags[2:])
+    path, _, texts = _build(f"libnmpc_staged_m{m}_{tag}_{_key(SOURCES, m)}",
+                            [("staged.cu", flags)], f"staged, m={m} {' '.join(flags[2:])}")
+    lib = _bind_staged(_bind_errors(ctypes.CDLL(str(path))))
+    _check_robots(lib, path, m)
+    _check_geometry(lib, path, m, k3, k5)
+    return lib, texts[0]
 
 
 def load_k1_variant(m: int, min_blocks: int | None = None, probes: bool = False) -> tuple:
@@ -260,13 +363,15 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
 
 def load_all() -> dict[int, ctypes.CDLL]:
     """Build (every source of every instantiation in its own nvcc process,
-    all started together) and load every solver instantiation and the tools
-    library for the main path's BENCH_ROBOTS. Returns the solver libraries
-    by m."""
-    with ThreadPoolExecutor(max_workers=len(ROBOT_COUNTS) + 1) as pool:
-        tools = pool.submit(load_tools, BENCH_ROBOTS)
+    all started together) and load every solver instantiation, the tools
+    library for the main path's BENCH_ROBOTS and the first designs' for
+    FIRST_ROBOTS. Returns the solver libraries by m."""
+    with ThreadPoolExecutor(max_workers=len(ROBOT_COUNTS) + 1 + len(FIRST_ROBOTS)) as pool:
+        others = [pool.submit(load_tools, BENCH_ROBOTS)]
+        others += [pool.submit(load_first, m) for m in FIRST_ROBOTS]
         libs = list(pool.map(load, ROBOT_COUNTS))
-        tools.result()
+        for f in others:
+            f.result()
     return dict(zip(ROBOT_COUNTS, libs))
 
 

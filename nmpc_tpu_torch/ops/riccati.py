@@ -13,10 +13,14 @@ stage k = N-1..0:
 This is K3's own recursion, not solver.alilqr._backward_pass (which
 symmetrises and uses the full value update).
 
-CUDA: csrc/staged.cuh::riccati_thread, one thread per scenario, sequential
-over the stages, Vxx and the Q-blocks in thread-local memory. Replaces
-riccati_pallas.py::_make_kernel / riccati_lanes (its horizon chunking exists
-only to fit VMEM and does not carry over).
+CUDA: csrc/staged_tiles.cuh::riccati_tiles, a block per tile of S
+scenarios streaming the stages backwards through a ring of stage tiles in
+shared memory, a team of T lanes per scenario (geometry per m:
+ops/staged_tiles.py); bit for bit its first design, csrc/staged.cuh::
+riccati_thread (one thread per scenario), which tools/staged_launch.py
+launches as the A/B baseline. Replaces riccati_pallas.py::_make_kernel /
+riccati_lanes (its horizon chunking exists only to fit VMEM and does not
+carry over).
 
 Layout: `riccati_lanes` takes and returns the lane-major layout of the
 staged path: A [N, n, n, B], B [N, n, nu, B], lx [N, n, B], lu [N, nu, B],
@@ -102,12 +106,9 @@ def riccati_plain(exp, reg: float = 1e-6):
     return kff, Kfb, dV1
 
 
-def riccati_lanes(exp, reg: float = 1e-6):
-    """K3 wrapper: the CUDA kernel for CUDA tensors, the plain version for
-    CPU tensors. exp = (A, B, lx, lu, lxx, luu, lux), lane-major."""
+def check_lanes(exp) -> tuple:
+    """(N, n, nu, B, m) of CUDA inputs the kernels take; raises otherwise."""
     A = exp[0]
-    if A.device.type == "cpu":
-        return riccati_plain(exp, reg)
     if A.device.type != "cuda":
         raise NotImplementedError(f"riccati_lanes: no kernel for {A.device}")
     N, n, _, B = A.shape
@@ -117,22 +118,49 @@ def riccati_lanes(exp, reg: float = 1e-6):
         raise NotImplementedError(
             f"riccati_lanes: the CUDA kernel covers n = 3m, nu = 2m for m in "
             f"{cuda_build.ROBOT_COUNTS}, not n={n}, nu={nu}")
-    dev = A.device
     for name, t, shape in zip(("A", "B", "lx", "lu", "lxx", "luu", "lux"), exp, (
             (N, n, n, B), (N, n, nu, B), (N, n, B), (N, nu, B), (N, n, n, B),
             (N, nu, nu, B), (N, nu, n, B))):
-        check_arg(name, t, shape, dev)
-    kff = torch.empty((N, nu, B), dtype=torch.float32, device=dev)
-    Kfb = torch.empty((N, nu, n, B), dtype=torch.float32, device=dev)
-    dV1 = torch.empty((B,), dtype=torch.float32, device=dev)
+        check_arg(name, t, shape, A.device)
+    return N, n, nu, B, m
+
+
+def launch(exp, reg: float, lib, first: bool = False):
+    """K3 from library `lib` on checked inputs (`check_lanes`): the tile
+    design (its device-memory scratch sized from the library's geometry) or,
+    with first=True, the first design of a `cuda_build.load_first` library."""
+    N, n, _, B = exp[0].shape
+    nu = exp[1].shape[2]
+    kw = dict(dtype=torch.float32, device=exp[0].device)
+    kff = torch.empty((N, nu, B), **kw)
+    Kfb = torch.empty((N, nu, n, B), **kw)
+    dV1 = torch.empty((B,), **kw)
     if B == 0:
         return kff, Kfb, dV1
-    lib = cuda_build.load(m)
-    err = lib.nmpc_riccati(*map(ptr, exp), ptr(kff), ptr(Kfb), ptr(dV1), B, N, float(reg),
-                           cuda_build.stream(dev))
+    stream = cuda_build.stream(exp[0].device)
+    if first:
+        err = lib.nmpc_riccati_first(*map(ptr, exp), ptr(kff), ptr(Kfb), ptr(dV1), B, N,
+                                     float(reg), stream)
+    else:
+        g = cuda_build.k3_geometry(lib)
+        scratch = (torch.empty(((B + g["S"] - 1) // g["S"]) * g["scratch_floats"], **kw)
+                   if g["spill"] else None)
+        err = lib.nmpc_riccati(*map(ptr, exp), ptr(kff), ptr(Kfb), ptr(dV1), ptr(scratch), B, N,
+                               float(reg), stream)
     cuda_build.check(lib, err, "riccati_lanes")
-    cuda_build.launch_counts["riccati_lanes"] += 1
     return kff, Kfb, dV1
+
+
+def riccati_lanes(exp, reg: float = 1e-6):
+    """K3 wrapper: the CUDA kernel for CUDA tensors, the plain version for
+    CPU tensors. exp = (A, B, lx, lu, lxx, luu, lux), lane-major."""
+    if exp[0].device.type == "cpu":
+        return riccati_plain(exp, reg)
+    m = check_lanes(exp)[-1]
+    out = launch(exp, reg, cuda_build.load(m))
+    if exp[0].shape[-1]:
+        cuda_build.launch_counts["riccati_lanes"] += 1
+    return out
 
 
 def riccati_fused(A, B, lx, lu, lxx, luu, lux, reg: float = 1e-6):

@@ -4,8 +4,13 @@ each with its plain PyTorch version. Port of nmpc_tpu/ops/rollout_pallas.py.
   K5 `linesearch_costs_lanes`: for every alpha of a line-search grid, the
      closed-loop rollout u = U + alpha kff + Kfb (x - X) from x0 and its
      summed AL merit -> costs [A, B]; pass alpha 0 first and row 0 is the
-     current iterate's merit. CUDA: csrc/staged.cuh::linesearch_cost_thread,
-     one thread per (alpha, scenario). Replaces rollout_pallas.py::
+     current iterate's merit. CUDA: csrc/staged_tiles.cuh::linesearch_tiles,
+     a block per tile of S scenarios running all A candidates (one thread
+     per (alpha, scenario), at most staged_tiles.k5_max_alphas(m) of them)
+     on stage tiles fetched once through a ring in shared memory; bit for
+     bit its first design, csrc/staged.cuh::linesearch_cost_thread (one
+     thread per (alpha, scenario) reading device memory, the A/B baseline
+     of tools/staged_launch.py). Replaces rollout_pallas.py::
      _make_cost_kernel / linesearch_costs_lanes.
   K6 `rollout_alpha_lanes`: the accepted rollout under one alpha per
      scenario -> states 1..N and the controls. CUDA: csrc/staged.cuh::
@@ -30,7 +35,7 @@ from __future__ import annotations
 import torch
 
 from nmpc_tpu_torch.ocp.problem import OCP, pair_indices
-from nmpc_tpu_torch.ops import cuda_build
+from nmpc_tpu_torch.ops import cuda_build, staged_tiles
 from nmpc_tpu_torch.ops.cuda_build import check_arg, lane, ptr, std
 
 
@@ -224,37 +229,65 @@ def linesearch_costs_plain(ocp: OCP, x0_l, X_l, U_l, kff_l, Kfb_l, xref_l,
     return acc
 
 
-def linesearch_costs_lanes(ocp: OCP, x0_l, X_l, U_l, kff_l, Kfb_l, xref_l,
-                           lam_l, mu, alphas, mov_l=None):
-    """K5 wrapper: the CUDA kernel for CUDA tensors, the plain version for
-    CPU tensors. Same arguments and result as `linesearch_costs_plain`."""
-    if x0_l.device.type == "cpu":
-        return linesearch_costs_plain(ocp, x0_l, X_l, U_l, kff_l, Kfb_l, xref_l,
-                                      lam_l, mu, alphas, mov_l)
+def check_costs(ocp: OCP, x0_l, X_l, U_l, kff_l, Kfb_l, xref_l, lam_l, mu, mov_l=None) -> None:
+    """Raise unless K5's kernels take these CUDA inputs."""
     if x0_l.device.type != "cuda":
         raise NotImplementedError(f"linesearch_costs_lanes: no kernel for {x0_l.device}")
     require(ocp, "linesearch_costs_lanes")
     N, n, nu, nc, B = ocp.N, ocp.nx, ocp.nu, ocp.n_con, x0_l.shape[-1]
-    dev = x0_l.device
     args = [("x0_l", x0_l, (n, B)), ("X_l", X_l, (N, n, B)), ("U_l", U_l, (N, nu, B)),
             ("kff_l", kff_l, (N, nu, B)), ("Kfb_l", Kfb_l, (N, nu, n, B)),
             ("xref_l", xref_l, (N, n, B)), ("lam_l", lam_l, (N, nc, B)), ("mu", mu, (B,))]
     if ocp.n_mov:
         args.append(("mov_l", mov_l, (N, 2 * ocp.n_mov, B)))
     for name, t, shape in args:
-        check_arg(name, t, shape, dev)
+        check_arg(name, t, shape, x0_l.device)
+
+
+def costs_launch(ocp: OCP, x0_l, X_l, U_l, kff_l, Kfb_l, xref_l, lam_l, mu, alphas, mov_l,
+                 lib, first: bool = False):
+    """K5 from library `lib` on checked inputs (`check_costs`): the tile
+    design, or with first=True the first design of a `cuda_build.load_first`
+    library."""
+    B, dev = x0_l.shape[-1], x0_l.device
     costs = torch.empty((len(alphas), B), dtype=torch.float32, device=dev)
     if B == 0 or not len(alphas):
         return costs
-    lib = cuda_build.load(ocp.m)
     prm = params(ocp, alphas, dev)
-    err = lib.nmpc_linesearch_costs(
-        ptr(prm), prm.numel(), ptr(x0_l), ptr(X_l), ptr(U_l), ptr(kff_l), ptr(Kfb_l),
-        ptr(xref_l), ptr(lam_l), ptr(mu), ptr(mov_l if ocp.n_mov else None), ptr(costs),
-        B, N, len(alphas), int(ocp.n_pairs > 0), ocp.n_obs, ocp.n_mov,
-        cuda_build.stream(dev))
+    entry = lib.nmpc_linesearch_costs_first if first else lib.nmpc_linesearch_costs
+    err = entry(ptr(prm), prm.numel(), ptr(x0_l), ptr(X_l), ptr(U_l), ptr(kff_l), ptr(Kfb_l),
+                ptr(xref_l), ptr(lam_l), ptr(mu), ptr(mov_l if ocp.n_mov else None), ptr(costs),
+                B, ocp.N, len(alphas), int(ocp.n_pairs > 0), ocp.n_obs, ocp.n_mov,
+                cuda_build.stream(dev))
     cuda_build.check(lib, err, "linesearch_costs_lanes")
-    cuda_build.launch_counts["linesearch_costs_lanes"] += 1
+    return costs
+
+
+def linesearch_costs_lanes(ocp: OCP, x0_l, X_l, U_l, kff_l, Kfb_l, xref_l,
+                           lam_l, mu, alphas, mov_l=None):
+    """K5 wrapper: the CUDA kernel for CUDA tensors, the plain version for
+    CPU tensors. Same arguments and result as `linesearch_costs_plain`. One
+    block runs all candidates of its scenarios: more than
+    staged_tiles.k5_max_alphas(m) raise NotImplementedError."""
+    if x0_l.device.type == "cpu":
+        return linesearch_costs_plain(ocp, x0_l, X_l, U_l, kff_l, Kfb_l, xref_l,
+                                      lam_l, mu, alphas, mov_l)
+    check_costs(ocp, x0_l, X_l, U_l, kff_l, Kfb_l, xref_l, lam_l, mu, mov_l)
+    if len(alphas) > staged_tiles.k5_max_alphas(ocp.m):
+        raise NotImplementedError(
+            f"linesearch_costs_lanes: {len(alphas)} line-search candidates, one block takes at "
+            f"most {staged_tiles.k5_max_alphas(ocp.m)} at m={ocp.m}")
+    rows = staged_tiles.k5_rows(ocp.m, ocp.n_pairs > 0, ocp.n_obs, ocp.n_mov)
+    smem = staged_tiles.k5_layout(ocp.m, rows, _P(ocp.nx, ocp.nu, len(alphas), ocp.n_obs).size,
+                                  len(alphas))["smem_bytes"]
+    if smem > staged_tiles.SMEM_BLOCK_MAX:
+        raise NotImplementedError(
+            f"linesearch_costs_lanes: a block's stage tiles and parameters take {smem} B of "
+            f"shared memory, more than the card's {staged_tiles.SMEM_BLOCK_MAX}")
+    costs = costs_launch(ocp, x0_l, X_l, U_l, kff_l, Kfb_l, xref_l, lam_l, mu, alphas, mov_l,
+                         cuda_build.load(ocp.m))
+    if costs.numel():
+        cuda_build.launch_counts["linesearch_costs_lanes"] += 1
     return costs
 
 

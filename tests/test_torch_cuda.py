@@ -16,8 +16,9 @@ the CPU tests' tolerances (tests/test_torch_staged_ops.py), relative to each
 scenario's largest magnitude of an output where that exceeds 1, by the rule
 of nmpc_tpu_torch/ops/kernel_check.py that chip_smoke.py phase 10 applies too;
 at these inputs no scenario may diverge or pass by the f32 spread alone.
-K7 bit for bit (the plain chain rounds each exact f64 step once, as the
-FMA); K8's modes and K9's layouts at 4 fixed iterations as K1; K8 `full`
+K3 and K5 against their first designs (tools/staged_launch.py) bit for bit,
+at the edges of the tile design. K7 bit for bit (the plain chain rounds each
+exact f64 step once, as the FMA); K8's modes and K9's layouts at 4 fixed iterations as K1; K8 `full`
 with the early exit (K1's first design) against plain as K1, and K1 against
 it at the same tolerances; K9 structured against K8 `full`, bit for bit
 (the same device code).
@@ -282,6 +283,70 @@ def test_staged_wrappers_refuse_what_the_kernels_do_not_cover(dev):
     bad = tuple(torch.zeros((5, 4, 4, 64), device=dev) for _ in range(7))
     with pytest.raises(NotImplementedError, match="n = 3m"):
         riccati_lanes(bad)
+
+
+# ---------------------------------------------------------------------------
+# K3 and K5: the tile design against its first design
+# ---------------------------------------------------------------------------
+
+
+def _first_vs_tiles(ocp, L, alphas):
+    """K3 on K4's output and K5 on K3's gains, the tile design against the
+    first design (tools/staged_launch.py) on the same inputs: both bit for
+    bit, every output finite."""
+    from nmpc_tpu_torch.tools import staged_launch as SL
+
+    exp = expansions_fused(ocp, L["X"], L["U"], L["xref"], L["lam"], L["mu"], L.get("mov"))
+    got3, first3 = riccati_lanes(exp, 1e-6), SL.riccati_first(exp, 1e-6)
+    assert all(torch.equal(a, b) for a, b in zip(got3, first3))
+    assert all(torch.isfinite(t).all() for t in got3)
+    args = (L["x0"], L["X"], L["U"], got3[0], got3[1], L["xref"], L["lam"], L["mu"])
+    got5 = R.linesearch_costs_lanes(ocp, *args, alphas, L.get("mov"))
+    assert torch.equal(got5, SL.linesearch_costs_first(ocp, *args, alphas, L.get("mov")))
+    assert torch.isfinite(got5).all()
+
+
+@pytest.mark.parametrize("case", ["B=33", "N=1", "N=5", "ten_robot", "moving", "all rows",
+                                  "obstacle_scenario_3"])
+def test_staged_tiles_match_first_design(dev, case):
+    """The edges of the tile design: unaligned rows and a ragged last tile
+    (B=33), one stage, a horizon that is no multiple of the ring depth, the
+    largest shared footprint (m=10), per-scenario moving-obstacle schedules,
+    every row kind at once, path (b)'s problem at N=20."""
+    name, B, N = {"B=33": ("six_robot_antipodal", 33, 10), "N=1": ("two_robot_swap", 64, 1),
+                  "N=5": ("six_robot_antipodal", 64, 5), "ten_robot": ("ten_robot", 300, 10),
+                  "moving": ("moving", 300, 8), "all rows": ("all rows", 33, 5),
+                  "obstacle_scenario_3": ("obstacle_scenario_3", 33, 20)}[case]
+    ocp = _staged_problem(name, dev)
+    if ocp.N != N:
+        ocp = get(name).make(N=N, device=dev)
+    _first_vs_tiles(ocp, _lanes(ocp, B, dev, seed=6), (0.0,) + ALILQRConfig().alphas)
+
+
+def test_k5_takes_the_most_candidates_a_block_takes(dev):
+    from nmpc_tpu_torch.ops import staged_tiles
+
+    ocp = _staged_problem("six_robot_antipodal", dev)
+    L = _lanes(ocp, 40, dev, seed=7)
+    top = staged_tiles.k5_max_alphas(ocp.m)
+    alphas = tuple(float(a) for a in torch.linspace(1.0, 0.0, top))
+    _first_vs_tiles(ocp, L, alphas)
+    with pytest.raises(NotImplementedError, match="candidates"):
+        R.linesearch_costs_lanes(ocp, L["x0"], L["X"], L["U"], L["kff"], L["Kfb"], L["xref"],
+                                 L["lam"], L["mu"], alphas + (0.5,))
+
+
+def test_staged_geometry_of_every_library(dev):
+    """Each solver library reports the K3 and K5 geometry that
+    ops/staged_tiles.py asked for (cuda_build checks it when it loads), and
+    a K3 block's shared memory fits the H100's 227 KB."""
+    from nmpc_tpu_torch.ops import staged_tiles
+
+    for m in cuda_build.ROBOT_COUNTS:
+        g = cuda_build.k3_geometry(cuda_build.load(m))
+        lay = staged_tiles.k3_layout(m)
+        assert g["smem_bytes"] == lay["smem_bytes"] <= staged_tiles.SMEM_BLOCK_MAX
+        assert g["S"] == staged_tiles.K3_GEOMETRY[m].S
 
 
 # ---------------------------------------------------------------------------
