@@ -14,14 +14,16 @@ plain PyTorch version on the card:
   csrc/megasolve.cuh) is timed beside it through the tools library;
 * the staged route, through K4 (expansions), K3 (Riccati sweep), K5
   (line-search merits) and K6 (accepted rollout), at full width on three
-  paths (K3 and K5 run a tile of scenarios per block through a ring of
-  stage tiles in shared memory, csrc/staged_tiles.cuh; their first designs,
-  one thread per scenario, are held against them bit for bit and timed
-  beside them through tools/staged_launch.py): (a) the main-path batch
-  with mega=False; (b) a family-H fleet, obstacle_scenario_3 (six static
-  obstacles) at its registry horizon N=100, B=32768, which K1 refuses; (c)
-  B=4096 per-robot subproblems of one decentralized six-robot round (one
-  robot, five moving obstacles, N=30);
+  paths (each runs a tile of scenarios per block with its rows in shared
+  memory, csrc/staged_tiles.cuh for K3 and K5,
+  csrc/expansions_rollout_tiles.cuh for K4 and K6; their first designs, one
+  thread per (stage and) scenario, are held against them bit for bit and
+  timed beside them through tools/staged_launch.py): (a) the main-path
+  batch with mega=False; (b) a family-H fleet, obstacle_scenario_3 (six
+  static obstacles) at its registry horizon N=100, B=32768, which K1
+  refuses; (c) B=4096 per-robot subproblems of one decentralized six-robot
+  round (one robot, five moving obstacles, N=30); then line-search grids
+  longer than one launch takes (K1's parameter block, K5's slices);
 * the roofline path (nmpc_tpu_torch/tools), through K7 (FMA-peak probe), K8
   (K1 with one phase ablated at a fixed count) and K9 (K1 with the
   structured or the dense expansion layout), then the bound of every kernel.
@@ -32,10 +34,11 @@ Phases:
   1 build every kernel              8 path (b), obstacles, routing checked
   2 K2 vs plain, B=32768            9 path (c), moving obstacles
   3 K1 vs plain, B=1024, and a     10 K3-K6 vs plain at the shapes of (a)-(c);
-    ragged B=33                       K3, K5 vs their first designs there
+    ragged B=33                       K3-K6 vs their first designs there
                                    11 staged timings (solves, also with K3's
-                                      and K5's first designs, in turns; K3-K6
-                                      vs plain; K3, K5 vs first designs)
+                                      and K5's or K4's and K6's first designs,
+                                      in turns; K3-K6 vs plain and vs their
+                                      first designs in turns; a solve's split)
   4 main path at B=32768, no       12 K7: FMA peak over C chains, vs plain
     layout copies                     bit for bit (also at the timed shape)
   5 first 64 scenarios re-solved   13 K8: 'full' with the early exit is K1's
@@ -47,6 +50,9 @@ Phases:
     plain there; K1 per outer      14 K9 vs plain (also at the timed shape),
     step; K2; the first design's      both layouts timed in turns; the
     layout copies                     roofline of K1-K9
+                                   15 line-search grids of 33 and 64 alphas:
+                                      K1 vs plain, the megakernel route; K5
+                                      vs its first design; a staged solve
 
 Phases 5, 7, 8 and 9 re-solve the first scenarios with the plain path on the
 CPU. Any failed check raises, so the exit code is non-zero. Without a CUDA
@@ -75,13 +81,13 @@ CROSS_B = 64
 OBS_CROSS_B = 32
 MOV_B = 4096
 # K1's `-Xptxas -v` line at each m as recorded in PERF.md (regs, stack, spill
-# stores, spill loads, static shared bytes; its dynamic shared memory is one
-# slot of nmpc_k1_slot_bytes() a warp): K1 does not change when the staged
-# kernels or the tools are changed
-K1_PTXAS = {1: (64, 24, 68, 60, 208), 2: (64, 72, 220, 200, 256),
-            3: (80, 16, 40, 40, 320), 4: (96, 0, 0, 0, 384),
-            5: (96, 0, 0, 0, 448), 6: (96, 8, 16, 12, 496),
-            8: (128, 0, 0, 0, 624), 10: (168, 0, 0, 0, 736)}
+# stores, spill loads, static shared bytes: none, its dynamic shared memory
+# holds one slot of nmpc_k1_slot_bytes() a warp and then the parameter
+# block): K1 does not change when the staged kernels or the tools are changed
+K1_PTXAS = {1: (64, 32, 80, 72, 0), 2: (64, 72, 228, 220, 0),
+            3: (80, 16, 40, 40, 0), 4: (96, 0, 0, 0, 0),
+            5: (96, 0, 0, 0, 0), 6: (96, 8, 16, 12, 0),
+            8: (128, 8, 16, 12, 0), 10: (168, 0, 0, 0, 0)}
 # K1's first design (one thread per scenario) at m=6, as PERF.md records its
 # line: the tools part `K8 full, early exit` is that design
 FIRST_K1_PTXAS = (255, 4880, 156, 200)
@@ -89,31 +95,34 @@ FIRST_K1_PTXAS = (255, 4880, 156, 200)
 # removed) at the main path's shape, ms per launch as PERF.md records it
 # (NVIDIA H100 80GB HBM3, 700.00 W)
 FIRST_K2_MS = 0.844
-# K3-K6's lines at each m as recorded in PERF.md (K4's and K6's do not
-# change with K3 and K5; K3 and K5 the tile design, with a fifth entry: the
-# dynamic shared bytes of a block, K5's at the main path's rows without
-# obstacles and a parameter block with nine alphas)
+# K3-K6's lines at each m as recorded in PERF.md (the tile designs, with a
+# fifth entry: the dynamic shared bytes of a block, K4's and K5's at the main
+# path's rows without obstacles and a parameter block with no alphas (K4) or
+# nine (K5))
 STAGED_PTXAS = {
-    1: {"K3": (95, 0, 0, 0, 44032), "K4": (64, 80, 0, 0), "K5": (40, 56, 0, 0, 6768),
-        "K6": (32, 56, 0, 0)},
-    2: {"K3": (168, 0, 0, 0, 163840), "K4": (74, 320, 0, 0), "K5": (44, 80, 0, 0, 16816),
-        "K6": (48, 80, 0, 0)},
-    3: {"K3": (56, 0, 0, 0, 75152), "K4": (80, 552, 0, 0), "K5": (52, 104, 0, 0, 30176),
-        "K6": (48, 104, 0, 0)},
-    4: {"K3": (80, 0, 0, 0, 63296), "K4": (118, 864, 0, 0), "K5": (61, 128, 0, 0, 23584),
-        "K6": (56, 128, 0, 0)},
-    5: {"K3": (96, 0, 0, 0, 100128), "K4": (96, 1280, 20, 28), "K5": (63, 152, 0, 0, 33632),
-        "K6": (56, 152, 0, 0)},
-    6: {"K3": (128, 0, 0, 0, 143184), "K4": (108, 1728, 0, 0), "K5": (86, 176, 0, 0, 90272),
-        "K6": (72, 176, 0, 0)},
-    8: {"K3": (204, 0, 0, 0, 227328), "K4": (128, 2848, 0, 0), "K5": (81, 224, 0, 0, 73744),
-        "K6": (80, 224, 0, 0)},
-    10: {"K3": (255, 0, 0, 0, 220800), "K4": (130, 4288, 0, 0), "K5": (101, 400, 0, 0, 54736),
-         "K6": (108, 272, 0, 0)},
+    1: {"K3": (95, 0, 0, 0, 44032), "K4": (53, 32, 0, 0, 18000), "K5": (40, 56, 0, 0, 6768),
+        "K6": (76, 56, 0, 0, 6656)},
+    2: {"K3": (168, 0, 0, 0, 163840), "K4": (72, 32, 0, 0, 20096), "K5": (44, 80, 0, 0, 16816),
+        "K6": (76, 80, 0, 0, 19456)},
+    3: {"K3": (56, 0, 0, 0, 75152), "K4": (96, 32, 0, 0, 33472), "K5": (52, 104, 0, 0, 30176),
+        "K6": (72, 32, 0, 0, 19968)},
+    4: {"K3": (80, 0, 0, 0, 63296), "K4": (128, 32, 0, 0, 49152), "K5": (61, 128, 0, 0, 23584),
+        "K6": (72, 32, 0, 0, 32768)},
+    5: {"K3": (96, 0, 0, 0, 100128), "K4": (128, 32, 0, 0, 67136), "K5": (63, 152, 0, 0, 33632),
+        "K6": (96, 32, 0, 0, 48640)},
+    6: {"K3": (128, 0, 0, 0, 143184), "K4": (167, 32, 0, 0, 87408), "K5": (86, 176, 0, 0, 90272),
+        "K6": (76, 176, 0, 0, 66048)},
+    8: {"K3": (204, 0, 0, 0, 227328), "K4": (254, 32, 0, 0, 67696), "K5": (81, 224, 0, 0, 73744),
+        "K6": (114, 32, 0, 0, 57344)},
+    10: {"K3": (255, 0, 0, 0, 220800), "K4": (255, 32, 0, 0, 96096), "K5": (101, 400, 0, 0, 54736),
+         "K6": (123, 32, 0, 0, 43520)},
 }
-# K3's and K5's first designs (csrc/staged_first.cu), as PERF.md records them
-FIRST_STAGED_PTXAS = {1: {"K3": (32, 176, 0, 0), "K5": (72, 0, 0, 0)},
-                      6: {"K3": (255, 4384, 0, 0), "K5": (72, 176, 0, 0)}}
+# the staged kernels' first designs (csrc/staged_first.cu), as PERF.md
+# records them
+FIRST_STAGED_PTXAS = {1: {"K3": (32, 176, 0, 0), "K4": (64, 80, 0, 0), "K5": (72, 0, 0, 0),
+                          "K6": (32, 56, 0, 0)},
+                      6: {"K3": (255, 4384, 0, 0), "K4": (108, 1728, 0, 0), "K5": (72, 176, 0, 0),
+                          "K6": (72, 176, 0, 0)}}
 KERNELS = {"inner_solve": "K1", "al_update": "K2", "riccati": "K3", "expansions": "K4",
            "linesearch_costs": "K5", "rollout_alpha": "K6"}
 
@@ -307,10 +316,14 @@ def staged_vs_plain(ocp_b, X, U, lam, mu, cfg):
 
 
 def first_vs_tiles(ocp_b, X, U, lam, mu, cfg):
-    """K3 (on K4's output at the state) and K5 (the merits of cfg's grid on
-    K3's gains) of the tile design against their first designs
-    (tools/staged_launch.py) on the same inputs. Returns ({'K3': units that
-    differ, 'K5': ...}, {'K3': (tile call, first-design call), ...})."""
+    """The tile designs against their first designs (tools/staged_launch.py)
+    on the same inputs: K4 at the state, K3 on K4's output, K5 (the merits
+    of cfg's grid) and K6 (one alpha of the grid per scenario, as
+    staged_vs_plain draws it) on K3's gains. Returns ({'K3': units that
+    differ, 'K4': ..., 'K5': ..., 'K6': ...}, {'K3': (tile call,
+    first-design call), ...}); a unit is a scenario (K5: a merit)."""
+    import torch
+
     from nmpc_tpu_torch.ops import rollout as R
     from nmpc_tpu_torch.ops.cuda_build import lane
     from nmpc_tpu_torch.ops.expansions import expansions_fused
@@ -321,17 +334,31 @@ def first_vs_tiles(ocp_b, X, U, lam, mu, cfg):
     B = ocp_b.x0.shape[0]
     X_l, U_l, xref_l, lam_l = lane(X[:, :-1]), lane(U), lane(ocp_b.xref), lane(lam)
     mov_l, alphas = _mov_lanes(ocp_b, B), (0.0,) + tuple(cfg.alphas)
-    exp = expansions_fused(ocp_b, X_l, U_l, xref_l, lam_l, mu.contiguous(), mov_l)
-    calls = {"K3": (lambda: riccati_lanes(exp, cfg.reg), lambda: SL.riccati_first(exp, cfg.reg))}
+    k4 = (X_l, U_l, xref_l, lam_l, mu.contiguous(), mov_l)
+    calls = {"K4": (lambda: expansions_fused(ocp_b, *k4), lambda: SL.expansions_first(ocp_b, *k4))}
+    new4, first4 = calls["K4"][0](), calls["K4"][1]()
+    calls["K3"] = (lambda: riccati_lanes(new4, cfg.reg), lambda: SL.riccati_first(new4, cfg.reg))
     new3, first3 = calls["K3"][0](), calls["K3"][1]()
     args = (X_l[0].contiguous(), X_l, U_l, new3[0], new3[1], xref_l, lam_l, mu.contiguous())
     calls["K5"] = (lambda: R.linesearch_costs_lanes(ocp_b, *args, alphas, mov_l),
                    lambda: SL.linesearch_costs_first(ocp_b, *args, alphas, mov_l))
     new5, first5 = calls["K5"][0](), calls["K5"][1]()
+    grid = torch.tensor(cfg.alphas, device=mu.device)
+    alpha = grid[torch.arange(B, device=mu.device) % len(cfg.alphas)]
+    k6 = (*args[:5], alpha)
+    calls["K6"] = (lambda: R.rollout_alpha_lanes(ocp_b, *k6),
+                   lambda: SL.rollout_alpha_first(ocp_b, *k6))
+    new6, first6 = calls["K6"][0](), calls["K6"][1]()
     differ = lambda a, b: ~((a == b) | (a.isnan() & b.isnan()))  # noqa: E731
-    off3 = differ(new3[0], first3[0]).any(dim=(0, 1)) | differ(new3[1], first3[1]).any(
-        dim=(0, 1, 2)) | differ(new3[2], first3[2])
-    return {"K3": int(off3.sum()), "K5": int(differ(new5, first5).sum())}, calls
+
+    def units(new, first):   # scenarios with any output entry that differs
+        off = torch.zeros(B, dtype=torch.bool, device=mu.device)
+        for a, b in zip(new, first):
+            off |= differ(a, b).reshape(-1, B).any(dim=0)
+        return int(off.sum())
+
+    return {"K3": units(new3, first3), "K4": units(new4, first4), "K5": int(differ(new5, first5).sum()),
+            "K6": units(new6, first6)}, calls
 
 
 def main() -> int:
@@ -385,40 +412,52 @@ def main() -> int:
                       for m in cuda_build.ROBOT_COUNTS)
     tools = cuda_build.tools_build_info[cuda_build.BENCH_ROBOTS]
     log(f"phase 1 build: {len(cuda_build.ROBOT_COUNTS)} solver libraries, the tools library "
-        f"(m={cuda_build.BENCH_ROBOTS}, {len(cuda_build.TOOLS_PARTS)} parts) and K3's and K5's "
-        f"first designs (m in {cuda_build.FIRST_ROBOTS}) in {wall:.1f}s wall "
+        f"(m={cuda_build.BENCH_ROBOTS}, {len(cuda_build.TOOLS_PARTS)} parts) and the staged "
+        f"kernels' first designs (m in {cuda_build.FIRST_ROBOTS}) in {wall:.1f}s wall "
         f"(parallel nvcc; {per_m}; tools {tools['seconds']:.1f}s)")
     lines = {}
     for m in cuda_build.ROBOT_COUNTS:   # every line logged before any is held
         text = cuda_build.build_info[m]["ptxas"]
         got = ptxas(text)
-        k1 = (*got.get("K1", ()), ptxas_smem(text).get("K1"))
+        k1 = (*got.get("K1", ()), ptxas_smem(text).get("K1", 0))
         lib = cuda_build.load(m)
         slot = lib.nmpc_k1_slot_bytes()
-        block = k1[-1] + megasolve.K1_WARPS * slot
+        # K1's dynamic shared memory: a slot a warp, then the parameter block
+        # at the main path's eight alphas
+        k1_prm = 4 * rollout_ops._P(3 * m, 2 * m, len(ALILQRConfig().alphas)).size
+        block = k1[-1] + k1_prm + megasolve.K1_WARPS * slot
         k3g = cuda_build.k3_geometry(lib)
+        k4g = cuda_build.k4_geometry(lib, staged_tiles.k4_rows(m, m > 1, 0, 0),
+                                     rollout_ops._P(3 * m, 2 * m, 0).size)
         k5g = cuda_build.k5_geometry(lib, staged_tiles.k5_rows(m, m > 1, 0, 0),
                                      rollout_ops._P(3 * m, 2 * m, 9).size)
-        staged = {"K3": (*got.get("K3", ()), k3g["smem_bytes"]), "K4": got.get("K4"),
-                  "K5": (*got.get("K5", ()), k5g["smem_bytes"]), "K6": got.get("K6")}
+        k6g = cuda_build.k6_geometry(lib)
+        staged = {"K3": (*got.get("K3", ()), k3g["smem_bytes"]),
+                  "K4": (*got.get("K4", ()), k4g["smem_bytes"]),
+                  "K5": (*got.get("K5", ()), k5g["smem_bytes"]),
+                  "K6": (*got.get("K6", ()), k6g["smem_bytes"])}
         lines[m] = (got, k1, block, staged)
         log(f"  ptxas m={m}: {ptxas_summary(text)}; K1 static shared {k1[-1]} B + "
-            f"{megasolve.K1_WARPS} warps x {slot} B slot = {block} B a block; K3 {staged['K3']}, "
-            f"K5 {staged['K5']} (regs, stack, spills, dynamic shared B a block; K3 S={k3g['S']} "
-            f"D={k3g['D']} T={k3g['T']} P={k3g['P']} spill={k3g['spill']}, K5 S={k5g['S']} "
-            f"D={k5g['D']}) (K1 as recorded in PERF.md: {'yes' if k1 == K1_PTXAS[m] else 'NO'}; "
-            f"K3-K6: {'yes' if staged == STAGED_PTXAS[m] else 'NO'})")
+            f"{megasolve.K1_WARPS} warps x {slot} B slot + parameters {k1_prm} B = {block} B a block; "
+            f"K3 {staged['K3']}, K4 {staged['K4']}, K5 {staged['K5']}, K6 {staged['K6']} (regs, "
+            f"stack, spills, dynamic shared B a block; K3 S={k3g['S']} D={k3g['D']} T={k3g['T']} "
+            f"P={k3g['P']} spill={k3g['spill']}, K4 S={k4g['S']} W={k4g['W']}, K5 S={k5g['S']} "
+            f"D={k5g['D']}, K6 S={k6g['S']} D={k6g['D']} T={k6g['T']}) (K1 as recorded in "
+            f"PERF.md: {'yes' if k1 == K1_PTXAS[m] else 'NO'}; K3-K6: "
+            f"{'yes' if staged == STAGED_PTXAS[m] else 'NO'})")
     for m in cuda_build.FIRST_ROBOTS:
         first = ptxas(cuda_build.first_build_info[m]["ptxas"])
-        log(f"  ptxas first designs m={m}: K3 {first.get('K3')}, K5 {first.get('K5')} (as "
-            f"recorded in PERF.md: {'yes' if first == FIRST_STAGED_PTXAS[m] else 'NO'})")
+        log(f"  ptxas first designs m={m}: " + ", ".join(f"{k} {v}" for k, v in first.items())
+            + f" (as recorded in PERF.md: {'yes' if first == FIRST_STAGED_PTXAS[m] else 'NO'})")
+    for m in cuda_build.FIRST_ROBOTS:
+        first = ptxas(cuda_build.first_build_info[m]["ptxas"])
         assert first == FIRST_STAGED_PTXAS[m], (m, first)
     for m, (got, k1, block, staged) in lines.items():
         assert k1 == K1_PTXAS[m], (m, k1)
         assert staged == STAGED_PTXAS[m], (m, staged)
         assert set(got) == set(KERNELS.values()), got
         assert block <= 227 * 1024, (m, block)   # the H100's shared memory per block
-        assert staged["K3"][-1] <= 227 * 1024 and staged["K5"][-1] <= 227 * 1024, (m, staged)
+        assert all(v[-1] <= 227 * 1024 for v in staged.values()), (m, staged)
     tool_lines = {}
     for part, text in tools["ptxas"].items():
         log(f"  ptxas tools m={cuda_build.BENCH_ROBOTS} {part}: {ptxas_summary(text, part)}")
@@ -756,9 +795,10 @@ def main() -> int:
                             f"{x.n_diverged}/{x.units}, passing by the f32 spread alone "
                             f"{x.n_widened}/{x.units}"
                             for k, x in v.items())
-                + f"; against the first designs, units that differ: K3 {off['K3']}/{Bp}, K5 "
-                f"{off['K5']}/{Bp * (len(cfg.alphas) + 1)} (bit for bit: 0) ok")
-            assert off == {"K3": 0, "K5": 0}, (tag, state, off)
+                + f"; against the first designs, units that differ: K3 {off['K3']}/{Bp}, K4 "
+                f"{off['K4']}/{Bp}, K5 {off['K5']}/{Bp * (len(cfg.alphas) + 1)}, K6 "
+                f"{off['K6']}/{Bp} (bit for bit: 0) ok")
+            assert off == {"K3": 0, "K4": 0, "K5": 0, "K6": 0}, (tag, state, off)
             for k, x in v.items():
                 errs[k] = max(errs.get(k, 0.0), x.err)
                 assert x.n_diverged <= 0.01 * x.units, (tag, state, k, x.n_diverged)
@@ -775,42 +815,58 @@ def main() -> int:
     for tag in ("a", "b"):
         log(f"phase 11 kernels at path ({tag}): " + "; ".join(
             f"{k} {v[0]:.3f} ms vs plain {v[1]:.3f} ms" for k, v in ms[tag].items()) + f" {card}")
-    # K3 and K5 against their first designs, in turns (tile, first, first,
-    # tile, twice; median of 4) at phase 10's state (ii) of (a) and (b); then
-    # the staged solves of (a) and (b) with the first designs swapped in
+    # K3-K6 against their first designs, in turns (tile, first, first, tile,
+    # twice; median of 4) at phase 10's state (ii) of (a) and (b), each with
+    # its share of the bound (tools/roofline.py::kernel_work on these
+    # shapes); then the staged solves of (a) and (b) with K3's and K5's or
+    # K4's and K6's first designs swapped in
     from nmpc_tpu_torch.tools import staged_launch as SL
 
     first_ms = {}
-    for tag in ("a", "b"):
+    for tag, ocp_p, cfg_p in (("a", base, staged_cfg), ("b", obs_base, obs_cfg)):
+        shares = {}
         for k, (new_call, first_call) in turns_ab[tag].items():
             t = K8.time_in_turns({"tile": new_call, "first": first_call},
                                  ("tile", "first", "first", "tile"), 2)
             first_ms[tag, k] = {d: statistics.median(v) for d, v in t.items()}
-        log(f"phase 11 K3 and K5 at path ({tag}), in turns, median of 4: " + "; ".join(
+            b_ms = RL.bound(*RL.kernel_work(k, ocp_p, BENCH_B, n_alphas=len(cfg_p.alphas) + 1))[0]
+            shares[k] = (b_ms, b_ms / ms[tag][k][0], b_ms / first_ms[tag, k]["first"])
+        log(f"phase 11 K3-K6 at path ({tag}), in turns, median of 4: " + "; ".join(
             f"{k} {v['tile']:.3f} ms, first design {v['first']:.3f} ms "
-            f"({v['first'] / v['tile']:.2f}x)" for k in ("K3", "K5") for v in [first_ms[tag, k]])
+            f"({v['first'] / v['tile']:.2f}x)" for k in ("K3", "K4", "K5", "K6")
+            for v in [first_ms[tag, k]]) + "; mean of 5 back-to-back launches against the bound: "
+            + "; ".join(f"{k} {ms[tag][k][0]:.3f} ms, bound {sh[0]:.4f} ms, {100 * sh[1]:.1f}% "
+                        f"(first design in turns {100 * sh[2]:.1f}%)" for k, sh in shares.items())
             + f" {card}")
         for k in ("K3", "K5"):
             assert first_ms[tag, k]["tile"] < first_ms[tag, k]["first"], (tag, k, first_ms[tag, k])
 
-    def staged_solve(ocp_b, cfg, first):
-        """solve_batched's ms with K3 and K5 or their first designs."""
-        real = AB.riccati_lanes, rollout_ops.linesearch_costs_lanes
-        if first:
-            AB.riccati_lanes, rollout_ops.linesearch_costs_lanes = (SL.riccati_first,
-                                                                    SL.linesearch_costs_first)
+    firsts = {"K3/K5": {(AB, "riccati_lanes"): SL.riccati_first,
+                        (rollout_ops, "linesearch_costs_lanes"): SL.linesearch_costs_first},
+              "K4/K6": {(AB, "expansions_fused"): SL.expansions_first,
+                        (rollout_ops, "rollout_alpha_lanes"): SL.rollout_alpha_first}}
+
+    def staged_solve(ocp_b, cfg, swap):
+        """solve_batched's ms with the tile designs or, swap naming a pair of
+        `firsts`, that pair's first designs."""
+        real = {key: getattr(*key) for key in firsts.get(swap, {})}
+        for (mod, name), fn in firsts.get(swap, {}).items():
+            setattr(mod, name, fn)
         try:
             return timed(lambda: solve_batched(ocp_b, cfg=cfg))[1] * 1e3
         finally:
-            AB.riccati_lanes, rollout_ops.linesearch_costs_lanes = real
+            for (mod, name), fn in real.items():
+                setattr(mod, name, fn)
 
     for tag, ocp_b, cfg in (("a", ob, staged_cfg), ("b", ob_b, obs_cfg)):
-        sol = {False: [], True: []}
-        for first in (False, True, True, False):
-            sol[first].append(staged_solve(ocp_b, cfg, first))
-        log(f"phase 11 staged solve of path ({tag}) in turns (tile, first, first, tile): K3 and K5 "
-            f"{', '.join(f'{t:.1f}' for t in sol[False])} ms; with their first designs "
-            f"{', '.join(f'{t:.1f}' for t in sol[True])} ms {card}")
+        sol = {"tiles": [], "K3/K5": [], "K4/K6": []}
+        for swap in ("tiles", "K4/K6", "K3/K5", "K3/K5", "K4/K6", "tiles"):
+            sol[swap].append(staged_solve(ocp_b, cfg, swap))
+        log(f"phase 11 staged solve of path ({tag}) in turns (tiles, K4/K6 first, K3/K5 first, "
+            f"K3/K5 first, K4/K6 first, tiles): the tile designs "
+            f"{', '.join(f'{t:.1f}' for t in sol['tiles'])} ms; with K3's and K5's first designs "
+            f"{', '.join(f'{t:.1f}' for t in sol['K3/K5'])} ms; with K4's and K6's first designs "
+            f"{', '.join(f'{t:.1f}' for t in sol['K4/K6'])} ms {card}")
 
     # where one staged solve's time goes: CUDA events around each staged
     # kernel's wrapper (the wrappers' own host work included), the rest is
@@ -1053,6 +1109,72 @@ def main() -> int:
     roof("K8 line", "K8 full (4 iterations, lam |0.1 N|, U 0.01 N)", k8_ms, None, line_work)
     roof("K9 line", "K9 dense (the same inputs)", k9_ms, None, line_work)
 
+    # ---- phase 15: line-search grids longer than one launch takes --------------
+    # K1 keeps any number of alphas with its parameter block in dynamic
+    # shared memory: the cascade (which tries every alpha) at 33 and 64 on
+    # phase 3's inputs, against plain at phase 3's tolerances; the default
+    # grid, then alphas below its last (a tie between two near-equal small
+    # steps moves U by less than its tolerance)
+    for n_al in (33, 64):
+        grid = ALILQRConfig().alphas
+        alphas = (grid + tuple(grid[-1] * 0.7 ** k for k in range(1, n_al)))[:n_al]
+        cfg = ALILQRConfig(n_outer=6, n_inner=4, tol_con=1e-3, ls="cascade", alphas=alphas)
+        got = megasolve.inner_solve_fused(obk, obk.x0, obk.xref, lam3, mu3, U3, cfg)
+        torch.cuda.synchronize()
+        want = megasolve.inner_solve_plain(obk, obk.x0, obk.xref, lam3, mu3, U3, cfg)
+        _, rel, du, dx = hold_solve(f"K1 with {n_al} alphas", got, want)
+        same_it = int((got[3] == want[3]).sum())
+        assert same_it >= 0.99 * K1_B, (n_al, same_it)
+        cuda_build.reset_launch_counts()
+        r15 = solve_batched(obk, cfg=dataclasses.replace(cfg, n_inner=12))
+        c15 = dict(cuda_build.launch_counts)
+        steps15 = int(r15.outer_iters.max())
+        assert c15["inner_solve_fused"] == c15["al_update_lanes"] == steps15, c15
+        assert sum(c15.values()) == 2 * steps15 and torch.isfinite(r15.cost).all(), c15
+        log(f"phase 15 K1 with {n_al} alphas (cascade, six_robot_antipodal N=10 B={K1_B}, "
+            f"n_inner=4, phase 3's inputs) vs plain: cost rel max {rel:.3e}, U max |err| {du:.3e}, "
+            f"Xs max |err| {dx:.3e}, iteration counts equal {same_it}/{K1_B}; the megakernel "
+            f"route's solve at n_inner=12: {steps15} outer steps, launches {c15}, "
+            f"{summary(r15)}")
+    # K5 at 33 candidates on path (b)'s problem (k5_max_alphas(1) a launch),
+    # bit for bit its first design, at phase 10's state (ii) of (b)
+    from nmpc_tpu_torch.ops.expansions import expansions_fused
+    from nmpc_tpu_torch.ops.riccati import riccati_lanes
+
+    cand33 = (0.0,) + tuple(0.8 ** k for k in range(32))
+    X_l, U_l = lane(res_b.X[:, :-1]), lane(res_b.U)
+    xref_l, lam_l, mov_l = lane(ob_b.xref), lane(res_b.lam), AB._mov_lanes(ob_b, BENCH_B)
+    mu_b = res_b.mu.contiguous()
+    gains = riccati_lanes(expansions_fused(ob_b, X_l, U_l, xref_l, lam_l, mu_b, mov_l), obs_cfg.reg)
+    args15 = (X_l[0].contiguous(), X_l, U_l, gains[0], gains[1], xref_l, lam_l, mu_b)
+    cuda_build.reset_launch_counts()
+    got = rollout_ops.linesearch_costs_lanes(ob_b, *args15, cand33, mov_l)
+    n_launch = cuda_build.launch_counts["linesearch_costs_lanes"]
+    want = SL.linesearch_costs_first(ob_b, *args15, cand33, mov_l)
+    off15 = int((~((got == want) | (got.isnan() & want.isnan()))).sum())
+    top = staged_tiles.k5_max_alphas(obs_base.m)
+    assert off15 == 0 and n_launch == -(-len(cand33) // top), (off15, n_launch)
+    log(f"phase 15 K5 with {len(cand33)} candidates at path (b) B={BENCH_B} N={obs_base.N}: "
+        f"{n_launch} launches of at most {top}; merits that differ from the first design "
+        f"{off15}/{got.numel()} (bit for bit: 0) ok")
+    del got, want, gains, args15
+    # a staged solve of obstacle_scenario_3 with 33 alphas (34 candidates,
+    # three K5 launches an iteration)
+    cfg33 = dataclasses.replace(obs_cfg, alphas=tuple(0.8 ** k for k in range(33)))
+    ob33 = batch(obs_base, K1_B, spread=0.05)
+    cuda_build.reset_launch_counts()
+    res33, t33 = timed(lambda: solve_batched(ob33, cfg=cfg33))
+    c33 = dict(cuda_build.launch_counts)
+    it33 = c33["riccati_lanes"]
+    slices = -(-(len(cfg33.alphas) + 1) // top)
+    assert it33 > 0 and c33["expansions_fused"] == it33, c33
+    assert c33["linesearch_costs_lanes"] == slices * it33 and c33["rollout_alpha_lanes"] == it33 + 1, c33
+    for name in ("X", "U", "cost", "viol", "lam"):
+        assert torch.isfinite(getattr(res33, name)).all(), name
+    log(f"phase 15 staged solve of obstacle_scenario_3 N={obs_base.N} B={K1_B} with "
+        f"{len(cfg33.alphas)} alphas: launches {c33} ({slices} K5 launches an iteration); "
+        f"{summary(res33)}; {t33 * 1e3:.1f} ms")
+
     def entry(name, source, where, launches, err, ms_, plain_ms, key):
         return {"name": name, "route": "cuda", "source": source, "replaces": where,
                 "launches": launches, "max_abs_err": err, "ms": ms_, "plain_ms": plain_ms,
@@ -1066,7 +1188,8 @@ def main() -> int:
               "nmpc_tpu/ops/megasolve_pallas.py:870", counts["al_update_lanes"], k2_err,
               k2_ms, k2_plain_ms, "K2"),
     ] + [
-        entry(name, f"nmpc_tpu_torch/csrc/{'staged_tiles' if k in ('K3', 'K5') else 'staged'}.cuh",
+        entry(name, "nmpc_tpu_torch/csrc/" + ("staged_tiles.cuh" if k in ("K3", "K5")
+                                              else "expansions_rollout_tiles.cuh"),
               where, counts_a[name], errs[k], ms["a"][k][0], ms["a"][k][1], f"{k} a")
         for name, k, where in staged
     ] + [

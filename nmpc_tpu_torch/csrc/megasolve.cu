@@ -42,11 +42,15 @@ template <int NR>
 constexpr int kK1MinBlocks = NR <= 2 ? 8 : NR == 3 ? 6 : NR <= 6 ? 5 : NR == 8 ? 4 : 1;
 #endif
 
+// dynamic shared memory: one slot a warp, then the parameter block (any
+// number of alphas). The slots keep the address they had when the parameter
+// block was a static array of at most 32 alphas: with the block in front of
+// them K1 ran slower on an H100 (timed in turns)
 template <int NR>
 __global__ void __launch_bounds__(kMaxWarps * kWarp, kK1MinBlocks<NR>) inner_solve_kernel(WarpArgs a) {
-  __shared__ float sp[Dims<NR>::alphas + kMaxAlphas];
-  extern __shared__ float4 slot_mem[];  // 16-byte aligned: the slots' vector loads
-  float* slots = reinterpret_cast<float*>(slot_mem);
+  extern __shared__ float4 k1_smem[];  // 16-byte aligned: the slots' vector loads
+  float* slots = reinterpret_cast<float*>(k1_smem);
+  float* sp = slots + (blockDim.x / kWarp) * a.slot_floats;
   for (int i = threadIdx.x; i < Dims<NR>::alphas + a.n_alphas; i += blockDim.x) sp[i] = a.prm[i];
   __syncthreads();
   const int warp = threadIdx.x / kWarp;
@@ -77,9 +81,10 @@ const char* nmpc_error_string(int err) {
 // grow with N).
 int nmpc_k1_slot_bytes() { return nmpc::Slot<NMPC_NR>::bytes; }
 
-// K1 with `warps` scenarios per block, each with a slot of
-// nmpc_k1_slot_bytes() of dynamic shared memory. Returns cudaGetLastError()
-// after the launch (0 = launched).
+// K1 with `warps` scenarios per block: dynamic shared memory of a slot of
+// nmpc_k1_slot_bytes() a warp and the parameter block. Returns the
+// CUDA error of the launch (0 = launched; a refused shared-memory opt-in
+// too).
 int nmpc_inner_solve(const float* prm, const float* x0, const float* xref,
                      const float* lam, const float* mu, const float* Uin,
                      float* Xs, float* U, float* cost, int* iters, float* kff,
@@ -88,13 +93,12 @@ int nmpc_inner_solve(const float* prm, const float* x0, const float* xref,
                      float armijo, float tol_cost, float ls_beta, float ls_grow,
                      float ls_trial_min, void* stream) {
   using S = nmpc::Slot<NMPC_NR>;
-  if (B <= 0 || N <= 0 || n_alphas < 0 || n_alphas > nmpc::kMaxAlphas || warps < 1 ||
-      warps > nmpc::kMaxWarps)
+  if (B <= 0 || N <= 0 || n_alphas < 0 || warps < 1 || warps > nmpc::kMaxWarps)
     return static_cast<int>(cudaErrorInvalidValue);
   nmpc::WarpArgs a{prm, x0, xref, lam, mu, Uin, Xs, U, cost, iters, kff, Kfb, Xw, Uw,
                    B, N, n_inner, adaptive, n_alphas, ls_rounds, pairs, S::floats,
                    reg, armijo, tol_cost, ls_beta, ls_grow, ls_trial_min};
-  const int smem = warps * S::bytes;
+  const int smem = warps * S::bytes + 4 * (nmpc::Dims<NMPC_NR>::alphas + n_alphas);
   if (smem > 48 * 1024) {  // above 48 KB only by opting in
     const cudaError_t err = cudaFuncSetAttribute(
         nmpc::inner_solve_kernel<NMPC_NR>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);

@@ -2,42 +2,42 @@
 // for ctypes. Linked with megasolve.cu into one library per robot count by
 // nmpc_tpu_torch/ops/cuda_build.py (each source compiled by its own nvcc
 // -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -DNMPC_NR=<m>, and
-// here also K3's and K5's launch geometry, -DNMPC_K3_S=... from
+// here also the four kernels' launch geometry, -DNMPC_K3_S=... from
 // ops/staged_tiles.py).
 //
 // Replaces nmpc_tpu/ops/expansions_pallas.py::expansions_fused (K4),
 // riccati_pallas.py::riccati_lanes (K3), rollout_pallas.py::
 // linesearch_costs_lanes (K5) and ::rollout_alpha_lanes (K6). The TPU
 // kernels work on 128-scenario lane tiles in VMEM, chunking the horizon so
-// it fits; here K4's grid covers the stages and the batch and K6's the
-// batch, one thread per (stage and) scenario, while K3 and K5 run a tile of
-// S scenarios per block and stream the horizon through a ring of stage
-// tiles in shared memory (csrc/staged_tiles.cuh, whose note says why).
-// What bounds them on an H100: K4 writes the dense stage blocks (at six
-// robots ~1,250 floats per stage and scenario, ~1.6 GB at N=10, B=32768) and
-// K3 reads them back, so the pair is bound by device-memory bytes. The
-// lane-major layout keeps every global access of a warp coalesced. Keeping
-// the blocks out of device memory altogether is what K1 (the megakernel)
-// does. K3's and K5's first designs (one thread per scenario) are built by
-// csrc/staged_first.cu, as their A/B baselines.
+// it fits; here each kernel's block owns a tile of S consecutive scenarios
+// with its rows in shared memory: K4 one stage of it, K3, K5 and K6 the
+// whole horizon, streamed through a ring of stage tiles (csrc/
+// staged_tiles.cuh for K3 and K5, csrc/expansions_rollout_tiles.cuh for K4
+// and K6, whose notes say why). What bounds them on an H100: K4 writes the
+// dense stage blocks (at six robots ~1,250 floats per stage and scenario,
+// ~1.6 GB at N=10, B=32768) and K3 reads them back, so the pair is bound by
+// device-memory bytes. The lane-major layout keeps every global access of a
+// warp coalesced. Keeping the blocks out of device memory altogether is
+// what K1 (the megakernel) does. The first designs (one thread per (stage
+// and) scenario) are built by csrc/staged_first.cu, as the A/B baselines.
 
 #include <cuda_runtime.h>
 
 #include <initializer_list>
 
-#include "staged_tiles.cuh"
+#include "expansions_rollout_tiles.cuh"
 
 #ifndef NMPC_NR
 #error "compile with -DNMPC_NR=<robot count>"
 #endif
 #if !defined(NMPC_K3_S) || !defined(NMPC_K3_D) || !defined(NMPC_K3_T) || \
-    !defined(NMPC_K3_P) || !defined(NMPC_K3_SPILL) || !defined(NMPC_K5_S) || !defined(NMPC_K5_D)
-#error "compile with K3's and K5's geometry, -DNMPC_K3_S=... (ops/staged_tiles.py)"
+    !defined(NMPC_K3_P) || !defined(NMPC_K3_SPILL) || !defined(NMPC_K5_S) || \
+    !defined(NMPC_K5_D) || !defined(NMPC_K4_S) || !defined(NMPC_K4_W) || !defined(NMPC_K6_S) || \
+    !defined(NMPC_K6_D) || !defined(NMPC_K6_T)
+#error "compile with the kernels' geometry, -DNMPC_K3_S=... (ops/staged_tiles.py)"
 #endif
 
 namespace nmpc {
-
-constexpr int kStagedThreads = 128;
 
 // the parameter block, copied once per block into dynamic shared memory
 __device__ __forceinline__ void load_params(const float* prm, int size, float* sp) {
@@ -45,16 +45,21 @@ __device__ __forceinline__ void load_params(const float* prm, int size, float* s
   __syncthreads();
 }
 
-template <int NR>
-__global__ void __launch_bounds__(kStagedThreads) expansions_kernel(ExpArgs a, int prm_size) {
-  extern __shared__ float sp[];
-  load_params(a.prm, prm_size, sp);
-  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t < (long long)a.N * a.B) expansion_thread<NR>(a, sp, (int)(t / a.B), (int)(t % a.B));
-}
-
 using K3G = K3Geom<NMPC_NR, NMPC_K3_S, NMPC_K3_D, NMPC_K3_T, NMPC_K3_P, NMPC_K3_SPILL != 0>;
+using K4G = K4Geom<NMPC_NR, NMPC_K4_S, NMPC_K4_W>;
 using K5G = K5Geom<NMPC_NR, NMPC_K5_S, NMPC_K5_D>;
+using K6G = K6Geom<NMPC_NR, NMPC_K6_S, NMPC_K6_D, NMPC_K6_T>;
+
+// K4: block (tile, stage)
+template <int NR>
+__global__ void __launch_bounds__(K4G::threads) expansions_kernel(ExpArgs a, int prm_size,
+                                                                 int vec) {
+  extern __shared__ float4 k4_smem[];
+  float* sp = reinterpret_cast<float*>(k4_smem);
+  load_params(a.prm, prm_size, sp);
+  expansion_tiles<NR, K4G>(a, sp, sp + al4(prm_size), blockIdx.x, blockIdx.y, vec != 0,
+                           threadIdx.x);
+}
 
 template <int NR>
 __global__ void __launch_bounds__(K3G::threads) riccati_kernel(RiccatiArgs a, float* scratch, int vec) {
@@ -91,13 +96,10 @@ cudaError_t allow_smem(K kernel, size_t bytes) {
 }
 
 template <int NR>
-__global__ void __launch_bounds__(kStagedThreads) rollout_alpha_kernel(RolloutArgs a) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b < a.B) rollout_thread<NR>(a, a.prm[Dims<NR>::dt], b);
-}
-
-inline int grid_for(long long threads) {
-  return (int)((threads + kStagedThreads - 1) / kStagedThreads);
+__global__ void __launch_bounds__(K6G::threads) rollout_alpha_kernel(RolloutArgs a, int vec) {
+  extern __shared__ float4 k6_smem[];
+  rollout_tiles<NR, K6G>(a, a.prm[Dims<NR>::dt], reinterpret_cast<float*>(k6_smem), blockIdx.x,
+                         vec != 0, threadIdx.x);
 }
 
 }  // namespace nmpc
@@ -114,21 +116,48 @@ const char* nmpc_error_string(int err) {
 }
 #endif
 
-// K4. Returns cudaGetLastError() after the launch (0 = launched).
+// K4: one block per (tile of S scenarios, stage). Returns the CUDA error of
+// the launch (0 = launched; a refused shared-memory opt-in too).
 int nmpc_expansions(const float* prm, int prm_size, const float* Xs, const float* U,
                     const float* xref, const float* lam, const float* mu,
                     const float* mov, float* A, float* Bm, float* lx, float* lu,
                     float* lxx, float* luu, float* lux, int B, int N, int pairs,
                     int n_obs, int n_mov, void* stream) {
-  if (B <= 0 || N <= 0 || n_obs < 0 || n_mov < 0 || (n_mov > 0 && mov == nullptr) ||
-      prm_size > 12288 || (long long)N * B > 0x7fffffffLL * nmpc::kStagedThreads)
+  using G = nmpc::K4G;
+  if (B <= 0 || N <= 0 || N > 65535 || n_obs < 0 || n_mov < 0 ||
+      (n_mov > 0 && mov == nullptr) || prm_size > 12288)
     return static_cast<int>(cudaErrorInvalidValue);
   nmpc::ExpArgs a{prm, Xs, U, xref, lam, mu, mov, A, Bm, lx, lu, lxx, luu, lux,
                   B, N, pairs, n_obs, n_mov};
+  const nmpc::K4Rows<NMPC_NR> rows(pairs != 0, n_obs, n_mov);
+  const size_t smem = G::smem_floats(rows.in, prm_size) * sizeof(float);
+  const cudaError_t err = nmpc::allow_smem(nmpc::expansions_kernel<NMPC_NR>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int vec = nmpc::rows_aligned(
+      B, {Xs, U, xref, lam, mu, n_mov ? mov : Xs, A, Bm, lx, lu, lxx, luu, lux});
+  const dim3 grid((B + G::S - 1) / G::S, N);
   nmpc::expansions_kernel<NMPC_NR>
-      <<<nmpc::grid_for((long long)N * B), nmpc::kStagedThreads, prm_size * sizeof(float),
-         static_cast<cudaStream_t>(stream)>>>(a, prm_size);
+      <<<grid, G::threads, smem, static_cast<cudaStream_t>(stream)>>>(a, prm_size, vec);
   return static_cast<int>(cudaGetLastError());
+}
+
+// K4's geometry: {S, W, threads, shared bytes a block for `rows` input rows
+// and a parameter block of prm_size floats}; ops/staged_tiles.py computes the
+// same.
+void nmpc_k4_geometry(int rows, int prm_size, int* out) {
+  using G = nmpc::K4G;
+  out[0] = G::S;
+  out[1] = G::W;
+  out[2] = G::threads;
+  out[3] = static_cast<int>(G::smem_floats(rows, prm_size) * sizeof(float));
+}
+
+// K6's geometry: {S, D, T, threads, shared bytes a block}
+void nmpc_k6_geometry(int* out) {
+  using G = nmpc::K6G;
+  const int g[5] = {G::S, G::D, G::T, G::threads,
+                    static_cast<int>(G::smem_floats * sizeof(float))};
+  for (int i = 0; i < 5; ++i) out[i] = g[i];
 }
 
 // K3's geometry: {S, D, T, P, spill, threads, shared bytes a block, scratch
@@ -195,15 +224,21 @@ int nmpc_linesearch_costs(const float* prm, int prm_size, const float* x0,
   return static_cast<int>(cudaGetLastError());
 }
 
-// K6. Returns cudaGetLastError() after the launch (0 = launched).
+// K6: one block per tile of S scenarios. Returns the CUDA error of the
+// launch (0 = launched; a refused shared-memory opt-in too).
 int nmpc_rollout_alpha(const float* prm, const float* x0, const float* Xs,
                        const float* U, const float* kff, const float* Kfb,
                        const float* alpha, float* Xout, float* Uout, int B, int N,
                        void* stream) {
+  using G = nmpc::K6G;
   if (B <= 0 || N <= 0) return static_cast<int>(cudaErrorInvalidValue);
   nmpc::RolloutArgs a{prm, x0, Xs, U, kff, Kfb, alpha, Xout, Uout, B, N};
-  nmpc::rollout_alpha_kernel<NMPC_NR><<<nmpc::grid_for(B), nmpc::kStagedThreads, 0,
-                                        static_cast<cudaStream_t>(stream)>>>(a);
+  const size_t smem = G::smem_floats * sizeof(float);
+  const cudaError_t err = nmpc::allow_smem(nmpc::rollout_alpha_kernel<NMPC_NR>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int vec = nmpc::rows_aligned(B, {Xs, U, kff, Kfb});
+  nmpc::rollout_alpha_kernel<NMPC_NR><<<(B + G::S - 1) / G::S, G::threads, smem,
+                                        static_cast<cudaStream_t>(stream)>>>(a, vec);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -41,8 +41,8 @@ _PKG = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 UNITS = ("megasolve.cu", "staged.cu")       # one nvcc process each
-SOURCES = (*UNITS, "inner_warp.cuh", "staged.cuh", "staged_tiles.cuh", "riccati.cuh",
-           "rollout.cuh")
+SOURCES = (*UNITS, "inner_warp.cuh", "staged.cuh", "staged_tiles.cuh",
+           "expansions_rollout_tiles.cuh", "riccati.cuh", "rollout.cuh")
 FIRST_SOURCES = ("staged_first.cu", "staged.cuh", "riccati.cuh", "rollout.cuh")
 TOOLS_SOURCES = ("tools.cu", "tools.cuh", "megasolve.cuh", "riccati.cuh", "rollout.cuh")
 # the parts of tools.cu (-DNMPC_TOOLS_PART=i), one nvcc process each
@@ -55,7 +55,7 @@ ROBOT_COUNTS = (1, 2, 3, 4, 5, 6, 8, 10)
 # robot count of the main path (six_robot_antipodal): the tools library
 # that load_all builds
 BENCH_ROBOTS = 6
-# robot counts whose K3 and K5 first designs load_all builds: the main path's
+# robot counts whose staged first designs load_all builds: the main path's
 # (path (a)) and one robot (paths (b) and (c))
 FIRST_ROBOTS = (1, 6)
 
@@ -135,6 +135,10 @@ def _bind_staged(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.nmpc_k3_geometry.restype = None
     lib.nmpc_k5_geometry.argtypes = [I, I, P]
     lib.nmpc_k5_geometry.restype = None
+    lib.nmpc_k4_geometry.argtypes = [I, I, P]
+    lib.nmpc_k4_geometry.restype = None
+    lib.nmpc_k6_geometry.argtypes = [P]
+    lib.nmpc_k6_geometry.restype = None
     lib.nmpc_riccati.argtypes = [P] * 11 + [I] * 2 + [F] + [P]
     lib.nmpc_riccati.restype = I
     lib.nmpc_linesearch_costs.argtypes = [P, I] + [P] * 10 + [I] * 6 + [P]
@@ -155,6 +159,10 @@ def _bind_first(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.nmpc_riccati_first.restype = I
     lib.nmpc_linesearch_costs_first.argtypes = [P, I] + [P] * 10 + [I] * 6 + [P]
     lib.nmpc_linesearch_costs_first.restype = I
+    lib.nmpc_expansions_first.argtypes = [P, I] + [P] * 13 + [I] * 5 + [P]
+    lib.nmpc_expansions_first.restype = I
+    lib.nmpc_rollout_alpha_first.argtypes = [P] * 9 + [I] * 2 + [P]
+    lib.nmpc_rollout_alpha_first.restype = I
     return lib
 
 
@@ -234,19 +242,41 @@ def k5_geometry(lib: ctypes.CDLL, rows: int, prm_size: int) -> dict:
     return dict(zip(("S", "D", "max_alphas", "smem_bytes"), g))
 
 
-def _check_geometry(lib: ctypes.CDLL, path, m: int, k3, k5) -> None:
-    """Raise unless the library's K3 and K5 constants are the ones
+def k4_geometry(lib: ctypes.CDLL, rows: int, prm_size: int) -> dict:
+    """K4's geometry as a library was built with, and its shared bytes at
+    `rows` input rows and a parameter block of prm_size floats."""
+    g = (ctypes.c_int * 4)()
+    lib.nmpc_k4_geometry(rows, prm_size, g)
+    return dict(zip(("S", "W", "threads", "smem_bytes"), g))
+
+
+def k6_geometry(lib: ctypes.CDLL) -> dict:
+    """K6's geometry as a library was built with (nmpc_k6_geometry)."""
+    g = (ctypes.c_int * 5)()
+    lib.nmpc_k6_geometry(g)
+    return dict(zip(("S", "D", "T", "threads", "smem_bytes"), g))
+
+
+def _check_geometry(lib: ctypes.CDLL, path, m: int, k3, k5, k4, k6) -> None:
+    """Raise unless the library's K3-K6 constants are the ones
     ops/staged_tiles.py asked for and sizes."""
     lay = staged_tiles.k3_layout(m, k3)
-    want = {"S": k3.S, "D": k3.D, "T": k3.T, "P": k3.P, "spill": int(k3.spill),
-            "threads": lay["threads"], "smem_bytes": lay["smem_bytes"],
-            "scratch_floats": lay["scratch_floats"]}
+    want = {"K3": {"S": k3.S, "D": k3.D, "T": k3.T, "P": k3.P, "spill": int(k3.spill),
+                   "threads": lay["threads"], "smem_bytes": lay["smem_bytes"],
+                   "scratch_floats": lay["scratch_floats"]}}
     rows = staged_tiles.k5_rows(m, True, 1, 1)
-    want5 = {"S": k5.S, "D": k5.D, "max_alphas": staged_tiles.K5_THREADS // k5.S,
-             "smem_bytes": staged_tiles.k5_layout(m, rows, 100, 1, k5)["smem_bytes"]}
-    if k3_geometry(lib) != want or k5_geometry(lib, rows, 100) != want5:
-        raise RuntimeError(f"{path}: K3/K5 geometry {k3_geometry(lib)}, "
-                           f"{k5_geometry(lib, rows, 100)}, expected {want}, {want5}")
+    want["K5"] = {"S": k5.S, "D": k5.D, "max_alphas": staged_tiles.K5_THREADS // k5.S,
+                  "smem_bytes": staged_tiles.k5_layout(m, rows, 100, 1, k5)["smem_bytes"]}
+    rows4 = staged_tiles.k4_rows(m, True, 1, 1)
+    lay4, lay6 = staged_tiles.k4_layout(m, rows4, 100, k4), staged_tiles.k6_layout(m, k6)
+    want["K4"] = {"S": k4.S, "W": k4.W, "threads": lay4["threads"],
+                  "smem_bytes": lay4["smem_bytes"]}
+    want["K6"] = {"S": k6.S, "D": k6.D, "T": k6.T, "threads": lay6["threads"],
+                  "smem_bytes": lay6["smem_bytes"]}
+    got = {"K3": k3_geometry(lib), "K5": k5_geometry(lib, rows, 100),
+           "K4": k4_geometry(lib, rows4, 100), "K6": k6_geometry(lib)}
+    if got != want:
+        raise RuntimeError(f"{path}: staged kernels' geometry {got}, expected {want}")
 
 
 def load(m: int) -> ctypes.CDLL:
@@ -265,7 +295,8 @@ def load(m: int) -> ctypes.CDLL:
             f"m={m}")
         lib = _bind(ctypes.CDLL(str(path)))
         _check_robots(lib, path, m)
-        _check_geometry(lib, path, m, staged_tiles.K3_GEOMETRY[m], staged_tiles.K5_GEOMETRY[m])
+        _check_geometry(lib, path, m, staged_tiles.K3_GEOMETRY[m], staged_tiles.K5_GEOMETRY[m],
+                        staged_tiles.K4_GEOMETRY[m], staged_tiles.K6_GEOMETRY[m])
         build_info[m] = {"path": str(path), "seconds": seconds, "ptxas": "".join(texts)}
         _libs["solver", m] = lib
         return lib
@@ -293,8 +324,8 @@ def load_tools(m: int) -> ctypes.CDLL:
 
 
 def load_first(m: int) -> ctypes.CDLL:
-    """The library of K3's and K5's first designs (csrc/staged_first.cu) for
-    m robots, built first if needed."""
+    """The library of the staged kernels' first designs (csrc/staged_first.cu)
+    for m robots, built first if needed."""
     if m not in ROBOT_COUNTS:
         raise NotImplementedError(
             f"CUDA kernels are instantiated for m in {ROBOT_COUNTS}, not m={m}")
@@ -310,20 +341,25 @@ def load_first(m: int) -> ctypes.CDLL:
         return lib
 
 
-def load_staged_variant(m: int, k3, k5) -> tuple:
-    """staged.cu alone for m robots at K3 geometry k3 and K5 geometry k5
-    (staged_tiles.K3Geometry, K5Geometry; the sweep of
+def load_staged_variant(m: int, k3=None, k5=None, k4=None, k6=None) -> tuple:
+    """staged.cu alone for m robots at K3-K6 geometries k3, k5, k4, k6
+    (staged_tiles.K3Geometry, ...; the solver's pick where None; the sweep of
     tools/staged_launch.py). Returns (library, compiler report)."""
     if m not in ROBOT_COUNTS:
         raise NotImplementedError(
             f"CUDA kernels are instantiated for m in {ROBOT_COUNTS}, not m={m}")
-    flags = [f"-DNMPC_NR={m}", "-DNMPC_STAGED_ALONE", *staged_tiles.nvcc_flags(m, k3, k5)]
+    k3 = staged_tiles.K3_GEOMETRY[m] if k3 is None else k3
+    k5 = staged_tiles.K5_GEOMETRY[m] if k5 is None else k5
+    k4 = staged_tiles.K4_GEOMETRY[m] if k4 is None else k4
+    k6 = staged_tiles.K6_GEOMETRY[m] if k6 is None else k6
+    flags = [f"-DNMPC_NR={m}", "-DNMPC_STAGED_ALONE",
+             *staged_tiles.nvcc_flags(m, k3, k5, k4, k6)]
     tag = "_".join(f.split("=")[1] for f in flags[2:])
     path, _, texts = _build(f"libnmpc_staged_m{m}_{tag}_{_key(SOURCES, m)}",
                             [("staged.cu", flags)], f"staged, m={m} {' '.join(flags[2:])}")
     lib = _bind_staged(_bind_errors(ctypes.CDLL(str(path))))
     _check_robots(lib, path, m)
-    _check_geometry(lib, path, m, k3, k5)
+    _check_geometry(lib, path, m, k3, k5, k4, k6)
     return lib, texts[0]
 
 

@@ -7,10 +7,15 @@ lxx, luu, with lux = 0 (this problem class has no x-u constraint coupling).
 Constraint rows: pairs, static obstacles, moving obstacles, the u box and
 the x box; every state-dependent row is masked hard at stage 0.
 
-CUDA: csrc/staged.cuh::expansion_thread, one thread per (stage, scenario):
-stages are independent, so the TPU kernel's horizon chunking (there only to
-bound VMEM) does not carry over. Replaces expansions_pallas.py::
-_make_expansion_kernel / expansions_fused.
+CUDA: csrc/expansions_rollout_tiles.cuh::expansion_tiles, a block per
+(tile of S scenarios, stage): the stage's input rows copied into shared
+memory, each scenario's thread adding its Hessian terms into a shared tile,
+then every output row stored as 16-byte chunks of the tile (its structure
+from constants); bit for bit its first design, csrc/staged.cuh::
+expansion_thread (one thread per (stage, scenario), the A/B baseline of
+tools/staged_launch.py). Stages are independent, so the TPU kernel's horizon
+chunking (there only to bound VMEM) does not carry over. Replaces
+expansions_pallas.py::_make_expansion_kernel / expansions_fused.
 
 Layout (lane-major, batch innermost, as the staged path keeps it): X_l
 [N, n, B] stage states, U_l [N, nu, B], xref_l [N, n, B], lam_l [N, nc, B],
@@ -25,7 +30,7 @@ from __future__ import annotations
 import torch
 
 from nmpc_tpu_torch.ocp.problem import OCP, pair_indices
-from nmpc_tpu_torch.ops import cuda_build
+from nmpc_tpu_torch.ops import cuda_build, staged_tiles
 from nmpc_tpu_torch.ops.cuda_build import check_arg, ptr
 from nmpc_tpu_torch.ops.rollout import _P, _mov_d, _obs_c, _pack_params, al_step, params, require
 
@@ -151,33 +156,52 @@ def expansions_plain(ocp: OCP, X_l, U_l, xref_l, lam_l, mu, mov_l=None):
             torch.zeros((N, nu, n, Bsz), **kw))
 
 
-def expansions_fused(ocp: OCP, X_l, U_l, xref_l, lam_l, mu, mov_l=None):
-    """K4 wrapper: the CUDA kernel for CUDA tensors, the plain version for
-    CPU tensors (see the module docstring for the layout)."""
-    if X_l.device.type == "cpu":
-        return expansions_plain(ocp, X_l, U_l, xref_l, lam_l, mu, mov_l)
+def check_lanes(ocp: OCP, X_l, U_l, xref_l, lam_l, mu, mov_l=None) -> None:
+    """Raise unless K4's kernels take these CUDA inputs."""
     if X_l.device.type != "cuda":
         raise NotImplementedError(f"expansions_fused: no kernel for {X_l.device}")
     require(ocp, "expansions_fused")
     N, n, nu, nc, B = ocp.N, ocp.nx, ocp.nu, ocp.n_con, X_l.shape[-1]
-    dev = X_l.device
     args = [("X_l", X_l, (N, n, B)), ("U_l", U_l, (N, nu, B)), ("xref_l", xref_l, (N, n, B)),
             ("lam_l", lam_l, (N, nc, B)), ("mu", mu, (B,))]
     if ocp.n_mov:
         args.append(("mov_l", mov_l, (N, 2 * ocp.n_mov, B)))
     for name, t, shape in args:
-        check_arg(name, t, shape, dev)
+        check_arg(name, t, shape, X_l.device)
+
+
+def launch(ocp: OCP, X_l, U_l, xref_l, lam_l, mu, mov_l, lib, first: bool = False) -> tuple:
+    """K4 from library `lib` on checked inputs (`check_lanes`): the tile
+    design, or with first=True the first design of a `cuda_build.load_first`
+    library."""
+    N, n, nu, B, dev = ocp.N, ocp.nx, ocp.nu, X_l.shape[-1], X_l.device
     outs = [torch.empty(s, dtype=torch.float32, device=dev) for s in (
         (N, n, n, B), (N, n, nu, B), (N, n, B), (N, nu, B), (N, n, n, B), (N, nu, nu, B),
         (N, nu, n, B))]
     if B == 0:
         return tuple(outs)
-    lib = cuda_build.load(ocp.m)
     prm = params(ocp, (), dev)
-    err = lib.nmpc_expansions(
-        ptr(prm), prm.numel(), ptr(X_l), ptr(U_l), ptr(xref_l), ptr(lam_l), ptr(mu),
-        ptr(mov_l if ocp.n_mov else None), *map(ptr, outs), B, N, int(ocp.n_pairs > 0),
-        ocp.n_obs, ocp.n_mov, cuda_build.stream(dev))
+    entry = lib.nmpc_expansions_first if first else lib.nmpc_expansions
+    err = entry(ptr(prm), prm.numel(), ptr(X_l), ptr(U_l), ptr(xref_l), ptr(lam_l), ptr(mu),
+                ptr(mov_l if ocp.n_mov else None), *map(ptr, outs), B, N, int(ocp.n_pairs > 0),
+                ocp.n_obs, ocp.n_mov, cuda_build.stream(dev))
     cuda_build.check(lib, err, "expansions_fused")
-    cuda_build.launch_counts["expansions_fused"] += 1
     return tuple(outs)
+
+
+def expansions_fused(ocp: OCP, X_l, U_l, xref_l, lam_l, mu, mov_l=None):
+    """K4 wrapper: the CUDA kernel for CUDA tensors, the plain version for
+    CPU tensors (see the module docstring for the layout)."""
+    if X_l.device.type == "cpu":
+        return expansions_plain(ocp, X_l, U_l, xref_l, lam_l, mu, mov_l)
+    check_lanes(ocp, X_l, U_l, xref_l, lam_l, mu, mov_l)
+    rows = staged_tiles.k4_rows(ocp.m, ocp.n_pairs > 0, ocp.n_obs, ocp.n_mov)
+    smem = staged_tiles.k4_layout(ocp.m, rows, _P(ocp.nx, ocp.nu, 0, ocp.n_obs).size)["smem_bytes"]
+    if smem > staged_tiles.SMEM_BLOCK_MAX:
+        raise NotImplementedError(
+            f"expansions_fused: a block's tiles and parameters take {smem} B of shared memory, "
+            f"more than the card's {staged_tiles.SMEM_BLOCK_MAX}")
+    outs = launch(ocp, X_l, U_l, xref_l, lam_l, mu, mov_l, cuda_build.load(ocp.m))
+    if X_l.shape[-1]:
+        cuda_build.launch_counts["expansions_fused"] += 1
+    return outs

@@ -25,7 +25,9 @@ the roofline tools only (K8 `full` with the early exit is that design).
 
 Admission (replaces the TPU's VMEM estimate `mega_fits`): the CUDA kernels
 are built for m in cuda_build.ROBOT_COUNTS robots, any N, pair and box rows,
-Euler dynamics, up to 32 alphas; see `cuda_unsupported`. solve_batched
+Euler dynamics, any number of alphas (K1 keeps its parameter block after
+the warps' slots in dynamic shared memory); see `cuda_unsupported`.
+solve_batched
 sends what they refuse (static and moving obstacles) to the staged kernels.
 """
 
@@ -41,7 +43,6 @@ from nmpc_tpu_torch.ops import cuda_build, rollout
 from nmpc_tpu_torch.ops.cuda_build import check_arg, lane, ptr, std
 from nmpc_tpu_torch.solver.alilqr import ALILQRConfig, _backward_pass
 
-_MAX_ALPHAS = 32
 # K1's scenarios (warps) per block, picked with the register cap by
 # `python -m nmpc_tpu_torch.tools.k1_launch` (PERF.md)
 K1_WARPS = 2
@@ -65,8 +66,6 @@ def cuda_unsupported(ocp: OCP, cfg: ALILQRConfig | None = None) -> str | None:
             return "sweep='scan'"
         if cfg.ls not in ("cascade", "adaptive"):
             return f"line search {cfg.ls!r}"
-        if len(cfg.alphas) > _MAX_ALPHAS:
-            return f"more than {_MAX_ALPHAS} line-search alphas"
     return None
 
 

@@ -5,16 +5,21 @@ each with its plain PyTorch version. Port of nmpc_tpu/ops/rollout_pallas.py.
      closed-loop rollout u = U + alpha kff + Kfb (x - X) from x0 and its
      summed AL merit -> costs [A, B]; pass alpha 0 first and row 0 is the
      current iterate's merit. CUDA: csrc/staged_tiles.cuh::linesearch_tiles,
-     a block per tile of S scenarios running all A candidates (one thread
-     per (alpha, scenario), at most staged_tiles.k5_max_alphas(m) of them)
-     on stage tiles fetched once through a ring in shared memory; bit for
-     bit its first design, csrc/staged.cuh::linesearch_cost_thread (one
-     thread per (alpha, scenario) reading device memory, the A/B baseline
-     of tools/staged_launch.py). Replaces rollout_pallas.py::
-     _make_cost_kernel / linesearch_costs_lanes.
+     a block per tile of S scenarios running its candidates (one thread per
+     (alpha, scenario)) on stage tiles fetched once through a ring in shared
+     memory; any number of candidates, as launches of at most
+     staged_tiles.k5_max_alphas(m) each. Bit for bit its first design,
+     csrc/staged.cuh::linesearch_cost_thread (one thread per (alpha,
+     scenario) reading device memory, the A/B baseline of
+     tools/staged_launch.py). Replaces rollout_pallas.py::_make_cost_kernel /
+     linesearch_costs_lanes.
   K6 `rollout_alpha_lanes`: the accepted rollout under one alpha per
-     scenario -> states 1..N and the controls. CUDA: csrc/staged.cuh::
-     rollout_thread, one thread per scenario. Replaces _make_rollout_kernel /
+     scenario -> states 1..N and the controls. CUDA: csrc/
+     expansions_rollout_tiles.cuh::rollout_tiles, a block per tile of S
+     scenarios streaming the stages through a ring in shared memory, a team
+     of T threads a scenario; bit for bit its first design, csrc/staged.cuh::
+     rollout_thread (one thread per scenario, the A/B baseline of
+     tools/staged_launch.py). Replaces _make_rollout_kernel /
      rollout_alpha_lanes.
 
 The `_lanes` wrappers take and return the lane-major layout of the staged
@@ -267,28 +272,36 @@ def linesearch_costs_lanes(ocp: OCP, x0_l, X_l, U_l, kff_l, Kfb_l, xref_l,
                            lam_l, mu, alphas, mov_l=None):
     """K5 wrapper: the CUDA kernel for CUDA tensors, the plain version for
     CPU tensors. Same arguments and result as `linesearch_costs_plain`. One
-    block runs all candidates of its scenarios: more than
-    staged_tiles.k5_max_alphas(m) raise NotImplementedError."""
+    block runs at most staged_tiles.k5_max_alphas(m) candidates of its
+    scenarios, so a longer grid goes as consecutive slices of that many, one
+    launch each with its own parameter block, and their rows are stacked:
+    each merit is one thread's own sum, so the result does not depend on the
+    slicing."""
     if x0_l.device.type == "cpu":
         return linesearch_costs_plain(ocp, x0_l, X_l, U_l, kff_l, Kfb_l, xref_l,
                                       lam_l, mu, alphas, mov_l)
     check_costs(ocp, x0_l, X_l, U_l, kff_l, Kfb_l, xref_l, lam_l, mu, mov_l)
-    if len(alphas) > staged_tiles.k5_max_alphas(ocp.m):
-        raise NotImplementedError(
-            f"linesearch_costs_lanes: {len(alphas)} line-search candidates, one block takes at "
-            f"most {staged_tiles.k5_max_alphas(ocp.m)} at m={ocp.m}")
+    alphas = tuple(float(a) for a in alphas)
+    top = staged_tiles.k5_max_alphas(ocp.m)
+    slices = [alphas[i:i + top] for i in range(0, len(alphas), top)]
     rows = staged_tiles.k5_rows(ocp.m, ocp.n_pairs > 0, ocp.n_obs, ocp.n_mov)
-    smem = staged_tiles.k5_layout(ocp.m, rows, _P(ocp.nx, ocp.nu, len(alphas), ocp.n_obs).size,
-                                  len(alphas))["smem_bytes"]
-    if smem > staged_tiles.SMEM_BLOCK_MAX:
-        raise NotImplementedError(
-            f"linesearch_costs_lanes: a block's stage tiles and parameters take {smem} B of "
-            f"shared memory, more than the card's {staged_tiles.SMEM_BLOCK_MAX}")
-    costs = costs_launch(ocp, x0_l, X_l, U_l, kff_l, Kfb_l, xref_l, lam_l, mu, alphas, mov_l,
-                         cuda_build.load(ocp.m))
-    if costs.numel():
-        cuda_build.launch_counts["linesearch_costs_lanes"] += 1
-    return costs
+    for sl in slices:
+        smem = staged_tiles.k5_layout(ocp.m, rows, _P(ocp.nx, ocp.nu, len(sl), ocp.n_obs).size,
+                                      len(sl))["smem_bytes"]
+        if smem > staged_tiles.SMEM_BLOCK_MAX:
+            raise NotImplementedError(
+                f"linesearch_costs_lanes: a block's stage tiles and parameters take {smem} B of "
+                f"shared memory, more than the card's {staged_tiles.SMEM_BLOCK_MAX}")
+    if not slices:
+        return torch.empty((0, x0_l.shape[-1]), dtype=torch.float32, device=x0_l.device)
+    lib = cuda_build.load(ocp.m)
+    parts = []
+    for sl in slices:
+        parts.append(costs_launch(ocp, x0_l, X_l, U_l, kff_l, Kfb_l, xref_l, lam_l, mu, sl,
+                                  mov_l, lib))
+        if x0_l.shape[-1]:
+            cuda_build.launch_counts["linesearch_costs_lanes"] += 1
+    return parts[0] if len(parts) == 1 else torch.cat(parts)
 
 
 def linesearch_costs(ocp: OCP, x0, X, U, kff, Kfb, xref, lam, mu, alphas, mov=None):
@@ -322,32 +335,45 @@ def rollout_alpha_plain(ocp: OCP, x0_l, X_l, U_l, kff_l, Kfb_l, alpha):
     return torch.stack(xs), torch.stack(us)
 
 
+def check_rollout(ocp: OCP, x0_l, X_l, U_l, kff_l, Kfb_l, alpha) -> None:
+    """Raise unless K6's kernels take these CUDA inputs."""
+    if x0_l.device.type != "cuda":
+        raise NotImplementedError(f"rollout_alpha_lanes: no kernel for {x0_l.device}")
+    require(ocp, "rollout_alpha_lanes")
+    N, n, nu, B = ocp.N, ocp.nx, ocp.nu, x0_l.shape[-1]
+    for name, t, shape in (("x0_l", x0_l, (n, B)), ("X_l", X_l, (N, n, B)),
+                           ("U_l", U_l, (N, nu, B)), ("kff_l", kff_l, (N, nu, B)),
+                           ("Kfb_l", Kfb_l, (N, nu, n, B)), ("alpha", alpha, (B,))):
+        check_arg(name, t, shape, x0_l.device)
+
+
+def rollout_launch(ocp: OCP, x0_l, X_l, U_l, kff_l, Kfb_l, alpha, lib, first: bool = False):
+    """K6 from library `lib` on checked inputs (`check_rollout`): the tile
+    design, or with first=True the first design of a `cuda_build.load_first`
+    library."""
+    N, n, nu, B, dev = ocp.N, ocp.nx, ocp.nu, x0_l.shape[-1], x0_l.device
+    Xout = torch.empty((N, n, B), dtype=torch.float32, device=dev)
+    Uout = torch.empty((N, nu, B), dtype=torch.float32, device=dev)
+    if B == 0:
+        return Xout, Uout
+    prm = params(ocp, (), dev)
+    entry = lib.nmpc_rollout_alpha_first if first else lib.nmpc_rollout_alpha
+    err = entry(ptr(prm), ptr(x0_l), ptr(X_l), ptr(U_l), ptr(kff_l), ptr(Kfb_l), ptr(alpha),
+                ptr(Xout), ptr(Uout), B, N, cuda_build.stream(dev))
+    cuda_build.check(lib, err, "rollout_alpha_lanes")
+    return Xout, Uout
+
+
 def rollout_alpha_lanes(ocp: OCP, x0_l, X_l, U_l, kff_l, Kfb_l, alpha):
     """K6 wrapper: the CUDA kernel for CUDA tensors, the plain version for
     CPU tensors. Same arguments and results as `rollout_alpha_plain`."""
     if x0_l.device.type == "cpu":
         return rollout_alpha_plain(ocp, x0_l, X_l, U_l, kff_l, Kfb_l, alpha)
-    if x0_l.device.type != "cuda":
-        raise NotImplementedError(f"rollout_alpha_lanes: no kernel for {x0_l.device}")
-    require(ocp, "rollout_alpha_lanes")
-    N, n, nu, B = ocp.N, ocp.nx, ocp.nu, x0_l.shape[-1]
-    dev = x0_l.device
-    for name, t, shape in (("x0_l", x0_l, (n, B)), ("X_l", X_l, (N, n, B)),
-                           ("U_l", U_l, (N, nu, B)), ("kff_l", kff_l, (N, nu, B)),
-                           ("Kfb_l", Kfb_l, (N, nu, n, B)), ("alpha", alpha, (B,))):
-        check_arg(name, t, shape, dev)
-    Xout = torch.empty((N, n, B), dtype=torch.float32, device=dev)
-    Uout = torch.empty((N, nu, B), dtype=torch.float32, device=dev)
-    if B == 0:
-        return Xout, Uout
-    lib = cuda_build.load(ocp.m)
-    prm = params(ocp, (), dev)
-    err = lib.nmpc_rollout_alpha(
-        ptr(prm), ptr(x0_l), ptr(X_l), ptr(U_l), ptr(kff_l), ptr(Kfb_l), ptr(alpha),
-        ptr(Xout), ptr(Uout), B, N, cuda_build.stream(dev))
-    cuda_build.check(lib, err, "rollout_alpha_lanes")
-    cuda_build.launch_counts["rollout_alpha_lanes"] += 1
-    return Xout, Uout
+    check_rollout(ocp, x0_l, X_l, U_l, kff_l, Kfb_l, alpha)
+    out = rollout_launch(ocp, x0_l, X_l, U_l, kff_l, Kfb_l, alpha, cuda_build.load(ocp.m))
+    if x0_l.shape[-1]:
+        cuda_build.launch_counts["rollout_alpha_lanes"] += 1
+    return out
 
 
 def rollout_alpha(ocp: OCP, x0, X, U, kff, Kfb, alpha):

@@ -1,19 +1,24 @@
-"""Launch geometry of the tile design of K3 (`riccati_lanes`) and K5
-(`linesearch_costs_lanes`), csrc/staged_tiles.cuh: what the C++ constants
-are, what a block takes of the card, and the nvcc flags that set them.
+"""Launch geometry of the tile designs of the staged kernels: K3
+(`riccati_lanes`) and K5 (`linesearch_costs_lanes`), csrc/staged_tiles.cuh,
+K4 (`expansions_fused`) and K6 (`rollout_alpha_lanes`),
+csrc/expansions_rollout_tiles.cuh: what the C++ constants are, what a block
+takes of the card, and the nvcc flags that set them.
 
-A block owns a tile of S consecutive scenarios and streams the horizon
-through a ring of D stage tiles in shared memory.
+A block owns a tile of S consecutive scenarios; K3, K5 and K6 stream the
+horizon through a ring of D stage tiles in shared memory.
   K3: T lanes per scenario (1: every block in registers), tile pitch P (S,
       or S + 1 where a team's lanes read down a column), and `spill`: the
       output tile and the per-team slots in a device-memory scratch of the
       wrapper's where they do not fit in shared memory beside the ring.
-  K5: A x S threads a block (A candidates), at most K5_THREADS.
+  K5: A x S threads a block (A candidates), at most K5_THREADS; more
+      candidates go as several launches (rollout.linesearch_costs_lanes).
+  K4: one stage of the tile a block, W warps a block.
+  K6: a team of T threads per scenario, S T threads a block.
 The picks per robot count come from `python -m
 nmpc_tpu_torch.tools.staged_launch` (PERF.md); ops/cuda_build.py passes them
-to nvcc, and the library reports them back (`nmpc_k3_geometry`,
-`nmpc_k5_geometry`) for the wrappers to check. The sizes here mirror
-K3Rows, K3Slot, K3Geom and K5Geom of the header.
+to nvcc, and the library reports them back (`nmpc_k3_geometry`, ...) for
+cuda_build to check. The sizes here mirror K3Rows, K3Slot, K3Geom, K5Geom,
+K4Rows, K4Geom, K6Rows and K6Geom of the headers.
 """
 
 from __future__ import annotations
@@ -45,6 +50,19 @@ class K5Geometry:
     D: int
 
 
+@dataclasses.dataclass(frozen=True)
+class K4Geometry:
+    S: int
+    W: int
+
+
+@dataclasses.dataclass(frozen=True)
+class K6Geometry:
+    S: int
+    D: int
+    T: int
+
+
 # the picks per robot count (tools/staged_launch.py, PERF.md)
 K3_GEOMETRY = {
     1: K3Geometry(128, 2, 1, 128), 2: K3Geometry(128, 2, 1, 128), 3: K3Geometry(16, 2, 16, 17),
@@ -56,6 +74,12 @@ K3_BLOCKS_PER_SM = {1: 5, 2: 1, 3: 3, 4: 3, 5: 2, 6: 1, 8: 1, 10: 1}
 K5_GEOMETRY = {1: K5Geometry(32, 2), 2: K5Geometry(32, 2), 3: K5Geometry(32, 2),
                4: K5Geometry(16, 2), 5: K5Geometry(16, 2), 6: K5Geometry(32, 2),
                8: K5Geometry(16, 2), 10: K5Geometry(8, 2)}
+K4_GEOMETRY = {1: K4Geometry(128, 4), 2: K4Geometry(64, 2), 3: K4Geometry(64, 4),
+               4: K4Geometry(64, 8), 5: K4Geometry(64, 4), 6: K4Geometry(64, 4),
+               8: K4Geometry(32, 2), 10: K4Geometry(32, 4)}
+K6_GEOMETRY = {1: K6Geometry(32, 4, 1), 2: K6Geometry(32, 4, 1), 3: K6Geometry(32, 2, 2),
+               4: K6Geometry(32, 2, 2), 5: K6Geometry(32, 2, 2), 6: K6Geometry(32, 2, 1),
+               8: K6Geometry(16, 2, 4), 10: K6Geometry(8, 2, 4)}
 
 
 def al4(v: int) -> int:
@@ -116,12 +140,11 @@ def k3_layout(m: int, g: K3Geometry | None = None) -> dict:
 def k5_rows(m: int, pairs: bool, n_obs: int, n_mov: int) -> int:
     """Rows of K5's stage tile per scenario: Xs, U, kff, Kfb, xref, lam, mov."""
     n, nu = 3 * m, 2 * m
-    nc = (m * (m - 1) // 2 if pairs else 0) + 2 * nu + 2 * n + m * (n_obs + n_mov)
-    return 2 * n + 2 * nu + nu * n + nc + 2 * n_mov
+    return 2 * n + 2 * nu + nu * n + nc_rows(m, pairs, n_obs, n_mov) + 2 * n_mov
 
 
 def k5_max_alphas(m: int) -> int:
-    """The most line-search candidates one K5 block takes."""
+    """The most line-search candidates one K5 launch takes."""
     return K5_THREADS // K5_GEOMETRY[m].S
 
 
@@ -139,11 +162,78 @@ def k5_layout(m: int, rows: int, prm_size: int, n_alphas: int,
             "warps_per_sm": blocks * ((threads + 31) // 32)}
 
 
-def nvcc_flags(m: int, k3: K3Geometry | None = None, k5: K5Geometry | None = None) -> list:
-    """The -D flags that set K3's and K5's geometry in csrc/staged.cu."""
+def nc_rows(m: int, pairs: bool, n_obs: int, n_mov: int) -> int:
+    """The c >= 0 rows of one stage (staged.cuh::staged_rows)."""
+    return (m * (m - 1) // 2 if pairs else 0) + 10 * m + m * (n_obs + n_mov)
+
+
+def k4_rows(m: int, pairs: bool, n_obs: int, n_mov: int) -> int:
+    """Rows of K4's input tile per scenario: X, U, xref, lam, mov, mu."""
+    return 8 * m + nc_rows(m, pairs, n_obs, n_mov) + 2 * n_mov + 1
+
+
+def k4_out_rows(m: int) -> int:
+    """Rows of K4's output tile per scenario: the Hessian's position block
+    [(2m)^2], A's and B's structure entries and the headings' diagonal [5m],
+    lx [3m], lu and luu's diagonal [2m each]."""
+    return 4 * m * m + 12 * m
+
+
+def check_k4(m: int, g: K4Geometry) -> None:
+    """Raise unless g is a geometry K4Geom takes."""
+    if g.S < 8 or g.S & (g.S - 1) or not 1 <= g.W <= 32:
+        raise ValueError(f"K4 at m={m}: S={g.S}, W={g.W}")
+
+
+def k4_layout(m: int, rows: int, prm_size: int, g: K4Geometry | None = None) -> dict:
+    """What one K4 block takes at `rows` input rows and a parameter block of
+    prm_size floats."""
+    g = K4_GEOMETRY[m] if g is None else g
+    check_k4(m, g)
+    smem = 4 * (al4(prm_size) + al4(rows * g.S) + al4(k4_out_rows(m) * g.S))
+    threads = 32 * g.W
+    blocks = min(SMEM_SM // (smem + SMEM_RESERVED), THREADS_SM // threads, BLOCKS_SM)
+    return {"threads": threads, "smem_bytes": smem, "blocks_per_sm": blocks,
+            "warps_per_sm": blocks * g.W}
+
+
+def k6_rows(m: int) -> int:
+    """Rows of K6's stage tile per scenario: Xs, U, kff, Kfb."""
+    return 3 * m + 4 * m + 6 * m * m
+
+
+def check_k6(m: int, g: K6Geometry) -> None:
+    """Raise unless g is a geometry K6Geom takes."""
+    if g.S < 8 or g.S & (g.S - 1) or g.D < 2 or not 1 <= g.T <= 2 * m or g.S * g.T > 1024:
+        raise ValueError(f"K6 at m={m}: S={g.S}, D={g.D}, T={g.T}")
+
+
+def k6_layout(m: int, g: K6Geometry | None = None) -> dict:
+    """What one K6 block takes: threads, floats of a stage tile, shared
+    bytes (the ring and, for T > 1, the team's slot for u)."""
+    g = K6_GEOMETRY[m] if g is None else g
+    check_k6(m, g)
+    tile = al4(k6_rows(m) * g.S)
+    smem = 4 * (g.D * tile + (al4(2 * m * g.S) if g.T > 1 else 0))
+    threads = g.S * g.T
+    blocks = min(SMEM_SM // (smem + SMEM_RESERVED), THREADS_SM // threads, BLOCKS_SM)
+    return {"threads": threads, "tile": tile, "smem_bytes": smem, "blocks_per_sm": blocks,
+            "warps_per_sm": blocks * ((threads + 31) // 32)}
+
+
+def nvcc_flags(m: int, k3: K3Geometry | None = None, k5: K5Geometry | None = None,
+               k4: K4Geometry | None = None, k6: K6Geometry | None = None) -> list:
+    """The -D flags that set the staged kernels' geometry in csrc/staged.cu
+    (the solver's picks where not given)."""
     k3 = K3_GEOMETRY[m] if k3 is None else k3
     k5 = K5_GEOMETRY[m] if k5 is None else k5
+    k4 = K4_GEOMETRY[m] if k4 is None else k4
+    k6 = K6_GEOMETRY[m] if k6 is None else k6
     check_k3(m, k3)
+    check_k4(m, k4)
+    check_k6(m, k6)
     return [f"-DNMPC_K3_S={k3.S}", f"-DNMPC_K3_D={k3.D}", f"-DNMPC_K3_T={k3.T}",
             f"-DNMPC_K3_P={k3.P}", f"-DNMPC_K3_SPILL={int(k3.spill)}",
-            f"-DNMPC_K5_S={k5.S}", f"-DNMPC_K5_D={k5.D}"]
+            f"-DNMPC_K5_S={k5.S}", f"-DNMPC_K5_D={k5.D}", f"-DNMPC_K4_S={k4.S}",
+            f"-DNMPC_K4_W={k4.W}", f"-DNMPC_K6_S={k6.S}", f"-DNMPC_K6_D={k6.D}",
+            f"-DNMPC_K6_T={k6.T}"]

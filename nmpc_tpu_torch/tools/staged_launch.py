@@ -1,25 +1,30 @@
-"""K3's and K5's launch geometry on the card, against their first designs.
+"""The staged kernels' launch geometry on the card, against their first
+designs.
 
-    python -m nmpc_tpu_torch.tools.staged_launch [M,...]
+    python -m nmpc_tpu_torch.tools.staged_launch [M,...] [k35|k46]
 
 For each robot count M (default: every one of SCENARIOS) builds
-csrc/staged.cu once per geometry of CANDIDATES[M] (K3's S, D, T, P and
-spill with K5's S and D, ops/staged_tiles.py; the first pair is the
-solver's pick) and the first designs (csrc/staged_first.cu), and runs K3
-and K5 of every variant and of the first designs at the stage inputs of
-`inputs(M)`: K4's expansions of a random mid-solve state of SCENARIOS[M]
-(obstacle_scenario_3 at N=100 for one robot, path (b); N=10 otherwise) at
-B=32768 (16384 from m=8), K5 on the gains of K3 with the solver's
-line-search grid. Prints each variant's shared bytes, resident warps per SM
-and ptxas lines, whether every variant gives the first design's bits, and
-the times in turns (forward, then backward; min and median of 2 samples,
-each the mean of REPEAT launches in a row), fastest first. The picks in
-ops/staged_tiles.py (K3_GEOMETRY, K5_GEOMETRY) are read from this table.
-Needs a card.
+csrc/staged.cu once per geometry of a candidate list and the first designs
+(csrc/staged_first.cu), and times the kernels of every variant and of the
+first designs at the stage inputs of `inputs(M)`: a random mid-solve state
+of SCENARIOS[M] (obstacle_scenario_3 at N=100 for one robot, path (b); N=10
+otherwise) at B=32768 (16384 from m=8). `k35` (CANDIDATES: K3's S, D, T, P
+and spill with K5's S and D, ops/staged_tiles.py) times K3 on K4's
+expansions there and K5 on K3's gains with the solver's line-search grid;
+`k46` (CANDIDATES46: K4's S and W with K6's S, D and T) times K4 on the
+state and K6 on K3's gains with one alpha of the grid per scenario; both
+without the argument. The first pair of each list is the solver's pick, the
+other kernels of a variant are at theirs. Prints each variant's shared
+bytes, resident warps per SM and ptxas lines, whether every variant gives
+the first design's bits, and the times in turns (forward, then backward; min
+and median of 2 samples, each the mean of REPEAT launches in a row), fastest
+first. The picks in ops/staged_tiles.py (K3_GEOMETRY, ..., K6_GEOMETRY) are
+read from this table. Needs a card.
 
-`riccati_first` and `linesearch_costs_first` launch the first designs, the
-A/B baselines that chip_smoke.py times in turns with the solver's kernels;
-nothing in the solver reaches them.
+`expansions_first`, `riccati_first`, `linesearch_costs_first` and
+`rollout_alpha_first` launch the first designs, the A/B baselines that
+chip_smoke.py times in turns with the solver's kernels; nothing in the
+solver reaches them.
 """
 
 from __future__ import annotations
@@ -31,10 +36,12 @@ from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
-from nmpc_tpu_torch.ops import cuda_build, riccati, rollout
+from nmpc_tpu_torch.ops import cuda_build, expansions, riccati, rollout
 from nmpc_tpu_torch.ops import staged_tiles as ST
 from nmpc_tpu_torch.ops.staged_tiles import K3Geometry as G3
+from nmpc_tpu_torch.ops.staged_tiles import K4Geometry as G4
 from nmpc_tpu_torch.ops.staged_tiles import K5Geometry as G5
+from nmpc_tpu_torch.ops.staged_tiles import K6Geometry as G6
 
 SCENARIOS = {1: "obstacle_scenario_3", 2: "two_robot_swap", 3: "third_scenario",
              4: "fourth_scenario", 5: "five_robot", 6: "six_robot_antipodal", 8: "eight_robot",
@@ -58,6 +65,41 @@ CANDIDATES = {
         (G3(8, 2, 32, 8, True), G5(8, 2))],
     10: [(G3(8, 2, 32, 8, True), G5(8, 2)), (G3(8, 2, 16, 8, True), G5(16, 2))],
 }
+# (K4, K6) geometries per m, the solver's pick first
+CANDIDATES46 = {
+    1: [(G4(128, 4), G6(32, 4, 1)), (G4(128, 8), G6(64, 4, 1)), (G4(64, 4), G6(32, 2, 1)),
+        (G4(256, 8), G6(128, 4, 1))],
+    2: [(G4(64, 2), G6(32, 4, 1)), (G4(128, 4), G6(64, 2, 1)), (G4(64, 4), G6(32, 2, 2)),
+        (G4(128, 8), G6(16, 4, 1))],
+    3: [(G4(64, 4), G6(32, 2, 2)), (G4(64, 8), G6(32, 2, 1)), (G4(128, 8), G6(64, 2, 2)),
+        (G4(32, 8), G6(32, 4, 2))],
+    4: [(G4(64, 8), G6(32, 2, 2)), (G4(64, 4), G6(32, 2, 1)), (G4(32, 8), G6(16, 2, 2)),
+        (G4(128, 8), G6(32, 3, 2))],
+    5: [(G4(64, 4), G6(32, 2, 2)), (G4(32, 2), G6(16, 2, 2)), (G4(64, 8), G6(32, 2, 1)),
+        (G4(32, 4), G6(16, 2, 1))],
+    6: [(G4(64, 4), G6(32, 2, 1)), (G4(64, 8), G6(16, 2, 1)), (G4(32, 8), G6(32, 3, 1)),
+        (G4(64, 16), G6(16, 2, 2)), (G4(128, 8), G6(32, 2, 2))],
+    8: [(G4(32, 2), G6(16, 2, 4)), (G4(16, 2), G6(16, 2, 2)), (G4(32, 4), G6(32, 2, 1)),
+        (G4(64, 4), G6(16, 2, 1))],
+    10: [(G4(32, 4), G6(8, 2, 4)), (G4(16, 2), G6(16, 2, 2)), (G4(32, 2), G6(8, 2, 2)),
+         (G4(16, 1), G6(16, 2, 1))],
+}
+
+
+def expansions_first(ocp, X_l, U_l, xref_l, lam_l, mu, mov_l=None):
+    """K4's first design (one thread per (stage, scenario)) on CUDA inputs:
+    the arguments and results of expansions.expansions_fused."""
+    expansions.check_lanes(ocp, X_l, U_l, xref_l, lam_l, mu, mov_l)
+    return expansions.launch(ocp, X_l, U_l, xref_l, lam_l, mu, mov_l,
+                             cuda_build.load_first(ocp.m), first=True)
+
+
+def rollout_alpha_first(ocp, x0_l, X_l, U_l, kff_l, Kfb_l, alpha):
+    """K6's first design (one thread per scenario) on CUDA inputs: the
+    arguments and results of rollout.rollout_alpha_lanes."""
+    rollout.check_rollout(ocp, x0_l, X_l, U_l, kff_l, Kfb_l, alpha)
+    return rollout.rollout_launch(ocp, x0_l, X_l, U_l, kff_l, Kfb_l, alpha,
+                                  cuda_build.load_first(ocp.m), first=True)
 
 
 def riccati_first(exp, reg: float = 1e-6):
@@ -84,12 +126,14 @@ def inputs(m: int, seed: int = 0) -> dict:
     """Stage inputs of SCENARIOS[m] on the card at batch_size(m): starts
     jittered by 0.05 N(0, 1), stage states 0.3 N(0, 1) about the start,
     controls 0.05 N(0, 1), duals |0.5 N(0, 1)| (zero on the masked rows), mu
-    in {10, 100}; K4's expansions there (`exp`), K3's gains on them, and K5's
-    arguments (`k5`, without the alphas)."""
+    in {10, 100}; K4's arguments (`k4`) and expansions there (`exp`), K3's
+    gains on them, K5's arguments (`k5`, without the alphas) and K6's (`k6`:
+    one alpha of the solver's grid per scenario)."""
     from nmpc_tpu_torch.ocp import problem as P
     from nmpc_tpu_torch.ops.expansions import expansions_fused
     from nmpc_tpu_torch.parallel import batch_ocp
     from nmpc_tpu_torch.scenarios import get
+    from nmpc_tpu_torch.solver.alilqr import ALILQRConfig
     from nmpc_tpu_torch.solver.alilqr_batched import _mov_lanes
 
     base = get(SCENARIOS[m]).make(**({} if m == 1 else {"N": 10}))
@@ -104,44 +148,60 @@ def inputs(m: int, seed: int = 0) -> dict:
     mu = torch.tensor([10.0, 100.0], device=dev)[torch.randint(0, 2, (B,), generator=g, device=dev)]
     xref_l = ob.xref.movedim(0, -1).contiguous()
     mov_l = _mov_lanes(ob, B)
-    exp = expansions_fused(ob, X_l, U_l, xref_l, lam_l, mu, mov_l)
+    k4 = (X_l, U_l, xref_l, lam_l, mu, mov_l)
+    exp = expansions_fused(ob, *k4)
     kff_l, Kfb_l, _ = riccati.riccati_lanes(exp)
     k5 = (X_l[0].contiguous(), X_l, U_l, kff_l, Kfb_l, xref_l, lam_l, mu)
-    return {"ocp": ob, "exp": exp, "k5": k5, "mov": mov_l}
+    grid = torch.tensor(ALILQRConfig().alphas, device=dev)
+    alpha = grid[torch.arange(B, device=dev) % len(grid)].contiguous()
+    k6 = (X_l[0].contiguous(), X_l, U_l, kff_l, Kfb_l, alpha)
+    return {"ocp": ob, "k4": k4, "exp": exp, "k5": k5, "k6": k6, "mov": mov_l}
+
+
+KERNEL_NAMES = {"expansions": "K4", "riccati": "K3", "linesearch_costs": "K5",
+                "rollout_alpha": "K6"}
 
 
 def staged_ptxas(report: str) -> dict:
-    """{'K3': 'N registers, ...', 'K5': ...} of staged.cu's `-Xptxas -v`
+    """{'K3': 'N registers, ...', 'K4': ...} of staged.cu's `-Xptxas -v`
     report: each kernel's frame, registers and shared memory."""
     lines, out = report.splitlines(), {}
     for i, line in enumerate(lines):
         if "Compiling entry function" not in line:
             continue
-        name = ("K3" if "riccati" in line else "K5" if "linesearch_costs" in line else None)
+        name = next((k for key, k in KERNEL_NAMES.items() if key in line), None)
         if name:
             out[name] = "; ".join(re.sub(r"^\s*ptxas info\s*:\s*", "", x).strip()
                                   for x in lines[i + 2:i + 4])
     return out
 
 
-def sweep(m: int, libs: list, alphas) -> tuple:
+def _launches(d: dict, alphas) -> dict:
+    """{kernel: launch(lib, first)} at the inputs d of `inputs`."""
+    ob, exp, k5, mov = d["ocp"], d["exp"], d["k5"], d["mov"]
+    return {"K3": lambda lib, first=False: riccati.launch(exp, 1e-6, lib, first),
+            "K5": lambda lib, first=False: rollout.costs_launch(ob, *k5, alphas, mov, lib, first),
+            "K4": lambda lib, first=False: expansions.launch(ob, *d["k4"], lib, first),
+            "K6": lambda lib, first=False: rollout.rollout_launch(ob, *d["k6"], lib, first)}
+
+
+def sweep(m: int, libs: list, alphas, kernels=("K3", "K5")) -> tuple:
     """({(kernel, variant): [ms, ms]}, every variant bit for bit the first
-    design) at inputs(m); libs: the variants' libraries, in CANDIDATES order."""
+    design) at inputs(m); libs: the variants' libraries, in candidate
+    order."""
     from nmpc_tpu_torch.tools.exp_mega_phases import time_in_turns
 
-    d = inputs(m)
-    ob, exp, k5, mov = d["ocp"], d["exp"], d["k5"], d["mov"]
+    launch = _launches(inputs(m), alphas)
     first = cuda_build.load_first(m)
-    runs = {("K3", "first"): functools.partial(riccati.launch, exp, 1e-6, first, True),
-            ("K5", "first"): functools.partial(rollout.costs_launch, ob, *k5, alphas, mov, first,
-                                               True)}
+    runs = {(k, "first"): functools.partial(launch[k], first, True) for k in kernels}
     for i, lib in enumerate(libs):
-        runs["K3", i] = functools.partial(riccati.launch, exp, 1e-6, lib)
-        runs["K5", i] = functools.partial(rollout.costs_launch, ob, *k5, alphas, mov, lib)
+        for k in kernels:
+            runs[k, i] = functools.partial(launch[k], lib)
     outs = {k: f() for k, f in runs.items()}
     tup = lambda o: o if isinstance(o, tuple) else (o,)  # noqa: E731
     same = all(torch.equal(a, b) for (kern, _), o in outs.items()
                for a, b in zip(tup(o), tup(outs[kern, "first"])))
+    del outs
     order = list(runs) + list(runs)[::-1]
     repeated = {k: functools.partial(_repeat, f) for k, f in runs.items()}
     return {k: [t / REPEAT for t in v]
@@ -160,29 +220,52 @@ def main(argv=None) -> int:
 
     require_card("staged_launch")
     args = sys.argv[1:] if argv is None else argv
+    families = [a for a in args if a in ("k35", "k46")] or ["k35", "k46"]
+    args = [a for a in args if a not in ("k35", "k46")]
     robots = [int(a) for a in args[0].split(",")] if args else sorted(SCENARIOS)
     alphas = (0.0,) + tuple(ALILQRConfig().alphas)
-    jobs = sum(len(CANDIDATES[m]) for m in robots) + len(robots)
-    with ThreadPoolExecutor(max_workers=jobs) as pool:
-        built = {(m, i): pool.submit(cuda_build.load_staged_variant, m, *CANDIDATES[m][i])
-                 for m in robots for i in range(len(CANDIDATES[m]))}
+
+    def variant(m, fam, i):
+        if fam == "k35":
+            k3, k5 = CANDIDATES[m][i]
+            return cuda_build.load_staged_variant(m, k3=k3, k5=k5)
+        k4, k6 = CANDIDATES46[m][i]
+        return cuda_build.load_staged_variant(m, k4=k4, k6=k6)
+
+    cands = {"k35": CANDIDATES, "k46": CANDIDATES46}
+    keys = [(m, fam, i) for m in robots for fam in families for i in range(len(cands[fam][m]))]
+    with ThreadPoolExecutor(max_workers=len(keys) + len(robots)) as pool:
+        built = {key: pool.submit(variant, *key) for key in keys}
         firsts = [pool.submit(cuda_build.load_first, m) for m in robots]
         built = {key: f.result() for key, f in built.items()}
         for f in firsts:
             f.result()
     print(f"{torch.cuda.get_device_name(0)} [{card()}]")
     for m in robots:
-        for i, (k3, k5) in enumerate(CANDIDATES[m]):
-            lay = ST.k3_layout(m, k3)
-            print(f"m={m} variant {i}: K3 {k3} {lay['smem_bytes']} B shared, {lay['warps_per_sm']} "
-                  f"warps/SM by shared memory; K5 {k5}; ptxas {staged_ptxas(built[m, i][1])}")
         print(f"m={m} first design ptxas {staged_ptxas(cuda_build.first_build_info[m]['ptxas'])}")
-        times, same = sweep(m, [built[m, i][0] for i in range(len(CANDIDATES[m]))], alphas)
-        print(f"m={m} {SCENARIOS[m]} B={batch_size(m)}: every variant bit for bit the first "
-              f"design: {'yes' if same else 'NO'}")
-        rows = sorted(summarize(times).items(), key=lambda kv: (kv[0][0], kv[1][1]))
-        for (k, v), (lo, med) in rows:
-            print(f"  {k} variant {v}: min {lo:.3f} ms, median {med:.3f} ms")
+        for fam in families:
+            kernels = ("K3", "K5") if fam == "k35" else ("K4", "K6")
+            for i, geoms in enumerate(cands[fam][m]):
+                if fam == "k35":
+                    lay = ST.k3_layout(m, geoms[0])
+                    what = (f"K3 {geoms[0]} {lay['smem_bytes']} B shared, {lay['warps_per_sm']} "
+                            f"warps/SM by shared memory; K5 {geoms[1]}")
+                else:
+                    lay4 = ST.k4_layout(m, ST.k4_rows(m, m > 1, 6 if m == 1 else 0, 0), 120,
+                                        geoms[0])
+                    lay6 = ST.k6_layout(m, geoms[1])
+                    what = (f"K4 {geoms[0]} {lay4['smem_bytes']} B shared, {lay4['warps_per_sm']} "
+                            f"warps/SM; K6 {geoms[1]} {lay6['smem_bytes']} B shared, "
+                            f"{lay6['warps_per_sm']} warps/SM")
+                ptx = {k: v for k, v in staged_ptxas(built[m, fam, i][1]).items() if k in kernels}
+                print(f"m={m} {fam} variant {i}: {what}; ptxas {ptx}")
+            times, same = sweep(m, [built[m, fam, i][0] for i in range(len(cands[fam][m]))],
+                                alphas, kernels)
+            print(f"m={m} {SCENARIOS[m]} B={batch_size(m)} {fam}: every variant bit for bit the "
+                  f"first design: {'yes' if same else 'NO'}")
+            rows = sorted(summarize(times).items(), key=lambda kv: (kv[0][0], kv[1][1]))
+            for (k, v), (lo, med) in rows:
+                print(f"  {k} variant {v}: min {lo:.3f} ms, median {med:.3f} ms")
     return 0
 
 

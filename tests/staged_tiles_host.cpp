@@ -1,10 +1,11 @@
-// Host rehearsal of csrc/staged_tiles.cuh (K3 and K5, the tile design) and
-// of the first designs in csrc/staged.cuh, for tests/test_torch_staged_tiles.py.
+// Host rehearsal of csrc/staged_tiles.cuh (K3 and K5) and
+// csrc/expansions_rollout_tiles.cuh (K4 and K6), the tile designs, and of the
+// first designs in csrc/staged.cuh, for tests/test_torch_staged_tiles.py.
 // Compiled by g++ with the library's geometry flags (ops/staged_tiles.py):
 //   g++ -std=c++20 -O1 -shared -fPIC -pthread -ffp-contract=off
 //       -DNMPC_NR=<m> -DNMPC_K3_S=... -I<csrc> staged_tiles_host.cpp
-// A block runs as S T (K3) or A S (K5) std::threads with a std::barrier for
-// __syncthreads; the ring's copies are plain loads (the header's
+// A block runs as S T (K3, K6), A S (K5) or 32 W (K4) std::threads with a
+// std::barrier for __syncthreads; the copies are plain loads (the header's
 // NMPC_HOST_BLOCK shim), so every stage is complete when it is read.
 #define NMPC_DEV inline
 #define NMPC_HOST_BLOCK
@@ -19,13 +20,15 @@ thread_local std::barrier<>* g_block = nullptr;
 inline void block_sync() { g_block->arrive_and_wait(); }
 }  // namespace nmpc
 
-#include "staged_tiles.cuh"
+#include "expansions_rollout_tiles.cuh"
 
 namespace {
 
 using K3G = nmpc::K3Geom<NMPC_NR, NMPC_K3_S, NMPC_K3_D, NMPC_K3_T, NMPC_K3_P,
                          NMPC_K3_SPILL != 0>;
 using K5G = nmpc::K5Geom<NMPC_NR, NMPC_K5_S, NMPC_K5_D>;
+using K4G = nmpc::K4Geom<NMPC_NR, NMPC_K4_S, NMPC_K4_W>;
+using K6G = nmpc::K6Geom<NMPC_NR, NMPC_K6_S, NMPC_K6_D, NMPC_K6_T>;
 
 bool aligned(int B, std::initializer_list<const float*> ptrs) {
   if (B % 4) return false;
@@ -66,6 +69,68 @@ void host_k5_geometry(int rows, int prm_size, int* out) {
 
 int host_k5_rows(int pairs, int n_obs, int n_mov) {
   return nmpc::K5Rows<NMPC_NR>(pairs != 0, n_obs, n_mov).rows;
+}
+
+void host_k4_geometry(int rows, int prm_size, int* out) {
+  out[0] = K4G::S;
+  out[1] = K4G::W;
+  out[2] = K4G::threads;
+  out[3] = static_cast<int>(K4G::smem_floats(rows, prm_size) * sizeof(float));
+}
+
+int host_k4_rows(int pairs, int n_obs, int n_mov) {
+  return nmpc::K4Rows<NMPC_NR>(pairs != 0, n_obs, n_mov).in;
+}
+
+void host_k6_geometry(int* out) {
+  const int g[5] = {K6G::S, K6G::D, K6G::T, K6G::threads,
+                    static_cast<int>(K6G::smem_floats * sizeof(float))};
+  for (int i = 0; i < 5; ++i) out[i] = g[i];
+}
+
+// K4, tile design (tiles = 1) or first design (tiles = 0)
+void host_expansions(const float* prm, int prm_size, const float* Xs, const float* U,
+                     const float* xref, const float* lam, const float* mu, const float* mov,
+                     float* A, float* Bm, float* lx, float* lu, float* lxx, float* luu,
+                     float* lux, int B, int N, int pairs, int n_obs, int n_mov, int tiles) {
+  const nmpc::ExpArgs a{prm, Xs, U, xref, lam, mu, mov, A, Bm, lx, lu, lxx, luu, lux,
+                        B, N, pairs, n_obs, n_mov};
+  if (!tiles) {
+    for (int k = 0; k < N; ++k)
+      for (int b = 0; b < B; ++b) nmpc::expansion_thread<NMPC_NR>(a, prm, k, b);
+    return;
+  }
+  const nmpc::K4Rows<NMPC_NR> rows(pairs != 0, n_obs, n_mov);
+  const bool vec = aligned(B, {Xs, U, xref, lam, mu, n_mov ? mov : Xs, A, Bm, lx, lu, lxx, luu,
+                               lux});
+  std::vector<float> smem(K4G::smem_floats(rows.in, prm_size));
+  const int nt = K4G::threads;
+  for (int k = 0; k < N; ++k)
+    for (int blk = 0; blk < (B + K4G::S - 1) / K4G::S; ++blk)
+      run_block(nt, [&](int tid) {
+        float* sp = smem.data();
+        for (int i = tid; i < prm_size; i += nt) sp[i] = prm[i];
+        nmpc::block_sync();
+        nmpc::expansion_tiles<NMPC_NR, K4G>(a, sp, sp + nmpc::al4(prm_size), blk, k, vec, tid);
+      });
+}
+
+// K6, tile design (tiles = 1) or first design (tiles = 0)
+void host_rollout_alpha(const float* prm, const float* x0, const float* Xs, const float* U,
+                        const float* kff, const float* Kfb, const float* alpha, float* Xout,
+                        float* Uout, int B, int N, int tiles) {
+  const nmpc::RolloutArgs a{prm, x0, Xs, U, kff, Kfb, alpha, Xout, Uout, B, N};
+  const float dt = prm[nmpc::Dims<NMPC_NR>::dt];
+  if (!tiles) {
+    for (int b = 0; b < B; ++b) nmpc::rollout_thread<NMPC_NR>(a, dt, b);
+    return;
+  }
+  const bool vec = aligned(B, {Xs, U, kff, Kfb});
+  std::vector<float> smem(K6G::smem_floats);
+  for (int blk = 0; blk < (B + K6G::S - 1) / K6G::S; ++blk)
+    run_block(K6G::threads, [&](int tid) {
+      nmpc::rollout_tiles<NMPC_NR, K6G>(a, dt, smem.data(), blk, vec, tid);
+    });
 }
 
 // K3, tile design (tiles = 1) or first design (tiles = 0)

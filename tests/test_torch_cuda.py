@@ -16,8 +16,9 @@ the CPU tests' tolerances (tests/test_torch_staged_ops.py), relative to each
 scenario's largest magnitude of an output where that exceeds 1, by the rule
 of nmpc_tpu_torch/ops/kernel_check.py that chip_smoke.py phase 10 applies too;
 at these inputs no scenario may diverge or pass by the f32 spread alone.
-K3 and K5 against their first designs (tools/staged_launch.py) bit for bit,
-at the edges of the tile design. K7 bit for bit (the plain chain rounds each
+K3-K6 against their first designs (tools/staged_launch.py) bit for bit,
+at the edges of the tile designs; K5 also at line-search grids longer than
+one launch takes, and K1 with 33 alphas against plain as above. K7 bit for bit (the plain chain rounds each
 exact f64 step once, as the FMA); K8's modes and K9's layouts at 4 fixed iterations as K1; K8 `full`
 with the early exit (K1's first design) against plain as K1, and K1 against
 it at the same tolerances; K9 structured against K8 `full`, bit for bit
@@ -125,6 +126,19 @@ def test_inner_solve_kernel_at_the_edges(dev, case):
         want = megasolve.inner_solve_plain(ob, ob.x0, ob.xref, lam, mu, U, cfg)
         assert all(torch.isfinite(t).all() for t in got[:3])
         _hold_k1(got, want, B)
+
+
+def test_inner_solve_kernel_with_33_alphas(dev):
+    """K1 keeps its parameter block in dynamic shared memory, so a cascade
+    of 33 alphas (the default grid, then smaller steps) runs and agrees with
+    the plain version as at the default grid."""
+    B = 300
+    ob, U, lam, mu = _case("six_robot_antipodal", B, dev, seed=8)
+    grid = ALILQRConfig().alphas
+    alphas = (grid + tuple(grid[-1] * 0.7 ** k for k in range(1, 33)))[:33]
+    cfg = ALILQRConfig(n_inner=4, ls="cascade", alphas=alphas)
+    got = megasolve.inner_solve_fused(ob, ob.x0, ob.xref, lam, mu, U, cfg)
+    _hold_k1(got, megasolve.inner_solve_plain(ob, ob.x0, ob.xref, lam, mu, U, cfg), B)
 
 
 def test_k1_slot_fits_the_block(dev):
@@ -291,12 +305,15 @@ def test_staged_wrappers_refuse_what_the_kernels_do_not_cover(dev):
 
 
 def _first_vs_tiles(ocp, L, alphas):
-    """K3 on K4's output and K5 on K3's gains, the tile design against the
-    first design (tools/staged_launch.py) on the same inputs: both bit for
-    bit, every output finite."""
+    """K4 at the state, K3 on K4's output, K5 and K6 on K3's gains, the tile
+    designs against the first designs (tools/staged_launch.py) on the same
+    inputs: every one bit for bit, every output finite."""
     from nmpc_tpu_torch.tools import staged_launch as SL
 
-    exp = expansions_fused(ocp, L["X"], L["U"], L["xref"], L["lam"], L["mu"], L.get("mov"))
+    k4 = (L["X"], L["U"], L["xref"], L["lam"], L["mu"], L.get("mov"))
+    exp = expansions_fused(ocp, *k4)
+    assert all(torch.equal(a, b) for a, b in zip(exp, SL.expansions_first(ocp, *k4)))
+    assert all(torch.isfinite(t).all() for t in exp)
     got3, first3 = riccati_lanes(exp, 1e-6), SL.riccati_first(exp, 1e-6)
     assert all(torch.equal(a, b) for a, b in zip(got3, first3))
     assert all(torch.isfinite(t).all() for t in got3)
@@ -304,6 +321,10 @@ def _first_vs_tiles(ocp, L, alphas):
     got5 = R.linesearch_costs_lanes(ocp, *args, alphas, L.get("mov"))
     assert torch.equal(got5, SL.linesearch_costs_first(ocp, *args, alphas, L.get("mov")))
     assert torch.isfinite(got5).all()
+    k6 = (*args[:5], L["alpha"])
+    got6 = R.rollout_alpha_lanes(ocp, *k6)
+    assert all(torch.equal(a, b) for a, b in zip(got6, SL.rollout_alpha_first(ocp, *k6)))
+    assert all(torch.isfinite(t).all() for t in got6)
 
 
 @pytest.mark.parametrize("case", ["B=33", "N=1", "N=5", "ten_robot", "moving", "all rows",
@@ -323,17 +344,21 @@ def test_staged_tiles_match_first_design(dev, case):
     _first_vs_tiles(ocp, _lanes(ocp, B, dev, seed=6), (0.0,) + ALILQRConfig().alphas)
 
 
-def test_k5_takes_the_most_candidates_a_block_takes(dev):
+@pytest.mark.parametrize("name", ["six_robot_antipodal", "obstacle_scenario_3"])
+def test_k5_takes_the_most_candidates_a_block_takes(dev, name):
+    """The most candidates one K5 launch takes, one more (two launches) and
+    33 (three at m=1 and m=6): the merits are the first design's bit for
+    bit, one launch counted per slice."""
     from nmpc_tpu_torch.ops import staged_tiles
 
-    ocp = _staged_problem("six_robot_antipodal", dev)
+    ocp = _staged_problem(name, dev)
     L = _lanes(ocp, 40, dev, seed=7)
     top = staged_tiles.k5_max_alphas(ocp.m)
-    alphas = tuple(float(a) for a in torch.linspace(1.0, 0.0, top))
-    _first_vs_tiles(ocp, L, alphas)
-    with pytest.raises(NotImplementedError, match="candidates"):
-        R.linesearch_costs_lanes(ocp, L["x0"], L["X"], L["U"], L["kff"], L["Kfb"], L["xref"],
-                                 L["lam"], L["mu"], alphas + (0.5,))
+    for count in (top, top + 1, 33):
+        alphas = tuple(float(a) for a in torch.linspace(1.0, 0.0, count))
+        cuda_build.reset_launch_counts()
+        _first_vs_tiles(ocp, L, alphas)
+        assert cuda_build.launch_counts["linesearch_costs_lanes"] == -(-count // top)
 
 
 def test_staged_geometry_of_every_library(dev):

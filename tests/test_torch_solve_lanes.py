@@ -252,13 +252,21 @@ def test_unknown_line_search_raises(mega):
 
 
 def test_route_follows_the_shape_not_the_alpha_count(monkeypatch):
-    """More than 32 alphas: the megakernel route refuses them on a pair-only
-    problem; the staged route, which an obstacle problem takes with the
-    default mega=True, runs them."""
+    """More than 32 alphas: the megakernel route takes them on a pair-only
+    problem and agrees with the reference's solve_batched (its megakernel
+    in interpret mode) at the same grid; the staged route, which an obstacle
+    problem takes with the default mega=True, runs them too."""
     alphas = tuple(0.8 ** k for k in range(33))
-    ob = port_ocp(_batch("two_robot_swap", 2, 0.05, seed=6))
-    with pytest.raises(NotImplementedError, match="32"):
-        solve_batched(ob, cfg=ALILQRConfig(alphas=alphas))
+    kw = dict(n_outer=1, n_inner=2, alphas=alphas)
+    ob = _batch("two_robot_swap", 2, 0.05, seed=6)
+    jr = jax.jit(functools.partial(jax_solve_batched, cfg=JaxConfig(**kw)))(ob)
+    routed, mega = [], alilqr_batched._solve_mega
+    monkeypatch.setattr(alilqr_batched, "_solve_mega",
+                        lambda *a, **k: routed.append(1) or mega(*a, **k))
+    tr = solve_batched(port_ocp(ob), cfg=ALILQRConfig(**kw))
+    assert routed == [1]
+    np.testing.assert_allclose(tr.cost.numpy(), np.asarray(jr.cost), rtol=1e-4)
+    np.testing.assert_allclose(tr.U.numpy(), np.asarray(jr.U), atol=5e-3)
     _no_megakernel(monkeypatch)
     obs = port_ocp(_batch("obstacle_scenario_3", 2, 0.05, seed=5, x0=OBS_X0))
     res = solve_batched(obs, cfg=ALILQRConfig(n_outer=1, n_inner=2, alphas=alphas))

@@ -1,19 +1,21 @@
-"""The tile design of K3 and K5 (csrc/staged_tiles.cuh) on the CPU.
+"""The tile designs of K3 and K5 (csrc/staged_tiles.cuh) and of K4 and K6
+(csrc/expansions_rollout_tiles.cuh) on the CPU.
 
-* Its launch geometry (ops/staged_tiles.py) per robot count: S a power of
+* Their launch geometry (ops/staged_tiles.py) per robot count: S a power of
   two >= 8, a K5 block of the line search's candidates within K5_THREADS,
   every block within the H100's 227 KB of shared memory, and the blocks
-  each SM holds as the table records them.
-* Its device code compiled as host C++ (tests/staged_tiles_host.cpp; a
+  each SM holds as the table records them (K3).
+* Their device code compiled as host C++ (tests/staged_tiles_host.cpp; a
   block's threads are std::threads with a std::barrier for __syncthreads,
-  the ring's copies plain loads), at the library's geometry for m in {1, 2,
-  6}: K3 and K5 against the plain PyTorch versions at the CPU tests'
-  tolerances (those of tests/test_torch_staged_ops.py, by the rule of
+  the copies plain loads), at the library's geometry for m in {1, 2, 6}:
+  K3-K6 against the plain PyTorch versions at the CPU tests' tolerances
+  (those of tests/test_torch_staged_ops.py, by the rule of
   ops/kernel_check.py), against the first designs (staged.cuh, compiled
   beside them) bit for bit, and K3 at m=2 against the JAX package's Pallas
   kernel in interpret mode. Batches of 32 (16-byte rows) and 33 (4-byte
   copies, a ragged last tile); horizons of 1 and 5 (not a multiple of the
-  ring depth). Skipped where g++ is missing.
+  ring depth); at m=1 with static-obstacle and with moving-obstacle rows.
+  Skipped where g++ is missing.
 """
 
 import ctypes
@@ -56,6 +58,15 @@ def test_geometry_fits_the_card(m):
     lay5 = ST.k5_layout(m, rows, 12288, ST.k5_max_alphas(m))
     assert lay5["threads"] <= ST.K5_THREADS and lay5["smem_bytes"] <= ST.SMEM_BLOCK_MAX
     assert ST.k5_layout(m, rows, 200, len(ALPHAS))["blocks_per_sm"] >= 2
+    # K4 at the largest input tile the registry gives (pairs, six obstacles,
+    # five moving-obstacle slots) and the largest parameter block; K6
+    lay4 = ST.k4_layout(m, ST.k4_rows(m, m > 1, 6, 5), 12288)
+    assert lay4["smem_bytes"] <= ST.SMEM_BLOCK_MAX and lay4["threads"] <= 1024
+    assert ST.k4_layout(m, ST.k4_rows(m, m > 1, 0, 0), 200)["blocks_per_sm"] >= 2
+    g6, lay6 = ST.K6_GEOMETRY[m], ST.k6_layout(m)
+    assert g6.S >= 8 and g6.S & (g6.S - 1) == 0 and 1 <= g6.T <= 2 * m
+    assert lay6["smem_bytes"] <= ST.SMEM_BLOCK_MAX and lay6["threads"] <= 1024
+    assert lay6["blocks_per_sm"] >= 2
 
 
 def test_geometry_refuses_what_the_kernels_do_not_take():
@@ -65,7 +76,18 @@ def test_geometry_refuses_what_the_kernels_do_not_take():
             ST.k3_layout(6, bad)
     with pytest.raises(ValueError):
         ST.k5_layout(1, 32, 100, 9, ST.K5Geometry(24, 2))
+    for bad in (ST.K4Geometry(12, 4), ST.K4Geometry(32, 0), ST.K4Geometry(32, 33)):
+        with pytest.raises(ValueError):
+            ST.k4_layout(6, 124, 100, bad)
+    for bad in (ST.K6Geometry(12, 2, 1), ST.K6Geometry(16, 1, 1), ST.K6Geometry(16, 2, 13),
+                ST.K6Geometry(128, 2, 12)):
+        with pytest.raises(ValueError):
+            ST.k6_layout(6, bad)
     assert ST.nvcc_flags(6)[:3] == ["-DNMPC_K3_S=8", "-DNMPC_K3_D=2", "-DNMPC_K3_T=32"]
+    g4, g6 = ST.K4_GEOMETRY[6], ST.K6_GEOMETRY[6]
+    assert ST.nvcc_flags(6)[7:] == [f"-DNMPC_K4_S={g4.S}", f"-DNMPC_K4_W={g4.W}",
+                                    f"-DNMPC_K6_S={g6.S}", f"-DNMPC_K6_D={g6.D}",
+                                    f"-DNMPC_K6_T={g6.T}"]
 
 
 @pytest.fixture(scope="module")
@@ -90,6 +112,12 @@ def host_libs(tmp_path_factory):
         lib.host_k5_rows.restype = I
         lib.host_riccati.argtypes = [V] * 10 + [I, I, F, I]
         lib.host_linesearch_costs.argtypes = [V, I] + [V] * 10 + [I] * 7
+        lib.host_k4_geometry.argtypes = [I, I, V]
+        lib.host_k4_rows.argtypes = [I, I, I]
+        lib.host_k4_rows.restype = I
+        lib.host_k6_geometry.argtypes = [V]
+        lib.host_expansions.argtypes = [V, I] + [V] * 13 + [I] * 6
+        lib.host_rollout_alpha.argtypes = [V] * 9 + [I] * 3
         return lib
 
     with ThreadPoolExecutor(len(HOST_ROBOTS)) as pool:
@@ -141,6 +169,17 @@ def test_host_geometry_matches_python(host_libs, m):
         lib.host_k5_geometry(rows, 217, g5)
         assert list(g5) == [ST.K5_GEOMETRY[m].S, ST.K5_GEOMETRY[m].D, ST.k5_max_alphas(m),
                             ST.k5_layout(m, rows, 217, 9)["smem_bytes"]]
+        rows4 = ST.k4_rows(m, pairs, n_obs, n_mov)
+        assert lib.host_k4_rows(int(pairs), n_obs, n_mov) == rows4
+        g4 = (ctypes.c_int * 4)()
+        lib.host_k4_geometry(rows4, 217, g4)
+        lay4 = ST.k4_layout(m, rows4, 217)
+        assert list(g4) == [ST.K4_GEOMETRY[m].S, ST.K4_GEOMETRY[m].W, lay4["threads"],
+                            lay4["smem_bytes"]]
+    g6 = (ctypes.c_int * 5)()
+    lib.host_k6_geometry(g6)
+    k6, lay6 = ST.K6_GEOMETRY[m], ST.k6_layout(m)
+    assert list(g6) == [k6.S, k6.D, k6.T, lay6["threads"], lay6["smem_bytes"]]
 
 
 @pytest.mark.parametrize("B,N", [(32, 5), (33, 5), (33, 1)])
@@ -223,18 +262,83 @@ def test_host_linesearch_tiles_match_plain_and_first_design(host_libs, m, B, N):
         assert torch.isfinite(got).all()
 
 
+def _host_expansions(lib, ocp, d, tiles):
+    """K4 on the harness; outputs start as NaN, so an entry left unwritten
+    shows."""
+    prm = R.params(ocp, (), "cpu")
+    N, n, nu, B = ocp.N, ocp.nx, ocp.nu, d["x0"].shape[-1]
+    outs = [torch.full(s, float("nan")) for s in (
+        (N, n, n, B), (N, n, nu, B), (N, n, B), (N, nu, B), (N, n, n, B), (N, nu, nu, B),
+        (N, nu, n, B))]
+    lib.host_expansions(_p(prm), prm.numel(), *(_p(d[k]) for k in ("X", "U", "xref", "lam", "mu",
+                                                                     "mov")),
+                        *map(_p, outs), B, N, int(ocp.n_pairs > 0), ocp.n_obs, ocp.n_mov,
+                        int(tiles))
+    return outs
+
+
+@pytest.mark.parametrize("B,N", [(32, 5), (33, 5), (33, 1)])
+@pytest.mark.parametrize("m", HOST_ROBOTS)
+def test_host_expansion_tiles_match_plain_and_first_design(host_libs, m, B, N):
+    from nmpc_tpu_torch.ops.expansions import expansions_plain
+
+    for i, ocp in enumerate(_cost_problem(m, N)):
+        d = _cost_inputs(ocp, B, seed=20 * m + B + N + i)
+        got = _host_expansions(host_libs[m], ocp, d, tiles=True)
+        first = _host_expansions(host_libs[m], ocp, d, tiles=False)
+        assert all(torch.equal(a, b) for a, b in zip(got, first))   # every term in its order
+        want = expansions_plain(ocp, d["X"], d["U"], d["xref"], d["lam"], d["mu"], d["mov"])
+        v = KC.Verdict()
+        for j, (g, w, atol) in enumerate(zip(got, want, KC.K4_ATOL)):
+            KC.hold(v, f"K4 output {j}", g, w, atol)
+        assert v.units == B and v.n_widened == 0
+        if N > 1 and (ocp.n_obs or ocp.n_mov):   # past stage 0 the obstacle rows bite
+            assert float(got[4].abs().sum()) > float(torch.diagonal(got[4], 0, 1, 2).abs().sum())
+
+
+def _host_rollout(lib, ocp, d, alpha, tiles):
+    prm = R.params(ocp, (), "cpu")
+    N, n, nu, B = ocp.N, ocp.nx, ocp.nu, d["x0"].shape[-1]
+    Xout, Uout = torch.full((N, n, B), float("nan")), torch.full((N, nu, B), float("nan"))
+    lib.host_rollout_alpha(_p(prm), *(_p(d[k]) for k in ("x0", "X", "U", "kff", "Kfb")),
+                           _p(alpha), _p(Xout), _p(Uout), B, N, int(tiles))
+    return Xout, Uout
+
+
+@pytest.mark.parametrize("B,N", [(32, 5), (33, 5), (33, 1)])
+@pytest.mark.parametrize("m", HOST_ROBOTS)
+def test_host_rollout_tiles_match_plain_and_first_design(host_libs, m, B, N):
+    ocp = _cost_problem(m, N)[0]
+    d = _cost_inputs(ocp, B, seed=30 * m + B + N)
+    alpha = torch.tensor(ALPHAS)[torch.arange(B) % len(ALPHAS)].contiguous()
+    got = _host_rollout(host_libs[m], ocp, d, alpha, tiles=True)
+    assert all(torch.equal(a, b)
+               for a, b in zip(got, _host_rollout(host_libs[m], ocp, d, alpha, tiles=False)))
+    want = R.rollout_alpha_plain(ocp, d["x0"], d["X"], d["U"], d["kff"], d["Kfb"], alpha)
+    v = KC.Verdict()
+    for j, (g, w) in enumerate(zip(got, want)):
+        KC.hold(v, f"K6 output {j}", g, w, KC.K6_ATOL)
+    assert v.units == B and v.n_widened == 0 and torch.isfinite(got[0]).all()
+
+
 def test_staged_launch_sweeps_the_picks_and_reads_the_report():
     """The sweep's first candidate per m is the solver's pick, every
     candidate is a geometry the kernels take and that fits a block; its
     report parser finds K3's and K5's lines; without a card it refuses."""
     from nmpc_tpu_torch.tools import staged_launch as SL
 
-    assert set(SL.CANDIDATES) == set(SL.SCENARIOS) == set(ROBOT_COUNTS)
+    assert set(SL.CANDIDATES) == set(SL.CANDIDATES46) == set(SL.SCENARIOS) == set(ROBOT_COUNTS)
     for m, cands in SL.CANDIDATES.items():
         assert cands[0] == (ST.K3_GEOMETRY[m], ST.K5_GEOMETRY[m])
         for k3, k5 in cands:
             assert ST.k3_layout(m, k3)["smem_bytes"] <= ST.SMEM_BLOCK_MAX
             assert ST.k5_layout(m, 32, 100, len(ALPHAS), k5)["threads"] <= ST.K5_THREADS
+    for m, cands in SL.CANDIDATES46.items():
+        assert cands[0] == (ST.K4_GEOMETRY[m], ST.K6_GEOMETRY[m])
+        assert len(set(cands)) == len(cands)
+        for k4, k6 in cands:
+            assert ST.k4_layout(m, ST.k4_rows(m, m > 1, 6, 0), 200, k4)["smem_bytes"] <= ST.SMEM_BLOCK_MAX
+            assert ST.k6_layout(m, k6)["smem_bytes"] <= ST.SMEM_BLOCK_MAX
     assert all(get(name).make(device="cpu").m == m for m, name in SL.SCENARIOS.items())
     report = """ptxas info    : Compiling entry function '_ZN4nmpc14riccati_kernelILi6EEEvNS_11RiccatiArgsEPfi' for 'sm_90a'
 ptxas info    : Function properties for _ZN4nmpc14riccati_kernelILi6EEEvNS_11RiccatiArgsEPfi
@@ -245,9 +349,15 @@ ptxas info    : Function properties for _ZN4nmpc23linesearch_costs_kernelILi6EEE
     176 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
 ptxas info    : Used 86 registers, used 1 barriers, 176 bytes cumulative stack size
 """
+    report += """ptxas info    : Compiling entry function '_ZN4nmpc17expansions_kernelILi6EEEvNS_7ExpArgsEii' for 'sm_90a'
+ptxas info    : Function properties for _ZN4nmpc17expansions_kernelILi6EEEvNS_7ExpArgsEii
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 90 registers, used 1 barriers
+"""
     lines = SL.staged_ptxas(report)
     assert lines["K3"].endswith("Used 128 registers, used 1 barriers")
     assert lines["K5"].startswith("176 bytes stack frame")
+    assert lines["K4"].endswith("Used 90 registers, used 1 barriers") and "K6" not in lines
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA card"):
             SL.main([])

@@ -202,6 +202,24 @@ def test_sass_listing_parsed_and_compared():
     assert SD.main([]) == 2
 
 
+def test_solve_diff_counts_entries_that_differ():
+    """tools/solve_diff.py: NaN equals NaN, a changed entry or a flipped
+    flag counts, a shape change shows as -1; its solves read only outputs
+    SolveResult has; without a checkout to compare it prints its usage."""
+    from nmpc_tpu_torch.solver.alilqr import SolveResult
+    from nmpc_tpu_torch.tools import solve_diff as SV
+
+    a = torch.tensor([1.0, float("nan"), 3.0])
+    assert SV.differ(a, a.clone()) == 0
+    assert SV.differ(a, torch.tensor([1.0, float("nan"), 3.5])) == 1
+    assert SV.differ(a, torch.tensor([float("nan"), 2.0, 3.0])) == 2
+    assert SV.differ(torch.tensor([True, False]), torch.tensor([True, True])) == 1
+    assert SV.differ(a, a[:2]) == -1
+    assert set(SV.OUTPUTS) <= {f.name for f in dataclasses.fields(SolveResult)}
+    compile(SV.SOLVES, "solve_diff.SOLVES", "exec")
+    assert SV.main([]) == 2
+
+
 def test_k1_launch_reads_the_report():
     report = """ptxas info    : Compiling entry function '_ZN4nmpc16al_update_kernelILi6EEEvNS_6ALArgsE' for 'sm_90a'
 ptxas info    : Function properties for _ZN4nmpc16al_update_kernelILi6EEEvNS_6ALArgsE
@@ -314,9 +332,13 @@ def test_measurements_refuse_without_a_card():
         pytest.skip("a card is present: the tools measure")
     with pytest.raises(RuntimeError, match="CUDA card"):
         RL.measure_fma_peak()
+    from nmpc_tpu_torch.tools import solve_diff as SV
+
     for main in (RL.main, K8.main, K9.main, K1L.main, K1P.main):
         with pytest.raises(RuntimeError, match="CUDA card"):
             main([])
+    with pytest.raises(RuntimeError, match="CUDA card"):
+        SV.main(["."])
 
 
 def test_builders_default_to_the_card():
