@@ -6,17 +6,25 @@ for PyTorch on an NVIDIA Hopper GPU. The JAX package `nmpc_tpu` is the
 reference: each module here has one counterpart there with the same
 subpackage path and module name, and the tests hold each against it.
 
-Layer map (mirrors nmpc_tpu):
-    models/    unicycle dynamics and analytic Euler Jacobians
-    ocp/       OCP dataclass, costs, c >= 0 constraints, constraint Jacobians
-    scenarios/ frozen registry of every reference configuration (own copy)
-    parallel/  batch construction (batch_ocp, random_starts)
-    solver/    AL-iLQR config/result types and the batched main path
+Layer map (mirrors nmpc_tpu), from the entry points down:
+    mpc/       receding-horizon drivers: closed_loop, rt_closed_loop,
+               waypoints, tracking, plan-then-replay; the escape law
+    sim/       plant (substeps, saturation, noise from a torch.Generator),
+               SE(2) frames, LiDAR ray casting
+    solver/    AL-iLQR: the per-scenario engine `solve` (plain PyTorch, the
+               drivers' default) and the batched main path `solve_batched`
+               / `solve_one` (the hand-written kernels on CUDA tensors)
+    parallel/  batch construction (batch_ocp, random_starts) and
+               batched_solve (the per-scenario engine over a batch)
     ops/       the hand-written CUDA kernels (csrc/) with their plain
                PyTorch versions, build and ctypes binding
-    tools/     the roofline tools: FMA-peak probe, K1's phase ablation and
-               expansion-layout A/B (their kernels in csrc/tools.cu), the
-               work model and bound of every kernel
+    ocp/       OCP dataclass, costs, c >= 0 constraints, constraint Jacobians
+    models/    unicycle dynamics and analytic Euler Jacobians
+    scenarios/ frozen registry of every reference configuration (own copy)
+    tools/     the closed-loop fleet (fleet_loop) and the roofline tools:
+               FMA-peak probe, K1's phase ablation and expansion-layout A/B
+               (their kernels in csrc/tools.cu), the work model and bound of
+               every kernel
     utils/     timing (host clock with device sync, CUDA events)
     device.py  DEVICE, every builder's default: the card
 

@@ -10,21 +10,22 @@ from __future__ import annotations
 import torch
 
 
+def _rhs(th: torch.Tensor, v: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """[v cos th, v sin th, w] stacked on a new last axis."""
+    vc = v * torch.cos(th)
+    return torch.stack([vc, v * torch.sin(th), w.expand(vc.shape)], dim=-1)
+
+
 def unicycle_rhs(x: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     """Continuous-time RHS for one unicycle. x=[px,py,th], u=[v,w]."""
-    th = x[..., 2]
-    v = u[..., 0]
-    w = u[..., 1]
-    return torch.stack([v * torch.cos(th), v * torch.sin(th), w], dim=-1)
+    return _rhs(x[..., 2], u[..., 0], u[..., 1])
 
 
 def stacked_unicycle_rhs(x: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
-    """RHS for m stacked unicycles. x: [..., 3m], u: [..., 2m]."""
-    m = x.shape[-1] // 3
-    lead = torch.broadcast_shapes(x.shape[:-1], u.shape[:-1])
-    xs = x.expand(*lead, 3 * m).reshape(*lead, m, 3)
-    us = u.expand(*lead, 2 * m).reshape(*lead, m, 2)
-    return unicycle_rhs(xs, us).reshape(*lead, 3 * m)
+    """RHS for m stacked unicycles. x: [..., 3m], u: [..., 2m]; strided views
+    of the headings and controls, no copy of x or u."""
+    rhs = _rhs(x[..., 2::3], u[..., 0::2], u[..., 1::2])
+    return rhs.reshape(*rhs.shape[:-2], x.shape[-1])
 
 
 def euler_step(x: torch.Tensor, u: torch.Tensor, dt) -> torch.Tensor:

@@ -1,1 +1,1 @@
-from nmpc_tpu_torch.parallel.batch import batch_ocp, random_starts  # noqa: F401
+from nmpc_tpu_torch.parallel.batch import batch_ocp, batched_solve, random_starts  # noqa: F401

@@ -1,5 +1,5 @@
-"""Scenario batching. Port of `batch_ocp` and `random_starts` from
-nmpc_tpu/parallel/batch.py.
+"""Scenario batching. Port of `batch_ocp`, `random_starts` and `batched_solve`
+from nmpc_tpu/parallel/batch.py.
 
 A batched OCP is the same dataclass with a leading [B] axis on the
 per-scenario fields (x0, xref); everything else is shared.
@@ -12,6 +12,7 @@ import dataclasses
 import torch
 
 from nmpc_tpu_torch.ocp.problem import OCP
+from nmpc_tpu_torch.solver.alilqr import ALILQRConfig, SolveResult, WarmStart, _solve_scenarios
 
 
 def batch_ocp(base: OCP, x0_batch: torch.Tensor,
@@ -34,3 +35,11 @@ def random_starts(base: OCP, generator: torch.Generator, B: int,
     noise = spread * (2.0 * u01 - 1.0)
     scale = torch.tensor([1.0, 1.0, 0.5], **kw).repeat(base.nx // 3)
     return batch_ocp(base, base.x0[None] + noise * scale[None])
+
+
+def batched_solve(ocp_batch: OCP, cfg: ALILQRConfig = ALILQRConfig(),
+                  warm: WarmStart | None = None) -> SolveResult:
+    """The per-scenario engine over the batch axis of (x0, xref) [+ warm
+    start]: each scenario's result is `solver.alilqr.solve` of it alone (the
+    reference vmaps `solve`; here one loop with per-scenario done masks)."""
+    return _solve_scenarios(ocp_batch, warm, cfg)

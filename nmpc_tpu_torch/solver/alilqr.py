@@ -1,17 +1,28 @@
-"""AL-iLQR building blocks: configuration, warm start and result types, stage
-expansions and the dense backward Riccati sweep. Port of the parts of
-nmpc_tpu/solver/alilqr.py that the batched main path and the plain versions
-of its kernels use; the per-scenario `solve`, `_line_search` and
-`_inner_ilqr` are not ported yet.
+"""AL-iLQR: the per-scenario engine and its building blocks. Port of
+nmpc_tpu/solver/alilqr.py: configuration, warm start and result types, stage
+expansions, the dense backward Riccati sweep, the forward rollout, the
+cascade line search, the inner iLQR loop and `solve`.
 
 Structure of the solver: an outer PHR multiplier loop
 (lam <- max(0, lam - mu c), mu <- b mu) around an inner iLQR descent on the
 AL merit. Every function here takes a leading batch dimension written out.
+
+One implementation serves one scenario and many: `_solve_scenarios` runs B
+scenarios with per-scenario `done` masks at both loop levels, so a finished
+scenario's carry (X, U, cost, duals, iteration counts) stays frozen while
+the others iterate, as `vmap` of the reference's `lax.while_loop` freezes
+it. `solve` is that implementation at B = 1 and
+`parallel.batch.batched_solve` at any B. Everything is plain PyTorch: the
+reference's per-scenario engine is XLA code with no Pallas kernel, so on the
+card each step is a chain of small PyTorch kernels and the loop's host
+syncs (one per inner and outer iteration, to leave the loops early).
 """
 
 from __future__ import annotations
 
 import dataclasses
+
+import math
 
 import numpy as np
 import torch
@@ -216,3 +227,144 @@ def _backward_pass(ocp: OCP, cfg: ALILQRConfig, X, U, lam, mu):
         kff[..., k, :] = kk[..., 0]
         Kfb[..., k, :, :] = KK
     return kff, Kfb, dV1, dV2
+
+
+# ---------------------------------------------------------------------------
+# Forward pass: the cascade line search
+# ---------------------------------------------------------------------------
+
+
+def _forward_rollout(ocp: OCP, X, U, kff, Kfb, alpha):
+    """Roll the affine policy u_k = U_k + alpha kff_k + Kfb_k (x_k - X_k)
+    from x0 through the dynamics. X [..., N+1, nx], U and kff [..., N, nu],
+    Kfb [..., N, nu, nx]; alpha broadcasts against their leading shape (a
+    scalar, or [A, 1] for A candidates over B scenarios, giving [A, B, ...]).
+    Returns (Xn [..., N+1, nx], Un [..., N, nu])."""
+    alpha = torch.as_tensor(alpha, dtype=X.dtype, device=X.device)[..., None]
+    x = ocp.x0
+    xs, us = [x], []
+    for k in range(ocp.N):
+        dx = x - X[..., k, :]
+        u = U[..., k, :] + alpha * kff[..., k, :] + (Kfb[..., k, :, :] @ dx[..., None])[..., 0]
+        x = P.step_dynamics(ocp, x, u)
+        xs.append(x)
+        us.append(u)
+    return torch.stack(torch.broadcast_tensors(*xs), dim=-2), torch.stack(us, dim=-2)
+
+
+def _line_search(ocp: OCP, cfg: ALILQRConfig, X, U, kff, Kfb, lam, mu, cost0, dV1):
+    """Every candidate of cfg.alphas rolled at once, as a leading batch
+    dimension (the reference's vmap over alphas). Accepts the cheapest
+    candidate that achieves an Armijo fraction of the expected LQR decrease
+    and lowers the merit. X [B, N+1, nx], cost0 and dV1 [B] -> (Xn, Un,
+    cost [B], improved [B] bool).
+
+    A NaN merit fails the Armijo test ((cost0 - nan) >= e is False) and is
+    masked to inf; argmin takes the first of tied minima, as jnp.argmin."""
+    alphas = torch.tensor(cfg.alphas, dtype=X.dtype, device=X.device)
+    Xs, Us = _forward_rollout(ocp, X, U, kff, Kfb, alphas[:, None])   # [A, B, ...]
+    costs = P.al_total_cost(ocp, Xs, Us, lam, mu)                     # [A, B]
+    expected = cfg.armijo * alphas[:, None] * torch.clamp(-dV1, min=0.0)
+    ok = (cost0 - costs) >= expected
+    best = torch.argmin(torch.where(ok, costs, math.inf), dim=0)      # [B]
+    cost_best = costs.gather(0, best[None])[0]
+    improved = ok.gather(0, best[None])[0] & (cost_best < cost0)
+    rows = torch.arange(X.shape[0], device=X.device)
+    Xn = torch.where(improved[:, None, None], Xs[best, rows], X)
+    Un = torch.where(improved[:, None, None], Us[best, rows], U)
+    cost = torch.where(improved, cost_best, cost0)
+    return Xn, Un, cost, improved
+
+
+# ---------------------------------------------------------------------------
+# Solve
+# ---------------------------------------------------------------------------
+
+
+def _inner_ilqr(ocp: OCP, cfg: ALILQRConfig, X, U, lam, mu, active):
+    """iLQR descent on the AL merit for the scenarios where `active` [B] is
+    set; the others keep their X, U and a zero count. Each scenario
+    iterates while it < n_inner and it is not done (the reference's
+    `(it < n_inner) & ~done`), its carry frozen from then on. Returns (X, U,
+    cost [B], iters [B] int32)."""
+    cost = P.al_total_cost(ocp, X, U, lam, mu)
+    it = torch.zeros(X.shape[0], dtype=torch.int32, device=X.device)
+    done = ~active
+    for _ in range(cfg.n_inner):
+        if bool(done.all()):
+            break
+        run = ~done
+        kff, Kfb, dV1, _ = _backward_pass(ocp, cfg, X, U, lam, mu)
+        Xn, Un, costn, improved = _line_search(ocp, cfg, X, U, kff, Kfb, lam, mu, cost, dV1)
+        rel_drop = (cost - costn) / (1.0 + torch.abs(cost))
+        stop = (~improved) | (rel_drop < cfg.tol_cost)
+        X = torch.where(run[:, None, None], Xn, X)
+        U = torch.where(run[:, None, None], Un, U)
+        cost = torch.where(run, costn, cost)
+        it = it + run.to(torch.int32)
+        done = done | stop
+    return X, U, cost, it
+
+
+def _solve_scenarios(ocp_b: OCP, warm: WarmStart | None = None,
+                     cfg: ALILQRConfig = ALILQRConfig()) -> SolveResult:
+    """The per-scenario engine over a batch (x0 [B, nx], xref [B, N, nx];
+    warm [B, ...] or None for the cold start): the outer PHR loop with a
+    per-scenario `done` mask around `_inner_ilqr`, then the final clamp.
+    Each scenario's result is the reference `solve` of that scenario alone:
+    a scenario that is done keeps its carry while the others iterate."""
+    B = ocp_b.x0.shape[0]
+    kw = dict(dtype=ocp_b.x0.dtype, device=ocp_b.device)
+    if warm is None:
+        warm = WarmStart(U=torch.zeros((B, ocp_b.N, ocp_b.nu), **kw),
+                         lam=torch.zeros((B, ocp_b.N, ocp_b.n_con), **kw),
+                         mu=torch.full((B,), cfg.mu_init, **kw))
+    U, lam, mu = warm.U, warm.lam, warm.mu
+    X = P.rollout(ocp_b, U)
+    i32 = dict(dtype=torch.int32, device=ocp_b.device)
+    outer, inner_tot = torch.zeros(B, **i32), torch.zeros(B, **i32)
+    viol = torch.full((B,), math.inf, **kw)
+    done = torch.zeros(B, dtype=torch.bool, device=ocp_b.device)
+    for _ in range(cfg.n_outer):
+        if bool(done.all()):
+            break
+        run = ~done
+        Xn, Un, _, iters = _inner_ilqr(ocp_b, cfg, X, U, lam, mu, run)
+        c = P.masked_trajectory_constraints(ocp_b, Xn, Un)
+        violn = torch.clamp(-torch.amin(c, dim=(-2, -1)), min=0.0)
+        lamn = torch.clamp(lam - mu[:, None, None] * c, min=0.0, max=cfg.lam_max)
+        newly = violn < cfg.tol_con
+        mun = torch.where(newly, mu, torch.clamp(mu * cfg.mu_factor, max=cfg.mu_max))
+        X = torch.where(run[:, None, None], Xn, X)
+        U = torch.where(run[:, None, None], Un, U)
+        lam = torch.where(run[:, None, None], lamn, lam)
+        mu = torch.where(run, mun, mu)
+        viol = torch.where(run, violn, viol)
+        outer = outer + run.to(torch.int32)
+        inner_tot = inner_tot + iters
+        done = done | newly
+    if cfg.final_clamp:
+        U = torch.maximum(torch.minimum(U, ocp_b.u_hi), ocp_b.u_lo)
+        X = P.rollout(ocp_b, U)
+        viol = P.max_violation(ocp_b, X, U)
+    return SolveResult(X=X, U=U, lam=lam, mu=mu, cost=P.total_cost(ocp_b, X, U), viol=viol,
+                       inner_iters=inner_tot, outer_iters=outer, converged=done)
+
+
+def one_scenario(batched_solve, ocp: OCP, warm: WarmStart | None, cfg: ALILQRConfig) -> SolveResult:
+    """batched_solve(ocp_b, warm_b, cfg) on one scenario: unbatched OCP and
+    WarmStart in (a batch of one), unbatched SolveResult out."""
+    ocp_b = dataclasses.replace(ocp, x0=ocp.x0[None], xref=ocp.xref[None])
+    warm_b = None if warm is None else WarmStart(
+        *(torch.as_tensor(a, device=ocp.device)[None] for a in (warm.U, warm.lam, warm.mu)))
+    res = batched_solve(ocp_b, warm_b, cfg)
+    return SolveResult(**{f.name: getattr(res, f.name)[0] for f in dataclasses.fields(res)})
+
+
+def solve(ocp: OCP, warm: WarmStart | None = None,
+          cfg: ALILQRConfig = ALILQRConfig()) -> SolveResult:
+    """Solve one NMPC problem (unbatched OCP and WarmStart in, unbatched
+    SolveResult out): `_solve_scenarios` at B = 1. The line search is always
+    the cascade over cfg.alphas; cfg.mega, cfg.ls, cfg.compact and
+    cfg.cold_seed are read by the batched engine only, as in the reference."""
+    return one_scenario(_solve_scenarios, ocp, warm, cfg)

@@ -28,8 +28,6 @@ CUDA kernels mask the ragged edge of their grid instead.
 
 from __future__ import annotations
 
-import dataclasses
-
 import torch
 
 from nmpc_tpu_torch.ocp import problem as P
@@ -39,7 +37,7 @@ from nmpc_tpu_torch.ops.cuda_build import lane, std
 from nmpc_tpu_torch.ops.expansions import expansions_fused
 from nmpc_tpu_torch.ops.megasolve import al_update_lanes, cuda_unsupported, inner_solve_fused
 from nmpc_tpu_torch.ops.riccati import riccati_lanes
-from nmpc_tpu_torch.solver.alilqr import SCAN_N_MIN, ALILQRConfig, SolveResult, WarmStart
+from nmpc_tpu_torch.solver.alilqr import SCAN_N_MIN, ALILQRConfig, SolveResult, WarmStart, one_scenario
 
 
 def _finalize(ocp_b: OCP, X, U, cfg: ALILQRConfig):
@@ -229,9 +227,4 @@ def solve_one(ocp: OCP, warm: WarmStart | None = None,
               cfg: ALILQRConfig = ALILQRConfig()) -> SolveResult:
     """Single-scenario solve through the batched path (B = 1): unbatched
     OCP / WarmStart in, unbatched SolveResult out."""
-    ocp_b = dataclasses.replace(ocp, x0=ocp.x0[None], xref=ocp.xref[None])
-    warm_b = None if warm is None else WarmStart(
-        *(torch.as_tensor(a, device=ocp.device)[None] for a in (warm.U, warm.lam, warm.mu)))
-    res = solve_batched(ocp_b, warm_b, cfg)
-    return SolveResult(**{f.name: getattr(res, f.name)[0]
-                          for f in dataclasses.fields(res)})
+    return one_scenario(solve_batched, ocp, warm, cfg)

@@ -9,8 +9,10 @@ version:
     exp_blocked_expansions  K1 with the structured or the dense expansion
                             layout at a fixed count (K9)
 
-Each runs on the card as `python -m nmpc_tpu_torch.tools.<name>` and refuses
-to measure without one. Beside them, `sass_diff` compares the solver
-kernels' machine code with another checkout's (it needs the CUDA toolkit,
-not a card).
+and the closed-loop fleet (`fleet_loop`, the port of
+tools/bench_fleet_loop.py: a B-wide warm MPC loop through K1 and K2). Each
+runs on the card as `python -m nmpc_tpu_torch.tools.<name>` and refuses to
+measure without one. Beside them, `sass_diff` compares the solver kernels'
+machine code with another checkout's (it needs the CUDA toolkit, not a
+card).
 """

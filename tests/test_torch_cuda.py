@@ -444,3 +444,62 @@ def test_expansion_ab_kernel_matches_plain(dev, layout):
     if layout == "structured":   # K8's full mode, bit for bit
         full = K8.phase_ablation(ob, ob.x0, ob.xref, lam, mu, U, cfg, "full", 4)
         assert all(torch.equal(a, b) for a, b in zip(got, full))
+
+
+# ---------------------------------------------------------------------------
+# the closed loop on the card
+# ---------------------------------------------------------------------------
+
+
+def test_closed_loop_through_solve_one(dev):
+    """tests/test_mpc.py:181-196 on the card: the two_robot_swap N=25 loop
+    with solve_fn = solve_one (K1 and K2 at B=1) reaches its goal with the
+    realized pair distance >= dmin - 5e-3, and no staged kernel runs."""
+    from nmpc_tpu_torch.mpc import MPCConfig, closed_loop
+    from nmpc_tpu_torch.solver import solve_one
+
+    sc = get("two_robot_swap")
+    fast = ALILQRConfig(n_outer=10, n_inner=20, tol_con=1e-4)
+    cuda_build.reset_launch_counts()
+    r = closed_loop(sc.make(N=25, T=0.1, device=dev), fast,
+                    MPCConfig(max_steps=250, stop_tol=1e-1, escape=True),
+                    solve_fn=lambda o, w: solve_one(o, w, fast))
+    counts = dict(cuda_build.launch_counts)
+    assert bool(r.reached)
+    assert float(r.min_dist_hist.min()) >= sc.dmin - 5e-3
+    assert counts["inner_solve_fused"] > 0 and counts["al_update_lanes"] > 0
+    assert counts["riccati_lanes"] == 0 and counts["expansions_fused"] == 0
+    assert r.X_hist.device.type == "cuda"
+
+
+def test_plant_step_with_a_cuda_generator_stays_on_the_card(dev):
+    from nmpc_tpu_torch.sim import PlantConfig, plant_step
+
+    noise = torch.full((6,), 0.01, device=dev)
+    cfg = PlantConfig(substeps=2, u_sat=torch.tensor([0.22, 2.84] * 2, device=dev),
+                      process_noise=noise, odom_noise=noise)
+    x = torch.zeros((64, 6), device=dev)
+    u = torch.ones((64, 4), device=dev)
+    outs = [plant_step(x, u, 0.1, cfg, torch.Generator(device=dev).manual_seed(1)) for _ in range(2)]
+    for t in outs[0]:
+        assert t.device.type == "cuda" and torch.isfinite(t).all()
+    assert torch.equal(outs[0][0], outs[1][0]) and torch.equal(outs[0][1], outs[1][1])
+    clean, _ = plant_step(x, u, 0.1, cfg)
+    assert 0.003 < float((outs[0][0] - clean).std()) < 0.03
+
+
+def test_per_scenario_solve_on_the_card_matches_the_cpu(dev):
+    """The per-scenario engine (plain PyTorch) on CUDA tensors against the
+    same call on the CPU: cost rtol 1e-4, U atol 5e-3 (5e-2 on six
+    robots, tests/test_torch_solve_batched.py's exception)."""
+    from nmpc_tpu_torch.solver import solve
+
+    cfg = ALILQRConfig(tol_cost=1e-5)
+    for name, kw, u_atol in (("two_robot_swap", dict(N=25, T=0.1), 5e-3),
+                             ("six_robot_antipodal", dict(N=10), 5e-2)):
+        ocp = get(name).make(device=dev, **kw)
+        got = solve(ocp, cfg=cfg)
+        want = solve(ocp.to("cpu"), cfg=cfg)
+        assert got.U.device.type == "cuda"
+        torch.testing.assert_close(got.cost.cpu(), want.cost, rtol=1e-4, atol=0)
+        torch.testing.assert_close(got.U.cpu(), want.U, rtol=0, atol=u_atol)
