@@ -7,8 +7,12 @@
 //   al_update_warp (K2): the AL multiplier update and the largest violation.
 //     Replaces megasolve_pallas.py::al_update_lanes (_make_al_update_kernel).
 //
-// Problem class: NR stacked Euler unicycles with pair rows (optional) and
-// u/x box rows; no static or moving obstacles, no LiDAR rays.
+// Problem class: NR stacked Euler unicycles with pair rows (optional), u/x
+// box rows and, in the obstacle variant (kObs), static-obstacle rows
+// (c = dist - keepout) and moving-obstacle rows (c = dx^2 + dy^2 - dmin^2
+// against the stage's entry of the schedule); no LiDAR rays. Row order per
+// stage: pairs, static obstacles (robot-major, obstacle-minor), moving
+// obstacles (robot-major), u box, x box.
 //
 // What bounded the first design (megasolve.cuh::inner_solve_thread, one
 // thread per scenario, kept as the roofline tools' baseline): each thread
@@ -21,7 +25,8 @@
 //
 // This design: the 32 lanes of a warp own one scenario.
 //  * The stage-local blocks live in a per-warp slot of shared memory whose
-//    size depends on m only (Slot below; 6,608 B at m=6, 16,976 B at m=10):
+//    size depends on m (and the obstacle variant's rows; Slot below; 6,608 B
+//    at m=6, 16,976 B at m=10 without obstacle rows):
 //    Vxx twice (ping-pong: Qxx is built in the other copy and becomes the
 //    next Vxx), Qux, Quu and its factor, Vx, Qx, Qu, the structured
 //    expansion with a dense table of the pair weights, and the stage's
@@ -56,6 +61,21 @@
 // Riccati recursion diverges). The merit is summed in another order (over
 // lanes, then over the warp), so the results agree with the plain version
 // at the tests' tolerances, not bit for bit.
+//
+// The obstacle variant (template flag kObs; the pair-only K1 and K2 are the
+// kObs = false instantiations, their code as before): its R = NR (n_obs +
+// n_mov) obstacle rows are state rows like the pair rows (masked by
+// selection at stage 0), split over the lanes by row as the pair rows are;
+// each row's Gauss-Newton weights and gradient terms go into a table [5, R]
+// in the slot, and the lane of its robot adds them to the robot's xy
+// gradient and 2x2 block. The stage's duals in the slot grow by R (Slot::
+// floats_obs sizes the slot from R, not from m alone). The 3 n_obs obstacle
+// entries sit in the parameter block in shared memory, after the pair
+// parameters and before the alphas; the schedule of the moving obstacles is
+// read from device memory in the standard layout [B, N, n_mov, 2] (or one
+// shared [N, n_mov, 2]), a stage's 2 n_mov floats as a stage's duals are.
+// Static rows take dist = sqrt(max(d2, 1e-12)) (obs_c<true>), the guard of
+// the plain dense formulation (ocp/problem.py::stage_constraints).
 #pragma once
 
 #include "rollout.cuh"
@@ -129,11 +149,17 @@ NMPC_DEV void pair_robots(int p, int& i, int& j) {
 
 // One warp's slot of shared memory, in floats; every block starts on a
 // 16-byte boundary, so rows of nu floats load as float4 (float2 for odd m).
-// megasolve.cu sizes each launch's dynamic shared memory from `bytes`.
+// megasolve.cu sizes each launch's dynamic shared memory from `floats_obs`.
+#ifdef __CUDACC__
+#define NMPC_HD __host__ __device__
+#else
+#define NMPC_HD
+#endif
+
 template <int NR>
 struct Slot {
   static constexpr int n = 3 * NR, nu = 2 * NR, np = NR * (NR - 1) / 2;
-  static constexpr int al(int v) { return (v + 3) / 4 * 4; }
+  NMPC_HD static constexpr int al(int v) { return (v + 3) / 4 * 4; }
   static constexpr int V0 = 0;                     // Vxx of stage k + 1 [n, n]
   static constexpr int V1 = al(V0 + n * n);        // Qxx, then Vxx of stage k
   static constexpr int QuxT = al(V1 + n * n);      // Qux transposed [n, nu]
@@ -159,6 +185,11 @@ struct Slot {
   static constexpr int lam = al(xr + n);           // stage duals [np + 2 nu + 2 n]
   static constexpr int floats = al(lam + np + 2 * nu + 2 * n);
   static constexpr int bytes = 4 * floats;
+  // the obstacle variant with R obstacle rows: the duals grow by R
+  // [np + R + 2 nu + 2 n], and the rows' table [5, R] (wxx, wyy, wxy and the
+  // x and y gradient terms) follows them
+  NMPC_HD static constexpr int ow(int R) { return al(lam + np + R + 2 * nu + 2 * n); }
+  NMPC_HD static constexpr int floats_obs(int R) { return R == 0 ? floats : al(ow(R) + 5 * R); }
 };
 
 // Loads and stores of V consecutive floats, V = 4, 2 or 1, as one vector
@@ -224,6 +255,10 @@ struct WarpArgs {
   float* Uw;          // [2, B, N, nu]
   int B, N, n_inner, adaptive, n_alphas, ls_rounds, pairs, slot_floats;
   float reg, armijo, tol_cost, ls_beta, ls_grow, ls_trial_min;
+  // the obstacle variant only: the moving obstacles' schedule ([B, N, n_mov,
+  // 2], or [N, n_mov, 2] shared: mov_stride floats between scenarios, 0)
+  const float* mov;
+  int n_obs, n_mov, mov_stride;
 };
 
 struct ALArgs {
@@ -236,6 +271,8 @@ struct ALArgs {
   float* viol;        // [B]
   int B, N, pairs;
   float lam_max;
+  const float* mov;   // the obstacle variant only, as WarpArgs
+  int n_obs, n_mov, mov_stride;
 };
 
 // One scenario as its warp sees it: the parameter block and the warp's slot
@@ -254,6 +291,12 @@ struct Lanes {
   float *kff, *Kfb;
   float *Xc, *Uc, *Xb, *Ub, *Xt, *Ut;
   int pa[2], pb[2];  // robots of this lane's pair rows lane, lane + 32
+  // the obstacle variant only: obstacle rows R, their counts, the obstacle
+  // entries of the parameter block, the scenario's schedule [N, n_mov, 2]
+  // and the slot's table of the rows' terms
+  int R, n_obs, n_mov;
+  const float *obs, *mov;
+  float* ow;
 #ifdef NMPC_K1_PROBES
   unsigned long long* clk;  // the phase probes' counters
 #endif
@@ -264,6 +307,32 @@ NMPC_DEV void swap_ptr(T*& a, T*& b) {
   T* t = a;
   a = b;
   b = t;
+}
+
+// Obstacle row e of a stage at the state x (robot-major: static rows r n_obs
+// + o, then moving rows NR n_obs + r n_mov + o; mov_k: the stage's schedule
+// [n_mov, 2]): returns c and sets the row's robot r and dc/dpx, dc/dpy.
+template <int NR>
+NMPC_DEV float obstacle_row(const float* x, const float* obs, const float* mov_k, float dmin2,
+                            int n_obs, int n_mov, int e, int& r, float& gx, float& gy) {
+  const int ns = NR * n_obs;
+  if (e < ns) {
+    r = e / n_obs;
+    const int o = e - r * n_obs;
+    const float dx = x[3 * r] - obs[3 * o], dy = x[3 * r + 1] - obs[3 * o + 1];
+    float dist;
+    const float c = obs_c<true>(dx, dy, obs[3 * o + 2], &dist);
+    gx = dx / dist;
+    gy = dy / dist;
+    return c;
+  }
+  e -= ns;
+  r = e / n_mov;
+  const int o = e - r * n_mov;
+  const float dx = x[3 * r] - mov_k[2 * o], dy = x[3 * r + 1] - mov_k[2 * o + 1];
+  gx = 2.f * dx;
+  gy = 2.f * dy;
+  return pair_c(dx, dy, dmin2);
 }
 
 // One stage of a rollout as lane i needs it (fetched when the stage starts:
@@ -278,14 +347,14 @@ struct StageRows {
 
 // Stage k's rows of the nominal (Xn, Un) and, with `feedback`, of the gains
 // (else ub is the warm control Uin's row).
-template <int NR>
+template <int NR, bool kObs>
 NMPC_DEV void fetch_stage(const Lanes<NR>& w, const float* Xn, const float* Un, bool feedback,
                           int k, StageRows<NR>& f) {
   using D = Dims<NR>;
   constexpr int n = D::n, nu = D::nu, np = D::np;
   const int i = w.lane;
   const float* lam = w.lam + (size_t)k * w.nc;
-  const int row_u = w.pairs ? np : 0, row_x = row_u + 2 * nu;
+  const int row_u = (w.pairs ? np : 0) + (kObs ? w.R : 0), row_x = row_u + 2 * nu;
   if (i < n) {
     f.xb = feedback ? Xn[(size_t)k * n + i] : 0.f;
     f.xr = w.xref[(size_t)k * n + i];
@@ -314,9 +383,10 @@ NMPC_DEV void fetch_stage(const Lanes<NR>& w, const float* Xn, const float* Un, 
 // This lane's share of stage k's AL merit at the slot's (x, u): tracking
 // terms into `track`, squared PHR activations into `pen`. Lane i takes state
 // row i (tracking, x_lo, x_hi), control row i (tracking, u_lo, u_hi) and the
-// pair rows i, i + 32. At stage 0 the state and pair rows are masked by
-// selection: a non-finite activation there must not leak into the merit.
-template <int NR>
+// pair rows i, i + 32 (and the obstacle rows i, i + 32, ...). At stage 0
+// the state, pair and obstacle rows are masked by selection: a non-finite
+// activation there must not leak into the merit.
+template <int NR, bool kObs>
 NMPC_DEV void merit_terms(const Lanes<NR>& w, int k, const StageRows<NR>& f, float& track,
                           float& pen) {
   using D = Dims<NR>;
@@ -357,6 +427,19 @@ NMPC_DEV void merit_terms(const Lanes<NR>& w, int k, const StageRows<NR>& f, flo
       pen += act * act;
     }
   }
+  if constexpr (kObs) {
+    const float* lam = w.lam + (size_t)k * w.nc + (w.pairs ? np : 0);
+    const float* mov_k = w.mov + (size_t)k * 2 * w.n_mov;
+    for (int e = i; e < w.R; e += kWarp) {
+      int r;
+      float gx, gy;
+      const float c = obstacle_row<NR>(x, w.obs, mov_k, sp[D::dmin2], w.n_obs, w.n_mov, e, r,
+                                       gx, gy);
+      float act = relu(al_step(lam[e], w.mu, c));
+      act = gate ? act : 0.f;
+      pen += act * act;
+    }
+  }
 }
 
 // x <- x + dt f(x, u) on the slot's state; robot r on lane r.
@@ -390,7 +473,7 @@ NMPC_DEV void euler_step(const Lanes<NR>& w) {
 // returns its AL merit. feedback = true: the closed loop u = ubar + alpha
 // kff + K (x - xbar) around the nominal (Xn, Un) under the gains in
 // w.kff / w.Kfb; feedback = false: the warm controls Un (= w.Uin).
-template <int NR>
+template <int NR, bool kObs>
 NMPC_DEV float rollout_warp(const Lanes<NR>& w, const float* Xn, const float* Un, float alpha,
                             bool feedback, float* Xo, float* Uo) {
   using S = Slot<NR>;
@@ -404,7 +487,7 @@ NMPC_DEV float rollout_warp(const Lanes<NR>& w, const float* Xn, const float* Un
   warp_sync();
   float track = 0.f, pen = 0.f;
   for (int k = 0; k < w.N; ++k) {
-    fetch_stage<NR>(w, Xn, Un, feedback, k, cur);
+    fetch_stage<NR, kObs>(w, Xn, Un, feedback, k, cur);
     if (i < n) {
       const float xi = x[i];
       dx[i] = xi - cur.xb;
@@ -424,7 +507,7 @@ NMPC_DEV float rollout_warp(const Lanes<NR>& w, const float* Xn, const float* Un
       Uo[(size_t)k * nu + i] = acc;
     }
     warp_sync();
-    merit_terms<NR>(w, k, cur, track, pen);
+    merit_terms<NR, kObs>(w, k, cur, track, pen);
     euler_step<NR>(w);
   }
   return warp_sum(track) + warp_sum(pen) / (2.f * w.mu);
@@ -440,8 +523,10 @@ NMPC_DEV float rollout_warp(const Lanes<NR>& w, const float* Xn, const float* Un
 // with A = I + E (E[3r, 3r+2] = e1[r], E[3r+1, 3r+2] = e2[r]) and B[3r, 2r]
 // = bc[r], B[3r+1, 2r] = bs[r], B[3r+2, 2r+1] = dt. Each sum is taken in the
 // first design's order. Stage k - 1's rows are fetched into registers while
-// stage k is computed.
-template <int NR>
+// stage k is computed (the obstacle variant copies its stage's duals into
+// the slot when the stage starts). The obstacle rows add to their robot's
+// lx, lxx as the pair rows do.
+template <int NR, bool kObs>
 NMPC_DEV float backward_sweep_warp(const Lanes<NR>& w, float reg) {
   using D = Dims<NR>;
   using S = Slot<NR>;
@@ -455,7 +540,7 @@ NMPC_DEV float backward_sweep_warp(const Lanes<NR>& w, float reg) {
   const float mu = w.mu;
   const bool pairs = w.pairs;
   const int nc = w.nc;
-  const int row_u = pairs ? np : 0, row_x = row_u + 2 * nu;
+  const int row_o = pairs ? np : 0, row_u = row_o + (kObs ? w.R : 0), row_x = row_u + 2 * nu;
   const float* x = s + S::x;
   const float* u = s + S::u;
   const float* lam = s + S::lam;
@@ -475,10 +560,12 @@ NMPC_DEV float backward_sweep_warp(const Lanes<NR>& w, float reg) {
       fxr = w.xref[(size_t)k * n + lane];
     }
     if (lane < nu) fu = w.Uc[(size_t)k * nu + lane];
+    if constexpr (!kObs) {
 #pragma unroll
-    for (int q = 0; q < kLam; ++q) {
-      const int e = lane + q * kWarp;
-      fl[q] = e < nc ? w.lam[(size_t)k * nc + e] : 0.f;
+      for (int q = 0; q < kLam; ++q) {
+        const int e = lane + q * kWarp;
+        fl[q] = e < nc ? w.lam[(size_t)k * nc + e] : 0.f;
+      }
     }
   };
   fetch(w.N - 1);
@@ -494,9 +581,13 @@ NMPC_DEV float backward_sweep_warp(const Lanes<NR>& w, float reg) {
       s[S::xr + lane] = fxr;
     }
     if (lane < nu) s[S::u + lane] = fu;
+    if constexpr (kObs) {
+      for (int e = lane; e < nc; e += kWarp) s[S::lam + e] = w.lam[(size_t)k * nc + e];
+    } else {
 #pragma unroll
-    for (int q = 0; q < kLam; ++q) {
-      if (lane + q * kWarp < nc) s[S::lam + lane + q * kWarp] = fl[q];
+      for (int q = 0; q < kLam; ++q) {
+        if (lane + q * kWarp < nc) s[S::lam + lane + q * kWarp] = fl[q];
+      }
     }
     if (k > 0) fetch(k - 1);
     warp_sync();
@@ -551,6 +642,26 @@ NMPC_DEV float backward_sweep_warp(const Lanes<NR>& w, float reg) {
       }
       warp_sync();
     }
+    // ---- expansion, obstacle rows: row e on lane e (and e + 32, ...): its
+    // Gauss-Newton weights and gradient terms into the slot's table
+    if constexpr (kObs) {
+      const float* mov_k = w.mov + (size_t)k * 2 * w.n_mov;
+      for (int e = lane; e < w.R; e += kWarp) {
+        int r;
+        float gx, gy;
+        const float c = obstacle_row<NR>(x, w.obs, mov_k, sp[D::dmin2], w.n_obs, w.n_mov, e, r,
+                                         gx, gy);
+        float act = relu(al_step(lam[row_o + e], mu, c));
+        act = gate ? act : 0.f;
+        const float wt = act > 0.f ? mu : 0.f;
+        w.ow[e] = wt * gx * gx;
+        w.ow[w.R + e] = wt * gy * gy;
+        w.ow[2 * w.R + e] = wt * gx * gy;
+        w.ow[3 * w.R + e] = -(gx * act);
+        w.ow[4 * w.R + e] = -(gy * act);
+      }
+      warp_sync();
+    }
 
     // ---- expansion, dynamics of robot r on lane r, and the sums over its
     // pairs (in the order of the other robot; the table's 0 at j = r adds
@@ -578,6 +689,17 @@ NMPC_DEV float backward_sweep_warp(const Lanes<NR>& w, float reg) {
           dxy = dxy + t[2][j];
           lx0 = lx0 + t[3][j];
           lx1 = lx1 + t[4][j];
+        }
+      }
+      if constexpr (kObs) {
+        // robot r's rows: static r n_obs + o, then moving NR n_obs + r n_mov + o
+        for (int t = 0; t < w.n_obs + w.n_mov; ++t) {
+          const int e = t < w.n_obs ? r * w.n_obs + t : NR * w.n_obs + r * w.n_mov + t - w.n_obs;
+          dxx = dxx + w.ow[e];
+          dyy = dyy + w.ow[w.R + e];
+          dxy = dxy + w.ow[2 * w.R + e];
+          lx0 = lx0 + w.ow[3 * w.R + e];
+          lx1 = lx1 + w.ow[4 * w.R + e];
         }
       }
       s[S::Dg + r] = dxx;
@@ -621,9 +743,10 @@ NMPC_DEV float backward_sweep_warp(const Lanes<NR>& w, float reg) {
         const float qu[2] = {bcr * va[0][c] + bsr * va[1][c], dt * va[2][c]};
         store_chunk<2>(QuxT + (3 * q + c) * nu + 2 * r, qu);
       }
-      // lxx's block: its diagonal (r = q) and the pair weights on (x, y)
+      // lxx's block: its diagonal (r = q) and the pair (and obstacle) weights
+      // on (x, y); without pair rows the table off the diagonal holds zeros
       float pw[3] = {0.f, 0.f, 0.f};
-      if (pairs) {
+      if (pairs || kObs) {
 #pragma unroll
         for (int k = 0; k < 3; ++k)
           pw[k] = r == q ? s[S::Dg + k * NR + r] : -s[S::PW + (k * NR + r) * NR + q];
@@ -633,7 +756,7 @@ NMPC_DEV float backward_sweep_warp(const Lanes<NR>& w, float reg) {
 #pragma unroll
         for (int c = 0; c < 3; ++c) {
           float l = (r == q && t == c) ? s[S::lxx + 3 * q + c] : 0.f;
-          if (pairs && t < 2 && c < 2) l = l + pw[t == c ? t : 2];
+          if ((pairs || kObs) && t < 2 && c < 2) l = l + pw[t == c ? t : 2];
           float val = l + va[t][c];
           if (t == 2) val = val + e1r * va[0][c] + e2r * va[1][c];
           Q[(3 * r + t) * n + 3 * q + c] = val;
@@ -788,7 +911,7 @@ NMPC_DEV float backward_sweep_warp(const Lanes<NR>& w, float reg) {
 //    a done scenario leaves (its further iterations would be no-ops).
 // Every lane holds the same scalars (merits come from warp_sum), so every
 // branch below is taken by the whole warp.
-template <int NR>
+template <int NR, bool kObs>
 NMPC_DEV void inner_solve_warp(const WarpArgs& a, const float* sp, float* slot, int b,
                                int lane) {
   using D = Dims<NR>;
@@ -801,6 +924,15 @@ NMPC_DEV void inner_solve_warp(const WarpArgs& a, const float* sp, float* slot, 
   w.N = a.N;
   w.pairs = a.pairs != 0;
   w.nc = n_rows<NR>(w.pairs);
+  if constexpr (kObs) {
+    w.n_obs = a.n_obs;
+    w.n_mov = a.n_mov;
+    w.R = NR * (a.n_obs + a.n_mov);
+    w.nc += w.R;
+    w.obs = sp + D::alphas;
+    w.mov = a.mov + (size_t)b * a.mov_stride;
+    w.ow = slot + Slot<NR>::ow(w.R);
+  }
   w.mu = a.mu[b];
   w.x0 = a.x0 + (size_t)b * n;
   w.xref = a.xref + (size_t)b * N * n;
@@ -826,19 +958,19 @@ NMPC_DEV void inner_solve_warp(const WarpArgs& a, const float* sp, float* slot, 
 
   NMPC_PROBE_COUNTERS(w);
   NMPC_PROBE_START(w.clk);
-  float cost = rollout_warp<NR>(w, nullptr, w.Uin, 0.f, false, w.Xc, w.Uc);
+  float cost = rollout_warp<NR, kObs>(w, nullptr, w.Uin, 0.f, false, w.Xc, w.Uc);
   NMPC_PROBE(10);
   int iters = 0;
   float trial = 1.f;
   for (int it = 0; it < a.n_inner; ++it) {
     NMPC_PROBE_RESTART();
-    const float slope = relu(-backward_sweep_warp<NR>(w, a.reg));
+    const float slope = relu(-backward_sweep_warp<NR, kObs>(w, a.reg));
     NMPC_PROBE(11);
     float best_cost = cost, best_alpha = 0.f;
     if (a.adaptive) {
       for (int rr = 0; rr < a.ls_rounds; ++rr) {
         const float al = trial;
-        const float ca = rollout_warp<NR>(w, w.Xc, w.Uc, al, true, w.Xt, w.Ut);
+        const float ca = rollout_warp<NR, kObs>(w, w.Xc, w.Uc, al, true, w.Xt, w.Ut);
         const float expected = a.armijo * al * slope;
         if ((cost - ca) >= expected && ca < cost) {
           best_cost = ca;
@@ -852,8 +984,8 @@ NMPC_DEV void inner_solve_warp(const WarpArgs& a, const float* sp, float* slot, 
       if (best_alpha > 0.f) trial = fminf(1.f, best_alpha * a.ls_grow);
     } else {
       for (int ai = 0; ai < a.n_alphas; ++ai) {
-        const float al = sp[D::alphas + ai];
-        const float ca = rollout_warp<NR>(w, w.Xc, w.Uc, al, true, w.Xt, w.Ut);
+        const float al = sp[D::alphas + (kObs ? 3 * a.n_obs : 0) + ai];
+        const float ca = rollout_warp<NR, kObs>(w, w.Xc, w.Uc, al, true, w.Xt, w.Ut);
         const float expected = a.armijo * al * slope;
         if ((cost - ca) >= expected && ca < best_cost) {
           best_cost = ca;
@@ -893,12 +1025,15 @@ NMPC_DEV void inner_solve_warp(const WarpArgs& a, const float* sp, float* slot, 
 // c >= 0 row, with the state-dependent rows of stage 0 set to BIG
 // (constraint_mask), and viol = max(0, -min c). The scenario's N nc rows are
 // one contiguous run in lam and lam_out; lane e takes rows e, e + 32, ...
-template <int NR>
+// The obstacle variant (kObs) has the R obstacle rows after the pair rows,
+// its obstacle entries in sp after the pair parameters.
+template <int NR, bool kObs>
 NMPC_DEV void al_update_warp(const ALArgs& a, const float* sp, int b, int lane) {
   using D = Dims<NR>;
   constexpr int n = D::n, nu = D::nu, np = D::np;
   const bool pairs = a.pairs != 0;
-  const int nc = n_rows<NR>(pairs), npr = pairs ? np : 0;
+  const int R = kObs ? NR * (a.n_obs + a.n_mov) : 0;
+  const int nc = n_rows<NR>(pairs) + R, npr = pairs ? np : 0;
   const size_t N = a.N;
   const float mu = a.mu[b];
   const float* X = a.Xs + (size_t)b * N * n;
@@ -918,7 +1053,14 @@ NMPC_DEV void al_update_warp(const ALArgs& a, const float* sp, int b, int lane) 
       int i, j;
       pair_robots<NR>(t, i, j);
       c = first ? kBig : pair_c(x[3 * i] - x[3 * j], x[3 * i + 1] - x[3 * j + 1], sp[D::dmin2]);
-    } else if ((t -= npr) < nu) {
+    } else if (kObs && t < npr + R) {
+      int r;
+      float gx, gy;
+      const float* mov_k = a.mov + (size_t)b * a.mov_stride + (size_t)k * 2 * a.n_mov;
+      const float co = obstacle_row<NR>(x, sp + D::alphas, mov_k, sp[D::dmin2], a.n_obs, a.n_mov,
+                                        t - npr, r, gx, gy);
+      c = first ? kBig : co;
+    } else if ((t -= npr + R) < nu) {
       c = u[t] - sp[D::u_lo + t];
     } else if ((t -= nu) < nu) {
       c = sp[D::u_hi + t] - u[t];

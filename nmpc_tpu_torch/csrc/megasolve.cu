@@ -16,6 +16,10 @@
 // first design, one thread per scenario on the lane-major layout
 // (csrc/megasolve.cuh::inner_solve_thread), is built only by the roofline
 // tools (csrc/tools.cu), as K1's A/B baseline.
+//
+// Each kernel has two instantiations: pair and box rows only (kObs false,
+// the main path's), and the obstacle variant (kObs true: static- and
+// moving-obstacle rows too), launched when n_obs + n_mov > 0.
 
 #include <cuda_runtime.h>
 
@@ -46,25 +50,57 @@ constexpr int kK1MinBlocks = NR <= 2 ? 8 : NR == 3 ? 6 : NR <= 6 ? 5 : NR == 8 ?
 // number of alphas). The slots keep the address they had when the parameter
 // block was a static array of at most 32 alphas: with the block in front of
 // them K1 ran slower on an H100 (timed in turns)
-template <int NR>
+// (the obstacle variant's obstacle entries sit between the pair parameters
+// and the alphas, as in the parameter block)
+template <int NR, bool kObs>
 __global__ void __launch_bounds__(kMaxWarps * kWarp, kK1MinBlocks<NR>) inner_solve_kernel(WarpArgs a) {
   extern __shared__ float4 k1_smem[];  // 16-byte aligned: the slots' vector loads
   float* slots = reinterpret_cast<float*>(k1_smem);
   float* sp = slots + (blockDim.x / kWarp) * a.slot_floats;
-  for (int i = threadIdx.x; i < Dims<NR>::alphas + a.n_alphas; i += blockDim.x) sp[i] = a.prm[i];
+  const int n_prm = Dims<NR>::alphas + (kObs ? 3 * a.n_obs : 0) + a.n_alphas;
+  for (int i = threadIdx.x; i < n_prm; i += blockDim.x) sp[i] = a.prm[i];
   __syncthreads();
   const int warp = threadIdx.x / kWarp;
   const int b = blockIdx.x * (blockDim.x / kWarp) + warp;
-  if (b < a.B) inner_solve_warp<NR>(a, sp, slots + warp * a.slot_floats, b, threadIdx.x % kWarp);
+  if (b < a.B)
+    inner_solve_warp<NR, kObs>(a, sp, slots + warp * a.slot_floats, b, threadIdx.x % kWarp);
 }
 
-template <int NR>
+// the pair parameters in static shared memory; the obstacle variant's block
+// (with its 3 n_obs obstacle entries) in dynamic shared memory
+template <int NR, bool kObs>
 __global__ void __launch_bounds__(kAlWarps * kWarp) al_update_kernel(ALArgs a) {
-  __shared__ float sp[Dims<NR>::alphas];
-  for (int i = threadIdx.x; i < Dims<NR>::alphas; i += blockDim.x) sp[i] = a.prm[i];
-  __syncthreads();
-  const int b = blockIdx.x * kAlWarps + threadIdx.x / kWarp;
-  if (b < a.B) al_update_warp<NR>(a, sp, b, threadIdx.x % kWarp);
+  if constexpr (kObs) {
+    extern __shared__ float k2_smem[];
+    for (int i = threadIdx.x; i < Dims<NR>::alphas + 3 * a.n_obs; i += blockDim.x)
+      k2_smem[i] = a.prm[i];
+    __syncthreads();
+    const int b = blockIdx.x * kAlWarps + threadIdx.x / kWarp;
+    if (b < a.B) al_update_warp<NR, true>(a, k2_smem, b, threadIdx.x % kWarp);
+  } else {
+    __shared__ float sp[Dims<NR>::alphas];
+    for (int i = threadIdx.x; i < Dims<NR>::alphas; i += blockDim.x) sp[i] = a.prm[i];
+    __syncthreads();
+    const int b = blockIdx.x * kAlWarps + threadIdx.x / kWarp;
+    if (b < a.B) al_update_warp<NR, false>(a, sp, b, threadIdx.x % kWarp);
+  }
+}
+
+// K1's launch: dynamic shared memory of `warps` slots and the parameter
+// block, opted in above 48 KB. Returns the CUDA error of the launch.
+template <bool kObs>
+int launch_inner(const WarpArgs& a, int warps, void* stream) {
+  const int smem = warps * 4 * a.slot_floats
+      + 4 * (Dims<NMPC_NR>::alphas + 3 * a.n_obs + a.n_alphas);
+  if (smem > 48 * 1024) {  // above 48 KB only by opting in
+    const cudaError_t err = cudaFuncSetAttribute(
+        inner_solve_kernel<NMPC_NR, kObs>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const int grid = (a.B + warps - 1) / warps;
+  inner_solve_kernel<NMPC_NR, kObs><<<grid, warps * kWarp, smem,
+                                      static_cast<cudaStream_t>(stream)>>>(a);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace nmpc
@@ -77,49 +113,64 @@ const char* nmpc_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// Shared bytes of K1's per-warp slot (the stage-local blocks; it does not
+// Shared bytes of K1's per-warp slot with `rows` = m (n_obs + n_mov)
+// obstacle rows (the stage-local blocks and the stage's duals; it does not
 // grow with N).
-int nmpc_k1_slot_bytes() { return nmpc::Slot<NMPC_NR>::bytes; }
+int nmpc_k1_slot_bytes(int rows) {
+  return rows < 0 ? -1 : 4 * nmpc::Slot<NMPC_NR>::floats_obs(rows);
+}
 
 // K1 with `warps` scenarios per block: dynamic shared memory of a slot of
-// nmpc_k1_slot_bytes() a warp and the parameter block. Returns the
-// CUDA error of the launch (0 = launched; a refused shared-memory opt-in
-// too).
+// nmpc_k1_slot_bytes(m (n_obs + n_mov)) a warp and the parameter block;
+// the obstacle variant when n_obs + n_mov > 0 (mov: the schedule, read
+// with mov_stride floats between scenarios). Returns the CUDA error of the
+// launch (0 = launched; a refused shared-memory opt-in too).
 int nmpc_inner_solve(const float* prm, const float* x0, const float* xref,
                      const float* lam, const float* mu, const float* Uin,
                      float* Xs, float* U, float* cost, int* iters, float* kff,
                      float* Kfb, float* Xw, float* Uw, int B, int N, int n_inner, int adaptive,
                      int n_alphas, int ls_rounds, int pairs, int warps, float reg,
                      float armijo, float tol_cost, float ls_beta, float ls_grow,
-                     float ls_trial_min, void* stream) {
+                     float ls_trial_min, const float* mov, int n_obs, int n_mov, int mov_stride,
+                     void* stream) {
   using S = nmpc::Slot<NMPC_NR>;
-  if (B <= 0 || N <= 0 || n_alphas < 0 || warps < 1 || warps > nmpc::kMaxWarps)
+  if (B <= 0 || N <= 0 || n_alphas < 0 || warps < 1 || warps > nmpc::kMaxWarps || n_obs < 0 ||
+      n_mov < 0 || mov_stride < 0 || (n_mov > 0 && mov == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
+  const int rows = NMPC_NR * (n_obs + n_mov);
   nmpc::WarpArgs a{prm, x0, xref, lam, mu, Uin, Xs, U, cost, iters, kff, Kfb, Xw, Uw,
-                   B, N, n_inner, adaptive, n_alphas, ls_rounds, pairs, S::floats,
-                   reg, armijo, tol_cost, ls_beta, ls_grow, ls_trial_min};
-  const int smem = warps * S::bytes + 4 * (nmpc::Dims<NMPC_NR>::alphas + n_alphas);
-  if (smem > 48 * 1024) {  // above 48 KB only by opting in
-    const cudaError_t err = cudaFuncSetAttribute(
-        nmpc::inner_solve_kernel<NMPC_NR>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  const int grid = (B + warps - 1) / warps;
-  nmpc::inner_solve_kernel<NMPC_NR><<<grid, warps * nmpc::kWarp, smem,
-                                      static_cast<cudaStream_t>(stream)>>>(a);
-  return static_cast<int>(cudaGetLastError());
+                   B, N, n_inner, adaptive, n_alphas, ls_rounds, pairs, S::floats_obs(rows),
+                   reg, armijo, tol_cost, ls_beta, ls_grow, ls_trial_min,
+                   mov, n_obs, n_mov, mov_stride};
+  return rows > 0 ? nmpc::launch_inner<true>(a, warps, stream)
+                  : nmpc::launch_inner<false>(a, warps, stream);
 }
 
-// K2. Returns cudaGetLastError() after the launch (0 = launched).
+// K2, the obstacle variant when n_obs + n_mov > 0. Returns
+// cudaGetLastError() after the launch (0 = launched).
 int nmpc_al_update(const float* prm, const float* Xs, const float* U,
                    const float* lam, const float* mu, float* lam_out,
                    float* viol, int B, int N, int pairs, float lam_max,
-                   void* stream) {
-  if (B <= 0 || N <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  nmpc::ALArgs a{prm, Xs, U, lam, mu, lam_out, viol, B, N, pairs, lam_max};
+                   const float* mov, int n_obs, int n_mov, int mov_stride, void* stream) {
+  if (B <= 0 || N <= 0 || n_obs < 0 || n_mov < 0 || mov_stride < 0 ||
+      (n_mov > 0 && mov == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  nmpc::ALArgs a{prm, Xs, U, lam, mu, lam_out, viol, B, N, pairs, lam_max,
+                 mov, n_obs, n_mov, mov_stride};
   const int grid = (B + nmpc::kAlWarps - 1) / nmpc::kAlWarps;
-  nmpc::al_update_kernel<NMPC_NR><<<grid, nmpc::kAlWarps * nmpc::kWarp, 0,
-                                    static_cast<cudaStream_t>(stream)>>>(a);
+  if (n_obs + n_mov > 0) {
+    const int smem = 4 * (nmpc::Dims<NMPC_NR>::alphas + 3 * n_obs);
+    if (smem > 48 * 1024) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          nmpc::al_update_kernel<NMPC_NR, true>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
+    nmpc::al_update_kernel<NMPC_NR, true><<<grid, nmpc::kAlWarps * nmpc::kWarp, smem,
+                                            static_cast<cudaStream_t>(stream)>>>(a);
+  } else {
+    nmpc::al_update_kernel<NMPC_NR, false><<<grid, nmpc::kAlWarps * nmpc::kWarp, 0,
+                                             static_cast<cudaStream_t>(stream)>>>(a);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -61,23 +61,37 @@ NMPC_DEV float pair_c(float dx, float dy, float dmin2) {
 #endif
 }
 
-// Static-obstacle row c = sqrt(dx^2 + dy^2 + 1e-12) - keepout, each operation
-// rounded on its own as in the plain version (keepout = r_obs + r_rob +
-// margin, folded into the parameter block). Returns dist through *dist.
+// Static-obstacle row c = dist - keepout, each operation rounded on its own
+// as in the plain version (keepout = r_obs + r_rob + margin, folded into the
+// parameter block). The guard inside dist follows the plain version of the
+// kernel that calls it: dist = sqrt(dx^2 + dy^2 + 1e-12) for the staged
+// kernels (K4-K6, ops/rollout.py::_obs_c), sqrt(max(dx^2 + dy^2, 1e-12)),
+// a NaN kept, with kClamp for K1 and K2 (ocp/problem.py::stage_constraints).
+// Returns dist through *dist.
+template <bool kClamp = false>
 NMPC_DEV float obs_c(float dx, float dy, float keepout, float* dist) {
 #ifdef __CUDA_ARCH__
-  *dist = sqrtf(__fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)), 1e-12f));
+  const float d2 = __fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy));
 #else
-  *dist = sqrtf(dx * dx + dy * dy + 1e-12f);
+  const float d2 = dx * dx + dy * dy;
 #endif
+  if constexpr (kClamp) {
+    *dist = sqrtf(d2 > 1e-12f ? d2 : (d2 == d2 ? 1e-12f : d2));
+  } else {
+#ifdef __CUDA_ARCH__
+    *dist = sqrtf(__fadd_rn(d2, 1e-12f));
+#else
+    *dist = sqrtf(d2 + 1e-12f);
+#endif
+  }
   return *dist - keepout;
 }
 
 // lam - mu c, rounded once
 NMPC_DEV float al_step(float lam, float mu, float c) { return fmaf(-mu, c, lam); }
 
-// Static- and moving-obstacle rows of one stage, taken by the staged kernels
-// only (K1 and K2 are built for problems without them). obs: n_obs rows
+// Static- and moving-obstacle rows of one stage as the staged kernels' first
+// designs see them (K1 and K2 take theirs in csrc/inner_warp.cuh). obs: n_obs rows
 // (ox, oy, keepout) of the parameter block; mov: the thread's view of stage
 // k of the [N, 2 n_mov, B] schedule, slot o at rows 2o (x) and 2o+1 (y).
 // Rows are robot-major, obstacle-minor, after the pair rows.

@@ -27,8 +27,8 @@ has none.
 
 `solve_fn(ocp, warm)` picks the engine: by default the per-scenario
 `solver.alilqr.solve` (plain PyTorch); `solver.alilqr_batched.solve_one`
-runs each solve in the hand-written kernels on CUDA tensors (K1 and K2 for
-pair and box rows, K3-K6 with obstacles).
+runs each solve in the hand-written kernels on CUDA tensors (K1 and K2, or
+K3-K6 with cfg.mega=False).
 """
 
 from __future__ import annotations

@@ -340,7 +340,10 @@ def stage_constraints(ocp: OCP, x: torch.Tensor, u: torch.Tensor,
     if ocp.n_obs:
         delta = pos[..., :, None, :] - ocp.obstacles[:, :2]  # [..., m, n_obs, 2]
         dist = torch.sqrt(torch.clamp(torch.sum(delta * delta, dim=-1), min=1e-12))
-        c_obs = dist - ocp.robot_radius - ocp.obstacles[:, 2] - ocp.obs_margin
+        # the keep-out radius folded into one number, as the kernels'
+        # parameter block holds it (ops/rollout.py::params)
+        keepout = ocp.obstacles[:, 2] + ocp.robot_radius + ocp.obs_margin
+        c_obs = dist - keepout
         parts.append(c_obs.reshape(*lead, -1))
     if ocp.n_mov:
         mov_k = ocp.mov_obs[..., 0, :, :] if mov_k is None else mov_k

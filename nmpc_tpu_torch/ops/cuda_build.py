@@ -109,11 +109,11 @@ def _bind_mega(lib: ctypes.CDLL) -> ctypes.CDLL:
     """The entry points of megasolve.cu (K1, K2)."""
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     _bind_errors(lib)
-    lib.nmpc_k1_slot_bytes.argtypes = []
+    lib.nmpc_k1_slot_bytes.argtypes = [I]
     lib.nmpc_k1_slot_bytes.restype = I
-    lib.nmpc_inner_solve.argtypes = [P] * 14 + [I] * 8 + [F] * 6 + [P]
+    lib.nmpc_inner_solve.argtypes = [P] * 14 + [I] * 8 + [F] * 6 + [P] + [I] * 3 + [P]
     lib.nmpc_inner_solve.restype = I
-    lib.nmpc_al_update.argtypes = [P] * 7 + [I] * 3 + [F] + [P]
+    lib.nmpc_al_update.argtypes = [P] * 7 + [I] * 3 + [F] + [P] + [I] * 3 + [P]
     lib.nmpc_al_update.restype = I
     return lib
 

@@ -18,17 +18,28 @@ There is no fallback from a CUDA tensor to the plain version.
 
 Design on an H100 (the note of csrc/inner_warp.cuh says more): one warp per
 scenario; K1's stage-local blocks in a per-warp slot of shared memory whose
-size depends on m only (sized by the library: `nmpc_k1_slot_bytes`), the
-N-proportional arrays in device memory. K1's first design, one thread per scenario on the lane-major layout
-(csrc/megasolve.cuh::inner_solve_thread), is launched by `inner_launch` for
-the roofline tools only (K8 `full` with the early exit is that design).
+size depends on m and the obstacle rows m (n_obs + n_mov) (sized by the
+library: `nmpc_k1_slot_bytes`), the N-proportional arrays in device memory.
+Each kernel has a pair-only instantiation (the main path's) and an obstacle
+variant, launched when the problem has static or moving obstacles; the
+moving obstacles' schedule is read in the standard layout, per scenario
+[B, N, n_mov, 2] or shared [N, n_mov, 2]. K1's first design, one thread per
+scenario on the lane-major layout (csrc/megasolve.cuh::inner_solve_thread),
+is launched by `inner_launch` for the roofline tools only (K8 `full` with
+the early exit is that design).
 
 Admission (replaces the TPU's VMEM estimate `mega_fits`): the CUDA kernels
-are built for m in cuda_build.ROBOT_COUNTS robots, any N, pair and box rows,
-Euler dynamics, any number of alphas (K1 keeps its parameter block after
-the warps' slots in dynamic shared memory); see `cuda_unsupported`.
-solve_batched
-sends what they refuse (static and moving obstacles) to the staged kernels.
+are built for m in cuda_build.ROBOT_COUNTS robots, any N, pair,
+static-obstacle, moving-obstacle and box rows, Euler dynamics, any number of
+alphas (K1 keeps its parameter block after the warps' slots in dynamic
+shared memory) while a block's shared memory stays within the H100's 227 KB;
+see `cuda_unsupported` and `warp_launch`.
+
+Rounding of the static-obstacle rows: both kernels and their plain versions
+take c = sqrt(max(d2, 1e-12)) - keepout with keepout = r_obs + r_rob +
+margin folded as the parameter block holds it (P.stage_constraints), the
+reference K2's form; the reference K1 takes sqrt(d2 + 1e-12), which differs
+only for d below 1e-6.
 """
 
 from __future__ import annotations
@@ -41,6 +52,7 @@ from nmpc_tpu_torch.ocp import problem as P
 from nmpc_tpu_torch.ocp.problem import OCP
 from nmpc_tpu_torch.ops import cuda_build, rollout
 from nmpc_tpu_torch.ops.cuda_build import check_arg, lane, ptr, std
+from nmpc_tpu_torch.ops.staged_tiles import SMEM_BLOCK_MAX
 from nmpc_tpu_torch.solver.alilqr import ALILQRConfig, _backward_pass
 
 # K1's scenarios (warps) per block, picked with the register cap by
@@ -49,16 +61,13 @@ K1_WARPS = 2
 
 
 def cuda_unsupported(ocp: OCP, cfg: ALILQRConfig | None = None) -> str | None:
-    """Why K1 and K2 cannot take this problem/config, or None. Beyond the
-    staged kernels' rule (rollout.unsupported), they take no static or
-    moving obstacles; solve_batched sends those to the staged path."""
+    """Why K1 and K2 cannot take this problem/config, or None: the staged
+    kernels' rule (rollout.unsupported: LiDAR rays, dynamics other than the
+    Euler unicycle, m outside cuda_build.ROBOT_COUNTS), and of cfg's
+    settings compact, sweep='scan' and an unknown line search."""
     why = rollout.unsupported(ocp)
     if why is not None:
         return why
-    if ocp.n_obs:
-        return "static-obstacle rows (n_obs > 0)"
-    if ocp.n_mov:
-        return "moving-obstacle rows (n_mov > 0)"
     if cfg is not None:
         if cfg.compact:
             return "compact=True"
@@ -73,6 +82,27 @@ def _require_cuda(ocp: OCP, cfg: ALILQRConfig | None, what: str) -> None:
     why = cuda_unsupported(ocp, cfg)
     if why is not None:
         raise NotImplementedError(f"{what}: the CUDA kernel does not cover {why}")
+
+
+def obstacle_rows(ocp: OCP) -> int:
+    """The obstacle rows of a stage, m (n_obs + n_mov): 0 takes the
+    pair-only kernels."""
+    return ocp.m * (ocp.n_obs + ocp.n_mov)
+
+
+def _mov_args(ocp: OCP, B: int, dev) -> tuple:
+    """The moving obstacles' schedule as the kernels read it: (tensor or
+    None, floats between scenarios). Per scenario [B, N, n_mov, 2]; a shared
+    [N, n_mov, 2] is read by every scenario (0)."""
+    if not ocp.n_mov:
+        return None, 0
+    mov = ocp.mov_obs
+    per = (B, ocp.N, ocp.n_mov, 2)
+    if tuple(mov.shape) == per[1:]:
+        check_arg("mov_obs", mov, per[1:], dev)
+        return mov.contiguous(), 0
+    check_arg("mov_obs", mov, per, dev)
+    return mov.contiguous(), ocp.N * ocp.n_mov * 2
 
 
 # ---------------------------------------------------------------------------
@@ -113,12 +143,14 @@ def al_update_lanes(ocp: OCP, Xs, U, lam, mu, lam_max: float):
     viol = torch.empty((B,), dtype=torch.float32, device=dev)
     if B == 0:
         return lam_new, viol
+    mov, mov_stride = _mov_args(ocp, B, dev)
     lib = cuda_build.load(ocp.m)
     prm = rollout.params(ocp, (), dev)
     Xs, U, lam, mu = Xs.contiguous(), U.contiguous(), lam.contiguous(), mu.contiguous()
     err = lib.nmpc_al_update(
         ptr(prm), ptr(Xs), ptr(U), ptr(lam), ptr(mu), ptr(lam_new), ptr(viol),
-        B, N, int(ocp.n_pairs > 0), float(lam_max), cuda_build.stream(dev))
+        B, N, int(ocp.n_pairs > 0), float(lam_max), None if mov is None else ptr(mov),
+        ocp.n_obs, ocp.n_mov, mov_stride, cuda_build.stream(dev))
     cuda_build.check(lib, err, "al_update_lanes")
     cuda_build.launch_counts["al_update_lanes"] += 1
     return lam_new, viol
@@ -154,8 +186,50 @@ def al_merit(o: OCP, X, U, lam, mu):
     return P.total_cost(o, X, U) + torch.sum(act * act, dim=(1, 2)) / (2.0 * mu)
 
 
+def _fma(a, b, c):
+    """a b + c rounded once (f32 products are exact in f64)."""
+    return (a.double() * b.double() + c.double()).to(c.dtype)
+
+
+def al_merit_warp_order(o: OCP, X, U, lam, mu):
+    """`al_merit` summed in K1's order (csrc/inner_warp.cuh::merit_terms,
+    rollout_warp): lane i adds, stage after stage, state row i's tracking
+    term and squared activations, control row i's, pair rows i and i + 32
+    and obstacle rows i, i + 32, ..., each by one fused multiply-add (lam -
+    mu c too); then a butterfly over the 32 lanes. The terms of `al_merit`;
+    at N = 100 this order alone moves the merit by ~1e-6 relative and its
+    solves as far from f64 as K1's (PERF.md §6). For holding K1 against
+    plain at long horizons."""
+    B, N, n, nu, npr = X.shape[0], o.N, o.nx, o.nu, o.n_pairs
+    mask = P.constraint_mask(o) > 0
+    c = P.trajectory_constraints(o, X, U)
+    act = torch.clamp(rollout.al_step(lam, mu[:, None, None], c), min=0.0)
+    act = torch.where(mask, act, torch.zeros_like(act))
+    R = o.m * (o.n_obs + o.n_mov)
+    i_ulo = npr + R
+    i_xlo = i_ulo + 2 * nu
+    rows = [(i_xlo, n), (i_xlo + n, n), (i_ulo, nu), (i_ulo + nu, nu)]
+    rows += [(i, min(32, npr - i)) for i in range(0, npr, 32)]
+    rows += [(npr + e, min(32, R - e)) for e in range(0, R, 32)]
+    track = X.new_zeros((B, 32))
+    pen = X.new_zeros((B, 32))
+    d = X[:, :-1] - o.xref.expand(B, N, n)
+    for k in range(N):
+        a = act[:, k]
+        track[:, :n] = _fma(o.Qdiag * d[:, k], d[:, k], track[:, :n])
+        for j, (i0, w) in enumerate(rows):
+            if j == 2:
+                track[:, :nu] = _fma(o.Rdiag * U[:, k], U[:, k], track[:, :nu])
+            pen[:, :w] = _fma(a[:, i0:i0 + w], a[:, i0:i0 + w], pen[:, :w])
+    lanes = torch.arange(32, device=X.device)
+    for v in (track, pen):
+        for m in (16, 8, 4, 2, 1):
+            v += v[:, lanes ^ m]
+    return track[:, 0] + pen[:, 0] / (2.0 * mu)
+
+
 def inner_solve_plain(ocp: OCP, x0, xref, lam, mu, U, cfg: ALILQRConfig, *,
-                      candidates: torch.Tensor | None = None):
+                      candidates: torch.Tensor | None = None, merit=al_merit):
     """Plain PyTorch K1: n_inner iLQR iterations per scenario on the AL merit.
 
     x0 [B, nx], xref [B, N, nx], lam [B, N, n_con], mu [B], U [B, N, nu]
@@ -165,7 +239,8 @@ def inner_solve_plain(ocp: OCP, x0, xref, lam, mu, U, cfg: ALILQRConfig, *,
     candidates: an optional integer tensor [B] to which each scenario's
     line-search rollouts are added, those its iterations need: none once it
     is done; cascade every alpha; adaptive one a round until one passes.
-    tools/roofline.py counts K1's work from them.
+    tools/roofline.py counts K1's work from them. merit: the AL merit,
+    `al_merit` or `al_merit_warp_order`.
 
     Written from the dense formulation (Euler Jacobians, dense stage
     expansions, Cholesky of Quu + reg I: solver.alilqr._backward_pass) with
@@ -180,14 +255,14 @@ def inner_solve_plain(ocp: OCP, x0, xref, lam, mu, U, cfg: ALILQRConfig, *,
     dev, dtype = x0.device, x0.dtype
     mask = P.constraint_mask(o) > 0  # [N, n_con]; False = stage-0 state rows
 
-    def merit(X, U):
-        return al_merit(o, X, U, lam, mu)
+    def merit_of(X, U):
+        return merit(o, X, U, lam, mu)
 
     # the masked rows only feed the stage-0 value function, which nothing
     # reads; zero their duals so a non-finite warm start cannot reach the gains
     lam_bp = torch.where(mask, lam, torch.zeros_like(lam))
     X = P.rollout(o, U)
-    cost = merit(X, U)
+    cost = merit_of(X, U)
     done = torch.zeros(B, dtype=torch.bool, device=dev)
     iters = torch.zeros(B, dtype=torch.int32, device=dev)
     trial = torch.ones(B, dtype=dtype, device=dev)
@@ -200,7 +275,7 @@ def inner_solve_plain(ocp: OCP, x0, xref, lam, mu, U, cfg: ALILQRConfig, *,
         slope = torch.clamp(-dV1, min=0.0)
 
         def cost_of(alpha):
-            return merit(*_forward(o, X, U, kff, Kfb, alpha))
+            return merit_of(*_forward(o, X, U, kff, Kfb, alpha))
 
         if adaptive:
             acc = torch.zeros(B, dtype=torch.bool, device=dev)
@@ -263,23 +338,33 @@ def warp_launch(ocp: OCP, x0, xref, lam, mu, U, cfg: ALILQRConfig, what: str, lo
     x0, xref, lam, mu, U = _checked(ocp, cfg, what, x0, xref, lam, mu, U)
     B, N, n, nu = x0.shape[0], ocp.N, ocp.nx, ocp.nu
     f32 = dict(dtype=torch.float32, device=x0.device)
+    mov, mov_stride = _mov_args(ocp, B, x0.device)
     Xs = torch.empty((B, N, n), **f32)
     cost = torch.empty((B,), **f32)
     iters = torch.empty((B,), dtype=torch.int32, device=x0.device)
     if B == 0:
         return Xs, U.clone(), cost, iters
+    lib = load(ocp.m)
+    # dynamic shared memory a block: the warps' slots, then the parameter block
+    smem = (warps * lib.nmpc_k1_slot_bytes(obstacle_rows(ocp))
+            + 4 * rollout._P(n, nu, len(cfg.alphas), ocp.n_obs).size)
+    if smem > SMEM_BLOCK_MAX:
+        raise NotImplementedError(
+            f"{what}: {smem} B of shared memory a block ({warps} warps' slots for "
+            f"{obstacle_rows(ocp)} obstacle rows and the parameter block) exceed the H100's "
+            f"{SMEM_BLOCK_MAX} B")
     Uo = torch.empty((B, N, nu), **f32)
     kff = torch.empty((B, N, nu), **f32)        # scratch: the gains, K transposed
     Kfb = torch.empty((B, N, n, nu), **f32)
     Xw = torch.empty((2, B, N, n), **f32)       # scratch: candidate trajectories
     Uw = torch.empty((2, B, N, nu), **f32)
-    lib = load(ocp.m)
     err = lib.nmpc_inner_solve(
         ptr(rollout.params(ocp, cfg.alphas, x0.device)), ptr(x0), ptr(xref), ptr(lam), ptr(mu),
         ptr(U), ptr(Xs), ptr(Uo), ptr(cost), ptr(iters), ptr(kff), ptr(Kfb), ptr(Xw), ptr(Uw),
         B, N, cfg.n_inner, int(cfg.ls == "adaptive"), len(cfg.alphas), cfg.ls_rounds,
         int(ocp.n_pairs > 0), warps, cfg.reg, cfg.armijo, cfg.tol_cost, cfg.ls_beta,
-        cfg.ls_grow, cfg.ls_trial_min, cuda_build.stream(x0.device))
+        cfg.ls_grow, cfg.ls_trial_min, None if mov is None else ptr(mov), ocp.n_obs, ocp.n_mov,
+        mov_stride, cuda_build.stream(x0.device))
     cuda_build.check(lib, err, what)
     cuda_build.launch_counts[what] += 1
     return Xs, Uo, cost, iters
@@ -305,7 +390,10 @@ def inner_launch(ocp: OCP, x0, xref, lam, mu, U, cfg: ALILQRConfig, what: str,
     of the roofline tools) on CUDA tensors: checks the arguments, moves them
     to the lane-major layout, calls entry(load(ocp.m))(*the first design's
     arguments), raises if the launch failed and counts it under `what`.
-    Returns (Xs, U, cost, iters) in the standard layout."""
+    Returns (Xs, U, cost, iters) in the standard layout. The first design
+    takes pair and box rows only."""
+    if obstacle_rows(ocp):
+        raise NotImplementedError(f"{what}: K1's first design takes no obstacle rows")
     x0, xref, lam, mu, U = _checked(ocp, cfg, what, x0, xref, lam, mu, U)
     B, N, n, nu = x0.shape[0], ocp.N, ocp.nx, ocp.nu
     dev = x0.device

@@ -55,13 +55,13 @@ class ALILQRConfig:
     armijo: float = 1e-4      # accept fraction of expected decrease
     mega: bool = True         # batched path: the whole inner solve in one
                               # kernel per AL outer step (ops/megasolve.py)
-                              # where K1 admits the problem; obstacle
-                              # problems take the staged path (four kernels
-                              # per inner iteration, a grid line search that
-                              # does not read `ls`). False sends pair-only
-                              # problems there too: a comparison and
-                              # diagnostic route, slower and converging less
-                              # often on the measured six-robot batch
+                              # where K1 admits the problem (pair, obstacle,
+                              # moving-obstacle and box rows). False takes
+                              # the staged path (four kernels per inner
+                              # iteration, a grid line search that does not
+                              # read `ls`): a comparison and diagnostic
+                              # route, slower and converging less often on
+                              # the measured six-robot batch
     ls: str = "cascade"       # line search of the inner solve:
                               # "cascade" = try every cfg.alphas candidate in
                               # order, keep the best Armijo-passing one;

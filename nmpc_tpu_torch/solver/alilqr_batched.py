@@ -5,16 +5,18 @@ from nmpc_tpu/solver/alilqr_batched.py.
 Two routes, chosen as the reference chooses them, from cfg.mega and the
 problem's static shape before any launch, the same on CPU and CUDA tensors:
 
-* `_solve_mega` (cfg.mega and K1 admits the problem: pair and box rows
-  only): each AL outer step is two kernel launches over the whole batch, K1
-  (ops/megasolve.inner_solve_fused) running the inner iLQR solve of every
-  scenario and K2 (ops/megasolve.al_update_lanes) updating the multipliers
-  and measuring the violation.
-* `_solve_lanes` (cfg.mega=False, or static / moving obstacles): the staged
-  path. Each inner iteration is four launches, K4 expansions, K3 Riccati
-  sweep, K5 line-search merits and K6 accepted rollout, on lane-major data
-  ([N, rows, B]) with no transposes inside the inner loop; the AL update
-  between outer steps runs in plain PyTorch.
+* `_solve_mega` (cfg.mega and K1 admits the problem: pair, static-obstacle,
+  moving-obstacle and box rows): each AL outer step is two kernel launches
+  over the whole batch, K1 (ops/megasolve.inner_solve_fused) running the
+  inner iLQR solve of every scenario and K2 (ops/megasolve.al_update_lanes)
+  updating the multipliers and measuring the violation. Family H and the
+  robot-parallel modes' moving-obstacle subproblems take it by default, as
+  the reference sends them to its megakernel.
+* `_solve_lanes` (cfg.mega=False): the staged path. Each inner iteration
+  is four launches, K4 expansions, K3 Riccati sweep, K5 line-search merits
+  and K6 accepted rollout, on lane-major data ([N, rows, B]) with no
+  transposes inside the inner loop; the AL update between outer steps runs
+  in plain PyTorch.
 
 Per-scenario convergence masks, inner and outer iteration counts and warm
 starts follow the reference, each route its own (they count inner

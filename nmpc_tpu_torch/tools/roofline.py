@@ -244,7 +244,8 @@ def _expansion(d, constraints: bool = True) -> int:
     base = 9 * m + 3 * n + 2 * nu          # Jacobian entries (sin, cos), lx, lu
     if not constraints:
         return base + n + nu               # the cost's curvature only
-    return base + 16 * nu + 18 * n + 31 * d["np"]
+    return (base + 16 * nu + 18 * n + 31 * d["np"]
+            + 31 * m * d["n_obs"] + 29 * m * d["n_mov"])   # obstacle rows, as K4 counts them
 
 
 def _sweep_stage(d, phase: str = "full") -> int:
@@ -328,12 +329,13 @@ def kernel_work(kernel: str, ocp, B: int, cfg=None, *, iters=None, candidates=No
         else:
             step = float(iters) * inner_iteration_flops(ocp, cfg, phase)
         flops = B * init + step
-        read = n + N * n + N * nc + 1 + N * nu           # x0, xref, lam, mu, U
+        read = n + N * n + N * nc + 1 + N * nu + N * mov  # x0, xref, lam, mu, U, schedule
         write = N * n + N * nu + 1 + 1                   # Xs, U, cost, iters
         return flops, f * B * (read + write)
     if kernel == "K2":
-        flops = N * (11 * d["np"] + 6 * (2 * nu + 2 * n)) + 1
-        return float(B * flops), f * B * (N * (n + nu + nc) + 1 + N * nc + 1)
+        flops = N * (11 * d["np"] + 13 * d["m"] * d["n_obs"] + 11 * d["m"] * d["n_mov"]
+                     + 6 * (2 * nu + 2 * n)) + 1
+        return float(B * flops), f * B * (N * (n + nu + nc + mov) + 1 + N * nc + 1)
     blocks = n * n + n * nu + n + nu + n * n + nu * nu + nu * n   # A, B, lx, lu, lxx, luu, lux
     if kernel == "K4":
         m = d["m"]

@@ -25,17 +25,24 @@ from nmpc_tpu_torch.ops import cuda_build
 ROOT = Path(__file__).resolve().parents[2]
 
 
+def canonical(name: str) -> str:
+    """A kernel's mangled name with K1's and K2's obstacle flag dropped where
+    it is false: the pair-only kernels keep their name across the change
+    that added the flag (inner_solve_kernel<6> and <6, false> compare)."""
+    return re.sub(r"(inner_solve_kernel|al_update_kernel)ILi(\d+)ELb0EE", r"\1ILi\2EE", name)
+
+
 def functions(sass: str) -> dict[str, list[str]]:
-    """{mangled kernel name: its SASS lines, stripped} of a cuobjdump -sass
-    listing."""
+    """{mangled kernel name (canonical): its SASS lines, whitespace
+    collapsed} of a cuobjdump -sass listing."""
     out, name = {}, None
     for line in sass.splitlines():
         m = re.match(r"\s*Function : (\S+)", line)
         if m:
-            name = m[1]
+            name = canonical(m[1])
             out[name] = []
         elif name is not None and line.strip().startswith("/*"):
-            out[name].append(line.strip())
+            out[name].append(" ".join(line.split()))   # cuobjdump pads to the name's length
     return out
 
 
@@ -89,8 +96,10 @@ def main(argv=None) -> int:
         verdict = ("missing on one side" if changed is None
                    else "identical" if changed == 0 else f"{changed} lines differ")
         print(f"  {name}: {na} / {nb} instructions, {verdict}")
-    same = all(c == 0 for *_, c in rows.values())
-    print(f"all kernels identical: {'yes' if same else 'no'}")
+    same = all(c == 0 for *_, c in rows.values() if c is not None)
+    only = [name for name, (*_, c) in rows.items() if c is None]
+    print(f"kernels of both checkouts identical: {'yes' if same else 'no'}; in one only: "
+          f"{', '.join(only) or 'none'}")
     return 0
 
 

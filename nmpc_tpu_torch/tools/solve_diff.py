@@ -7,7 +7,8 @@ solves chip_smoke.py's four full-width batches, each drawn from a fixed
 seed: the main path (six_robot_antipodal N=10 B=32768, the benchmark's
 config, megakernel route), path (a) (the same batch with mega=False), path
 (b) (obstacle_scenario_3 N=100 B=32768) and path (c) (B=4096 moving-obstacle
-subproblems of one decentralized round), in this checkout and in
+subproblems of one decentralized round), (b) and (c) on the staged route
+(mega=False) as chip_smoke.py phases 8 and 9 run them, in this checkout and in
 OTHER_CHECKOUT, each in a subprocess with its own package and chip_smoke.py,
 and prints per batch and output how many entries differ (NaN equals NaN).
 A redesign that must keep the solver's bits (a kernel held bit for bit to
@@ -46,9 +47,9 @@ cfg = ALILQRConfig(n_outer=6, n_inner=12, tol_con=1e-3, ls="adaptive")
 obs = get("obstacle_scenario_3").make(device=dev)
 ob_b = batch_ocp(obs, obs.x0[None] + 0.05 * torch.randn((32768, obs.nx), generator=g, device=dev))
 runs = {"main path": (ob, cfg), "path (a)": (ob, dataclasses.replace(cfg, mega=False)),
-        "path (b)": (ob_b, ALILQRConfig(n_outer=12, n_inner=25, tol_con=1e-3)),
+        "path (b)": (ob_b, ALILQRConfig(n_outer=12, n_inner=25, tol_con=1e-3, mega=False)),
         "path (c)": (decentralized_round(P.make_ocp, dev, g, 4096),
-                     ALILQRConfig(n_outer=6, n_inner=12, tol_con=1e-4))}
+                     ALILQRConfig(n_outer=6, n_inner=12, tol_con=1e-4, mega=False))}
 out = {}
 for tag, (o, c) in runs.items():
     r = solve_batched(o, cfg=c)

@@ -1,14 +1,19 @@
 """How far f32 rounding alone moves the reference's solves and closed loops:
 the measurements behind the tolerances and case choices of
 tests/test_torch_solver.py, tests/test_torch_driver.py,
-tests/test_torch_driver_modes.py and chip_smoke.py phases 16 and 17.
+tests/test_torch_driver_modes.py, tests/test_torch_parallel.py,
+tests/test_torch_consensus.py and chip_smoke.py phases 16 and 17.
 
 Each line moves x0 by 1e-7 x N(0, 1) (numpy seed 0, a few draws) and
 reports the largest change of the result, on the reference alone unless
 it says "port", plus the escape law's largest control difference between
 the two packages. CPU only, a few minutes:
 
-    JAX_PLATFORMS=cpu python tests/reference_spread.py
+    JAX_PLATFORMS=cpu python tests/reference_spread.py [modes | obstacles]
+
+(`modes`: only the robot-parallel modes' closed loops, ~1 min;
+`obstacles`: only the port's megakernel route on chip_smoke.py path (b)'s
+problem, ~4 min.)
 """
 
 import dataclasses
@@ -59,7 +64,77 @@ def loop_spread(tag, o, mpc_kw, fn="closed_loop", **kw):
     return dX, dU
 
 
+def modes():
+    """The decentralized and consensus closed loops of
+    tests/test_torch_parallel.py and tests/test_torch_consensus.py (three
+    robots on a jittered circle, N=10): the loops they hold pointwise and
+    one each they do not, per history row."""
+    from nmpc_tpu.parallel.consensus import consensus_closed_loop
+    from nmpc_tpu.parallel.decentralized import decentralized_closed_loop
+    from test_torch_parallel import circle
+
+    cases = (("decentralized, seed 2, 15 steps (held)", decentralized_closed_loop, 2, 15,
+              dict(cfg=JaxConfig(n_outer=6, n_inner=12, tol_con=1e-4))),
+             ("decentralized, seed 1, 20 steps (not held)", decentralized_closed_loop, 1, 20,
+              dict(cfg=JaxConfig(n_outer=6, n_inner=12, tol_con=1e-4))),
+             ("consensus, seed 1, 8 steps (held)", consensus_closed_loop, 1, 8,
+              dict(rounds=3, cfg=JaxConfig(n_outer=4, n_inner=10, tol_con=1e-4))),
+             ("consensus, seed 2, 15 steps (not held)", consensus_closed_loop, 2, 15,
+              dict(rounds=3, cfg=JaxConfig(n_outer=4, n_inner=10, tol_con=1e-4))))
+    for tag, fn, seed, steps, kw in cases:
+        x0, goals = circle(3, 0.8, 0.3, seed)
+        run = jax.jit(functools.partial(fn, N=10, T=0.1, dmin=0.3, max_steps=steps, **kw))
+        a = run(jnp.asarray(x0), jnp.asarray(goals))
+        rng = np.random.default_rng(0)
+        rows, dU = np.zeros(steps + 1), 0.0
+        for _ in range(DRAWS):
+            b = run(jnp.asarray(x0 + 1e-7 * rng.standard_normal(x0.shape).astype(np.float32)),
+                    jnp.asarray(goals))
+            rows = np.maximum(rows, np.abs(np.asarray(a[0] - b[0])).max(axis=1))
+            dU = max(dU, float(jnp.abs(a[1] - b[1]).max()))
+        print(f"{tag}: X_hist {rows.max():.3e}, U_hist {dU:.3e}; X_hist by row: "
+              + ", ".join(f"{r:.1e}" for r in rows), flush=True)
+
+
+def obstacles():
+    """The port's megakernel route (plain K1 and K2 on the CPU) on
+    chip_smoke.py path (b)'s problem: obstacle_scenario_3 at N=100, 32
+    starts jittered by 0.05, 12x25. Its f32 solve against itself in f64
+    and under 1e-7 moves of x0: the spread that chip_smoke phase 22's CPU
+    re-solve of the card's solve is read against."""
+    from nmpc_tpu_torch.ocp.problem import OCP_META
+    from nmpc_tpu_torch.parallel import batch_ocp
+    from nmpc_tpu_torch.scenarios import get
+    from nmpc_tpu_torch.solver import solve_batched
+
+    g = torch.Generator().manual_seed(22)
+    base = get("obstacle_scenario_3").make(device="cpu")
+    ob = batch_ocp(base, base.x0[None] + 0.05 * torch.randn((32, 3), generator=g))
+    cfg = ALILQRConfig(n_outer=12, n_inner=25, tol_con=1e-3)
+    a = solve_batched(ob, cfg=cfg)
+    f64 = dataclasses.replace(ob, **{f.name: getattr(ob, f.name).double()
+                                     for f in dataclasses.fields(ob) if f.name not in OCP_META})
+    others = [("f64", solve_batched(f64, cfg=cfg))]
+    for k in range(2):
+        gm = torch.Generator().manual_seed(100 + k)
+        moved = dataclasses.replace(ob, x0=ob.x0 + 1e-7 * torch.randn(ob.x0.shape, generator=gm))
+        others.append((f"x0 moved by 1e-7 ({k})", solve_batched(moved, cfg=cfg)))
+    for tag, b in others:
+        rel = (a.cost.double() - b.cost.double()).abs() / b.cost.double().abs()
+        du = (a.U.double() - b.U.double()).abs().amax(dim=(1, 2))
+        print(f"port path (b) megakernel route, 32 scenarios, f32 against {tag}: cost within "
+              f"rtol 1e-4 on {int((rel <= 1e-4).sum())}/32 (max rel {float(rel.max()):.3e}), U "
+              f"within 5e-3 on {int((du <= 5e-3).sum())}/32, mean cost ratio "
+              f"{float(a.cost.double().mean() / b.cost.double().mean()):.6f}", flush=True)
+
+
 def main():
+    if sys.argv[1:] == ["modes"]:
+        modes()
+        return
+    if sys.argv[1:] == ["obstacles"]:
+        obstacles()
+        return
     heading = dict(N=25, T=0.1, x0=(0.0, 0.0, 0.98))
     # loops the tests hold pointwise, and the ones they do not
     loop_spread("single_robot registry start, 30 steps (not held past 2)",
@@ -143,6 +218,8 @@ def main():
             worst = max(worst, float(np.abs(tu.numpy() - np.asarray(ju)).max()))
     print(f"escape law, port against reference, {DRAWS} batches of 2048 per case: controls "
           f"{worst:.3e}", flush=True)
+    modes()
+    obstacles()
 
 
 if __name__ == "__main__":

@@ -11,7 +11,10 @@ Tolerances: K2 rtol/atol 1e-6 (the kernel rounds each row as the plain
 version does); K1 at n_inner=4 cost rtol 1e-4, U atol 5e-3 and equal
 iteration counts on 99% of scenarios (past the first iterations f32
 rounding can flip near-tied alpha picks), at every robot count and at the
-edges of its launch geometry (a ragged last block, B=1, N=1, N=20). K3-K6:
+edges of its launch geometry (a ragged last block, B=1, N=1, N=20); K1's
+and K2's obstacle variant at the same tolerances on the problems of
+tests/obstacle_cases.py (static obstacles, per-scenario moving-obstacle
+schedules, every row kind with a shared schedule). K3-K6:
 the CPU tests' tolerances (tests/test_torch_staged_ops.py), relative to each
 scenario's largest magnitude of an output where that exceeds 1, by the rule
 of nmpc_tpu_torch/ops/kernel_check.py that chip_smoke.py phase 10 applies too;
@@ -30,6 +33,7 @@ import dataclasses
 import pytest
 import torch
 
+import obstacle_cases as OC
 from nmpc_tpu_torch.ocp import problem as P
 from nmpc_tpu_torch.ops import cuda_build, megasolve
 from nmpc_tpu_torch.ops import rollout as R
@@ -142,17 +146,21 @@ def test_inner_solve_kernel_with_33_alphas(dev):
 
 
 def test_k1_slot_fits_the_block(dev):
-    """K1's per-warp slot, sized by the library from the robot count alone:
-    16-byte aligned, room for Vxx twice, Qux, Quu and the stage's duals,
-    and K1_WARPS slots within the H100's 227 KB of shared memory a block;
-    one lane per right-hand side of the gain solve (n + 1 <= 32)."""
+    """K1's per-warp slot, sized by the library from the robot count and the
+    obstacle rows R = m (n_obs + n_mov): 16-byte aligned, room for Vxx
+    twice, Qux, Quu, the stage's duals and (R > 0) the rows' [5, R] table,
+    and K1_WARPS slots within the H100's 227 KB of shared memory a block
+    (R up to ten robots with six obstacles and nine moving ones); one lane
+    per right-hand side of the gain solve (n + 1 <= 32)."""
     for m in cuda_build.ROBOT_COUNTS:
-        slot = cuda_build.load(m).nmpc_k1_slot_bytes()
+        lib = cuda_build.load(m)
         n, nu = 3 * m, 2 * m
-        n_con = m * (m - 1) // 2 + 2 * nu + 2 * n
-        assert n + 1 <= 32 and slot % 16 == 0
-        assert slot >= 4 * (2 * n * n + nu * n + nu * nu + n_con)
-        assert megasolve.K1_WARPS * slot <= 227 * 1024
+        for R in (0, m, m * 15):
+            slot = lib.nmpc_k1_slot_bytes(R)
+            n_con = m * (m - 1) // 2 + R + 2 * nu + 2 * n
+            assert n + 1 <= 32 and slot % 16 == 0
+            assert slot >= 4 * (2 * n * n + nu * n + nu * nu + n_con + 5 * R)
+            assert megasolve.K1_WARPS * slot <= 227 * 1024
 
 
 def test_k1_phase_probes_count_every_phase(dev):
@@ -198,17 +206,72 @@ def test_wrappers_refuse_what_the_kernels_do_not_cover(dev):
         megasolve.inner_solve_fused(ob, ob.x0.double(), ob.xref, lam, mu, U, cfg)
     with pytest.raises(ValueError):
         megasolve.inner_solve_fused(ob, ob.x0, ob.xref, lam[:, :5], mu, U, cfg)
-    obs = get("obstacle_scenario_1").make(N=10, device=dev)
-    obs_b = batch_ocp(obs, obs.x0[None].repeat(4, 1))
+    seven = dataclasses.replace(ob, m=7)
+    with pytest.raises(NotImplementedError, match="m=7"):
+        megasolve.inner_solve_fused(seven, ob.x0, ob.xref, lam, mu, U, cfg)
+    with pytest.raises(NotImplementedError, match="scan"):
+        megasolve.inner_solve_fused(ob, ob.x0, ob.xref, lam, mu, U,
+                                    dataclasses.replace(cfg, sweep="scan"))
+    lid = get("lidar_v4").make(N=10, device=dev)
+    lid_b = batch_ocp(lid, lid.x0[None].repeat(4, 1))
     z = torch.zeros
-    with pytest.raises(NotImplementedError, match="n_obs"):
+    with pytest.raises(NotImplementedError, match="num_rays"):
         megasolve.inner_solve_fused(
-            obs_b, obs_b.x0, obs_b.xref, z((4, 10, obs.n_con), device=dev),
-            torch.full((4,), 10.0, device=dev), z((4, 10, 2), device=dev), cfg)
-    with pytest.raises(NotImplementedError, match="n_obs"):
-        megasolve.al_update_lanes(obs_b, z((4, 10, 3), device=dev), z((4, 10, 2), device=dev),
-                                  z((4, 10, obs.n_con), device=dev),
+            lid_b, lid_b.x0, lid_b.xref, z((4, 10, lid.n_con), device=dev),
+            torch.full((4,), 10.0, device=dev), z((4, 10, lid.nu), device=dev), cfg)
+    with pytest.raises(NotImplementedError, match="num_rays"):
+        megasolve.al_update_lanes(lid_b, z((4, 10, lid.nx), device=dev),
+                                  z((4, 10, lid.nu), device=dev),
+                                  z((4, 10, lid.n_con), device=dev),
                                   torch.full((4,), 10.0, device=dev), 1e6)
+    # a schedule of the wrong shape, and a block beyond the H100's shared memory
+    mo, Um, lm, mm = OC.port_case("robot_template", 4, seed=1, device=dev)
+    with pytest.raises(ValueError):
+        megasolve.inner_solve_fused(dataclasses.replace(mo, mov_obs=mo.mov_obs[:, :3]), mo.x0,
+                                    mo.xref, lm, mm, Um, cfg)
+    big = dataclasses.replace(mo, n_mov=6000, mov_obs=torch.zeros((4, 8, 6000, 2), device=dev))
+    with pytest.raises(NotImplementedError, match="232448"):
+        megasolve.inner_solve_fused(big, mo.x0, mo.xref, z((4, 8, big.n_con), device=dev), mm,
+                                    Um, cfg)
+
+
+@pytest.mark.parametrize("B", [300, 33])
+@pytest.mark.parametrize("name", OC.CASES)
+def test_obstacle_kernels_match_plain(dev, name, B):
+    """K1's and K2's obstacle variant against their plain versions on the
+    problems of tests/obstacle_cases.py (300 and 33: ragged last blocks),
+    both line searches, K2 on K1's output; one launch of each counted."""
+    ob, U, lam, mu = OC.port_case(name, B, seed=3, device=dev)
+    for ls in ("adaptive", "cascade"):
+        cfg = ALILQRConfig(n_inner=4, ls=ls)
+        cuda_build.reset_launch_counts()
+        got = megasolve.inner_solve_fused(ob, ob.x0, ob.xref, lam, mu, U, cfg)
+        g2 = megasolve.al_update_lanes(ob, got[0], got[1], lam, mu, 1e6)
+        assert cuda_build.launch_counts["inner_solve_fused"] == 1
+        assert cuda_build.launch_counts["al_update_lanes"] == 1
+        want = megasolve.inner_solve_plain(ob, ob.x0, ob.xref, lam, mu, U, cfg)
+        _hold_k1(got, want, B)
+        w2 = megasolve.al_update_plain(ob, got[0], got[1], lam, mu, 1e6)
+        torch.testing.assert_close(g2[0], w2[0], rtol=1e-6, atol=1e-6)
+        torch.testing.assert_close(g2[1], w2[1], rtol=1e-6, atol=1e-6)
+        rows = megasolve.obstacle_rows(ob)
+        assert (w2[0][:, 1:, ob.n_pairs:ob.n_pairs + rows] > 0).float().mean() > 0.01
+
+
+@pytest.mark.parametrize("name", ["obstacle_scenario_3", "robot_template"])
+def test_obstacle_batches_take_the_megakernel_route_on_the_card(dev, name):
+    """With the default mega=True a family-H batch and a per-robot
+    moving-obstacle batch run K1 and K2 only, one of each per outer step."""
+    ob, _, _, _ = OC.port_case(name, 512, seed=4, device=dev)
+    cfg = ALILQRConfig(n_outer=6, n_inner=12, tol_con=1e-3, ls="adaptive")
+    cuda_build.reset_launch_counts()
+    res = solve_batched(ob, cfg=cfg)
+    steps = int(res.outer_iters.max())
+    assert cuda_build.launch_counts == {
+        "inner_solve_fused": steps, "al_update_lanes": steps, "expansions_fused": 0,
+        "riccati_lanes": 0, "linesearch_costs_lanes": 0, "rollout_alpha_lanes": 0,
+        "fma_peak": 0, "phase_ablation": 0, "expansion_ab": 0}
+    assert torch.isfinite(res.cost).all() and torch.isfinite(res.X).all()
 
 
 def _staged_problem(name, dev):
@@ -264,12 +327,11 @@ def test_staged_kernels_match_plain(dev, name):
 
 @pytest.mark.parametrize("name", ["six_robot_antipodal", "obstacle_scenario_3"])
 def test_staged_route_on_the_card(dev, name):
-    """six_robot_antipodal with mega=False, and an obstacle problem with the
-    default mega=True (K1 refuses obstacle rows): both take the staged route,
-    one K4, K3 and K5 launch per inner iteration and one more K6."""
+    """six_robot_antipodal and an obstacle problem with mega=False: both take
+    the staged route, one K4, K3 and K5 launch per inner iteration and one
+    more K6."""
     ob, _, _, _ = _case(name, 512, dev)
-    cfg = ALILQRConfig(n_outer=6, n_inner=12, tol_con=1e-3, ls="adaptive",
-                       mega=name != "six_robot_antipodal")
+    cfg = ALILQRConfig(n_outer=6, n_inner=12, tol_con=1e-3, ls="adaptive", mega=False)
     cuda_build.reset_launch_counts()
     res = solve_batched(ob, cfg=cfg)
     c = dict(cuda_build.launch_counts)

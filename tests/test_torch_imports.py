@@ -20,6 +20,7 @@ def test_port_modules_import_without_jax():
             "nmpc_tpu_torch.tools.k1_phases",
             "nmpc_tpu_torch.utils.timing",
             "nmpc_tpu_torch.solver.alilqr", "nmpc_tpu_torch.parallel.batch",
+            "nmpc_tpu_torch.parallel.decentralized", "nmpc_tpu_torch.parallel.consensus",
             "nmpc_tpu_torch.sim.plant", "nmpc_tpu_torch.sim.frames", "nmpc_tpu_torch.sim.lidar",
             "nmpc_tpu_torch.mpc.driver", "nmpc_tpu_torch.tools.fleet_loop",
             "nmpc_tpu_torch.device"} <= set(names)

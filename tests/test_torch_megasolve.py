@@ -139,11 +139,15 @@ def test_cpu_wrappers_take_the_plain_versions():
 
 
 def test_cuda_admission_rule():
+    """K1 and K2 take pair, static-obstacle, moving-obstacle and box rows at
+    every robot count of the library; they refuse LiDAR rays, robot counts
+    the library is not built for, compact and sweep='scan'."""
     cfg = ALILQRConfig(ls="adaptive")
     assert megasolve.cuda_unsupported(get("six_robot_antipodal").make(N=10, device="cpu"), cfg) is None
     assert megasolve.cuda_unsupported(get("ten_robot").make(device="cpu"), cfg) is None
     assert megasolve.cuda_unsupported(get("two_robot_centralized").make(device="cpu"), cfg) is None
-    assert "n_obs" in megasolve.cuda_unsupported(get("obstacle_scenario_1").make(device="cpu"), cfg)
+    assert megasolve.cuda_unsupported(get("obstacle_scenario_1").make(device="cpu"), cfg) is None
+    assert megasolve.cuda_unsupported(get("obstacle_scenario_3").make(device="cpu"), cfg) is None
     assert "num_rays" in megasolve.cuda_unsupported(get("lidar_v4").make(device="cpu"), cfg)
     six = get("six_robot_antipodal").make(N=10, device="cpu")
     assert "compact" in megasolve.cuda_unsupported(six, dataclasses.replace(cfg, compact=True))
@@ -151,7 +155,35 @@ def test_cuda_admission_rule():
     seven = dataclasses.replace(six, m=7)
     assert "m=7" in megasolve.cuda_unsupported(seven, cfg)
     mov = dataclasses.replace(six, n_mov=1, mov_obs=torch.zeros((10, 1, 2)))
-    assert "n_mov" in megasolve.cuda_unsupported(mov, cfg)
+    assert megasolve.cuda_unsupported(mov, cfg) is None
+    assert megasolve.obstacle_rows(mov) == 6 and megasolve.obstacle_rows(six) == 0
+    ten = get("ten_robot").make(device="cpu")
+    assert megasolve.obstacle_rows(dataclasses.replace(ten, n_mov=3)) == 30
+
+
+@pytest.mark.parametrize("mega", [True, False])
+@pytest.mark.parametrize("name", ["obstacle_scenario_3", "robot_template"])
+def test_obstacle_batches_take_the_route_cfg_mega_picks(monkeypatch, name, mega):
+    """With the default mega=True a family-H batch and a per-robot
+    moving-obstacle batch take the megakernel route (K1 and K2; their plain
+    versions on CPU tensors), as the reference sends them to its megakernel;
+    mega=False takes the staged route. The first design of K1 (the roofline
+    tools') takes no obstacle rows."""
+    import obstacle_cases as OC
+    from nmpc_tpu_torch.solver import alilqr_batched as AB
+
+    ob, U, lam, mu = OC.port_case(name, 4, seed=9)
+    routed = []
+    for route in ("_solve_mega", "_solve_lanes"):
+        real = getattr(AB, route)
+        monkeypatch.setattr(AB, route, lambda *a, _r=route, _f=real, **k: routed.append(_r)
+                            or _f(*a, **k))
+    res = AB.solve_batched(ob, cfg=ALILQRConfig(n_outer=2, n_inner=3, mega=mega))
+    assert routed == ["_solve_mega" if mega else "_solve_lanes"]
+    assert torch.isfinite(res.cost).all() and res.X.shape == (4, ob.N + 1, ob.nx)
+    with pytest.raises(NotImplementedError, match="first design"):
+        megasolve.inner_launch(ob, ob.x0, ob.xref, lam, mu, U, ALILQRConfig(), "phase_ablation",
+                               cuda_build.load, None)
 
 
 @pytest.mark.parametrize("ls", ["adaptive", "cascade"])

@@ -141,13 +141,14 @@ def test_six_robot_bench_config_matches_reference_staged_path():
 
 
 def test_obstacle_problem_takes_the_staged_route(monkeypatch):
-    """obstacle_scenario_3 (six static obstacles) from inside the slalom. The
-    port keeps its default mega=True: K1 refuses obstacle rows, so the solve
-    must take the staged route, which is compared with the reference's."""
+    """obstacle_scenario_3 (six static obstacles) from inside the slalom with
+    mega=False: the solve takes the staged route, which is compared with the
+    reference's. (With the default mega=True K1 and K2 take obstacle rows:
+    tests/test_torch_megasolve.py holds that route.)"""
     _no_megakernel(monkeypatch)
     ob = _batch("obstacle_scenario_3", 8, 0.05, seed=2, x0=OBS_X0)
     jr = _reference(ob, OBS)
-    tr = solve_batched(port_ocp(ob), cfg=ALILQRConfig(**OBS))
+    tr = solve_batched(port_ocp(ob), cfg=ALILQRConfig(**OBS, mega=False))
     np.testing.assert_allclose(tr.cost.numpy(), np.asarray(jr.cost), rtol=1e-4)
     np.testing.assert_allclose(tr.U.numpy(), np.asarray(jr.U), atol=1e-2)  # see docstring
     np.testing.assert_array_equal(tr.converged.numpy(), np.asarray(jr.converged))
@@ -157,9 +158,9 @@ def test_obstacle_problem_takes_the_staged_route(monkeypatch):
 
 
 def test_moving_obstacles_match_reference_staged_path(monkeypatch):
-    """tests/test_batched_solver.py:48-86 on the staged route: a two-slot
-    robot_template with a per-scenario schedule, one disc parked on the
-    straight start-goal line."""
+    """tests/test_batched_solver.py:48-86 on the staged route (mega=False): a
+    two-slot robot_template with a per-scenario schedule, one disc parked on
+    the straight start-goal line."""
     from nmpc_tpu.parallel.batch import batch_ocp
     from nmpc_tpu.parallel.decentralized import robot_template
 
@@ -175,7 +176,7 @@ def test_moving_obstacles_match_reference_staged_path(monkeypatch):
         batch_ocp(tpl, jnp.asarray(x0s), jnp.asarray(np.tile(goals[:, None], (1, 8, 1)))),
         mov_obs=jnp.asarray(mov))
     jr = _reference(ob, CFG)
-    tr = solve_batched(port_ocp(ob), cfg=ALILQRConfig(**CFG))
+    tr = solve_batched(port_ocp(ob), cfg=ALILQRConfig(**CFG, mega=False))
     assert tr.U.shape == (B, 8, 2)
     np.testing.assert_allclose(tr.cost.numpy(), np.asarray(jr.cost), rtol=5e-4)
     np.testing.assert_allclose(tr.U.numpy(), np.asarray(jr.U), atol=1e-2)
@@ -184,9 +185,10 @@ def test_moving_obstacles_match_reference_staged_path(monkeypatch):
     assert float(d.min()) > 0.3 - 1e-2
 
 
-def test_shared_moving_obstacle_schedule_is_broadcast():
+@pytest.mark.parametrize("mega", [False, True])
+def test_shared_moving_obstacle_schedule_is_broadcast(mega):
     """An unbatched [N, n_mov, 2] schedule gives every scenario the same
-    rows as the same schedule given per scenario."""
+    rows as the same schedule given per scenario, on both routes."""
     from nmpc_tpu.parallel.decentralized import robot_template
 
     tpl = port_ocp(robot_template(8, 0.1, 0.3, 3))
@@ -196,20 +198,21 @@ def test_shared_moving_obstacle_schedule_is_broadcast():
     xref = torch.tensor([0.6, 0.0, 0.0], **kw)[None, None].repeat(2, 8, 1)
     shared = dataclasses.replace(tpl, x0=x0s, xref=xref, mov_obs=mov)
     per = dataclasses.replace(shared, mov_obs=mov[None].repeat(2, 1, 1, 1))
-    cfg = ALILQRConfig(n_outer=3, n_inner=5)
+    cfg = ALILQRConfig(n_outer=3, n_inner=5, mega=mega)
     a, b = solve_batched(shared, cfg=cfg), solve_batched(per, cfg=cfg)
     assert torch.equal(a.U, b.U) and torch.equal(a.lam, b.lam)
 
 
 def test_solve_one_on_an_obstacle_problem():
-    """solve_one (B=1) from a start in the slalom where the obstacle rows
-    bite. (At OBS_X0 itself the single solve is ill-conditioned: the
-    reference and the port's f32 and f64 runs end 1e-3 apart in cost.)"""
+    """solve_one (B=1) on the staged route (mega=False) from a start in the
+    slalom where the obstacle rows bite. (At OBS_X0 itself the single solve
+    is ill-conditioned: the reference and the port's f32 and f64 runs end
+    1e-3 apart in cost.)"""
     from nmpc_tpu.solver.alilqr_batched import solve_one as jax_solve_one
 
     ref = jax_get("obstacle_scenario_3").make(N=10, x0=(0.55, 0.65, 1.571))
     jr = jax.jit(functools.partial(jax_solve_one, cfg=JaxConfig(**OBS, mega=False)))(ref)
-    tr = solve_one(port_ocp(ref), cfg=ALILQRConfig(**OBS))
+    tr = solve_one(port_ocp(ref), cfg=ALILQRConfig(**OBS, mega=False))
     assert tr.U.shape == (10, 2) and tr.cost.shape == ()
     np.testing.assert_allclose(float(tr.cost), float(jr.cost), rtol=1e-4)
     np.testing.assert_allclose(tr.U.numpy(), np.asarray(jr.U), atol=5e-3)
@@ -221,7 +224,7 @@ def test_solve_one_on_an_obstacle_problem():
 def test_cpu_staged_path_launches_no_kernel():
     cuda_build.reset_launch_counts()
     ob = port_ocp(_batch("obstacle_scenario_3", 2, 0.05, seed=5, x0=OBS_X0))
-    res = solve_batched(ob, cfg=ALILQRConfig(n_outer=2, n_inner=3))
+    res = solve_batched(ob, cfg=ALILQRConfig(n_outer=2, n_inner=3, mega=False))
     assert torch.isfinite(res.cost).all() and int(res.inner_iters.min()) >= 1
     assert cuda_build.launch_counts == dict.fromkeys(cuda_build.launch_counts, 0)
     assert len(cuda_build.launch_counts) == 9
@@ -254,8 +257,8 @@ def test_unknown_line_search_raises(mega):
 def test_route_follows_the_shape_not_the_alpha_count(monkeypatch):
     """More than 32 alphas: the megakernel route takes them on a pair-only
     problem and agrees with the reference's solve_batched (its megakernel
-    in interpret mode) at the same grid; the staged route, which an obstacle
-    problem takes with the default mega=True, runs them too."""
+    in interpret mode) at the same grid; the staged route runs them too on
+    an obstacle problem with mega=False."""
     alphas = tuple(0.8 ** k for k in range(33))
     kw = dict(n_outer=1, n_inner=2, alphas=alphas)
     ob = _batch("two_robot_swap", 2, 0.05, seed=6)
@@ -269,5 +272,5 @@ def test_route_follows_the_shape_not_the_alpha_count(monkeypatch):
     np.testing.assert_allclose(tr.U.numpy(), np.asarray(jr.U), atol=5e-3)
     _no_megakernel(monkeypatch)
     obs = port_ocp(_batch("obstacle_scenario_3", 2, 0.05, seed=5, x0=OBS_X0))
-    res = solve_batched(obs, cfg=ALILQRConfig(n_outer=1, n_inner=2, alphas=alphas))
+    res = solve_batched(obs, cfg=ALILQRConfig(n_outer=1, n_inner=2, alphas=alphas, mega=False))
     assert torch.isfinite(res.cost).all() and res.inner_iters.tolist() == [2, 2]
