@@ -40,7 +40,15 @@ and holding each against its plain PyTorch version on the card:
 * the robot-parallel modes (nmpc_tpu_torch/parallel): the decentralized
   six-robot antipodal loop and the consensus six- and ten-robot loops, each
   step's per-robot subproblems one solve_batched through K1's obstacle
-  variant and K2.
+  variant and K2;
+* family I and the hybrid route: K3 at the ray-augmented stage shape
+  (n, nu) = (13, 2) (csrc/riccati_shape.cu, the device code of
+  staged_tiles.cuh); path (d), a lidar_v2 batch (N=100, B=4096) on
+  solve_batched's hybrid route (plain expansions by jacfwd, K3, plain
+  rollouts); sweep="scan" (the associative-scan LQR with K5 and K6) and
+  compact=True on the main path's problem; the lidar_v4 fleet through the
+  condensed GN engine (nmpc_tpu_torch/solver/gn.py, plain PyTorch) and the
+  lidar_v4 closed loop at B=1 (nmpc_tpu_torch/mpc/lidar.py).
 
 Phases:
 
@@ -90,8 +98,20 @@ Phases:
                                    23 the modes: decentralized six-robot
                                       loop, consensus six- and ten-robot
                                       loops; K1/K2 vs plain at their shapes
+                                   24 K3 at (13, 2): its ptxas line, vs
+                                      plain at path (d)'s inputs, its time
+                                   25 path (d): lidar_v2 N=100 B=4096 on the
+                                      hybrid route, K3 launches and split;
+                                      its first scenarios on the CPU
+                                   26 sweep='scan' and compact=True on the
+                                      main path's problem (compact bit for
+                                      bit, in turns)
+                                   27 the lidar_v4 GN fleet, B=1024 and
+                                      4096 (scan), B=1024 dense against it
+                                   28 the lidar_v4 closed loop (CL_PARITY
+                                      fixture, B=1), its first 40 steps
 
-Phases 5, 7, 8, 9, 20 and 22 re-solve the first scenarios with the plain path on
+Phases 5, 7, 8, 9, 20, 22 and 25 re-solve the first scenarios with the plain path on
 the CPU. Any failed check raises, so the exit code is non-zero. Without a CUDA
 card, or without the package beside this script, it fails before printing
 any result. Output: one line per phase; before the last line, the kernels'
@@ -117,6 +137,15 @@ K1_B = 1024
 CROSS_B = 64
 OBS_CROSS_B = 32
 MOV_B = 4096
+# path (d) (the hybrid route on family I), its CPU re-solve, and the lidar_v4
+# loop's steps in phase 28
+LIDAR_B = 4096
+LIDAR_CROSS_B = 8
+LIDAR_STEPS = 40
+# K3 at the stage shapes other than (3m, 2m) (csrc/riccati_shape.cu), as
+# PERF.md records its line (regs, stack, spill stores, spill loads, dynamic
+# shared bytes a block)
+K3_SHAPE_PTXAS = {(13, 2): (56, 0, 0, 0, 47888)}
 # K1's `-Xptxas -v` line at each m as recorded in PERF.md (regs, stack, spill
 # stores, spill loads, static shared bytes: none, its dynamic shared memory
 # holds one slot of nmpc_k1_slot_bytes() a warp and then the parameter
@@ -577,37 +606,44 @@ def pct(xs, q) -> float:
     return float(np.percentile(np.asarray(xs), q))
 
 
-def k1_k2_ms(run):
-    """run() with CUDA events around each call of the megakernel route's K1
-    and K2 wrappers (as solve_batched calls them); returns (run(), {'K1':
-    ms summed over the calls, 'K2': ...}). The wrappers are restored."""
+def kernel_ms(run, module, names: dict):
+    """run() with CUDA events around each call of the wrappers `names`
+    ({attribute of module: label}) as the code under run() calls them;
+    returns (run(), {label: ms summed over the calls}). The wrappers are
+    restored."""
     import torch
 
-    from nmpc_tpu_torch.solver import alilqr_batched as AB
-
-    names = {"inner_solve_fused": "K1", "al_update_lanes": "K2"}
-    real = {k: getattr(AB, k) for k in names}
+    real = {k: getattr(module, k) for k in names}
     events = {k: [] for k in names}
 
     def evented(name):
-        def wrapped(*args):
+        def wrapped(*args, **kw):
             e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             e0.record()
-            out = real[name](*args)
+            out = real[name](*args, **kw)
             e1.record()
             events[name].append((e0, e1))
             return out
         return wrapped
 
     for k in names:
-        setattr(AB, k, evented(k))
+        setattr(module, k, evented(k))
     try:
         out = run()
         torch.cuda.synchronize()
     finally:
         for k, f in real.items():
-            setattr(AB, k, f)
+            setattr(module, k, f)
     return out, {names[k]: sum(e0.elapsed_time(e1) for e0, e1 in v) for k, v in events.items()}
+
+
+def k1_k2_ms(run):
+    """run() with CUDA events around each call of the megakernel route's K1
+    and K2 wrappers (as solve_batched calls them); returns (run(), {'K1':
+    ms summed over the calls, 'K2': ...}). The wrappers are restored."""
+    from nmpc_tpu_torch.solver import alilqr_batched as AB
+
+    return kernel_ms(run, AB, {"inner_solve_fused": "K1", "al_update_lanes": "K2"})
 
 
 def closed_loop_phases(dev, base, card: str) -> None:
@@ -1270,6 +1306,197 @@ def hold_k1_resolved(tag: str, ob, U, lam, mu, cfg, g, draws: int = 3):
     return got
 
 
+def family_i_phases(dev, card: str, base, bench_cfg) -> dict:
+    """Phases 24-28: K3 at the ray-augmented stage shape; path (d), the
+    hybrid route on a family-I batch; the scan sweep and compaction on the
+    main path's problem; the lidar_v4 GN fleet; the lidar_v4 closed loop.
+    Each through the entry points a user calls, with the launch counts set
+    to 0 just before and read just after. Returns the K3 (13, 2) entry of
+    the kernels' record."""
+    import torch
+
+    from nmpc_tpu_torch.ocp import problem as P
+    from nmpc_tpu_torch.ops import cuda_build, kernel_check as KC, staged_tiles
+    from nmpc_tpu_torch.ops import riccati as RIC
+    from nmpc_tpu_torch.ops.cuda_build import lane
+    from nmpc_tpu_torch.parallel import batch_ocp
+    from nmpc_tpu_torch.solver import ALILQRConfig, gn, solve_batched
+    from nmpc_tpu_torch.solver import alilqr_batched as AB
+    from nmpc_tpu_torch.tools import lidar_fleet as LF
+    from nmpc_tpu_torch.tools import roofline as RL
+    from nmpc_tpu_torch.utils.timing import cuda_ms
+
+    cpu = torch.device("cpu")
+    # ---- phase 24: K3 at (n, nu) = (13, 2) --------------------------------
+    shape_lines = {}
+    for shape in staged_tiles.K3_SHAPES:
+        info = cuda_build.k3_shape_build_info[shape]
+        got = ptxas(info["ptxas"])
+        shape_lines[shape] = (*got.get("K3", ()), staged_tiles.k3_layout(shape)["smem_bytes"])
+        log(f"phase 24 ptxas K3 at (n, nu) = {shape} (csrc/riccati_shape.cu, S, D, T, P = "
+            f"{dataclasses.astuple(staged_tiles.K3_GEOMETRY[shape])[:4]}): {ptxas_summary(info['ptxas'])}, "
+            f"dynamic shared {shape_lines[shape][-1]} B a block (as recorded in PERF.md: "
+            f"{'yes' if shape_lines[shape] == K3_SHAPE_PTXAS[shape] else 'NO'}; the pair-only "
+            f"K3's lines held in phase 1)")
+    assert shape_lines == K3_SHAPE_PTXAS, shape_lines
+    # path (d)'s problem: lidar_v2 at its registry N=100, its rays from one
+    # scan of the circle, starts jittered by 0.05 in pose
+    g = torch.Generator(device=dev).manual_seed(24)
+    lid = LF.scanned("lidar_v2", [[0.5, 0.25, 0.15]], dev, ray_lo=0.3)
+    ob_d = LF.jittered(lid, LIDAR_B, g)
+    cfg_d = ALILQRConfig(n_outer=10, n_inner=20, tol_con=1e-3)   # nmpc_tpu/__main__.py:113-114
+    kw = dict(dtype=torch.float32, device=dev)
+    B, N = LIDAR_B, lid.N
+    U0, lam0 = torch.zeros((B, N, lid.nu), **kw), torch.zeros((B, N, lid.n_con), **kw)
+    mu0 = torch.full((B,), cfg_d.mu_init, **kw)
+    # K3 against plain at the path's first launch's inputs (the cold start)
+    # and at a mid-solve state (controls off rest, duals on)
+    U1 = 0.05 * torch.randn((B, N, lid.nu), generator=g, device=dev)
+    lam1 = 0.5 * torch.randn((B, N, lid.n_con), generator=g, device=dev).abs()
+    lam1 = lam1 * (P.constraint_mask(lid) > 0)
+    k3_err, exps = 0.0, []
+    for tag, (U, lam, mu) in (("cold start", (U0, lam0, mu0)),
+                              ("mid-solve", (U1, lam1, torch.full((B,), 100.0, **kw)))):
+        exp = tuple(map(lane, AB.hybrid_expansions(ob_d, P.rollout(ob_d, U), U, lam, mu)))
+        got = RIC.riccati_lanes(exp, cfg_d.reg)
+        torch.cuda.synchronize()
+        v = KC.Verdict()
+        for i, (a, w, atol) in enumerate(zip(got, RIC.riccati_plain(exp, cfg_d.reg), KC.K3_ATOL)):
+            KC.hold(v, f"K3 (13, 2) output {i} ({tag})", a, w, atol)
+        assert v.units == B and v.n_widened == 0 and v.n_diverged == 0, (tag, v)
+        k3_err = max(k3_err, v.err)
+        exps.append(exp)
+        log(f"phase 24 K3 at (13, 2) vs plain at path (d)'s {tag} inputs (B={B}, N={N}): max "
+            f"|err| {v.err:.3e}, rel {v.rel:.3e} over {v.units} scenarios (kernel_check's rule)")
+    k3_ms = cuda_ms(lambda: RIC.riccati_lanes(exps[0], cfg_d.reg), 5)
+    k3_plain_ms = cuda_ms(lambda: RIC.riccati_plain(exps[0], cfg_d.reg), 1, warmup=0)
+    b_ms, by = RL.bound(*RL.kernel_work("K3", ob_d, B))
+    log(f"phase 24 K3 at (13, 2): {k3_ms:.3f} ms a launch (mean of 5), plain {k3_plain_ms:.1f} ms, "
+        f"bound {b_ms:.4f} ms ({by}), {100 * b_ms / k3_ms:.2f}% of the bound reached {card}")
+    del exps
+
+    # ---- phase 25: path (d), the hybrid route on family I ----------------
+    # one solve, timed on the host clock, with CUDA events around each K3
+    # launch for the split
+    torch.cuda.synchronize()
+    cuda_build.reset_launch_counts()
+    (res_d, split), t_d = timed(lambda: kernel_ms(lambda: solve_batched(ob_d, cfg=cfg_d), RIC,
+                                                  {"riccati_lanes": "K3"}))
+    c_d = dict(cuda_build.launch_counts)
+    assert c_d["riccati_lanes"] > 0 and sum(c_d.values()) == c_d["riccati_lanes"], c_d
+    for name in ("X", "U", "cost", "viol", "lam"):
+        assert torch.isfinite(getattr(res_d, name)).all(), name
+    assert res_d.X.shape == (B, N + 1, lid.nx) and res_d.U.shape == (B, N, lid.nu)
+    conv_d = float(res_d.converged.float().mean())
+    log(f"phase 25 path (d): lidar_v2 N={N} R={lid.num_rays} B={B} 10x20 (hybrid route: "
+        f"expansions by jacfwd, K3 at (13, 2), plain rollouts of the 8 candidates): "
+        f"{t_d * 1e3:.1f} ms -> {B / t_d:.1f} solves/s; launches {c_d}; converged {conv_d:.4f}, "
+        f"viol p99 {float(torch.quantile(res_d.viol, 0.99)):.3e}, max "
+        f"{float(res_d.viol.max()):.3e}, mean inner iters "
+        f"{float(res_d.inner_iters.float().mean()):.2f}, outer max "
+        f"{int(res_d.outer_iters.max())}; split (CUDA events around K3): K3 {split['K3']:.1f} ms "
+        f"over {c_d['riccati_lanes']} launches ({100 * split['K3'] / (t_d * 1e3):.2f}%), the rest "
+        f"{t_d * 1e3 - split['K3']:.1f} ms {card}")
+    # the first scenarios re-solved by the same route's plain versions on the
+    # CPU. The 10x20 recipe converges about half of them, and the plain path
+    # alone, with x0 moved by 1e-7, keeps the cost within 1e-4 on only 5-7
+    # of 8 such scenarios, moves it by up to 9.3e-3, flips up to one
+    # converged flag and moves the mean cost by 1.3e-3
+    # (`tests/reference_spread.py gn`, two batches of 8); K3's rounding is a
+    # larger move than 1e-7. Held:
+    # converged share within 2 scenarios, mean cost ratio within 5e-3, costs
+    # within 1e-4 on at least a quarter
+    sub_d = dataclasses.replace(ob_d, x0=ob_d.x0[:LIDAR_CROSS_B],
+                                xref=ob_d.xref[:LIDAR_CROSS_B]).to(cpu)
+    r_cross = cross_measure(res_d, solve_batched(sub_d, cfg=cfg_d), LIDAR_CROSS_B)
+    log(f"phase 25 path (d) CPU cross-check: first {LIDAR_CROSS_B} scenarios re-solved by the "
+        f"plain path on the CPU: {cross_line(r_cross, LIDAR_CROSS_B)}")
+    assert abs(r_cross["conv_g"] - r_cross["conv_r"]) <= 2 / LIDAR_CROSS_B + 1e-9, r_cross
+    assert abs(r_cross["mean_ratio"] - 1.0) <= 5e-3, r_cross
+    assert r_cross["n_cost"] >= LIDAR_CROSS_B // 4, r_cross
+
+    # ---- phase 26: the scan sweep and compaction on the main path's problem
+    ob = batch_ocp(base, base.x0[None] + 0.1 * torch.randn((BENCH_B, base.nx), generator=g,
+                                                          device=dev))
+    res_m, t_m = timed(lambda: solve_batched(ob, cfg=bench_cfg))
+    scan_cfg = dataclasses.replace(bench_cfg, sweep="scan")
+    cuda_build.reset_launch_counts()
+    res_s, t_s = timed(lambda: solve_batched(ob, cfg=scan_cfg))
+    c_s = dict(cuda_build.launch_counts)
+    it = c_s["linesearch_costs_lanes"]
+    assert it > 0 and c_s["rollout_alpha_lanes"] == it and sum(c_s.values()) == 2 * it, c_s
+    assert torch.isfinite(res_s.cost).all() and torch.isfinite(res_s.X).all()
+    log(f"phase 26 sweep='scan' on the main path's problem (six_robot_antipodal N=10 B={BENCH_B}, "
+        f"6x12; hybrid route: analytic expansions, the associative-scan LQR, K5 and K6): "
+        f"{t_s * 1e3:.1f} ms, launches {c_s}; {summary(res_s)}; beside the main path "
+        f"(megakernel route) {t_m * 1e3:.1f} ms, {summary(res_m)} {card}")
+    comp_cfg = dataclasses.replace(bench_cfg, compact=True)
+    times = {"compact": [], "plain": []}
+    for tag in ("compact", "plain", "plain", "compact"):   # in turns
+        cuda_build.reset_launch_counts()
+        r, t = timed(lambda: solve_batched(ob, cfg=comp_cfg if tag == "compact" else bench_cfg))
+        times[tag].append(t * 1e3)
+        if tag == "compact":
+            c_c, res_c = dict(cuda_build.launch_counts), r
+    same = {k: torch.equal(getattr(res_c, k), getattr(res_m, k)) for k in (
+        "X", "U", "cost", "viol", "lam", "mu", "inner_iters", "outer_iters", "converged")}
+    log(f"phase 26 compact=True on the main path: every output bit for bit as compact=False: "
+        f"{all(same.values())} {same}; launches {c_c}; ms in turns (compact, plain, plain, "
+        f"compact): compact {times['compact']}, plain {times['plain']} {card}")
+    assert all(same.values()), same
+    del ob, res_m, res_s, res_c
+
+    # ---- phase 27: the lidar_v4 GN fleet (tools/lidar_fleet.py) ----------
+    fix = LF.fixture(dev)
+    gn_runs = {}
+    for Bg, normal in ((1024, "scan"), (4096, "scan"), (1024, "dense")):
+        cfg_g = dataclasses.replace(LF.CFG, normal=normal)
+        g27 = torch.Generator(device=dev).manual_seed(27)
+        cuda_build.reset_launch_counts()
+        if normal == "scan":   # after a warm-up batch, a batch of fresh starts
+            (t_g, r_g), = LF.timed(fix, Bg, 1, g27, cfg_g)
+        else:                  # the scan's timed batch (its generator's second draw), once
+            LF.jittered(fix, Bg, g27)
+            ob_g = LF.jittered(fix, Bg, g27)
+            r_g, t_g = timed(lambda: gn.solve_batched(ob_g, cfg=cfg_g))
+        assert not any(cuda_build.launch_counts.values())   # plain PyTorch: no kernel
+        for name in ("X", "U", "cost", "viol"):
+            assert torch.isfinite(getattr(r_g, name)).all(), name
+        gn_runs[Bg, normal] = r_g
+        log(f"phase 27 lidar_v4 GN fleet (N={fix.N}, Nc={LF.CFG.Nc}, 10x4) B={Bg} normal={normal}: "
+            f"{t_g * 1e3:.1f} ms -> {Bg / t_g:.1f} solves/s; converged "
+            f"{float(r_g.converged.float().mean()):.4f}, max viol {float(r_g.viol.max()):.3e}, "
+            f"mean GN iters {float(r_g.inner_iters.float().mean()):.2f}"
+            f"{'' if normal == 'scan' else ' (one call, no warm-up)'} {card}")
+    # dense against scan on the same batch (the same draw): the reference's
+    # criterion for the two forms, cost at rtol 1e-3 (tests/test_gn_lidar.py:240)
+    a, b = gn_runs[1024, "scan"], gn_runs[1024, "dense"]
+    rel = float(((a.cost - b.cost).abs() / b.cost.abs()).max())
+    log(f"phase 27 dense against scan, B=1024, the same starts: cost rel max {rel:.3e} (mean "
+        f"ratio {float(a.cost.mean() / b.cost.mean()):.6f}), U max |diff| "
+        f"{float((a.U - b.U).abs().max()):.3e}")
+    assert abs(float(a.cost.mean() / b.cost.mean()) - 1.0) <= 1e-3, rel
+    del gn_runs, a, b
+
+    # ---- phase 28: the lidar_v4 closed loop, CL_PARITY fixture, B=1 ------
+    cuda_build.reset_launch_counts()
+    r28, t28 = timed(lambda: LF.tour(dev, LIDAR_STEPS))
+    assert not any(cuda_build.launch_counts.values())
+    ms = r28["step_ms"]
+    clr = float(r28["clearance"].min())
+    log(f"phase 28 lidar_v4 closed loop (N=100, Nc=50, GN 10x4, CL_PARITY fixture, B=1), first "
+        f"{LIDAR_STEPS} steps in {t28:.1f} s: waypoint index {int(r28['goal_idx'][-1])}, min "
+        f"clearance {clr:.4f} (>= 0.15 - 1e-2; CL_PARITY's whole tour 0.242 in 271 steps), step "
+        f"p50 {pct(ms, 50):.1f} ms, p99 {pct(ms, 99):.1f} ms (the whole tour: `python -m "
+        f"nmpc_tpu_torch.tools.lidar_fleet tour`) {card}")
+    assert torch.isfinite(r28["X"]).all() and clr >= 0.15 - 1e-2, clr
+    return {"name": "riccati_lanes (13, 2)", "route": "cuda",
+            "source": "nmpc_tpu_torch/csrc/riccati_shape.cu", "replaces":
+            "nmpc_tpu/ops/riccati_pallas.py:311", "launches": c_d["riccati_lanes"],
+            "max_abs_err": k3_err, "ms": k3_ms, "plain_ms": k3_plain_ms, "bound_ms": b_ms,
+            "bound_by": by, "library_ms": None}
+
+
 def per_step(counts: dict, name: str, stamps) -> str:
     """Launches of a kernel a loop step (a solve run), as a string."""
     return f"{counts[name] / max(len(stamps), 1):.2f}"
@@ -1325,7 +1552,8 @@ def main() -> int:
     per_m = ", ".join(f"m={m} {cuda_build.build_info[m]['seconds']:.1f}s"
                       for m in cuda_build.ROBOT_COUNTS)
     tools = cuda_build.tools_build_info[cuda_build.BENCH_ROBOTS]
-    log(f"phase 1 build: {len(cuda_build.ROBOT_COUNTS)} solver libraries, the tools library "
+    log(f"phase 1 build: {len(cuda_build.ROBOT_COUNTS)} solver libraries, K3 at (n, nu) in "
+        f"{staged_tiles.K3_SHAPES}, the tools library "
         f"(m={cuda_build.BENCH_ROBOTS}, {len(cuda_build.TOOLS_PARTS)} parts) and the staged "
         f"kernels' first designs (m in {cuda_build.FIRST_ROBOTS}) in {wall:.1f}s wall "
         f"(parallel nvcc; {per_m}; tools {tools['seconds']:.1f}s)")
@@ -2062,6 +2290,10 @@ def main() -> int:
         f"{obs_errs['K2']:.3e} against plain")
     modes_phase(dev, card)
 
+    # ---- phases 24-28: K3 at the ray shape; path (d); scan and compact; the
+    # GN fleet; the LiDAR loop --------------------------------------------
+    k3_shape_entry = family_i_phases(dev, card, base, bench_cfg)
+
     def entry(name, source, where, launches, err, ms_, plain_ms, key):
         return {"name": name, "route": "cuda", "source": source, "replaces": where,
                 "launches": launches, "max_abs_err": err, "ms": ms_, "plain_ms": plain_ms,
@@ -2087,6 +2319,7 @@ def main() -> int:
         entry("expansion_ab", "nmpc_tpu_torch/csrc/tools.cuh",
               "tools/exp_blocked_expansions.py:551", k9_launches, k9_err, k9_ms, k89_plain_ms,
               "K9 line"),
+        k3_shape_entry,
     ]}
     log(f"total wall time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(record))

@@ -8,20 +8,24 @@ subpackage path and module name, and the tests hold each against it.
 
 Layer map (mirrors nmpc_tpu), from the entry points down:
     mpc/       receding-horizon drivers: closed_loop, rt_closed_loop,
-               waypoints, tracking, plan-then-replay; the escape law
+               waypoints, tracking, plan-then-replay; the escape law; the
+               LiDAR closed loop (closed_loop_lidar, family I)
     sim/       plant (substeps, saturation, noise from a torch.Generator),
                SE(2) frames, LiDAR ray casting
     solver/    AL-iLQR: the per-scenario engine `solve` (plain PyTorch, the
                drivers' default) and the batched main path `solve_batched`
-               / `solve_one` (the hand-written kernels on CUDA tensors)
+               / `solve_one` (the hand-written kernels on CUDA tensors);
+               the condensed Gauss-Newton engine (gn, plain PyTorch)
     parallel/  batch construction (batch_ocp, random_starts) and
                batched_solve (the per-scenario engine over a batch)
     ops/       the hand-written CUDA kernels (csrc/) with their plain
-               PyTorch versions, build and ctypes binding
+               PyTorch versions, build and ctypes binding; the
+               associative-scan LQR (assoc_lqr, plain PyTorch)
     ocp/       OCP dataclass, costs, c >= 0 constraints, constraint Jacobians
     models/    unicycle dynamics and analytic Euler Jacobians
     scenarios/ frozen registry of every reference configuration (own copy)
-    tools/     the closed-loop fleet (fleet_loop) and the roofline tools:
+    tools/     the closed-loop fleet (fleet_loop), the lidar_v4 fleet and
+               tour (lidar_fleet) and the roofline tools:
                FMA-peak probe, K1's phase ablation and expansion-layout A/B
                (their kernels in csrc/tools.cu), the work model and bound of
                every kernel

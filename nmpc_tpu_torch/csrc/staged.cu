@@ -23,8 +23,6 @@
 
 #include <cuda_runtime.h>
 
-#include <initializer_list>
-
 #include "expansions_rollout_tiles.cuh"
 
 #ifndef NMPC_NR
@@ -45,7 +43,7 @@ __device__ __forceinline__ void load_params(const float* prm, int size, float* s
   __syncthreads();
 }
 
-using K3G = K3Geom<NMPC_NR, NMPC_K3_S, NMPC_K3_D, NMPC_K3_T, NMPC_K3_P, NMPC_K3_SPILL != 0>;
+using K3G = K3Geom<3 * NMPC_NR, 2 * NMPC_NR, NMPC_K3_S, NMPC_K3_D, NMPC_K3_T, NMPC_K3_P, NMPC_K3_SPILL != 0>;
 using K4G = K4Geom<NMPC_NR, NMPC_K4_S, NMPC_K4_W>;
 using K5G = K5Geom<NMPC_NR, NMPC_K5_S, NMPC_K5_D>;
 using K6G = K6Geom<NMPC_NR, NMPC_K6_S, NMPC_K6_D, NMPC_K6_T>;
@@ -64,7 +62,7 @@ __global__ void __launch_bounds__(K4G::threads) expansions_kernel(ExpArgs a, int
 template <int NR>
 __global__ void __launch_bounds__(K3G::threads) riccati_kernel(RiccatiArgs a, float* scratch, int vec) {
   extern __shared__ float4 k3_smem[];  // 16-byte aligned: the ring's vector copies
-  riccati_tiles<NR, K3G>(a, reinterpret_cast<float*>(k3_smem), scratch, blockIdx.x, vec != 0,
+  riccati_tiles<K3G>(a, reinterpret_cast<float*>(k3_smem), scratch, blockIdx.x, vec != 0,
                          threadIdx.x);
 }
 
@@ -76,23 +74,6 @@ __global__ void __launch_bounds__(K5G::kThreads) linesearch_costs_kernel(CostArg
   load_params(a.prm, prm_size, sp);
   linesearch_tiles<NR, K5G>(a, sp, sp + al4(prm_size), blockIdx.x, vec != 0, threadIdx.x,
                             blockDim.x);
-}
-
-// whether every row segment of these lane-major arrays may be copied as
-// 16-byte chunks: 16-byte aligned bases and B % 4 == 0
-inline bool rows_aligned(int B, std::initializer_list<const float*> ptrs) {
-  if (B % 4) return false;
-  for (const float* p : ptrs)
-    if (reinterpret_cast<uintptr_t>(p) % 16) return false;
-  return true;
-}
-
-// opt in to dynamic shared memory above 48 KB
-template <class K>
-cudaError_t allow_smem(K kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(bytes));
 }
 
 template <int NR>

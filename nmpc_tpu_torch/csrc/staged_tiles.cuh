@@ -68,6 +68,8 @@
 
 #include <stdint.h>
 
+#include <initializer_list>
+
 #include "riccati.cuh"
 #include "staged.cuh"
 
@@ -103,6 +105,23 @@ NMPC_DEV void cp_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"
 template <int N>
 NMPC_DEV void cp_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Host side of a launch. Whether every row segment of these lane-major
+// arrays may be copied as 16-byte chunks: 16-byte aligned bases and B % 4 == 0.
+inline bool rows_aligned(int B, std::initializer_list<const float*> ptrs) {
+  if (B % 4) return false;
+  for (const float* p : ptrs)
+    if (reinterpret_cast<uintptr_t>(p) % 16) return false;
+  return true;
+}
+
+// opt in to dynamic shared memory above 48 KB
+template <class K>
+cudaError_t allow_smem(K kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
 }
 #else
 inline void cp_async4(float* dst, const float* src, bool valid) { *dst = valid ? *src : 0.f; }
@@ -204,10 +223,12 @@ NMPC_DEV void load4(const float* src, float* dst) {
 // K3: the backward Riccati sweep
 // ---------------------------------------------------------------------------
 
-// Rows of K3's stage tile (inputs) and of its output tile.
-template <int NR>
+// Rows of K3's stage tile (inputs) and of its output tile, for stages of n
+// states and nu controls: n = 3m, nu = 2m for m stacked unicycles, n = 3 + R,
+// nu = 2 for one robot with R LiDAR rays.
+template <int n_, int nu_>
 struct K3Rows {
-  static constexpr int n = 3 * NR, nu = 2 * NR;
+  static constexpr int n = n_, nu = nu_;
   static constexpr int A = 0;                // (l, j) at row A + l n + j
   static constexpr int Bm = A + n * n;       // (l, c) at row Bm + l nu + c
   static constexpr int lx = Bm + n * nu;
@@ -225,9 +246,9 @@ struct K3Rows {
 // by rows are kept transposed where a lane produces a column, so every
 // inner loop reads a row of 16-byte aligned floats as float4 broadcasts;
 // rows are padded to ld (n) or ldu (nu).
-template <int NR>
+template <int n_, int nu_>
 struct K3Slot {
-  static constexpr int n = 3 * NR, nu = 2 * NR, ld = al4(n), ldu = al4(nu);
+  static constexpr int n = n_, nu = nu_, ld = al4(n), ldu = al4(nu);
   static constexpr int V = 0;                      // Vxx [n, ld]; Qxx from phase 2 on
   static constexpr int VAT = al4(V + n * ld);      // (Vxx A)' [n, ld]
   static constexpr int WT = al4(VAT + n * ld);     // (Vxx B)' [nu, ld]; then Kfb' [n, ldu]
@@ -246,16 +267,17 @@ struct K3Slot {
 // column), kSpill: the output tile and the slots in a device-memory scratch
 // of the wrapper's (per block, so L2 holds the resident blocks') where they
 // do not fit beside the ring.
-template <int NR, int S_, int D_, int T_, int P_, bool kSpill_>
+template <int n_, int nu_, int S_, int D_, int T_, int P_, bool kSpill_>
 struct K3Geom {
+  static constexpr int n = n_, nu = nu_;
   static constexpr int S = S_, D = D_, T = T_, P = P_, threads = S * T;
   static constexpr bool kSpill = kSpill_;
   static_assert(S >= 8 && (S & (S - 1)) == 0, "S: a power of two >= 8");
   static_assert(T == 1 || (T <= 32 && 32 % T == 0), "a team within one warp");
   static_assert(P == S || P == S + 1, "pitch");
-  static constexpr int tile = al4(K3Rows<NR>::rows * P);
-  static constexpr int out = al4(K3Rows<NR>::out * P);
-  static constexpr int priv = out + (T > 1 ? S * K3Slot<NR>::floats : 0);
+  static constexpr int tile = al4(K3Rows<n, nu>::rows * P);
+  static constexpr int out = al4(K3Rows<n, nu>::out * P);
+  static constexpr int priv = out + (T > 1 ? S * K3Slot<n, nu>::floats : 0);
   static constexpr int smem_floats = D * tile + (kSpill ? 0 : priv);
   static constexpr int scratch_floats = kSpill ? priv : 0;  // per block
 };
@@ -320,10 +342,10 @@ NMPC_DEV void mtm_add_unrolled(const float* X, const float* Y, float* out) {
 // (staged.cuh) with its loops unrolled and its inputs read from the tile
 // (t: the thread's column of the stage tile, rows P apart); kff and Kfb go
 // to the thread's column o of the output tile.
-template <int NR, int P>
+template <int n_, int nu_, int P>
 struct RiccatiRegs {
-  static constexpr int n = 3 * NR, nu = 2 * NR;
-  using R = K3Rows<NR>;
+  static constexpr int n = n_, nu = nu_;
+  using R = K3Rows<n, nu>;
   float Vx[n], Vxx[n * n], dV1;
 
   NMPC_DEV void init() {
@@ -439,11 +461,11 @@ struct RiccatiRegs {
 // Lanes take whole output entries, each summed over l in riccati_thread's
 // order, so K3's outputs are the first design's bit for bit; the phases are
 // separated by block barriers (every team of the block runs the same stage).
-template <int NR, int T, int P>
+template <int n_, int nu_, int T, int P>
 NMPC_DEV void riccati_team_stage(const float* t, float* o, float* sl, int lane, float reg,
                                  float& dV1) {
-  using R = K3Rows<NR>;
-  using L = K3Slot<NR>;
+  using R = K3Rows<n_, nu_>;
+  using L = K3Slot<n_, nu_>;
   constexpr int n = L::n, nu = L::nu, ld = L::ld, ldu = L::ldu;
   // 1: a column of A or of B per lane: Qx = lx + A'Vx or Qu = lu + B'Vx,
   //    and that column of Vxx A or Vxx B, stored as a row of (Vxx A)' or
@@ -551,14 +573,15 @@ NMPC_DEV void riccati_team_stage(const float* t, float* o, float* sl, int lane, 
   }
 }
 
-// K3 for the block of tile `blk`: S scenarios, S T threads (thread tid is
+// K3 for the block of tile `blk` at the stage shape of G (n, nu): S
+// scenarios, S T threads (thread tid is
 // lane tid % T of scenario tid / T). smem: G::smem_floats of dynamic shared
 // memory; scratch: G::scratch_floats per block of device memory (kSpill).
-template <int NR, class G>
+template <class G>
 NMPC_DEV void riccati_tiles(const RiccatiArgs& a, float* smem, float* scratch, int blk,
                             bool vec, int tid) {
-  using R = K3Rows<NR>;
-  using L = K3Slot<NR>;
+  using R = K3Rows<G::n, G::nu>;
+  using L = K3Slot<G::n, G::nu>;
   constexpr int n = R::n, nu = R::nu, S = G::S, T = G::T, P = G::P, nt = G::threads;
   const size_t B = a.B;
   const TileSpan span{blk * S, a.B - blk * S < S ? a.B - blk * S : S, vec};
@@ -580,7 +603,7 @@ NMPC_DEV void riccati_tiles(const RiccatiArgs& a, float* smem, float* scratch, i
   };
   float dV1 = 0.f;
   if constexpr (T == 1) {
-    RiccatiRegs<NR, P> st;
+    RiccatiRegs<n, nu, P> st;
     st.init();
     stream_stages<G::D>(a.N, true, smem, G::tile, issue, [&](int k, const float* t) {
       st.stage(t + s, out + s, a.reg);
@@ -593,7 +616,7 @@ NMPC_DEV void riccati_tiles(const RiccatiArgs& a, float* smem, float* scratch, i
     for (int i = lane; i < n * L::ld; i += T) sl[L::V + i] = 0.f;
     for (int i = lane; i < L::ld; i += T) sl[L::Vx + i] = 0.f;
     stream_stages<G::D>(a.N, true, smem, G::tile, issue, [&](int k, const float* t) {
-      riccati_team_stage<NR, T, P>(t + s, out + s, sl, lane, a.reg, dV1);
+      riccati_team_stage<n, nu, T, P>(t + s, out + s, sl, lane, a.reg, dV1);
       store(k);
     });
   }

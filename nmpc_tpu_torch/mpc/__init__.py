@@ -9,3 +9,4 @@ from nmpc_tpu_torch.mpc.driver import (  # noqa: F401
     closed_loop_tracking,
     plan_then_replay,
 )
+from nmpc_tpu_torch.mpc.lidar import closed_loop_lidar  # noqa: F401

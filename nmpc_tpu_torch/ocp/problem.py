@@ -6,6 +6,10 @@ and the inequality set canonicalized to c(x, u) >= 0, row order per stage:
 pairs d12..d(m-1)m, static obstacles (robot-major), moving obstacles
 (robot-major), u_lo, u_hi, x_lo, x_hi.
 
+Kinks (abs, max) are written so that automatic differentiation takes JAX's
+side at the kink: torch.where for |t| (+1 at 0) and torch.maximum for
+max(a, b) (1/2 each at a tie; torch.clamp gives 1).
+
 Batching: a batched OCP carries a leading [B] axis on x0 [B, nx], xref
 [B, N, nx] and, for per-element neighbour plans, mov_obs [B, N, n_mov, 2];
 every other field is shared. Every function below takes any number of
@@ -276,7 +280,10 @@ def step_dynamics(ocp: OCP, x: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     pose = x[..., :3]
     pose_next = discrete_dynamics(pose, u, ocp.T, "euler")
     delta = pose_next[..., None, :2] - ocp.p_obs  # [..., R, 2]
-    d_next = torch.sum(torch.abs(delta), dim=-1)
+    # |t| with derivative +1 at t = 0, as JAX differentiates abs (torch.abs
+    # has 0 there): a ray whose point sits on the pose's axis is the cold
+    # start's normal case
+    d_next = torch.sum(torch.where(delta >= 0, delta, -delta), dim=-1)
     return torch.cat([pose_next, d_next], dim=-1)
 
 
@@ -301,7 +308,7 @@ def stage_cost(ocp: OCP, x: torch.Tensor, u: torch.Tensor,
     dx = x - xref_k
     c = torch.sum(dx * ocp.Qdiag * dx, dim=-1) + torch.sum(u * ocp.Rdiag * u, dim=-1)
     if ocp.num_rays:
-        inv_d = 1.0 / torch.clamp(x[..., 3:], min=1e-3)
+        inv_d = 1.0 / torch.maximum(x[..., 3:], x.new_tensor(1e-3))
         c = c + ocp.inv_dist_weight * torch.sum(inv_d * inv_d, dim=-1)
     return c
 
@@ -339,7 +346,8 @@ def stage_constraints(ocp: OCP, x: torch.Tensor, u: torch.Tensor,
         pos = _positions(ocp, x)  # [..., m, 2]
     if ocp.n_obs:
         delta = pos[..., :, None, :] - ocp.obstacles[:, :2]  # [..., m, n_obs, 2]
-        dist = torch.sqrt(torch.clamp(torch.sum(delta * delta, dim=-1), min=1e-12))
+        d2 = torch.sum(delta * delta, dim=-1)
+        dist = torch.sqrt(torch.maximum(d2, d2.new_tensor(1e-12)))
         # the keep-out radius folded into one number, as the kernels'
         # parameter block holds it (ops/rollout.py::params)
         keepout = ocp.obstacles[:, 2] + ocp.robot_radius + ocp.obs_margin

@@ -43,6 +43,9 @@ BUILD_DIR = _PKG / "_build"
 UNITS = ("megasolve.cu", "staged.cu")       # one nvcc process each
 SOURCES = (*UNITS, "inner_warp.cuh", "staged.cuh", "staged_tiles.cuh",
            "expansions_rollout_tiles.cuh", "riccati.cuh", "rollout.cuh")
+# K3 at the stage shapes of staged_tiles.K3_SHAPES, a library per shape
+K3_SHAPE_SOURCES = ("riccati_shape.cu", "staged_tiles.cuh", "staged.cuh", "riccati.cuh",
+                    "rollout.cuh")
 FIRST_SOURCES = ("staged_first.cu", "staged.cuh", "riccati.cuh", "rollout.cuh")
 TOOLS_SOURCES = ("tools.cu", "tools.cuh", "megasolve.cuh", "riccati.cuh", "rollout.cuh")
 # the parts of tools.cu (-DNMPC_TOOLS_PART=i), one nvcc process each
@@ -68,6 +71,7 @@ launch_counts = {"inner_solve_fused": 0, "al_update_lanes": 0,
 
 _locks = {(kind, m): threading.Lock() for kind in ("solver", "tools", "first")
           for m in ROBOT_COUNTS}
+_locks.update({("k3", shape): threading.Lock() for shape in staged_tiles.K3_SHAPES})
 _libs: dict[tuple[str, int], ctypes.CDLL] = {}
 # per m: {"path", "seconds" (0.0 when reused), "ptxas" (compiler report)}
 build_info: dict[int, dict] = {}
@@ -75,6 +79,8 @@ build_info: dict[int, dict] = {}
 tools_build_info: dict[int, dict] = {}
 # per m: the same for the first designs' library
 first_build_info: dict[int, dict] = {}
+# per stage shape (n, nu): the same for K3's library at that shape
+k3_shape_build_info: dict[tuple, dict] = {}
 
 
 def reset_launch_counts() -> None:
@@ -302,6 +308,54 @@ def load(m: int) -> ctypes.CDLL:
         return lib
 
 
+def load_k3_shape(n: int, nu: int) -> ctypes.CDLL:
+    """K3's library at the stage shape (n, nu) of staged_tiles.K3_SHAPES
+    (csrc/riccati_shape.cu; the entry points nmpc_riccati and
+    nmpc_k3_geometry as the solver library's), built first if needed."""
+    shape = (n, nu)
+    if shape not in staged_tiles.K3_SHAPES:
+        raise NotImplementedError(
+            f"K3 is instantiated for n = 3m, nu = 2m (m in {ROBOT_COUNTS}) and (n, nu) in "
+            f"{staged_tiles.K3_SHAPES}, not n={n}, nu={nu}")
+    with _locks["k3", shape]:
+        if ("k3", shape) in _libs:
+            return _libs["k3", shape]
+        flags = staged_tiles.k3_shape_flags(shape)
+        path, seconds, texts = _build(f"libnmpc_k3_n{n}_nu{nu}_{_key(K3_SHAPE_SOURCES, 0, tuple(flags))}",
+                                      [("riccati_shape.cu", flags)], f"K3, n={n} nu={nu}")
+        lib = ctypes.CDLL(str(path))
+        P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.nmpc_error_string.argtypes = [I]
+        lib.nmpc_error_string.restype = ctypes.c_char_p
+        lib.nmpc_k3_shape.argtypes = [P]
+        lib.nmpc_k3_shape.restype = None
+        lib.nmpc_k3_geometry.argtypes = [P]
+        lib.nmpc_k3_geometry.restype = None
+        lib.nmpc_riccati.argtypes = [P] * 11 + [I] * 2 + [F] + [P]
+        lib.nmpc_riccati.restype = I
+        got = (ctypes.c_int * 2)()
+        lib.nmpc_k3_shape(got)
+        g, lay = staged_tiles.K3_GEOMETRY[shape], staged_tiles.k3_layout(shape)
+        want = {"S": g.S, "D": g.D, "T": g.T, "P": g.P, "spill": int(g.spill),
+                "threads": lay["threads"], "smem_bytes": lay["smem_bytes"],
+                "scratch_floats": lay["scratch_floats"]}
+        if tuple(got) != shape or k3_geometry(lib) != want:
+            raise RuntimeError(f"{path}: built for {tuple(got)} with {k3_geometry(lib)}, "
+                               f"expected {shape} with {want}")
+        k3_shape_build_info[shape] = {"path": str(path), "seconds": seconds, "ptxas": texts[0]}
+        _libs["k3", shape] = lib
+        return lib
+
+
+def load_k3(n: int, nu: int) -> ctypes.CDLL:
+    """The library whose nmpc_riccati takes stage blocks of (n, nu): the
+    solver library of m robots at (3m, 2m), else K3's at that shape."""
+    m = n // 3
+    if n == 3 * m and nu == 2 * m and m in ROBOT_COUNTS:
+        return load(m)
+    return load_k3_shape(n, nu)
+
+
 def load_tools(m: int) -> ctypes.CDLL:
     """The roofline tools' kernel library (K7-K9) for m robots, built first
     if needed: the nine parts of csrc/tools.cu, one nvcc process each."""
@@ -399,12 +453,15 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
 
 def load_all() -> dict[int, ctypes.CDLL]:
     """Build (every source of every instantiation in its own nvcc process,
-    all started together) and load every solver instantiation, the tools
-    library for the main path's BENCH_ROBOTS and the first designs' for
-    FIRST_ROBOTS. Returns the solver libraries by m."""
-    with ThreadPoolExecutor(max_workers=len(ROBOT_COUNTS) + 1 + len(FIRST_ROBOTS)) as pool:
+    all started together) and load every solver instantiation, K3 at each
+    of staged_tiles.K3_SHAPES, the tools library for the main path's
+    BENCH_ROBOTS and the first designs' for FIRST_ROBOTS. Returns the
+    solver libraries by m."""
+    workers = len(ROBOT_COUNTS) + 1 + len(FIRST_ROBOTS) + len(staged_tiles.K3_SHAPES)
+    with ThreadPoolExecutor(max_workers=workers) as pool:
         others = [pool.submit(load_tools, BENCH_ROBOTS)]
         others += [pool.submit(load_first, m) for m in FIRST_ROBOTS]
+        others += [pool.submit(load_k3_shape, *shape) for shape in staged_tiles.K3_SHAPES]
         libs = list(pool.map(load, ROBOT_COUNTS))
         for f in others:
             f.result()

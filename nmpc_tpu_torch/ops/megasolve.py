@@ -64,13 +64,13 @@ def cuda_unsupported(ocp: OCP, cfg: ALILQRConfig | None = None) -> str | None:
     """Why K1 and K2 cannot take this problem/config, or None: the staged
     kernels' rule (rollout.unsupported: LiDAR rays, dynamics other than the
     Euler unicycle, m outside cuda_build.ROBOT_COUNTS), and of cfg's
-    settings compact, sweep='scan' and an unknown line search."""
+    settings sweep='scan' (K1 runs its own sequential sweep) and an unknown
+    line search. cfg.compact is the route's (a permutation of the batch
+    between outer steps, solver/alilqr_batched._solve_mega), not K1's."""
     why = rollout.unsupported(ocp)
     if why is not None:
         return why
     if cfg is not None:
-        if cfg.compact:
-            return "compact=True"
         if cfg.sweep == "scan":
             return "sweep='scan'"
         if cfg.ls not in ("cascade", "adaptive"):

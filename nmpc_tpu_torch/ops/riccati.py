@@ -26,14 +26,18 @@ Layout: `riccati_lanes` takes and returns the lane-major layout of the
 staged path: A [N, n, n, B], B [N, n, nu, B], lx [N, n, B], lu [N, nu, B],
 lxx [N, n, n, B], luu [N, nu, nu, B], lux [N, nu, n, B] -> kff [N, nu, B],
 Kfb [N, nu, n, B], dV1 [B]. `riccati_fused` is the standard-layout wrapper.
-The kernels are built for n = 3m, nu = 2m with m in cuda_build.ROBOT_COUNTS.
+The kernels are built for n = 3m, nu = 2m with m in cuda_build.ROBOT_COUNTS
+(in the solver library of m robots) and for the stage shapes (n, nu) of
+staged_tiles.K3_SHAPES (csrc/riccati_shape.cu, a library per shape: the
+ray-augmented stage of family I, n = 13, nu = 2, which the hybrid route of
+solver/alilqr_batched.py sends here); any other CUDA shape raises.
 """
 
 from __future__ import annotations
 
 import torch
 
-from nmpc_tpu_torch.ops import cuda_build
+from nmpc_tpu_torch.ops import cuda_build, staged_tiles
 from nmpc_tpu_torch.ops.cuda_build import check_arg, lane, ptr, std
 
 
@@ -107,17 +111,20 @@ def riccati_plain(exp, reg: float = 1e-6):
 
 
 def check_lanes(exp) -> tuple:
-    """(N, n, nu, B, m) of CUDA inputs the kernels take; raises otherwise."""
+    """(N, n, nu, B, m) of CUDA inputs the kernels take (m = n // 3); raises
+    otherwise."""
     A = exp[0]
     if A.device.type != "cuda":
         raise NotImplementedError(f"riccati_lanes: no kernel for {A.device}")
     N, n, _, B = A.shape
     nu = exp[1].shape[2]
     m = n // 3
-    if n != 3 * m or nu != 2 * m or m not in cuda_build.ROBOT_COUNTS:
+    if (not (n == 3 * m and nu == 2 * m and m in cuda_build.ROBOT_COUNTS)
+            and (n, nu) not in staged_tiles.K3_SHAPES):
         raise NotImplementedError(
             f"riccati_lanes: the CUDA kernel covers n = 3m, nu = 2m for m in "
-            f"{cuda_build.ROBOT_COUNTS}, not n={n}, nu={nu}")
+            f"{cuda_build.ROBOT_COUNTS} and (n, nu) in {staged_tiles.K3_SHAPES}, not "
+            f"n={n}, nu={nu}")
     for name, t, shape in zip(("A", "B", "lx", "lu", "lxx", "luu", "lux"), exp, (
             (N, n, n, B), (N, n, nu, B), (N, n, B), (N, nu, B), (N, n, n, B),
             (N, nu, nu, B), (N, nu, n, B))):
@@ -156,8 +163,8 @@ def riccati_lanes(exp, reg: float = 1e-6):
     CPU tensors. exp = (A, B, lx, lu, lxx, luu, lux), lane-major."""
     if exp[0].device.type == "cpu":
         return riccati_plain(exp, reg)
-    m = check_lanes(exp)[-1]
-    out = launch(exp, reg, cuda_build.load(m))
+    _, n, nu, _, _ = check_lanes(exp)
+    out = launch(exp, reg, cuda_build.load_k3(n, nu))
     if exp[0].shape[-1]:
         cuda_build.launch_counts["riccati_lanes"] += 1
     return out

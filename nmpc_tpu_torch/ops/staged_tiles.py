@@ -14,7 +14,10 @@ horizon through a ring of D stage tiles in shared memory.
       candidates go as several launches (rollout.linesearch_costs_lanes).
   K4: one stage of the tile a block, W warps a block.
   K6: a team of T threads per scenario, S T threads a block.
-The picks per robot count come from `python -m
+K3 also takes other stage shapes (n, nu) than the robot stacks' (3m, 2m):
+the ray-augmented stage of family I (K3_SHAPES), built from
+csrc/riccati_shape.cu with `k3_shape_flags`. The picks per robot count come
+from `python -m
 nmpc_tpu_torch.tools.staged_launch` (PERF.md); ops/cuda_build.py passes them
 to nvcc, and the library reports them back (`nmpc_k3_geometry`, ...) for
 cuda_build to check. The sizes here mirror K3Rows, K3Slot, K3Geom, K5Geom,
@@ -63,14 +66,20 @@ class K6Geometry:
     T: int
 
 
-# the picks per robot count (tools/staged_launch.py, PERF.md)
+# the picks per robot count (tools/staged_launch.py, PERF.md); K3 also per
+# stage shape (n, nu) of the other problems that reach it: one robot with 10
+# LiDAR rays (n = 13, nu = 2; the registry's family I), a library of its own
+# (cuda_build.load_k3_shape), picked by its shared memory as m=4's (n = 12)
 K3_GEOMETRY = {
     1: K3Geometry(128, 2, 1, 128), 2: K3Geometry(128, 2, 1, 128), 3: K3Geometry(16, 2, 16, 17),
     4: K3Geometry(8, 2, 16, 9), 5: K3Geometry(8, 2, 16, 9), 6: K3Geometry(8, 2, 32, 9),
     8: K3Geometry(8, 2, 32, 8), 10: K3Geometry(8, 2, 32, 8, spill=True),
+    (13, 2): K3Geometry(8, 2, 16, 9),
 }
+# the stage shapes (n, nu) of K3 besides (3m, 2m)
+K3_SHAPES = tuple(k for k in K3_GEOMETRY if isinstance(k, tuple))
 # the K3 blocks that reside per SM by shared memory and threads at those picks
-K3_BLOCKS_PER_SM = {1: 5, 2: 1, 3: 3, 4: 3, 5: 2, 6: 1, 8: 1, 10: 1}
+K3_BLOCKS_PER_SM = {1: 5, 2: 1, 3: 3, 4: 3, 5: 2, 6: 1, 8: 1, 10: 1, (13, 2): 4}
 K5_GEOMETRY = {1: K5Geometry(32, 2), 2: K5Geometry(32, 2), 3: K5Geometry(32, 2),
                4: K5Geometry(16, 2), 5: K5Geometry(16, 2), 6: K5Geometry(32, 2),
                8: K5Geometry(16, 2), 10: K5Geometry(8, 2)}
@@ -86,17 +95,23 @@ def al4(v: int) -> int:
     return (v + 3) // 4 * 4
 
 
-def k3_rows(m: int) -> int:
-    """Rows of K3's stage tile per scenario: A, B, lx, lu, lxx, luu, lux."""
-    n, nu = 3 * m, 2 * m
+def k3_dims(key) -> tuple:
+    """(n, nu) of a K3 key: a robot count m (3m, 2m) or a stage shape."""
+    return key if isinstance(key, tuple) else (3 * key, 2 * key)
+
+
+def k3_rows(key) -> int:
+    """Rows of K3's stage tile per scenario: A, B, lx, lu, lxx, luu, lux
+    (key: m or (n, nu), as every K3 helper here)."""
+    n, nu = k3_dims(key)
     return n * n + n * nu + n + nu + n * n + nu * nu + nu * n
 
 
-def k3_slot_floats(m: int) -> int:
+def k3_slot_floats(key) -> int:
     """Floats of one team's slot (K3Slot): Vxx and (Vxx A)' [n, ld], (Vxx
     B)' [nu, ld] (later Kfb' [n, ldu]), Qux [nu, n], Quu, Vx [ld], Qx, Qu,
     kff [ldu], the factor's reciprocal diagonal."""
-    n, nu = 3 * m, 2 * m
+    n, nu = k3_dims(key)
     ld, ldu = al4(n), al4(nu)
     at = al4(n * ld)                          # (Vxx A)'
     at = al4(at + n * ld)                     # (Vxx B)', Kfb'
@@ -108,8 +123,8 @@ def k3_slot_floats(m: int) -> int:
     return at
 
 
-def check_k3(m: int, g: K3Geometry) -> None:
-    """Raise unless g is a geometry K3Geom takes."""
+def check_k3(m, g: K3Geometry) -> None:
+    """Raise unless g is a geometry K3Geom takes (m: a K3 key)."""
     if g.S < 8 or g.S & (g.S - 1):
         raise ValueError(f"K3 at m={m}: S={g.S} is not a power of two >= 8")
     if not (g.T == 1 or (g.T <= 32 and 32 % g.T == 0)):
@@ -118,14 +133,14 @@ def check_k3(m: int, g: K3Geometry) -> None:
         raise ValueError(f"K3 at m={m}: pitch {g.P} or ring depth {g.D}")
 
 
-def k3_layout(m: int, g: K3Geometry | None = None) -> dict:
+def k3_layout(m, g: K3Geometry | None = None) -> dict:
     """What one K3 block takes: threads, floats of its stage tile, output
     tile and slots, its shared bytes, its device-memory scratch (floats, with
     spill), and the blocks and warps that reside per SM by shared memory and
-    threads (registers not counted)."""
+    threads (registers not counted). m: a K3 key."""
     g = K3_GEOMETRY[m] if g is None else g
     check_k3(m, g)
-    n, nu = 3 * m, 2 * m
+    n, nu = k3_dims(m)
     tile = al4(k3_rows(m) * g.P)
     out = al4((nu + nu * n) * g.P)
     priv = out + (g.S * k3_slot_floats(m) if g.T > 1 else 0)
@@ -219,6 +234,16 @@ def k6_layout(m: int, g: K6Geometry | None = None) -> dict:
     blocks = min(SMEM_SM // (smem + SMEM_RESERVED), THREADS_SM // threads, BLOCKS_SM)
     return {"threads": threads, "tile": tile, "smem_bytes": smem, "blocks_per_sm": blocks,
             "warps_per_sm": blocks * ((threads + 31) // 32)}
+
+
+def k3_shape_flags(shape: tuple, g: K3Geometry | None = None) -> list:
+    """The -D flags of csrc/riccati_shape.cu: the stage shape (n, nu) and
+    K3's geometry there (K3_GEOMETRY's pick where not given)."""
+    g = K3_GEOMETRY[shape] if g is None else g
+    check_k3(shape, g)
+    return [f"-DNMPC_K3_N={shape[0]}", f"-DNMPC_K3_NU={shape[1]}", f"-DNMPC_K3_S={g.S}",
+            f"-DNMPC_K3_D={g.D}", f"-DNMPC_K3_T={g.T}", f"-DNMPC_K3_P={g.P}",
+            f"-DNMPC_K3_SPILL={int(g.spill)}"]
 
 
 def nvcc_flags(m: int, k3: K3Geometry | None = None, k5: K5Geometry | None = None,

@@ -36,6 +36,7 @@ import torch
 from nmpc_tpu_torch.device import DEVICE
 from nmpc_tpu_torch.mpc.driver import MPCConfig, _escape_control, escape_state0
 from nmpc_tpu_torch.ocp.problem import OCP, make_ocp
+from nmpc_tpu_torch.ops import rollout
 from nmpc_tpu_torch.parallel.batch import batched_solve
 from nmpc_tpu_torch.sim.plant import PlantConfig, plant_step
 from nmpc_tpu_torch.solver.alilqr import ALILQRConfig, WarmStart
@@ -81,12 +82,15 @@ def right_hand_shift(mov, poses, rh_bias: float):
 def solve_robots(template: OCP, poses, xref, mov, warms: WarmStart, cfg: ALILQRConfig,
                  engine: str):
     """The robots' subproblems (x0 poses [m, 3], xref [m, N, 3], schedules
-    mov [m, N, m-1, 2]) as one batch: `solve_batched` for engine "fused",
-    which raises where its kernels do not take the template (unlike the
-    reference, it never gives way to the per-scenario engine), and the
-    per-scenario engine for engine "xla"."""
+    mov [m, N, m-1, 2]) as one batch: `solve_batched` for engine "fused"
+    on a template the staged kernels take (the reference's rule; elsewhere
+    the reference gives way to the per-scenario engine, the port raises),
+    and the per-scenario engine for engine "xla"."""
     ocp_b = dataclasses.replace(template, x0=poses, xref=xref, mov_obs=mov.contiguous())
     if engine == "fused":
+        why = rollout.unsupported(template)
+        if why is not None:
+            raise NotImplementedError(f"solve_robots: engine 'fused' does not cover {why}")
         return solve_batched(ocp_b, warms, cfg)
     if engine == "xla":
         return batched_solve(ocp_b, cfg, warms)

@@ -1,7 +1,11 @@
 """AL-iLQR: the per-scenario engine and its building blocks. Port of
 nmpc_tpu/solver/alilqr.py: configuration, warm start and result types, stage
-expansions, the dense backward Riccati sweep, the forward rollout, the
-cascade line search, the inner iLQR loop and `solve`.
+expansions (analytic for Euler unicycles; the dynamics Jacobians of RK4 and
+LiDAR-augmented models and the ray rows' constraint Jacobians by
+torch.func.jacfwd, as the reference's jax.jacfwd), the dense backward
+Riccati sweep or the associative-scan LQR (sweep="scan"), the forward
+rollout, the cascade line search, the inner iLQR loop and `solve`. User
+dynamics (dyn_fn) are not ported and raise.
 
 Structure of the solver: an outer PHR multiplier loop
 (lam <- max(0, lam - mu c), mu <- b mu) around an inner iLQR descent on the
@@ -78,12 +82,16 @@ class ALILQRConfig:
     ls_grow: float = 4.0      # adaptive: growth factor on acceptance
     ls_trial_min: float = 1e-5  # adaptive: give-up threshold on the trial
     cold_seed: str = "zero"   # initial controls without a WarmStart: "zero"
-                              # (reference-faithful); "polar" is not ported
-    compact: bool = False     # permute unconverged scenarios into dense tiles
-                              # between outer steps; not ported
+                              # (reference-faithful); "polar" = a per-robot
+                              # polar go-to-goal law rolled through the model
+                              # (batched engine only; ignored with rays)
+    compact: bool = False     # megakernel route: permute unconverged
+                              # scenarios to the front of the batch between
+                              # outer steps (results bit for bit the same)
     sweep: str = "seq"        # backward pass: "seq" = O(N) Riccati sweep;
-                              # "scan" (associative-scan LQR) is not ported;
-                              # "auto" = scan iff N >= SCAN_N_MIN
+                              # "scan" = O(log N) associative-scan LQR
+                              # (ops/assoc_lqr.py; the batched engine's
+                              # hybrid route); "auto" = scan iff N >= SCAN_N_MIN
     final_clamp: bool = True  # project the returned controls onto the
                               # actuator box and re-roll once (feasibility
                               # restoration; the plant saturates anyway)
@@ -129,24 +137,39 @@ def warm_from_numpy(U, lam, mu, device=DEVICE) -> WarmStart:
 # ---------------------------------------------------------------------------
 
 
+def _vmap_flat(fn, *args):
+    """fn (on one point's tensors) over the broadcast leading dimensions of
+    args (each [..., d]): torch.func.vmap over the flattened points, the
+    results reshaped back to the leading shape."""
+    lead = torch.broadcast_shapes(*(a.shape[:-1] for a in args))
+    flat = [a.expand(*lead, a.shape[-1]).reshape(-1, a.shape[-1]) for a in args]
+    out = torch.func.vmap(fn)(*flat)
+    return tuple(o.reshape(*lead, *o.shape[1:]) for o in out)
+
+
 def _stage_jacobians(ocp: OCP, x, u):
-    """(A, B) of the discrete step: analytic for the plain Euler model."""
-    if ocp.integrator == "euler" and ocp.num_rays == 0 and ocp.dyn_fn is None:
+    """(A, B) of the discrete step: analytic for the plain Euler model,
+    torch.func.jacfwd for RK4 and LiDAR-augmented models (the reference's
+    jax.jacfwd; problem.step_dynamics differentiates its kinks as JAX
+    does). x [..., nx], u [..., nu]."""
+    if ocp.dyn_fn is not None:
+        raise NotImplementedError("user dynamics (dyn_fn) are not ported yet")
+    if ocp.integrator == "euler" and ocp.num_rays == 0:
         return euler_jacobians(x, u, ocp.T)
-    raise NotImplementedError(
-        "dynamics Jacobians by automatic differentiation (RK4, LiDAR rays, "
-        "dyn_fn) are not ported yet")
+    F = lambda xx, uu: P.step_dynamics(ocp, xx, uu)  # noqa: E731
+    return _vmap_flat(torch.func.jacfwd(F, argnums=(0, 1)), x, u)
 
 
 def _stage_expansion(ocp: OCP, x, u, xref_k, lam_k, mov_k, mu):
     """Gradients and Gauss-Newton Hessians of the AL merit stage term.
     x [..., nx], u [..., nu], lam_k [..., n_con], mu broadcastable to the
-    leading shape of x."""
-    if ocp.num_rays or ocp.dyn_fn is not None:
-        raise NotImplementedError(
-            "expansions of LiDAR-augmented or dyn_fn problems are not ported yet")
+    leading shape of x. LiDAR-augmented problems add the 1/d cost's
+    gradient and Hessian diagonal and take the constraint Jacobians by
+    torch.func.jacfwd (as the reference); the others the analytic ones."""
+    if ocp.dyn_fn is not None:
+        raise NotImplementedError("expansions of dyn_fn problems are not ported yet")
     kw = dict(dtype=x.dtype, device=x.device)
-    lead = x.shape[:-1]
+    lead = torch.broadcast_shapes(x.shape[:-1], u.shape[:-1])
     dx = x - xref_k
     lx = 2.0 * ocp.Qdiag * dx
     lu = 2.0 * ocp.Rdiag * u
@@ -154,20 +177,34 @@ def _stage_expansion(ocp: OCP, x, u, xref_k, lam_k, mov_k, mu):
     luu = torch.diag(2.0 * ocp.Rdiag).expand(*lead, ocp.nu, ocp.nu)
     lux = torch.zeros((*lead, ocp.nu, ocp.nx), **kw)
 
-    # PHR penalty: grad = -J' act, GN hess = mu J' 1[active] J
     c = P.stage_constraints(ocp, x, u, mov_k)
-    Jx, Ju = stage_constraint_jacobians(ocp, x, mov_k)
+    if ocp.num_rays:
+        # inverse-distance cost w sum 1/d^2: grad -2w/d^3, hess 6w/d^4 (diag)
+        d = torch.maximum(x[..., 3:], x.new_tensor(1e-3))
+        gray = -2.0 * ocp.inv_dist_weight / d**3
+        hray = 6.0 * ocp.inv_dist_weight / d**4
+        lx = torch.cat([lx[..., :3], lx[..., 3:] + gray], dim=-1)
+        lxx = lxx + torch.diag_embed(torch.cat([torch.zeros_like(hray[..., :3]), hray], -1))
+        if mov_k is not None:
+            raise NotImplementedError("moving obstacles with LiDAR rays are not ported")
+        Jx, Ju = _vmap_flat(torch.func.jacfwd(
+            lambda xx, uu: P.stage_constraints(ocp, xx, uu), argnums=(0, 1)), x, u)
+    else:
+        Jx, Ju = stage_constraint_jacobians(ocp, x, mov_k)
+
+    # PHR penalty: grad = -J' act, GN hess = mu J' 1[active] J
     mu = torch.as_tensor(mu, **kw)[..., None]
     act = torch.clamp(lam_k - mu * c, min=0.0)
     w = mu * (act > 0.0).to(x.dtype)
-    JxT = Jx.transpose(-1, -2)
+    JxT, JuT = Jx.transpose(-1, -2), Ju.transpose(-1, -2)
     lx = lx - (JxT @ act[..., None])[..., 0]
-    lu = lu - act @ Ju
+    # the analytic Ju is one [n_con, nu] for every point, jacfwd's per point
+    lu = lu - (act @ Ju if Ju.dim() == 2 else (JuT @ act[..., None])[..., 0])
     JxW = Jx * w[..., None]
     JuW = Ju * w[..., None]
     lxx = lxx + JxT @ JxW
-    luu = luu + Ju.T @ JuW
-    lux = lux + Ju.T @ JxW
+    luu = luu + JuT @ JuW
+    lux = lux + JuT @ JxW
     return lx, lu, lxx, luu, lux
 
 
@@ -176,18 +213,43 @@ def _stage_expansion(ocp: OCP, x, u, xref_k, lam_k, mov_k, mu):
 # ---------------------------------------------------------------------------
 
 
+def resolve_sweep(cfg: ALILQRConfig, N: int) -> str:
+    """cfg.sweep with 'auto' resolved: the scan from SCAN_N_MIN stages on."""
+    if cfg.sweep == "auto":
+        return "scan" if N >= SCAN_N_MIN else "seq"
+    if cfg.sweep not in ("seq", "scan"):
+        raise ValueError(f"unknown sweep {cfg.sweep!r}")
+    return cfg.sweep
+
+
+def scan_gains(A, B, lx, lu, lxx, luu_reg, lux):
+    """The horizon-parallel backward pass (ops/assoc_lqr.parallel_lqr_gains)
+    on stage blocks [..., N, ...] with Quu's regularizer already added.
+    Iterates are single-shooting consistent, so the LQ subproblem in delta
+    coordinates has zero defects. Returns (kff [..., N, nu], Kfb [..., N, nu,
+    nx], dV1 [...]): dV1 = sum_k kff_k . Qu_k with Qu_k = lu_k + B_k' Vx_{k+1}
+    and Vx = -v (delta coordinates)."""
+    from nmpc_tpu_torch.ops.assoc_lqr import parallel_lqr_gains  # ops imports this module
+
+    lead = A.dim() - 3   # the batch dimensions before the horizon
+    first = lambda a: a.movedim(lead, 0)  # noqa: E731  horizon first
+    Af, Bf = first(A), first(B)
+    kff, Kfb, _, v = parallel_lqr_gains(Af, Bf, torch.zeros_like(first(lx)), first(lxx),
+                                        first(lx), first(luu_reg), first(lu), first(lux))
+    Qu = first(lu) - (Bf.mT @ v[1:, ..., None])[..., 0]
+    dV1 = torch.sum(kff * Qu, dim=(0, -1))
+    return kff.movedim(0, lead), Kfb.movedim(0, lead), dV1
+
+
 def _backward_pass(ocp: OCP, cfg: ALILQRConfig, X, U, lam, mu):
     """LQR backward recursion over the AL-quadratized problem, batched.
 
     X [B, N+1, nx], U [B, N, nu], lam [B, N, n_con], mu [B] -> kff [B, N, nu],
     Kfb [B, N, nu, nx], dV1 [B], dV2 [B]. Terminal value is exactly zero: the
     reference objective carries no terminal cost and no constraints on X[N].
-    Dense sequential form (nmpc_tpu/solver/alilqr.py:275-308)."""
-    sweep = cfg.sweep
-    if sweep == "auto":
-        sweep = "scan" if ocp.N >= SCAN_N_MIN else "seq"
-    if sweep != "seq":
-        raise NotImplementedError("sweep='scan' (associative-scan LQR) is not ported yet")
+    Dense sequential form (nmpc_tpu/solver/alilqr.py:275-308), or with
+    sweep="scan" the associative-scan LQR (`scan_gains`; dV2 is then 0, as
+    in the reference)."""
     Xs = X[..., :-1, :]
     A, B = _stage_jacobians(ocp, Xs, U)
     lx, lu, lxx, luu, lux = _stage_expansion(
@@ -198,6 +260,9 @@ def _backward_pass(ocp: OCP, cfg: ALILQRConfig, X, U, lam, mu):
     lead = X.shape[:-2]
     kw = dict(dtype=X.dtype, device=X.device)
     reg_I = cfg.reg * torch.eye(nu, **kw)
+    if resolve_sweep(cfg, N) == "scan":
+        kff, Kfb, dV1 = scan_gains(A, B, lx, lu, lxx, luu + reg_I, lux)
+        return kff, Kfb, dV1, torch.zeros(lead, **kw)
     Vx = torch.zeros((*lead, nx, 1), **kw)
     Vxx = torch.zeros((*lead, nx, nx), **kw)
     dV1 = torch.zeros(lead, **kw)

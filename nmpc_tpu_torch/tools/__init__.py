@@ -10,7 +10,9 @@ version:
                             layout at a fixed count (K9)
 
 and the closed-loop fleet (`fleet_loop`, the port of
-tools/bench_fleet_loop.py: a B-wide warm MPC loop through K1 and K2). Each
+tools/bench_fleet_loop.py: a B-wide warm MPC loop through K1 and K2), the
+lidar_v4 fleet and tour (`lidar_fleet`, the port of tools/bench_lidar.py:
+the condensed GN engine at B, and the LiDAR closed loop at B=1). Each
 runs on the card as `python -m nmpc_tpu_torch.tools.<name>` and refuses to
 measure without one. Beside them, `sass_diff` compares the solver kernels'
 machine code with another checkout's (it needs the CUDA toolkit, not a

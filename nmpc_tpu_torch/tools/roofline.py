@@ -198,7 +198,7 @@ def hbm_bytes_per_solve(m, N, n_pairs, n_obs=0, n_mov=0, n_outer=6):
 # ------------------------------------------------- the port's work model
 def _dims(ocp) -> dict:
     m = ocp.m
-    return dict(m=m, n=3 * m, nu=2 * m, np=ocp.n_pairs, nc=ocp.n_con, N=ocp.N,
+    return dict(m=m, n=ocp.nx, nu=ocp.nu, np=ocp.n_pairs, nc=ocp.n_con, N=ocp.N,
                 n_obs=ocp.n_obs, n_mov=ocp.n_mov)
 
 

@@ -9,11 +9,12 @@ reports the largest change of the result, on the reference alone unless
 it says "port", plus the escape law's largest control difference between
 the two packages. CPU only, a few minutes:
 
-    JAX_PLATFORMS=cpu python tests/reference_spread.py [modes | obstacles]
+    JAX_PLATFORMS=cpu python tests/reference_spread.py [modes | obstacles | gn]
 
 (`modes`: only the robot-parallel modes' closed loops, ~1 min;
 `obstacles`: only the port's megakernel route on chip_smoke.py path (b)'s
-problem, ~4 min.)
+problem, ~4 min; `gn`: only the cases of tests/test_torch_hybrid.py,
+tests/test_torch_gn.py and tests/test_torch_lidar.py, ~1 min.)
 """
 
 import dataclasses
@@ -128,7 +129,86 @@ def obstacles():
               f"{float(a.cost.double().mean() / b.cost.double().mean()):.6f}", flush=True)
 
 
+def gn_cases():
+    """The solves and loops of tests/test_torch_hybrid.py (the hybrid
+    route), tests/test_torch_gn.py (the condensed GN engine and its
+    slsqp_multigoal waypoint loop) and tests/test_torch_lidar.py (the LiDAR
+    loop, per history row)."""
+    from nmpc_tpu.mpc.lidar import closed_loop_lidar
+    from nmpc_tpu.solver import alilqr_batched as JB
+    from nmpc_tpu.solver import gn as JG
+    from test_torch_gn import CASES as GN_CASES
+    from test_torch_hybrid import CASES as HYBRID_CASES
+    from test_torch_hybrid import rk4_batch
+    from test_torch_lidar import OBSTACLES
+
+    def solve_spread(tag, fn, o):
+        run = jax.jit(fn)
+        a = run(o)
+        rng = np.random.default_rng(0)
+        du = dc = 0.0
+        for _ in range(3):
+            b = run(dataclasses.replace(o, x0=o.x0 + jnp.asarray(
+                1e-7 * rng.standard_normal(o.x0.shape), jnp.float32)))
+            du = max(du, float(jnp.abs(a.U - b.U).max()))
+            dc = max(dc, float((jnp.abs(a.cost - b.cost) / jnp.abs(a.cost)).max()))
+        print(f"{tag}: U {du:.3e}, cost rel {dc:.3e}", flush=True)
+
+    cases = {k: (make(), kw) for k, (make, kw, _) in HYBRID_CASES.items()}
+    cases["rk4 N=12"] = (rk4_batch(N=12), HYBRID_CASES["rk4"][1])
+    for tag, (ob, kw) in cases.items():
+        solve_spread(f"hybrid route, {tag}", functools.partial(
+            JB.solve_batched, cfg=JaxConfig(**kw)), ob)
+    for tag, (make, kw) in GN_CASES.items():
+        solve_spread(f"gn.solve, {tag}", functools.partial(JG.solve, cfg=JG.GNConfig(**kw)), make())
+    sc = jax_get("slsqp_multigoal")
+    cfg = JG.GNConfig(Nc=sc.Nc, n_gn=15, n_outer=6)
+    loop_spread("slsqp_multigoal GN waypoints, 40 steps", sc.make(),
+                dict(max_steps=40, advance_tol=sc.advance_tol, escape=True),
+                fn="closed_loop_waypoints", waypoints=sc.waypoint_array,
+                solve_fn=lambda o, w: JG.solve(o, w, cfg))
+    sc = jax_get("lidar_v4")
+    o = sc.make(N=40)
+    run = jax.jit(functools.partial(
+        closed_loop_lidar, sim_obstacles=jnp.asarray(OBSTACLES),
+        waypoints=jnp.asarray(sc.waypoints, jnp.float32), max_steps=20,
+        cfg=JG.GNConfig(Nc=20, n_gn=10, n_outer=4, tol_con=1e-3)))
+    a = run(o)
+    rng = np.random.default_rng(0)
+    rows = np.zeros(21)
+    for _ in range(3):
+        dx = np.zeros(o.nx, np.float32)
+        dx[:3] = 1e-7 * rng.standard_normal(3)
+        b = run(dataclasses.replace(o, x0=o.x0 + jnp.asarray(dx)))
+        rows = np.maximum(rows, np.abs(np.asarray(a[0] - b[0])).max(axis=1))
+    print("closed_loop_lidar lidar_v4 N=40 Nc=20, 20 steps: X_hist by row: "
+          + ", ".join(f"{r:.1e}" for r in rows), flush=True)
+    # chip_smoke.py phase 25's CPU re-solve: path (d)'s problem (lidar_v2
+    # N=100, starts jittered by 0.05, 10x20) on the port's hybrid route,
+    # the plain path against itself with x0 moved by 1e-7, 8 scenarios
+    from nmpc_tpu_torch.solver import solve_batched
+    from nmpc_tpu_torch.tools import lidar_fleet
+
+    base = lidar_fleet.scanned("lidar_v2", [[0.5, 0.25, 0.15]], "cpu", ray_lo=0.3)
+    cfg = ALILQRConfig(n_outer=10, n_inner=20, tol_con=1e-3)
+    for seed in (0, 1):
+        ob = lidar_fleet.jittered(base, 8, torch.Generator().manual_seed(seed))
+        a = solve_batched(ob, cfg=cfg)
+        for k in range(2):
+            dx = torch.zeros_like(ob.x0)
+            dx[:, :3] = 1e-7 * torch.randn((8, 3), generator=torch.Generator().manual_seed(100 + k))
+            b = solve_batched(dataclasses.replace(ob, x0=ob.x0 + dx), cfg=cfg)
+            rel = (a.cost - b.cost).abs() / b.cost.abs()
+            print(f"port path (d) 8 starts (seed {seed}) against x0 moved by 1e-7 ({k}): cost "
+                  f"within 1e-4 on {int((rel <= 1e-4).sum())}/8 (max rel {float(rel.max()):.3e}), "
+                  f"converged flags that differ {int((a.converged != b.converged).sum())}, mean "
+                  f"cost ratio {float(a.cost.mean() / b.cost.mean()):.6f}", flush=True)
+
+
 def main():
+    if sys.argv[1:] == ["gn"]:
+        gn_cases()
+        return
     if sys.argv[1:] == ["modes"]:
         modes()
         return

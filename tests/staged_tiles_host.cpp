@@ -4,6 +4,8 @@
 // Compiled by g++ with the library's geometry flags (ops/staged_tiles.py):
 //   g++ -std=c++20 -O1 -shared -fPIC -pthread -ffp-contract=off
 //       -DNMPC_NR=<m> -DNMPC_K3_S=... -I<csrc> staged_tiles_host.cpp
+// With -DNMPC_K3_N=<n> -DNMPC_K3_NU=<nu> (and K3's geometry at that shape,
+// staged_tiles.k3_shape_flags) K3 runs at that stage shape instead.
 // A block runs as S T (K3, K6), A S (K5) or 32 W (K4) std::threads with a
 // std::barrier for __syncthreads; the copies are plain loads (the header's
 // NMPC_HOST_BLOCK shim), so every stage is complete when it is read.
@@ -24,7 +26,16 @@ inline void block_sync() { g_block->arrive_and_wait(); }
 
 namespace {
 
-using K3G = nmpc::K3Geom<NMPC_NR, NMPC_K3_S, NMPC_K3_D, NMPC_K3_T, NMPC_K3_P,
+#ifdef NMPC_K3_N
+// K3 at another stage shape than the robot stacks' (riccati_shape.cu's):
+// the first design (3m, 2m only) is not built
+constexpr int kK3n = NMPC_K3_N, kK3nu = NMPC_K3_NU;
+constexpr bool kK3First = false;
+#else
+constexpr int kK3n = 3 * NMPC_NR, kK3nu = 2 * NMPC_NR;
+constexpr bool kK3First = true;
+#endif
+using K3G = nmpc::K3Geom<kK3n, kK3nu, NMPC_K3_S, NMPC_K3_D, NMPC_K3_T, NMPC_K3_P,
                          NMPC_K3_SPILL != 0>;
 using K5G = nmpc::K5Geom<NMPC_NR, NMPC_K5_S, NMPC_K5_D>;
 using K4G = nmpc::K4Geom<NMPC_NR, NMPC_K4_S, NMPC_K4_W>;
@@ -139,7 +150,8 @@ void host_riccati(const float* A, const float* Bm, const float* lx, const float*
                   float* dV1, int B, int N, float reg, int tiles) {
   const nmpc::RiccatiArgs a{A, Bm, lx, lu, lxx, luu, lux, kff, Kfb, dV1, B, N, reg};
   if (!tiles) {
-    for (int b = 0; b < B; ++b) nmpc::riccati_thread<NMPC_NR>(a, b);
+    if constexpr (kK3First)
+      for (int b = 0; b < B; ++b) nmpc::riccati_thread<NMPC_NR>(a, b);
     return;
   }
   const int grid = (B + K3G::S - 1) / K3G::S;
@@ -147,7 +159,7 @@ void host_riccati(const float* A, const float* Bm, const float* lx, const float*
   std::vector<float> smem(K3G::smem_floats), scratch((size_t)grid * K3G::scratch_floats + 1);
   for (int blk = 0; blk < grid; ++blk)
     run_block(K3G::threads, [&](int tid) {
-      nmpc::riccati_tiles<NMPC_NR, K3G>(a, smem.data(), scratch.data(), blk, vec, tid);
+      nmpc::riccati_tiles<K3G>(a, smem.data(), scratch.data(), blk, vec, tid);
     });
 }
 

@@ -199,9 +199,11 @@ def test_solve_batched_on_the_card(dev):
 def test_wrappers_refuse_what_the_kernels_do_not_cover(dev):
     ob, U, lam, mu = _case("six_robot_antipodal", 64, dev)
     cfg = ALILQRConfig(n_inner=2)
-    with pytest.raises(NotImplementedError, match="compact"):
-        megasolve.inner_solve_fused(ob, ob.x0, ob.xref, lam, mu, U,
-                                    dataclasses.replace(cfg, compact=True))
+    # compact is the route's permutation, not K1's: the same launch
+    got = megasolve.inner_solve_fused(ob, ob.x0, ob.xref, lam, mu, U,
+                                      dataclasses.replace(cfg, compact=True))
+    want = megasolve.inner_solve_fused(ob, ob.x0, ob.xref, lam, mu, U, cfg)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
     with pytest.raises(TypeError):
         megasolve.inner_solve_fused(ob, ob.x0.double(), ob.xref, lam, mu, U, cfg)
     with pytest.raises(ValueError):
@@ -565,3 +567,64 @@ def test_per_scenario_solve_on_the_card_matches_the_cpu(dev):
         assert got.U.device.type == "cuda"
         torch.testing.assert_close(got.cost.cpu(), want.cost, rtol=1e-4, atol=0)
         torch.testing.assert_close(got.U.cpu(), want.U, rtol=0, atol=u_atol)
+
+
+# ---------------------------------------------------------------------------
+# K3 at the ray-augmented stage shape (n, nu) = (13, 2) and the hybrid route
+# ---------------------------------------------------------------------------
+
+
+def _ray_batch(dev, B, N=20, seed=0):
+    """lidar_v2 (ray_lo=0.3) with its ray states from one scan of the
+    (0.5, 0.25, 0.15) circle, B starts jittered by 0.05 in pose."""
+    from nmpc_tpu_torch.tools import lidar_fleet
+
+    base = lidar_fleet.scanned("lidar_v2", [[0.5, 0.25, 0.15]], dev, N=N, ray_lo=0.3)
+    return lidar_fleet.jittered(base, B, torch.Generator(device=dev).manual_seed(seed))
+
+
+@pytest.mark.parametrize("B", [300, 33])
+def test_riccati_kernel_at_the_ray_shape_matches_plain(dev, B):
+    """K3 at (13, 2) (csrc/riccati_shape.cu) on the hybrid route's own stage
+    blocks of a family-I batch, mid-solve (controls off rest, duals on),
+    against its plain version by ops/kernel_check.py's rule; one launch."""
+    from nmpc_tpu_torch.ops import kernel_check as KC
+    from nmpc_tpu_torch.ops.cuda_build import lane
+    from nmpc_tpu_torch.ops.riccati import riccati_plain
+    from nmpc_tpu_torch.solver import alilqr_batched as AB
+
+    ob = _ray_batch(dev, B)
+    g = torch.Generator(device=dev).manual_seed(1)
+    U = 0.05 * torch.randn((B, ob.N, ob.nu), generator=g, device=dev)
+    lam = 0.5 * torch.randn((B, ob.N, ob.n_con), generator=g, device=dev).abs()
+    lam = lam * (P.constraint_mask(ob) > 0)
+    mu = torch.full((B,), 100.0, device=dev)
+    exp = tuple(map(lane, AB.hybrid_expansions(ob, P.rollout(ob, U), U, lam, mu)))
+    cuda_build.reset_launch_counts()
+    got = riccati_lanes(exp, 1e-6)
+    assert cuda_build.launch_counts["riccati_lanes"] == 1
+    v = KC.Verdict()
+    for i, (a, w, atol) in enumerate(zip(got, riccati_plain(exp, 1e-6), KC.K3_ATOL)):
+        KC.hold(v, f"K3 (13, 2) output {i}", a, w, atol)
+    assert v.units == B and v.n_widened == 0 and v.n_diverged == 0
+
+
+def test_hybrid_route_on_the_card_launches_k3(dev):
+    """A family-I batch on the card takes the hybrid route: K3 at (13, 2)
+    every inner iteration, no other kernel (rays: plain rollouts), and the
+    batch agrees with the same route's plain versions on the CPU in
+    aggregate (cost ratio within 1e-3, convergence equal)."""
+    ob = _ray_batch(dev, 64)
+    cfg = ALILQRConfig(n_outer=4, n_inner=8, tol_con=1e-3)
+    cuda_build.reset_launch_counts()
+    res = solve_batched(ob, cfg=cfg)
+    c = dict(cuda_build.launch_counts)
+    assert c["riccati_lanes"] >= int(res.inner_iters.max()) > 0
+    assert sum(c.values()) == c["riccati_lanes"], c
+    ref = solve_batched(ob.to("cpu"), cfg=cfg)
+    assert abs(float(res.cost.mean().cpu() / ref.cost.mean()) - 1.0) <= 1e-3
+    assert torch.equal(res.converged.cpu(), ref.converged)
+    with pytest.raises(NotImplementedError, match="n = 3m"):
+        riccati_lanes(tuple(torch.zeros(s, device=dev) for s in (
+            (5, 14, 14, 8), (5, 14, 2, 8), (5, 14, 8), (5, 2, 8), (5, 14, 14, 8), (5, 2, 2, 8),
+            (5, 2, 14, 8))))

@@ -23,7 +23,8 @@ def test_port_modules_import_without_jax():
             "nmpc_tpu_torch.parallel.decentralized", "nmpc_tpu_torch.parallel.consensus",
             "nmpc_tpu_torch.sim.plant", "nmpc_tpu_torch.sim.frames", "nmpc_tpu_torch.sim.lidar",
             "nmpc_tpu_torch.mpc.driver", "nmpc_tpu_torch.tools.fleet_loop",
-            "nmpc_tpu_torch.device"} <= set(names)
+            "nmpc_tpu_torch.device", "nmpc_tpu_torch.solver.gn", "nmpc_tpu_torch.mpc.lidar",
+            "nmpc_tpu_torch.ops.assoc_lqr", "nmpc_tpu_torch.tools.lidar_fleet"} <= set(names)
     code = (
         "import importlib, sys\n"
         f"for name in {['nmpc_tpu_torch', *names]!r}:\n"

@@ -141,7 +141,8 @@ def test_cpu_wrappers_take_the_plain_versions():
 def test_cuda_admission_rule():
     """K1 and K2 take pair, static-obstacle, moving-obstacle and box rows at
     every robot count of the library; they refuse LiDAR rays, robot counts
-    the library is not built for, compact and sweep='scan'."""
+    the library is not built for and sweep='scan'; compact is the route's
+    permutation of the batch, not K1's, and admitted."""
     cfg = ALILQRConfig(ls="adaptive")
     assert megasolve.cuda_unsupported(get("six_robot_antipodal").make(N=10, device="cpu"), cfg) is None
     assert megasolve.cuda_unsupported(get("ten_robot").make(device="cpu"), cfg) is None
@@ -150,7 +151,7 @@ def test_cuda_admission_rule():
     assert megasolve.cuda_unsupported(get("obstacle_scenario_3").make(device="cpu"), cfg) is None
     assert "num_rays" in megasolve.cuda_unsupported(get("lidar_v4").make(device="cpu"), cfg)
     six = get("six_robot_antipodal").make(N=10, device="cpu")
-    assert "compact" in megasolve.cuda_unsupported(six, dataclasses.replace(cfg, compact=True))
+    assert megasolve.cuda_unsupported(six, dataclasses.replace(cfg, compact=True)) is None
     assert "scan" in megasolve.cuda_unsupported(six, dataclasses.replace(cfg, sweep="scan"))
     seven = dataclasses.replace(six, m=7)
     assert "m=7" in megasolve.cuda_unsupported(seven, cfg)

@@ -144,7 +144,12 @@ def test_cpu_main_path_launches_no_kernel():
 
 
 def test_unported_options_raise():
+    """compact, sweep='scan' and cold_seed='polar' are ported
+    (tests/test_torch_hybrid.py); user dynamics (dyn_fn) are not and raise,
+    and a setting no route knows raises ValueError."""
     ob = port_ocp(_batch("two_robot_swap", 2, 0.05, seed=6))
-    for kw in (dict(compact=True), dict(sweep="scan"), dict(cold_seed="polar")):
-        with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="dyn_fn"):
+        solve_batched(dataclasses.replace(ob, dyn_fn=lambda x, u: x), cfg=ALILQRConfig())
+    for kw in (dict(sweep="dense"), dict(cold_seed="random"), dict(ls="exact")):
+        with pytest.raises(ValueError):
             solve_batched(ob, cfg=ALILQRConfig(**kw))

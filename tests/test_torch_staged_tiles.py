@@ -40,6 +40,7 @@ from nmpc_tpu_torch.scenarios import get
 
 HOST = Path(__file__).resolve().parent / "staged_tiles_host.cpp"
 HOST_ROBOTS = (1, 2, 6)
+RAY_SHAPE = (13, 2)   # one robot with the registry's 10 LiDAR rays (ST.K3_SHAPES)
 ALPHAS = (0.0, 1.0, 0.5, 0.25, 0.1, 0.03, 0.01, 0.003, 0.001)   # the solver's grid
 
 
@@ -99,9 +100,14 @@ def host_libs(tmp_path_factory):
     out = tmp_path_factory.mktemp("staged_tiles")
 
     def build(m):
-        so = out / f"staged_tiles_m{m}.so"
+        if isinstance(m, tuple):   # K3 at that stage shape, the rest at m=1
+            flags = [f"-DNMPC_NR=1", *(f for f in ST.nvcc_flags(1) if not f.startswith("-DNMPC_K3_")),
+                     *ST.k3_shape_flags(m)]
+        else:
+            flags = [f"-DNMPC_NR={m}", *ST.nvcc_flags(m)]
+        so = out / f"staged_tiles_{'_'.join(map(str, m)) if isinstance(m, tuple) else m}.so"
         subprocess.run([gxx, "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread",
-                        "-ffp-contract=off", f"-DNMPC_NR={m}", *ST.nvcc_flags(m),
+                        "-ffp-contract=off", *flags,
                         f"-I{SRC_DIR}", str(HOST), "-o", str(so)], check=True,
                        capture_output=True, text=True)
         lib = ctypes.CDLL(str(so))
@@ -120,8 +126,9 @@ def host_libs(tmp_path_factory):
         lib.host_rollout_alpha.argtypes = [V] * 9 + [I] * 3
         return lib
 
-    with ThreadPoolExecutor(len(HOST_ROBOTS)) as pool:
-        return dict(zip(HOST_ROBOTS, pool.map(build, HOST_ROBOTS)))
+    keys = (*HOST_ROBOTS, RAY_SHAPE)
+    with ThreadPoolExecutor(len(keys)) as pool:
+        return dict(zip(keys, pool.map(build, keys)))
 
 
 def _p(t):
@@ -131,9 +138,10 @@ def _p(t):
 def _riccati_inputs(m, B, N, seed):
     """General dense blocks (tests/test_ops.py's kind, the off-diagonal
     scales divided by sqrt(n) so that the value function stays positive
-    definite over the horizon at every m), lane-major."""
+    definite over the horizon at every m), lane-major. m: a robot count or
+    a stage shape (n, nu)."""
     rng = np.random.default_rng(seed)
-    n, nu = 3 * m, 2 * m
+    n, nu = ST.k3_dims(m)
     r = 1.0 / np.sqrt(n)
     A = rng.normal(size=(N, n, n, B)) * 0.2 * r + np.eye(n)[None, :, :, None]
     Bm = rng.normal(size=(N, n, nu, B)) * 0.3 * r
@@ -193,6 +201,27 @@ def test_host_riccati_tiles_match_plain_and_first_design(host_libs, m, B, N):
     for i, (g, w, atol) in enumerate(zip(got, riccati_plain(exp, 1e-6), KC.K3_ATOL)):
         KC.hold(v, f"K3 output {i}", g, w, atol)
     assert v.n_widened == 0 and v.units == B
+
+
+@pytest.mark.parametrize("B,N", [(32, 5), (33, 5), (33, 1)])
+def test_host_riccati_tiles_at_the_ray_shape_match_plain(host_libs, B, N):
+    """K3 at (n, nu) = (13, 2), csrc/riccati_shape.cu's instantiation, held
+    against riccati_plain at K3's tolerances (ops/kernel_check.py): every
+    entry of the 409-row stage tile and the 544-float team slot read where
+    the plain version reads it."""
+    lib = host_libs[RAY_SHAPE]
+    g = (ctypes.c_int * 8)()
+    lib.host_k3_geometry(g)
+    g3, lay = ST.K3_GEOMETRY[RAY_SHAPE], ST.k3_layout(RAY_SHAPE)
+    assert list(g) == [g3.S, g3.D, g3.T, g3.P, int(g3.spill), lay["threads"], lay["smem_bytes"],
+                       lay["scratch_floats"]]
+    exp = _riccati_inputs(RAY_SHAPE, B, N, seed=13 + B + N)
+    got = _host_riccati(lib, exp, tiles=True)
+    v = KC.Verdict()
+    for i, (gv, w, atol) in enumerate(zip(got, riccati_plain(exp, 1e-6), KC.K3_ATOL)):
+        KC.hold(v, f"K3 (13, 2) output {i}", gv, w, atol)
+    assert v.n_widened == 0 and v.units == B
+    assert all(torch.isfinite(t).all() for t in got)
 
 
 def test_host_riccati_tiles_match_pallas_kernel(host_libs):
