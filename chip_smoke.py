@@ -48,7 +48,17 @@ and holding each against its plain PyTorch version on the card:
   rollouts); sweep="scan" (the associative-scan LQR with K5 and K6) and
   compact=True on the main path's problem; the lidar_v4 fleet through the
   condensed GN engine (nmpc_tpu_torch/solver/gn.py, plain PyTorch) and the
-  lidar_v4 closed loop at B=1 (nmpc_tpu_torch/mpc/lidar.py).
+  lidar_v4 closed loop at B=1 (nmpc_tpu_torch/mpc/lidar.py);
+* the user-dynamics hook: K3 at the user models' stage shapes (2, 1) and
+  (1, 1) (csrc/riccati_shape.cu at staged_tiles.k3_rule's geometry), and at
+  staged_tiles.K3_SWEEP_SHAPES (every branch of the rule) against plain; the
+  reference demo's Van der Pol OCP and the first-order process
+  (make_generic_ocp, tools/user_models.py) at B=32768 on solve_batched's
+  hybrid route through K3; the ADMM fleet (tools/admm_fleet.py, plain
+  PyTorch); the real-time loop over the native runtime (io/robot.py's
+  run_realtime, six_robot_impl, robots as a host thread over UDP) through
+  K1 and K2 at B=1; `python -m nmpc_tpu_torch` in-process (list, a saved
+  fused run, consensus, obstacle_scenario_1 on the default route).
 
 Phases:
 
@@ -110,8 +120,20 @@ Phases:
                                       4096 (scan), B=1024 dense against it
                                    28 the lidar_v4 closed loop (CL_PARITY
                                       fixture, B=1), its first 40 steps
+                                   29 K3 at (2, 1) and (1, 1): ptxas, vs
+                                      plain at the user models' inputs,
+                                      times against the bound
+                                   30 the generic path: Van der Pol and
+                                      the process at B=32768, hybrid
+                                      route; the first 8 on the CPU
+                                   31 the ADMM fleet B=256: QPs/s; the
+                                      first 4 on the CPU
+                                   32 the real-time loop over the native
+                                      runtime (six_robot_impl, UDP)
+                                   33 the CLI: list, run (fused, saved;
+                                      consensus; obstacle_scenario_1)
 
-Phases 5, 7, 8, 9, 20, 22 and 25 re-solve the first scenarios with the plain path on
+Phases 5, 7, 8, 9, 20, 22, 25, 30 and 31 re-solve the first scenarios with the plain path on
 the CPU. Any failed check raises, so the exit code is non-zero. Without a CUDA
 card, or without the package beside this script, it fails before printing
 any result. Output: one line per phase; before the last line, the kernels'
@@ -145,7 +167,15 @@ LIDAR_STEPS = 40
 # K3 at the stage shapes other than (3m, 2m) (csrc/riccati_shape.cu), as
 # PERF.md records its line (regs, stack, spill stores, spill loads, dynamic
 # shared bytes a block)
-K3_SHAPE_PTXAS = {(13, 2): (56, 0, 0, 0, 47888)}
+K3_SHAPE_PTXAS = {(13, 2): (56, 0, 0, 0, 47888), (2, 1): (80, 0, 0, 0, 17920),
+                  (1, 1): (40, 0, 0, 0, 8192)}
+# the user models' fleets (phases 29-30: B starts, the first re-solved on the
+# CPU), the ADMM fleet's batch (phase 31, tools/bench_admm.py's), the
+# real-time loop's periods (phase 32; its UDP port is picked free at run time)
+USER_B = 32768
+USER_CROSS_B = 8
+ADMM_B = 256
+RT_PERIODS = 80
 # K1's `-Xptxas -v` line at each m as recorded in PERF.md (regs, stack, spill
 # stores, spill loads, static shared bytes: none, its dynamic shared memory
 # holds one slot of nmpc_k1_slot_bytes() a warp and then the parameter
@@ -1329,16 +1359,16 @@ def family_i_phases(dev, card: str, base, bench_cfg) -> dict:
     cpu = torch.device("cpu")
     # ---- phase 24: K3 at (n, nu) = (13, 2) --------------------------------
     shape_lines = {}
-    for shape in staged_tiles.K3_SHAPES:
+    for shape in ((13, 2),):   # the user models' shapes: phase 29
         info = cuda_build.k3_shape_build_info[shape]
         got = ptxas(info["ptxas"])
         shape_lines[shape] = (*got.get("K3", ()), staged_tiles.k3_layout(shape)["smem_bytes"])
         log(f"phase 24 ptxas K3 at (n, nu) = {shape} (csrc/riccati_shape.cu, S, D, T, P = "
-            f"{dataclasses.astuple(staged_tiles.K3_GEOMETRY[shape])[:4]}): {ptxas_summary(info['ptxas'])}, "
+            f"{dataclasses.astuple(staged_tiles.k3_geometry(shape))[:4]}): {ptxas_summary(info['ptxas'])}, "
             f"dynamic shared {shape_lines[shape][-1]} B a block (as recorded in PERF.md: "
             f"{'yes' if shape_lines[shape] == K3_SHAPE_PTXAS[shape] else 'NO'}; the pair-only "
             f"K3's lines held in phase 1)")
-    assert shape_lines == K3_SHAPE_PTXAS, shape_lines
+    assert shape_lines[13, 2] == K3_SHAPE_PTXAS[13, 2], shape_lines
     # path (d)'s problem: lidar_v2 at its registry N=100, its rays from one
     # scan of the circle, starts jittered by 0.05 in pose
     g = torch.Generator(device=dev).manual_seed(24)
@@ -1497,6 +1527,318 @@ def family_i_phases(dev, card: str, base, bench_cfg) -> dict:
             "bound_by": by, "library_ms": None}
 
 
+def user_model_phases(dev, card: str) -> list:
+    """Phases 29-33: K3 at the user models' stage shapes; the generic path
+    (make_generic_ocp batches on solve_batched's hybrid route); the ADMM
+    fleet; the real-time loop over the native runtime; the CLI. Each through
+    the entry points a user calls, with the launch counts set to 0 just
+    before and read just after. Returns the K3 (2, 1) and (1, 1) entries of
+    the kernels' record."""
+    import contextlib
+    import io as stdio
+    import tempfile
+    import threading
+
+    import numpy as np
+    import torch
+
+    import nmpc_tpu_torch.__main__ as cli
+    from nmpc_tpu_torch.io import (Bus, RobotBridge, UdpPublisher, UdpSubscriber, free_udp_port,
+                                   run_realtime)
+    from nmpc_tpu_torch.io.robot import CMD_BASE
+    from nmpc_tpu_torch.mpc.driver import shift_warm
+    from nmpc_tpu_torch.ocp import problem as P
+    from nmpc_tpu_torch.ops import cuda_build, kernel_check as KC, staged_tiles
+    from nmpc_tpu_torch.ops import riccati as RIC
+    from nmpc_tpu_torch.ops.cuda_build import lane
+    from nmpc_tpu_torch.parallel.batch import batched_solve
+    from nmpc_tpu_torch.scenarios import get
+    from nmpc_tpu_torch.sim.frames import se2_global_to_local
+    from nmpc_tpu_torch.sim.plant import plant_step
+    from nmpc_tpu_torch.solver import ALILQRConfig, solve_batched, solve_one
+    from nmpc_tpu_torch.solver import alilqr_batched as AB
+    from nmpc_tpu_torch.tools import admm_fleet as AF
+    from nmpc_tpu_torch.tools import roofline as RL
+    from nmpc_tpu_torch.tools import user_models as UM
+    from nmpc_tpu_torch.utils import load_run
+    from nmpc_tpu_torch.utils.timing import cuda_ms
+
+    t_start = time.perf_counter()
+    cpu = torch.device("cpu")
+    models = {(2, 1): ("Van der Pol", UM.vdp_ocp), (1, 1): ("first-order process", UM.process_ocp)}
+    # ---- phase 29: K3 at (2, 1) and (1, 1) ---------------------------------
+    k3 = {}
+    for shape, (label, make) in models.items():
+        info = cuda_build.k3_shape_build_info[shape]
+        line = (*ptxas(info["ptxas"]).get("K3", ()), staged_tiles.k3_layout(shape)["smem_bytes"])
+        g = staged_tiles.k3_geometry(shape)
+        log(f"phase 29 ptxas K3 at (n, nu) = {shape} ({label}; csrc/riccati_shape.cu, S, D, T, P = "
+            f"{dataclasses.astuple(g)[:4]} by staged_tiles.k3_rule): {ptxas_summary(info['ptxas'])}, "
+            f"dynamic shared {line[-1]} B a block (as recorded in PERF.md: "
+            f"{'yes' if line == K3_SHAPE_PTXAS.get(shape) else 'NO'})")
+        ob = UM.jittered(make(dev), USER_B, torch.Generator(device=dev).manual_seed(29))
+        B, N = USER_B, ob.N
+        kw = dict(dtype=torch.float32, device=dev)
+        gen = torch.Generator(device=dev).manual_seed(30)
+        U1 = 0.3 * torch.randn((B, N, ob.nu), generator=gen, device=dev)
+        lam1 = 0.5 * torch.randn((B, N, ob.n_con), generator=gen, device=dev).abs()
+        lam1 = lam1 * (P.constraint_mask(ob) > 0)
+        err, exps = 0.0, []
+        for tag, (U, lam, mu) in (
+                ("cold start", (torch.zeros((B, N, ob.nu), **kw),
+                                torch.zeros((B, N, ob.n_con), **kw),
+                                torch.full((B,), UM.CFG.mu_init, **kw))),
+                ("mid-solve", (U1, lam1, torch.full((B,), 100.0, **kw)))):
+            exp = tuple(map(lane, AB.hybrid_expansions(ob, P.rollout(ob, U), U, lam, mu)))
+            got = RIC.riccati_lanes(exp, UM.CFG.reg)
+            torch.cuda.synchronize()
+            v = KC.Verdict()
+            for i, (a, w, atol) in enumerate(zip(got, RIC.riccati_plain(exp, UM.CFG.reg),
+                                                 KC.K3_ATOL)):
+                KC.hold(v, f"K3 {shape} output {i} ({tag})", a, w, atol)
+            assert v.units == B and v.n_widened == 0 and v.n_diverged == 0, (shape, tag, v)
+            err = max(err, v.err)
+            exps.append(exp)
+            log(f"phase 29 K3 at {shape} vs plain at the {label} batch's {tag} inputs (B={B}, "
+                f"N={N}): max |err| {v.err:.3e}, rel {v.rel:.3e} over {v.units} scenarios "
+                f"(kernel_check's rule)")
+        ms = cuda_ms(lambda: RIC.riccati_lanes(exps[0], UM.CFG.reg), 20)
+        plain_ms = cuda_ms(lambda: RIC.riccati_plain(exps[0], UM.CFG.reg), 1, warmup=0)
+        b_ms, by = RL.bound(*RL.kernel_work("K3", ob, B))
+        log(f"phase 29 K3 at {shape}: {ms:.4f} ms a launch (mean of 20), plain {plain_ms:.1f} ms, "
+            f"bound {b_ms:.5f} ms ({by}), {100 * b_ms / ms:.2f}% of the bound reached {card}")
+        k3[shape] = {"name": f"riccati_lanes {shape}", "route": "cuda",
+                     "source": "nmpc_tpu_torch/csrc/riccati_shape.cu",
+                     "replaces": "nmpc_tpu/ops/riccati_pallas.py:311", "launches": 0,
+                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                     "bound_by": by, "library_ms": None}
+        del exps
+    for shape in models:   # every line logged before any is held
+        line = (*ptxas(cuda_build.k3_shape_build_info[shape]["ptxas"]).get("K3", ()),
+                staged_tiles.k3_layout(shape)["smem_bytes"])
+        assert line == K3_SHAPE_PTXAS[shape], (shape, line)
+    # K3 at k3_rule's other branches (staged_tiles.K3_SWEEP_SHAPES), each from
+    # its own riccati_shape.cu library, against plain on random well-posed
+    # stage blocks: a ragged B (4-byte copies) and a multiple of 4 (16-byte)
+    gen = torch.Generator(device=dev).manual_seed(29)
+    for shape in staged_tiles.K3_SWEEP_SHAPES:
+        lib, g = cuda_build.load_k3_shape(*shape), staged_tiles.k3_geometry(shape)
+        errs = []
+        for B in (33, 300):
+            exp = KC.k3_inputs(*shape, B, 5, gen)
+            RIC.check_lanes(exp)
+            got = RIC.launch(exp, 1e-6, lib)
+            torch.cuda.synchronize()
+            v = KC.Verdict()
+            for i, (a, w, atol) in enumerate(zip(got, RIC.riccati_plain(exp, 1e-6), KC.K3_ATOL)):
+                KC.hold(v, f"K3 {shape} B={B} output {i}", a, w, atol)
+            assert v.units == B and v.n_widened == 0 and v.n_diverged == 0, (shape, B, v)
+            errs.append(f"B={B} max |err| {v.err:.3e}, rel {v.rel:.3e}")
+        log(f"phase 29 K3 at the rule's shape {shape} (S, D, T, P, spill = "
+            f"{dataclasses.astuple(g)}; {ptxas_summary(cuda_build.k3_shape_build_info[shape]['ptxas'])}) "
+            f"vs plain at N=5: {'; '.join(errs)} (kernel_check's rule)")
+
+    # ---- phase 30: the generic path: make_generic_ocp fleets on the hybrid route
+    for shape, (label, make) in models.items():
+        base = make(dev)
+        ob = UM.jittered(base, USER_B, torch.Generator(device=dev).manual_seed(31))
+        torch.cuda.synchronize()
+        cuda_build.reset_launch_counts()
+        (res, split), t = timed(lambda: kernel_ms(lambda: solve_batched(ob, cfg=UM.CFG), RIC,
+                                                  {"riccati_lanes": "K3"}))
+        c = dict(cuda_build.launch_counts)
+        assert c["riccati_lanes"] > 0 and sum(c.values()) == c["riccati_lanes"], c
+        for name in ("X", "U", "cost", "viol", "lam"):
+            assert torch.isfinite(getattr(res, name)).all(), name
+        assert res.X.shape == (USER_B, base.N + 1, base.nx) and res.U.shape == (USER_B, base.N, 1)
+        k3[shape]["launches"] = c["riccati_lanes"]
+        conv = float(res.converged.float().mean())
+        log(f"phase 30 generic path: {label} (nx={base.nx}, nu={base.nu}, N={base.N}, "
+            f"{base.integrator}{' x' + str(base.substeps) if base.substeps > 1 else ''}) "
+            f"B={USER_B} {UM.CFG.n_outer}x{UM.CFG.n_inner} tol {UM.CFG.tol_con:g} on the hybrid "
+            f"route (expansions by jacfwd, K3 at {shape}, plain rollouts of the "
+            f"{len(UM.CFG.alphas)} candidates): {t * 1e3:.1f} ms -> {USER_B / t:.1f} solves/s; "
+            f"launches {c}; converged {conv:.4f}, viol p99 "
+            f"{float(torch.quantile(res.viol, 0.99)):.3e}, max {float(res.viol.max()):.3e}, mean "
+            f"inner iters {float(res.inner_iters.float().mean()):.2f}, outer max "
+            f"{int(res.outer_iters.max())}; split (CUDA events around K3): K3 {split['K3']:.1f} ms "
+            f"over {c['riccati_lanes']} launches ({100 * split['K3'] / (t * 1e3):.2f}%), the rest "
+            f"{t * 1e3 - split['K3']:.1f} ms {card}")
+        assert conv >= 0.99, conv
+        # the first scenarios re-solved by the per-scenario engine on the
+        # CPU (batched_solve: `solve` of each scenario, done masks): on the
+        # CPU the two engines agree to cost rel 7e-7 and U 2e-5 on 16 such
+        # starts of each model, so the batched criteria hold per scenario
+        sub = dataclasses.replace(ob, x0=ob.x0[:USER_CROSS_B], xref=ob.xref[:USER_CROSS_B])
+        ref = batched_solve(sub.to(cpu), cfg=UM.CFG)
+        r = cross_measure(res, ref, USER_CROSS_B)
+        log(f"phase 30 {label}: first {USER_CROSS_B} scenarios re-solved by the per-scenario "
+            f"engine on the CPU: {cross_line(r, USER_CROSS_B)}")
+        assert r["n_cost"] == r["n_u"] == USER_CROSS_B, r
+        assert r["conv_g"] == r["conv_r"], r
+        del ob, res
+
+    # ---- phase 31: the ADMM fleet (tools/admm_fleet.py) ---------------------
+    g31 = torch.Generator(device=dev).manual_seed(31)
+    consts = AF.fleet_problem(dev)
+    AF.fleet(*consts, *AF.draw(ADMM_B, g31, dev))   # warm-up
+    runs = []
+    cuda_build.reset_launch_counts()
+    for _ in range(3):
+        args = AF.draw(ADMM_B, g31, dev)
+        out, t = timed(lambda: AF.fleet(*consts, *args))
+        runs.append((t, args, out))
+    assert not any(cuda_build.launch_counts.values())   # plain PyTorch: no kernel
+    t31 = statistics.median(r[0] for r in runs)
+    _, args, (z, _, its, done, prim) = runs[-1]
+    assert torch.isfinite(z).all()
+    conv31 = float(done.float().mean())
+    nz = consts[0].shape[0]
+    log(f"phase 31 ADMM fleet (tools/admm_fleet.py: LTV-MPC QP N={AF.N}, nz={nz}, rows="
+        f"{(AF.N + 1) * AF.NX + nz}, max_iter {AF.CFG.max_iter}) B={ADMM_B}: setup + solve "
+        f"{t31 * 1e3:.1f} ms a batch (median of 3: {', '.join(f'{r[0] * 1e3:.1f}' for r in runs)}) "
+        f"-> {ADMM_B / t31:.1f} QPs/s; converged {conv31:.4f}, mean iterations "
+        f"{float(its.float().mean()):.1f}, max prim res {float(prim.max()):.2e} {card}")
+    assert conv31 >= 0.9, conv31
+    ref31 = AF.fleet(*(c.to(cpu) for c in consts), *(a[:4].to(cpu) for a in args))
+    dz = float((z[:4].cpu() - ref31[0]).abs().max())
+    dit = (its[:4].cpu() - ref31[2]).abs()
+    log(f"phase 31 the first 4 QPs against the port on the CPU: z max |diff| {dz:.3e}, "
+        f"iterations {its[:4].tolist()} vs {ref31[2].tolist()}, converged {done[:4].tolist()} vs "
+        f"{ref31[3].tolist()}")
+    assert dz <= 2e-3 and torch.equal(done[:4].cpu(), ref31[3]), dz
+    assert bool((dit <= 0.05 * ref31[2] + 2).all()), dit
+
+    # ---- phase 32: the real-time loop over the native runtime ---------------
+    sc = get("six_robot_impl")
+    ocp = sc.make(device=dev)
+    m, T = sc.m, float(ocp.T)
+    full32 = ALILQRConfig(n_outer=6, n_inner=12, tol_con=1e-4)       # rt_closed_loop's defaults
+    rt32 = ALILQRConfig(n_outer=3, n_inner=10, tol_con=1e-3)
+    x_true = torch.tensor(sc.x0, dtype=torch.float64).reshape(m, 3)
+    origins = x_true.clone()            # each robot's power-on frame: its start pose
+    bus = Bus(210)
+    udp_port = free_udp_port()
+    sub_udp = UdpSubscriber(udp_port, bus)
+    pub = UdpPublisher("127.0.0.1", udp_port)
+    stop, robot_err, poses, last = threading.Event(), [], [x_true.clone()], [0]
+
+    def odometry():
+        for r in range(m):
+            pub.send(r, se2_global_to_local(x_true[r], origins[r]).numpy())
+
+    def robots():
+        """The robots: each new set of commands on the bus (the last robot's
+        topic stamped anew) drives the plant one period; each robot's
+        odometry goes out in its own power-on frame over UDP."""
+        try:
+            while not stop.is_set():
+                _, stamp = bus.latch(CMD_BASE + m - 1, 2)
+                if stamp == last[0]:
+                    time.sleep(2e-4)
+                    continue
+                last[0] = stamp
+                u = torch.stack([torch.as_tensor(bus.latch(CMD_BASE + r, 2)[0])
+                                 for r in range(m)]).reshape(2 * m)
+                x_true.copy_(plant_step(x_true.reshape(-1), u, T)[0].reshape(m, 3))
+                poses.append(x_true.clone())
+                odometry()
+        except BaseException as e:  # noqa: BLE001 (reported below)
+            robot_err.append(repr(e))
+
+    solve_ms = []
+    state = {}
+
+    def solve_step(x_joint):
+        t0 = time.perf_counter()
+        o = dataclasses.replace(ocp, x0=torch.as_tensor(x_joint, dtype=torch.float32, device=dev))
+        res = solve_one(o, state["warm"], rt32)
+        state["warm"] = shift_warm(res, rt32, mu_reset=False)
+        u0 = res.U[0].cpu()
+        solve_ms.append(1e3 * (time.perf_counter() - t0))
+        return u0
+
+    odometry()
+    deadline = time.time() + 2.0
+    while sub_udp.received < m and time.time() < deadline:
+        time.sleep(0.01)
+    assert sub_udp.received >= m, sub_udp.received
+    th = threading.Thread(target=robots)
+    th.start()
+    torch.cuda.synchronize()
+    cuda_build.reset_launch_counts()
+    try:
+        seed = solve_one(ocp, None, full32)   # the full-strength seed solve
+        state["warm"] = shift_warm(seed, rt32, mu_reset=False)
+        c_seed = dict(cuda_build.launch_counts)
+        bridge = RobotBridge(m, bus, frame_origins=origins.numpy())
+        xs, us, missed = run_realtime(solve_step, bridge, np.asarray(sc.x0), T, RT_PERIODS,
+                                      goal=np.asarray(sc.x_goal), stop_tol=sc.stop_tol)
+        time.sleep(0.05)
+    finally:
+        stop.set()
+        th.join()
+        pub.close()
+        sub_udp.close()
+        bus.close()
+    c32 = dict(cuda_build.launch_counts)
+    assert not robot_err, robot_err
+    traj = torch.stack(poses)                                      # [S, m, 3]
+    d = torch.cdist(traj[..., :2], traj[..., :2]) + 1e9 * torch.eye(m, dtype=traj.dtype)
+    min_pair = float(d.amin())
+    final_err = float(torch.linalg.norm(traj[-1].reshape(-1)
+                                        - torch.tensor(sc.x_goal, dtype=traj.dtype)))
+    log(f"phase 32 real-time loop over the native runtime: six_robot_impl (m={m}, N={ocp.N}, "
+        f"T={T:g} s, v_max {sc.v_max}) through RobotBridge and run_realtime, robots as a host "
+        f"thread (the plant) sending odometry in their power-on frames over UDP to "
+        f"127.0.0.1:{udp_port}; seed solve_one {full32.n_outer}x{full32.n_inner} (launches "
+        f"{c_seed['inner_solve_fused']} K1, {c_seed['al_update_lanes']} K2), then solve_one "
+        f"{rt32.n_outer}x{rt32.n_inner} carried mu each period: {len(us)} periods (at most "
+        f"{RT_PERIODS}), solve p50 {pct(solve_ms, 50):.2f} ms, p99 {pct(solve_ms, 99):.2f} ms "
+        f"against T = {T * 1e3:.0f} ms, missed deadlines {missed}; min pair distance "
+        f"{min_pair:.4f} (dmin {sc.dmin}), final error {final_err:.4f}; K1 "
+        f"{c32['inner_solve_fused']}, K2 {c32['al_update_lanes']} launches {card}")
+    assert len(us) > 0 and np.isfinite(us).all(), us
+    assert min_pair >= sc.dmin - 0.05, min_pair
+    assert c32["inner_solve_fused"] > c_seed["inner_solve_fused"] > 0, c32
+    assert sum(c32.values()) == c32["inner_solve_fused"] + c32["al_update_lanes"], c32
+
+    # ---- phase 33: the CLI, in-process --------------------------------------
+    def run_cli(argv):
+        buf = stdio.StringIO()
+        torch.cuda.synchronize()
+        cuda_build.reset_launch_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(argv)
+        wall = time.perf_counter() - t0
+        return rc, buf.getvalue(), dict(cuda_build.launch_counts), wall
+
+    rc, out, c, _ = run_cli(["list"])
+    assert rc == 0 and len(out.splitlines()) == 35, out
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "run.npz")
+        for argv, want_rc, kern in (
+                (["run", "six_robot_antipodal", "--engine", "fused", "--save", path], 0,
+                 ("inner_solve_fused", "al_update_lanes")),
+                (["run", "six_robot_antipodal", "--mode", "consensus"], 0,
+                 ("inner_solve_fused", "al_update_lanes")),
+                (["run", "obstacle_scenario_1", "--steps", "40"], 1,
+                 ("inner_solve_fused", "al_update_lanes"))):
+            rc, out, c, wall = run_cli(argv)
+            summary = " | ".join(" ".join(line.split()) for line in out.splitlines())
+            log(f"phase 33 python -m nmpc_tpu_torch {' '.join(argv)}: rc {rc} (expected {want_rc}) "
+                f"in {wall:.1f} s; launches {c}; {summary}")
+            assert rc == want_rc, (argv, rc, out)
+            assert all(c[k] > 0 for k in kern), (argv, c)
+            assert sum(c.values()) == sum(c[k] for k in kern), (argv, c)
+        saved = load_run(path)
+        log(f"phase 33 load_run of the saved run: {saved.summary()}")
+        assert saved.reached and saved.meta == {"scenario": "six_robot_antipodal"}
+    log(f"phases 29-33 took {time.perf_counter() - t_start:.1f} s")
+    return [k3[shape] for shape in models]
+
+
 def per_step(counts: dict, name: str, stamps) -> str:
     """Launches of a kernel a loop step (a solve run), as a string."""
     return f"{counts[name] / max(len(stamps), 1):.2f}"
@@ -1547,13 +1889,14 @@ def main() -> int:
 
     # ---- phase 1: build every kernel instantiation ------------------------
     t0 = time.perf_counter()
-    cuda_build.load_all()
+    cuda_build.load_all(staged_tiles.K3_SHAPES + staged_tiles.K3_SWEEP_SHAPES)
     wall = time.perf_counter() - t0
     per_m = ", ".join(f"m={m} {cuda_build.build_info[m]['seconds']:.1f}s"
                       for m in cuda_build.ROBOT_COUNTS)
     tools = cuda_build.tools_build_info[cuda_build.BENCH_ROBOTS]
     log(f"phase 1 build: {len(cuda_build.ROBOT_COUNTS)} solver libraries, K3 at (n, nu) in "
-        f"{staged_tiles.K3_SHAPES}, the tools library "
+        f"{staged_tiles.K3_SHAPES} and at k3_rule's sweep {staged_tiles.K3_SWEEP_SHAPES}, the "
+        f"tools library "
         f"(m={cuda_build.BENCH_ROBOTS}, {len(cuda_build.TOOLS_PARTS)} parts) and the staged "
         f"kernels' first designs (m in {cuda_build.FIRST_ROBOTS}) in {wall:.1f}s wall "
         f"(parallel nvcc; {per_m}; tools {tools['seconds']:.1f}s)")
@@ -2294,6 +2637,10 @@ def main() -> int:
     # GN fleet; the LiDAR loop --------------------------------------------
     k3_shape_entry = family_i_phases(dev, card, base, bench_cfg)
 
+    # ---- phases 29-33: K3 at the user models' shapes; the generic path; the
+    # ADMM fleet; the real-time loop over the native runtime; the CLI ------
+    user_entries = user_model_phases(dev, card)
+
     def entry(name, source, where, launches, err, ms_, plain_ms, key):
         return {"name": name, "route": "cuda", "source": source, "replaces": where,
                 "launches": launches, "max_abs_err": err, "ms": ms_, "plain_ms": plain_ms,
@@ -2320,6 +2667,7 @@ def main() -> int:
               "tools/exp_blocked_expansions.py:551", k9_launches, k9_err, k9_ms, k89_plain_ms,
               "K9 line"),
         k3_shape_entry,
+        *user_entries,
     ]}
     log(f"total wall time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(record))

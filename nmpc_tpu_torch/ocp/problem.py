@@ -255,6 +255,80 @@ def make_ocp(
     )
 
 
+def make_generic_ocp(
+    f,
+    *,
+    nx: int,
+    nu: int,
+    N: int,
+    T: float,
+    x0,
+    x_goal=None,
+    xref=None,
+    Qdiag=None,
+    Rdiag=None,
+    u_lo=None,
+    u_hi=None,
+    x_lo=None,
+    x_hi=None,
+    integrator: str = "rk4",
+    substeps: int = 1,
+    dtype=torch.float32,
+    device=DEVICE,
+) -> OCP:
+    """OCP over arbitrary user dynamics `f(x, u) -> xdot` (one point: x [nx],
+    u [nu], written in torch ops without in-place writes, so that
+    torch.func.vmap and jacfwd pass through it). The constraint set is the
+    u/x boxes; the cost is the diagonal tracking form. Solved by the same
+    AL-iLQR engines, with Jacobians by torch.func.jacfwd."""
+    kw = dict(dtype=dtype, device=device)
+
+    def t(a, *shape):
+        return torch.as_tensor(a, **kw).reshape(shape)
+
+    x0 = t(x0, nx)
+    if xref is None:
+        goal = torch.zeros((nx,), **kw) if x_goal is None else t(x_goal, nx)
+        xref = goal[None, :].repeat(N, 1)
+    else:
+        xref = t(xref, N, nx)
+    Qdiag = torch.ones((nx,), **kw) if Qdiag is None else t(Qdiag, nx)
+    Rdiag = torch.ones((nu,), **kw) if Rdiag is None else t(Rdiag, nu)
+    u_lo = torch.full((nu,), -BIG, **kw) if u_lo is None else t(u_lo, nu)
+    u_hi = torch.full((nu,), BIG, **kw) if u_hi is None else t(u_hi, nu)
+    x_lo = torch.full((nx,), -BIG, **kw) if x_lo is None else t(x_lo, nx)
+    x_hi = torch.full((nx,), BIG, **kw) if x_hi is None else t(x_hi, nx)
+    return OCP(
+        m=1,
+        N=N,
+        n_obs=0,
+        num_rays=0,
+        integrator=integrator,
+        collision=False,
+        n_mov=0,
+        T=t(T),
+        Qdiag=Qdiag,
+        Rdiag=Rdiag,
+        x0=x0,
+        xref=xref,
+        u_lo=u_lo,
+        u_hi=u_hi,
+        x_lo=x_lo,
+        x_hi=x_hi,
+        dmin2=t(0.0),
+        obstacles=torch.zeros((0, 3), **kw),
+        robot_radius=t(0.1),
+        obs_margin=t(0.05),
+        inv_dist_weight=t(0.0),
+        p_obs=torch.zeros((0, 2), **kw),
+        mov_obs=torch.zeros((N, 0, 2), **kw),
+        dyn_fn=f,
+        nx_gen=nx,
+        nu_gen=nu,
+        substeps=substeps,
+    )
+
+
 def ocp_from_numpy(arrays: dict, device=DEVICE, **meta) -> OCP:
     """The port's OCP from the data fields of a reference OCP, each given as
     a numpy array, plus its static metadata (the OCP_META fields). This is
@@ -269,10 +343,38 @@ def ocp_from_numpy(arrays: dict, device=DEVICE, **meta) -> OCP:
 # ---------------------------------------------------------------------------
 
 
+def _integrate_generic(f, x, u, dt, integrator: str, substeps: int):
+    """Fixed-step integration of a user RHS at one point (x [nx], u [nu]):
+    Euler or RK4 with `substeps` sub-intervals. Functional (no in-place
+    writes), so torch.func.vmap and jacfwd pass through it."""
+    h = dt / substeps
+    for _ in range(substeps):
+        if integrator == "euler":
+            x = x + h * f(x, u)
+        elif integrator == "rk4":
+            k1 = f(x, u)
+            k2 = f(x + 0.5 * h * k1, u)
+            k3 = f(x + 0.5 * h * k2, u)
+            k4 = f(x + h * k3, u)
+            x = x + (h / 6.0) * (k1 + 2.0 * k2 + 2.0 * k3 + k4)
+        else:
+            raise ValueError(f"unknown integrator {integrator!r}")
+    return x
+
+
 def step_dynamics(ocp: OCP, x: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
-    """One discrete step of the (possibly LiDAR-augmented) model."""
+    """One discrete step of the (possibly LiDAR-augmented) model. A user
+    model (dyn_fn) is written for one point: over leading batch dimensions
+    it runs under torch.func.vmap."""
     if ocp.dyn_fn is not None:
-        raise NotImplementedError("user dynamics (make_generic_ocp) are not ported yet")
+        step = lambda xx, uu: _integrate_generic(  # noqa: E731
+            ocp.dyn_fn, xx, uu, ocp.T, ocp.integrator, ocp.substeps)
+        lead = torch.broadcast_shapes(x.shape[:-1], u.shape[:-1])
+        if not lead:
+            return step(x, u)
+        xf = x.expand(*lead, x.shape[-1]).reshape(-1, x.shape[-1])
+        uf = u.expand(*lead, u.shape[-1]).reshape(-1, u.shape[-1])
+        return torch.func.vmap(step)(xf, uf).reshape(*lead, x.shape[-1])
     if ocp.num_rays == 0:
         return discrete_dynamics(x, u, ocp.T, ocp.integrator)
     # Augmented model: pose evolves by Euler; ray distance d_m propagates as

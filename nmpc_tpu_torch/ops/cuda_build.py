@@ -43,7 +43,7 @@ BUILD_DIR = _PKG / "_build"
 UNITS = ("megasolve.cu", "staged.cu")       # one nvcc process each
 SOURCES = (*UNITS, "inner_warp.cuh", "staged.cuh", "staged_tiles.cuh",
            "expansions_rollout_tiles.cuh", "riccati.cuh", "rollout.cuh")
-# K3 at the stage shapes of staged_tiles.K3_SHAPES, a library per shape
+# K3 at a stage shape other than (3m, 2m), a library per shape
 K3_SHAPE_SOURCES = ("riccati_shape.cu", "staged_tiles.cuh", "staged.cuh", "riccati.cuh",
                     "rollout.cuh")
 FIRST_SOURCES = ("staged_first.cu", "staged.cuh", "riccati.cuh", "rollout.cuh")
@@ -71,7 +71,7 @@ launch_counts = {"inner_solve_fused": 0, "al_update_lanes": 0,
 
 _locks = {(kind, m): threading.Lock() for kind in ("solver", "tools", "first")
           for m in ROBOT_COUNTS}
-_locks.update({("k3", shape): threading.Lock() for shape in staged_tiles.K3_SHAPES})
+_locks_guard = threading.Lock()   # creates the lock of a new K3 shape
 _libs: dict[tuple[str, int], ctypes.CDLL] = {}
 # per m: {"path", "seconds" (0.0 when reused), "ptxas" (compiler report)}
 build_info: dict[int, dict] = {}
@@ -301,7 +301,7 @@ def load(m: int) -> ctypes.CDLL:
             f"m={m}")
         lib = _bind(ctypes.CDLL(str(path)))
         _check_robots(lib, path, m)
-        _check_geometry(lib, path, m, staged_tiles.K3_GEOMETRY[m], staged_tiles.K5_GEOMETRY[m],
+        _check_geometry(lib, path, m, staged_tiles.k3_geometry(m), staged_tiles.K5_GEOMETRY[m],
                         staged_tiles.K4_GEOMETRY[m], staged_tiles.K6_GEOMETRY[m])
         build_info[m] = {"path": str(path), "seconds": seconds, "ptxas": "".join(texts)}
         _libs["solver", m] = lib
@@ -309,15 +309,15 @@ def load(m: int) -> ctypes.CDLL:
 
 
 def load_k3_shape(n: int, nu: int) -> ctypes.CDLL:
-    """K3's library at the stage shape (n, nu) of staged_tiles.K3_SHAPES
-    (csrc/riccati_shape.cu; the entry points nmpc_riccati and
-    nmpc_k3_geometry as the solver library's), built first if needed."""
+    """K3's library at the stage shape (n, nu) (csrc/riccati_shape.cu at
+    staged_tiles.k3_geometry's pick; the entry points nmpc_riccati and
+    nmpc_k3_geometry as the solver library's), built first if needed. Any
+    n <= staged_tiles.K3_MAX_N and nu <= K3_MAX_NU; others raise."""
     shape = (n, nu)
-    if shape not in staged_tiles.K3_SHAPES:
-        raise NotImplementedError(
-            f"K3 is instantiated for n = 3m, nu = 2m (m in {ROBOT_COUNTS}) and (n, nu) in "
-            f"{staged_tiles.K3_SHAPES}, not n={n}, nu={nu}")
-    with _locks["k3", shape]:
+    g = staged_tiles.k3_geometry(shape)   # raises outside the range
+    with _locks_guard:
+        lock = _locks.setdefault(("k3", shape), threading.Lock())
+    with lock:
         if ("k3", shape) in _libs:
             return _libs["k3", shape]
         flags = staged_tiles.k3_shape_flags(shape)
@@ -335,7 +335,7 @@ def load_k3_shape(n: int, nu: int) -> ctypes.CDLL:
         lib.nmpc_riccati.restype = I
         got = (ctypes.c_int * 2)()
         lib.nmpc_k3_shape(got)
-        g, lay = staged_tiles.K3_GEOMETRY[shape], staged_tiles.k3_layout(shape)
+        lay = staged_tiles.k3_layout(shape)
         want = {"S": g.S, "D": g.D, "T": g.T, "P": g.P, "spill": int(g.spill),
                 "threads": lay["threads"], "smem_bytes": lay["smem_bytes"],
                 "scratch_floats": lay["scratch_floats"]}
@@ -402,7 +402,7 @@ def load_staged_variant(m: int, k3=None, k5=None, k4=None, k6=None) -> tuple:
     if m not in ROBOT_COUNTS:
         raise NotImplementedError(
             f"CUDA kernels are instantiated for m in {ROBOT_COUNTS}, not m={m}")
-    k3 = staged_tiles.K3_GEOMETRY[m] if k3 is None else k3
+    k3 = staged_tiles.k3_geometry(m) if k3 is None else k3
     k5 = staged_tiles.K5_GEOMETRY[m] if k5 is None else k5
     k4 = staged_tiles.K4_GEOMETRY[m] if k4 is None else k4
     k6 = staged_tiles.K6_GEOMETRY[m] if k6 is None else k6
@@ -451,17 +451,17 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA launch failed with error {err}: {msg}")
 
 
-def load_all() -> dict[int, ctypes.CDLL]:
+def load_all(k3_shapes: tuple = staged_tiles.K3_SHAPES) -> dict[int, ctypes.CDLL]:
     """Build (every source of every instantiation in its own nvcc process,
     all started together) and load every solver instantiation, K3 at each
-    of staged_tiles.K3_SHAPES, the tools library for the main path's
+    stage shape of k3_shapes, the tools library for the main path's
     BENCH_ROBOTS and the first designs' for FIRST_ROBOTS. Returns the
     solver libraries by m."""
-    workers = len(ROBOT_COUNTS) + 1 + len(FIRST_ROBOTS) + len(staged_tiles.K3_SHAPES)
+    workers = len(ROBOT_COUNTS) + 1 + len(FIRST_ROBOTS) + len(k3_shapes)
     with ThreadPoolExecutor(max_workers=workers) as pool:
         others = [pool.submit(load_tools, BENCH_ROBOTS)]
         others += [pool.submit(load_first, m) for m in FIRST_ROBOTS]
-        others += [pool.submit(load_k3_shape, *shape) for shape in staged_tiles.K3_SHAPES]
+        others += [pool.submit(load_k3_shape, *shape) for shape in k3_shapes]
         libs = list(pool.map(load, ROBOT_COUNTS))
         for f in others:
             f.result()

@@ -109,6 +109,28 @@ def hold(v: Verdict, name: str, got, plain, atol: float, rtol: float = 0.0, spre
     v.widened = widened if v.widened is None else v.widened | widened
 
 
+def k3_inputs(n: int, nu: int, B: int, N: int, gen: torch.Generator) -> tuple:
+    """Stage blocks of shape (n, nu) for K3, lane-major on gen's device: A
+    near identity and B dense with the off-diagonal scales divided by
+    sqrt(n), lxx and luu the identity plus a random PSD part, so that the
+    value function stays positive definite over the horizon at any shape
+    (tests/test_torch_staged_tiles.py's kind)."""
+    kw = dict(generator=gen, device=gen.device)
+    r = n ** -0.5
+    A = 0.2 * r * torch.randn((N, n, n, B), **kw) + torch.eye(n, device=gen.device)[..., None]
+    Bm = 0.3 * r * torch.randn((N, n, nu, B), **kw)
+
+    def psd(k):
+        M = torch.randn((N, k, k, B), **kw)
+        return (torch.einsum("zijb,zljb->zilb", M, M) * (0.3 / k)
+                + torch.eye(k, device=gen.device)[..., None])
+
+    lxx, luu = psd(n), psd(nu)
+    return tuple(t.contiguous() for t in (
+        A, Bm, torch.randn((N, n, B), **kw), torch.randn((N, nu, B), **kw), lxx, luu,
+        0.2 * r * torch.randn((N, nu, n, B), **kw)))
+
+
 def f32_spread(fn, inputs, draws: int = 4, seed: int = 0) -> list:
     """Per output of fn (a plain version), per unit (scenario): the largest
     change of fn's f64 result over `draws` runs with every input element

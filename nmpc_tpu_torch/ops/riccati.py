@@ -27,10 +27,11 @@ staged path: A [N, n, n, B], B [N, n, nu, B], lx [N, n, B], lu [N, nu, B],
 lxx [N, n, n, B], luu [N, nu, nu, B], lux [N, nu, n, B] -> kff [N, nu, B],
 Kfb [N, nu, n, B], dV1 [B]. `riccati_fused` is the standard-layout wrapper.
 The kernels are built for n = 3m, nu = 2m with m in cuda_build.ROBOT_COUNTS
-(in the solver library of m robots) and for the stage shapes (n, nu) of
-staged_tiles.K3_SHAPES (csrc/riccati_shape.cu, a library per shape: the
-ray-augmented stage of family I, n = 13, nu = 2, which the hybrid route of
-solver/alilqr_batched.py sends here); any other CUDA shape raises.
+(in the solver library of m robots) and for any other stage shape up to
+n = staged_tiles.K3_MAX_N, nu = K3_MAX_NU (csrc/riccati_shape.cu, a library
+per shape at its first use: the ray-augmented stage of family I, n = 13,
+nu = 2, and the user models of make_generic_ocp, which the hybrid route of
+solver/alilqr_batched.py sends here); a larger CUDA shape raises.
 """
 
 from __future__ import annotations
@@ -119,12 +120,10 @@ def check_lanes(exp) -> tuple:
     N, n, _, B = A.shape
     nu = exp[1].shape[2]
     m = n // 3
-    if (not (n == 3 * m and nu == 2 * m and m in cuda_build.ROBOT_COUNTS)
-            and (n, nu) not in staged_tiles.K3_SHAPES):
+    if not (1 <= n <= staged_tiles.K3_MAX_N and 1 <= nu <= staged_tiles.K3_MAX_NU):
         raise NotImplementedError(
-            f"riccati_lanes: the CUDA kernel covers n = 3m, nu = 2m for m in "
-            f"{cuda_build.ROBOT_COUNTS} and (n, nu) in {staged_tiles.K3_SHAPES}, not "
-            f"n={n}, nu={nu}")
+            f"riccati_lanes: the CUDA kernel covers stage shapes up to n="
+            f"{staged_tiles.K3_MAX_N}, nu={staged_tiles.K3_MAX_NU}, not n={n}, nu={nu}")
     for name, t, shape in zip(("A", "B", "lx", "lu", "lxx", "luu", "lux"), exp, (
             (N, n, n, B), (N, n, nu, B), (N, n, B), (N, nu, B), (N, n, n, B),
             (N, nu, nu, B), (N, nu, n, B))):

@@ -14,13 +14,15 @@ horizon through a ring of D stage tiles in shared memory.
       candidates go as several launches (rollout.linesearch_costs_lanes).
   K4: one stage of the tile a block, W warps a block.
   K6: a team of T threads per scenario, S T threads a block.
-K3 also takes other stage shapes (n, nu) than the robot stacks' (3m, 2m):
-the ray-augmented stage of family I (K3_SHAPES), built from
-csrc/riccati_shape.cu with `k3_shape_flags`. The picks per robot count come
-from `python -m
-nmpc_tpu_torch.tools.staged_launch` (PERF.md); ops/cuda_build.py passes them
-to nvcc, and the library reports them back (`nmpc_k3_geometry`, ...) for
-cuda_build to check. The sizes here mirror K3Rows, K3Slot, K3Geom, K5Geom,
+K3 also takes other stage shapes (n, nu) than the robot stacks' (3m, 2m),
+any n <= K3_MAX_N and nu <= K3_MAX_NU (the range of the robot stacks): the
+ray-augmented stage of family I and the user models of make_generic_ocp,
+each built from csrc/riccati_shape.cu with `k3_shape_flags`. K3's geometry
+at every shape, the robot stacks' included, is `k3_rule`'s, which gives the
+picks `python -m nmpc_tpu_torch.tools.staged_launch` recorded per robot
+count (K3_GEOMETRY, PERF.md). ops/cuda_build.py passes them to nvcc, and
+the library reports them back (`nmpc_k3_geometry`, ...) for cuda_build to
+check. The sizes here mirror K3Rows, K3Slot, K3Geom, K5Geom,
 K4Rows, K4Geom, K6Rows and K6Geom of the headers.
 """
 
@@ -66,20 +68,40 @@ class K6Geometry:
     T: int
 
 
-# the picks per robot count (tools/staged_launch.py, PERF.md); K3 also per
-# stage shape (n, nu) of the other problems that reach it: one robot with 10
-# LiDAR rays (n = 13, nu = 2; the registry's family I), a library of its own
-# (cuda_build.load_k3_shape), picked by its shared memory as m=4's (n = 12)
+# K3's picks as the sweep recorded them per robot count (tools/staged_launch.py,
+# PERF.md), and at the stage shape of one robot with 10 LiDAR rays (n = 13,
+# nu = 2; the registry's family I), picked by its shared memory as m=4's
+# (n = 12). Builds take `k3_geometry` (`k3_rule`); the tests hold the rule
+# to these picks.
 K3_GEOMETRY = {
     1: K3Geometry(128, 2, 1, 128), 2: K3Geometry(128, 2, 1, 128), 3: K3Geometry(16, 2, 16, 17),
     4: K3Geometry(8, 2, 16, 9), 5: K3Geometry(8, 2, 16, 9), 6: K3Geometry(8, 2, 32, 9),
     8: K3Geometry(8, 2, 32, 8), 10: K3Geometry(8, 2, 32, 8, spill=True),
     (13, 2): K3Geometry(8, 2, 16, 9),
 }
-# the stage shapes (n, nu) of K3 besides (3m, 2m)
-K3_SHAPES = tuple(k for k in K3_GEOMETRY if isinstance(k, tuple))
-# the K3 blocks that reside per SM by shared memory and threads at those picks
-K3_BLOCKS_PER_SM = {1: 5, 2: 1, 3: 3, 4: 3, 5: 2, 6: 1, 8: 1, 10: 1, (13, 2): 4}
+# the stage shapes K3 takes: any (n, nu) up to the largest robot stack's
+K3_MAX_N, K3_MAX_NU = 30, 20
+# the stage shapes (n, nu) besides (3m, 2m) of the problems the repository
+# ships, built ahead by cuda_build.load_all: family I's ray stage, and the
+# reference's two user models, Van der Pol (2, 1) and the first-order
+# process (1, 1) (tests/test_generic_dynamics.py)
+K3_SHAPES = ((13, 2), (2, 1), (1, 1))
+# stage shapes beyond the shipped problems' that take every branch of
+# `k3_rule` and the cases the robot stacks never reach: registers with odd
+# nu (5, 3); teams of 16 at tiles of 16 with nu = 1 and odd nu (7, 1),
+# (9, 5); teams of 16 at tiles of 8 (10, 6), (12, 10), (14, 3), with nu > T
+# (15, 20); teams of 32 at the odd pitch with nu = 1 (16, 1) and at pitch S
+# (19, 7), (20, 3); the slots spilled to device memory at a shape no robot
+# stack has (29, 20) and at m=10's (30, 20). With the robot stacks and
+# K3_SHAPES they take every residue of n and nu mod 4 (the stage rows'
+# 16-byte alignment). Held against the plain version by the host rehearsal
+# (tests/test_torch_staged_tiles.py) and on the card (chip_smoke.py,
+# tests/test_torch_cuda.py).
+K3_SWEEP_SHAPES = ((5, 3), (7, 1), (9, 5), (10, 6), (12, 10), (14, 3), (15, 20), (16, 1),
+                   (19, 7), (20, 3), (29, 20), (30, 20))
+# the K3 blocks that reside per SM by shared memory and threads at the picks
+K3_BLOCKS_PER_SM = {1: 5, 2: 1, 3: 3, 4: 3, 5: 2, 6: 1, 8: 1, 10: 1, (13, 2): 4, (2, 1): 12,
+                    (1, 1): 16}
 K5_GEOMETRY = {1: K5Geometry(32, 2), 2: K5Geometry(32, 2), 3: K5Geometry(32, 2),
                4: K5Geometry(16, 2), 5: K5Geometry(16, 2), 6: K5Geometry(32, 2),
                8: K5Geometry(16, 2), 10: K5Geometry(8, 2)}
@@ -89,6 +111,32 @@ K4_GEOMETRY = {1: K4Geometry(128, 4), 2: K4Geometry(64, 2), 3: K4Geometry(64, 4)
 K6_GEOMETRY = {1: K6Geometry(32, 4, 1), 2: K6Geometry(32, 4, 1), 3: K6Geometry(32, 2, 2),
                4: K6Geometry(32, 2, 2), 5: K6Geometry(32, 2, 2), 6: K6Geometry(32, 2, 1),
                8: K6Geometry(16, 2, 4), 10: K6Geometry(8, 2, 4)}
+
+
+def k3_rule(n: int, nu: int) -> K3Geometry:
+    """K3's geometry at stage shape (n, nu) by the rule the sweep's picks
+    follow: a thread a scenario with every block in registers up to m=2's
+    (6, 4); else teams of 16 lanes up to n = 15 and 32 beyond, tiles of 16
+    scenarios up to n = 9 and 8 beyond, the odd pitch S + 1 up to n = 18
+    (bank conflicts of a team reading down a column) and S beyond (16-byte
+    copies of the larger tiles), and the slots in device memory (spill)
+    where the ring and the slots overflow a block's shared memory."""
+    if not (1 <= n <= K3_MAX_N and 1 <= nu <= K3_MAX_NU):
+        raise NotImplementedError(
+            f"K3 takes stage shapes up to n={K3_MAX_N}, nu={K3_MAX_NU}, not n={n}, nu={nu}")
+    if n <= 6 and nu <= 4:
+        return K3Geometry(128, 2, 1, 128)
+    S = 16 if n <= 9 else 8
+    g = K3Geometry(S, 2, 16 if n <= 15 else 32, S + 1 if n <= 18 else S)
+    if k3_layout((n, nu), g)["smem_bytes"] > SMEM_BLOCK_MAX:
+        g = dataclasses.replace(g, spill=True)
+    return g
+
+
+def k3_geometry(key) -> K3Geometry:
+    """K3's geometry at a key (a robot count m or a stage shape (n, nu)):
+    `k3_rule` at its stage shape, the one source of every K3 build."""
+    return k3_rule(*k3_dims(key))
 
 
 def al4(v: int) -> int:
@@ -138,7 +186,7 @@ def k3_layout(m, g: K3Geometry | None = None) -> dict:
     tile and slots, its shared bytes, its device-memory scratch (floats, with
     spill), and the blocks and warps that reside per SM by shared memory and
     threads (registers not counted). m: a K3 key."""
-    g = K3_GEOMETRY[m] if g is None else g
+    g = k3_geometry(m) if g is None else g
     check_k3(m, g)
     n, nu = k3_dims(m)
     tile = al4(k3_rows(m) * g.P)
@@ -238,8 +286,8 @@ def k6_layout(m: int, g: K6Geometry | None = None) -> dict:
 
 def k3_shape_flags(shape: tuple, g: K3Geometry | None = None) -> list:
     """The -D flags of csrc/riccati_shape.cu: the stage shape (n, nu) and
-    K3's geometry there (K3_GEOMETRY's pick where not given)."""
-    g = K3_GEOMETRY[shape] if g is None else g
+    K3's geometry there (`k3_geometry` where not given)."""
+    g = k3_geometry(shape) if g is None else g
     check_k3(shape, g)
     return [f"-DNMPC_K3_N={shape[0]}", f"-DNMPC_K3_NU={shape[1]}", f"-DNMPC_K3_S={g.S}",
             f"-DNMPC_K3_D={g.D}", f"-DNMPC_K3_T={g.T}", f"-DNMPC_K3_P={g.P}",
@@ -250,7 +298,7 @@ def nvcc_flags(m: int, k3: K3Geometry | None = None, k5: K5Geometry | None = Non
                k4: K4Geometry | None = None, k6: K6Geometry | None = None) -> list:
     """The -D flags that set the staged kernels' geometry in csrc/staged.cu
     (the solver's picks where not given)."""
-    k3 = K3_GEOMETRY[m] if k3 is None else k3
+    k3 = k3_geometry(m) if k3 is None else k3
     k5 = K5_GEOMETRY[m] if k5 is None else k5
     k4 = K4_GEOMETRY[m] if k4 is None else k4
     k6 = K6_GEOMETRY[m] if k6 is None else k6

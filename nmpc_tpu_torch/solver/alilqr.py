@@ -1,11 +1,11 @@
 """AL-iLQR: the per-scenario engine and its building blocks. Port of
 nmpc_tpu/solver/alilqr.py: configuration, warm start and result types, stage
-expansions (analytic for Euler unicycles; the dynamics Jacobians of RK4 and
-LiDAR-augmented models and the ray rows' constraint Jacobians by
-torch.func.jacfwd, as the reference's jax.jacfwd), the dense backward
-Riccati sweep or the associative-scan LQR (sweep="scan"), the forward
-rollout, the cascade line search, the inner iLQR loop and `solve`. User
-dynamics (dyn_fn) are not ported and raise.
+expansions (analytic for Euler unicycles; the dynamics Jacobians of RK4,
+LiDAR-augmented and user (dyn_fn) models and the constraint Jacobians of
+the last two by torch.func.jacfwd, as the reference's jax.jacfwd), the
+dense backward Riccati sweep or the associative-scan LQR (sweep="scan"),
+the forward rollout, the cascade line search, the inner iLQR loop and
+`solve`.
 
 Structure of the solver: an outer PHR multiplier loop
 (lam <- max(0, lam - mu c), mu <- b mu) around an inner iLQR descent on the
@@ -149,12 +149,10 @@ def _vmap_flat(fn, *args):
 
 def _stage_jacobians(ocp: OCP, x, u):
     """(A, B) of the discrete step: analytic for the plain Euler model,
-    torch.func.jacfwd for RK4 and LiDAR-augmented models (the reference's
-    jax.jacfwd; problem.step_dynamics differentiates its kinks as JAX
-    does). x [..., nx], u [..., nu]."""
-    if ocp.dyn_fn is not None:
-        raise NotImplementedError("user dynamics (dyn_fn) are not ported yet")
-    if ocp.integrator == "euler" and ocp.num_rays == 0:
+    torch.func.jacfwd for RK4, LiDAR-augmented and user (dyn_fn) models
+    (the reference's jax.jacfwd; problem.step_dynamics differentiates its
+    kinks as JAX does). x [..., nx], u [..., nu]."""
+    if ocp.integrator == "euler" and ocp.num_rays == 0 and ocp.dyn_fn is None:
         return euler_jacobians(x, u, ocp.T)
     F = lambda xx, uu: P.step_dynamics(ocp, xx, uu)  # noqa: E731
     return _vmap_flat(torch.func.jacfwd(F, argnums=(0, 1)), x, u)
@@ -164,10 +162,9 @@ def _stage_expansion(ocp: OCP, x, u, xref_k, lam_k, mov_k, mu):
     """Gradients and Gauss-Newton Hessians of the AL merit stage term.
     x [..., nx], u [..., nu], lam_k [..., n_con], mu broadcastable to the
     leading shape of x. LiDAR-augmented problems add the 1/d cost's
-    gradient and Hessian diagonal and take the constraint Jacobians by
-    torch.func.jacfwd (as the reference); the others the analytic ones."""
-    if ocp.dyn_fn is not None:
-        raise NotImplementedError("expansions of dyn_fn problems are not ported yet")
+    gradient and Hessian diagonal; they and user (dyn_fn) models take the
+    constraint Jacobians by torch.func.jacfwd (as the reference); the others
+    the analytic ones."""
     kw = dict(dtype=x.dtype, device=x.device)
     lead = torch.broadcast_shapes(x.shape[:-1], u.shape[:-1])
     dx = x - xref_k
@@ -185,8 +182,9 @@ def _stage_expansion(ocp: OCP, x, u, xref_k, lam_k, mov_k, mu):
         hray = 6.0 * ocp.inv_dist_weight / d**4
         lx = torch.cat([lx[..., :3], lx[..., 3:] + gray], dim=-1)
         lxx = lxx + torch.diag_embed(torch.cat([torch.zeros_like(hray[..., :3]), hray], -1))
+    if ocp.num_rays or ocp.dyn_fn is not None:
         if mov_k is not None:
-            raise NotImplementedError("moving obstacles with LiDAR rays are not ported")
+            raise NotImplementedError("moving obstacles with LiDAR rays or dyn_fn are not ported")
         Jx, Ju = _vmap_flat(torch.func.jacfwd(
             lambda xx, uu: P.stage_constraints(ocp, xx, uu), argnums=(0, 1)), x, u)
     else:

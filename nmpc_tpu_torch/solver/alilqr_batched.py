@@ -20,8 +20,8 @@ tensors:
   expansions, K3 Riccati sweep, K5 line-search merits and K6 accepted
   rollout, on lane-major data ([N, rows, B]) with no transposes inside the
   inner loop; the AL update between outer steps runs in plain PyTorch.
-* `_solve_hybrid` (everything else with Euler or RK4 dynamics: LiDAR rays,
-  RK4, sweep="scan", robot counts outside cuda_build.ROBOT_COUNTS): the
+* `_solve_hybrid` (everything else: LiDAR rays, RK4, user dynamics
+  (dyn_fn), sweep="scan", robot counts outside cuda_build.ROBOT_COUNTS): the
   reference's hybrid. Stage expansions in plain PyTorch (dynamics Jacobians
   by torch.func.jacfwd where they are not analytic), then K3 through
   `riccati_fused` at the problem's own stage shape (or the associative-scan
@@ -31,9 +31,8 @@ tensors:
 
 Per-scenario convergence masks, inner and outer iteration counts and warm
 starts follow the reference, each route its own (they count inner
-iterations differently). What no route covers raises NotImplementedError
-(dyn_fn); on CUDA tensors a shape a kernel of the route is not built for
-raises too: there is no fallback.
+iterations differently). On CUDA tensors a shape a kernel of the route is
+not built for raises NotImplementedError: there is no fallback.
 
 No padding: the reference pads B to a multiple of its 128-lane tile; the
 CUDA kernels mask the ragged edge of their grid instead.
@@ -361,8 +360,6 @@ def solve_batched(ocp_b: OCP, warm: WarmStart | None = None,
     cfg.ls, cfg.sweep or cfg.cold_seed raises ValueError. On CUDA tensors
     every kernel of the route runs its hand kernel or raises; on CPU tensors
     the plain PyTorch versions run."""
-    if ocp_b.dyn_fn is not None:
-        raise NotImplementedError("solve_batched: user dynamics (dyn_fn) are not ported yet")
     if cfg.ls not in ("cascade", "adaptive"):
         raise ValueError(f"solve_batched: unknown line search {cfg.ls!r}")
     if cfg.cold_seed not in ("zero", "polar"):

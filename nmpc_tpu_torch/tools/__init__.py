@@ -12,9 +12,12 @@ version:
 and the closed-loop fleet (`fleet_loop`, the port of
 tools/bench_fleet_loop.py: a B-wide warm MPC loop through K1 and K2), the
 lidar_v4 fleet and tour (`lidar_fleet`, the port of tools/bench_lidar.py:
-the condensed GN engine at B, and the LiDAR closed loop at B=1). Each
-runs on the card as `python -m nmpc_tpu_torch.tools.<name>` and refuses to
-measure without one. Beside them, `sass_diff` compares the solver kernels'
+the condensed GN engine at B, and the LiDAR closed loop at B=1), the
+reference's user models on the generic-dynamics hook (`user_models`: the
+Van der Pol and first-order process fleets through K3 at their stage
+shapes) and the ADMM fleet (`admm_fleet`, the port of tools/bench_admm.py).
+Each runs on the card as `python -m nmpc_tpu_torch.tools.<name>` and
+refuses to measure without one. Beside them, `sass_diff` compares the solver kernels'
 machine code with another checkout's (it needs the CUDA toolkit, not a
 card).
 """

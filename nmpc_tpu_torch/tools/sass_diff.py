@@ -1,9 +1,10 @@
 """Compare the machine code (SASS) of the solver's kernels between two
 checkouts: does a change of the sources change what the card runs?
 
-    python -m nmpc_tpu_torch.tools.sass_diff OTHER_CHECKOUT [M]
+    python -m nmpc_tpu_torch.tools.sass_diff OTHER_CHECKOUT [M | N,NU]
 
-builds the solver library for M robots (default 6, the main path) in this
+builds the solver library for M robots (default 6, the main path), or K3's
+library at the stage shape (N, NU) (csrc/riccati_shape.cu), in this
 checkout and in OTHER_CHECKOUT, each with its own nmpc_tpu_torch/ops/cuda_build
 (a subprocess for the other), disassembles both with cuobjdump -sass and
 prints, per kernel, its instruction count in each and whether the two listings
@@ -65,13 +66,20 @@ def compare(a: dict, b: dict) -> dict[str, tuple]:
     return out
 
 
-def library(root: Path, m: int) -> str:
-    """Path of the solver library for m robots built by root's own sources."""
+def library(root: Path, m) -> str:
+    """Path of the solver library for m robots, or of K3's library at the
+    stage shape m = (n, nu), built by root's own sources."""
+    shape = isinstance(m, tuple)
     if root.resolve() == ROOT:
+        if shape:
+            cuda_build.load_k3_shape(*m)
+            return cuda_build.k3_shape_build_info[m]["path"]
         cuda_build.load(m)
         return cuda_build.build_info[m]["path"]
-    code = ("from nmpc_tpu_torch.ops import cuda_build\n"
-            f"cuda_build.load({m})\nprint(cuda_build.build_info[{m}]['path'])\n")
+    load, info = ((f"load_k3_shape(*{m})", f"k3_shape_build_info[{m}]") if shape
+                  else (f"load({m})", f"build_info[{m}]"))
+    code = (f"from nmpc_tpu_torch.ops import cuda_build\ncuda_build.{load}\n"
+            f"print(cuda_build.{info}['path'])\n")
     env = dict(os.environ, PYTHONPATH=str(root))
     proc = subprocess.run([sys.executable, "-c", code], cwd=root, env=env,
                           capture_output=True, text=True, check=True)
@@ -89,9 +97,12 @@ def main(argv=None) -> int:
     if not argv:
         print(__doc__, file=sys.stderr)
         return 2
-    other, m = Path(argv[0]), int(argv[1]) if len(argv) > 1 else cuda_build.BENCH_ROBOTS
+    other, m = Path(argv[0]), cuda_build.BENCH_ROBOTS
+    if len(argv) > 1:
+        m = tuple(map(int, argv[1].split(","))) if "," in argv[1] else int(argv[1])
     rows = compare(functions(sass(library(ROOT, m))), functions(sass(library(other, m))))
-    print(f"SASS of the m={m} solver library: this checkout against {other}")
+    what = f"K3 library at (n, nu) = {m}" if isinstance(m, tuple) else f"m={m} solver library"
+    print(f"SASS of the {what}: this checkout against {other}")
     for name, (na, nb, changed) in rows.items():
         verdict = ("missing on one side" if changed is None
                    else "identical" if changed == 0 else f"{changed} lines differ")

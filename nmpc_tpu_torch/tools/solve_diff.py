@@ -3,12 +3,13 @@ change of the sources change what solve_batched returns?
 
     python -m nmpc_tpu_torch.tools.solve_diff OTHER_CHECKOUT
 
-solves chip_smoke.py's four full-width batches, each drawn from a fixed
+solves chip_smoke.py's five full-width batches, each drawn from a fixed
 seed: the main path (six_robot_antipodal N=10 B=32768, the benchmark's
 config, megakernel route), path (a) (the same batch with mega=False), path
-(b) (obstacle_scenario_3 N=100 B=32768) and path (c) (B=4096 moving-obstacle
+(b) (obstacle_scenario_3 N=100 B=32768), path (c) (B=4096 moving-obstacle
 subproblems of one decentralized round), (b) and (c) on the staged route
-(mega=False) as chip_smoke.py phases 8 and 9 run them, in this checkout and in
+(mega=False) as chip_smoke.py phases 8 and 9 run them, and path (d)
+(lidar_v2 N=100 B=4096 on the hybrid route, K3 at (13, 2), as phase 25), in this checkout and in
 OTHER_CHECKOUT, each in a subprocess with its own package and chip_smoke.py,
 and prints per batch and output how many entries differ (NaN equals NaN).
 A redesign that must keep the solver's bits (a kernel held bit for bit to
@@ -30,7 +31,7 @@ ROOT = Path(__file__).resolve().parents[2]
 OUTPUTS = ("X", "U", "cost", "lam", "mu", "viol", "converged", "inner_iters", "outer_iters")
 
 # run in each checkout: only the API both sides have (solve_batched, the
-# registry, batch_ocp, chip_smoke.decentralized_round)
+# registry, batch_ocp, chip_smoke.decentralized_round, tools/lidar_fleet)
 SOLVES = """
 import dataclasses, sys, torch
 from chip_smoke import decentralized_round
@@ -38,6 +39,7 @@ from nmpc_tpu_torch.ocp import problem as P
 from nmpc_tpu_torch.parallel import batch_ocp
 from nmpc_tpu_torch.scenarios import get
 from nmpc_tpu_torch.solver import ALILQRConfig, solve_batched
+from nmpc_tpu_torch.tools import lidar_fleet as LF
 
 dev = torch.device("cuda", 0)
 g = torch.Generator(device=dev).manual_seed(0)
@@ -49,7 +51,9 @@ ob_b = batch_ocp(obs, obs.x0[None] + 0.05 * torch.randn((32768, obs.nx), generat
 runs = {"main path": (ob, cfg), "path (a)": (ob, dataclasses.replace(cfg, mega=False)),
         "path (b)": (ob_b, ALILQRConfig(n_outer=12, n_inner=25, tol_con=1e-3, mega=False)),
         "path (c)": (decentralized_round(P.make_ocp, dev, g, 4096),
-                     ALILQRConfig(n_outer=6, n_inner=12, tol_con=1e-4, mega=False))}
+                     ALILQRConfig(n_outer=6, n_inner=12, tol_con=1e-4, mega=False)),
+        "path (d)": (LF.jittered(LF.scanned("lidar_v2", [[0.5, 0.25, 0.15]], dev, ray_lo=0.3),
+                                 4096, g), ALILQRConfig(n_outer=10, n_inner=20, tol_con=1e-3))}
 out = {}
 for tag, (o, c) in runs.items():
     r = solve_batched(o, cfg=c)
@@ -59,7 +63,7 @@ torch.save(out, sys.argv[1])
 
 
 def solve(root: Path, path: str) -> dict:
-    """The four batches' results as root's own sources compute them."""
+    """The five batches' results as root's own sources compute them."""
     env = dict(os.environ, PYTHONPATH=str(root))
     subprocess.run([sys.executable, "-c", f"OUTPUTS = {OUTPUTS!r}\n" + SOLVES, path], cwd=root,
                    env=env, check=True)

@@ -35,7 +35,7 @@ import torch
 
 import obstacle_cases as OC
 from nmpc_tpu_torch.ocp import problem as P
-from nmpc_tpu_torch.ops import cuda_build, megasolve
+from nmpc_tpu_torch.ops import cuda_build, megasolve, staged_tiles
 from nmpc_tpu_torch.ops import rollout as R
 from nmpc_tpu_torch.ops.expansions import expansions_fused
 from nmpc_tpu_torch.ops.kernel_check import staged_vs_plain
@@ -358,8 +358,11 @@ def test_staged_wrappers_refuse_what_the_kernels_do_not_cover(dev):
     with pytest.raises(NotImplementedError, match="m=7"):
         R.linesearch_costs_lanes(seven, L["x0"], L["X"], L["U"], L["kff"], L["Kfb"],
                                  L["xref"], L["lam"], L["mu"], (0.0, 1.0))
-    bad = tuple(torch.zeros((5, 4, 4, 64), device=dev) for _ in range(7))
-    with pytest.raises(NotImplementedError, match="n = 3m"):
+    # K3 takes any stage shape up to the largest robot stack's (30, 20)
+    bad = tuple(torch.zeros(s, device=dev) for s in (
+        (5, 31, 31, 64), (5, 31, 4, 64), (5, 31, 64), (5, 4, 64), (5, 31, 31, 64),
+        (5, 4, 4, 64), (5, 4, 31, 64)))
+    with pytest.raises(NotImplementedError, match="up to n=30"):
         riccati_lanes(bad)
 
 
@@ -624,7 +627,89 @@ def test_hybrid_route_on_the_card_launches_k3(dev):
     ref = solve_batched(ob.to("cpu"), cfg=cfg)
     assert abs(float(res.cost.mean().cpu() / ref.cost.mean()) - 1.0) <= 1e-3
     assert torch.equal(res.converged.cpu(), ref.converged)
-    with pytest.raises(NotImplementedError, match="n = 3m"):
+    with pytest.raises(NotImplementedError, match="up to n=30"):
         riccati_lanes(tuple(torch.zeros(s, device=dev) for s in (
-            (5, 14, 14, 8), (5, 14, 2, 8), (5, 14, 8), (5, 2, 8), (5, 14, 14, 8), (5, 2, 2, 8),
-            (5, 2, 14, 8))))
+            (5, 14, 14, 8), (5, 14, 21, 8), (5, 14, 8), (5, 21, 8), (5, 14, 14, 8),
+            (5, 21, 21, 8), (5, 21, 14, 8))))
+
+
+# ---------------------------------------------------------------------------
+# K3 at the user models' stage shapes (2, 1) and (1, 1), the generic hybrid
+# route
+# ---------------------------------------------------------------------------
+
+
+def _user_batch(dev, model, B, seed=0):
+    from nmpc_tpu_torch.tools import user_models as UM
+
+    make = UM.vdp_ocp if model == "vdp" else UM.process_ocp
+    return UM.jittered(make(dev), B, torch.Generator(device=dev).manual_seed(seed))
+
+
+@pytest.mark.parametrize("B", [300, 33])
+@pytest.mark.parametrize("model", ["vdp", "process"])
+def test_riccati_kernel_at_user_model_shapes_matches_plain(dev, model, B):
+    """K3 at (2, 1) (Van der Pol) and (1, 1) (the first-order process),
+    csrc/riccati_shape.cu at staged_tiles.k3_rule's geometry, on the hybrid
+    route's own stage blocks mid-solve, against its plain version by
+    ops/kernel_check.py's rule; one launch. B=33: a ragged tile, 4-byte
+    copies."""
+    from nmpc_tpu_torch.ops import kernel_check as KC
+    from nmpc_tpu_torch.ops.cuda_build import lane
+    from nmpc_tpu_torch.ops.riccati import riccati_plain
+    from nmpc_tpu_torch.solver import alilqr_batched as AB
+
+    ob = _user_batch(dev, model, B)
+    g = torch.Generator(device=dev).manual_seed(1)
+    U = 0.3 * torch.randn((B, ob.N, ob.nu), generator=g, device=dev)
+    lam = 0.5 * torch.randn((B, ob.N, ob.n_con), generator=g, device=dev).abs()
+    lam = lam * (P.constraint_mask(ob) > 0)
+    mu = torch.full((B,), 100.0, device=dev)
+    exp = tuple(map(lane, AB.hybrid_expansions(ob, P.rollout(ob, U), U, lam, mu)))
+    cuda_build.reset_launch_counts()
+    got = riccati_lanes(exp, 1e-6)
+    assert cuda_build.launch_counts["riccati_lanes"] == 1
+    assert (ob.nx, ob.nu) in cuda_build.k3_shape_build_info
+    v = KC.Verdict()
+    for i, (a, w, atol) in enumerate(zip(got, riccati_plain(exp, 1e-6), KC.K3_ATOL)):
+        KC.hold(v, f"K3 ({ob.nx}, {ob.nu}) output {i}", a, w, atol)
+    assert v.units == B and v.n_widened == 0 and v.n_diverged == 0
+
+
+@pytest.mark.parametrize("shape", staged_tiles.K3_SWEEP_SHAPES)
+def test_riccati_kernel_at_rule_shapes_matches_plain(dev, shape):
+    """K3 from csrc/riccati_shape.cu at every branch of staged_tiles.k3_rule
+    (K3_SWEEP_SHAPES: teams of 16 and 32 with nu = 1, odd nu and nu > T, both
+    pitches, the spilled slots) against its plain version on random
+    well-posed stage blocks, by ops/kernel_check.py's rule, at B = 33 and
+    300."""
+    from nmpc_tpu_torch.ops import kernel_check as KC
+    from nmpc_tpu_torch.ops import riccati as RIC
+
+    lib = cuda_build.load_k3_shape(*shape)
+    g = torch.Generator(device=dev).manual_seed(sum(shape))
+    for B in (33, 300):
+        exp = KC.k3_inputs(*shape, B, 5, g)
+        RIC.check_lanes(exp)
+        got = RIC.launch(exp, 1e-6, lib)
+        v = KC.Verdict()
+        for i, (a, w, atol) in enumerate(zip(got, RIC.riccati_plain(exp, 1e-6), KC.K3_ATOL)):
+            KC.hold(v, f"K3 {shape} B={B} output {i}", a, w, atol)
+        assert v.units == B and v.n_widened == 0 and v.n_diverged == 0
+
+
+def test_generic_hybrid_route_on_the_card_launches_k3(dev):
+    """A Van der Pol batch on the card takes the hybrid route: K3 at (2, 1)
+    every inner iteration and no other kernel (plain rollouts of every
+    candidate), converging as the same route's plain versions on the CPU
+    (cost ratio within 1e-3, convergence equal)."""
+    ob = _user_batch(dev, "vdp", 64)
+    cfg = ALILQRConfig(n_outer=6, n_inner=20, tol_con=1e-4)
+    cuda_build.reset_launch_counts()
+    res = solve_batched(ob, cfg=cfg)
+    c = dict(cuda_build.launch_counts)
+    assert c["riccati_lanes"] >= int(res.inner_iters.max()) > 0
+    assert sum(c.values()) == c["riccati_lanes"], c
+    ref = solve_batched(ob.to("cpu"), cfg=cfg)
+    assert abs(float(res.cost.mean().cpu() / ref.cost.mean()) - 1.0) <= 1e-3
+    assert torch.equal(res.converged.cpu(), ref.converged)

@@ -1,5 +1,6 @@
 """Import hygiene of the port: no module of nmpc_tpu_torch loads JAX or the
-JAX package, and importing builds nothing."""
+JAX package, and importing builds nothing (no kernel library, no native
+runtime)."""
 
 import pkgutil
 import subprocess
@@ -24,7 +25,10 @@ def test_port_modules_import_without_jax():
             "nmpc_tpu_torch.sim.plant", "nmpc_tpu_torch.sim.frames", "nmpc_tpu_torch.sim.lidar",
             "nmpc_tpu_torch.mpc.driver", "nmpc_tpu_torch.tools.fleet_loop",
             "nmpc_tpu_torch.device", "nmpc_tpu_torch.solver.gn", "nmpc_tpu_torch.mpc.lidar",
-            "nmpc_tpu_torch.ops.assoc_lqr", "nmpc_tpu_torch.tools.lidar_fleet"} <= set(names)
+            "nmpc_tpu_torch.ops.assoc_lqr", "nmpc_tpu_torch.tools.lidar_fleet",
+            "nmpc_tpu_torch.solver.admm", "nmpc_tpu_torch.utils.runlog",
+            "nmpc_tpu_torch.io", "nmpc_tpu_torch.io.bridge", "nmpc_tpu_torch.io.robot",
+            "nmpc_tpu_torch.__main__"} <= set(names)
     code = (
         "import importlib, sys\n"
         f"for name in {['nmpc_tpu_torch', *names]!r}:\n"
@@ -33,7 +37,9 @@ def test_port_modules_import_without_jax():
         "             or m == 'nmpc_tpu' or m.startswith('nmpc_tpu.'))\n"
         "assert not bad, bad\n"
         "from nmpc_tpu_torch.ops import cuda_build\n"
-        "assert not cuda_build.build_info\n"
+        "assert not cuda_build.build_info and not cuda_build.k3_shape_build_info\n"
+        "from nmpc_tpu_torch.io import bridge\n"
+        "assert bridge._lib is None\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)

@@ -32,6 +32,7 @@ from nmpc_tpu.solver.alilqr import WarmStart as JaxWarm
 from nmpc_tpu.solver.alilqr_batched import solve_batched as jax_solve_batched
 from nmpc_tpu_torch.ocp import problem as TP
 from nmpc_tpu_torch.ops import cuda_build
+from nmpc_tpu_torch.parallel import batch_ocp
 from nmpc_tpu_torch.solver.alilqr import ALILQRConfig, warm_from_numpy
 from nmpc_tpu_torch.solver.alilqr_batched import solve_batched, solve_one
 
@@ -145,11 +146,16 @@ def test_cpu_main_path_launches_no_kernel():
 
 def test_unported_options_raise():
     """compact, sweep='scan' and cold_seed='polar' are ported
-    (tests/test_torch_hybrid.py); user dynamics (dyn_fn) are not and raise,
-    and a setting no route knows raises ValueError."""
+    (tests/test_torch_hybrid.py); so are user dynamics (dyn_fn): a generic
+    problem solves on the hybrid route (tests/test_torch_generic.py holds it
+    against the reference). A setting no route knows raises ValueError."""
     ob = port_ocp(_batch("two_robot_swap", 2, 0.05, seed=6))
-    with pytest.raises(NotImplementedError, match="dyn_fn"):
-        solve_batched(dataclasses.replace(ob, dyn_fn=lambda x, u: x), cfg=ALILQRConfig())
+    gen = TP.make_generic_ocp(lambda x, u: -x + u, nx=1, nu=1, N=5, T=0.1, x0=[1.0],
+                              u_lo=[-1.0], u_hi=[1.0], integrator="euler", device="cpu")
+    res = solve_batched(batch_ocp(gen, torch.tensor([[1.0], [0.5]])),
+                        cfg=ALILQRConfig(n_outer=2, n_inner=5))
+    assert res.U.shape == (2, 5, 1) and torch.isfinite(res.cost).all()
+    assert bool(res.converged.all()) and float(res.cost[1]) < float(res.cost[0])
     for kw in (dict(sweep="dense"), dict(cold_seed="random"), dict(ls="exact")):
         with pytest.raises(ValueError):
             solve_batched(ob, cfg=ALILQRConfig(**kw))

@@ -12,7 +12,9 @@
   (those of tests/test_torch_staged_ops.py, by the rule of
   ops/kernel_check.py), against the first designs (staged.cuh, compiled
   beside them) bit for bit, and K3 at m=2 against the JAX package's Pallas
-  kernel in interpret mode. Batches of 32 (16-byte rows) and 33 (4-byte
+  kernel in interpret mode; K3 also at the stage shapes of ST.K3_SHAPES (the
+  ray stage, the user models' (2, 1) and (1, 1)) and ST.K3_SWEEP_SHAPES
+  (every branch of k3_rule) against plain. Batches of 32 (16-byte rows) and 33 (4-byte
   copies, a ragged last tile); horizons of 1 and 5 (not a multiple of the
   ring depth); at m=1 with static-obstacle and with moving-obstacle rows.
   Skipped where g++ is missing.
@@ -41,6 +43,8 @@ from nmpc_tpu_torch.scenarios import get
 HOST = Path(__file__).resolve().parent / "staged_tiles_host.cpp"
 HOST_ROBOTS = (1, 2, 6)
 RAY_SHAPE = (13, 2)   # one robot with the registry's 10 LiDAR rays (ST.K3_SHAPES)
+# the reference's user models: Van der Pol (2, 1), the first-order process (1, 1)
+USER_SHAPES = ((2, 1), (1, 1))
 ALPHAS = (0.0, 1.0, 0.5, 0.25, 0.1, 0.03, 0.01, 0.003, 0.001)   # the solver's grid
 
 
@@ -126,7 +130,7 @@ def host_libs(tmp_path_factory):
         lib.host_rollout_alpha.argtypes = [V] * 9 + [I] * 3
         return lib
 
-    keys = (*HOST_ROBOTS, RAY_SHAPE)
+    keys = (*HOST_ROBOTS, *ST.K3_SHAPES, *ST.K3_SWEEP_SHAPES)
     with ThreadPoolExecutor(len(keys)) as pool:
         return dict(zip(keys, pool.map(build, keys)))
 
@@ -222,6 +226,50 @@ def test_host_riccati_tiles_at_the_ray_shape_match_plain(host_libs, B, N):
         KC.hold(v, f"K3 (13, 2) output {i}", gv, w, atol)
     assert v.n_widened == 0 and v.units == B
     assert all(torch.isfinite(t).all() for t in got)
+
+
+@pytest.mark.parametrize("B,N", [(32, 5), (33, 5), (33, 1)])
+@pytest.mark.parametrize("shape", USER_SHAPES + ST.K3_SWEEP_SHAPES)
+def test_host_riccati_tiles_at_user_model_shapes_match_plain(host_libs, shape, B, N):
+    """K3 at the user models' stage shapes (csrc/riccati_shape.cu's
+    instantiations at k3_rule's geometry: a thread a scenario, every block
+    in registers, stage tiles of 7-16 rows in the ring's 16-byte copies and
+    4-byte copies of a ragged tile) and at ST.K3_SWEEP_SHAPES (every branch
+    of k3_rule: teams of 16 and 32 with nu = 1, odd nu and nu > T, both
+    pitches, the spilled slots at a shape no robot stack has) against
+    riccati_plain at K3's tolerances."""
+    lib = host_libs[shape]
+    g = (ctypes.c_int * 8)()
+    lib.host_k3_geometry(g)
+    g3, lay = ST.k3_geometry(shape), ST.k3_layout(shape)
+    assert g3 == ST.k3_rule(*shape) and (g3.T == 1 or shape not in USER_SHAPES)
+    assert list(g) == [g3.S, g3.D, g3.T, g3.P, int(g3.spill), lay["threads"], lay["smem_bytes"],
+                       lay["scratch_floats"]]
+    exp = _riccati_inputs(shape, B, N, seed=sum(shape) + B + N)
+    got = _host_riccati(lib, exp, tiles=True)
+    v = KC.Verdict()
+    for i, (gv, w, atol) in enumerate(zip(got, riccati_plain(exp, 1e-6), KC.K3_ATOL)):
+        KC.hold(v, f"K3 {shape} output {i}", gv, w, atol)
+    assert v.n_widened == 0 and v.units == B
+    assert all(torch.isfinite(t).all() for t in got)
+
+
+def test_k3_rule_gives_the_picks_and_bounds_the_shapes():
+    """k3_rule reproduces every pick of K3_GEOMETRY (the sweep's, and the
+    ray shape's), fits every shape of its range in a block, and refuses
+    shapes beyond it."""
+    for key, g in ST.K3_GEOMETRY.items():
+        assert ST.k3_rule(*ST.k3_dims(key)) == g, key
+    for key in ST.K3_SHAPES:
+        assert ST.k3_layout(key)["blocks_per_sm"] == ST.K3_BLOCKS_PER_SM[key], key
+    for n in range(1, ST.K3_MAX_N + 1):
+        for nu in range(1, ST.K3_MAX_NU + 1):
+            lay = ST.k3_layout((n, nu))
+            assert lay["smem_bytes"] <= ST.SMEM_BLOCK_MAX and lay["threads"] <= 1024, (n, nu)
+    for bad in ((ST.K3_MAX_N + 1, 2), (3, ST.K3_MAX_NU + 1), (0, 1)):
+        with pytest.raises(NotImplementedError):
+            ST.k3_rule(*bad)
+    assert ST.k3_shape_flags((2, 1))[:2] == ["-DNMPC_K3_N=2", "-DNMPC_K3_NU=1"]
 
 
 def test_host_riccati_tiles_match_pallas_kernel(host_libs):
