@@ -58,7 +58,18 @@ and holding each against its plain PyTorch version on the card:
   PyTorch); the real-time loop over the native runtime (io/robot.py's
   run_realtime, six_robot_impl, robots as a host thread over UDP) through
   K1 and K2 at B=1; `python -m nmpc_tpu_torch` in-process (list, a saved
-  fused run, consensus, obstacle_scenario_1 on the default route).
+  fused run, consensus, obstacle_scenario_1 on the default route);
+* the sharded forms (nmpc_tpu_torch/parallel/mesh.py, shard_ocp_batch,
+  consensus_solve_sharded, decentralized_step_sharded, parallel/dryrun.py):
+  a one-rank NCCL world on the card, through which the main path's batch
+  runs sharded (K1 and K2, bit for bit against the unsharded solve), the
+  48-robot consensus fleet (K1's obstacle variant with 47 moving-obstacle
+  rows, and K2; bit for bit against the single-program form where no row
+  binds, within the spread of a 1e-7 move of x0 in the fleet packed to its
+  keep-out, where they bind), K1 and K2 against plain with every slot
+  binding, a decentralized round and the GN and ADMM fleets; then
+  the dry run on a world of two ranks that share the card and exchange
+  through gloo.
 
 Phases:
 
@@ -132,6 +143,15 @@ Phases:
                                       runtime (six_robot_impl, UDP)
                                    33 the CLI: list, run (fused, saved;
                                       consensus; obstacle_scenario_1)
+                                   34 the sharded forms: one rank on NCCL
+                                      (the main path's batch bit for bit
+                                      against unsharded, its solves/s and
+                                      overhead; consensus m=48 against the
+                                      single-program form at its spread,
+                                      K1/K2 vs plain at its shape, K1's
+                                      share; a decentralized round; the GN
+                                      and ADMM fleets bit for bit); the dry
+                                      run on two ranks over gloo
 
 Phases 5, 7, 8, 9, 20, 22, 25, 30 and 31 re-solve the first scenarios with the plain path on
 the CPU. Any failed check raises, so the exit code is non-zero. Without a CUDA
@@ -158,6 +178,11 @@ BENCH_B = 32768
 K1_B = 1024
 CROSS_B = 64
 OBS_CROSS_B = 32
+# phase 34: consensus's fleet (tools/bench_consensus.py's largest), the GN
+# fleet's and the ADMM fleet's batches
+SHARD_CONSENSUS_M = 48
+SHARD_GN_B = 1024
+SHARD_ADMM_B = 256
 MOV_B = 4096
 # path (d) (the hybrid route on family I), its CPU re-solve, and the lidar_v4
 # loop's steps in phase 28
@@ -1839,6 +1864,342 @@ def user_model_phases(dev, card: str) -> list:
     return [k3[shape] for shape in models]
 
 
+def circle_fleet(m: int, radius: float, dev):
+    """m robots on a circle of the radius, each bound for its antipode
+    (tools/bench_consensus.py:53-63): (poses [m, 3], goals [m, 3])."""
+    import math
+
+    import torch
+
+    ang = torch.arange(m, dtype=torch.float64) * 2 * math.pi / m
+    c, s = radius * torch.cos(ang), radius * torch.sin(ang)
+    poses = torch.stack([c, s, ang + math.pi], -1).float().to(dev)
+    goals = torch.stack([-c, -s, ang + math.pi], -1).float().to(dev)
+    return poses, goals
+
+
+def sharded_phase(dev, card: str, base, bench_cfg) -> None:
+    """Phase 34: the sharded forms (nmpc_tpu_torch/parallel/mesh.py,
+    shard_ocp_batch, consensus_solve_sharded, decentralized_step_sharded,
+    parallel/dryrun.py).
+
+    (i) A one-rank world on NCCL on the card, at full width: the
+    data-parallel main path (shard_ocp_batch, solve_batched through K1 and
+    K2, the first control through the plant, the all-reduced mean cost),
+    bit for bit against the unsharded solve, and its time beside the
+    unsharded step's (median of 3, in turns); consensus at the reference's
+    largest documented fleet (m=48, N=20, 5 rounds, engine "fused": K1's
+    obstacle variant with 47 moving-obstacle rows, and K2), where no row
+    binds, bit for bit against the single-program form; the same fleet
+    packed to its keep-out, where the rows bind and the sharded form's roll
+    order sums them in another order than the single-program form's, held
+    at a tolerance of 10x the spread a 1e-7 move of x0 gives the
+    single-program form itself; K1 and K2 against plain at the first
+    round's shape with K1's share of its bound, and at B=1024 with four
+    neighbours on each robot's way, every slot binding somewhere; the
+    decentralized round at m=6, N=30 against
+    decentralized_step (rh_bias=0, the per-scenario engine); the GN fleet
+    (tools/lidar_fleet.py, B=1024) and the ADMM fleet (tools/admm_fleet.py,
+    B=256) sharded, bit for bit against unsharded.
+
+    (ii) A two-rank world on the same card: NCCL refuses two ranks on one
+    card, so the ranks exchange through gloo (the mesh helpers copy the
+    plans to the host for it) while both solve on the card; the dry run
+    (dryrun_multichip) in both ranks, with K1 and K2 launched in each. The
+    card's compute mode must let two processes share it."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from nmpc_tpu_torch.ocp import problem as P
+    from nmpc_tpu_torch.ops import cuda_build, megasolve
+    from nmpc_tpu_torch.parallel import consensus as TC
+    from nmpc_tpu_torch.parallel import decentralized as TD
+    from nmpc_tpu_torch.parallel import dryrun
+    from nmpc_tpu_torch.parallel import mesh as M
+    from nmpc_tpu_torch.parallel.batch import batch_ocp, shard_ocp_batch
+    from nmpc_tpu_torch.solver import ALILQRConfig, gn, solve_batched
+    from nmpc_tpu_torch.tools import admm_fleet, lidar_fleet
+    from nmpc_tpu_torch.tools import roofline as RL
+    from nmpc_tpu_torch.utils.timing import cuda_ms
+
+    t_phase = time.perf_counter()
+    M.init_world("nccl", 0, 1, "file://" + os.path.join(tempfile.mkdtemp(prefix="nmpc_world_"),
+                                                         "store"))
+    try:
+        mesh = M.data_mesh()
+        # ---- the data-parallel main path ----
+        g = torch.Generator(device=dev).manual_seed(34)
+        ob = batch_ocp(base, base.x0[None] + 0.1 * torch.randn((BENCH_B, base.nx), generator=g,
+                                                               device=dev))
+
+        def sharded():
+            r, x_loc, mean = dryrun.mpc_step(shard_ocp_batch(ob, mesh), bench_cfg, solve_batched,
+                                             mesh)
+            return r, M.gather_rows(r.U, mesh), M.gather_rows(x_loc, mesh), mean
+
+        def unsharded():
+            return dryrun.mpc_step(ob, bench_cfg, solve_batched)
+
+        torch.cuda.synchronize()
+        cuda_build.reset_launch_counts()
+        r_loc, U_sh, x_sh, mean_sh = sharded()
+        torch.cuda.synchronize()
+        counts = dict(cuda_build.launch_counts)
+        steps = int(r_loc.outer_iters.max())
+        assert counts["inner_solve_fused"] == steps and counts["al_update_lanes"] == steps, counts
+        assert sum(counts.values()) == 2 * steps, counts
+        r_un, x_un, mean_un = unsharded()
+        same = {"U": torch.equal(U_sh, r_un.U), "cost": torch.equal(r_loc.cost, r_un.cost),
+                "x_next": torch.equal(x_sh, x_un)}
+        conv = float(r_loc.converged.float().mean())
+        viol_p99 = float(torch.quantile(r_loc.viol, 0.99))
+        turns = {"sharded": [], "unsharded": []}
+        for which in ("sharded", "unsharded", "unsharded", "sharded", "sharded", "unsharded"):
+            turns[which].append(timed(sharded if which == "sharded" else unsharded)[1])
+        t_sh, t_un = (statistics.median(turns[k]) for k in ("sharded", "unsharded"))
+        log(f"phase 34 (i) one-rank NCCL world, data-parallel main path: six_robot_antipodal N=10 "
+            f"B={BENCH_B} {bench_cfg.ls}: launches {counts} over {steps} outer steps; converged "
+            f"{conv:.4f}, viol p99 {viol_p99:.3e}; bit for bit against the unsharded solve "
+            f"{same}; mean cost {float(mean_sh):.6f} (all-reduced) vs {float(mean_un):.6f}; "
+            f"step (shard, solve, plant, all-reduce, gathers) median of 3 in turns "
+            f"{t_sh * 1e3:.2f} ms = {BENCH_B / t_sh:.1f} solves/s, unsharded {t_un * 1e3:.2f} ms = "
+            f"{BENCH_B / t_un:.1f} solves/s, sharding overhead {(t_sh - t_un) * 1e3:.2f} ms "
+            f"({100 * (t_sh - t_un) / t_un:.2f}%) {card}")
+        assert all(same.values()), same
+        assert conv >= 0.995 and viol_p99 <= 1e-3, (conv, viol_p99)
+        torch.testing.assert_close(mean_sh, mean_un, rtol=1e-6, atol=0.0)
+        del ob, r_loc, r_un, U_sh
+
+        # ---- consensus at m=48 (tools/bench_consensus.py:38,84-93) ----
+        m, N = SHARD_CONSENSUS_M, 20
+        tpl = TD.robot_template(N, 0.1, 0.3, m, device=dev)
+        ccfg = ALILQRConfig(n_outer=6, n_inner=12, tol_con=1e-4)
+        poses, goals = circle_fleet(m, 0.16 * m, dev)
+        rmesh = M.data_mesh(axis="robots")
+        run = TC.consensus_solve_sharded(rmesh, tpl, ccfg, rounds=5, damping=0.5)
+        torch.cuda.synchronize()
+        cuda_build.reset_launch_counts()
+        out_s = run(poses, goals)
+        X, U, _, _, violh, deltah = out_s
+        torch.cuda.synchronize()
+        counts = dict(cuda_build.launch_counts)
+        assert counts["inner_solve_fused"] > 0 and counts["al_update_lanes"] > 0, counts
+        assert all(counts[k] == 0 for k in STAGED_NAMES), counts
+        assert megasolve.obstacle_rows(tpl) == m - 1
+        times = [timed(lambda: run(poses, goals))[1] for _ in range(3)]
+
+        def joint(X_, U_, viol_, delta_, goals_):
+            """(viol_hist, delta_hist, the joint tracking cost) of a joint solve."""
+            e = X_[:, :-1] - goals_[:, None]
+            cost = (torch.sum(e * e * tpl.Qdiag) + torch.sum(U_ * U_ * tpl.Rdiag)).double()
+            return torch.cat([viol_.double(), delta_.double(), cost[None]])
+
+        def single(poses_, goals_, dx=0.0):
+            return TC.consensus_solve(tpl, poses_.reshape(-1) + dx, goals_, ccfg, rounds=5,
+                                      damping=0.5)
+
+        def against_single(poses_, goals_, sharded_out):
+            """The sharded joint solve against the single-program form:
+            (|difference|, the spread of three 1e-7 moves of x0, the
+            tolerance 10x that spread with a floor of 1e-6 relative, the
+            single-program joint vector, whether X and U are equal bit for
+            bit, the active moving-obstacle rows at the end)."""
+            Xs_, Us_, ws_, _, vs_, ds_ = sharded_out
+            X1, U1, _, _, v1, d1 = single(poses_, goals_)
+            want_ = joint(X1, U1, v1, d1, goals_)
+            rng = np.random.default_rng(0)
+            spread_ = torch.zeros_like(want_)
+            for _ in range(3):
+                dx = torch.tensor(1e-7 * rng.standard_normal(3 * m), dtype=torch.float32,
+                                  device=dev)
+                Xd, Ud, _, _, vd, dd = single(poses_, goals_, dx)
+                spread_ = torch.maximum(spread_, (joint(Xd, Ud, vd, dd, goals_) - want_).abs())
+            scale = torch.maximum(want_.abs(), torch.ones_like(want_))
+            diff_ = (joint(Xs_, Us_, vs_, ds_, goals_) - want_).abs()
+            bits = torch.equal(Xs_, X1) and torch.equal(Us_, U1)
+            active = int((ws_.lam[:, :, :m - 1] > 0).sum())
+            return diff_, spread_, torch.maximum(10 * spread_, 1e-6 * scale), want_, bits, active
+
+        def hist(d):
+            return (f"viol {float(d[:5].max()):.3e}, delta {float(d[5:10].max()):.3e}, cost "
+                    f"{float(d[-1]):.3e}")
+
+        # the reference's fleet (neighbours ~1 m apart, at most 0.44 m of
+        # travel in the horizon): no row binds, every row's multiplier stays
+        # 0 and its penalty exactly 0, so the order of the rows' sum is moot
+        # and the sharded form must equal the single-program form bit for bit
+        diff, spread, tol, want, bits, active = against_single(poses, goals, out_s)
+        jv = float(TC.joint_pair_violation(X[:, :, :2], tpl.dmin2, N))
+        log(f"phase 34 (i) consensus m={m} N={N} 5 rounds {ccfg.n_outer}x{ccfg.n_inner} engine "
+            f"fused ({m - 1} moving-obstacle rows a robot), radius {0.16 * m:.2f} m: launches "
+            f"{counts}; {statistics.median(times) * 1e3:.2f} ms a joint solve (median of 3, "
+            + ", ".join(f"{t * 1e3:.1f}" for t in times) + f"); final joint pair violation "
+            f"{jv:.3e}; viol history " + ", ".join(f"{float(v):.3e}" for v in violh)
+            + "; delta history " + ", ".join(f"{float(v):.3e}" for v in deltah)
+            + f"; joint cost {float(want[-1]):.6f}; rows with a positive multiplier at the end "
+            f"{active}; X and U bit for bit against the single-program form: {bits}, "
+            f"|sharded - single-program| max {float(diff.max()):.3e} ({hist(diff)}); the "
+            f"spread of a 1e-7 move of x0 (3 draws): {hist(spread)} {card}")
+        assert active == 0 and bits and bool((diff == 0).all()), (active, bits, diff)
+        assert torch.isfinite(X).all() and torch.isfinite(U).all()
+
+        # the same fleet packed to its keep-out (radius 0.05 m a robot:
+        # neighbours 0.314 m apart against dmin 0.3, closing as they head
+        # inward): pair rows bind from the first rounds, the sharded form's
+        # roll order sums them in another order than the single-program
+        # form's ascending one, and the joint solve is as sensitive as a 1e-7
+        # move of x0 shows: held at 10x that spread (floor 1e-6 relative)
+        pposes, pgoals = circle_fleet(m, 0.05 * m, dev)
+        cuda_build.reset_launch_counts()
+        out_p = run(pposes, pgoals)
+        torch.cuda.synchronize()
+        pcounts = dict(cuda_build.launch_counts)
+        assert pcounts["inner_solve_fused"] > 0 and pcounts["al_update_lanes"] > 0, pcounts
+        diff, spread, tol, want, bits, active = against_single(pposes, pgoals, out_p)
+        log(f"phase 34 (i) consensus m={m}, packed fleet radius {0.05 * m:.2f} m: launches "
+            f"{pcounts}; viol history " + ", ".join(f"{float(v):.3e}" for v in out_p[4])
+            + "; delta history " + ", ".join(f"{float(v):.3e}" for v in out_p[5])
+            + f"; joint cost {float(want[-1]):.6f}; rows with a positive multiplier at the end "
+            f"{active} of {m * N * (m - 1)}; X and U bit for bit: {bits}; |sharded - "
+            f"single-program| {hist(diff)} against the spread of a 1e-7 move of x0 (3 draws) "
+            f"{hist(spread)}, U spread not bounded by it (the fleet bifurcates) -> tolerance "
+            f"10x spread, floor 1e-6 relative {card}")
+        assert active > 0, active
+        assert bool((diff <= tol).all()), (diff, tol)
+        assert torch.isfinite(out_p[0]).all() and torch.isfinite(out_p[1]).all()
+
+        # K1 and K2 at the first round's shape, against plain; K1's share
+        plans0 = poses[:, None, :2].repeat(1, N + 1, 1)
+        mov = TD.rolled_neighbours(plans0, 0, m)[:, :, :N].transpose(1, 2).contiguous()
+        obc = dataclasses.replace(tpl, x0=poses, xref=goals[:, None].repeat(1, N, 1), mov_obs=mov)
+        w = TD.cold_warms(tpl, m, ccfg)
+        c4 = dataclasses.replace(ccfg, n_inner=4)
+        # at 47 rows the merit's summation order alone flips the rel <
+        # tol_cost stop of a few robots (46/48 equal counts against the plain
+        # version in its own order): K1 is held against the plain version
+        # summed in K1's order, by phase 22's spread rule
+        worder = megasolve.al_merit_warp_order
+        got4 = hold_k1_spread(
+            f"phase 34 consensus m={m} K1 vs plain (summed in K1's order) at the first round's "
+            f"shape (B={m}, N={N}, {m - 1} moving obstacles, cold, n_inner=4)", obc, w.U, w.lam,
+            w.mu, c4, torch.Generator(device=dev).manual_seed(34), merit=worder)[0]
+        hold_k2(f"phase 34 consensus m={m} K2 vs plain on K1's output", obc, got4[0], got4[1],
+                w.lam, w.mu, ccfg.lam_max)
+        args = (obc, obc.x0, obc.xref, w.lam, w.mu, w.U, ccfg)
+        k1_ms = cuda_ms(lambda: megasolve.inner_solve_fused(*args), 3)
+        cand = torch.zeros(m, dtype=torch.int64, device=dev)
+        want_k1, plain_ms = once(lambda: megasolve.inner_solve_plain(*args, candidates=cand))
+        executed = RL.k1_executed(want_k1[3], ccfg.n_inner)
+        k1_bound, k1_by = RL.bound(*RL.kernel_work("K1", obc, m, ccfg, iters=int(executed.sum()),
+                                                   candidates=int(cand.sum())))
+        slot = cuda_build.load(1).nmpc_k1_slot_bytes(m - 1)
+        log(f"phase 34 consensus m={m} K1 (kObs, {m - 1} rows) at the first round's inputs: "
+            f"{k1_ms:.3f} ms a launch (mean of 3), plain {plain_ms:.1f} ms; "
+            f"{float(executed.float().mean()):.2f} iterations and "
+            f"{float(cand.float().mean()):.2f} candidates a robot; bound {k1_bound:.5f} ms "
+            f"({k1_by}), {100 * k1_bound / k1_ms:.3f}% of it reached; slot {slot} B a warp, "
+            f"{megasolve.K1_WARPS * slot} B of slots a block {card}")
+
+        # K1 and K2 where the rows bind, against plain: tests/obstacle_cases.py's
+        # consensus48 draws (scenario b is robot b % m, x0 moved by 0.02
+        # N(0, 1); the others in roll order at their starts, four slots drawn
+        # per scenario moved 0.25 m ahead of the robot, 0.1 N(0, 1) apart),
+        # warm inputs of the CPU tests' kind, at B=K1_B: every one of the m-1
+        # slots binds in some scenario
+        gk = torch.Generator(device=dev).manual_seed(341)
+        i = torch.arange(K1_B, device=dev) % m
+        x0w = poses[i].clone()
+        x0w[:, :2] += 0.02 * torch.randn((K1_B, 2), generator=gk, device=dev)
+        nbr = (i[:, None] + torch.arange(1, m, device=dev)) % m
+        movw = poses[nbr, :2][:, None].repeat(1, N, 1, 1)                  # [B, N, m-1, 2]
+        ahead = x0w[:, :2] + 0.25 * torch.stack([torch.cos(x0w[:, 2]), torch.sin(x0w[:, 2])], -1)
+        way = ahead[:, None, None] + 0.1 * torch.randn((K1_B, N, 4, 2), generator=gk, device=dev)
+        slots = torch.argsort(torch.rand((K1_B, m - 1), generator=gk, device=dev), 1)[:, :4]
+        movw.scatter_(2, slots[:, None, :, None].expand(K1_B, N, 4, 2), way)
+        obw = dataclasses.replace(tpl, x0=x0w, xref=goals[i][:, None].repeat(1, N, 1),
+                                  mov_obs=movw)
+        Uw, lamw, muw = fresh_warm(obw, gk)
+        gotw = hold_k1_spread(
+            f"phase 34 consensus m={m} K1 vs plain (summed in K1's order) where the rows bind "
+            f"(B={K1_B}, N={N}, {m - 1} moving obstacles, four on each robot's way, warm, "
+            f"n_inner=4)", obw, Uw, lamw, muw, c4, gk, merit=worder)[0]
+        hold_k2(f"phase 34 consensus m={m} K2 vs plain on K1's output where the rows bind", obw,
+                gotw[0], gotw[1], lamw, muw, ccfg.lam_max)
+        # K2's rows at K1's output: stages 0..N-1, stage 0's masked
+        cw = P.stage_constraints(obw, gotw[0], gotw[1], movw)[..., :m - 1]
+        live = P.constraint_mask(obw)[:, :m - 1] > 0
+        binds = ((lamw[..., :m - 1] - muw[:, None, None] * cw > 0) & live).any(1)  # [B, m-1]
+        per_slot = binds.sum(0)
+        log(f"phase 34 consensus m={m} rows that bind at K1's output (lam - mu c > 0 at some "
+            f"stage): {float(binds.sum(1).float().mean()):.2f} of {m - 1} a robot; every slot in "
+            f"{int(per_slot.min())}-{int(per_slot.max())} of {K1_B} scenarios; rows violated "
+            f"(c < 0) {int(((cw < 0) & live).sum())} of {cw.numel()}")
+        assert bool((per_slot > 0).all()), per_slot
+
+        # ---- the decentralized round at m=6, N=30 (tests/test_parallel.py:125-147) ----
+        m, N = 6, 30
+        tpl = TD.robot_template(N, 0.1, 0.3, m, device=dev)
+        dcfg = ALILQRConfig(n_outer=6, n_inner=12, tol_con=1e-4)
+        poses, goals = circle_fleet(m, 1.0, dev)
+        plans = poses[:, None, :2].repeat(1, N + 1, 1)
+        w = TD.cold_warms(tpl, m, dcfg)
+        step = TD.decentralized_step_sharded(rmesh, tpl, dcfg)
+        cuda_build.reset_launch_counts()
+        (u, p), t_dec = timed(lambda: step(poses, goals, plans, w.U, w.lam, w.mu))
+        assert not any(cuda_build.launch_counts.values())   # the per-scenario engine
+        _, u1, p1 = TD.decentralized_step(tpl, poses.reshape(-1), goals, plans, w, dcfg,
+                                          rh_bias=0.0, engine="xla")
+        du = float((u - u1.reshape(m, 2)).abs().max())
+        dp = float((p - p1).abs().max())
+        log(f"phase 34 (i) decentralized round m={m} N={N} {dcfg.n_outer}x{dcfg.n_inner} (the "
+            f"per-scenario engine, plain PyTorch on the card): {t_dec * 1e3:.1f} ms; against "
+            f"decentralized_step (rh_bias=0, engine xla, neighbours in ascending order): u max "
+            f"|err| {du:.3e}, plans {dp:.3e} (atol 1e-4) {card}")
+        assert du <= 1e-4 and dp <= 1e-4, (du, dp)
+
+        # ---- the GN and ADMM fleets on the mesh ----
+        gbase = lidar_fleet.fixture(dev)
+        obl = lidar_fleet.jittered(gbase, SHARD_GN_B, torch.Generator(device=dev).manual_seed(27))
+        (r_sh, t_gn) = timed(lambda: gn.solve_batched(shard_ocp_batch(obl, mesh),
+                                                      cfg=lidar_fleet.CFG))
+        r_gn = gn.solve_batched(obl, cfg=lidar_fleet.CFG)
+        same_gn = {"U": torch.equal(M.gather_rows(r_sh.U, mesh), r_gn.U),
+                   "cost": torch.equal(M.gather_rows(r_sh.cost, mesh), r_gn.cost)}
+        consts = admm_fleet.fleet_problem(dev)
+        draws = admm_fleet.draw(SHARD_ADMM_B, torch.Generator(device=dev).manual_seed(31), dev)
+        (z_sh, t_admm) = timed(lambda: admm_fleet.fleet(*consts, *(M.shard_rows(a, mesh)
+                                                                  for a in draws)))
+        z_un = admm_fleet.fleet(*consts, *draws)
+        same_admm = {"z": torch.equal(M.gather_rows(z_sh[0], mesh), z_un[0]),
+                     "iters": torch.equal(z_sh[2], z_un[2])}
+        log(f"phase 34 (i) GN fleet lidar_v4 B={SHARD_GN_B} sharded {t_gn * 1e3:.1f} ms, converged "
+            f"{float(r_sh.converged.float().mean()):.4f}, bit for bit against unsharded "
+            f"{same_gn}; ADMM fleet B={SHARD_ADMM_B} sharded {t_admm * 1e3:.1f} ms, converged "
+            f"{float(z_sh[3].float().mean()):.4f}, bit for bit {same_admm} {card}")
+        assert all(same_gn.values()) and all(same_admm.values()), (same_gn, same_admm)
+    finally:
+        dist.destroy_process_group()
+    t_one = time.perf_counter() - t_phase
+
+    # ---- (ii) two ranks on the one card, exchanging through gloo ----
+    mode = sh(["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"]).splitlines()[0]
+    assert mode.strip() == "Default", f"the card's compute mode {mode!r} forbids two processes"
+    t0 = time.perf_counter()
+    outs = dryrun.run_world(dryrun.dryrun_rank, 2, "gloo", "cuda")
+    for rank, o in enumerate(outs):
+        log(f"phase 34 (ii) two-rank world (gloo exchange, both ranks on cuda:0, compute mode "
+            f"{mode.strip()}), rank {rank} dryrun_multichip: " + ", ".join(
+                f"{k} {v:.3e}" for k, v in o["errs"].items()) + f"; launches {o['launches']}")
+        assert o["launches"]["inner_solve_fused"] > 0 and o["launches"]["al_update_lanes"] > 0, o
+        assert o["errs"] == outs[0]["errs"], (o["errs"], outs[0]["errs"])
+        assert "hosts x chips" in o["errs"]
+    log(f"phase 34 sharded forms: {time.perf_counter() - t_phase:.1f} s ((i) {t_one:.1f} s, "
+        f"(ii) {time.perf_counter() - t0:.1f} s with the ranks' start-up) {card}")
+
+
 def per_step(counts: dict, name: str, stamps) -> str:
     """Launches of a kernel a loop step (a solve run), as a string."""
     return f"{counts[name] / max(len(stamps), 1):.2f}"
@@ -2640,6 +3001,9 @@ def main() -> int:
     # ---- phases 29-33: K3 at the user models' shapes; the generic path; the
     # ADMM fleet; the real-time loop over the native runtime; the CLI ------
     user_entries = user_model_phases(dev, card)
+
+    # ---- phase 34: the sharded forms on one- and two-rank worlds ---------
+    sharded_phase(dev, card, base, bench_cfg)
 
     def entry(name, source, where, launches, err, ms_, plain_ms, key):
         return {"name": name, "route": "cuda", "source": source, "replaces": where,

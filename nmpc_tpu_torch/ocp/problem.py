@@ -329,6 +329,12 @@ def make_generic_ocp(
     )
 
 
+def batch_fields(ocp: OCP) -> tuple:
+    """The fields of a batched OCP that carry the batch axis: x0 and xref,
+    and mov_obs when it holds a schedule a scenario ([B, N, n_mov, 2])."""
+    return ("x0", "xref") + (("mov_obs",) if ocp.n_mov and ocp.mov_obs.dim() == 4 else ())
+
+
 def ocp_from_numpy(arrays: dict, device=DEVICE, **meta) -> OCP:
     """The port's OCP from the data fields of a reference OCP, each given as
     a numpy array, plus its static metadata (the OCP_META fields). This is

@@ -1,8 +1,9 @@
-"""Scenario batching. Port of `batch_ocp`, `random_starts` and `batched_solve`
-from nmpc_tpu/parallel/batch.py.
+"""Scenario batching. Port of `batch_ocp`, `random_starts`, `batched_solve`
+and `shard_ocp_batch` from nmpc_tpu/parallel/batch.py.
 
 A batched OCP is the same dataclass with a leading [B] axis on the
-per-scenario fields (x0, xref); everything else is shared.
+per-scenario fields (x0, xref, and a per-scenario moving-obstacle schedule
+[B, N, n_mov, 2]); everything else is shared.
 """
 
 from __future__ import annotations
@@ -11,7 +12,8 @@ import dataclasses
 
 import torch
 
-from nmpc_tpu_torch.ocp.problem import OCP
+from nmpc_tpu_torch.ocp.problem import OCP, batch_fields
+from nmpc_tpu_torch.parallel.mesh import require_world, shard_rows
 from nmpc_tpu_torch.solver.alilqr import ALILQRConfig, SolveResult, WarmStart, _solve_scenarios
 
 
@@ -43,3 +45,20 @@ def batched_solve(ocp_batch: OCP, cfg: ALILQRConfig = ALILQRConfig(),
     start]: each scenario's result is `solver.alilqr.solve` of it alone (the
     reference vmaps `solve`; here one loop with per-scenario done masks)."""
     return _solve_scenarios(ocp_batch, warm, cfg)
+
+
+def shard_ocp_batch(ocp_batch: OCP, mesh, axis="data") -> OCP:
+    """This rank's part of a batched OCP on the mesh (a DeviceMesh over the
+    world, `parallel.mesh`): its rows of the batch fields, laid over `axis`
+    (a name or a tuple of names), and every other field as it is, the same
+    on every rank (replicated). The rows are copies of their own
+    (`mesh.shard_rows`), so only local tensors reach a kernel.
+
+    The reference's batch fields are x0 and xref. A per-scenario mov_obs
+    [B, N, n_mov, 2], the port's layout of per-element schedules
+    (solver/gn.py, solve_batched), is a batch field too and is sharded
+    with them; the reference has no such layout to shard. Raises when B
+    does not divide over the shards, and without a world."""
+    require_world()
+    return dataclasses.replace(ocp_batch, **{
+        f: shard_rows(getattr(ocp_batch, f), mesh, axis) for f in batch_fields(ocp_batch)})

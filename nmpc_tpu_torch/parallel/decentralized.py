@@ -23,8 +23,9 @@ the first step that starts done the state is frozen and the control zero
 (done is sticky), so every later row is that step's row, and the loop
 stops there without solving again.
 
-The sharded form (`decentralized_step_sharded`, the plan exchange as a
-collective across devices) is not ported yet.
+The sharded form, `decentralized_step_sharded`, lays the robots over a
+mesh dimension (parallel/mesh.py): each rank solves its own robots and the
+plan exchange is one all_gather of the plans over the mesh.
 """
 
 from __future__ import annotations
@@ -38,6 +39,7 @@ from nmpc_tpu_torch.mpc.driver import MPCConfig, _escape_control, escape_state0
 from nmpc_tpu_torch.ocp.problem import OCP, make_ocp
 from nmpc_tpu_torch.ops import rollout
 from nmpc_tpu_torch.parallel.batch import batched_solve
+from nmpc_tpu_torch.parallel.mesh import axis_index, gather_rows, shard_rows
 from nmpc_tpu_torch.sim.plant import PlantConfig, plant_step
 from nmpc_tpu_torch.solver.alilqr import ALILQRConfig, WarmStart
 from nmpc_tpu_torch.solver.alilqr_batched import solve_batched
@@ -56,6 +58,17 @@ def _neighbor_index(m: int, device=None) -> torch.Tensor:
     """[m, m-1]: row i lists the other robots in order."""
     return torch.tensor([[j for j in range(m) if j != i] for i in range(m)], dtype=torch.long,
                         device=device)
+
+
+def rolled_neighbours(plans, first: int, count: int):
+    """The neighbours' plans of robots first .. first+count-1 in the
+    sharded forms' order: robot i sees i+1, ..., m-1, 0, ..., i-1 (the
+    reference's jnp.roll(plans, -i)[1:]), not `_neighbor_index`'s
+    ascending order. plans [m, ...] -> [count, m-1, ...]."""
+    m = plans.shape[0]
+    i = torch.arange(first, first + count, device=plans.device)[:, None]
+    j = torch.arange(1, m, device=plans.device)[None, :]
+    return plans[(i + j) % m]
 
 
 def cold_warms(template: OCP, m: int, cfg: ALILQRConfig = ALILQRConfig()) -> WarmStart:
@@ -215,3 +228,39 @@ def decentralized_closed_loop(x0_joint, goals, N: int, T: float, dmin: float,
         return x_next, u_joint
 
     return run_loop(x0_joint, goal_joint, m, max_steps, stop_tol, step)
+
+
+def decentralized_step_sharded(mesh, template: OCP, cfg: ALILQRConfig = ALILQRConfig(),
+                               axis="robots"):
+    """The decentralized round with the robots laid over the mesh dimension
+    `axis` (nmpc_tpu/parallel/decentralized.py:212-262): each rank solves its
+    own robots' subproblems, and the plan exchange is one all_gather of the
+    plans over the mesh. Returns a callable (poses [m, 3], goals [m, 3],
+    plans [m, N+1, 2], warm_U [m, N, 2], warm_lam [m, N, n_con], warm_mu
+    [m]) -> (u [m, 2], plans_new [m, N+1, 2]): global arrays in, global
+    arrays out on every rank (each rank takes its rows, the outputs are
+    gathered). m must divide over the shards.
+
+    The stage-k keep-out is the neighbour's plan at stage k+1
+    (`others[:, 1:N+1]`), as in `decentralized_step`. As the reference's
+    sharded form, and unlike `decentralized_step`: the neighbours come in
+    roll order (`rolled_neighbours`; the reference masks self to +1e6
+    before its roll, and the roll drops that row, so the rows taken are the
+    same), there is no right-hand bias, and the subproblems go to the
+    per-scenario engine (`batched_solve`, the reference's vmap of `solve`;
+    plain PyTorch)."""
+    N = template.N
+
+    def step(poses, goals, plans, warm_U, warm_lam, warm_mu):
+        poses_l, goals_l, plans_l, wU, wlam, wmu = (
+            shard_rows(a, mesh, axis) for a in (poses, goals, plans, warm_U, warm_lam, warm_mu))
+        all_plans = gather_rows(plans_l, mesh, axis)                  # the exchange
+        k = poses_l.shape[0]
+        others = rolled_neighbours(all_plans, axis_index(mesh, axis) * k, k)
+        mov = others[:, :, 1:N + 1, :].transpose(1, 2)                # [k, N, m-1, 2]
+        xref = goals_l[:, None, :].expand(k, N, 3).contiguous()
+        res = solve_robots(template, poses_l, xref, mov, WarmStart(U=wU, lam=wlam, mu=wmu), cfg,
+                           "xla")
+        return gather_rows(res.U[:, 0, :], mesh, axis), gather_rows(res.X[:, :, :2], mesh, axis)
+
+    return step

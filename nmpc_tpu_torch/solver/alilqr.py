@@ -183,10 +183,16 @@ def _stage_expansion(ocp: OCP, x, u, xref_k, lam_k, mov_k, mu):
         lx = torch.cat([lx[..., :3], lx[..., 3:] + gray], dim=-1)
         lxx = lxx + torch.diag_embed(torch.cat([torch.zeros_like(hray[..., :3]), hray], -1))
     if ocp.num_rays or ocp.dyn_fn is not None:
-        if mov_k is not None:
-            raise NotImplementedError("moving obstacles with LiDAR rays or dyn_fn are not ported")
-        Jx, Ju = _vmap_flat(torch.func.jacfwd(
-            lambda xx, uu: P.stage_constraints(ocp, xx, uu), argnums=(0, 1)), x, u)
+        if mov_k is None:
+            Jx, Ju = _vmap_flat(torch.func.jacfwd(
+                lambda xx, uu: P.stage_constraints(ocp, xx, uu), argnums=(0, 1)), x, u)
+        else:
+            # the stage's schedule [..., n_mov, 2] rides the vmap beside x and
+            # u, flattened to one trailing axis (the reference closes over it)
+            F = lambda xx, uu, mm: P.stage_constraints(  # noqa: E731
+                ocp, xx, uu, mm.reshape(ocp.n_mov, 2))
+            Jx, Ju = _vmap_flat(torch.func.jacfwd(F, argnums=(0, 1)), x, u,
+                                mov_k.flatten(-2))
     else:
         Jx, Ju = stage_constraint_jacobians(ocp, x, mov_k)
 

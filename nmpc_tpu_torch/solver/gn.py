@@ -108,16 +108,10 @@ def _stage_residual(ocp: OCP, x, u, xref_k, lam_k, mask_k, mov_k, mu):
     return torch.cat(parts)
 
 
-def _scenario_fields(ocp: OCP) -> tuple:
-    """The OCP's fields with a leading batch axis: x0 and xref, and mov_obs
-    when it is per scenario ([B, N, n_mov, 2])."""
-    return ("x0", "xref") + (("mov_obs",) if ocp.n_mov and ocp.mov_obs.dim() == 4 else ())
-
-
 def _per_scenario(ocp_b: OCP, fn, *args):
     """torch.func.vmap of fn(ocp, *args) over the batch axis of ocp_b's
     scenario fields and of args."""
-    names = _scenario_fields(ocp_b)
+    names = P.batch_fields(ocp_b)
 
     def one(fields, *a):
         return fn(dataclasses.replace(ocp_b, **dict(zip(names, fields))), *a)

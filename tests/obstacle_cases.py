@@ -13,6 +13,14 @@ Cases:
                        on the line to the goal (tests/test_batched_solver.py)
   all_rows             two robots with pair rows, two static obstacles and
                        two moving-obstacle slots, N=5
+
+and, outside CASES (K1's widest row count, not the reference's kernel
+tests): consensus48, the subproblem of one robot of the 48-robot consensus
+fleet (tools/bench_consensus.py: robot_template(20, 0.1, 0.3, 48), the
+antipodal circle of radius 0.16 m), 47 moving-obstacle slots: the other
+robots in roll order on their cold plans, four of them (slots drawn per
+scenario, so a batch puts every slot on some robot's way) moved onto the
+robot's way.
 """
 
 import numpy as np
@@ -25,10 +33,15 @@ ALL_ROWS = dict(m=2, N=5, T=0.1, x0=[0, 0, 0, 0.5, 0, 0], x_goal=[1, 1, 0, -1, 1
                 dmin=0.3, collision=True, obstacles=[[0.2, 0.1, 0.1], [0.4, -0.2, 0.15]])
 
 
+CONSENSUS48 = dict(m=1, N=20, T=0.1, x0=[0.0, 0.0, 0.0], x_goal=[0.0, 0.0, 0.0], dmin=0.3)
+N_MOV = {"robot_template": 2, "all_rows": 2, "consensus48": 47}
+
+
 def base_kwargs(name: str) -> dict:
     """make_ocp keyword arguments of a case (without mov_obs), or {} for a
     registry scenario made at N=10."""
-    return {"robot_template": TEMPLATE, "all_rows": ALL_ROWS}.get(name, {})
+    return {"robot_template": TEMPLATE, "all_rows": ALL_ROWS,
+            "consensus48": CONSENSUS48}.get(name, {})
 
 
 def draws(name: str, base, B: int, seed: int) -> dict:
@@ -51,6 +64,15 @@ def draws(name: str, base, B: int, seed: int) -> dict:
         x0[:, 0] = obs[o, 0] + rad * np.cos(ang)
         x0[:, 1] = obs[o, 1] + rad * np.sin(ang)
         x0[:, 2] = rng.uniform(-np.pi, np.pi, B)
+    elif name == "consensus48":
+        # scenario b is robot b % 48 of the circle, bound for its antipode
+        ang = 2 * np.pi * (np.arange(48) / 48)
+        circ = 0.16 * 48 * np.stack([np.cos(ang), np.sin(ang)], -1)
+        i = np.arange(B) % 48
+        x0[:, :2] = circ[i] + 0.02 * rng.standard_normal((B, 2))
+        x0[:, 2] = ang[i] + np.pi
+        xref[:, :, :2] = -circ[i][:, None]
+        xref[:, :, 2] = (ang[i] + np.pi)[:, None]
     elif name == "robot_template":
         x0[:, 0] = -0.5 + 0.1 * rng.standard_normal(B)
         x0[:, 1] = 0.2 * rng.standard_normal(B)
@@ -59,7 +81,18 @@ def draws(name: str, base, B: int, seed: int) -> dict:
         x0 += 0.1 * rng.standard_normal((B, nx))
     mov = None
     if base.n_mov:
-        if name == "robot_template":
+        if name == "consensus48":
+            # the others in roll order at their starts; four slots, drawn
+            # per scenario, on the way
+            j = (i[:, None] + np.arange(1, 48)[None]) % 48                   # [B, 47]
+            mov = circ[j][:, None].repeat(N, 1)                             # [B, N, 47, 2]
+            ahead = x0[:, None, :2] + 0.25 * np.stack(
+                [np.cos(x0[:, 2]), np.sin(x0[:, 2])], -1)[:, None]
+            way = ahead[:, :, None] + 0.1 * rng.standard_normal((B, N, 4, 2))
+            slots = np.argsort(rng.random((B, 47)), axis=1)[:, :4]
+            for b in range(B):
+                mov[b][:, slots[b]] = way[b]
+        elif name == "robot_template":
             # one slot on the line to the goal, one far away
             mov = np.array([[0.05, 0.02], [5.0, 5.0]])[None, None].repeat(B, 0).repeat(N, 1)
             mov = mov + 0.01 * rng.standard_normal(mov.shape)
@@ -96,7 +129,7 @@ def port_case(name: str, B: int, seed: int, device="cpu"):
 
     kw = base_kwargs(name)
     if kw:
-        base = P.make_ocp(**kw, mov_obs=torch.zeros((kw["N"], 2, 2)), device="cpu")
+        base = P.make_ocp(**kw, mov_obs=torch.zeros((kw["N"], N_MOV[name], 2)), device="cpu")
     else:
         base = get(name).make(N=10, device="cpu")
     d = draws(name, base, B, seed)

@@ -156,6 +156,19 @@ def gn_cases():
 
     cases = {k: (make(), kw) for k, (make, kw, _) in HYBRID_CASES.items()}
     cases["rk4 N=12"] = (rk4_batch(N=12), HYBRID_CASES["rk4"][1])
+    # rays and user models with moving obstacles (the jacfwd constraint
+    # Jacobians carrying the stage's schedule)
+    from test_torch_generic import moving_generic
+    from test_torch_hybrid import moving_ray_batch
+
+    jo, _, jb, _ = moving_generic()
+    for sweep in ("seq", "scan"):
+        cases[f"rays + moving obstacle, {sweep}"] = (
+            moving_ray_batch(), dict(n_outer=4, n_inner=8, tol_con=1e-3, sweep=sweep))
+        cases[f"user unicycle + moving obstacle, {sweep}"] = (
+            jb, dict(n_outer=4, n_inner=10, tol_con=1e-3, sweep=sweep))
+    solve_spread("solve, user unicycle + moving obstacle", functools.partial(
+        jax_solve, cfg=JaxConfig(n_outer=4, n_inner=10, tol_con=1e-3)), jo)
     for tag, (ob, kw) in cases.items():
         solve_spread(f"hybrid route, {tag}", functools.partial(
             JB.solve_batched, cfg=JaxConfig(**kw)), ob)

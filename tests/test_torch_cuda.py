@@ -713,3 +713,22 @@ def test_generic_hybrid_route_on_the_card_launches_k3(dev):
     ref = solve_batched(ob.to("cpu"), cfg=cfg)
     assert abs(float(res.cost.mean().cpu() / ref.cost.mean()) - 1.0) <= 1e-3
     assert torch.equal(res.converged.cpu(), ref.converged)
+
+
+def test_dryrun_on_a_one_rank_nccl_world(dev, tmp_path):
+    """The port's dry run (parallel/dryrun.py) on a one-rank NCCL world on
+    the card: every block holds sharded = single-program, and the
+    data-parallel step's solve_batched and consensus's fused engine launch
+    K1 and K2."""
+    from nmpc_tpu_torch.parallel import dryrun
+    from nmpc_tpu_torch.parallel import mesh as M
+
+    M.init_world("nccl", 0, 1, f"file://{tmp_path / 'store'}")
+    try:
+        cuda_build.reset_launch_counts()
+        errs = dryrun.dryrun_multichip(M.data_mesh())
+        counts = dict(cuda_build.launch_counts)
+    finally:
+        torch.distributed.destroy_process_group()
+    assert counts["inner_solve_fused"] > 0 and counts["al_update_lanes"] > 0, counts
+    assert {"consensus", "GN fleet", "ADMM fleet"} <= set(errs)

@@ -154,3 +154,59 @@ def test_generic_closed_loop_driver():
     assert wt.U.shape == (10, 1)
     assert abs(float(xt[0]) - 10.0) < 0.3
     assert abs(float(xt[0]) - float(xj[0])) < 1e-3
+
+
+def unicycle_jax(x, u):
+    return jnp.stack([u[0] * jnp.cos(x[2]), u[0] * jnp.sin(x[2]), u[1]])
+
+
+def unicycle_torch(x, u):
+    return torch.stack([u[0] * torch.cos(x[2]), u[0] * torch.sin(x[2]), u[1]])
+
+
+UNI = dict(nx=3, nu=2, N=10, T=0.1, x0=[0.0, 0.0, 0.0], x_goal=[1.0, 0.5, 0.0],
+           Qdiag=[1.0, 5.0, 0.1], Rdiag=[0.5, 0.05], u_lo=[-0.22, -2.84], u_hi=[0.22, 2.84],
+           integrator="rk4")
+
+
+def moving_generic(B=4, seed=6):
+    """A user unicycle model (make_generic_ocp, RK4) given one moving
+    obstacle, the schedule of tests/test_torch_hybrid.py::moving_ray_batch
+    (0.35 ahead, drifting across the path, keep-out 0.3): the reference's
+    OCP and the port's, each with a per-scenario schedule [B, N, 1, 2]
+    (jittered by 0.01) and starts jittered by 0.02, as numpy-made inputs."""
+    rng = np.random.default_rng(seed)
+    N = UNI["N"]
+    sched = np.stack([np.full(N, 0.35), -0.02 * np.arange(N)], -1)[:, None, :]
+    mov = (sched[None] + 0.01 * rng.standard_normal((B, N, 1, 2))).astype(np.float32)
+    x0s = (np.asarray(UNI["x0"])[None] + 0.02 * rng.standard_normal((B, 3))).astype(np.float32)
+    jo = dataclasses.replace(JP.make_generic_ocp(unicycle_jax, **UNI), n_mov=1,
+                             dmin2=jnp.float32(0.09), mov_obs=jnp.asarray(mov[0]))
+    to = dataclasses.replace(TP.make_generic_ocp(unicycle_torch, device="cpu", **UNI), n_mov=1,
+                             dmin2=torch.tensor(0.09), mov_obs=torch.from_numpy(mov[0]))
+    jb = dataclasses.replace(jax_batch_ocp(jo, jnp.asarray(x0s)), mov_obs=jnp.asarray(mov))
+    tb = dataclasses.replace(batch_ocp(to, torch.from_numpy(x0s)), mov_obs=torch.from_numpy(mov))
+    return jo, to, jb, tb
+
+
+def test_user_model_with_moving_obstacles_matches_reference():
+    """dyn_fn with moving obstacles: the per-scenario `solve` (one shared
+    schedule) at this file's per-scenario tolerances, and solve_batched's
+    hybrid route with per-scenario schedules, with the Riccati sweep and
+    with the scan, at the batched criteria (a 1e-7 move of x0 moves the
+    reference's U by 8.1e-4 in the per-scenario solve and 1.7e-3 in the
+    batch, tests/reference_spread.py gn); the moving-obstacle row is
+    active."""
+    jo, to, jb, tb = moving_generic()
+    cfg = dict(n_outer=4, n_inner=10, tol_con=1e-3)
+    jr = jax.jit(functools.partial(JS.solve, cfg=JS.ALILQRConfig(**cfg)))(jo)
+    tr = solve(to, cfg=ALILQRConfig(**cfg))
+    _hold(tr, jr, 2e-2)
+    assert float(tr.lam[1:, 0].max()) > 0.0
+    for sweep in ("seq", "scan"):
+        kw = dict(cfg, sweep=sweep)
+        jr = jax.jit(functools.partial(JB.solve_batched, cfg=JS.ALILQRConfig(**kw)))(jb)
+        tr = solve_batched(tb, cfg=ALILQRConfig(**kw))
+        _hold(tr, jr, 5e-3)
+        np.testing.assert_array_equal(tr.outer_iters.numpy(), np.asarray(jr.outer_iters))
+        assert float(tr.lam[:, 1:, 0].max()) > 0.0

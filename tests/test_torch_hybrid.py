@@ -189,3 +189,66 @@ def test_polar_seed_matches_reference():
     cfg1 = ALILQRConfig(n_outer=1, n_inner=2)
     assert torch.equal(solve_batched(rb, cfg=dataclasses.replace(cfg1, cold_seed="polar")).U,
                        solve_batched(rb, cfg=cfg1).U)
+
+
+def moving_ray_batch(B=4, N=10, seed=5, per_scenario=True):
+    """make_ocp with LiDAR rays (R=10, ray_lo=0.3, two rays on an obstacle)
+    and one moving obstacle that starts 0.35 ahead of the robot and drifts
+    across its path, at the keep-out dmin=0.3, so that its rows are active:
+    a schedule [N, 1, 2], or one a scenario [B, N, 1, 2] jittered by 0.01.
+    A 1e-7 move of x0 moves the reference's U by 2.0e-3 on either sweep
+    (tests/reference_spread.py gn; a schedule that meets the robot head on
+    parts one scenario by 0.16 under such a move, so it is not used)."""
+    rng = np.random.default_rng(seed)
+    scan = np.full((10,), 3.5, np.float32)
+    scan[1], scan[2] = 0.6, 0.8
+    p_obs = jax_obstacle_points(jnp.zeros(3), jnp.asarray(scan), jax_ray_angles(10, jnp.float32))
+    k = np.arange(N, dtype=np.float32)
+    sched = np.stack([0.35 + 0.0 * k, -0.02 * k], -1)[:, None, :].astype(np.float32)
+    base = JP.make_ocp(m=1, N=N, T=0.1, x0=np.concatenate([np.zeros(3, np.float32), scan]),
+                       x_goal=(1.0, 0.5, 0.0), num_rays=10, ray_lo=0.3, robot_radius=0.2,
+                       dmin=0.3, p_obs=p_obs, mov_obs=jnp.asarray(sched))
+    x0s = np.repeat(np.asarray(base.x0)[None], B, 0)
+    x0s[:, :3] += 0.02 * rng.standard_normal((B, 3))
+    ob = jax_batch_ocp(base, jnp.asarray(x0s, jnp.float32))
+    if per_scenario:
+        mov = sched[None] + 0.01 * rng.standard_normal((B, N, 1, 2))
+        ob = dataclasses.replace(ob, mov_obs=jnp.asarray(mov, jnp.float32))
+    return ob
+
+
+@pytest.mark.parametrize("sweep", ["seq", "scan"])
+def test_rays_with_moving_obstacles_match_reference(sweep):
+    """LiDAR rays together with per-scenario moving-obstacle schedules on
+    the hybrid route (the constraint Jacobians by jacfwd, the stage's
+    schedule carried through the vmap), with the Riccati sweep and with the
+    scan, against the reference's solve_batched at the ray cases'
+    tolerances; the moving rows are active, and the port's own make_ocp
+    builds the same problem."""
+    ob = moving_ray_batch()
+    cfg = dict(n_outer=4, n_inner=8, tol_con=1e-3, sweep=sweep)
+    jr = jax.jit(functools.partial(JB.solve_batched, cfg=JS.ALILQRConfig(**cfg)))(ob)
+    t = port_ocp(ob)
+    tr = solve_batched(t, cfg=ALILQRConfig(**cfg))
+    _hold(tr, jr)
+    np.testing.assert_array_equal(tr.outer_iters.numpy(), np.asarray(jr.outer_iters))
+    assert float(tr.lam[:, 1:, 0].max()) > 0.0   # the moving-obstacle row is active
+    built = TP.make_ocp(m=1, N=t.N, T=0.1, x0=t.x0[0], x_goal=(1.0, 0.5, 0.0), num_rays=10,
+                        ray_lo=0.3, robot_radius=0.2, dmin=0.3, p_obs=t.p_obs,
+                        mov_obs=t.mov_obs[0], device="cpu")
+    assert (built.n_mov, built.num_rays, built.n_con) == (t.n_mov, t.num_rays, t.n_con)
+    for name in ("x_lo", "x_hi", "Qdiag", "dmin2", "p_obs"):
+        assert torch.equal(getattr(built, name), getattr(t, name)), name
+
+
+def test_per_scenario_solve_with_rays_and_moving_obstacles_matches_reference():
+    """The per-scenario engine on the same class (a shared [N, 1, 2]
+    schedule)."""
+    o = moving_ray_batch(B=1, per_scenario=False)
+    one = dataclasses.replace(o, x0=o.x0[0], xref=o.xref[0])
+    cfg = dict(n_outer=4, n_inner=8, tol_con=1e-3)
+    jr = jax.jit(functools.partial(JS.solve, cfg=JS.ALILQRConfig(**cfg)))(one)
+    tr = solve(port_ocp(one), cfg=ALILQRConfig(**cfg))
+    np.testing.assert_allclose(float(tr.cost), float(jr.cost), rtol=1e-4)
+    np.testing.assert_allclose(tr.U.numpy(), np.asarray(jr.U), atol=5e-3)
+    assert int(tr.outer_iters) == int(jr.outer_iters)

@@ -1,6 +1,6 @@
 """Import hygiene of the port: no module of nmpc_tpu_torch loads JAX or the
 JAX package, and importing builds nothing (no kernel library, no native
-runtime)."""
+runtime) and starts no torch.distributed world."""
 
 import pkgutil
 import subprocess
@@ -22,6 +22,7 @@ def test_port_modules_import_without_jax():
             "nmpc_tpu_torch.utils.timing",
             "nmpc_tpu_torch.solver.alilqr", "nmpc_tpu_torch.parallel.batch",
             "nmpc_tpu_torch.parallel.decentralized", "nmpc_tpu_torch.parallel.consensus",
+            "nmpc_tpu_torch.parallel.mesh", "nmpc_tpu_torch.parallel.dryrun",
             "nmpc_tpu_torch.sim.plant", "nmpc_tpu_torch.sim.frames", "nmpc_tpu_torch.sim.lidar",
             "nmpc_tpu_torch.mpc.driver", "nmpc_tpu_torch.tools.fleet_loop",
             "nmpc_tpu_torch.device", "nmpc_tpu_torch.solver.gn", "nmpc_tpu_torch.mpc.lidar",
@@ -40,6 +41,8 @@ def test_port_modules_import_without_jax():
         "assert not cuda_build.build_info and not cuda_build.k3_shape_build_info\n"
         "from nmpc_tpu_torch.io import bridge\n"
         "assert bridge._lib is None\n"
+        "import torch.distributed as dist\n"
+        "assert not dist.is_initialized()\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)

@@ -160,3 +160,31 @@ def test_host_slot_takes_the_obstacle_rows(host_libs, m):
         assert slot % 16 == 0
         assert slot >= 4 * (2 * n * n + nu * n + nu * nu + n_con + 5 * R)
         assert R == 0 or slot >= lib.host_k1_slot_bytes(R - 1)
+
+
+def test_host_k1_at_the_consensus_width(host_libs):
+    """K1's and K2's obstacle variant at the widest row count a port path
+    gives it: one robot of the 48-robot consensus fleet, 47 moving-obstacle
+    rows, N=20 (tests/obstacle_cases.py consensus48), at the tolerances
+    above; and the block's dynamic shared memory at 47 rows (K1_WARPS
+    slots and the parameter block) within the H100's 227 KB."""
+    ob, U, lam, mu = OC.port_case("consensus48", 4, seed=7)
+    assert (ob.n_mov, ob.N, megasolve.obstacle_rows(ob)) == (47, 20, 47)
+    lib = host_libs[1]
+    cfg = ALILQRConfig(n_inner=4, ls="adaptive")
+    got = host_k1(lib, ob, ob.x0, ob.xref, lam, mu, U, cfg)
+    want = megasolve.inner_solve_plain(ob, ob.x0, ob.xref, lam, mu, U, cfg)
+    torch.testing.assert_close(got[2], want[2], rtol=1e-4, atol=0.0)
+    torch.testing.assert_close(got[1], want[1], rtol=0.0, atol=5e-3)
+    torch.testing.assert_close(got[0], want[0], rtol=0.0, atol=5e-3)
+    assert torch.equal(got[3], want[3])
+    g2 = host_k2(lib, ob, got[0], got[1], lam, mu, 1e6)
+    w2 = megasolve.al_update_plain(ob, got[0], got[1], lam, mu, 1e6)
+    torch.testing.assert_close(g2[0], w2[0], rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(g2[1], w2[1], rtol=1e-6, atol=1e-6)
+    # slots on the way are active, and not only among the first five
+    active = (w2[0][:, 1:, :47] > 0).any(1)                     # [B, 47]
+    assert active.float().mean() > 0.01 and bool(active[:, 5:].any())
+    smem = (megasolve.K1_WARPS * lib.host_k1_slot_bytes(47)
+            + 4 * rollout._P(ob.nx, ob.nu, len(cfg.alphas), ob.n_obs).size)
+    assert smem <= megasolve.SMEM_BLOCK_MAX == 227 * 1024
