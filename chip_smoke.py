@@ -27,6 +27,10 @@ and holding each against its plain PyTorch version on the card:
 * the obstacle variant of K1 and K2 (static- and moving-obstacle rows):
   held against plain, then paths (b) and (c) on the megakernel route (the
   default mega=True) against the staged route on the same batch, in turns;
+  at m <= 2 (paths (b), (c), the modes' subproblems, two_robot_swap) the
+  route's K1 is its team design (csrc/inner_team.cuh: a team of lanes a
+  scenario, the line-search candidates side by side), timed against the
+  warp design in turns at (b), (c) and 47 moving-obstacle rows;
 * the roofline path (nmpc_tpu_torch/tools), through K7 (FMA-peak probe), K8
   (K1 with one phase ablated at a fixed count) and K9 (K1 with the
   structured or the dense expansion layout), then the bound of every kernel;
@@ -95,7 +99,8 @@ Phases:
     step; K2; the first design's      both layouts timed in turns; the
     layout copies                     roofline of K1-K9
                                    15 line-search grids of 33 and 64 alphas:
-                                      K1 vs plain, the megakernel route; K5
+                                      K1 vs plain at m=6 and m=1 (the team
+                                      design), the megakernel route; K5
                                       vs its first design; a staged solve
                                    16 the per-scenario engine: card vs CPU,
                                       vs solve_one; batched_solve vs solve
@@ -110,12 +115,16 @@ Phases:
                                       step's split; its first step on the CPU
                                    21 K1's and K2's obstacle variant vs plain
                                       (path (b)'s problem B=1024 and 33, path
-                                      (c) B=4096); its ptxas lines
+                                      (c) B=4096); its and K1's team
+                                      design's ptxas lines
                                    22 paths (b) and (c) on the megakernel
                                       route vs the staged route, in turns;
-                                      K1 per launch against its bound and
-                                      vs plain; (b)'s CPU re-solve and a
-                                      control that drops an obstacle
+                                      K1 per launch against its bound, vs
+                                      plain and vs the warp design in
+                                      turns (also at 47 rows), how often
+                                      each leaves f64's path; (b)'s CPU
+                                      re-solve and a control that drops an
+                                      obstacle
                                    23 the modes: decentralized six-robot
                                       loop, consensus six- and ten-robot
                                       loops; K1/K2 vs plain at their shapes
@@ -130,7 +139,7 @@ Phases:
                                    27 the lidar_v4 GN fleet, B=1024 and
                                       4096 (scan), B=1024 dense against it
                                    28 the lidar_v4 closed loop (CL_PARITY
-                                      fixture, B=1), its first 40 steps
+                                      fixture, B=1), its first 15 steps
                                    29 K3 at (2, 1) and (1, 1): ptxas, vs
                                       plain at the user models' inputs,
                                       times against the bound
@@ -188,7 +197,7 @@ MOV_B = 4096
 # loop's steps in phase 28
 LIDAR_B = 4096
 LIDAR_CROSS_B = 8
-LIDAR_STEPS = 40
+LIDAR_STEPS = 15
 # K3 at the stage shapes other than (3m, 2m) (csrc/riccati_shape.cu), as
 # PERF.md records its line (regs, stack, spill stores, spill loads, dynamic
 # shared bytes a block)
@@ -244,22 +253,43 @@ FIRST_STAGED_PTXAS = {1: {"K3": (32, 176, 0, 0), "K4": (64, 80, 0, 0), "K5": (72
                           "K6": (32, 56, 0, 0)},
                       6: {"K3": (255, 4384, 0, 0), "K4": (108, 1728, 0, 0), "K5": (72, 176, 0, 0),
                           "K6": (72, 176, 0, 0)}}
-KERNELS = {"inner_solve": "K1", "al_update": "K2", "riccati": "K3", "expansions": "K4",
-           "linesearch_costs": "K5", "rollout_alpha": "K6"}
+# K1's team design (csrc/inner_team.cuh, the route's K1 at m <= 2) as PERF.md
+# records its lines (regs, stack, spill stores, spill loads), pair-only and
+# the obstacle variant
+K1_TEAM_PTXAS = {1: {"K1 team": (101, 32, 0, 0), "K1 team obs": (128, 48, 12, 12)},
+                 2: {"K1 team": (128, 64, 56, 64), "K1 team obs": (128, 200, 312, 328)}}
+KERNELS = {"inner_solve": "K1", "inner_team": "K1 team", "al_update": "K2", "riccati": "K3",
+           "expansions": "K4", "linesearch_costs": "K5", "rollout_alpha": "K6"}
 # the solver library's kernels: K1-K6, and K1's and K2's obstacle variant
-# (the instantiations with the template flag kObs = true)
-SOLVER_KERNELS = set(KERNELS.values()) | {"K1 obs", "K2 obs"}
+# (the instantiations with the template flag kObs = true); at m <= 2 also
+# K1's team design in both instantiations
+SOLVER_KERNELS = (set(KERNELS.values()) - {"K1 team"}) | {"K1 obs", "K2 obs"}
+TEAM_KERNELS = {"K1 team", "K1 team obs"}
 
 
 def kernel_name(line: str) -> str:
     """The kernel of a ptxas 'Compiling entry function' line: K1-K6, 'K1
-    obs' / 'K2 obs' for the obstacle variant, else '?'."""
+    team' (K1's team design), 'K1 obs' / 'K2 obs' / 'K1 team obs' for the
+    obstacle variant, else '?'."""
     name = next((k for key, k in KERNELS.items() if key in line), "?")
-    return f"{name} obs" if name in ("K1", "K2") and "Lb1E" in line else name
+    return f"{name} obs" if name in ("K1", "K2", "K1 team") and "Lb1E" in line else name
+
+
+def k1_merit_order(ob):
+    """The plain merit summed in the order of the route's K1 for ob: the
+    team design's at m <= 2, the warp design's above."""
+    from nmpc_tpu_torch.ops import cuda_build, megasolve
+
+    return (megasolve.al_merit_team_order if ob.m in cuda_build.TEAM_ROBOTS
+            else megasolve.al_merit_warp_order)
+
+
+T_START = time.perf_counter()
 
 
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    """A line of the run's log, after the seconds since the script started."""
+    print(f"[{time.perf_counter() - T_START:6.1f} s] {msg}", flush=True)
 
 
 def sh(cmd: list[str]) -> str:
@@ -1024,8 +1054,11 @@ def obstacle_kernel_phase(dev, ob_b, ob_c) -> dict:
     problem (obstacle_scenario_3, N=100, six static obstacles) at B=1024 and
     a ragged B=33, and on path (c)'s (robot_template(30, 0.1, 0.3, 6): five
     moving obstacles, per-scenario schedules) at B=4096, from warm inputs of
-    the CPU tests' kind; K2 on K1's output. Prints the variant's ptxas lines
-    and holds the pair-only K1's. Returns the largest errors {'K1', 'K2'}."""
+    the CPU tests' kind; K2 on K1's output. K1 is the route's (at m = 1 the
+    team design); the warp design's obstacle variant (the route's K1 at m >=
+    3, the A/B baseline at m <= 2, megasolve.warp_launch) is held the same
+    way on the same inputs. Prints the variant's ptxas lines and holds the
+    pair-only K1's. Returns the largest errors {'K1', 'K2', 'K1 warp'}."""
     import dataclasses
 
     import torch
@@ -1041,6 +1074,19 @@ def obstacle_kernel_phase(dev, ob_b, ob_c) -> dict:
             f"{cuda_build.load(m).nmpc_k1_slot_bytes(6 * m)} B at 6 m obstacle rows); the "
             f"pair-only K1 {got['K1']} as recorded: {'yes' if same else 'NO'}")
         assert same, (m, got["K1"])
+    from nmpc_tpu_torch.ops import megasolve
+
+    for m in cuda_build.TEAM_ROBOTS:
+        lib = cuda_build.load(m)
+        got = ptxas(cuda_build.build_info[m]["ptxas"])
+        team = {k: got[k] for k in TEAM_KERNELS}
+        same = team == K1_TEAM_PTXAS[m]
+        log(f"phase 21 ptxas m={m}: K1's team design (csrc/inner_team.cuh, "
+            f"{cuda_build.team_geometry(lib)}) {team} (regs, stack, spill stores, spill loads; a "
+            f"team's ring {lib.nmpc_k1_team_ring_bytes(6 * m, 0, int(m > 1))} B at 6 m obstacle "
+            f"rows, {lib.nmpc_k1_team_ring_bytes(47, 47, 0)} B at 47 moving rows); as recorded: "
+            f"{'yes' if same else 'NO'}")
+        assert same, (m, team)
     g = torch.Generator(device=dev).manual_seed(21)
 
     def head(ob, B):
@@ -1049,7 +1095,7 @@ def obstacle_kernel_phase(dev, ob_b, ob_c) -> dict:
             fields["mov_obs"] = ob.mov_obs[:B].contiguous()
         return dataclasses.replace(ob, **fields)
 
-    errs = {"K1": [], "K2": []}
+    errs = {"K1": [], "K2": [], "K1 warp": []}
     for tag, ob, ls in ((f"obstacle_scenario_3 N={ob_b.N} B={K1_B}", head(ob_b, K1_B), "adaptive"),
                         (f"obstacle_scenario_3 N={ob_b.N} B={K1_B}", head(ob_b, K1_B), "cascade"),
                         (f"obstacle_scenario_3 N={ob_b.N} B=33", head(ob_b, 33), "adaptive"),
@@ -1065,6 +1111,12 @@ def obstacle_kernel_phase(dev, ob_b, ob_c) -> dict:
                                   f"output", ob, got[0], got[1], lam, mu, cfg.lam_max))
         c = cuda_build.launch_counts
         assert c["inner_solve_fused"] == 1 and c["al_update_lanes"] == 1, c
+        warp = megasolve.warp_launch(ob, ob.x0, ob.xref, lam, mu, U, cfg, "inner_solve_fused",
+                                     cuda_build.load, megasolve.K1_WARPS)
+        torch.cuda.synchronize()
+        errs["K1 warp"].append(hold_k1_spread(
+            f"phase 21 K1's warp design, obstacle variant, vs plain: {tag} ls={ls} n_inner=4",
+            ob, U, lam, mu, cfg, g, got=warp)[1])
     return {k: max(v) for k, v in errs.items()}
 
 
@@ -1076,18 +1128,44 @@ def phase22_paths(ob_b, obs_cfg, ob_c, mov_cfg) -> tuple:
             ("c", ob_c, mov_cfg, 0.0, OBS_CROSS_B, dict()))
 
 
-def megakernel_paths_phase(dev, card, paths) -> None:
+def team_vs_warp(args) -> tuple:
+    """K1 through the route (the team design at m <= 2) against the warp
+    design (megasolve.warp_launch, the A/B baseline) on the same inputs
+    args of inner_solve_plain, single calls in turns (team, warp, warp,
+    team) after a warm-up of each, on CUDA events: (team ms, warp ms)
+    medians, and each run's ms."""
+    from nmpc_tpu_torch.ops import cuda_build, megasolve
+    from nmpc_tpu_torch.utils.timing import cuda_ms
+
+    runs = {"team": lambda: megasolve.inner_solve_fused(*args),
+            "warp": lambda: megasolve.warp_launch(*args, "inner_solve_fused", cuda_build.load,
+                                                  megasolve.K1_WARPS)}
+    for f in runs.values():
+        f()
+    out = {"team": [], "warp": []}
+    for name in ("team", "warp", "warp", "team"):
+        out[name].append(cuda_ms(runs[name], 1, warmup=0))
+    return statistics.median(out["team"]), statistics.median(out["warp"]), out
+
+
+def megakernel_paths_phase(dev, card, paths) -> dict:
     """Phase 22: paths (b) and (c) at full width on the megakernel route
-    (K1's obstacle variant and K2, one launch each an outer step), against
-    the staged route on the same batch in turns (mega, staged, staged,
-    mega); converged, violation p99, the first scenarios re-solved on the
-    CPU; K1 at the first outer step's inputs (zero warm controls and duals,
-    mu_init) against its bound (the iterations and line-search candidates
-    the plain version needs, tools/roofline.py::kernel_work), against the
-    plain version summed in K1's order by phase 6's spread rule, and with
-    the plain version in both orders against f64 (`hold_against_f64`); K2
-    at the solve's last state. paths: [(tag, batch, staged config, least
-    converged share, CPU scenarios, cross_check's criteria)].
+    (K1's obstacle variant, at m = 1 its team design, and K2, one launch
+    each an outer step), against the staged route on the same batch in
+    turns (mega, staged, staged, mega); converged, violation p99, the first
+    scenarios re-solved on the CPU; K1 at the first outer step's inputs
+    (zero warm controls and duals, mu_init) against its bound (the
+    iterations and line-search candidates the plain version needs,
+    tools/roofline.py::kernel_work), against the warp design in turns
+    (`team_vs_warp`), against the plain version summed in K1's order by
+    phase 6's spread rule (the warp design likewise, against the plain
+    version summed in its order), and with the plain version in both orders and the
+    warp design against f64 (`hold_against_f64`: how often each leaves
+    f64's path); K2 at the solve's last state. Then K1 against the warp
+    design in turns at 47 rows (the consensus fleet's first round,
+    tools/k1_launch.py::consensus_first_round). paths: [(tag, batch, staged
+    config, least converged share, CPU scenarios, cross_check's criteria)]. Returns path
+    (b)'s K1 record {launches, ms, plain_ms, bound_ms, bound_by}.
 
     The CPU re-solve of path (b) is held by outcome (cost within rtol 1e-4
     on 80%, U within 5e-3 on 40%, mean cost within 1%): phase 21 holds K1
@@ -1105,11 +1183,13 @@ def megakernel_paths_phase(dev, card, paths) -> None:
     import torch
 
     from nmpc_tpu_torch.ops import cuda_build, megasolve
-    from nmpc_tpu_torch.solver import solve_batched
+    from nmpc_tpu_torch.solver import ALILQRConfig, solve_batched
+    from nmpc_tpu_torch.tools import k1_launch as K1L
     from nmpc_tpu_torch.tools import roofline as RL
     from nmpc_tpu_torch.utils.timing import cuda_ms
 
     cpu = torch.device("cpu")
+    record = {}
     for tag, ob, scfg, conv_min, n_cpu, held in paths:
         B = ob.x0.shape[0]
         mcfg = dataclasses.replace(scfg, mega=True)
@@ -1132,21 +1212,31 @@ def megakernel_paths_phase(dev, card, paths) -> None:
         args = (ob, ob.x0, ob.xref, torch.zeros((B, ob.N, ob.n_con), **kw),
                 torch.full((B,), mcfg.mu_init, **kw), torch.zeros((B, ob.N, ob.nu), **kw), mcfg)
         k1_ms = cuda_ms(lambda: megasolve.inner_solve_fused(*args), 3)
+        team_ms, warp_ms, turns_k1 = team_vs_warp(args)
         got = megasolve.inner_solve_fused(*args)
+        got_warp = megasolve.warp_launch(*args, "inner_solve_fused", cuda_build.load,
+                                         megasolve.K1_WARPS)
         cand = torch.zeros(B, dtype=torch.int64, device=dev)
         want, plain_ms = once(lambda: megasolve.inner_solve_plain(*args, candidates=cand))
-        # K1 sums the merit lane by lane over the stages; over 25 iterations
-        # at N=100 that order alone parts scenarios from the plain version's,
-        # so K1 is held against the plain version summed in its order
-        # (al_merit_warp_order), and all three against the plain one in f64
-        worder = megasolve.al_merit_warp_order
-        want_w = megasolve.inner_solve_plain(*args, merit=worder)
+        # K1 sums the merit in its own order (the team design: each stage in
+        # row order, the stages by a compensated sum); over 25 iterations at
+        # N=100 an order alone parts scenarios from the plain version's, so
+        # K1 is held against the plain version summed in its order
+        # (k1_merit_order), and all of them against the plain one in f64
+        korder = k1_merit_order(ob)
+        want_w = megasolve.inner_solve_plain(*args, merit=korder)
+        g22 = torch.Generator(device=dev).manual_seed(22)
         n_spread = hold_k1_spread(
             f"phase 22 path ({tag}) K1 vs plain in K1's summation order at B={B}, the first "
-            f"outer step's inputs", ob, args[5], args[3], args[4], mcfg,
-            torch.Generator(device=dev).manual_seed(22), got=got, want=want_w, merit=worder)[2]
-        hold_against_f64(f"phase 22 path ({tag})", args, got, want, want_w, n_spread)
-        del want_w
+            f"outer step's inputs", ob, args[5], args[3], args[4], mcfg, g22, got=got,
+            want=want_w, merit=korder)[2]
+        # the warp design (the A/B baseline) against plain in its own order
+        hold_k1_spread(f"phase 22 path ({tag}) the warp design vs plain in its summation order "
+                       f"at B={B}, the first outer step's inputs", ob, args[5], args[3], args[4],
+                       mcfg, g22, got=got_warp, merit=megasolve.al_merit_warp_order)
+        hold_against_f64(f"phase 22 path ({tag})", args, got, want, want_w, n_spread,
+                         extra={"the warp design": got_warp})
+        del want_w, got_warp
         run = RL.k1_executed(want[3], mcfg.n_inner)
         work = RL.kernel_work("K1", ob, B, mcfg, iters=int(run.sum()), candidates=int(cand.sum()))
         k1_bound, k1_by = RL.bound(*work)
@@ -1163,7 +1253,11 @@ def megakernel_paths_phase(dev, card, paths) -> None:
             f"{mega_ms:.1f} ms, staged {staged_ms:.1f} ms ({staged_ms / mega_ms:.2f}x); the "
             f"staged route on the batch: {summary(staged)} {card}")
         log(f"phase 22 path ({tag}) K1 at the first outer step's inputs: {k1_ms:.3f} ms per launch "
-            f"(mean of 3), plain {plain_ms:.1f} ms; {float(run.float().mean()):.2f} iterations and "
+            f"(mean of 3; the team design against the warp design in turns (team, warp, warp, "
+            f"team) " + ", ".join(f"{t:.3f}" for t in turns_k1["team"][:1] + turns_k1["warp"]
+                                 + turns_k1["team"][1:]) + f" ms -> medians {team_ms:.3f} / "
+            f"{warp_ms:.3f} ms, {warp_ms / team_ms:.2f}x), plain {plain_ms:.1f} ms; "
+            f"{float(run.float().mean()):.2f} iterations and "
             f"{float(cand.float().mean()):.2f} candidates needed per scenario; bound {k1_bound:.4f} "
             f"ms ({k1_by}), {100 * k1_bound / k1_ms:.2f}% of it reached; K2 at the solve's last "
             f"state {k2_ms:.3f} ms, plain {k2_plain_ms:.3f} "
@@ -1176,17 +1270,41 @@ def megakernel_paths_phase(dev, card, paths) -> None:
                           n_cpu, **held)
         if ob.n_obs:
             dropped_obstacle_control(f"phase 22 path ({tag})", sub, ref, mcfg, n_cpu, held)
+        if tag == "b":
+            record = {"launches": c["inner_solve_fused"], "ms": k1_ms, "plain_ms": plain_ms,
+                      "bound_ms": k1_bound, "bound_by": k1_by}
         del res, staged, got, want
+    # K1 at 47 rows: the consensus fleet's first round, team against warp
+    obc, lam_c, mu_c, U_c = K1L.consensus_first_round(SHARD_CONSENSUS_M, dev=dev)
+    ccfg = ALILQRConfig(n_outer=6, n_inner=12, tol_con=1e-4)
+    args = (obc, obc.x0, obc.xref, lam_c, mu_c, U_c, ccfg)
+    team_ms, warp_ms, turns_k1 = team_vs_warp(args)
+    cand = torch.zeros(obc.x0.shape[0], dtype=torch.int64, device=dev)
+    want = megasolve.inner_solve_plain(*args, candidates=cand)
+    bound_47, by_47 = RL.bound(*RL.kernel_work(
+        "K1", obc, obc.x0.shape[0], ccfg, iters=int(RL.k1_executed(want[3], ccfg.n_inner).sum()),
+        candidates=int(cand.sum())))
+    log(f"phase 22 K1 at {megasolve.obstacle_rows(obc)} moving-obstacle rows (the consensus "
+        f"fleet's first round, B={obc.x0.shape[0]}, N={obc.N}, cold): the team design against "
+        f"the warp design in turns (team, warp, warp, team) "
+        + ", ".join(f"{t:.3f}" for t in turns_k1["team"][:1] + turns_k1["warp"]
+                    + turns_k1["team"][1:]) + f" ms -> medians {team_ms:.3f} / {warp_ms:.3f} "
+        f"ms, {warp_ms / team_ms:.2f}x; bound {bound_47:.5f} ms ({by_47}), "
+        f"{100 * bound_47 / team_ms:.3f}% of it reached {card}")
+    return record
 
 
-def hold_against_f64(tag: str, args, got, want, want_w, n_spread: int) -> None:
+def hold_against_f64(tag: str, args, got, want, want_w, n_spread: int,
+                     extra: dict | None = None) -> None:
     """K1's results (got), the plain version's (want) and the plain
     version's summed in K1's order (want_w) at the inputs args of
     inner_solve_plain, each against the plain version in f64, at phase 3's
     tolerances (`agree`). K1 must part from f64 on at most as many
     scenarios as the plain version in its order does, plus that version's
     own spread under a 2^-23 move of its inputs (n_spread) and 0.1%, and
-    keep its cost within rtol 1e-4 of f64 on all but 0.1%."""
+    keep its cost within rtol 1e-4 of f64 on all but 0.1%. `extra`: other
+    results {name: results} counted beside them (the leave rate is
+    printed, not held)."""
     import dataclasses
 
     import torch
@@ -1200,7 +1318,8 @@ def hold_against_f64(tag: str, args, got, want, want_w, n_spread: int) -> None:
     exact = megasolve.inner_solve_plain(o64, *(a.double() for a in args[1:6]), args[6])
     exact = tuple(e.float() if e.is_floating_point() else e for e in exact)
     seen = {}
-    for name, r in (("K1", got), ("plain", want), ("plain in K1's order", want_w)):
+    for name, r in (("K1", got), ("plain", want), ("plain in K1's order", want_w),
+                    *(extra or {}).items()):
         ok, rel, du, _ = agree(r, exact)
         seen[name] = int((~ok).sum())
         cost_off = int(((r[2] - exact[2]).abs() > 1e-4 * exact[2].abs()).sum())
@@ -1922,6 +2041,7 @@ def sharded_phase(dev, card: str, base, bench_cfg) -> None:
     from nmpc_tpu_torch.parallel.batch import batch_ocp, shard_ocp_batch
     from nmpc_tpu_torch.solver import ALILQRConfig, gn, solve_batched
     from nmpc_tpu_torch.tools import admm_fleet, lidar_fleet
+    from nmpc_tpu_torch.tools import k1_launch as K1L
     from nmpc_tpu_torch.tools import roofline as RL
     from nmpc_tpu_torch.utils.timing import cuda_ms
 
@@ -2072,36 +2192,34 @@ def sharded_phase(dev, card: str, base, bench_cfg) -> None:
         assert torch.isfinite(out_p[0]).all() and torch.isfinite(out_p[1]).all()
 
         # K1 and K2 at the first round's shape, against plain; K1's share
-        plans0 = poses[:, None, :2].repeat(1, N + 1, 1)
-        mov = TD.rolled_neighbours(plans0, 0, m)[:, :, :N].transpose(1, 2).contiguous()
-        obc = dataclasses.replace(tpl, x0=poses, xref=goals[:, None].repeat(1, N, 1), mov_obs=mov)
-        w = TD.cold_warms(tpl, m, ccfg)
+        obc, lam_c, mu_c, U_c = K1L.consensus_first_round(m, N, dev=dev)
         c4 = dataclasses.replace(ccfg, n_inner=4)
         # at 47 rows the merit's summation order alone flips the rel <
         # tol_cost stop of a few robots (46/48 equal counts against the plain
-        # version in its own order): K1 is held against the plain version
-        # summed in K1's order, by phase 22's spread rule
-        worder = megasolve.al_merit_warp_order
+        # version in its own order, with the warp design): K1 is held against
+        # the plain version summed in K1's order, by phase 22's spread rule
+        worder = k1_merit_order(obc)
         got4 = hold_k1_spread(
             f"phase 34 consensus m={m} K1 vs plain (summed in K1's order) at the first round's "
-            f"shape (B={m}, N={N}, {m - 1} moving obstacles, cold, n_inner=4)", obc, w.U, w.lam,
-            w.mu, c4, torch.Generator(device=dev).manual_seed(34), merit=worder)[0]
+            f"shape (B={m}, N={N}, {m - 1} moving obstacles, cold, n_inner=4)", obc, U_c, lam_c,
+            mu_c, c4, torch.Generator(device=dev).manual_seed(34), merit=worder)[0]
         hold_k2(f"phase 34 consensus m={m} K2 vs plain on K1's output", obc, got4[0], got4[1],
-                w.lam, w.mu, ccfg.lam_max)
-        args = (obc, obc.x0, obc.xref, w.lam, w.mu, w.U, ccfg)
+                lam_c, mu_c, ccfg.lam_max)
+        args = (obc, obc.x0, obc.xref, lam_c, mu_c, U_c, ccfg)
         k1_ms = cuda_ms(lambda: megasolve.inner_solve_fused(*args), 3)
         cand = torch.zeros(m, dtype=torch.int64, device=dev)
         want_k1, plain_ms = once(lambda: megasolve.inner_solve_plain(*args, candidates=cand))
         executed = RL.k1_executed(want_k1[3], ccfg.n_inner)
         k1_bound, k1_by = RL.bound(*RL.kernel_work("K1", obc, m, ccfg, iters=int(executed.sum()),
                                                    candidates=int(cand.sum())))
-        slot = cuda_build.load(1).nmpc_k1_slot_bytes(m - 1)
-        log(f"phase 34 consensus m={m} K1 (kObs, {m - 1} rows) at the first round's inputs: "
-            f"{k1_ms:.3f} ms a launch (mean of 3), plain {plain_ms:.1f} ms; "
+        ring = cuda_build.load(1).nmpc_k1_team_ring_bytes(m - 1, m - 1, 0)
+        teams = megasolve.K1_TEAM_WARPS * 32 // cuda_build.team_geometry(cuda_build.load(1))["T"]
+        log(f"phase 34 consensus m={m} K1 (the team design, kObs, {m - 1} rows) at the first "
+            f"round's inputs: {k1_ms:.3f} ms a launch (mean of 3), plain {plain_ms:.1f} ms; "
             f"{float(executed.float().mean()):.2f} iterations and "
             f"{float(cand.float().mean()):.2f} candidates a robot; bound {k1_bound:.5f} ms "
-            f"({k1_by}), {100 * k1_bound / k1_ms:.3f}% of it reached; slot {slot} B a warp, "
-            f"{megasolve.K1_WARPS * slot} B of slots a block {card}")
+            f"({k1_by}), {100 * k1_bound / k1_ms:.3f}% of it reached; ring {ring} B a team, "
+            f"{teams * ring} B of rings a block {card}")
 
         # K1 and K2 where the rows bind, against plain: tests/obstacle_cases.py's
         # consensus48 draws (scenario b is robot b % m, x0 moved by 0.02
@@ -2301,7 +2419,8 @@ def main() -> int:
     for m, (got, k1, block, staged) in lines.items():
         assert k1 == K1_PTXAS[m], (m, k1)
         assert staged == STAGED_PTXAS[m], (m, staged)
-        assert set(got) == SOLVER_KERNELS, got
+        assert set(got) == SOLVER_KERNELS | (TEAM_KERNELS if m in cuda_build.TEAM_ROBOTS
+                                             else set()), got
         assert block <= 227 * 1024, (m, block)   # the H100's shared memory per block
         assert all(v[-1] <= 227 * 1024 for v in staged.values()), (m, staged)
     tool_lines = {}
@@ -2944,6 +3063,25 @@ def main() -> int:
             f"Xs max |err| {dx:.3e}, iteration counts equal {same_it}/{K1_B}; the megakernel "
             f"route's solve at n_inner=12: {steps15} outer steps, launches {c15}, "
             f"{summary(r15)}")
+    # the same grids at m = 1, where K1 is the team design: a cascade of 33
+    # alphas runs in 9 passes of a team's 4 lanes, 64 in 16; on
+    # obstacle_scenario_3 at N=10, phase 3's kind of inputs
+    obs10 = get("obstacle_scenario_3").make(N=10, device=dev)
+    g15 = torch.Generator(device=dev).manual_seed(15)
+    ob15 = batch(obs10, K1_B, spread=0.05, g=g15)
+    U15, lam15, mu15 = warm_state(obs10, K1_B, g=g15)
+    for n_al in (33, 64):
+        grid = ALILQRConfig().alphas
+        alphas = (grid + tuple(grid[-1] * 0.7 ** k for k in range(1, n_al)))[:n_al]
+        cfg = ALILQRConfig(n_outer=6, n_inner=4, tol_con=1e-3, ls="cascade", alphas=alphas)
+        cuda_build.reset_launch_counts()
+        hold_k1(f"phase 15 K1's team design with {n_al} alphas (cascade, obstacle_scenario_3 N=10 "
+                f"B={K1_B}, n_inner=4) vs plain", ob15, U15, lam15, mu15, cfg)
+        assert cuda_build.launch_counts["inner_solve_fused"] == 1
+        r15 = solve_batched(ob15, cfg=dataclasses.replace(cfg, n_inner=12))
+        assert torch.isfinite(r15.cost).all()
+        log(f"phase 15 the megakernel route's solve at m=1 with {n_al} alphas, n_inner=12: "
+            f"{summary(r15)}")
     # K5 at 33 candidates on path (b)'s problem (k5_max_alphas(1) a launch),
     # bit for bit its first design, at phase 10's state (ii) of (b)
     from nmpc_tpu_torch.ops.expansions import expansions_fused
@@ -2989,9 +3127,9 @@ def main() -> int:
     # ---- phases 21-23: K1's and K2's obstacle variant; paths (b) and (c) on
     # the megakernel route; the robot-parallel modes ----------------------------
     obs_errs = obstacle_kernel_phase(dev, ob_b, ob_c)
-    megakernel_paths_phase(dev, card, phase22_paths(ob_b, obs_cfg, ob_c, mov_cfg))
-    log(f"phase 21-22 obstacle variant: K1 U max |err| {obs_errs['K1']:.3e}, K2 max |err| "
-        f"{obs_errs['K2']:.3e} against plain")
+    team_b = megakernel_paths_phase(dev, card, phase22_paths(ob_b, obs_cfg, ob_c, mov_cfg))
+    log(f"phase 21-22 obstacle variant: K1 U max |err| {obs_errs['K1']:.3e} (the warp design's "
+        f"{obs_errs['K1 warp']:.3e}), K2 max |err| {obs_errs['K2']:.3e} against plain")
     modes_phase(dev, card)
 
     # ---- phases 24-28: K3 at the ray shape; path (d); scan and compact; the
@@ -3017,6 +3155,12 @@ def main() -> int:
         entry("al_update_lanes", "nmpc_tpu_torch/csrc/inner_warp.cuh",
               "nmpc_tpu/ops/megasolve_pallas.py:870", counts["al_update_lanes"], k2_err,
               k2_ms, k2_plain_ms, "K2"),
+        # K1 at m <= 2, path (b): launches of its megakernel-route solve
+        # (counts set to 0 just before), times at its first outer step
+        {"name": "K1 team (m<=2)", "route": "cuda", "source": "nmpc_tpu_torch/csrc/inner_team.cuh",
+         "replaces": "nmpc_tpu/ops/megasolve_pallas.py:911", "launches": team_b["launches"],
+         "max_abs_err": obs_errs["K1"], "ms": team_b["ms"], "plain_ms": team_b["plain_ms"],
+         "bound_ms": team_b["bound_ms"], "bound_by": team_b["bound_by"], "library_ms": None},
     ] + [
         entry(name, "nmpc_tpu_torch/csrc/" + ("staged_tiles.cuh" if k in ("K3", "K5")
                                               else "expansions_rollout_tiles.cuh"),

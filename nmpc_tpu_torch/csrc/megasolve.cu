@@ -20,10 +20,19 @@
 // Each kernel has two instantiations: pair and box rows only (kObs false,
 // the main path's), and the obstacle variant (kObs true: static- and
 // moving-obstacle rows too), launched when n_obs + n_mov > 0.
+//
+// At m <= 2 the library also holds K1's team design (csrc/inner_team.cuh: a
+// team of T lanes per scenario, the line-search candidates side by side),
+// launched by nmpc_inner_solve_team; the solver runs it at those m, and the
+// warp design stays reachable through nmpc_inner_solve for the A/B. Builds
+// for m >= 3 do not include it.
 
 #include <cuda_runtime.h>
 
 #include "inner_warp.cuh"
+#if NMPC_NR <= 2
+#include "inner_team.cuh"
+#endif
 
 #ifndef NMPC_NR
 #error "compile with -DNMPC_NR=<robot count>"
@@ -103,6 +112,53 @@ int launch_inner(const WarpArgs& a, int warps, void* stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+#if NMPC_NR <= 2
+// The team design's register cap, as the blocks of kMaxWarps warps per SM
+// that the registers must allow; picked with tools/k1_launch.py (PERF.md),
+// -DNMPC_K1_TEAM_MIN_BLOCKS=<c> overrides it for that sweep only.
+#ifndef NMPC_K1_TEAM_MIN_BLOCKS
+#define NMPC_K1_TEAM_MIN_BLOCKS 4
+#endif
+constexpr int kTeamMinBlocks = NMPC_K1_TEAM_MIN_BLOCKS;
+
+// K1's team design: 32 / kTeam teams a warp, each team's ring of stage
+// slots (a.slot_floats floats apart) in dynamic shared memory, then the
+// parameter block.
+template <int NR, bool kObs>
+__global__ void __launch_bounds__(kMaxWarps * kWarp, kTeamMinBlocks) inner_team_kernel(WarpArgs a) {
+  extern __shared__ float4 k1_smem[];
+  float* rings = reinterpret_cast<float*>(k1_smem);
+  const int teams = blockDim.x / kTeam;
+  float* sp = rings + teams * a.slot_floats;
+  const int n_prm = Dims<NR>::alphas + (kObs ? 3 * a.n_obs : 0) + a.n_alphas;
+  for (int i = threadIdx.x; i < n_prm; i += blockDim.x) sp[i] = a.prm[i];
+  __syncthreads();
+  const int team = threadIdx.x / kTeam, tl = threadIdx.x % kTeam;
+  const int b = blockIdx.x * teams + team;
+  const unsigned lanes = kTeam == 32 ? 0xffffffffu : (1u << (kTeam % 32)) - 1u;
+  const unsigned mask = lanes << (threadIdx.x % kWarp / kTeam * kTeam);
+  if (b < a.B) inner_solve_team<NR, kObs>(a, sp, rings + team * a.slot_floats, b, tl, mask);
+}
+
+// the team design's launch: `warps` warps a block, dynamic shared memory of
+// the teams' rings and the parameter block. Returns the CUDA error.
+template <bool kObs>
+int launch_team(const WarpArgs& a, int warps, void* stream) {
+  const int teams = warps * kWarp / kTeam;
+  const int smem = teams * 4 * a.slot_floats
+      + 4 * (Dims<NMPC_NR>::alphas + 3 * a.n_obs + a.n_alphas);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        inner_team_kernel<NMPC_NR, kObs>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const int grid = (a.B + teams - 1) / teams;
+  inner_team_kernel<NMPC_NR, kObs><<<grid, warps * kWarp, smem,
+                                     static_cast<cudaStream_t>(stream)>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+#endif
+
 }  // namespace nmpc
 
 extern "C" {
@@ -173,6 +229,51 @@ int nmpc_al_update(const float* prm, const float* Xs, const float* U,
   }
   return static_cast<int>(cudaGetLastError());
 }
+
+#if NMPC_NR <= 2
+// The team design's compile-time settings: {T, ring depth, register cap in
+// blocks of kMaxWarps warps}.
+void nmpc_k1_team_geometry(int* out) {
+  out[0] = nmpc::kTeam;
+  out[1] = nmpc::kRing;
+  out[2] = nmpc::kTeamMinBlocks;
+}
+
+// Shared bytes of a team's ring with `rows` = m (n_obs + n_mov) obstacle
+// rows, n_mov of them moving, and pair rows on or off.
+int nmpc_k1_team_ring_bytes(int rows, int n_mov, int pairs) {
+  if (rows < 0 || n_mov < 0) return -1;
+  using D = nmpc::Dims<NMPC_NR>;
+  const int nc = (pairs ? D::np : 0) + 2 * D::nu + 2 * D::n + rows;  // n_rows + rows
+  return 4 * nmpc::TeamSlot<NMPC_NR>::ring_floats(nc, n_mov);
+}
+
+// K1's team design, with nmpc_inner_solve's arguments: `warps` warps a
+// block (32 / T scenarios a warp); Xw, Uw are one scratch trajectory
+// [B, N, ...]; Kfb is read as [B, N, nu, n]. Returns the CUDA error of the
+// launch.
+int nmpc_inner_solve_team(const float* prm, const float* x0, const float* xref,
+                          const float* lam, const float* mu, const float* Uin,
+                          float* Xs, float* U, float* cost, int* iters, float* kff,
+                          float* Kfb, float* Xw, float* Uw, int B, int N, int n_inner,
+                          int adaptive, int n_alphas, int ls_rounds, int pairs, int warps,
+                          float reg, float armijo, float tol_cost, float ls_beta, float ls_grow,
+                          float ls_trial_min, const float* mov, int n_obs, int n_mov,
+                          int mov_stride, void* stream) {
+  if (B <= 0 || N <= 0 || n_alphas < 0 || ls_rounds < 0 || warps < 1 ||
+      warps > nmpc::kMaxWarps || n_obs < 0 || n_mov < 0 || mov_stride < 0 ||
+      (n_mov > 0 && mov == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int rows = NMPC_NR * (n_obs + n_mov);
+  const int ring = nmpc_k1_team_ring_bytes(rows, n_mov, pairs) / 4;
+  nmpc::WarpArgs a{prm, x0, xref, lam, mu, Uin, Xs, U, cost, iters, kff, Kfb, Xw, Uw,
+                   B, N, n_inner, adaptive, n_alphas, ls_rounds, pairs, ring,
+                   reg, armijo, tol_cost, ls_beta, ls_grow, ls_trial_min,
+                   mov, n_obs, n_mov, mov_stride};
+  return rows > 0 ? nmpc::launch_team<true>(a, warps, stream)
+                  : nmpc::launch_team<false>(a, warps, stream);
+}
+#endif
 
 #ifdef NMPC_K1_PROBES
 // K1's phase counters (inner_warp.cuh, tools/k1_phases.py): reset = 1 zeroes

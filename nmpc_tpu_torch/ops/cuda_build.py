@@ -41,7 +41,7 @@ _PKG = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 UNITS = ("megasolve.cu", "staged.cu")       # one nvcc process each
-SOURCES = (*UNITS, "inner_warp.cuh", "staged.cuh", "staged_tiles.cuh",
+SOURCES = (*UNITS, "inner_warp.cuh", "inner_team.cuh", "staged.cuh", "staged_tiles.cuh",
            "expansions_rollout_tiles.cuh", "riccati.cuh", "rollout.cuh")
 # K3 at a stage shape other than (3m, 2m), a library per shape
 K3_SHAPE_SOURCES = ("riccati_shape.cu", "staged_tiles.cuh", "staged.cuh", "riccati.cuh",
@@ -122,6 +122,30 @@ def _bind_mega(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.nmpc_al_update.argtypes = [P] * 7 + [I] * 3 + [F] + [P] + [I] * 3 + [P]
     lib.nmpc_al_update.restype = I
     return lib
+
+
+# the robot counts whose megasolve.cu holds K1's team design (inner_team.cuh)
+TEAM_ROBOTS = (1, 2)
+
+
+def _bind_team(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """The team design's entry points of megasolve.cu (m in TEAM_ROBOTS)."""
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.nmpc_k1_team_geometry.argtypes = [P]
+    lib.nmpc_k1_team_geometry.restype = None
+    lib.nmpc_k1_team_ring_bytes.argtypes = [I, I, I]
+    lib.nmpc_k1_team_ring_bytes.restype = I
+    lib.nmpc_inner_solve_team.argtypes = [P] * 14 + [I] * 8 + [F] * 6 + [P] + [I] * 3 + [P]
+    lib.nmpc_inner_solve_team.restype = I
+    return lib
+
+
+def team_geometry(lib: ctypes.CDLL) -> dict:
+    """K1's team design as a library was built: team size T, ring depth D,
+    register cap (blocks of 128 threads an SM)."""
+    g = (ctypes.c_int * 3)()
+    lib.nmpc_k1_team_geometry(g)
+    return dict(zip(("T", "D", "min_blocks"), g))
 
 
 def _bind_errors(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -300,6 +324,8 @@ def load(m: int) -> ctypes.CDLL:
             [("megasolve.cu", [f"-DNMPC_NR={m}"]), ("staged.cu", [f"-DNMPC_NR={m}", *geom])],
             f"m={m}")
         lib = _bind(ctypes.CDLL(str(path)))
+        if m in TEAM_ROBOTS:
+            _bind_team(lib)
         _check_robots(lib, path, m)
         _check_geometry(lib, path, m, staged_tiles.k3_geometry(m), staged_tiles.K5_GEOMETRY[m],
                         staged_tiles.K4_GEOMETRY[m], staged_tiles.K6_GEOMETRY[m])
@@ -417,12 +443,20 @@ def load_staged_variant(m: int, k3=None, k5=None, k4=None, k6=None) -> tuple:
     return lib, texts[0]
 
 
-def load_k1_variant(m: int, min_blocks: int | None = None, probes: bool = False) -> tuple:
+# the team design's compile-time settings (csrc/inner_team.cuh, megasolve.cu)
+# that load_k1_variant takes, by their -D macro
+TEAM_SETTINGS = {"T": "NMPC_K1_TEAM", "D": "NMPC_K1_TEAM_RING",
+                 "min_blocks": "NMPC_K1_TEAM_MIN_BLOCKS"}
+
+
+def load_k1_variant(m: int, min_blocks: int | None = None, probes: bool = False,
+                    team: dict | None = None) -> tuple:
     """megasolve.cu alone for m robots, built with K1's register cap set to
     `min_blocks` blocks of 128 threads per SM (-DNMPC_K1_MIN_BLOCKS; the
-    launch-geometry sweep of tools/k1_launch.py) and/or with K1's phase
-    probes (-DNMPC_K1_PROBES, which adds `nmpc_phases`; tools/k1_phases.py).
-    Returns (library, compiler report)."""
+    launch-geometry sweep of tools/k1_launch.py), with the team design's
+    settings `team` ({"T": 4, "D": 2, ...}, keys of TEAM_SETTINGS; m in
+    TEAM_ROBOTS) and/or with K1's phase probes (-DNMPC_K1_PROBES, which adds
+    `nmpc_phases`; tools/k1_phases.py). Returns (library, compiler report)."""
     if m not in ROBOT_COUNTS:
         raise NotImplementedError(
             f"CUDA kernels are instantiated for m in {ROBOT_COUNTS}, not m={m}")
@@ -431,12 +465,19 @@ def load_k1_variant(m: int, min_blocks: int | None = None, probes: bool = False)
     if min_blocks is not None:
         flags.append(f"-DNMPC_K1_MIN_BLOCKS={min_blocks}")
         tag += f"_c{min_blocks}"
+    for key, value in sorted((team or {}).items()):
+        if m not in TEAM_ROBOTS:
+            raise NotImplementedError(f"K1's team design is built for m in {TEAM_ROBOTS}")
+        flags.append(f"-D{TEAM_SETTINGS[key]}={int(value)}")
+        tag += f"_{key}{int(value)}"
     if probes:
         flags.append("-DNMPC_K1_PROBES")
         tag += "_probes"
     path, _, texts = _build(f"libnmpc_k1_m{m}{tag}_{_key(SOURCES, m)}",
                             [("megasolve.cu", flags)], f"K1, m={m} {' '.join(flags[1:])}")
     lib = _bind_mega(ctypes.CDLL(str(path)))
+    if m in TEAM_ROBOTS:
+        _bind_team(lib)
     if probes:
         lib.nmpc_phases.argtypes = [ctypes.c_void_p, ctypes.c_int]
         lib.nmpc_phases.restype = ctypes.c_int

@@ -4,7 +4,9 @@ PyTorch version. Port of nmpc_tpu/ops/megasolve_pallas.py.
   K1 `inner_solve_fused`: the whole inner iLQR solve (n_inner iterations of
      backward Riccati sweep with on-the-fly expansions, line search and
      accepted rollout) per scenario, in one launch per AL outer step.
-     CUDA: csrc/inner_warp.cuh::inner_solve_warp. Replaces the Pallas
+     CUDA: csrc/inner_team.cuh::inner_solve_team at m <= 2
+     (cuda_build.TEAM_ROBOTS),
+     csrc/inner_warp.cuh::inner_solve_warp above. Replaces the Pallas
      megakernel (megasolve_pallas.py:_make_megakernel / inner_solve_fused).
   K2 `al_update_lanes`: the AL multiplier update and the largest constraint
      violation. CUDA: csrc/inner_warp.cuh::al_update_warp. Replaces
@@ -16,7 +18,12 @@ the plain version; on a CUDA tensor they launch the kernel on the current
 stream or raise NotImplementedError naming what the kernel does not cover.
 There is no fallback from a CUDA tensor to the plain version.
 
-Design on an H100 (the note of csrc/inner_warp.cuh says more): one warp per
+Design on an H100 (the notes of csrc/inner_warp.cuh and csrc/inner_team.cuh
+say more): at m <= 2 a team of T lanes per scenario, 32 / T scenarios a
+warp, the stage in every lane's registers and the line-search candidates
+rolled out side by side, one a lane, from a ring of stage rows in shared
+memory (`team_launch`); the warp design stays in those libraries for the
+A/B (`warp_launch`) and no route takes it there. Above: one warp per
 scenario; K1's stage-local blocks in a per-warp slot of shared memory whose
 size depends on m and the obstacle rows m (n_obs + n_mov) (sized by the
 library: `nmpc_k1_slot_bytes`), the N-proportional arrays in device memory.
@@ -58,6 +65,10 @@ from nmpc_tpu_torch.solver.alilqr import ALILQRConfig, _backward_pass
 # K1's scenarios (warps) per block, picked with the register cap by
 # `python -m nmpc_tpu_torch.tools.k1_launch` (PERF.md)
 K1_WARPS = 2
+# the warps per block of K1's team design (csrc/inner_team.cuh, the route's
+# K1 at m in cuda_build.TEAM_ROBOTS), picked with its compile-time settings
+# by k1_launch
+K1_TEAM_WARPS = 2
 
 
 def cuda_unsupported(ocp: OCP, cfg: ALILQRConfig | None = None) -> str | None:
@@ -228,6 +239,46 @@ def al_merit_warp_order(o: OCP, X, U, lam, mu):
     return track[:, 0] + pen[:, 0] / (2.0 * mu)
 
 
+def _neumaier(terms):
+    """Neumaier's compensated sum of terms [B, N] over the stages in order,
+    in the terms' dtype (each operation rounded on its own): (sum, carry)."""
+    s = torch.zeros_like(terms[:, 0])
+    c = torch.zeros_like(s)
+    for k in range(terms.shape[1]):
+        v = terms[:, k]
+        t = s + v
+        c = c + torch.where(s.abs() >= v.abs(), (s - t) + v, (v - t) + s)
+        s = t
+    return s, c
+
+
+def al_merit_team_order(o: OCP, X, U, lam, mu):
+    """`al_merit` summed in the team design's order (csrc/inner_team.cuh::
+    stage_terms, rollout_team): each stage's tracking terms (state rows,
+    then control rows) and squared activations (every c >= 0 row in
+    stage_constraints' order) by one fused multiply-add each (lam - mu c
+    too), then each of the two over the stages by Neumaier's compensated
+    sum; merit = (tracking) + (penalty) / (2 mu). For holding the team
+    design against plain at long horizons."""
+    B, N, n, nu = X.shape[0], o.N, o.nx, o.nu
+    mask = P.constraint_mask(o) > 0
+    c = P.trajectory_constraints(o, X, U)
+    act = torch.clamp(rollout.al_step(lam, mu[:, None, None], c), min=0.0)
+    act = torch.where(mask, act, torch.zeros_like(act))
+    d = X[:, :-1] - o.xref.expand(B, N, n)
+    track = X.new_zeros((B, N))
+    for i in range(n):
+        track = _fma(o.Qdiag[i] * d[..., i], d[..., i], track)
+    for i in range(nu):
+        track = _fma(o.Rdiag[i] * U[..., i], U[..., i], track)
+    pen = X.new_zeros((B, N))
+    for j in range(act.shape[-1]):
+        pen = _fma(act[..., j], act[..., j], pen)
+    ts, tc = _neumaier(track)
+    ps, pc = _neumaier(pen)
+    return (ts + tc) + (ps + pc) / (2.0 * mu)
+
+
 def inner_solve_plain(ocp: OCP, x0, xref, lam, mu, U, cfg: ALILQRConfig, *,
                       candidates: torch.Tensor | None = None, merit=al_merit):
     """Plain PyTorch K1: n_inner iLQR iterations per scenario on the AL merit.
@@ -325,13 +376,65 @@ def inner_solve_fused(ocp: OCP, x0, xref, lam, mu, U, cfg: ALILQRConfig):
     CPU tensors. Same arguments and results as `inner_solve_plain`."""
     if x0.device.type == "cpu":
         return inner_solve_plain(ocp, x0, xref, lam, mu, U, cfg)
+    if ocp.m in cuda_build.TEAM_ROBOTS:
+        return team_launch(ocp, x0, xref, lam, mu, U, cfg, "inner_solve_fused", cuda_build.load,
+                           K1_TEAM_WARPS)
     return warp_launch(ocp, x0, xref, lam, mu, U, cfg, "inner_solve_fused", cuda_build.load,
                        K1_WARPS)
 
 
+def team_launch(ocp: OCP, x0, xref, lam, mu, U, cfg: ALILQRConfig, what: str, load,
+                warps: int):
+    """Launch K1's team design (csrc/inner_team.cuh, T lanes per scenario;
+    m in cuda_build.TEAM_ROBOTS) from the library load(ocp.m) with `warps`
+    warps per block on CUDA tensors in the standard layout: checks the
+    arguments, raises if the launch failed and counts it under `what`.
+    Returns (Xs, U, cost, iters)."""
+    x0, xref, lam, mu, U = _checked(ocp, cfg, what, x0, xref, lam, mu, U)
+    if ocp.m not in cuda_build.TEAM_ROBOTS:
+        raise NotImplementedError(f"{what}: K1's team design is built for m in "
+                                  f"{cuda_build.TEAM_ROBOTS}, not m={ocp.m}")
+    B, N, n, nu = x0.shape[0], ocp.N, ocp.nx, ocp.nu
+    f32 = dict(dtype=torch.float32, device=x0.device)
+    mov, mov_stride = _mov_args(ocp, B, x0.device)
+    Xs = torch.empty((B, N, n), **f32)
+    cost = torch.empty((B,), **f32)
+    iters = torch.empty((B,), dtype=torch.int32, device=x0.device)
+    if B == 0:
+        return Xs, U.clone(), cost, iters
+    lib = load(ocp.m)
+    geo = cuda_build.team_geometry(lib)
+    pairs = int(ocp.n_pairs > 0)
+    # dynamic shared memory a block: the teams' rings, then the parameter block
+    teams = warps * 32 // geo["T"]
+    smem = (teams * lib.nmpc_k1_team_ring_bytes(obstacle_rows(ocp), ocp.n_mov, pairs)
+            + 4 * rollout._P(n, nu, len(cfg.alphas), ocp.n_obs).size)
+    if smem > SMEM_BLOCK_MAX:
+        raise NotImplementedError(
+            f"{what}: {smem} B of shared memory a block ({teams} teams' rings for "
+            f"{obstacle_rows(ocp)} obstacle rows and the parameter block) exceed the H100's "
+            f"{SMEM_BLOCK_MAX} B")
+    Uo = torch.empty((B, N, nu), **f32)
+    kff = torch.empty((B, N, nu), **f32)        # scratch: the gains
+    Kfb = torch.empty((B, N, nu, n), **f32)
+    Xw = torch.empty((B, N, n), **f32)          # scratch: the accepted step
+    Uw = torch.empty((B, N, nu), **f32)
+    err = lib.nmpc_inner_solve_team(
+        ptr(rollout.params(ocp, cfg.alphas, x0.device)), ptr(x0), ptr(xref), ptr(lam), ptr(mu),
+        ptr(U), ptr(Xs), ptr(Uo), ptr(cost), ptr(iters), ptr(kff), ptr(Kfb), ptr(Xw), ptr(Uw),
+        B, N, cfg.n_inner, int(cfg.ls == "adaptive"), len(cfg.alphas), cfg.ls_rounds,
+        pairs, warps, cfg.reg, cfg.armijo, cfg.tol_cost, cfg.ls_beta,
+        cfg.ls_grow, cfg.ls_trial_min, None if mov is None else ptr(mov), ocp.n_obs, ocp.n_mov,
+        mov_stride, cuda_build.stream(x0.device))
+    cuda_build.check(lib, err, what)
+    cuda_build.launch_counts[what] += 1
+    return Xs, Uo, cost, iters
+
+
 def warp_launch(ocp: OCP, x0, xref, lam, mu, U, cfg: ALILQRConfig, what: str, load,
                 warps: int):
-    """Launch K1 (csrc/inner_warp.cuh, one warp per scenario) from the
+    """Launch K1's warp design (csrc/inner_warp.cuh, one warp per scenario;
+    the solver's K1 at m >= 3, the A/B baseline below) from the
     library load(ocp.m) with `warps` scenarios per block on CUDA tensors in
     the standard layout: checks the arguments, raises if the launch failed
     and counts it under `what`. Returns (Xs, U, cost, iters)."""

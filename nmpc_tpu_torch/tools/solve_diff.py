@@ -2,6 +2,7 @@
 change of the sources change what solve_batched returns?
 
     python -m nmpc_tpu_torch.tools.solve_diff OTHER_CHECKOUT
+    python -m nmpc_tpu_torch.tools.solve_diff OTHER_CHECKOUT --time
 
 solves chip_smoke.py's five full-width batches, each drawn from a fixed
 seed: the main path (six_robot_antipodal N=10 B=32768, the benchmark's
@@ -13,7 +14,13 @@ subproblems of one decentralized round), (b) and (c) on the staged route
 OTHER_CHECKOUT, each in a subprocess with its own package and chip_smoke.py,
 and prints per batch and output how many entries differ (NaN equals NaN).
 A redesign that must keep the solver's bits (a kernel held bit for bit to
-its first design) shows 0 everywhere. Needs a card.
+its first design) shows 0 everywhere.
+
+--time instead times the main path's solve_batched in each checkout, in
+turns (OTHER_CHECKOUT, this, this, OTHER_CHECKOUT), each turn a subprocess
+with its own package: a warm-up solve, then the median of 3 timed solves of
+fresh draws (host clock to torch.cuda.synchronize(), as chip_smoke.py phase
+6), in solves/s. Needs a card.
 """
 
 from __future__ import annotations
@@ -62,6 +69,38 @@ torch.save(out, sys.argv[1])
 """
 
 
+# run in each checkout: the main path's solves/s, as chip_smoke.py phase 6
+TIMES = """
+import statistics, sys, time, torch
+from nmpc_tpu_torch.parallel import batch_ocp
+from nmpc_tpu_torch.scenarios import get
+from nmpc_tpu_torch.solver import ALILQRConfig, solve_batched
+
+dev = torch.device("cuda", 0)
+g = torch.Generator(device=dev).manual_seed(0)
+base = get("six_robot_antipodal").make(N=10, device=dev)
+cfg = ALILQRConfig(n_outer=6, n_inner=12, tol_con=1e-3, ls="adaptive")
+times = []
+for i in range(4):   # the first is the warm-up
+    ob = batch_ocp(base, base.x0[None] + 0.1 * torch.randn((32768, base.nx), generator=g, device=dev))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    solve_batched(ob, cfg=cfg)
+    torch.cuda.synchronize()
+    if i:
+        times.append(time.perf_counter() - t0)
+print(32768 / statistics.median(times))
+"""
+
+
+def solves_per_s(root: Path) -> float:
+    """The main path's median solves/s as root's own sources run it."""
+    env = dict(os.environ, PYTHONPATH=str(root))
+    out = subprocess.run([sys.executable, "-c", TIMES], cwd=root, env=env, check=True,
+                         capture_output=True, text=True).stdout
+    return float(out.split()[-1])
+
+
 def solve(root: Path, path: str) -> dict:
     """The five batches' results as root's own sources compute them."""
     env = dict(os.environ, PYTHONPATH=str(root))
@@ -89,6 +128,15 @@ def main(argv=None) -> int:
         return 2
     require_card("solve_diff")
     other = Path(argv[0]).resolve()
+    if argv[1:] == ["--time"]:
+        turns = [(name, solves_per_s(root)) for name, root in
+                 (("other", other), ("this", ROOT), ("this", ROOT), ("other", other))]
+        print(f"{torch.cuda.get_device_name(0)} [{card()}]: the main path's solves/s in turns "
+              f"(other = {other}): " + ", ".join(f"{n} {v:.1f}" for n, v in turns))
+        this = [v for n, v in turns if n == "this"]
+        theirs = [v for n, v in turns if n == "other"]
+        print(f"this / other: {sum(this) / sum(theirs):.4f}")
+        return 0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     mine = solve(ROOT, str(BUILD_DIR / "solve_diff_this.pt"))
     theirs = solve(other, str(BUILD_DIR / "solve_diff_other.pt"))

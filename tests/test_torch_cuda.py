@@ -12,7 +12,9 @@ version does); K1 at n_inner=4 cost rtol 1e-4, U atol 5e-3 and equal
 iteration counts on 99% of scenarios (past the first iterations f32
 rounding can flip near-tied alpha picks), at every robot count and at the
 edges of its launch geometry (a ragged last block, B=1, N=1, N=20); K1's
-and K2's obstacle variant at the same tolerances on the problems of
+team design at m <= 2 (the route's K1 there) likewise, with the route
+shown to launch it and never the warp design, which stays launchable for
+the A/B; K1's and K2's obstacle variant at the same tolerances on the problems of
 tests/obstacle_cases.py (static obstacles, per-scenario moving-obstacle
 schedules, every row kind with a shared schedule). K3-K6:
 the CPU tests' tolerances (tests/test_torch_staged_ops.py), relative to each
@@ -145,6 +147,101 @@ def test_inner_solve_kernel_with_33_alphas(dev):
     _hold_k1(got, megasolve.inner_solve_plain(ob, ob.x0, ob.xref, lam, mu, U, cfg), B)
 
 
+@pytest.mark.parametrize("case", ["slsqp_pose", "two_robot_swap", "obstacle_scenario_3",
+                                  "robot_template", "all_rows", "consensus48",
+                                  "33 alphas", "B=1", "N=1"])
+def test_team_kernel_matches_plain(dev, case):
+    """K1's team design (csrc/inner_team.cuh, m <= 2) through the route
+    against the plain version at phase 3's tolerances: pair-only and
+    obstacle problems of one and two robots, 47 moving-obstacle rows, a
+    cascade of 33 alphas (five passes of a team's lanes), one scenario and
+    one stage; both line searches."""
+    grid = ALILQRConfig().alphas
+    alphas = grid
+    if case in OC.CASES or case == "consensus48":
+        ob, U, lam, mu = OC.port_case(case, 48 if case == "consensus48" else 300, seed=6,
+                                      device=dev)
+    else:
+        name = {"33 alphas": "obstacle_scenario_3"}.get(case, case)
+        if case == "33 alphas":
+            alphas = (grid + tuple(grid[-1] * 0.7 ** k for k in range(1, 33)))[:33]
+        B = 1 if case == "B=1" else 300
+        ob, U, lam, mu = _case(name if case not in ("B=1", "N=1") else "slsqp_pose", B, dev,
+                               seed=6)
+        if case == "N=1":
+            ob = dataclasses.replace(ob, N=1, xref=ob.xref[:, :1].contiguous())
+            U, lam = U[:, :1].contiguous(), lam[:, :1].contiguous()
+    B = ob.x0.shape[0]
+    assert ob.m in cuda_build.TEAM_ROBOTS
+    for ls in ("adaptive", "cascade"):
+        cfg = ALILQRConfig(n_inner=4, ls=ls, alphas=alphas)
+        cuda_build.reset_launch_counts()
+        got = megasolve.inner_solve_fused(ob, ob.x0, ob.xref, lam, mu, U, cfg)
+        assert cuda_build.launch_counts["inner_solve_fused"] == 1
+        _hold_k1(got, megasolve.inner_solve_plain(ob, ob.x0, ob.xref, lam, mu, U, cfg), B)
+
+
+def test_route_takes_the_team_design_at_m_up_to_two(dev, monkeypatch):
+    """At m <= 2 solve_batched's K1 launches are the team design's, never
+    the warp design's; at m = 6 the warp design's."""
+    seen = {"team": 0, "warp": 0}
+
+    def counted(kind, fn):
+        def launch(*a, **k):
+            seen[kind] += 1
+            return fn(*a, **k)
+        return launch
+
+    monkeypatch.setattr(megasolve, "team_launch", counted("team", megasolve.team_launch))
+    monkeypatch.setattr(megasolve, "warp_launch", counted("warp", megasolve.warp_launch))
+    cfg = ALILQRConfig(n_outer=3, n_inner=6, tol_con=1e-3)
+    for name, B in (("obstacle_scenario_3", 64), ("robot_template", 64), ("all_rows", 64)):
+        ob, _, _, _ = OC.port_case(name, B, seed=2, device=dev)
+        cuda_build.reset_launch_counts()
+        res = solve_batched(ob, cfg=cfg)
+        assert torch.isfinite(res.cost).all()
+        assert cuda_build.launch_counts["inner_solve_fused"] == seen["team"] > 0
+        assert seen["warp"] == 0
+        seen["team"] = 0
+    ob, _, _, _ = _case("two_robot_swap", 64, dev)
+    solve_batched(ob, cfg=cfg)
+    assert seen["team"] > 0 and seen["warp"] == 0
+    ob, _, _, _ = _case("six_robot_antipodal", 64, dev)
+    seen["team"] = 0
+    solve_batched(ob, cfg=cfg)
+    assert seen["warp"] > 0 and seen["team"] == 0
+
+
+@pytest.mark.parametrize("name", ["slsqp_pose", "two_robot_swap", "obstacle_scenario_3"])
+def test_warp_design_stays_launchable_at_m_up_to_two(dev, name):
+    """The warp design is still in the m <= 2 libraries, through
+    warp_launch only (the A/B baseline), and agrees with plain."""
+    if name in OC.CASES:
+        ob, U, lam, mu = OC.port_case(name, 300, seed=7, device=dev)
+    else:
+        ob, U, lam, mu = _case(name, 300, dev, seed=7)
+    cfg = ALILQRConfig(n_inner=4, ls="cascade")
+    got = megasolve.warp_launch(ob, ob.x0, ob.xref, lam, mu, U, cfg, "inner_solve_fused",
+                                cuda_build.load, megasolve.K1_WARPS)
+    _hold_k1(got, megasolve.inner_solve_plain(ob, ob.x0, ob.xref, lam, mu, U, cfg), 300)
+
+
+def test_team_geometry_and_rings(dev):
+    """The m <= 2 libraries report the team design's settings (T divides a
+    warp, the ring's depth, the register cap) and a ring that holds D stage
+    slots, T floats apart modulo 32 banks."""
+    for m in cuda_build.TEAM_ROBOTS:
+        lib = cuda_build.load(m)
+        geo = cuda_build.team_geometry(lib)
+        assert 32 % geo["T"] == 0 and geo["D"] >= 2 and geo["min_blocks"] >= 1
+        n, nu = 3 * m, 2 * m
+        for R, n_mov in ((0, 0), (m, 0), (47, 47)):
+            ring = lib.nmpc_k1_team_ring_bytes(R, n_mov, int(m > 1)) // 4
+            nc = m * (m - 1) // 2 + R + 2 * nu + 2 * n
+            assert ring >= geo["D"] * (2 * n + 2 * nu + nu * n + nc + 2 * n_mov)
+            assert ring % 32 == geo["T"] % 32
+
+
 def test_k1_slot_fits_the_block(dev):
     """K1's per-warp slot, sized by the library from the robot count and the
     obstacle rows R = m (n_obs + n_mov): 16-byte aligned, room for Vxx
@@ -178,6 +275,25 @@ def test_k1_phase_probes_count_every_phase(dev):
                                      lambda _: lib, megasolve.K1_WARPS)
 
     cycles, executed = K1P.split(lib, run, cfg.n_inner)
+    assert executed >= B and all(c > 0 for c in cycles.values()), cycles
+    _hold_k1(run(), megasolve.inner_solve_plain(ob, ob.x0, ob.xref, lam, mu, U, cfg), B)
+
+
+def test_team_phase_probes_count_every_phase(dev):
+    """K1's team design built with its phase probes still agrees with the
+    plain version, and every phase it runs gets cycles."""
+    from nmpc_tpu_torch.tools import k1_phases as K1P
+
+    B = 64
+    ob, U, lam, mu = OC.port_case("obstacle_scenario_3", B, seed=4, device=dev)
+    cfg = ALILQRConfig(n_inner=4, ls="cascade")
+    lib, _ = cuda_build.load_k1_variant(ob.m, probes=True, team={})
+
+    def run():
+        return megasolve.team_launch(ob, ob.x0, ob.xref, lam, mu, U, cfg, "inner_solve_fused",
+                                     lambda _: lib, megasolve.K1_TEAM_WARPS)
+
+    cycles, executed = K1P.split(lib, run, cfg.n_inner, K1P.TEAM_PHASES)
     assert executed >= B and all(c > 0 for c in cycles.values()), cycles
     _hold_k1(run(), megasolve.inner_solve_plain(ob, ob.x0, ob.xref, lam, mu, U, cfg), B)
 

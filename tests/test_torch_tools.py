@@ -217,6 +217,7 @@ def test_solve_diff_counts_entries_that_differ():
     assert SV.differ(a, a[:2]) == -1
     assert set(SV.OUTPUTS) <= {f.name for f in dataclasses.fields(SolveResult)}
     compile(SV.SOLVES, "solve_diff.SOLVES", "exec")
+    compile(SV.TIMES, "solve_diff.TIMES", "exec")
     assert SV.main([]) == 2
 
 
@@ -236,6 +237,33 @@ ptxas info    : Used 80 registers, used 1 barriers, 152 bytes cumulative stack s
     assert set(K1L.SCENARIOS) == set(cuda_build.ROBOT_COUNTS)
     assert all(get(name).make(N=10, device="cpu").m == m for m, name in K1L.SCENARIOS.items())
     assert K1L.batch_size(6) == 32768 and K1L.batch_size(10) == 16384
+
+
+def test_k1_launch_team_sweep_settings():
+    """The team design's sweep: the base first (the solver's settings), then
+    one setting changed at a time, every key a -D macro of cuda_build; the
+    report's team kernel line found by its name; the phase split's probes
+    (csrc/inner_team.cuh marks 0-6 and 10-13)."""
+    assert set(K1L.TEAM_BASE) == set(cuda_build.TEAM_ROBOTS)
+    for m, base in K1L.TEAM_BASE.items():
+        variants = K1L.team_variants(m)
+        assert variants[0] == base and set(base) == set(cuda_build.TEAM_SETTINGS)
+        for v in variants[1:]:
+            assert sum(v[k] != base[k] for k in v) == 1
+        assert len(variants) == 1 + sum(len(x) - 1 for x in K1L.TEAM_VALUES.values())
+    assert K1L.team_key(K1L.TEAM_BASE[1]) == "T=8 D=3 min_blocks=4"
+    report = """ptxas info    : Compiling entry function '_ZN4nmpc17inner_team_kernelILi1ELb1EEEvNS_8WarpArgsE' for 'sm_90a'
+ptxas info    : Function properties for _ZN4nmpc17inner_team_kernelILi1ELb1EEEvNS_8WarpArgsE
+    96 bytes stack frame, 44 bytes spill stores, 68 bytes spill loads
+ptxas info    : Used 128 registers, used 1 barriers, 96 bytes cumulative stack size
+"""
+    assert K1L.k1_ptxas(report, "inner_team_kernelILi1ELb1E") == (
+        "96 bytes stack frame, 44 bytes spill stores, 68 bytes spill loads; Used 128 "
+        "registers, used 1 barriers, 96 bytes cumulative stack size")
+    assert sorted(K1P.TEAM_PHASES) == [0, 1, 2, 3, 4, 5, 6, 10, 11, 12, 13]
+    assert cuda_build.TEAM_ROBOTS == (1, 2) and not hasattr(megasolve, "TEAM_ROBOTS")
+    assert K1L.warp_k1.__code__.co_varnames[:7] == (
+        "ocp", "x0", "xref", "lam", "mu", "U", "cfg")
 
 
 @pytest.mark.parametrize("m", [1, 2, 6, 10])
