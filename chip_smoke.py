@@ -181,6 +181,7 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 BENCH_B = 32768
@@ -221,6 +222,14 @@ K1_PTXAS = {1: (64, 32, 80, 72, 0), 2: (64, 72, 228, 220, 0),
 # K1's first design (one thread per scenario) at m=6, as PERF.md records its
 # line: the tools part `K8 full, early exit` is that design
 FIRST_K1_PTXAS = (255, 4880, 156, 200)
+# the tools' variants of K1's warp design at m=6 (csrc/tools.cu parts 9-16:
+# K8's modes and K9's dense layout under inner_warp.cuh's template flags),
+# as PERF.md records their lines (regs, stack, spill stores, spill loads);
+# `K8 warp full, early exit` is K1's own code and carries K1_PTXAS[6]'s line
+WARP_TOOLS_PTXAS = {"K8 warp full, early exit": (96, 8, 16, 12), "K8 warp full": (96, 0, 0, 0),
+                    "K8 warp inv_solve": (96, 8, 4, 4), "K8 warp no_ls": (96, 8, 16, 12),
+                    "K8 warp no_solve": (92, 0, 0, 0), "K8 warp no_expcon": (96, 8, 4, 4),
+                    "K8 warp sweep_only": (96, 8, 16, 12), "K9 warp dense": (96, 8, 12, 8)}
 # K2's first design (one thread per scenario on the lane-major layout, since
 # removed) at the main path's shape, ms per launch as PERF.md records it
 # (NVIDIA H100 80GB HBM3, 700.00 W)
@@ -2347,6 +2356,7 @@ def main() -> int:
     from nmpc_tpu_torch.solver import ALILQRConfig, solve_batched
     from nmpc_tpu_torch.tools import exp_blocked_expansions as K9
     from nmpc_tpu_torch.tools import exp_mega_phases as K8
+    from nmpc_tpu_torch.tools import k1_phases as K1P
     from nmpc_tpu_torch.tools import roofline as RL
     from nmpc_tpu_torch.utils.timing import cuda_ms
 
@@ -2368,7 +2378,12 @@ def main() -> int:
 
     # ---- phase 1: build every kernel instantiation ------------------------
     t0 = time.perf_counter()
-    cuda_build.load_all(staged_tiles.K3_SHAPES + staged_tiles.K3_SWEEP_SHAPES)
+    # beside them K1 at m=6 with its clock64 phase probes (phase 13 sets
+    # K8's savings beside its split)
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        probes = pool.submit(cuda_build.load_k1_variant, cuda_build.BENCH_ROBOTS, probes=True)
+        cuda_build.load_all(staged_tiles.K3_SHAPES + staged_tiles.K3_SWEEP_SHAPES)
+        probe_lib = probes.result()[0]
     wall = time.perf_counter() - t0
     per_m = ", ".join(f"m={m} {cuda_build.build_info[m]['seconds']:.1f}s"
                       for m in cuda_build.ROBOT_COUNTS)
@@ -2376,8 +2391,9 @@ def main() -> int:
     log(f"phase 1 build: {len(cuda_build.ROBOT_COUNTS)} solver libraries, K3 at (n, nu) in "
         f"{staged_tiles.K3_SHAPES} and at k3_rule's sweep {staged_tiles.K3_SWEEP_SHAPES}, the "
         f"tools library "
-        f"(m={cuda_build.BENCH_ROBOTS}, {len(cuda_build.TOOLS_PARTS)} parts) and the staged "
-        f"kernels' first designs (m in {cuda_build.FIRST_ROBOTS}) in {wall:.1f}s wall "
+        f"(m={cuda_build.BENCH_ROBOTS}, {len(cuda_build.TOOLS_PARTS)} parts), the staged "
+        f"kernels' first designs (m in {cuda_build.FIRST_ROBOTS}) and K1 with its phase probes "
+        f"(m={cuda_build.BENCH_ROBOTS}) in {wall:.1f}s wall "
         f"(parallel nvcc; {per_m}; tools {tools['seconds']:.1f}s)")
     lines = {}
     for m in cuda_build.ROBOT_COUNTS:   # every line logged before any is held
@@ -2432,6 +2448,21 @@ def main() -> int:
     log(f"  K8 'full, early exit' has K1's first design's recorded line {FIRST_K1_PTXAS}: "
         f"{'yes' if tool_lines['K8 full, early exit'] == FIRST_K1_PTXAS else 'NO'}")
     assert tool_lines["K8 full, early exit"] == FIRST_K1_PTXAS, tool_lines["K8 full, early exit"]
+    warp_lines = {p: tool_lines[p] for p in cuda_build.TOOLS_PARTS if " warp " in p}
+    tools6 = cuda_build.load_tools(cuda_build.BENCH_ROBOTS)
+    slot_w, slot_d = tools6.nmpc_warp_slot_bytes(0), tools6.nmpc_warp_slot_bytes(1)
+    n6, nu6 = 3 * cuda_build.BENCH_ROBOTS, 2 * cuda_build.BENCH_ROBOTS
+    log(f"  the warp design's tools parts m={cuda_build.BENCH_ROBOTS} (regs, stack, spill stores, "
+        f"spill loads): " + "; ".join(f"{k} {v}" for k, v in warp_lines.items())
+        + f" (as recorded in PERF.md: {'yes' if warp_lines == WARP_TOOLS_PTXAS else 'NO'}; "
+        f"'full, early exit' has K1's line: "
+        f"{'yes' if warp_lines['K8 warp full, early exit'] == K1_PTXAS[6][:4] else 'NO'}); a "
+        f"warp's slot {slot_w} B (K1's {cuda_build.load(6).nmpc_k1_slot_bytes(0)} B), K9's dense "
+        f"slot {slot_d} B (+{slot_d - slot_w} B: lxx and luu)")
+    assert warp_lines["K8 warp full, early exit"] == K1_PTXAS[6][:4], warp_lines
+    assert warp_lines == WARP_TOOLS_PTXAS, warp_lines
+    assert slot_w == cuda_build.load(6).nmpc_k1_slot_bytes(0), slot_w
+    assert slot_d == slot_w + 4 * (n6 * n6 + nu6 * nu6), (slot_w, slot_d)
 
     gen = torch.Generator(device=dev).manual_seed(0)
     base = get("six_robot_antipodal").make(N=10, device=dev)
@@ -2542,7 +2573,7 @@ def main() -> int:
     # is the same in both), on phase 4's batch
     def first_design(ocp_b, x0, xref, lam, mu, U, cfg):
         return K8.phase_ablation(ocp_b, x0, xref, lam, mu, U, cfg, "full", cfg.n_inner,
-                                 early_exit=True)
+                                 early_exit=True, design="first")
 
     def solve_with(**kernels):
         """solve_batched on phase 4's batch with the solver's K1 / K2 calls
@@ -2870,51 +2901,67 @@ def main() -> int:
     assert 0.5 * RL.PUBLISHED_FMA_TFLOPS <= best["tflops"] <= 1.05 * RL.PUBLISHED_FMA_TFLOPS, best
 
     # ---- phase 13: K8, K1 with one phase ablated -------------------------------
-    # `full` with the early exit is K1's first design (phase 1: its recorded
-    # line): held against plain at phase 3's tolerances, and K1 against it
+    # K8 runs on K1's warp design by default (the solver's K1 under the
+    # template flags of inner_warp.cuh); its first design (megasolve.cuh, one
+    # thread per scenario) is the A/B baseline (design="first").
+    # Drift guard: the warp design's `full` with the early exit is the
+    # solver's K1, bit for bit, on phase 3's batch
     obk, U3, lam3, mu3, cfg3, k1_out = k1_case
+    full_ee_w = K8.phase_ablation(obk, obk.x0, obk.xref, lam3, mu3, U3, cfg3, "full", cfg3.n_inner,
+                                  early_exit=True)
+    same_bits = [torch.equal(a, b) for a, b in zip(full_ee_w, k1_out)]
+    log(f"phase 13 K8 warp 'full' with the early exit against K1 on phase 3's batch "
+        f"(six_robot_antipodal N=10 B={K1_B} adaptive, n_inner={cfg3.n_inner}): Xs, U, cost, iters "
+        f"bit for bit {same_bits}")
+    assert all(same_bits), same_bits
+    # the first design's: held against plain at phase 3's tolerances, and K1
+    # against it
     full_ee = K8.phase_ablation(obk, obk.x0, obk.xref, lam3, mu3, U3, cfg3, "full", cfg3.n_inner,
-                                early_exit=True)
+                                early_exit=True, design="first")
     want = megasolve.inner_solve_plain(obk, obk.x0, obk.xref, lam3, mu3, U3, cfg3)
     _, rel_f, du_f, _ = hold_solve("K1's first design vs plain", full_ee, want, allow=0.01)
     _, rel_k, du_k, _ = hold_solve("K1 vs its first design", k1_out, full_ee, allow=0.01)
     same_f = int((full_ee[3] == want[3]).sum())
     same_k = int((k1_out[3] == full_ee[3]).sum())
     assert min(same_f, same_k) >= 0.99 * K1_B, (same_f, same_k)
-    log(f"phase 13 K8 'full' with the early exit (K1's first design) on phase 3's batch "
-        f"(six_robot_antipodal N=10 B={K1_B} adaptive, n_inner={cfg3.n_inner}): vs plain cost "
-        f"rel max {rel_f:.3e}, U max |err| {du_f:.3e}, iteration counts equal {same_f}/{K1_B}; "
-        f"K1 vs it cost rel max {rel_k:.3e}, U max |err| {du_k:.3e}, iteration counts equal "
-        f"{same_k}/{K1_B}")
+    log(f"phase 13 K8 first design 'full' with the early exit (K1's first design) on phase 3's "
+        f"batch: vs plain cost rel max {rel_f:.3e}, U max |err| {du_f:.3e}, iteration counts "
+        f"equal {same_f}/{K1_B}; K1 vs it cost rel max {rel_k:.3e}, U max |err| {du_k:.3e}, "
+        f"iteration counts equal {same_k}/{K1_B}")
     # at phase 3's inputs (mu up to 1e4) the undamped alpha = 1 steps of the
     # modes without a line search diverge on many scenarios: there the plain
     # version in f32 parts from itself in f64 as far as from the kernel. The
     # kernel may miss the f64 run on no more scenarios than the plain f32
     # version does, plus 2% of those not diverged
-    for mode in ("inv_solve", "no_ls"):
-        got = K8.phase_ablation(obk, obk.x0, obk.xref, lam3, mu3, U3, cfg3, mode, 4)
-        w = K8.f64_witness(obk, obk.x0, obk.xref, lam3, mu3, U3, cfg3, mode, 4, got)
-        held = w["scenarios"] - w["diverged"]
-        log(f"phase 13 K8 {mode} at phase 3's inputs (B={K1_B}, 4 fixed iterations, mu up to "
-            f"1e4): diverged in f64 {w['diverged']}/{w['scenarios']}; on the other {held}, U "
-            f"parts from f64 by > 5e-3 on {w['plain_missed']} (plain f32) and "
-            f"{w['kernel_missed']} (kernel); max |dU| kernel vs plain {w['kernel_vs_plain']:.3e}, "
-            f"plain vs f64 {w['plain_vs_f64']:.3e}, kernel vs f64 {w['kernel_vs_f64']:.3e}")
-        assert w["kernel_missed"] <= w["plain_missed"] + max(2, 0.02 * held), w
-    # each mode at the ablation's own inputs (lam 0, mu 10, U 0) on phase 3's
-    # starts, where no scenario diverges: Xs, U and cost at phase 3's
-    # tolerances (every mode but full returns the initial merit as its cost,
-    # so Xs and U are what test the ablated sweep)
+    for design in K8.DESIGNS:
+        for mode in ("inv_solve", "no_ls"):
+            got = K8.phase_ablation(obk, obk.x0, obk.xref, lam3, mu3, U3, cfg3, mode, 4,
+                                    design=design)
+            w = K8.f64_witness(obk, obk.x0, obk.xref, lam3, mu3, U3, cfg3, mode, 4, got)
+            held = w["scenarios"] - w["diverged"]
+            log(f"phase 13 K8 {design} {mode} at phase 3's inputs (B={K1_B}, 4 fixed iterations, "
+                f"mu up to 1e4): diverged in f64 {w['diverged']}/{w['scenarios']}; on the other "
+                f"{held}, U parts from f64 by > 5e-3 on {w['plain_missed']} (plain f32) and "
+                f"{w['kernel_missed']} (kernel); max |dU| kernel vs plain "
+                f"{w['kernel_vs_plain']:.3e}, plain vs f64 {w['plain_vs_f64']:.3e}, kernel vs f64 "
+                f"{w['kernel_vs_f64']:.3e}")
+            assert w["kernel_missed"] <= w["plain_missed"] + max(2, 0.02 * held), (design, w)
+    # each mode of each design at the ablation's own inputs (lam 0, mu 10,
+    # U 0) on phase 3's starts, where no scenario diverges: Xs, U and cost at
+    # phase 3's tolerances (every mode but full and sweep_only returns the
+    # initial merit as its cost, so Xs and U are what test the ablated sweep)
     lam0k, mu10k, U0k = torch.zeros_like(lam3), torch.full_like(mu3, 10.0), torch.zeros_like(U3)
-    for mode in K8.MODES:
-        got = K8.phase_ablation(obk, obk.x0, obk.xref, lam0k, mu10k, U0k, cfg3, mode, 4)
-        torch.cuda.synchronize()
-        want = K8.phase_ablation_plain(obk, obk.x0, obk.xref, lam0k, mu10k, U0k, cfg3, mode, 4)
-        _, rel, du, dx = hold_solve(f"K8 {mode}", got, want)
-        log(f"phase 13 K8 {mode} vs plain, B={K1_B}, 4 fixed iterations, lam 0, mu 10, U 0: cost "
-            f"rel max {rel:.3e}, U max |err| {du:.3e}, Xs max |err| {dx:.3e}, mean cost "
-            f"{float(got[2].mean()):.4f}")
-        assert (got[3] == 4).all()
+    for design in K8.DESIGNS:
+        for mode in K8.MODES:
+            got = K8.phase_ablation(obk, obk.x0, obk.xref, lam0k, mu10k, U0k, cfg3, mode, 4,
+                                    design=design)
+            torch.cuda.synchronize()
+            want = K8.phase_ablation_plain(obk, obk.x0, obk.xref, lam0k, mu10k, U0k, cfg3, mode, 4)
+            _, rel, du, dx = hold_solve(f"K8 {design} {mode}", got, want)
+            log(f"phase 13 K8 {design} {mode} vs plain, B={K1_B}, 4 fixed iterations, lam 0, mu "
+                f"10, U 0: cost rel max {rel:.3e}, U max |err| {du:.3e}, Xs max |err| {dx:.3e}, "
+                f"mean cost {float(got[2].mean()):.4f}")
+            assert (got[3] == 4).all()
     kw = dict(dtype=torch.float32, device=dev)
     n72 = bench_cfg.n_outer * bench_cfg.n_inner
     lam8 = torch.zeros((BENCH_B, base.N, base.n_con), **kw)
@@ -2924,21 +2971,61 @@ def main() -> int:
     summ8 = K8.summarize(K8.time_modes(ob, lam8, mu8, U8, bench_cfg, n72))
     k8_launches = cuda_build.launch_counts["phase_ablation"]
     save8 = K8.savings(summ8)
-    log(f"phase 13 K8 at B={BENCH_B}, {n72} fixed iterations, lam 0, mu 10, U 0, in turns "
-        f"(3 rounds, full first and last), min / median ms: " + "; ".join(
+    log(f"phase 13 K8 warp design at B={BENCH_B}, {n72} fixed iterations, lam 0, mu 10, U 0, in "
+        f"turns (3 rounds, full first and last), min / median ms: " + "; ".join(
             f"{k} {v[0]:.1f} / {v[1]:.1f}" + ("" if k == "full" else f" (saves {save8[k]:.1f}%)")
             for k, v in summ8.items())
         + f"; inv_solve against no_ls saves {save8['inv_solve vs no_ls']:.1f}%; launches "
         f"{k8_launches} {card}")
+    # each mode's saving beside K1's clock64 split at the same inputs
+    # (tools/k1_phases.py: K1 built with its probes, the stop rule on): a
+    # saving is what K1 loses with the phase gone, a share what the probes
+    # count inside it
+    cycles, executed = K1P.split(probe_lib, lambda: megasolve.warp_launch(
+        ob, ob.x0, ob.xref, lam8, mu8, U8, bench_cfg, "inner_solve_fused", lambda _: probe_lib,
+        megasolve.K1_WARPS), bench_cfg.n_inner)
+    total = cycles["initial rollout"] + cycles["sweep"] + cycles["line search"]
+    share = {k: 100 * v / total for k, v in cycles.items()}
+    log(f"phase 13 K8 savings beside K1's clock64 split at these inputs (K1 with its probes, "
+        f"{bench_cfg.n_inner} iterations at most, {executed / BENCH_B:.2f} run per scenario): "
+        f"no_ls {save8['no_ls']:.1f}% | line search {share['line search']:.1f}%; sweep_only "
+        f"{save8['sweep_only']:.1f}% | line search and initial rollout "
+        f"{share['line search'] + share['initial rollout']:.1f}%; no_solve "
+        f"{save8['no_solve']:.1f}% | Cholesky {share['Cholesky']:.1f}% and substitutions "
+        f"{share['substitutions']:.1f}%; no_expcon {save8['no_expcon']:.1f}% | box rows "
+        f"{share['box rows']:.1f}%, pairs and dynamics {share['pairs and dynamics']:.1f}%, with "
+        f"no_ls's alpha = 1; inv_solve {save8['inv_solve']:.1f}%; the rest of the split: "
+        + ", ".join(f"{k} {share[k]:.1f}%" for k in ("stage rows", "Q blocks", "gains out",
+                                                       "value update")))
+    # the warp design's `full` against the first design's, in turns
+    ab8 = {d: functools.partial(K8.phase_ablation, ob, ob.x0, ob.xref, lam8, mu8, U8, bench_cfg,
+                                "full", n72, design=d) for d in K8.DESIGNS}
+    t8 = {k: statistics.median(v) for k, v in
+          K8.time_in_turns(ab8, ("warp", "first", "first", "warp"), 2).items()}
+    log(f"phase 13 K8 full at B={BENCH_B}, {n72} fixed iterations, in turns (2 rounds of warp, "
+        f"first, first, warp), median ms: warp design {t8['warp']:.1f}, first design "
+        f"{t8['first']:.1f} ({t8['first'] / t8['warp']:.2f}x) {card}")
+    assert t8["warp"] < t8["first"], t8
     log(f"  (K1 itself, early exit, at the main path's first outer step: {k1_ms:.2f} ms for at "
         f"most {bench_cfg.n_inner} iterations; not a ratio with the fixed-count runs)")
+    # the line search's candidates at these inputs over the 72 iterations, by
+    # the plain version (the warp design's bound of `full` counts them)
+    cand72 = torch.zeros(BENCH_B, dtype=torch.int64, device=dev)
+    K8.phase_ablation_plain(ob, ob.x0, ob.xref, lam8, mu8, U8, bench_cfg, "full", n72,
+                            candidates=cand72)
+    cand72 = int(cand72.sum())
     # the kernels line's K8 and K9 entries: one shape and one set of inputs
     # for the check against plain, the kernel's time, the plain time and the bound
     lam9, mu9, U9 = K9.ab_inputs(ob)
+    cand4 = torch.zeros(BENCH_B, dtype=torch.int64, device=dev)
     want89, k89_plain_ms = once(lambda: K8.phase_ablation_plain(ob, ob.x0, ob.xref, lam9, mu9, U9,
-                                                                bench_cfg, "full", 4))
+                                                                bench_cfg, "full", 4,
+                                                                candidates=cand4))
+    cand4 = int(cand4.sum())
     k8_ms = cuda_ms(lambda: K8.phase_ablation(ob, ob.x0, ob.xref, lam9, mu9, U9, bench_cfg,
                                               "full", 4), 3)
+    k8_first_ms = cuda_ms(lambda: K8.phase_ablation(ob, ob.x0, ob.xref, lam9, mu9, U9, bench_cfg,
+                                                    "full", 4, design="first"), 3)
     # at this batch f32 alone parts a few scenarios through line-search ties:
     # the plain version against itself with inputs moved by 2^-21 (4-8 ulp)
     # shows how many; the kernel may miss on at most 0.1% of the scenarios
@@ -2948,48 +3035,77 @@ def main() -> int:
     n_spread = hold_solve("plain vs itself", spread, want89, allow=1.0)[0]
     got = K8.phase_ablation(ob, ob.x0, ob.xref, lam9, mu9, U9, bench_cfg, "full", 4)
     n8, rel, k8_err, dx = hold_solve("K8 full at the timed shape", got, want89, allow=1e-3)
-    log(f"phase 13 K8 full vs plain at the timed shape (B={BENCH_B}, 4 fixed iterations, lam "
-        f"|0.1 N(0,1)|, mu 10, U 0.01 N(0,1)): outside cost rtol 1e-4 / U, Xs atol 5e-3 on "
-        f"{n8}/{BENCH_B} scenarios (the plain version against itself under 2^-21 input noise: "
-        f"{n_spread}); over all, cost rel max {rel:.3e}, U max |err| {k8_err:.3e}, Xs max |err| "
-        f"{dx:.3e}; {k8_ms:.2f} ms vs plain {k89_plain_ms:.1f} ms")
+    got = K8.phase_ablation(ob, ob.x0, ob.xref, lam9, mu9, U9, bench_cfg, "full", 4, design="first")
+    n8f = hold_solve("K8 first design full at the timed shape", got, want89, allow=1e-3)[0]
+    log(f"phase 13 K8 warp full vs plain at the timed shape (B={BENCH_B}, 4 fixed iterations, "
+        f"lam |0.1 N(0,1)|, mu 10, U 0.01 N(0,1)): outside cost rtol 1e-4 / U, Xs atol 5e-3 on "
+        f"{n8}/{BENCH_B} scenarios (the first design's {n8f}; the plain version against itself "
+        f"under 2^-21 input noise: {n_spread}); over all, cost rel max {rel:.3e}, U max |err| "
+        f"{k8_err:.3e}, Xs max |err| {dx:.3e}; {k8_ms:.2f} ms (first design {k8_first_ms:.2f} ms) "
+        f"vs plain {k89_plain_ms:.1f} ms; {cand4 / BENCH_B:.2f} line-search candidates a scenario "
+        f"by plain")
     del spread
 
     # ---- phase 14: K9, the expansion-layout A/B; the roofline of K1-K9 ----------
     lam9s, mu9s, U9s = K9.ab_inputs(obk)
     want = K9.expansion_ab_plain(obk, obk.x0, obk.xref, lam9s, mu9s, U9s, cfg3, 4)
-    outs, small_err = {}, 0.0
-    for lay in K9.LAYOUTS:
-        got = K9.expansion_ab(obk, obk.x0, obk.xref, lam9s, mu9s, U9s, cfg3, lay, 4)
-        outs[lay] = got
-        small_err = max(small_err, hold_solve(f"K9 {lay}", got, want)[2])
-    full4 = K8.phase_ablation(obk, obk.x0, obk.xref, lam9s, mu9s, U9s, cfg3, "full", 4)
-    assert all(torch.equal(a, b) for a, b in zip(outs["structured"], full4))
-    dU = float((outs["dense"][1] - outs["structured"][1]).abs().max())
-    dc = float(((outs["dense"][2] - outs["structured"][2]).abs() / outs["structured"][2].abs()).max())
-    assert dU <= 5e-3 and dc <= 1e-4, (dU, dc)
-    log(f"phase 14 K9 vs plain, B={K1_B}, 4 fixed iterations, lam |0.1 N(0,1)|, mu 10, U 0.01 "
-        f"N(0,1): U max |err| {small_err:.3e}; dense vs structured max |dU| {dU:.3e}, cost rel "
-        f"{dc:.3e}; structured = K8 'full' bit for bit")
+    for design in K8.DESIGNS:
+        outs, small_err = {}, 0.0
+        for lay in K9.LAYOUTS:
+            got = K9.expansion_ab(obk, obk.x0, obk.xref, lam9s, mu9s, U9s, cfg3, lay, 4, design)
+            outs[lay] = got
+            small_err = max(small_err, hold_solve(f"K9 {design} {lay}", got, want)[2])
+            assert (got[3] == 4).all()
+        full4 = K8.phase_ablation(obk, obk.x0, obk.xref, lam9s, mu9s, U9s, cfg3, "full", 4,
+                                  design=design)
+        assert all(torch.equal(a, b) for a, b in zip(outs["structured"], full4))
+        dU = float((outs["dense"][1] - outs["structured"][1]).abs().max())
+        dc = float(((outs["dense"][2] - outs["structured"][2]).abs()
+                    / outs["structured"][2].abs()).max())
+        assert dU <= 5e-3 and dc <= 1e-4, (design, dU, dc)
+        log(f"phase 14 K9 {design} design vs plain, B={K1_B}, 4 fixed iterations, lam |0.1 "
+            f"N(0,1)|, mu 10, U 0.01 N(0,1): U max |err| {small_err:.3e}; dense vs structured "
+            f"max |dU| {dU:.3e}, cost rel {dc:.3e}; structured = K8 'full' bit for bit")
     cfg40 = ALILQRConfig(n_outer=1, n_inner=40, tol_con=1e-3, ls="adaptive")
+    runs9 = {(d, lay): functools.partial(K9.expansion_ab, ob, ob.x0, ob.xref, lam9, mu9, U9,
+                                         cfg40, lay, 40, d)
+             for d in K8.DESIGNS for lay in K9.LAYOUTS}
     cuda_build.reset_launch_counts()
-    summ9 = K8.summarize(K9.time_layouts(ob, lam9, mu9, U9, cfg40, 40))
+    order9 = (("warp", "structured"), ("warp", "dense"), ("warp", "dense"), ("warp", "structured"),
+              ("first", "structured"), ("first", "dense"),
+              ("warp", "structured"), ("warp", "dense"), ("warp", "dense"), ("warp", "structured"))
+    summ9 = K8.summarize(K8.time_in_turns(runs9, order9, 1))
     k9_launches = cuda_build.launch_counts["expansion_ab"]
     ab = {lay: K9.expansion_ab(ob, ob.x0, ob.xref, lam9, mu9, U9, cfg40, lay, 40) for lay in K9.LAYOUTS}
     assert all(torch.isfinite(t).all() for r in ab.values() for t in r[:3])
-    log(f"phase 14 K9 at B={BENCH_B}, 40 fixed iterations, in turns (2 rounds of structured, "
-        f"dense, dense, structured), min / median ms: " + "; ".join(
-            f"{k} {v[0]:.1f} / {v[1]:.1f}" for k, v in summ9.items())
-        + f" (dense / structured {summ9['dense'][1] / summ9['structured'][1]:.3f}); max |dU| "
+    w9 = {lay: summ9["warp", lay] for lay in K9.LAYOUTS}
+    log(f"phase 14 K9 at B={BENCH_B}, 40 fixed iterations, in turns (the warp design's layouts 2 "
+        f"rounds of structured, dense, dense, structured, the first design's structured and dense "
+        f"once between them), min / median ms: warp " + "; ".join(
+            f"{k} {v[0]:.1f} / {v[1]:.1f}" for k, v in w9.items())
+        + f" (dense / structured {w9['dense'][1] / w9['structured'][1]:.3f}); first design "
+        + "; ".join(f"{lay} {summ9['first', lay][1]:.1f}" for lay in K9.LAYOUTS)
+        + f" (first / warp structured "
+        f"{summ9['first', 'structured'][1] / w9['structured'][1]:.2f}x, dense "
+        f"{summ9['first', 'dense'][1] / w9['dense'][1]:.2f}x); warp max |dU| "
         f"{float((ab['dense'][1] - ab['structured'][1]).abs().max()):.3e}, max |dcost| "
         f"{float((ab['dense'][2] - ab['structured'][2]).abs().max()):.3e}; launches {k9_launches} {card}")
+    assert w9["structured"][1] < summ9["first", "structured"][1], summ9
+    cand40 = torch.zeros(BENCH_B, dtype=torch.int64, device=dev)
+    K8.phase_ablation_plain(ob, ob.x0, ob.xref, lam9, mu9, U9, cfg40, "full", 40, candidates=cand40)
+    cand40 = int(cand40.sum())
     k9_ms = cuda_ms(lambda: K9.expansion_ab(ob, ob.x0, ob.xref, lam9, mu9, U9, bench_cfg,
                                             "dense", 4), 3)
+    k9_first_ms = cuda_ms(lambda: K9.expansion_ab(ob, ob.x0, ob.xref, lam9, mu9, U9, bench_cfg,
+                                                  "dense", 4, "first"), 3)
     got = K9.expansion_ab(ob, ob.x0, ob.xref, lam9, mu9, U9, bench_cfg, "dense", 4)
     n9, rel, k9_err, dx = hold_solve("K9 dense at the timed shape", got, want89, allow=1e-3)
-    log(f"phase 14 K9 dense vs plain at K8's timed shape and inputs: outside the tolerances on "
-        f"{n9}/{BENCH_B} scenarios (f32 spread {n_spread}, phase 13); over all, cost rel max "
-        f"{rel:.3e}, U max |err| {k9_err:.3e}, Xs max |err| {dx:.3e}; {k9_ms:.2f} ms")
+    got = K9.expansion_ab(ob, ob.x0, ob.xref, lam9, mu9, U9, bench_cfg, "dense", 4, "first")
+    n9f = hold_solve("K9 first design dense at the timed shape", got, want89, allow=1e-3)[0]
+    log(f"phase 14 K9 warp dense vs plain at K8's timed shape and inputs: outside the tolerances "
+        f"on {n9}/{BENCH_B} scenarios (the first design's {n9f}; f32 spread {n_spread}, phase 13); "
+        f"over all, cost rel max {rel:.3e}, U max |err| {k9_err:.3e}, Xs max |err| {dx:.3e}; "
+        f"{k9_ms:.2f} ms (first design {k9_first_ms:.2f} ms)")
     del want89, got
 
     # the roofline: times from phases 6, 11, 12-14, work counted from this run's inputs
@@ -3026,15 +3142,28 @@ def main() -> int:
                  RL.kernel_work(k, ocp_p, BENCH_B, n_alphas=len(cfg_p.alphas) + 1))
     roof("K7", f"K7 (C={best['chains']}, {R7} steps)", best["ms"], None,
          RL.kernel_work("K7", base, 0, chains=best["chains"], R=R7, threads=T7))
+    # K8 and K9 as each design runs them (the warp design's `full` from the
+    # candidates the plain run needed, with no accepted rollout)
     for mode in K8.MODES:
-        roof(f"K8 {mode}", f"K8 {mode} ({n72} iterations, median)", summ8[mode][1], None,
-             RL.kernel_work("K8", base, BENCH_B, bench_cfg, iters=n72 * BENCH_B, phase=mode))
-    for lay in K9.LAYOUTS:
-        roof(f"K9 {lay}", f"K9 {lay} (40 iterations, median)", summ9[lay][1], None,
-             RL.kernel_work("K9", base, BENCH_B, cfg40, iters=40 * BENCH_B))
-    line_work = RL.kernel_work("K8", base, BENCH_B, bench_cfg, iters=4 * BENCH_B)
-    roof("K8 line", "K8 full (4 iterations, lam |0.1 N|, U 0.01 N)", k8_ms, None, line_work)
-    roof("K9 line", "K9 dense (the same inputs)", k9_ms, None, line_work)
+        roof(f"K8 {mode}", f"K8 warp {mode} ({n72} iterations, median)", summ8[mode][1], None,
+             RL.kernel_work("K8", base, BENCH_B, bench_cfg, iters=n72 * BENCH_B, phase=mode,
+                            candidates=cand72, design="warp"))
+    roof("K8 full first design", f"K8 first design full ({n72} iterations, in turns)",
+         t8["first"], None, RL.kernel_work("K8", base, BENCH_B, bench_cfg, iters=n72 * BENCH_B))
+    for d in K8.DESIGNS:
+        for lay in K9.LAYOUTS:
+            roof(f"K9 {d} {lay}", f"K9 {d} {lay} (40 iterations, median)", summ9[d, lay][1], None,
+                 RL.kernel_work("K9", base, BENCH_B, cfg40, iters=40 * BENCH_B,
+                                candidates=cand40, design=d))
+    line_work = RL.kernel_work("K8", base, BENCH_B, bench_cfg, iters=4 * BENCH_B,
+                               candidates=cand4, design="warp")
+    roof("K8 line", "K8 warp full (4 iterations, lam |0.1 N|, U 0.01 N)", k8_ms, None, line_work)
+    roof("K9 line", "K9 warp dense (the same inputs)", k9_ms, None, line_work)
+    first_work = RL.kernel_work("K8", base, BENCH_B, bench_cfg, iters=4 * BENCH_B)
+    roof("K8 line first design", "K8 first design full (the same inputs)", k8_first_ms, None,
+         first_work)
+    roof("K9 line first design", "K9 first design dense (the same inputs)", k9_first_ms, None,
+         first_work)
 
     # ---- phase 15: line-search grids longer than one launch takes --------------
     # K1 keeps any number of alphas with its parameter block in dynamic
@@ -3169,9 +3298,9 @@ def main() -> int:
     ] + [
         entry("fma_peak", "nmpc_tpu_torch/csrc/tools.cu", "tools/roofline.py:46", k7_launches,
               k7_err, best["ms"], k7_plain_ms, "K7"),
-        entry("phase_ablation", "nmpc_tpu_torch/csrc/tools.cu", "tools/exp_mega_phases.py:298",
-              k8_launches, k8_err, k8_ms, k89_plain_ms, "K8 line"),
-        entry("expansion_ab", "nmpc_tpu_torch/csrc/tools.cuh",
+        entry("phase_ablation", "nmpc_tpu_torch/csrc/inner_warp.cuh",
+              "tools/exp_mega_phases.py:298", k8_launches, k8_err, k8_ms, k89_plain_ms, "K8 line"),
+        entry("expansion_ab", "nmpc_tpu_torch/csrc/inner_warp.cuh",
               "tools/exp_blocked_expansions.py:551", k9_launches, k9_err, k9_ms, k89_plain_ms,
               "K9 line"),
         k3_shape_entry,

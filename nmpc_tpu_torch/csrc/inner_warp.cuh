@@ -76,8 +76,25 @@
 // shared [N, n_mov, 2]), a stage's 2 n_mov floats as a stage's duals are.
 // Static rows take dist = sqrt(max(d2, 1e-12)) (obs_c<true>), the guard of
 // the plain dense formulation (ocp/problem.py::stage_constraints).
+//
+// The roofline tools' variants (template flags of the pair-only
+// instantiation; their defaults compile to K1, whose code stays as it was):
+// kPhase (k1_variants.cuh), the phase ablation of K8
+// (tools/exp_mega_phases.py), kEarlyExit = false, a fixed iteration count,
+// and kDense, K9's dense expansion layout (tools/exp_blocked_expansions.py):
+// lxx [n, n] and luu [nu, nu] materialized in the slot after K1's blocks
+// (Slot::floats_dense), each lane filling its own 3x3 block (r, q) of lxx
+// and 2x2 block of luu (two pairs that share a robot add into the same
+// diagonal entries, so the pair lanes never scatter into it), the Q blocks
+// reading them back. The modes without a line search roll alpha = 1 out
+// once an iteration, into the candidate buffer, with no merit; inv_solve
+// forms L^-1 in the slot (lane j its column j; row-major over the factor,
+// transposed over its transpose) and each substitution lane takes two
+// triangular matrix-vector products; no_solve divides by Quu's diagonal on
+// the substitution lanes and skips the Cholesky.
 #pragma once
 
+#include "k1_variants.cuh"
 #include "rollout.cuh"
 
 namespace nmpc {
@@ -190,6 +207,11 @@ struct Slot {
   // x and y gradient terms) follows them
   NMPC_HD static constexpr int ow(int R) { return al(lam + np + R + 2 * nu + 2 * n); }
   NMPC_HD static constexpr int floats_obs(int R) { return R == 0 ? floats : al(ow(R) + 5 * R); }
+  // K9's dense layout (kDense, the pair-only slot): lxx [n, n] and luu
+  // [nu, nu] after the rest
+  static constexpr int Hxx = floats;
+  static constexpr int Huu = al(Hxx + n * n);
+  static constexpr int floats_dense = al(Huu + nu * nu);
 };
 
 // Loads and stores of V consecutive floats, V = 4, 2 or 1, as one vector
@@ -470,10 +492,12 @@ NMPC_DEV void euler_step(const Lanes<NR>& w) {
 }
 
 // Rollout from x0 that stores its stage states and controls in (Xo, Uo) and
-// returns its AL merit. feedback = true: the closed loop u = ubar + alpha
-// kff + K (x - xbar) around the nominal (Xn, Un) under the gains in
-// w.kff / w.Kfb; feedback = false: the warm controls Un (= w.Uin).
-template <int NR, bool kObs>
+// returns its AL merit (kMerit = false: no merit, returns 0; the phase
+// ablation's alpha = 1 steps and sweep_only's initial rollout).
+// feedback = true: the closed loop u = ubar + alpha kff + K (x - xbar)
+// around the nominal (Xn, Un) under the gains in w.kff / w.Kfb;
+// feedback = false: the warm controls Un (= w.Uin).
+template <int NR, bool kObs, bool kMerit = true>
 NMPC_DEV float rollout_warp(const Lanes<NR>& w, const float* Xn, const float* Un, float alpha,
                             bool feedback, float* Xo, float* Uo) {
   using S = Slot<NR>;
@@ -507,10 +531,14 @@ NMPC_DEV float rollout_warp(const Lanes<NR>& w, const float* Xn, const float* Un
       Uo[(size_t)k * nu + i] = acc;
     }
     warp_sync();
-    merit_terms<NR, kObs>(w, k, cur, track, pen);
+    if constexpr (kMerit) merit_terms<NR, kObs>(w, k, cur, track, pen);
     euler_step<NR>(w);
   }
-  return warp_sum(track) + warp_sum(pen) / (2.f * w.mu);
+  if constexpr (kMerit) {
+    return warp_sum(track) + warp_sum(pen) / (2.f * w.mu);
+  } else {
+    return 0.f;
+  }
 }
 
 // Backward Riccati sweep over the current iterate (w.Xc, w.Uc) with the
@@ -525,12 +553,16 @@ NMPC_DEV float rollout_warp(const Lanes<NR>& w, const float* Xn, const float* Un
 // first design's order. Stage k - 1's rows are fetched into registers while
 // stage k is computed (the obstacle variant copies its stage's duals into
 // the slot when the stage starts). The obstacle rows add to their robot's
-// lx, lxx as the pair rows do.
-template <int NR, bool kObs>
+// lx, lxx as the pair rows do. kPhase and kDense: the roofline tools'
+// variants (head note; Phase::full and the structured layout are K1's).
+template <int NR, bool kObs, Phase kPhase = Phase::full, bool kDense = false>
 NMPC_DEV float backward_sweep_warp(const Lanes<NR>& w, float reg) {
   using D = Dims<NR>;
   using S = Slot<NR>;
   constexpr int n = D::n, nu = D::nu, np = D::np;
+  constexpr bool kCon = kPhase != Phase::no_expcon;  // the expansion's constraint rows
+  static_assert(!kObs || (kPhase == Phase::full && !kDense), "the variants are pair-only");
+  static_assert(!kDense || kPhase == Phase::full, "K9's layouts run the full iteration");
   constexpr int C = kVec<nu>;                       // chunk of a factor row
   constexpr int kLam = (np + 2 * nu + 2 * n + kWarp - 1) / kWarp;  // duals per lane
   const float* sp = w.sp;
@@ -594,33 +626,45 @@ NMPC_DEV float backward_sweep_warp(const Lanes<NR>& w, float reg) {
 
     NMPC_PROBE(0);
     // ---- expansion, box rows: lane i takes state row i and control row i
+    // (Phase::no_expcon: the tracking terms and 2Q, 2R alone)
     if (lane < n) {
       const int i = lane;
       const float xi = x[i];
       const float g = 2.f * sp[D::q + i] * (xi - s[S::xr + i]);
-      float alo = relu(al_step(lam[row_x + i], mu, xi - sp[D::x_lo + i]));
-      float ahi = relu(al_step(lam[row_x + n + i], mu, sp[D::x_hi + i] - xi));
-      alo = gate ? alo : 0.f;
-      ahi = gate ? ahi : 0.f;
-      s[S::lx + i] = g - alo + ahi;
-      s[S::lxx + i] = 2.f * sp[D::q + i] + mu * ((alo > 0.f ? 1.f : 0.f) + (ahi > 0.f ? 1.f : 0.f));
+      if constexpr (kCon) {
+        float alo = relu(al_step(lam[row_x + i], mu, xi - sp[D::x_lo + i]));
+        float ahi = relu(al_step(lam[row_x + n + i], mu, sp[D::x_hi + i] - xi));
+        alo = gate ? alo : 0.f;
+        ahi = gate ? ahi : 0.f;
+        s[S::lx + i] = g - alo + ahi;
+        s[S::lxx + i] = 2.f * sp[D::q + i] + mu * ((alo > 0.f ? 1.f : 0.f) + (ahi > 0.f ? 1.f : 0.f));
+      } else {
+        s[S::lx + i] = g;
+        s[S::lxx + i] = 2.f * sp[D::q + i];
+      }
     }
     if (lane < nu) {
       const int i = lane;
       const float ui = u[i];
       const float g = 2.f * sp[D::r + i] * ui;
-      const float alo = relu(al_step(lam[row_u + i], mu, ui - sp[D::u_lo + i]));
-      const float ahi = relu(al_step(lam[row_u + nu + i], mu, sp[D::u_hi + i] - ui));
-      s[S::lu + i] = g - alo + ahi;
-      s[S::luu + i] = 2.f * sp[D::r + i] + mu * ((alo > 0.f ? 1.f : 0.f) + (ahi > 0.f ? 1.f : 0.f));
+      if constexpr (kCon) {
+        const float alo = relu(al_step(lam[row_u + i], mu, ui - sp[D::u_lo + i]));
+        const float ahi = relu(al_step(lam[row_u + nu + i], mu, sp[D::u_hi + i] - ui));
+        s[S::lu + i] = g - alo + ahi;
+        s[S::luu + i] = 2.f * sp[D::r + i] + mu * ((alo > 0.f ? 1.f : 0.f) + (ahi > 0.f ? 1.f : 0.f));
+      } else {
+        s[S::lu + i] = g;
+        s[S::luu + i] = 2.f * sp[D::r + i];
+      }
     }
     warp_sync();
 
     NMPC_PROBE(1);
     // ---- expansion, pair rows: pair p (robots a < b) on lane p (and p + 32):
     // its Gauss-Newton weights and gradient terms into both entries (a, b)
-    // and (b, a) of the slot's pair table
-    if (np > 0 && pairs) {
+    // and (b, a) of the slot's pair table (Phase::no_expcon: none, the table
+    // stays 0)
+    if (kCon && np > 0 && pairs) {
 #pragma unroll
       for (int q = 0; q < 2; ++q) {
         const int p = lane + q * kWarp;
@@ -678,7 +722,7 @@ NMPC_DEV float backward_sweep_warp(const Lanes<NR>& w, float reg) {
       s[S::E + 3 * NR + r] = bs;
       float lx0 = s[S::lx + 3 * r], lx1 = s[S::lx + 3 * r + 1];
       float dxx = 0.f, dyy = 0.f, dxy = 0.f;
-      if (pairs) {
+      if (kCon && pairs) {
         float t[5][NR];
 #pragma unroll
         for (int k = 0; k < 5; ++k) load_vec<NR>(s + S::PW + (k * NR + r) * NR, t[k]);
@@ -715,6 +759,37 @@ NMPC_DEV float backward_sweep_warp(const Lanes<NR>& w, float reg) {
     }
     warp_sync();
 
+    // ---- K9's dense layout: lane bq fills its 3x3 block (r, q) of lxx (the
+    // box rows' diagonal where r = q, the pair weights on (x, y) as the
+    // structured form adds them) and 2x2 block of luu in the slot
+    if constexpr (kDense) {
+      for (int bq = lane; bq < NR * NR; bq += kWarp) {
+        const int r = bq / NR, q = bq - r * NR;
+        float pw[3] = {0.f, 0.f, 0.f};
+        if (pairs) {
+#pragma unroll
+          for (int k = 0; k < 3; ++k)
+            pw[k] = r == q ? s[S::Dg + k * NR + r] : -s[S::PW + (k * NR + r) * NR + q];
+        }
+#pragma unroll
+        for (int t = 0; t < 3; ++t) {
+#pragma unroll
+          for (int c = 0; c < 3; ++c) {
+            float l = (r == q && t == c) ? s[S::lxx + 3 * q + c] : 0.f;
+            if (pairs && t < 2 && c < 2) l = l + pw[t == c ? t : 2];
+            s[S::Hxx + (3 * r + t) * n + 3 * q + c] = l;
+          }
+        }
+#pragma unroll
+        for (int a = 0; a < 2; ++a) {
+#pragma unroll
+          for (int c = 0; c < 2; ++c)
+            s[S::Huu + (2 * r + a) * nu + 2 * q + c] = (r == q && a == c) ? s[S::luu + 2 * q + c] : 0.f;
+        }
+      }
+      warp_sync();
+    }
+
     NMPC_PROBE(2);
     // ---- Qux = B^T (Vxx A), Qxx = lxx + A^T (Vxx A) and Quu = luu + B^T
     // Vxx B from the 3x3 block of Vxx of robots (r, q), one block per lane:
@@ -745,8 +820,9 @@ NMPC_DEV float backward_sweep_warp(const Lanes<NR>& w, float reg) {
       }
       // lxx's block: its diagonal (r = q) and the pair (and obstacle) weights
       // on (x, y); without pair rows the table off the diagonal holds zeros
+      // (kDense: read back from the slot's dense lxx)
       float pw[3] = {0.f, 0.f, 0.f};
-      if (pairs || kObs) {
+      if (!kDense && kCon && (pairs || kObs)) {
 #pragma unroll
         for (int k = 0; k < 3; ++k)
           pw[k] = r == q ? s[S::Dg + k * NR + r] : -s[S::PW + (k * NR + r) * NR + q];
@@ -755,8 +831,13 @@ NMPC_DEV float backward_sweep_warp(const Lanes<NR>& w, float reg) {
       for (int t = 0; t < 3; ++t) {
 #pragma unroll
         for (int c = 0; c < 3; ++c) {
-          float l = (r == q && t == c) ? s[S::lxx + 3 * q + c] : 0.f;
-          if ((pairs || kObs) && t < 2 && c < 2) l = l + pw[t == c ? t : 2];
+          float l;
+          if constexpr (kDense) {
+            l = s[S::Hxx + (3 * r + t) * n + 3 * q + c];
+          } else {
+            l = (r == q && t == c) ? s[S::lxx + 3 * q + c] : 0.f;
+            if (kCon && (pairs || kObs) && t < 2 && c < 2) l = l + pw[t == c ? t : 2];
+          }
           float val = l + va[t][c];
           if (t == 2) val = val + e1r * va[0][c] + e2r * va[1][c];
           Q[(3 * r + t) * n + 3 * q + c] = val;
@@ -777,7 +858,11 @@ NMPC_DEV float backward_sweep_warp(const Lanes<NR>& w, float reg) {
             const int j = 2 * r + a, i = 2 * q + c;
             if (j < i) continue;
             const float val = a == 0 ? bcr * vb[0][c] + bsr * vb[1][c] : dt * vb[2][c];
-            Lm[j * nu + i] = (i == j ? s[S::luu + i] : 0.f) + val;
+            if constexpr (kDense) {
+              Lm[j * nu + i] = s[S::Huu + j * nu + i] + val;
+            } else {
+              Lm[j * nu + i] = (i == j ? s[S::luu + i] : 0.f) + val;
+            }
           }
         }
       }
@@ -787,8 +872,8 @@ NMPC_DEV float backward_sweep_warp(const Lanes<NR>& w, float reg) {
     NMPC_PROBE(3);
     // ---- Cholesky of Quu + reg I, column by column, row j on lane j (in
     // registers; published row-major and transposed); reg inside the square
-    // root, as riccati.cuh::chol
-    {
+    // root, as riccati.cuh::chol (Phase::no_solve: none)
+    if constexpr (kPhase != Phase::no_solve) {
       float row[nu];
 #pragma unroll
       for (int i = 0; i < nu; ++i) row[i] = 0.f;
@@ -817,42 +902,114 @@ NMPC_DEV float backward_sweep_warp(const Lanes<NR>& w, float reg) {
         warp_sync();
       }
     }
+    // ---- Phase::inv_solve: the factor's inverse, column j on lane j in
+    // registers (riccati.cuh::chol_inverse's sums, each from 0, the entries
+    // above the column 0), then published row-major over the factor and
+    // transposed over its transpose
+    if constexpr (kPhase == Phase::inv_solve) {
+      float col[nu];
+      if (lane < nu) {
+        float iv[nu];
+        load_vec<nu>(inv, iv);
+#pragma unroll
+        for (int i = 0; i < nu; ++i) {
+          float acc = 0.f;
+#pragma unroll
+          for (int k0 = 0; k0 < i; k0 += C) {
+            float c[C];
+            load_chunk<C>(Lm + i * nu + k0, c);
+#pragma unroll
+            for (int t = 0; t < C; ++t)
+              if (k0 + t < i) acc = acc + c[t] * col[k0 + t];
+          }
+          col[i] = i < lane ? 0.f : i == lane ? iv[i] : -iv[i] * acc;
+        }
+      }
+      warp_sync();
+      if (lane < nu) {
+#pragma unroll
+        for (int i = 0; i < nu; ++i)
+          if (i >= lane) Lm[i * nu + lane] = col[i];
+        store_vec<nu>(LT + lane * nu, col);
+      }
+      warp_sync();
+    }
 
     NMPC_PROBE(4);
     // ---- substitutions, one right-hand side per lane: lane 0 solves for
     // kff (rhs Qu), lane c + 1 for column c of K (rhs column c of Qux)
+    // (Phase::no_solve: -rhs_i / (Quu_ii + reg); Phase::inv_solve:
+    // -L^-T (L^-1 rhs), L^-1 row-major in Lm and transposed in LT)
     float y[nu];
 #pragma unroll
     for (int i = 0; i < nu; ++i) y[i] = 0.f;
     if (lane <= n) {
       float iv[nu];
-      load_vec<nu>(inv, iv);
-      load_vec<nu>(lane == 0 ? s + S::Qu : QuxT + (lane - 1) * nu, y);
+      if constexpr (kPhase == Phase::no_solve) {
 #pragma unroll
-      for (int i = 0; i < nu; ++i) {
-        float acc = y[i];
-#pragma unroll
-        for (int k0 = 0; k0 < i; k0 += C) {
-          float c[C];
-          load_chunk<C>(Lm + i * nu + k0, c);
-#pragma unroll
-          for (int t = 0; t < C; ++t)
-            if (k0 + t < i) acc = acc - c[t] * y[k0 + t];
-        }
-        y[i] = acc * iv[i];
+        for (int i = 0; i < nu; ++i) iv[i] = 1.f / (Lm[i * nu + i] + reg);
+      } else {
+        load_vec<nu>(inv, iv);
       }
+      load_vec<nu>(lane == 0 ? s + S::Qu : QuxT + (lane - 1) * nu, y);
+      if constexpr (kPhase == Phase::no_solve) {
 #pragma unroll
-      for (int i = nu - 1; i >= 0; --i) {
-        float acc = y[i];
+        for (int i = 0; i < nu; ++i) y[i] = iv[i] * y[i];
+      } else if constexpr (kPhase == Phase::inv_solve) {
+        float z[nu];
 #pragma unroll
-        for (int k0 = (i + 1) / C * C; k0 < nu; k0 += C) {
-          float c[C];
-          load_chunk<C>(LT + i * nu + k0, c);
+        for (int i = 0; i < nu; ++i) {   // z = L^-1 rhs
+          float acc = 0.f;
 #pragma unroll
-          for (int t = 0; t < C; ++t)
-            if (k0 + t > i) acc = acc - c[t] * y[k0 + t];
+          for (int k0 = 0; k0 <= i; k0 += C) {
+            float c[C];
+            load_chunk<C>(Lm + i * nu + k0, c);
+#pragma unroll
+            for (int t = 0; t < C; ++t)
+              if (k0 + t <= i) acc = acc + c[t] * y[k0 + t];
+          }
+          z[i] = acc;
         }
-        y[i] = acc * iv[i];
+#pragma unroll
+        for (int i = 0; i < nu; ++i) {   // y = L^-T z
+          float acc = 0.f;
+#pragma unroll
+          for (int k0 = i / C * C; k0 < nu; k0 += C) {
+            float c[C];
+            load_chunk<C>(LT + i * nu + k0, c);
+#pragma unroll
+            for (int t = 0; t < C; ++t)
+              if (k0 + t >= i) acc = acc + c[t] * z[k0 + t];
+          }
+          y[i] = acc;
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < nu; ++i) {
+          float acc = y[i];
+#pragma unroll
+          for (int k0 = 0; k0 < i; k0 += C) {
+            float c[C];
+            load_chunk<C>(Lm + i * nu + k0, c);
+#pragma unroll
+            for (int t = 0; t < C; ++t)
+              if (k0 + t < i) acc = acc - c[t] * y[k0 + t];
+          }
+          y[i] = acc * iv[i];
+        }
+#pragma unroll
+        for (int i = nu - 1; i >= 0; --i) {
+          float acc = y[i];
+#pragma unroll
+          for (int k0 = (i + 1) / C * C; k0 < nu; k0 += C) {
+            float c[C];
+            load_chunk<C>(LT + i * nu + k0, c);
+#pragma unroll
+            for (int t = 0; t < C; ++t)
+              if (k0 + t > i) acc = acc - c[t] * y[k0 + t];
+          }
+          y[i] = acc * iv[i];
+        }
       }
 #pragma unroll
       for (int i = 0; i < nu; ++i) y[i] = -y[i];
@@ -911,9 +1068,18 @@ NMPC_DEV float backward_sweep_warp(const Lanes<NR>& w, float reg) {
 //    a done scenario leaves (its further iterations would be no-ops).
 // Every lane holds the same scalars (merits come from warp_sum), so every
 // branch below is taken by the whole warp.
-template <int NR, bool kObs>
+// The roofline tools' variants (pair-only; the defaults are K1): kPhase, the
+// phase ablation (k1_variants.cuh; every mode but `full` runs the sweep and
+// then, but for sweep_only, one alpha = 1 rollout without a merit that
+// becomes the iterate); kEarlyExit = false, the stop rule off: n_inner
+// iterations, each counted; kDense, K9's dense expansion layout (the slot
+// then holds Slot::floats_dense).
+template <int NR, bool kObs, Phase kPhase = Phase::full, bool kEarlyExit = true,
+          bool kDense = false>
 NMPC_DEV void inner_solve_warp(const WarpArgs& a, const float* sp, float* slot, int b,
                                int lane) {
+  static_assert(!kObs || (kPhase == Phase::full && kEarlyExit && !kDense),
+                "the variants are pair-only");
   using D = Dims<NR>;
   constexpr int n = D::n, nu = D::nu;
   const size_t N = a.N;
@@ -958,14 +1124,25 @@ NMPC_DEV void inner_solve_warp(const WarpArgs& a, const float* sp, float* slot, 
 
   NMPC_PROBE_COUNTERS(w);
   NMPC_PROBE_START(w.clk);
-  float cost = rollout_warp<NR, kObs>(w, nullptr, w.Uin, 0.f, false, w.Xc, w.Uc);
+  float cost = rollout_warp<NR, kObs, kPhase != Phase::sweep_only>(w, nullptr, w.Uin, 0.f,
+                                                                     false, w.Xc, w.Uc);
   NMPC_PROBE(10);
   int iters = 0;
   float trial = 1.f;
   for (int it = 0; it < a.n_inner; ++it) {
     NMPC_PROBE_RESTART();
-    const float slope = relu(-backward_sweep_warp<NR, kObs>(w, a.reg));
+    const float slope = relu(-backward_sweep_warp<NR, kObs, kPhase, kDense>(w, a.reg));
     NMPC_PROBE(11);
+    if constexpr (kPhase == Phase::sweep_only) {
+      ++iters;
+      continue;
+    } else if constexpr (kPhase != Phase::full) {
+      rollout_warp<NR, kObs, false>(w, w.Xc, w.Uc, 1.f, true, w.Xt, w.Ut);
+      swap_ptr(w.Xc, w.Xt);
+      swap_ptr(w.Uc, w.Ut);
+      ++iters;
+      continue;
+    }
     float best_cost = cost, best_alpha = 0.f;
     if (a.adaptive) {
       for (int rr = 0; rr < a.ls_rounds; ++rr) {
@@ -1007,7 +1184,7 @@ NMPC_DEV void inner_solve_warp(const WarpArgs& a, const float* sp, float* slot, 
         ? ((improved && rel < a.tol_cost) || (!improved && trial <= a.ls_trial_min))
         : (!improved || rel < a.tol_cost);
     cost = cost_new;
-    if (stop) break;
+    if (kEarlyExit && stop) break;
     ++iters;
   }
   if (w.Xc != Xout) {  // the iterate ended in a scratch buffer

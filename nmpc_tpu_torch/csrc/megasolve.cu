@@ -40,20 +40,8 @@
 
 namespace nmpc {
 
-constexpr int kMaxWarps = 4;   // K1: scenarios (warps) per block, at most
 constexpr int kAlWarps = 8;    // K2: scenarios (warps) per block
-// K1's register cap, as the blocks of kMaxWarps warps per SM that the
-// registers must allow (65,536 / (128 x this) registers a thread): more
-// resident warps hide more of a scenario's serial latency, until the spills
-// cost more. Picked per m by `python -m nmpc_tpu_torch.tools.k1_launch`
-// (PERF.md); -DNMPC_K1_MIN_BLOCKS=<c> overrides it for that sweep only.
-#ifdef NMPC_K1_MIN_BLOCKS
-template <int NR>
-constexpr int kK1MinBlocks = NMPC_K1_MIN_BLOCKS;
-#else
-template <int NR>
-constexpr int kK1MinBlocks = NR <= 2 ? 8 : NR == 3 ? 6 : NR <= 6 ? 5 : NR == 8 ? 4 : 1;
-#endif
+// kMaxWarps and K1's register cap kK1MinBlocks: csrc/k1_variants.cuh
 
 // dynamic shared memory: one slot a warp, then the parameter block (any
 // number of alphas). The slots keep the address they had when the parameter

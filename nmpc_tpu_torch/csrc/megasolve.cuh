@@ -1,11 +1,14 @@
 // K1's first design: the whole inner iLQR solve of one scenario on one
 // thread (inner_solve_thread), replacing the Pallas megakernel
 // nmpc_tpu/ops/megasolve_pallas.py (_make_megakernel, wrapper
-// inner_solve_fused). The solver library runs K1's second design
-// (csrc/inner_warp.cuh, one warp per scenario); this one is built only by the
-// roofline tools (csrc/tools.cu), where K8 `full` with the early exit is this
-// body unchanged: K1's A/B baseline, and the code the phase ablation (K8) and
-// the expansion-layout A/B (K9) vary under template flags.
+// inner_solve_fused). The solver library runs K1's warp design
+// (csrc/inner_warp.cuh, one warp per scenario), and so do the roofline
+// tools' phase ablation (K8) and expansion-layout A/B (K9) by default. This
+// design is built only by the roofline tools (csrc/tools.cu), as the A/B
+// baseline: K8 `full` with the early exit is this body unchanged, and
+// `design="first"` of tools/exp_mega_phases.py::phase_ablation and
+// tools/exp_blocked_expansions.py::expansion_ab runs the first design's
+// ablation and layout A/B under this header's template flags.
 //
 // Problem class: NR stacked Euler unicycles with pair rows (optional) and
 // u/x box rows; no static or moving obstacles, no LiDAR rays.
@@ -17,6 +20,7 @@
 // (Vx, Vxx, Qux, Quu, gains) live in thread-local arrays sized by NR.
 #pragma once
 
+#include "k1_variants.cuh"
 #include "riccati.cuh"
 #include "rollout.cuh"
 
@@ -44,19 +48,6 @@ template <int NR>
 NMPC_DEV int pair_row(int i, int j) {
   return i * (2 * NR - i - 1) / 2 + (j - i - 1);
 }
-
-// Which phases of the inner solve run. K1 is `full` with the early exit;
-// the other values are the phase ablations of csrc/tools.cu (K8, port of
-// tools/exp_mega_phases.py), which run a fixed iteration count:
-//   inv_solve   gains through the explicit L^-1 (chol_inverse), alpha = 1
-//   no_ls       no candidate rollouts: alpha = 1
-//   no_solve    diagonal gains -Qu / (Quu_ii + reg), alpha = 1
-//   no_expcon   LQR-only expansions (no constraint rows, box rows included),
-//               alpha = 1
-//   sweep_only  no merit, no rollouts: X and U never change
-// Every mode but `full` keeps the initial merit as its cost (the reference
-// ablation's semantics: only `full` line-searches).
-enum class Phase : int { full = 0, inv_solve, no_ls, no_solve, no_expcon, sweep_only };
 
 // Gauss-Newton expansion of one stage's AL merit, kept in structured form:
 // A = I + E with E[3r, 3r+2] = e1[r], E[3r+1, 3r+2] = e2[r]; B has
@@ -199,9 +190,9 @@ NMPC_DEV void Expansion<NR>::fill(const float* sp, bool gate, bool pairs, const 
 // returns the expected-decrease term dV1 = sum_k kff_k . Qu_k.
 //   Vx' = Qx + Qux^T kff,  Vxx' = Qxx + Qux^T Kfb
 // (Qux^T Kfb = -Qux^T Quu^-1 Qux is symmetric by construction.)
-// Exp is the expansion's layout (K1: the structured Expansion; the layout
-// A/B of csrc/tools.cu also runs a dense one); kPhase selects the phase
-// ablation's expansions and gains (Phase::full is K1's).
+// Exp is the expansion's layout (the first design: the structured Expansion;
+// its layout A/B in csrc/tools.cu also runs a dense one); kPhase selects the
+// phase ablation's expansions and gains (Phase::full is K1's).
 template <int NR, class Exp = Expansion<NR>, Phase kPhase = Phase::full>
 NMPC_DEV float backward_sweep(const InnerArgs& a, const float* sp, int b,
                               float mu, int nc) {
@@ -422,8 +413,9 @@ NMPC_DEV float closed_loop_rollout(const InnerArgs& a, const float* sp, int b,
 // (alpha = 0 reproduces the nominal exactly), which is also why an
 // unimproved step skips the accepted rollout.
 //
-// The defaults of Exp, kPhase and kEarlyExit are K1. The phase ablation and
-// the layout A/B of csrc/tools.cu instantiate the same body with another
+// The defaults of Exp, kPhase and kEarlyExit are K1's first design. The
+// first design's phase ablation and layout A/B of csrc/tools.cu (parts 1-8)
+// instantiate the same body with another
 // expansion layout or Phase, and with kEarlyExit = false: every scenario then
 // runs n_inner iterations and counts each, as the reference's ablations do.
 template <int NR, class Exp = Expansion<NR>, Phase kPhase = Phase::full, bool kEarlyExit = true>

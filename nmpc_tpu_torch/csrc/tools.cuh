@@ -3,18 +3,23 @@
 //   K7 fma_chain: C independent FMA chains x = x a + b per thread, the
 //      card's attainable f32 FMA rate. Replaces the TPU's pure-FMA probe
 //      tools/roofline.py::measure_vpu_peak.
-//   K8 the phase ablation: K1's inner_solve_thread (csrc/megasolve.cuh)
-//      instantiated with one Phase ablated at a fixed iteration count.
-//      Replaces tools/exp_mega_phases.py::run_mode.
+//   K8 the phase ablation: K1 with one Phase ablated at a fixed iteration
+//      count. Replaces tools/exp_mega_phases.py::run_mode.
 //   K9 the expansion-layout A/B: K1's solve at a fixed iteration count with
-//      the structured Expansion (K1's own) or DenseExpansion below.
+//      the structured expansion (K1's own) or a dense one.
 //      Replaces tools/exp_blocked_expansions.py::run.
 //
-// K8 and K9 are template flags on the device functions K1 itself runs, with
-// defaults that compile to K1, so the variants cannot drift from the
-// production kernel.
+// K8 and K9 run on K1's warp design by default: template flags of
+// csrc/inner_warp.cuh::inner_solve_warp (kPhase, kEarlyExit, kDense), whose
+// defaults compile to K1 itself (the part `K8 warp full, early exit`), so
+// these variants cannot drift from the solver's kernel. K1's first design
+// (csrc/megasolve.cuh::inner_solve_thread, one thread per scenario) keeps
+// its own variants as the A/B baseline under the same Phase flag and the
+// layout type below (DenseExpansion); `design="first"` of the Python
+// wrappers reaches them.
 #pragma once
 
+#include "inner_warp.cuh"
 #include "megasolve.cuh"
 
 namespace nmpc {
@@ -31,8 +36,8 @@ NMPC_DEV void fma_chain(float* x, float a, float b, int R) {
   }
 }
 
-// The dense expansion layout of the A/B (K9): the same stage expansion as
-// Expansion<NR>, with lxx (n x n) and luu (nu x nu) materialized in
+// The first design's dense expansion layout of the A/B (K9): the same stage
+// expansion as Expansion<NR>, with lxx (n x n) and luu (nu x nu) materialized in
 // thread-local memory and read back entry by entry in the backward sweep, as
 // the reference's per-row dense(He, n, n) assembles them. At six robots that
 // is 324 + 144 floats per thread beyond the structured form. Gradients are

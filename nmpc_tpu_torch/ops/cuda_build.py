@@ -12,9 +12,11 @@ and K5's first designs (`csrc/staged_first.cu`, the A/B baselines of
 tools/staged_launch.py) are a library of their own per m (`load_first`),
 and so is staged.cu at another geometry (`load_staged_variant`, the sweep's).
 The roofline tools' K7-K9
-(`csrc/tools.cu`) are a library of their own (`load_tools`), so the solver
-library's kernel set, build time and code generation stay as they are: nine
-nvcc processes, one per part of tools.cu. A library is built at its first use
+(`csrc/tools.cu`: K8 and K9 on K1's warp design, `csrc/inner_warp.cuh`, and
+on its first design, `csrc/megasolve.cuh`) are a library of their own
+(`load_tools`), so the solver library's kernel set, build time and code
+generation stay as they are: seventeen nvcc processes, one per part of
+tools.cu. A library is built at its first use
 from the sources in the checkout into `nmpc_tpu_torch/_build/`, named by a
 hash of the sources (the headers they include too) and flags so a stale build
 is never loaded, and reused from there afterwards. Nothing here runs at
@@ -41,16 +43,20 @@ _PKG = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 UNITS = ("megasolve.cu", "staged.cu")       # one nvcc process each
-SOURCES = (*UNITS, "inner_warp.cuh", "inner_team.cuh", "staged.cuh", "staged_tiles.cuh",
-           "expansions_rollout_tiles.cuh", "riccati.cuh", "rollout.cuh")
+SOURCES = (*UNITS, "inner_warp.cuh", "inner_team.cuh", "k1_variants.cuh", "staged.cuh",
+           "staged_tiles.cuh", "expansions_rollout_tiles.cuh", "riccati.cuh", "rollout.cuh")
 # K3 at a stage shape other than (3m, 2m), a library per shape
 K3_SHAPE_SOURCES = ("riccati_shape.cu", "staged_tiles.cuh", "staged.cuh", "riccati.cuh",
                     "rollout.cuh")
 FIRST_SOURCES = ("staged_first.cu", "staged.cuh", "riccati.cuh", "rollout.cuh")
-TOOLS_SOURCES = ("tools.cu", "tools.cuh", "megasolve.cuh", "riccati.cuh", "rollout.cuh")
-# the parts of tools.cu (-DNMPC_TOOLS_PART=i), one nvcc process each
+TOOLS_SOURCES = ("tools.cu", "tools.cuh", "megasolve.cuh", "inner_warp.cuh", "k1_variants.cuh",
+                 "riccati.cuh", "rollout.cuh")
+# the parts of tools.cu (-DNMPC_TOOLS_PART=i), one nvcc process each: K7, the
+# first design's K8 and K9 variants (1-8), the warp design's (9-16)
 TOOLS_PARTS = ("K7", "K8 full, early exit", "K8 full", "K8 inv_solve", "K8 no_ls",
-               "K8 no_solve", "K8 no_expcon", "K8 sweep_only", "K9 dense")
+               "K8 no_solve", "K8 no_expcon", "K8 sweep_only", "K9 dense",
+               "K8 warp full, early exit", "K8 warp full", "K8 warp inv_solve", "K8 warp no_ls",
+               "K8 warp no_solve", "K8 warp no_expcon", "K8 warp sweep_only", "K9 warp dense")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # robot counts of the scenario registry; one library each
@@ -206,6 +212,13 @@ def _bind_tools(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.nmpc_phase_ablation.restype = I
     lib.nmpc_expansion_ab.argtypes = [I] + inner
     lib.nmpc_expansion_ab.restype = I
+    warp = [P] * 14 + [I] * 8 + [F] * 6 + [P] + [I] * 3 + [P]   # nmpc_inner_solve's list
+    lib.nmpc_warp_slot_bytes.argtypes = [I]
+    lib.nmpc_warp_slot_bytes.restype = I
+    lib.nmpc_phase_ablation_warp.argtypes = [I, I] + warp
+    lib.nmpc_phase_ablation_warp.restype = I
+    lib.nmpc_expansion_ab_warp.argtypes = [I] + warp
+    lib.nmpc_expansion_ab_warp.restype = I
     return lib
 
 
@@ -384,7 +397,8 @@ def load_k3(n: int, nu: int) -> ctypes.CDLL:
 
 def load_tools(m: int) -> ctypes.CDLL:
     """The roofline tools' kernel library (K7-K9) for m robots, built first
-    if needed: the nine parts of csrc/tools.cu, one nvcc process each."""
+    if needed: the parts of csrc/tools.cu (TOOLS_PARTS), one nvcc process
+    each."""
     if m not in ROBOT_COUNTS:
         raise NotImplementedError(
             f"CUDA kernels are instantiated for m in {ROBOT_COUNTS}, not m={m}")

@@ -32,8 +32,10 @@ variant, launched when the problem has static or moving obstacles; the
 moving obstacles' schedule is read in the standard layout, per scenario
 [B, N, n_mov, 2] or shared [N, n_mov, 2]. K1's first design, one thread per
 scenario on the lane-major layout (csrc/megasolve.cuh::inner_solve_thread),
-is launched by `inner_launch` for the roofline tools only (K8 `full` with
-the early exit is that design).
+is launched by `inner_launch` for the roofline tools only (their
+`design="first"`; K8 `full` with the early exit is that design). The tools'
+default variants of K8 and K9 are the warp design's own, launched by
+`warp_launch` with an `entry` of the tools library.
 
 Admission (replaces the TPU's VMEM estimate `mega_fits`): the CUDA kernels
 are built for m in cuda_build.ROBOT_COUNTS robots, any N, pair,
@@ -432,12 +434,17 @@ def team_launch(ocp: OCP, x0, xref, lam, mu, U, cfg: ALILQRConfig, what: str, lo
 
 
 def warp_launch(ocp: OCP, x0, xref, lam, mu, U, cfg: ALILQRConfig, what: str, load,
-                warps: int):
+                warps: int, entry=None):
     """Launch K1's warp design (csrc/inner_warp.cuh, one warp per scenario;
     the solver's K1 at m >= 3, the A/B baseline below) from the
     library load(ocp.m) with `warps` scenarios per block on CUDA tensors in
     the standard layout: checks the arguments, raises if the launch failed
-    and counts it under `what`. Returns (Xs, U, cost, iters)."""
+    and counts it under `what`. Returns (Xs, U, cost, iters).
+
+    entry(lib) -> (launch function, a warp's slot bytes): a variant of the
+    design with `nmpc_inner_solve`'s arguments (the roofline tools' K8 and
+    K9, csrc/tools.cu); None is K1 itself, its slot at the problem's
+    obstacle rows."""
     x0, xref, lam, mu, U = _checked(ocp, cfg, what, x0, xref, lam, mu, U)
     B, N, n, nu = x0.shape[0], ocp.N, ocp.nx, ocp.nu
     f32 = dict(dtype=torch.float32, device=x0.device)
@@ -448,9 +455,10 @@ def warp_launch(ocp: OCP, x0, xref, lam, mu, U, cfg: ALILQRConfig, what: str, lo
     if B == 0:
         return Xs, U.clone(), cost, iters
     lib = load(ocp.m)
+    launch, slot = ((lib.nmpc_inner_solve, lib.nmpc_k1_slot_bytes(obstacle_rows(ocp)))
+                    if entry is None else entry(lib))
     # dynamic shared memory a block: the warps' slots, then the parameter block
-    smem = (warps * lib.nmpc_k1_slot_bytes(obstacle_rows(ocp))
-            + 4 * rollout._P(n, nu, len(cfg.alphas), ocp.n_obs).size)
+    smem = warps * slot + 4 * rollout._P(n, nu, len(cfg.alphas), ocp.n_obs).size
     if smem > SMEM_BLOCK_MAX:
         raise NotImplementedError(
             f"{what}: {smem} B of shared memory a block ({warps} warps' slots for "
@@ -461,7 +469,7 @@ def warp_launch(ocp: OCP, x0, xref, lam, mu, U, cfg: ALILQRConfig, what: str, lo
     Kfb = torch.empty((B, N, n, nu), **f32)
     Xw = torch.empty((2, B, N, n), **f32)       # scratch: candidate trajectories
     Uw = torch.empty((2, B, N, nu), **f32)
-    err = lib.nmpc_inner_solve(
+    err = launch(
         ptr(rollout.params(ocp, cfg.alphas, x0.device)), ptr(x0), ptr(xref), ptr(lam), ptr(mu),
         ptr(U), ptr(Xs), ptr(Uo), ptr(cost), ptr(iters), ptr(kff), ptr(Kfb), ptr(Xw), ptr(Uw),
         B, N, cfg.n_inner, int(cfg.ls == "adaptive"), len(cfg.alphas), cfg.ls_rounds,
@@ -489,8 +497,9 @@ def _checked(ocp: OCP, cfg: ALILQRConfig, what: str, x0, xref, lam, mu, U) -> tu
 def inner_launch(ocp: OCP, x0, xref, lam, mu, U, cfg: ALILQRConfig, what: str,
                  load, entry):
     """Launch a variant of K1's first design (csrc/megasolve.cuh, one thread
-    per scenario on the lane-major layout: the phase ablation and layout A/B
-    of the roofline tools) on CUDA tensors: checks the arguments, moves them
+    per scenario on the lane-major layout: the first design's phase ablation
+    and layout A/B of the roofline tools, `design="first"`) on CUDA tensors:
+    checks the arguments, moves them
     to the lane-major layout, calls entry(load(ocp.m))(*the first design's
     arguments), raises if the launch failed and counts it under `what`.
     Returns (Xs, U, cost, iters) in the standard layout. The first design

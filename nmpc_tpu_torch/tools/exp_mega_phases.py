@@ -1,12 +1,20 @@
 """Where K1's time goes: K1 with one phase ablated at a fixed iteration count
 (K8). Port of tools/exp_mega_phases.py.
 
-The ablated kernels are K1's own device code (csrc/megasolve.cuh) built with
-another `Phase` template flag (csrc/tools.cu), so they cannot drift from the
-production kernel. Modes, with the reference's semantics:
+Two designs (`design=`):
+  warp   (default) the solver's K1 itself, csrc/inner_warp.cuh (one warp per
+         scenario), built with the template flags of `inner_solve_warp`
+         (kPhase, kEarlyExit; csrc/tools.cu parts 9-15) and launched at K1's
+         geometry, so the ablations cannot drift from the kernel the solver
+         runs;
+  first  K1's first design, csrc/megasolve.cuh (one thread per scenario,
+         parts 1-7), which no route has launched since the warp design: the
+         A/B baseline.
+Modes, with the reference's semantics:
 
   full        K1's iteration: sweep, line search (K1's, per cfg.ls), accepted
-              rollout
+              step (the warp design's candidate rollout stored it; the first
+              design rolls it out again)
   inv_solve   the gains through the explicit inverse of the Cholesky factor;
               NO line search (alpha = 1), as in the reference, so its saving
               reads against no_ls, not against full
@@ -18,16 +26,18 @@ production kernel. Modes, with the reference's semantics:
   sweep_only  no merit, no rollouts: X and U never change, the cost is 0
 
 Every mode runs n_iter iterations on every scenario, with no early exit, and
-every mode but `full` returns the initial merit as its cost (only `full`
-line-searches). The ablations give wrong solver output on purpose: they
-rank where the cycles go. `phase_ablation(..., early_exit=True)` (mode full
-only) is K1 itself, bit for bit.
+every mode but `full` and `sweep_only` returns the initial merit as its cost
+(only `full` line-searches). The ablations give wrong solver output on
+purpose: they rank where the cycles go. `phase_ablation(..., early_exit=True)`
+(mode full only) is K1 itself, bit for bit (design "warp": the solver's K1;
+"first": its first design). CPU tensors take the plain version whatever the
+design.
 
-    python -m nmpc_tpu_torch.tools.exp_mega_phases
+    python -m nmpc_tpu_torch.tools.exp_mega_phases [--design first]
 
 times the six modes on the card at the reference's inputs (six_robot_antipodal
 N=10, B=32768, lam = 0, mu = 10, U = 0, n_outer * n_inner = 72 iterations),
-in turns with `full` first and last.
+in turns with `full` first and last, on the warp design (or the first).
 """
 
 from __future__ import annotations
@@ -44,6 +54,12 @@ from nmpc_tpu_torch.ops import cuda_build, megasolve
 from nmpc_tpu_torch.solver.alilqr import ALILQRConfig, _stage_expansion, _stage_jacobians
 
 MODES = ("full", "inv_solve", "no_ls", "no_solve", "no_expcon", "sweep_only")
+DESIGNS = ("warp", "first")
+
+
+def check_design(design: str) -> None:
+    if design not in DESIGNS:
+        raise ValueError(f"unknown design {design!r}; designs are {DESIGNS}")
 
 
 def _lqr_expansion(o, Xs, U):
@@ -105,11 +121,17 @@ def _sweep(o, cfg: ALILQRConfig, X, U, lam, mu, mode: str):
     return kff, Kfb, dV1
 
 
-def phase_ablation_plain(ocp, x0, xref, lam, mu, U, cfg: ALILQRConfig, mode: str, n_iter: int):
+def phase_ablation_plain(ocp, x0, xref, lam, mu, U, cfg: ALILQRConfig, mode: str, n_iter: int,
+                         *, candidates: torch.Tensor | None = None):
     """Plain K8: `mode` for n_iter iterations on every scenario, built from
     ops/megasolve.inner_solve_plain's pieces (merit, closed-loop rollout,
     line searches). Arguments and results as `inner_solve_plain`; iters is
-    n_iter everywhere."""
+    n_iter everywhere.
+
+    candidates: an optional integer tensor [B] to which each scenario's
+    line-search rollouts are added (mode `full` only: adaptive one a round
+    until one passes, cascade every alpha), as `inner_solve_plain` counts
+    them; tools/roofline.py counts the warp design's K8 and K9 from them."""
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r}; modes are {MODES}")
     if cfg.ls not in ("adaptive", "cascade"):
@@ -142,6 +164,8 @@ def phase_ablation_plain(ocp, x0, xref, lam, mu, U, cfg: ALILQRConfig, mode: str
             for _ in range(cfg.ls_rounds):
                 if bool(acc.all()):
                     break
+                if candidates is not None:
+                    candidates += (~acc).to(candidates.dtype)
                 a = torch.where(acc, zero, trial)
                 ca = cost_of(a)
                 ok = (~acc) & ((cost - ca) >= cfg.armijo * a * slope) & (ca < cost)
@@ -152,6 +176,8 @@ def phase_ablation_plain(ocp, x0, xref, lam, mu, U, cfg: ALILQRConfig, mode: str
             trial = torch.where(best_alpha > 0,
                                 torch.clamp(best_alpha * cfg.ls_grow, max=1.0), trial)
         else:
+            if candidates is not None:
+                candidates += len(cfg.alphas)
             for a in cfg.alphas:
                 a_t = torch.full((B,), a, **kw)
                 ca = cost_of(a_t)
@@ -203,12 +229,16 @@ def f64_witness(ocp, x0, xref, lam, mu, U, cfg: ALILQRConfig, mode: str, n_iter:
 
 
 def phase_ablation(ocp, x0, xref, lam, mu, U, cfg: ALILQRConfig, mode: str, n_iter: int,
-                   early_exit: bool = False):
-    """K8 wrapper: `mode` at n_iter iterations, the CUDA kernel for CUDA
-    tensors and the plain version for CPU tensors. early_exit=True (mode
-    'full' only) keeps K1's stop rule: that is K1 at n_inner = n_iter."""
+                   early_exit: bool = False, design: str = "warp"):
+    """K8 wrapper: `mode` at n_iter iterations, the CUDA kernel of `design`
+    ("warp": the solver's K1 under the tools' flags; "first": K1's first
+    design) for CUDA tensors, which it launches (counted as
+    'phase_ablation') or raises, and the plain version for CPU tensors.
+    early_exit=True (mode 'full' only) keeps K1's stop rule: that is K1 at
+    n_inner = n_iter. Pair and box rows only."""
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r}; modes are {MODES}")
+    check_design(design)
     if early_exit and mode != "full":
         raise ValueError("the early exit is K1's, mode 'full' only")
     cfg_n = dataclasses.replace(cfg, n_inner=n_iter)
@@ -216,9 +246,26 @@ def phase_ablation(ocp, x0, xref, lam, mu, U, cfg: ALILQRConfig, mode: str, n_it
         if early_exit:
             return megasolve.inner_solve_plain(ocp, x0, xref, lam, mu, U, cfg_n)
         return phase_ablation_plain(ocp, x0, xref, lam, mu, U, cfg, mode, n_iter)
-    return megasolve.inner_launch(
-        ocp, x0, xref, lam, mu, U, cfg_n, "phase_ablation", cuda_build.load_tools,
-        lambda lib: functools.partial(lib.nmpc_phase_ablation, MODES.index(mode), int(early_exit)))
+    if design == "first":
+        return megasolve.inner_launch(
+            ocp, x0, xref, lam, mu, U, cfg_n, "phase_ablation", cuda_build.load_tools,
+            lambda lib: functools.partial(lib.nmpc_phase_ablation, MODES.index(mode),
+                                          int(early_exit)))
+    return warp_variant(ocp, x0, xref, lam, mu, U, cfg_n, "phase_ablation",
+                        lambda lib: (functools.partial(lib.nmpc_phase_ablation_warp,
+                                                       MODES.index(mode), int(early_exit)),
+                                     lib.nmpc_warp_slot_bytes(0)))
+
+
+def warp_variant(ocp, x0, xref, lam, mu, U, cfg: ALILQRConfig, what: str, entry):
+    """A variant of K1's warp design from the tools library (entry(lib) ->
+    (launch function, slot bytes), megasolve.warp_launch's `entry`) at K1's
+    geometry (megasolve.K1_WARPS scenarios a block); pair and box rows
+    only."""
+    if megasolve.obstacle_rows(ocp):
+        raise NotImplementedError(f"{what}: the tools' variants of K1 take no obstacle rows")
+    return megasolve.warp_launch(ocp, x0, xref, lam, mu, U, cfg, what, cuda_build.load_tools,
+                                 megasolve.K1_WARPS, entry)
 
 
 def time_in_turns(runs: dict, order, rounds: int) -> dict:
@@ -235,11 +282,11 @@ def time_in_turns(runs: dict, order, rounds: int) -> dict:
     return out
 
 
-def time_modes(ocp_b, lam, mu, U, cfg: ALILQRConfig, n_iter: int) -> dict:
-    """The six modes on the card, three rounds in turns with `full` first
-    and last: {mode: [ms, ...]} (full twice per round)."""
+def time_modes(ocp_b, lam, mu, U, cfg: ALILQRConfig, n_iter: int, design: str = "warp") -> dict:
+    """The six modes of `design` on the card, three rounds in turns with
+    `full` first and last: {mode: [ms, ...]} (full twice per round)."""
     runs = {mode: functools.partial(phase_ablation, ocp_b, ocp_b.x0, ocp_b.xref, lam, mu, U,
-                                    cfg, mode, n_iter) for mode in MODES}
+                                    cfg, mode, n_iter, design=design) for mode in MODES}
     return time_in_turns(runs, (*MODES, "full"), 3)
 
 
@@ -257,8 +304,13 @@ def savings(summary: dict) -> dict:
 
 
 def main(argv=None) -> int:
+    import argparse
+
     from nmpc_tpu_torch.tools.roofline import bench_batch, card, require_card
 
+    ap = argparse.ArgumentParser(prog="python -m nmpc_tpu_torch.tools.exp_mega_phases")
+    ap.add_argument("--design", choices=DESIGNS, default="warp")
+    design = ap.parse_args(argv).design
     require_card("exp_mega_phases")
     B = 32768
     cfg = ALILQRConfig(n_outer=6, n_inner=12, tol_con=1e-3, ls="adaptive")
@@ -268,8 +320,9 @@ def main(argv=None) -> int:
     mu = torch.full((B,), 10.0, **kw)
     U = torch.zeros((B, base.N, base.nu), **kw)
     n_iter = cfg.n_outer * cfg.n_inner
-    print(f"B={B}, fixed {n_iter} iterations per scenario, {torch.cuda.get_device_name(0)} [{card()}]")
-    summ = summarize(time_modes(ob, lam, mu, U, cfg, n_iter))
+    print(f"K1's {design} design, B={B}, fixed {n_iter} iterations per scenario, "
+          f"{torch.cuda.get_device_name(0)} [{card()}]")
+    summ = summarize(time_modes(ob, lam, mu, U, cfg, n_iter, design))
     save = savings(summ)
     for mode in MODES:
         lo, med = summ[mode]

@@ -13,7 +13,7 @@ ALILQRConfig(n_outer=6, n_inner=12, tol_con=1e-3, ls="adaptive"), starts
 jittered by 0.1 N(0, 1)) with each of WARPS scenarios per block, all
 variants of one M in turns (forward, then backward). Prints each build's
 ptxas line, whether every variant returns the same bits, and the times,
-fastest first. The solver's choice (csrc/megasolve.cu::kK1MinBlocks,
+fastest first. The solver's choice (csrc/k1_variants.cuh::kK1MinBlocks,
 ops/megasolve.py::K1_WARPS) is read from this table.
 
 `team` sweeps K1's team design (csrc/inner_team.cuh) for each M of

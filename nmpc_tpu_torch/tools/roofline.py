@@ -8,9 +8,10 @@
    H100 SXM at 700 W. K7 measures how much of it a kernel can reach.
 2. The reference's analytic model (`iteration_flops`, `hbm_bytes_per_solve`,
    copied unchanged) and the port's own work model of every kernel
-   (`kernel_work`), counted from csrc/megasolve.cuh, csrc/staged.cuh and
-   csrc/tools.cu at their shapes: each input byte read once, each output
-   byte written once (scratch such as K1's gains is neither); a
+   (`kernel_work`), counted from csrc/inner_warp.cuh, csrc/megasolve.cuh,
+   csrc/staged.cuh and csrc/tools.cu at their shapes: each input byte read
+   once, each output byte written once (scratch such as K1's gains is
+   neither); a
    multiply, add, compare, select, sqrt, division, sine or cosine is one
    FLOP and a fused multiply-add two (so the count is a lower bound on
    issued work, as the reference's is). Where the work depends on the data,
@@ -305,7 +306,7 @@ def k1_executed(iters: torch.Tensor, n_inner: int) -> torch.Tensor:
 
 def kernel_work(kernel: str, ocp, B: int, cfg=None, *, iters=None, candidates=None,
                 n_alphas=None, phase: str = "full", chains=None, R=None,
-                threads=None) -> tuple:
+                threads=None, design: str = "first") -> tuple:
     """(FLOPs, bytes) of one launch of `kernel` ('K1' ... 'K9') at the
     problem `ocp` (N stages, m robots, its rows) and batch B.
 
@@ -315,18 +316,25 @@ def kernel_work(kernel: str, ocp, B: int, cfg=None, *, iters=None, candidates=No
     rollouts its iterations needed, summed over the scenarios
     (`megasolve.inner_solve_plain(..., candidates=)`); it needs no
     accepted rollout (the accepted trajectory is its candidate's). K8 and
-    K9 count per iteration as K1's first design runs it
-    (`inner_iteration_flops`). K5: `n_alphas` candidates. K7: `chains`, `R`,
-    `threads`. f32 and int32 are 4 bytes."""
+    K9 count as `design` runs them: "first" per iteration as K1's first
+    design does (`inner_iteration_flops`: the reference's merit_evals
+    candidates and the accepted rollout); "warp" as K1's count, the mode
+    `full` from `candidates` (`exp_mega_phases.phase_ablation_plain(...,
+    candidates=)`) with no accepted rollout, the modes without a line search
+    one alpha = 1 rollout without a merit an iteration, sweep_only none.
+    K5: `n_alphas` candidates. K7: `chains`, `R`, `threads`. f32 and int32
+    are 4 bytes."""
     d = _dims(ocp)
     n, nu, nc, N = d["n"], d["nu"], d["nc"], d["N"]
     mov = 2 * d["n_mov"]
     f = 4.0
+    if design not in ("first", "warp"):
+        raise ValueError(f"unknown design {design!r}")
     if kernel in ("K1", "K8", "K9"):
         init = N * ((0 if phase == "sweep_only" else _merit(d)) + _euler(d))
-        if kernel == "K1":
+        if kernel == "K1" or (design == "warp" and phase == "full"):
             step = float(iters) * sweep_flops(ocp) + float(candidates) * candidate_flops(ocp)
-        else:
+        else:   # the modes without a line search roll alpha = 1 out alike in both designs
             step = float(iters) * inner_iteration_flops(ocp, cfg, phase)
         flops = B * init + step
         read = n + N * n + N * nc + 1 + N * nu + N * mov  # x0, xref, lam, mu, U, schedule

@@ -1,5 +1,7 @@
-// Host rehearsal of csrc/inner_warp.cuh (K1 and K2, one warp per scenario),
-// for tests/test_torch_inner_warp_host.py. Compiled by g++:
+// Host rehearsal of csrc/inner_warp.cuh (K1 and K2, one warp per scenario,
+// and the roofline tools' variants of K1: the phase ablation K8 and the
+// expansion-layout A/B K9), for tests/test_torch_inner_warp_host.py.
+// Compiled by g++:
 //   g++ -std=c++20 -O1 -shared -fPIC -pthread -ffp-contract=off
 //       -fno-strict-aliasing -DNMPC_NR=<m> -I<csrc> inner_warp_host.cpp
 // A scenario's warp runs as 32 std::threads with a std::barrier for
@@ -60,7 +62,8 @@ void run_warp(F body) {
   for (auto& t : pool) t.join();
 }
 
-template <bool kObs>
+template <bool kObs, nmpc::Phase kPhase = nmpc::Phase::full, bool kEarlyExit = true,
+          bool kDense = false>
 void k1(const nmpc::WarpArgs& a) {
   const int n_prm = nmpc::Dims<NMPC_NR>::alphas + 3 * a.n_obs + a.n_alphas;
   std::vector<float4> sp4((n_prm + 3) / 4);
@@ -70,7 +73,9 @@ void k1(const nmpc::WarpArgs& a) {
   float* slot = reinterpret_cast<float*>(slot4.data());
   for (int b = 0; b < a.B; ++b) {
     for (int i = 0; i < a.slot_floats; ++i) slot[i] = std::numeric_limits<float>::quiet_NaN();
-    run_warp([&](int lane) { nmpc::inner_solve_warp<NMPC_NR, kObs>(a, sp, slot, b, lane); });
+    run_warp([&](int lane) {
+      nmpc::inner_solve_warp<NMPC_NR, kObs, kPhase, kEarlyExit, kDense>(a, sp, slot, b, lane);
+    });
   }
 }
 
@@ -107,6 +112,46 @@ void host_inner_solve(const float* prm, const float* x0, const float* xref, cons
     k1<true>(a);
   else
     k1<false>(a);
+}
+
+// The warp design's slot for the tools' variants: K1's pair-only slot, or
+// with K9's dense lxx and luu (dense = 1)
+int host_warp_slot_bytes(int dense) {
+  using S = nmpc::Slot<NMPC_NR>;
+  return 4 * (dense ? S::floats_dense : S::floats);
+}
+
+// The tools' variants of K1's warp design (tools.cu::nmpc_phase_ablation_warp
+// and nmpc_expansion_ab_warp) with the arguments of host_inner_solve, pair
+// and box rows only: mode = nmpc::Phase (0 full, 1 inv_solve, 2 no_ls,
+// 3 no_solve, 4 no_expcon, 5 sweep_only); early_exit = 1 (mode 0 only) is
+// K1; dense = 1 (mode 0, no early exit) K9's dense layout. Returns 0, or -1
+// for a combination no variant takes.
+int host_phase_ablation(int mode, int early_exit, int dense, const float* prm, const float* x0,
+                        const float* xref, const float* lam, const float* mu, const float* Uin,
+                        float* Xs, float* U, float* cost, int* iters, float* kff, float* Kfb,
+                        float* Xw, float* Uw, int B, int N, int n_inner, int adaptive,
+                        int n_alphas, int ls_rounds, int pairs, float reg, float armijo,
+                        float tol_cost, float ls_beta, float ls_grow, float ls_trial_min) {
+  using nmpc::Phase;
+  if ((early_exit && (mode != 0 || dense)) || (dense && mode != 0)) return -1;
+  const nmpc::WarpArgs a{prm, x0, xref, lam, mu, Uin, Xs, U, cost, iters, kff, Kfb, Xw, Uw,
+                         B, N, n_inner, adaptive, n_alphas, ls_rounds, pairs,
+                         host_warp_slot_bytes(dense) / 4, reg, armijo, tol_cost,
+                         ls_beta, ls_grow, ls_trial_min, nullptr, 0, 0, 0};
+  switch (mode) {
+    case 0:
+      if (early_exit) k1<false>(a);
+      else if (dense) k1<false, Phase::full, false, true>(a);
+      else k1<false, Phase::full, false>(a);
+      return 0;
+    case 1: k1<false, Phase::inv_solve, false>(a); return 0;
+    case 2: k1<false, Phase::no_ls, false>(a); return 0;
+    case 3: k1<false, Phase::no_solve, false>(a); return 0;
+    case 4: k1<false, Phase::no_expcon, false>(a); return 0;
+    case 5: k1<false, Phase::sweep_only, false>(a); return 0;
+    default: return -1;
+  }
 }
 
 // K2 with the arguments of megasolve.cu::nmpc_al_update (no stream)

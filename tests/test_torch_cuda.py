@@ -24,10 +24,12 @@ at these inputs no scenario may diverge or pass by the f32 spread alone.
 K3-K6 against their first designs (tools/staged_launch.py) bit for bit,
 at the edges of the tile designs; K5 also at line-search grids longer than
 one launch takes, and K1 with 33 alphas against plain as above. K7 bit for bit (the plain chain rounds each
-exact f64 step once, as the FMA); K8's modes and K9's layouts at 4 fixed iterations as K1; K8 `full`
-with the early exit (K1's first design) against plain as K1, and K1 against
-it at the same tolerances; K9 structured against K8 `full`, bit for bit
-(the same device code).
+exact f64 step once, as the FMA); K8's modes and K9's layouts at 4 fixed iterations as K1,
+on both designs (K1's warp design, the tools' default, and its first
+design); K8 `full` with the early exit: the warp design's is the solver's
+K1 bit for bit, the first design's agrees with plain as K1, and K1 with it
+at the same tolerances; K9 structured against K8 `full` of the same design,
+bit for bit (the same device code).
 """
 
 import dataclasses
@@ -589,11 +591,70 @@ def test_phase_ablation_kernel_matches_plain(dev, mode):
     ob, U, lam, mu = _case("six_robot_antipodal", 256, dev, seed=2)
     U, lam, mu = torch.zeros_like(U), torch.zeros_like(lam), torch.full_like(mu, 10.0)
     cfg = ALILQRConfig(ls="adaptive")
-    got = K8.phase_ablation(ob, ob.x0, ob.xref, lam, mu, U, cfg, mode, 4)
+    got = K8.phase_ablation(ob, ob.x0, ob.xref, lam, mu, U, cfg, mode, 4, design="first")
     want = K8.phase_ablation_plain(ob, ob.x0, ob.xref, lam, mu, U, cfg, mode, 4)
     torch.testing.assert_close(got[2], want[2], rtol=1e-4, atol=0.0)
     torch.testing.assert_close(got[1], want[1], rtol=0.0, atol=5e-3)
     assert (got[3] == 4).all() and torch.isfinite(got[0]).all()
+
+
+@pytest.mark.parametrize("mode", ["full", "inv_solve", "no_ls", "no_solve", "no_expcon",
+                                  "sweep_only"])
+def test_phase_ablation_warp_kernel_matches_plain(dev, mode):
+    """K8 on K1's warp design (the tools' default): each mode against plain
+    at 4 fixed iterations on the ablation's inputs and the A/B's, at K1's
+    tolerances with every iteration counted; one launch a call."""
+    from nmpc_tpu_torch.tools import exp_blocked_expansions as K9
+    from nmpc_tpu_torch.tools import exp_mega_phases as K8
+
+    ob, U, lam, mu = _case("six_robot_antipodal", 256, dev, seed=2)
+    zero = torch.zeros_like(lam), torch.full_like(mu, 10.0), torch.zeros_like(U)
+    cfg = ALILQRConfig(ls="adaptive")
+    for lam_i, mu_i, U_i in (zero, K9.ab_inputs(ob)):
+        cuda_build.reset_launch_counts()
+        got = K8.phase_ablation(ob, ob.x0, ob.xref, lam_i, mu_i, U_i, cfg, mode, 4)
+        assert cuda_build.launch_counts["phase_ablation"] == 1
+        want = K8.phase_ablation_plain(ob, ob.x0, ob.xref, lam_i, mu_i, U_i, cfg, mode, 4)
+        _hold_k1(got, want, ob.x0.shape[0])
+        assert (got[3] == 4).all()
+        if mode == "sweep_only":
+            assert torch.equal(got[1], U_i) and (got[2] == 0).all()
+
+
+def test_phase_ablation_warp_with_the_early_exit_is_k1(dev):
+    """The warp design's `full, early exit` part is the solver's K1 bit for
+    bit at m=6 (the same device code at the same launch geometry)."""
+    from nmpc_tpu_torch.tools import exp_mega_phases as K8
+
+    for ls in ("adaptive", "cascade"):
+        ob, U, lam, mu = _case("six_robot_antipodal", 256, dev, seed=3)
+        cfg = ALILQRConfig(n_inner=12, ls=ls)
+        got = K8.phase_ablation(ob, ob.x0, ob.xref, lam, mu, U, cfg, "full", 12, early_exit=True)
+        k1 = megasolve.inner_solve_fused(ob, ob.x0, ob.xref, lam, mu, U, cfg)
+        assert all(torch.equal(a, b) for a, b in zip(got, k1)), ls
+
+
+def test_warp_variants_slot_and_refusals(dev):
+    """The tools' warp slot is K1's pair-only slot (and the dense one that
+    plus lxx and luu); the variants refuse obstacle rows and an unknown
+    design, and launch nothing then."""
+    from nmpc_tpu_torch.tools import exp_blocked_expansions as K9
+    from nmpc_tpu_torch.tools import exp_mega_phases as K8
+
+    tools = cuda_build.load_tools(cuda_build.BENCH_ROBOTS)
+    m = cuda_build.BENCH_ROBOTS
+    n, nu = 3 * m, 2 * m
+    assert tools.nmpc_warp_slot_bytes(0) == cuda_build.load(m).nmpc_k1_slot_bytes(0)
+    assert tools.nmpc_warp_slot_bytes(1) == tools.nmpc_warp_slot_bytes(0) + 4 * (n * n + nu * nu)
+    ob, U, lam, mu = _case("six_robot_antipodal", 8, dev)
+    cfg = ALILQRConfig(ls="adaptive")
+    cuda_build.reset_launch_counts()
+    with pytest.raises(ValueError, match="design"):
+        K8.phase_ablation(ob, ob.x0, ob.xref, lam, mu, U, cfg, "full", 2, design="thread")
+    obs, Uo, lo, mo = OC.port_case("obstacle_scenario_3", 8, seed=1, device=dev)
+    with pytest.raises(NotImplementedError, match="obstacle"):
+        K9.expansion_ab(obs, obs.x0, obs.xref, lo, mo, Uo, cfg, "dense", 2)
+    assert sum(cuda_build.launch_counts.values()) == 0
 
 
 def test_phase_ablation_with_the_early_exit_is_k1(dev):
@@ -605,7 +666,8 @@ def test_phase_ablation_with_the_early_exit_is_k1(dev):
     B = 256
     ob, U, lam, mu = _case("six_robot_antipodal", B, dev, seed=3)
     cfg = ALILQRConfig(n_inner=6, ls="adaptive")
-    first = K8.phase_ablation(ob, ob.x0, ob.xref, lam, mu, U, cfg, "full", 6, early_exit=True)
+    first = K8.phase_ablation(ob, ob.x0, ob.xref, lam, mu, U, cfg, "full", 6, early_exit=True,
+                              design="first")
     want = megasolve.inner_solve_plain(ob, ob.x0, ob.xref, lam, mu, U, cfg)
     _hold_k1(first, want, B)
     k1 = megasolve.inner_solve_fused(ob, ob.x0, ob.xref, lam, mu, U, cfg)
@@ -620,11 +682,32 @@ def test_expansion_ab_kernel_matches_plain(dev, layout):
     ob, _, _, _ = _case("six_robot_antipodal", 256, dev, seed=4)
     lam, mu, U = K9.ab_inputs(ob)
     cfg = ALILQRConfig(ls="adaptive")
-    got = K9.expansion_ab(ob, ob.x0, ob.xref, lam, mu, U, cfg, layout, 4)
+    got = K9.expansion_ab(ob, ob.x0, ob.xref, lam, mu, U, cfg, layout, 4, "first")
     want = K9.expansion_ab_plain(ob, ob.x0, ob.xref, lam, mu, U, cfg, 4)
     torch.testing.assert_close(got[2], want[2], rtol=1e-4, atol=0.0)
     torch.testing.assert_close(got[1], want[1], rtol=0.0, atol=5e-3)
     if layout == "structured":   # K8's full mode, bit for bit
+        full = K8.phase_ablation(ob, ob.x0, ob.xref, lam, mu, U, cfg, "full", 4, design="first")
+        assert all(torch.equal(a, b) for a, b in zip(got, full))
+
+
+@pytest.mark.parametrize("layout", ["structured", "dense"])
+def test_expansion_ab_warp_kernel_matches_plain(dev, layout):
+    """K9 on K1's warp design against plain as the first design's; the
+    structured layout is the warp design's K8 `full`, bit for bit."""
+    from nmpc_tpu_torch.tools import exp_blocked_expansions as K9
+    from nmpc_tpu_torch.tools import exp_mega_phases as K8
+
+    ob, _, _, _ = _case("six_robot_antipodal", 256, dev, seed=4)
+    lam, mu, U = K9.ab_inputs(ob)
+    cfg = ALILQRConfig(ls="adaptive")
+    cuda_build.reset_launch_counts()
+    got = K9.expansion_ab(ob, ob.x0, ob.xref, lam, mu, U, cfg, layout, 4)
+    assert cuda_build.launch_counts["expansion_ab"] == 1
+    want = K9.expansion_ab_plain(ob, ob.x0, ob.xref, lam, mu, U, cfg, 4)
+    _hold_k1(got, want, ob.x0.shape[0])
+    assert (got[3] == 4).all()
+    if layout == "structured":
         full = K8.phase_ablation(ob, ob.x0, ob.xref, lam, mu, U, cfg, "full", 4)
         assert all(torch.equal(a, b) for a, b in zip(got, full))
 

@@ -143,6 +143,21 @@ def test_cpu_wrappers_take_the_plain_versions():
     a = K9.expansion_ab(port, port.x0, port.xref, lam, mu, U, cfg, "dense", 2)
     b = K8.phase_ablation(port, port.x0, port.xref, lam, mu, U, cfg, "full", 2)
     assert all(torch.equal(x, y) for x, y in zip(a, b))
+    # either design's wrapper takes the plain version on CPU tensors
+    for design in K8.DESIGNS:
+        for mode in ("full", "no_ls"):
+            got = K8.phase_ablation(port, port.x0, port.xref, lam, mu, U, cfg, mode, 2,
+                                    design=design)
+            want = K8.phase_ablation_plain(port, port.x0, port.xref, lam, mu, U, cfg, mode, 2)
+            assert all(torch.equal(x, y) for x, y in zip(got, want))
+        got = K8.phase_ablation(port, port.x0, port.xref, lam, mu, U, cfg, "full", 2,
+                                early_exit=True, design=design)
+        want = megasolve.inner_solve_plain(port, port.x0, port.xref, lam, mu, U,
+                                           ALILQRConfig(n_inner=2, ls="adaptive"))
+        assert all(torch.equal(x, y) for x, y in zip(got, want))
+        for layout in K9.LAYOUTS:
+            got = K9.expansion_ab(port, port.x0, port.xref, lam, mu, U, cfg, layout, 2, design)
+            assert all(torch.equal(x, y) for x, y in zip(got, b))
     x0 = RL.fma_inputs(4, 16, "cpu")
     assert torch.equal(RL.fma_peak(x0, 1.5, 0.25, 3), RL.fma_chain_plain(x0, 1.5, 0.25, 3))
     assert sum(cuda_build.launch_counts.values()) == 0
@@ -152,6 +167,11 @@ def test_cpu_wrappers_take_the_plain_versions():
         K8.phase_ablation(port, port.x0, port.xref, lam, mu, U, cfg, "no_ls", 2, early_exit=True)
     with pytest.raises(ValueError, match="layout"):
         K9.expansion_ab(port, port.x0, port.xref, lam, mu, U, cfg, "blocked", 2)
+    with pytest.raises(ValueError, match="design"):
+        K8.phase_ablation(port, port.x0, port.xref, lam, mu, U, cfg, "full", 2, design="thread")
+    with pytest.raises(ValueError, match="design"):
+        K9.expansion_ab(port, port.x0, port.xref, lam, mu, U, cfg, "dense", 2, "thread")
+    assert sum(cuda_build.launch_counts.values()) == 0
 
 
 def test_f64_witness_shows_the_undamped_modes_diverge():
@@ -318,6 +338,38 @@ def test_kernel_work_hand_counted():
     assert flops["no_expcon"] < flops["no_ls"]
     # and the port's count lands near the reference's model of the same kernel
     assert per_it == pytest.approx(RL.iteration_flops(6, 10, 15)["per_iteration"], rel=0.15)
+    # the warp design's K8 and K9 count as K1's: `full` from the candidates
+    # its line search needed and no accepted rollout; a mode without a line
+    # search one alpha = 1 rollout with no merit an iteration, as the first
+    # design's; the first design stays the default
+    init = 10 * (RL._merit(RL._dims(six)) + RL._euler(RL._dims(six)))
+    for kernel in ("K8", "K9"):
+        fw, bw = RL.kernel_work(kernel, six, Bs, cfg, iters=6 * Bs, candidates=7 * Bs,
+                                design="warp")
+        assert (fw, bw) == (f1b, k1)
+        assert fw == pytest.approx(Bs * init + 6 * Bs * sweep + 7 * Bs * cand)
+        assert RL.kernel_work(kernel, six, Bs, cfg, iters=6 * Bs) == \
+            RL.kernel_work(kernel, six, Bs, cfg, iters=6 * Bs, design="first")
+    accepted = 10 * (RL._feedback(RL._dims(six)) + RL._euler(RL._dims(six)))
+    fn, _ = RL.kernel_work("K8", six, Bs, cfg, iters=6 * Bs, phase="no_ls", design="warp")
+    assert fn == pytest.approx(Bs * init + 6 * Bs * (RL.sweep_flops(six, "no_ls") + accepted))
+    assert fn == RL.kernel_work("K8", six, Bs, cfg, iters=6 * Bs, phase="no_ls")[0]
+    with pytest.raises(ValueError, match="design"):
+        RL.kernel_work("K8", six, Bs, cfg, iters=6 * Bs, design="thread")
+    # the candidates the plain ablation counts: adaptive one a round until
+    # one passes, cascade every alpha an iteration, none without a line search
+    _, _, port, lam, mu, U = _problem(duals=False)
+    lam, mu, U = torch.from_numpy(lam), torch.from_numpy(mu), torch.from_numpy(U)
+    for ls, lo, hi in (("adaptive", 2, 2 * ALILQRConfig().ls_rounds),
+                       ("cascade", 2 * len(ALILQRConfig().alphas), 2 * len(ALILQRConfig().alphas))):
+        c = ALILQRConfig(ls=ls)
+        for mode, want in (("full", None), ("no_ls", 0)):
+            n = torch.zeros(B, dtype=torch.int64)
+            K8.phase_ablation_plain(port, port.x0, port.xref, lam, mu, U, c, mode, 2, candidates=n)
+            if want is None:
+                assert lo <= int(n.min()) and int(n.max()) <= hi, (ls, n)
+            else:
+                assert int(n.abs().sum()) == want
     executed = RL.k1_executed(torch.tensor([0, 3, 12], dtype=torch.int32), 12)
     assert executed.tolist() == [1, 4, 12]
     assert RL.bound(67e9, 1.0) == (pytest.approx(1.0), "operations")
