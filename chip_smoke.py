@@ -73,7 +73,12 @@ and holding each against its plain PyTorch version on the card:
   keep-out, where they bind), K1 and K2 against plain with every slot
   binding, a decentralized round and the GN and ADMM fleets; then
   the dry run on a world of two ranks that share the card and exchange
-  through gloo.
+  through gloo;
+* the reference's closed-loop suite (nmpc_tpu_torch/tools/loop_suite.py,
+  cl_parity.py), a bounded subset through solve_one: the escape-law fuzz's
+  invariants at m=2 and m=6, obstacle_scenario_1's whole waypoint tour
+  against CL_PARITY's outcome rule, and the benchmark's JSON line
+  (nmpc_tpu_torch/bench.py, `python -m nmpc_tpu_torch bench`).
 
 Phases:
 
@@ -161,6 +166,11 @@ Phases:
                                       share; a decentralized round; the GN
                                       and ADMM fleets bit for bit); the dry
                                       run on two ranks over gloo
+                                   35 the closed-loop suite: the escape-law
+                                      fuzz at m=2 (team design) and m=6
+                                      (warp design), the obstacle_scenario_1
+                                      tour (obstacle variant), each held to
+                                      the reference's bounds; bench's line
 
 Phases 5, 7, 8, 9, 20, 22, 25, 30 and 31 re-solve the first scenarios with the plain path on
 the CPU. Any failed check raises, so the exit code is non-zero. Without a CUDA
@@ -2327,6 +2337,68 @@ def sharded_phase(dev, card: str, base, bench_cfg) -> None:
         f"(ii) {time.perf_counter() - t0:.1f} s with the ranks' start-up) {card}")
 
 
+# phase 35: the reference's closed-loop suite's cases it runs
+# (nmpc_tpu_torch/tools/loop_suite.py): the escape-law fuzz at m=2 (K1's
+# team design) and m=6 (its warp design)
+SUITE_CASES = ("escape_fuzz_deterministic_m2", "escape_fuzz_deterministic_m6")
+
+
+def loop_suite_phase(dev, card: str) -> None:
+    """Phase 35: a bounded subset of the reference's closed-loop suite at
+    full width through solve_one on the card (tools/loop_suite.py,
+    tools/cl_parity.py), the launch counts set to 0 just before each loop
+    and read just after: the deterministic escape-law fuzz at m=2 (seeds
+    0-3, K1's team design) and m=6 (seeds 20-22, the warp design), each
+    seed held to tests/test_escape_fuzz.py's invariants; obstacle_scenario_1's
+    whole waypoint tour (N=100, K1's obstacle variant on the team design),
+    held to CL_PARITY's outcome rule; then the benchmark (`bench.main()`)
+    once, its JSON line logged."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+
+    from nmpc_tpu_torch import bench
+    from nmpc_tpu_torch.tools import cl_parity as CP
+    from nmpc_tpu_torch.tools import loop_suite as LS
+
+    for name in SUITE_CASES:
+        out = LS.run_case(name, dev)       # raises on a failed invariant or launch check
+        for rec in out["loops"]:
+            m, seed = rec["tag"]
+            design = LS.k1_design(m)
+            log(f"phase 35 {name} seed {seed}: reached {rec['reached']} in {rec['steps']} steps "
+                f"(of 400), min pair distance {rec['min_dist']:.4f} (>= 0.27), max |theta| "
+                f"{rec['max_theta']:.2f} (< 2 pi + 0.5); per step p50 {rec['p50_ms']:.2f} ms, p99 "
+                f"{rec['p99_ms']:.2f} ms; K1 ({design} design) {rec['K1_per_step']:.2f} and K2 "
+                f"{rec['K2_per_step']:.2f} launches a step {card}")
+            assert rec["reached"] and rec[f"K1_{design}"] == rec["K1"] > 0 and rec["K2"] > 0, rec
+    run = LS.Run(dev)
+    tour = CP.engine_loop("obstacle_scenario_1", 1400, {}, run)
+    ref = CP.load_rows()["obstacle_scenario_1"]
+    fails = CP.judge("obstacle_scenario_1", tour, ref) + run.fails
+    rec = tour["record"]
+    log(f"phase 35 obstacle_scenario_1 tour N=100 through solve_one ({CP.ENGINE_CFG.n_outer}x"
+        f"{CP.ENGINE_CFG.n_inner}): reached {tour['reached']} in {tour['steps']} steps (reference "
+        f"engine {ref['e_steps']}, oracle {ref['o_steps']}), obstacle keep-out gap "
+        f"{tour['obs_clear']:.4f}, final err {tour['final_err']:.4f}; per step p50 "
+        f"{rec['p50_ms']:.2f} ms, p99 {rec['p99_ms']:.2f} ms; K1 (team design, obstacle variant) "
+        f"{rec['K1_per_step']:.2f} and K2 {rec['K2_per_step']:.2f} launches a step {card}")
+    assert not fails and tour["reached"], fails
+    assert rec["K1_team"] == rec["K1"] > 0 and rec["K2"] > 0, rec
+    assert np.isfinite(tour["X"]).all()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = bench.main()
+    line = buf.getvalue().strip()
+    got = json.loads(line)
+    assert rc == 0 and len(line.splitlines()) == 1, line
+    assert set(got) == {"metric", "value", "unit", "vs_baseline", "engine"}, got
+    assert got["value"] > 0 and torch.cuda.is_available()
+    log(f"phase 35 bench (python -m nmpc_tpu_torch bench): {line} {card}")
+
+
 def per_step(counts: dict, name: str, stamps) -> str:
     """Launches of a kernel a loop step (a solve run), as a string."""
     return f"{counts[name] / max(len(stamps), 1):.2f}"
@@ -3271,6 +3343,11 @@ def main() -> int:
 
     # ---- phase 34: the sharded forms on one- and two-rank worlds ---------
     sharded_phase(dev, card, base, bench_cfg)
+
+    # ---- phase 35: the closed-loop suite's fuzz and obstacle tour; bench ---
+    t35 = time.perf_counter()
+    loop_suite_phase(dev, card)
+    log(f"phase 35 took {time.perf_counter() - t35:.1f} s")
 
     def entry(name, source, where, launches, err, ms_, plain_ms, key):
         return {"name": name, "route": "cuda", "source": source, "replaces": where,

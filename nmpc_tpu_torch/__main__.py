@@ -1,12 +1,14 @@
 """CLI: run any registered scenario end to end on the port.
 
     python -m nmpc_tpu_torch list
+    python -m nmpc_tpu_torch bench
     python -m nmpc_tpu_torch run six_robot_antipodal [--steps N] [--save out.npz]
         [--rt] [--mode central|decentralized|consensus]
         [--engine auto|ilqr|fused|gn] [--device cuda|cpu]
 
 Port of nmpc_tpu/__main__.py (its `list` and `run`, branch for branch, with
-the same configurations). The closed loops are Python loops on the chosen
+the same configurations; `bench` runs nmpc_tpu_torch/bench.py, one JSON
+line, on the card only). The closed loops are Python loops on the chosen
 device (`--device`, default the card; `cpu` runs the plain PyTorch versions
 of every kernel); the wall clock stops after a device sync. Exit codes: 0
 if the run reached its goal, 1 if not, 2 on a mode the scenario does not
@@ -29,13 +31,6 @@ def cmd_list() -> int:
     return 0
 
 
-def _sync(device) -> None:
-    import torch
-
-    if torch.device(device).type == "cuda":
-        torch.cuda.synchronize(device)
-
-
 def cmd_run(args) -> int:
     import numpy as np
     import torch
@@ -44,6 +39,7 @@ def cmd_run(args) -> int:
     from nmpc_tpu_torch.scenarios import get
     from nmpc_tpu_torch.solver.alilqr import ALILQRConfig
     from nmpc_tpu_torch.utils import save_run
+    from nmpc_tpu_torch.utils.timing import sync
 
     dev = torch.device(args.device)
     sc = get(args.scenario)
@@ -69,7 +65,7 @@ def cmd_run(args) -> int:
         loop = (decentralized.decentralized_closed_loop if args.mode == "decentralized"
                 else consensus.consensus_closed_loop)
         X, U, mind, done = loop(ocp.x0, goals, **kw)
-        _sync(dev)
+        sync(dev)
         wall = time.time() - t0
         print(f"scenario      {args.scenario} ({args.mode} mode, m={sc.m}, "
               f"N={ocp.N}, T={float(ocp.T):g})")
@@ -109,7 +105,7 @@ def cmd_run(args) -> int:
         X, U, clr, gidx, done = lidar.closed_loop_lidar(
             ocp, sim_obstacles=obstacles, waypoints=sc.waypoint_array.to(dev),
             max_steps=args.steps, **lid_kw)
-        _sync(dev)
+        sync(dev)
         wall = time.time() - t0
         legs = int(gidx[-1])
         print(f"scenario      {args.scenario} (family I, {sc.num_rays} rays, "
@@ -162,7 +158,7 @@ def cmd_run(args) -> int:
     else:
         mpc = driver.MPCConfig(max_steps=args.steps, stop_tol=sc.stop_tol, escape=True)
         r = driver.closed_loop(ocp, solver_cfg=solver_cfg, mpc=mpc, solve_fn=solve_fn)
-    _sync(dev)
+    sync(dev)
     wall = time.time() - t0
 
     used = max(int(r.steps_used), 1)
@@ -205,9 +201,14 @@ def main(argv=None) -> int:
     runp.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                       help="where the solves run: the card (the hand-written "
                            "kernels) or the CPU (their plain versions)")
+    sub.add_parser("bench")
     args = p.parse_args(argv)
     if args.cmd == "list":
         return cmd_list()
+    if args.cmd == "bench":
+        from nmpc_tpu_torch import bench
+
+        return bench.main()
     return cmd_run(args)
 
 

@@ -74,6 +74,10 @@ launch_counts = {"inner_solve_fused": 0, "al_update_lanes": 0,
                  "expansions_fused": 0, "riccati_lanes": 0,
                  "linesearch_costs_lanes": 0, "rollout_alpha_lanes": 0,
                  "fma_peak": 0, "phase_ablation": 0, "expansion_ab": 0}
+# K1's launches on the solver's route (`inner_solve_fused`) by design: the
+# team design at m in TEAM_ROBOTS, the warp design elsewhere. Reset with
+# launch_counts.
+k1_designs = {"team": 0, "warp": 0}
 
 _locks = {(kind, m): threading.Lock() for kind in ("solver", "tools", "first")
           for m in ROBOT_COUNTS}
@@ -90,8 +94,9 @@ k3_shape_build_info: dict[tuple, dict] = {}
 
 
 def reset_launch_counts() -> None:
-    for k in launch_counts:
-        launch_counts[k] = 0
+    for counts in (launch_counts, k1_designs):
+        for k in counts:
+            counts[k] = 0
 
 
 def nvcc() -> str:

@@ -378,11 +378,15 @@ def inner_solve_fused(ocp: OCP, x0, xref, lam, mu, U, cfg: ALILQRConfig):
     CPU tensors. Same arguments and results as `inner_solve_plain`."""
     if x0.device.type == "cpu":
         return inner_solve_plain(ocp, x0, xref, lam, mu, U, cfg)
+    before = cuda_build.launch_counts["inner_solve_fused"]
     if ocp.m in cuda_build.TEAM_ROBOTS:
-        return team_launch(ocp, x0, xref, lam, mu, U, cfg, "inner_solve_fused", cuda_build.load,
-                           K1_TEAM_WARPS)
-    return warp_launch(ocp, x0, xref, lam, mu, U, cfg, "inner_solve_fused", cuda_build.load,
-                       K1_WARPS)
+        design, out = "team", team_launch(ocp, x0, xref, lam, mu, U, cfg, "inner_solve_fused",
+                                          cuda_build.load, K1_TEAM_WARPS)
+    else:
+        design, out = "warp", warp_launch(ocp, x0, xref, lam, mu, U, cfg, "inner_solve_fused",
+                                          cuda_build.load, K1_WARPS)
+    cuda_build.k1_designs[design] += cuda_build.launch_counts["inner_solve_fused"] - before
+    return out
 
 
 def team_launch(ocp: OCP, x0, xref, lam, mu, U, cfg: ALILQRConfig, what: str, load,

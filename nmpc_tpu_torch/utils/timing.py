@@ -44,6 +44,12 @@ class PhaseTimer:
         }
 
 
+def sync(device) -> None:
+    """Wait for the card when `device` is a CUDA device (no-op on the CPU)."""
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
 def latency_stats(samples_s) -> dict:
     """p50/p90/p99/max of a latency sample list, in milliseconds."""
     a = np.asarray(samples_s, float) * 1e3

@@ -12,6 +12,13 @@ the two packages. CPU only, a few minutes:
     JAX_PLATFORMS=cpu python tests/reference_spread.py [modes | obstacles | gn]
 
 (`modes`: only the robot-parallel modes' closed loops, ~1 min;
+`fuzz`: only the escape-law fuzz loops of tests/test_torch_loop_suite.py,
+~1 min; `cl_parity`: only CL_PARITY's six_robot_antipodal and
+six_robot_impl engine rows, ~5 min; `loops [hw | dec [ENGINE [SEED]]]`: the suite's loops that part
+between the card and the CPU, ~30 min for all; `rates [DRAWS [LOOP...]] [vmap]`:
+how often the six_robot_impl loops miss their bounds from starts moved by
+1e-7, ~15 min a loop at 64, ~50 for the CL_PARITY row;
+`hw_start`: the spread of those loops' first solve, ~1 min;
 `obstacles`: only the port's megakernel route on chip_smoke.py path (b)'s
 problem, ~4 min; `gn`: only the cases of tests/test_torch_hybrid.py,
 tests/test_torch_gn.py and tests/test_torch_lidar.py, ~1 min.)
@@ -95,6 +102,148 @@ def modes():
             dU = max(dU, float(jnp.abs(a[1] - b[1]).max()))
         print(f"{tag}: X_hist {rows.max():.3e}, U_hist {dU:.3e}; X_hist by row: "
               + ", ".join(f"{r:.1e}" for r in rows), flush=True)
+
+
+def fuzz():
+    """The escape-law fuzz loops that tests/test_torch_loop_suite.py holds
+    pointwise (tests/test_escape_fuzz.py's geometry and config, one seed at
+    m=2 and one at m=6), per history row."""
+    from test_escape_fuzz import CFG, DMIN, _random_geometry
+
+    for m, seed, steps in ((2, 0, 40), (6, 20, 40)):
+        x0, xg = _random_geometry(m, seed)
+        o = make_ocp(m=m, N=12, T=0.2, x0=x0, x_goal=xg, dmin=DMIN, collision=True)
+        run = jax.jit(functools.partial(JD.closed_loop, solver_cfg=CFG,
+                                        mpc=JD.MPCConfig(max_steps=steps, stop_tol=1e-1,
+                                                         escape=True)))
+        a = run(o)
+        rows, dU = np.zeros(steps + 1), 0.0
+        for b in map(run, moved(o)):
+            rows = np.maximum(rows, np.abs(np.asarray(a.X_hist - b.X_hist)).max(axis=1))
+            dU = max(dU, float(jnp.abs(a.U_hist - b.U_hist).max()))
+        print(f"fuzz m={m} seed {seed}, {steps} steps: X_hist {rows.max():.3e}, U_hist "
+              f"{dU:.3e}, steps used {int(a.steps_used)}; X_hist by row: "
+              + ", ".join(f"{r:.1e}" for r in rows), flush=True)
+
+
+def cl_parity():
+    """The reference engine's loops of docs/CL_PARITY.md's six_robot_antipodal
+    and six_robot_impl (delay=1) rows (tools/gen_cl_parity.py's engine_loop:
+    10x20, 220 steps) from their starts and from x0 moved by 1e-7: arrival,
+    steps and min pair distance per draw."""
+    for name, kw in (("six_robot_antipodal", {}), ("six_robot_impl", {"delay": 1})):
+        sc = jax_get(name)
+        o = sc.make()
+        run = jax.jit(functools.partial(
+            JD.closed_loop, solver_cfg=JaxConfig(n_outer=10, n_inner=20, tol_con=1e-4),
+            mpc=JD.MPCConfig(max_steps=220, stop_tol=sc.stop_tol, advance_tol=0.075, escape=True,
+                             **kw)))
+        for tag, oo in [("start", o)] + [(f"moved {i}", b) for i, b in enumerate(moved(o))]:
+            r = run(oo)
+            su = int(r.steps_used)
+            print(f"CL_PARITY {name}, {tag}: reached {bool(r.reached)} in {su} steps, min pair "
+                  f"distance {float(jnp.min(r.min_dist_hist[: su + 1])):.4f} (dmin {sc.dmin})",
+                  flush=True)
+
+
+def loop_outcomes(which="all", engine=None, seed=None):
+    """Outcomes of the suite's loops that part between the card and the
+    CPU (tests/test_torch_loop_suite.py, tools/loop_suite.py), on the
+    reference from its start and from x0 moved by 1e-7: arrival, steps and
+    min pair distance per draw. `hw`: six_robot_impl at 6x12
+    (tests/test_rt_mode.py:213), undelayed and delay=1; `dec`: the
+    decentralized fuzz at m=6 (tests/test_parallel.py:176), engine "xla"
+    and "fused" (the Pallas kernels in interpret mode), seeds 20-22."""
+    from nmpc_tpu.parallel.decentralized import decentralized_closed_loop
+    from test_escape_fuzz import DMIN, _random_geometry
+
+    if which in ("all", "hw"):
+        sc = jax_get("six_robot_impl")
+        o = sc.make()
+        full = JaxConfig(n_outer=6, n_inner=12, tol_con=1e-4)
+        for tag, kw in (("undelayed", {}), ("delay=1", dict(delay=1))):
+            run = jax.jit(functools.partial(JD.closed_loop, solver_cfg=full, mpc=JD.MPCConfig(
+                max_steps=150, stop_tol=sc.stop_tol, escape=True, **kw)))
+            for d, oo in enumerate([o] + list(moved(o))):
+                r = run(oo)
+                su = int(r.steps_used)
+                print(f"six_robot_impl {tag}, draw {d} (0: the start): reached {bool(r.reached)} in "
+                      f"{su} steps, min pair distance {float(jnp.min(r.min_dist_hist[: su + 1])):.4f}, "
+                      f"final err {float(r.err_hist[min(su, 149)]):.4f}", flush=True)
+    if which in ("all", "dec"):
+        for eng in ([engine] if engine else ["xla", "fused"]):
+            fn = jax.jit(functools.partial(decentralized_closed_loop, N=12, T=0.2, dmin=DMIN,
+                                           max_steps=600, engine=eng,
+                                           cfg=JaxConfig(n_outer=6, n_inner=12, tol_con=1e-4)))
+            for s in ([seed] if seed is not None else [20, 21, 22]):
+                x0, xg = _random_geometry(6, s)
+                rng = np.random.default_rng(0)
+                for d in range(DRAWS + 1):
+                    dx = 0.0 if d == 0 else 1e-7 * rng.standard_normal(x0.shape).astype(np.float32)
+                    X, U, mind, done = fn(jnp.asarray(x0 + dx), jnp.asarray(xg).reshape(6, 3))
+                    print(f"decentralized fuzz m=6 seed {s} engine {eng}, draw {d} (0: the start): "
+                          f"reached {bool(done)}, min pair distance {float(jnp.min(mind)):.4f} "
+                          f"(bound {DMIN - 3e-2:.2f})", flush=True)
+
+
+def hw_start():
+    """The first solve of tests/test_rt_mode.py:213's loops (six_robot_impl
+    at 6x12 from its start, whose robots all head for the centre): the
+    reference's U from x0 moved by 1e-7 against its U from x0, and the
+    port's per-scenario U against the reference's from the same x0."""
+    o = jax_get("six_robot_impl").make()
+    cfg = dict(n_outer=6, n_inner=12, tol_con=1e-4)
+    run = jax.jit(functools.partial(jax_solve, cfg=JaxConfig(**cfg)))
+    a = run(o)
+    moves = [float(jnp.abs(run(b).U - a.U).max()) for b in moved(o)]
+    port = solve(port_ocp(o), cfg=ALILQRConfig(**cfg))
+    print(f"six_robot_impl first solve at 6x12: the reference's U moves by "
+          f"{', '.join(f'{v:.3f}' for v in moves)} under 1e-7 moves of x0; the port's U is "
+          f"{float(np.abs(port.U.numpy() - np.asarray(a.U)).max()):.3f} from the reference's "
+          f"at x0", flush=True)
+
+
+def loop_rates(draws=64, *which, batched=False):
+    """How often the reference's loops fail their bounds from starts within
+    1e-7 of the registry start: the three loops of tests/test_rt_mode.py:213
+    (six_robot_impl at 6x12, 150 steps: delay=1, undelayed, delay=1
+    compensated) and CL_PARITY's six_robot_impl row (tools/gen_cl_parity.py's
+    engine_loop: 10x20, 220 steps, delay=1), each from the start and from
+    draws - 1 starts moved by 1e-7 x N(0, 1) (numpy seed 0), one jitted loop
+    a start: per loop the arrivals, the draws that miss with their final
+    err, and the min pair distance's range. `which`: the loops' indices
+    (0-3, default all; one process each runs them side by side). `batched`:
+    one jitted loop vmapped over all starts, as tests/test_escape_fuzz.py
+    runs its loops (the same mathematics, another rounding)."""
+    sc = jax_get("six_robot_impl")
+    o = sc.make()
+    starts = [o.x0] + [b.x0 for b in moved(o, draws - 1)]
+    base = dict(stop_tol=sc.stop_tol, escape=True)
+    loops = (("test_rt_mode.py:213 delay=1", 6, 12, 150, dict(delay=1)),
+             ("test_rt_mode.py:213 undelayed", 6, 12, 150, {}),
+             ("test_rt_mode.py:213 delay=1 compensated", 6, 12, 150,
+              dict(delay=1, delay_compensate=True)),
+             ("CL_PARITY six_robot_impl (delay=1)", 10, 20, 220, dict(delay=1, advance_tol=0.075)))
+    for tag, n_outer, n_inner, steps, kw in [loops[i] for i in which or range(len(loops))]:
+        cfg = JaxConfig(n_outer=n_outer, n_inner=n_inner, tol_con=1e-4)
+        mpc = JD.MPCConfig(max_steps=steps, **base, **kw)
+        if batched:
+            loop = lambda x0: JD.closed_loop(dataclasses.replace(o, x0=x0), cfg, mpc)  # noqa: E731
+            r = jax.jit(jax.vmap(loop))(jnp.stack(starts))
+            rs = [jax.tree.map(lambda a, d=d: a[d], r) for d in range(draws)]
+        else:
+            run = jax.jit(functools.partial(JD.closed_loop, solver_cfg=cfg, mpc=mpc))
+            rs = (run(dataclasses.replace(o, x0=x0)) for x0 in starts)
+        missed, mds = [], []
+        for d, r in enumerate(rs):
+            su = int(r.steps_used)
+            mds.append(float(jnp.min(r.min_dist_hist[: su + 1])))
+            if not bool(r.reached):
+                missed.append(f"{d}: err {float(r.err_hist[min(su, steps - 1)]):.4f}")
+        tag += " (vmapped)" if batched else ""
+        print(f"{tag}: reached from {draws - len(missed)} of {draws} starts (0: the start; "
+              f"missed {', '.join(missed) or 'none'}); min pair distance {min(mds):.4f}-"
+              f"{max(mds):.4f}, below 0.21 on {sum(m < 0.21 for m in mds)}", flush=True)
 
 
 def obstacles():
@@ -221,6 +370,23 @@ def gn_cases():
 def main():
     if sys.argv[1:] == ["gn"]:
         gn_cases()
+        return
+    if sys.argv[1:2] == ["loops"]:
+        loop_outcomes(*(sys.argv[2:3] or ["all"]),
+                      *(sys.argv[3:4] or [None]),
+                      *([int(sys.argv[4])] if sys.argv[4:5] else []))
+        return
+    if sys.argv[1:] == ["cl_parity"]:
+        cl_parity()
+        return
+    if sys.argv[1:] == ["hw_start"]:
+        hw_start()
+        return
+    if sys.argv[1:2] == ["rates"]:
+        loop_rates(*[int(a) for a in sys.argv[2:] if a != "vmap"], batched="vmap" in sys.argv)
+        return
+    if sys.argv[1:] == ["fuzz"]:
+        fuzz()
         return
     if sys.argv[1:] == ["modes"]:
         modes()

@@ -29,7 +29,9 @@ def test_port_modules_import_without_jax():
             "nmpc_tpu_torch.ops.assoc_lqr", "nmpc_tpu_torch.tools.lidar_fleet",
             "nmpc_tpu_torch.solver.admm", "nmpc_tpu_torch.utils.runlog",
             "nmpc_tpu_torch.io", "nmpc_tpu_torch.io.bridge", "nmpc_tpu_torch.io.robot",
-            "nmpc_tpu_torch.__main__"} <= set(names)
+            "nmpc_tpu_torch.__main__", "nmpc_tpu_torch.bench",
+            "nmpc_tpu_torch.tools.loop_suite", "nmpc_tpu_torch.tools.cl_parity",
+            "nmpc_tpu_torch.tools.loop_diff"} <= set(names)
     code = (
         "import importlib, sys\n"
         f"for name in {['nmpc_tpu_torch', *names]!r}:\n"
