@@ -78,7 +78,14 @@ and holding each against its plain PyTorch version on the card:
   cl_parity.py), a bounded subset through solve_one: the escape-law fuzz's
   invariants at m=2 and m=6, obstacle_scenario_1's whole waypoint tour
   against CL_PARITY's outcome rule, and the benchmark's JSON line
-  (nmpc_tpu_torch/bench.py, `python -m nmpc_tpu_torch bench`).
+  (nmpc_tpu_torch/bench.py, `python -m nmpc_tpu_torch bench`);
+* the reference's measurement tools (nmpc_tpu_torch/tools/latency.py,
+  ten_robot.py, gate_check.py, ls_ab.py): the latency tool's K-step MPC
+  chunk (solve_one_graph, the megakernel route at B=1 with no host sync)
+  captured as one CUDA graph and replayed, bit for bit the eager chunk;
+  the ten-robot fleet (BASELINE config 5) at B=4096 through K1's warp
+  design at m=10; the megakernel gate on the seven admission shapes; the
+  line-search A/B's cascade arm at B=32768.
 
 Phases:
 
@@ -171,6 +178,12 @@ Phases:
                                       (warp design), the obstacle_scenario_1
                                       tour (obstacle variant), each held to
                                       the reference's bounds; bench's line
+                                   36 the reference's tools: the latency
+                                      chunk as one CUDA graph, bit for bit
+                                      the eager chunk; ten_robot B=4096 and
+                                      K1 vs plain at m=10; the gate on the
+                                      seven admission shapes; ls_ab's
+                                      cascade arm and its K1 vs plain
 
 Phases 5, 7, 8, 9, 20, 22, 25, 30 and 31 re-solve the first scenarios with the plain path on
 the CPU. Any failed check raises, so the exit code is non-zero. Without a CUDA
@@ -185,6 +198,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import json
+import math
 import os
 import re
 import statistics
@@ -2399,6 +2413,106 @@ def loop_suite_phase(dev, card: str) -> None:
     log(f"phase 35 bench (python -m nmpc_tpu_torch bench): {line} {card}")
 
 
+# phase 36: the ten-robot fleet's batch (tools/ten_robot.py, BASELINE config
+# 5) and the K1 sub-batches held against plain (the fleet's, m=10; the
+# line-search A/B's cascade arm, m=6); the latency graph's replays
+TEN_B = 4096
+TEN_HOLD_B = 64
+CASCADE_HOLD_B = 256
+GRAPH_REPLAYS = 5
+
+
+def ref_tools_phase(dev, card: str) -> None:
+    """Phase 36: the reference's measurement tools on the port (tools/
+    latency.py, ten_robot.py, gate_check.py, ls_ab.py), each driven with
+    the launch counts set to 0 just before it and read just after.
+    (a) The latency tool's chunk (K=20 MPC steps of solve_one_graph, first
+    control, plant, shift) for six_robot_antipodal at CFG_RT captured as one
+    CUDA graph and replayed GRAPH_REPLAYS times, each replay bit for bit
+    the same steps run eagerly (K1 and K2 launched one by one), each eager
+    step bit for bit solve_one; K1/K2 launches a replay counted at capture.
+    (b) ten_robot N=20 at B=TEN_B once (bench config; K1's warp design at
+    m=10 and K2), then K1 against inner_solve_plain on TEN_HOLD_B of its
+    scenarios at the first outer step (U 0, lam 0, mu mu_init), as hold_k1.
+    (c) The megakernel gate on the seven admission shapes (route, K1's
+    shared bytes a block against 227 KB, a 2x4 solve through K1 and K2).
+    (d) The line-search A/B's cascade arm (ls_ab, B=BENCH_B, one solve)
+    and its K1 against plain on CASCADE_HOLD_B of its scenarios at the
+    first outer step, by phase 6's spread rule (n_inner=12)."""
+    import torch
+
+    from nmpc_tpu_torch.bench import jittered
+    from nmpc_tpu_torch.ops import cuda_build
+    from nmpc_tpu_torch.scenarios import get
+    from nmpc_tpu_torch.solver.alilqr_batched import solve_batched
+    from nmpc_tpu_torch.tools import gate_check as GC
+    from nmpc_tpu_torch.tools import latency as LT
+    from nmpc_tpu_torch.tools import ls_ab as LA
+    from nmpc_tpu_torch.tools import ten_robot as TR
+
+    t0 = time.perf_counter()
+    ocp = get("six_robot_antipodal").make(device=dev)
+    cuda_build.reset_launch_counts()
+    g = LT.graph_against_eager(ocp, LT.CFG_RT, replays=GRAPH_REPLAYS)
+    pr = g["per_replay"]
+    assert pr["inner_solve_fused"] == LT.K * LT.CFG_RT.n_outer == pr["al_update_lanes"], pr
+    assert g["designs"]["warp"] == pr["inner_solve_fused"], g
+    log(f"phase 36 (a) latency chunk six_robot_antipodal N={ocp.N} CFG_RT "
+        f"({LT.CFG_RT.n_outer}x{LT.CFG_RT.n_inner}, tightened), K={LT.K}: one CUDA graph "
+        f"replayed {GRAPH_REPLAYS} times from jittered starts, every replay bit for bit the eager "
+        f"chunk and every eager step bit for bit solve_one; launches a replay (at capture): K1 "
+        f"{pr['inner_solve_fused']} (warp design), K2 {pr['al_update_lanes']}; launches since the "
+        f"reset (replays and eager runs) {cuda_build.launch_counts['inner_solve_fused']} K1 "
+        f"{card}")
+
+    r = TR.measure(dev, TEN_B, iters=1)
+    assert r["K1"] > 0 and r["K2"] > 0 and r["conv"] > 0.5, r
+    assert math.isfinite(r["viol_p99"]) and math.isfinite(r["mean_inner"])
+    log(f"phase 36 (b) ten_robot N={r['N']} B={r['B']} bench config: conv {r['conv']:.4f}, viol "
+        f"p99 {r['viol_p99']:.2e}, max {r['viol_max']:.2e}, mean inner {r['mean_inner']:.1f}; "
+        f"{r['ms_batch']:.1f} ms a batch ({r['solves_per_s']:.1f} solves/s); K1 (warp design, "
+        f"m=10) {r['K1']}, K2 {r['K2']} launches a solve {card}")
+    o10 = TR.base(dev)
+    sub = jittered(o10, TEN_HOLD_B, torch.Generator(device=dev).manual_seed(10))
+    kw = dict(dtype=torch.float32, device=dev)
+    U = torch.zeros((TEN_HOLD_B, o10.N, o10.nu), **kw)
+    lam = torch.zeros((TEN_HOLD_B, o10.N, o10.n_con), **kw)
+    mu = torch.full((TEN_HOLD_B,), TR.CFG.mu_init, **kw)
+    hold_k1(f"phase 36 (b) K1 vs plain: ten_robot N={o10.N} B={TEN_HOLD_B} "
+            f"ls={TR.CFG.ls} n_inner={TR.CFG.n_inner}, first outer step", sub, U, lam, mu, TR.CFG)
+
+    for name in GC.SHAPES:
+        c = GC.check(name, dev)
+        log(f"phase 36 (c) gate {name} (m={c['m']}, N={c['N']}): route {c['route']}, K1 "
+            f"({c['k1_design']} design) {c['k1_smem_bytes']} B of shared memory a block (<= "
+            f"{c['smem_limit']}), a {GC.CFG.n_outer}x{GC.CFG.n_inner} solve: K1 {c['K1']}, K2 "
+            f"{c['K2']} launches, cost {c['cost']:.3f}")
+
+    base = LA.bench_base(dev)
+    cas = dataclasses.replace(LA.BASE_CFG, **LA.VARIANTS["cascade"])
+    assert cas.ls == "cascade"
+    gen = torch.Generator(device=dev).manual_seed(36)
+    ob = jittered(base, BENCH_B, gen)
+    cuda_build.reset_launch_counts()
+    res = solve_batched(ob, cfg=cas)
+    torch.cuda.synchronize()
+    c = dict(cuda_build.launch_counts)
+    assert c["inner_solve_fused"] == int(res.outer_iters.max()) == c["al_update_lanes"] > 0, c
+    log(f"phase 36 (d) ls_ab cascade arm: six_robot_antipodal N=10 B={BENCH_B}: converged "
+        f"{float(res.converged.float().mean()):.4f}, viol p99 "
+        f"{float(torch.quantile(res.viol, 0.99)):.2e}, mean inner "
+        f"{float(res.inner_iters.float().mean()):.2f}; K1 {c['inner_solve_fused']}, K2 "
+        f"{c['al_update_lanes']} launches {card}")
+    subc = dataclasses.replace(ob, x0=ob.x0[:CASCADE_HOLD_B], xref=ob.xref[:CASCADE_HOLD_B])
+    U = torch.zeros((CASCADE_HOLD_B, base.N, base.nu), **kw)
+    lam = torch.zeros((CASCADE_HOLD_B, base.N, base.n_con), **kw)
+    mu = torch.full((CASCADE_HOLD_B,), cas.mu_init, **kw)
+    hold_k1_spread(f"phase 36 (d) cascade K1 vs plain: six_robot_antipodal N=10 "
+                   f"B={CASCADE_HOLD_B} n_inner={cas.n_inner}, first outer step", subc, U, lam,
+                   mu, cas, gen)
+    log(f"phase 36 took {time.perf_counter() - t0:.1f} s")
+
+
 def per_step(counts: dict, name: str, stamps) -> str:
     """Launches of a kernel a loop step (a solve run), as a string."""
     return f"{counts[name] / max(len(stamps), 1):.2f}"
@@ -3348,6 +3462,10 @@ def main() -> int:
     t35 = time.perf_counter()
     loop_suite_phase(dev, card)
     log(f"phase 35 took {time.perf_counter() - t35:.1f} s")
+
+    # ---- phase 36: the reference's tools: the latency graph, the ten-robot
+    # fleet, the gate, the cascade arm -----------------------------------
+    ref_tools_phase(dev, card)
 
     def entry(name, source, where, launches, err, ms_, plain_ms, key):
         return {"name": name, "route": "cuda", "source": source, "replaces": where,

@@ -20,6 +20,7 @@ the OCP's fields (the JAX package vmaps instead).
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -430,11 +431,19 @@ def _positions(ocp: OCP, x: torch.Tensor) -> torch.Tensor:
     return x[..., : 3 * ocp.m].reshape(*x.shape[:-1], ocp.m, 3)[..., :2]
 
 
+@functools.lru_cache(maxsize=None)
+def _pair_index(m: int, device: torch.device) -> tuple:
+    """pair_indices(m) as index tensors on `device`, made once (indexing
+    with a Python list copies it to the device at every call, which a CUDA
+    graph's capture refuses)."""
+    return tuple(torch.tensor(t, dtype=torch.long, device=device) for t in pair_indices(m))
+
+
 def pairwise_sq_distances(ocp: OCP, x: torch.Tensor) -> torch.Tensor:
     """All m(m-1)/2 squared planar distances, reference ordering."""
-    ii, jj = pair_indices(ocp.m)
     pos = _positions(ocp, x)
-    diff = pos[..., list(ii), :] - pos[..., list(jj), :]
+    ii, jj = _pair_index(ocp.m, pos.device)
+    diff = pos[..., ii, :] - pos[..., jj, :]
     return torch.sum(diff * diff, dim=-1)
 
 
@@ -483,22 +492,33 @@ def trajectory_constraints(ocp: OCP, X: torch.Tensor, U: torch.Tensor) -> torch.
 def x_dependent_rows(ocp: OCP) -> np.ndarray:
     """Static bool [n_con]: rows that depend only on the state (not u).
     Order matches stage_constraints: pairs, obstacles, moving, u-box, x-box."""
+    return _x_dependent(ocp.n_pairs, ocp.m, ocp.n_obs, ocp.n_mov, ocp.nu, ocp.nx)
+
+
+def _x_dependent(n_pairs: int, m: int, n_obs: int, n_mov: int, nu: int, nx: int) -> np.ndarray:
     return np.concatenate([
-        np.ones(ocp.n_pairs, bool),
-        np.ones(ocp.m * ocp.n_obs, bool),
-        np.ones(ocp.m * ocp.n_mov, bool),
-        np.zeros(2 * ocp.nu, bool),
-        np.ones(2 * ocp.nx, bool),
+        np.ones(n_pairs, bool),
+        np.ones(m * n_obs, bool),
+        np.ones(m * n_mov, bool),
+        np.zeros(2 * nu, bool),
+        np.ones(2 * nx, bool),
     ])
+
+
+@functools.lru_cache(maxsize=None)
+def _stage0_mask(shape: tuple, device: torch.device) -> torch.Tensor:
+    """~x_dependent_rows as a 1/0 f32 row on `device`, made once for each
+    static shape (n_pairs, m, n_obs, n_mov, nu, nx): a copy from the host
+    at every call is one a CUDA graph's capture refuses."""
+    return torch.as_tensor(~_x_dependent(*shape), dtype=torch.float32, device=device)
 
 
 def constraint_mask(ocp: OCP) -> torch.Tensor:
     """[N, n_con] 1/0 mask. Stage-0 state-only rows are masked out: X[:,0] is
     pinned to the measurement, so those rows are constants."""
-    row0 = torch.as_tensor(~x_dependent_rows(ocp), dtype=torch.float32,
-                           device=ocp.device)
     mask = torch.ones((ocp.N, ocp.n_con), dtype=torch.float32, device=ocp.device)
-    mask[0] = row0
+    mask[0] = _stage0_mask((ocp.n_pairs, ocp.m, ocp.n_obs, ocp.n_mov, ocp.nu, ocp.nx),
+                           ocp.device)
     return mask
 
 

@@ -389,6 +389,31 @@ def inner_solve_fused(ocp: OCP, x0, xref, lam, mu, U, cfg: ALILQRConfig):
     return out
 
 
+def _prm_bytes(ocp: OCP, cfg: ALILQRConfig) -> int:
+    """Bytes of the parameter block K1 keeps in shared memory."""
+    return 4 * rollout._P(ocp.nx, ocp.nu, len(cfg.alphas), ocp.n_obs).size
+
+
+def _team_smem(lib, ocp: OCP, cfg: ALILQRConfig, warps: int) -> tuple:
+    """(teams a block, dynamic shared bytes a block) of K1's team design:
+    the teams' rings, then the parameter block."""
+    teams = warps * 32 // cuda_build.team_geometry(lib)["T"]
+    ring = lib.nmpc_k1_team_ring_bytes(obstacle_rows(ocp), ocp.n_mov, int(ocp.n_pairs > 0))
+    return teams, teams * ring + _prm_bytes(ocp, cfg)
+
+
+def k1_block_bytes(ocp: OCP, cfg: ALILQRConfig) -> tuple:
+    """(dynamic shared bytes of one block of the route's K1, its design) for
+    this problem and config: the team design (K1_TEAM_WARPS warps) at m in
+    cuda_build.TEAM_ROBOTS, else the warp design (K1_WARPS slots); the
+    solver library of ocp.m is built at first use. The launch refuses a
+    block above staged_tiles.SMEM_BLOCK_MAX (the H100's 227 KB)."""
+    lib = cuda_build.load(ocp.m)
+    if ocp.m in cuda_build.TEAM_ROBOTS:
+        return _team_smem(lib, ocp, cfg, K1_TEAM_WARPS)[1], "team"
+    return K1_WARPS * lib.nmpc_k1_slot_bytes(obstacle_rows(ocp)) + _prm_bytes(ocp, cfg), "warp"
+
+
 def team_launch(ocp: OCP, x0, xref, lam, mu, U, cfg: ALILQRConfig, what: str, load,
                 warps: int):
     """Launch K1's team design (csrc/inner_team.cuh, T lanes per scenario;
@@ -409,12 +434,8 @@ def team_launch(ocp: OCP, x0, xref, lam, mu, U, cfg: ALILQRConfig, what: str, lo
     if B == 0:
         return Xs, U.clone(), cost, iters
     lib = load(ocp.m)
-    geo = cuda_build.team_geometry(lib)
     pairs = int(ocp.n_pairs > 0)
-    # dynamic shared memory a block: the teams' rings, then the parameter block
-    teams = warps * 32 // geo["T"]
-    smem = (teams * lib.nmpc_k1_team_ring_bytes(obstacle_rows(ocp), ocp.n_mov, pairs)
-            + 4 * rollout._P(n, nu, len(cfg.alphas), ocp.n_obs).size)
+    teams, smem = _team_smem(lib, ocp, cfg, warps)
     if smem > SMEM_BLOCK_MAX:
         raise NotImplementedError(
             f"{what}: {smem} B of shared memory a block ({teams} teams' rings for "
@@ -462,7 +483,7 @@ def warp_launch(ocp: OCP, x0, xref, lam, mu, U, cfg: ALILQRConfig, what: str, lo
     launch, slot = ((lib.nmpc_inner_solve, lib.nmpc_k1_slot_bytes(obstacle_rows(ocp)))
                     if entry is None else entry(lib))
     # dynamic shared memory a block: the warps' slots, then the parameter block
-    smem = warps * slot + 4 * rollout._P(n, nu, len(cfg.alphas), ocp.n_obs).size
+    smem = warps * slot + _prm_bytes(ocp, cfg)
     if smem > SMEM_BLOCK_MAX:
         raise NotImplementedError(
             f"{what}: {smem} B of shared memory a block ({warps} warps' slots for "

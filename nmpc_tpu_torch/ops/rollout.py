@@ -37,6 +37,8 @@ same block, so kernel and plain version see the same folded obstacle radii.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from nmpc_tpu_torch.ocp.problem import OCP, pair_indices
@@ -93,8 +95,15 @@ def _pack_params(ocp: OCP, alphas) -> torch.Tensor:
     return torch.cat([
         ocp.Qdiag, ocp.Rdiag, ocp.u_lo, ocp.u_hi, ocp.x_lo, ocp.x_hi,
         ocp.dmin2.reshape(1), ocp.T.reshape(1), obs,
-        torch.as_tensor(alphas, **kw).reshape(-1),
+        _alphas_on(tuple(float(a) for a in alphas), kw["dtype"], kw["device"]),
     ])
+
+
+@functools.lru_cache(maxsize=None)
+def _alphas_on(alphas: tuple, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """The line-search alphas as a tensor on `device`, made once (a copy
+    from the host at every pack is one a CUDA graph's capture refuses)."""
+    return torch.tensor(alphas, dtype=dtype, device=device)
 
 
 def params(ocp: OCP, alphas, device) -> torch.Tensor:

@@ -67,9 +67,24 @@ def _finalize(ocp_b: OCP, X, U, cfg: ALILQRConfig):
     return X, U, cost, viol
 
 
-def _solve_mega(ocp_b: OCP, U, lam, mu, cfg: ALILQRConfig) -> SolveResult:
+def _solve_mega(ocp_b: OCP, U, lam, mu, cfg: ALILQRConfig, *,
+                graph_safe: bool = False) -> SolveResult:
     """Kernel path: per AL outer step one K1 launch (the whole inner solve)
     and one K2 launch (multiplier update + violation).
+
+    The loop ends once every scenario is done (a host sync a step, as the
+    reference's lax.while_loop ends on the device). While some scenario
+    still runs, the scenarios already done re-run K1 from their own U with
+    their frozen lam and mu and take its output (U and Xs), as the
+    reference does; their lam, mu, counts and done flag stay.
+
+    graph_safe: no host sync. Every one of cfg.n_outer steps launches K1 and
+    K2; a step after the one at which the last scenario finished keeps U and
+    Xs as they stood (torch.where on the batch's "all done", a tensor), and
+    its lam, mu and counts stay by the masks above. The result is the
+    early-exit loop's bit for bit, at any B (the form a CUDA graph captures,
+    tools/latency.py). It refuses cfg.compact, whose permutation is a host
+    decision.
 
     cfg.compact: before an outer step at which some scenario is done, the
     batch is permuted so that the scenarios still running come first (a
@@ -78,6 +93,9 @@ def _solve_mega(ocp_b: OCP, U, lam, mu, cfg: ALILQRConfig) -> SolveResult:
     caller's order at the end). Each scenario's arithmetic is the same
     wherever it sits, so the results are those without compaction, bit for
     bit."""
+    if graph_safe and cfg.compact:
+        raise ValueError("_solve_mega: cfg.compact permutes the batch on a host decision; "
+                         "the graph-safe form does not take it")
     B = ocp_b.x0.shape[0]
     dev = ocp_b.device
     done = torch.zeros(B, dtype=torch.bool, device=dev)
@@ -88,7 +106,10 @@ def _solve_mega(ocp_b: OCP, U, lam, mu, cfg: ALILQRConfig) -> SolveResult:
     ocp_k = ocp_b
     Xs = None
     for _ in range(cfg.n_outer):
-        if Xs is not None and bool(done.all()):
+        settled = None                  # graph_safe: every scenario done before this step
+        if graph_safe:
+            settled = None if Xs is None else done.all()
+        elif Xs is not None and bool(done.all()):
             break
         if cfg.compact and bool(done.any()):
             order = torch.argsort(done.to(torch.uint8), stable=True)   # running first
@@ -99,7 +120,11 @@ def _solve_mega(ocp_b: OCP, U, lam, mu, cfg: ALILQRConfig) -> SolveResult:
                 ocp_b, x0=ocp_b.x0[perm], xref=ocp_b.xref[perm],
                 mov_obs=ocp_b.mov_obs[perm] if per_mov else ocp_b.mov_obs)
         outer_vec = outer_vec + (~done).to(torch.int32)
-        Xs, U, _, iters = inner_solve_fused(ocp_k, ocp_k.x0, ocp_k.xref, lam, mu, U, cfg)
+        Xs_new, U_new, _, iters = inner_solve_fused(ocp_k, ocp_k.x0, ocp_k.xref, lam, mu, U, cfg)
+        if settled is None:
+            Xs, U = Xs_new, U_new
+        else:
+            Xs, U = torch.where(settled, Xs, Xs_new), torch.where(settled, U, U_new)
         # scenarios done before this step re-ran a no-op pass: don't count it
         iters = torch.where(done, torch.zeros_like(iters), iters)
         lam_new, viol = al_update_lanes(ocp_k, Xs, U, lam, mu, cfg.lam_max)
@@ -348,40 +373,76 @@ def _polar_seed(ocp_b: OCP) -> torch.Tensor:
     return torch.stack(us, dim=1)
 
 
+def route(ocp_b: OCP, cfg: ALILQRConfig) -> str:
+    """The route `solve_batched` takes for this batch and config, from its
+    static shape and cfg alone: "mega" (the megakernel route, K1 and K2),
+    "staged" (K4, K3, K5, K6) or "hybrid". An unknown cfg.sweep raises
+    ValueError."""
+    if rollout.unsupported(ocp_b) is None and resolve_sweep(cfg, ocp_b.N) == "seq":
+        return "mega" if cfg.mega and cuda_unsupported(ocp_b) is None else "staged"
+    return "hybrid"
+
+
+def _warm_or_cold(ocp_b: OCP, warm: WarmStart | None, cfg: ALILQRConfig) -> WarmStart:
+    """The warm start, or the cold one cfg.cold_seed asks for; raises
+    ValueError for an unknown cfg.ls or cfg.cold_seed."""
+    if cfg.ls not in ("cascade", "adaptive"):
+        raise ValueError(f"solve_batched: unknown line search {cfg.ls!r}")
+    if cfg.cold_seed not in ("zero", "polar"):
+        raise ValueError(f"solve_batched: unknown cold_seed {cfg.cold_seed!r}")
+    if warm is not None:
+        return warm
+    B, N, nu, nc = ocp_b.x0.shape[0], ocp_b.N, ocp_b.nu, ocp_b.n_con
+    kw = dict(dtype=ocp_b.x0.dtype, device=ocp_b.device)
+    # the polar seed is ignored for ray-augmented problems, as in the reference
+    U0 = (_polar_seed(ocp_b) if cfg.cold_seed == "polar" and ocp_b.num_rays == 0
+          else torch.zeros((B, N, nu), **kw))
+    return WarmStart(U=U0, lam=torch.zeros((B, N, nc), **kw),
+                     mu=torch.full((B,), cfg.mu_init, **kw))
+
+
+def _mega_admitted(ocp_b: OCP, cfg: ALILQRConfig) -> None:
+    why = cuda_unsupported(ocp_b, cfg)
+    if why is not None:
+        raise NotImplementedError(f"solve_batched: the megakernel route does not cover {why}")
+
+
 def solve_batched(ocp_b: OCP, warm: WarmStart | None = None,
                   cfg: ALILQRConfig = ALILQRConfig()) -> SolveResult:
     """Solve a batch of OCPs (batch axis on x0 [B, nx] and xref [B, N, nx];
     mov_obs [B, N, n_mov, 2] for per-scenario moving-obstacle schedules).
 
-    Route (the reference's): with sweep "seq" on a problem the staged
-    kernels take, `_solve_mega` if cfg.mega and K1 admits the problem's shape
-    (megasolve.cuda_unsupported), else the staged `_solve_lanes`; everything
-    else `_solve_hybrid`. No other setting of cfg picks the route: an unknown
-    cfg.ls, cfg.sweep or cfg.cold_seed raises ValueError. On CUDA tensors
-    every kernel of the route runs its hand kernel or raises; on CPU tensors
-    the plain PyTorch versions run."""
-    if cfg.ls not in ("cascade", "adaptive"):
-        raise ValueError(f"solve_batched: unknown line search {cfg.ls!r}")
-    if cfg.cold_seed not in ("zero", "polar"):
-        raise ValueError(f"solve_batched: unknown cold_seed {cfg.cold_seed!r}")
-    sweep = resolve_sweep(cfg, ocp_b.N)
-    B = ocp_b.x0.shape[0]
-    N, nu, nc = ocp_b.N, ocp_b.nu, ocp_b.n_con
-    kw = dict(dtype=ocp_b.x0.dtype, device=ocp_b.device)
-    if warm is None:
-        # the polar seed is ignored for ray-augmented problems, as in the reference
-        U0 = (_polar_seed(ocp_b) if cfg.cold_seed == "polar" and ocp_b.num_rays == 0
-              else torch.zeros((B, N, nu), **kw))
-        warm = WarmStart(U=U0, lam=torch.zeros((B, N, nc), **kw),
-                         mu=torch.full((B,), cfg.mu_init, **kw))
-    if rollout.unsupported(ocp_b) is None and sweep == "seq":
-        if cfg.mega and cuda_unsupported(ocp_b) is None:
-            why = cuda_unsupported(ocp_b, cfg)
-            if why is not None:
-                raise NotImplementedError(f"solve_batched: the megakernel route does not cover {why}")
-            return _solve_mega(ocp_b, warm.U, warm.lam, warm.mu, cfg)
+    Route (the reference's, `route`): with sweep "seq" on a problem the
+    staged kernels take, `_solve_mega` if cfg.mega and K1 admits the
+    problem's shape (megasolve.cuda_unsupported), else the staged
+    `_solve_lanes`; everything else `_solve_hybrid`. No other setting of cfg
+    picks the route: an unknown cfg.ls, cfg.sweep or cfg.cold_seed raises
+    ValueError. On CUDA tensors every kernel of the route runs its hand
+    kernel or raises; on CPU tensors the plain PyTorch versions run."""
+    warm = _warm_or_cold(ocp_b, warm, cfg)
+    way = route(ocp_b, cfg)
+    if way == "mega":
+        _mega_admitted(ocp_b, cfg)
+        return _solve_mega(ocp_b, warm.U, warm.lam, warm.mu, cfg)
+    if way == "staged":
         return _solve_lanes(ocp_b, warm.U, warm.lam, warm.mu, cfg)
-    return _solve_hybrid(ocp_b, warm.U, warm.lam, warm.mu, cfg, sweep)
+    return _solve_hybrid(ocp_b, warm.U, warm.lam, warm.mu, cfg, resolve_sweep(cfg, ocp_b.N))
+
+
+def solve_batched_graph(ocp_b: OCP, warm: WarmStart | None = None,
+                        cfg: ALILQRConfig = ALILQRConfig()) -> SolveResult:
+    """`solve_batched` on its megakernel route with no host sync, the form a
+    CUDA graph captures: all cfg.n_outer AL steps run, K1 and K2 each, and
+    the result is `solve_batched`'s bit for bit (`_solve_mega`'s
+    graph_safe). Raises NotImplementedError where solve_batched would take
+    another route, and ValueError for cfg.compact."""
+    warm = _warm_or_cold(ocp_b, warm, cfg)
+    way = route(ocp_b, cfg)
+    if way != "mega":
+        raise NotImplementedError(f"solve_batched_graph: the batch takes the {way} route, "
+                                  f"not the megakernel route")
+    _mega_admitted(ocp_b, cfg)
+    return _solve_mega(ocp_b, warm.U, warm.lam, warm.mu, cfg, graph_safe=True)
 
 
 def solve_one(ocp: OCP, warm: WarmStart | None = None,
@@ -389,3 +450,10 @@ def solve_one(ocp: OCP, warm: WarmStart | None = None,
     """Single-scenario solve through the batched path (B = 1): unbatched
     OCP / WarmStart in, unbatched SolveResult out."""
     return one_scenario(solve_batched, ocp, warm, cfg)
+
+
+def solve_one_graph(ocp: OCP, warm: WarmStart | None = None,
+                    cfg: ALILQRConfig = ALILQRConfig()) -> SolveResult:
+    """`solve_one` with no host sync (`solve_batched_graph` at B = 1): bit
+    for bit `solve_one`'s result, with cfg.n_outer K1 launches."""
+    return one_scenario(solve_batched_graph, ocp, warm, cfg)

@@ -16,8 +16,15 @@ the condensed GN engine at B, and the LiDAR closed loop at B=1), the
 reference's user models on the generic-dynamics hook (`user_models`: the
 Van der Pol and first-order process fleets through K3 at their stage
 shapes) and the ADMM fleet (`admm_fleet`, the port of tools/bench_admm.py).
-Each runs on the card as `python -m nmpc_tpu_torch.tools.<name>` and
-refuses to measure without one. Beside them, `sass_diff` compares the solver kernels'
-machine code with another checkout's (it needs the CUDA toolkit, not a
-card).
+The reference's other measurement tools: `latency` (tools/gen_latency.py:
+per-step latency, the MPC chunk as one CUDA graph), `ten_robot`
+(bench_ten_robot.py), `gate_check`, `parity` (gen_parity.py, against the
+f64 oracle), `sweep` (bench_sweep.py), `decentralized`
+(bench_decentralized.py), `ls_ab` (bench_ls.py), `iteration_levers`
+(exp_iteration_levers.py), `profile_solve`, `roofline_gn` and
+`rt_drift_experiment` (the CPU by default, as the reference's). Each runs
+on the card as `python -m nmpc_tpu_torch.tools.<name>` and refuses to
+measure without one; the reference's tools also take `--device cpu`.
+Beside them, `sass_diff` compares the solver kernels' machine code with
+another checkout's (it needs the CUDA toolkit, not a card).
 """

@@ -38,13 +38,14 @@ from nmpc_tpu_torch.solver import gn
 CFG = gn.GNConfig(Nc=50, n_gn=10, n_outer=4, tol_con=1e-3)
 
 
-def fixture(device) -> OCP:
-    """lidar_v4 at its registry size with the scan fixture: ray states and
-    frozen obstacle points from one scan at the start pose."""
+def fixture(device, **make_kw) -> OCP:
+    """lidar_v4 at its registry size (make_kw: overrides, e.g. N) with the
+    scan fixture: ray states and frozen obstacle points from one scan at the
+    start pose."""
     from nmpc_tpu_torch.scenarios import get
 
     sc = get("lidar_v4")
-    base = sc.make(device=device)
+    base = sc.make(device=device, **make_kw)
     R = sc.num_rays
     scan = torch.full((R,), 3.5, dtype=base.x0.dtype, device=device)
     scan[1], scan[2] = 0.9, 1.1

@@ -65,6 +65,23 @@ def require_card(what: str) -> None:
         raise RuntimeError(f"{what}: needs a CUDA card (torch.cuda.is_available() is False)")
 
 
+def resolve_device(name: str, what: str) -> torch.device:
+    """A tool's device: the card unless the caller asks for another ("cpu":
+    every kernel's plain version); refuses the card without one."""
+    dev = torch.device(name)
+    if dev.type == "cuda":
+        require_card(what)
+    return dev
+
+
+def device_label(device) -> str:
+    """Where a tool's numbers were taken: the card's name and power limit,
+    or the CPU, whose times are not device metrics."""
+    if torch.device(device).type != "cuda":
+        return "cpu (plain kernels; not a device time)"
+    return f"{torch.cuda.get_device_name(device)} [{card()}]"
+
+
 def card() -> str:
     """The card's name and power limit, as nvidia-smi gives them."""
     return subprocess.run(

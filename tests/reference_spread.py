@@ -19,6 +19,7 @@ between the card and the CPU, ~30 min for all; `rates [DRAWS [LOOP...]] [vmap]`:
 how often the six_robot_impl loops miss their bounds from starts moved by
 1e-7, ~15 min a loop at 64, ~50 for the CL_PARITY row;
 `hw_start`: the spread of those loops' first solve, ~1 min;
+`latency`: the latency chunk of tests/test_torch_latency.py, ~1 min;
 `obstacles`: only the port's megakernel route on chip_smoke.py path (b)'s
 problem, ~4 min; `gn`: only the cases of tests/test_torch_hybrid.py,
 tests/test_torch_gn.py and tests/test_torch_lidar.py, ~1 min.)
@@ -367,7 +368,42 @@ def gn_cases():
                   f"cost ratio {float(a.cost.mean() / b.cost.mean()):.6f}", flush=True)
 
 
+def latency():
+    """The reference's latency chunk (tools/gen_latency.py::make_chunk, K=3,
+    CFG_RT, with and without delay compensation) from the starts of
+    tests/test_torch_latency.py and from x0 moved by 1e-7: the change of its
+    final state, per case (tb3_1 is the one held; two_robot_swap and
+    eight_robot are not)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "reference_gen_latency", os.path.join(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))), "tools", "gen_latency.py"))
+    GL = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(GL)
+    GL.K = 3
+    from nmpc_tpu.scenarios import get as jget
+
+    for name, N, jitter in (("tb3_1", 20, 0.2), ("two_robot_swap", 10, 0.0),
+                            ("eight_robot", 5, 0.01)):
+        for delay in (False, True):
+            o = jget(name).make(N=N)
+            # the seed solve at the registry start, the chunk from the moved one
+            w = JD.shift_warm(jax.jit(functools.partial(jax_solve, cfg=GL.CFG))(o), GL.CFG_RT)
+            f = GL.make_chunk(o, o, GL.CFG_RT, delay)
+            x0 = np.asarray(o.x0) + jitter * np.random.default_rng(1).standard_normal(
+                o.nx).astype(np.float32)
+            o = dataclasses.replace(o, x0=jnp.asarray(x0))
+            a = f(o.x0, w)
+            dx = max(float(jnp.abs(f(b.x0, w)[0] - a[0]).max()) for b in moved(o))
+            print(f"latency chunk {name} N={N} start moved by {jitter} (delay_compensate={delay}):"
+                  f" final state {dx:.3e}", flush=True)
+
+
 def main():
+    if sys.argv[1:] == ["latency"]:
+        latency()
+        return
     if sys.argv[1:] == ["gn"]:
         gn_cases()
         return

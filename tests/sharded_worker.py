@@ -124,6 +124,10 @@ def two_ranks(inp: dict) -> dict:
                                     v=np_(v), d=np_(d), X1=np_(X1), U1=np_(U1), v1=np_(v1),
                                     d1=np_(d1))
     out["dryrun"] = dryrun.dryrun_multichip(mesh)
+    # the fleet_batch example, sharded over the world it finds
+    from nmpc_tpu_torch.examples import fleet_batch
+
+    out["fleet"] = fleet_batch.run(4, "cpu", N=5)
     return out
 
 

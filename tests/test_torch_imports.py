@@ -1,6 +1,7 @@
-"""Import hygiene of the port: no module of nmpc_tpu_torch loads JAX or the
-JAX package, and importing builds nothing (no kernel library, no native
-runtime) and starts no torch.distributed world."""
+"""Import hygiene of the port: no module of nmpc_tpu_torch (its tools and
+examples included) loads JAX or the JAX package, and importing builds
+nothing (no kernel library, no native runtime) and starts no
+torch.distributed world."""
 
 import pkgutil
 import subprocess
@@ -32,6 +33,13 @@ def test_port_modules_import_without_jax():
             "nmpc_tpu_torch.__main__", "nmpc_tpu_torch.bench",
             "nmpc_tpu_torch.tools.loop_suite", "nmpc_tpu_torch.tools.cl_parity",
             "nmpc_tpu_torch.tools.loop_diff"} <= set(names)
+    # the reference's measurement tools and examples (tools/*.py, examples/*.py)
+    ported = {f"nmpc_tpu_torch.tools.{t}" for t in (
+        "latency", "parity", "roofline_gn", "sweep", "decentralized", "profile_solve", "ls_ab",
+        "rt_drift_experiment", "ten_robot", "iteration_levers", "gate_check")}
+    ported |= {f"nmpc_tpu_torch.examples.{e}" for e in (
+        "six_robot_swap", "fleet_batch", "decentralized_cross")}
+    assert ported <= set(names), sorted(ported - set(names))
     code = (
         "import importlib, sys\n"
         f"for name in {['nmpc_tpu_torch', *names]!r}:\n"

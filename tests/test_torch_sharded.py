@@ -243,3 +243,18 @@ def test_dryrun_multichip_on_two_ranks(worlds):
             "data-parallel step, batched_solve", "data-parallel step, solve_batched",
             "decentralized exchange", "hosts x chips", "consensus", "GN fleet", "ADMM fleet"}
         assert o["dryrun"] == outs[0]["dryrun"]
+
+
+def test_fleet_batch_example_shards_over_the_world(worlds):
+    """examples/fleet_batch.py in the 2-rank world shards its batch over a
+    data mesh of the world (2 scenarios a rank) and reports the converged
+    share and largest violation of all 4, as the single-device run does."""
+    from nmpc_tpu_torch.examples import fleet_batch
+
+    _, two, _ = worlds
+    one = fleet_batch.run(4, "cpu", N=5)
+    assert one["devices"] == 1
+    for o in two.result():
+        r = o["fleet"]
+        assert r["devices"] == 2 and r["B"] == 4 and r["solves_per_s"] > 0
+        assert (r["converged"], r["max_viol"]) == (one["converged"], one["max_viol"])
