@@ -85,7 +85,11 @@ and holding each against its plain PyTorch version on the card:
   captured as one CUDA graph and replayed, bit for bit the eager chunk;
   the ten-robot fleet (BASELINE config 5) at B=4096 through K1's warp
   design at m=10; the megakernel gate on the seven admission shapes; the
-  line-search A/B's cascade arm at B=32768.
+  line-search A/B's cascade arm at B=32768;
+* family I's batched closed loop (nmpc_tpu_torch/mpc/lidar.py's
+  closed_loop_lidar_batched, the reference fuzz's jax.vmap of its LiDAR
+  loop): four fuzz fields a step in one gn.solve_batched, each scenario
+  with its own scan, against the per-seed loop and the CPU.
 
 Phases:
 
@@ -184,9 +188,14 @@ Phases:
                                       K1 vs plain at m=10; the gate on the
                                       seven admission shapes; ls_ab's
                                       cascade arm and its K1 vs plain
+                                   37 the batched LiDAR loop at B=4 fuzz
+                                      fields vs the per-seed loop on the
+                                      card and vs the CPU; ms a step at
+                                      B=4 and B=1
 
 Phases 5, 7, 8, 9, 20, 22, 25, 30 and 31 re-solve the first scenarios with the plain path on
-the CPU. Any failed check raises, so the exit code is non-zero. Without a CUDA
+the CPU; phase 37 reruns its loop there. Any failed check raises, so the exit code is
+non-zero. Without a CUDA
 card, or without the package beside this script, it fails before printing
 any result. Output: one line per phase; before the last line, the kernels'
 JSON record and the nvidia-smi name/power-limit line; last line
@@ -2513,6 +2522,108 @@ def ref_tools_phase(dev, card: str) -> None:
     log(f"phase 36 took {time.perf_counter() - t0:.1f} s")
 
 
+# phase 37: the batched LiDAR loop (mpc/lidar.py::closed_loop_lidar_batched,
+# the reference fuzz's jax.vmap(closed_loop_lidar)) at the single-obstacle
+# fuzz fields of seeds 0-3, the fuzz's N=40 and GN config, 8 steps. X_hist
+# rows held pointwise at 1e-4 per seed where the reference itself moves by
+# <= 1e-5 under a 1e-7 move of the start (`JAX_PLATFORMS=cpu python
+# tests/reference_spread.py lidar_fuzz`: seed 0 <= 5.5e-6 over all 9 rows,
+# seed 2 3.4e-6 over rows 0-1 then up to 2.2e-5, seeds 1 and 3 1.5e-4 and
+# 1.7e-4 at the first solve), and every row of every seed at
+# LIDAR_FUZZ_ALL_ATOL: above the reference's own spread over all rows (8.9e-4,
+# seed 1) and the largest all-rows reading of a sound run on the card (4.3e-4
+# against the per-seed loop, NVIDIA H100 80GB HBM3, 700.00 W), and below how
+# far rows with different fields part (> 1e-2 in U,
+# tests/test_torch_gn.py::test_per_scenario_scans_match_reference_vmap), so
+# that a row solved with another row's points fails it
+LIDAR_FUZZ_B = 4
+LIDAR_FUZZ_STEPS = 8
+LIDAR_FUZZ_HELD = (9, 1, 2, 1)
+LIDAR_FUZZ_ALL_ATOL = 5e-3
+
+
+def lidar_batch_phase(dev, card: str) -> None:
+    """Phase 37: closed_loop_lidar_batched on the card at B=4 (one
+    gn.solve_batched a step over the four rows, each with its own scan),
+    held against the per-seed closed_loop_lidar on the card and against its
+    own CPU run: pointwise at atol 1e-4 over LIDAR_FUZZ_HELD's rows and at
+    LIDAR_FUZZ_ALL_ATOL over every row, by outcome over every step (the
+    same goal index and done flag, each step's clearance within 1e-2); the
+    launch counts set to 0 just before
+    and read just after (the GN engine is plain PyTorch: none). Logs ms a
+    step at B=4 and at B=1."""
+    import torch
+
+    from nmpc_tpu_torch.mpc.lidar import closed_loop_lidar
+    from nmpc_tpu_torch.ops import cuda_build
+    from nmpc_tpu_torch.scenarios import get
+    from nmpc_tpu_torch.solver import gn
+    from nmpc_tpu_torch.tools import lidar_fleet as LF
+    from nmpc_tpu_torch.tools import loop_suite as LS
+
+    t0 = time.perf_counter()
+    B, S = LIDAR_FUZZ_B, LIDAR_FUZZ_STEPS
+    torch.cuda.synchronize()
+    cuda_build.reset_launch_counts()
+    got, ms_b = LF.fuzz_steps(dev, B, S)
+    counts = dict(cuda_build.launch_counts)
+    assert not any(counts.values()), counts
+    X, U, clr, gidx, done = got
+    assert all(t.device.type == torch.device(dev).type for t in got)
+    assert X.shape == (B, S + 1, 3) and U.shape == (B, S, 2) and gidx.dtype == torch.int32
+    assert torch.isfinite(X).all() and torch.isfinite(clr).all()
+    assert float(U[:, :, 0].abs().max()) <= 0.15 + 1e-6
+    assert float(U[:, :, 1].abs().max()) <= 1.5 + 1e-6
+    obstacles, goals = LS.lidar_fields(tuple(range(B)), 1)
+    ocp = get("lidar_v4").make(N=LS.LIDAR_N, device=dev)
+    ms_1, singles = [], []
+    for i in range(B):
+        stamps = []
+
+        def solve_fn(o, w):
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+            return gn.solve(o, w, LS.LIDAR_CFG)
+
+        singles.append(closed_loop_lidar(ocp, obstacles[i], goals[i], LS.LIDAR_CFG, S,
+                                         solve_fn=solve_fn))
+        torch.cuda.synchronize()
+        end = time.perf_counter()
+        ms_1 += [1e3 * (b - a) for a, b in zip(stamps, stamps[1:] + [end])]
+    cpu_out, _ = LF.fuzz_steps(torch.device("cpu"), B, S)
+
+    def hold(tag, rows):
+        worst_pt, worst_clr, apart = 0.0, 0.0, []
+        for i, (Xi, clri, gi) in enumerate(rows):
+            held = LIDAR_FUZZ_HELD[i]
+            diff = (X[i].cpu() - Xi.cpu()).abs()
+            pt, every = float(diff[:held].max()), float(diff.max())
+            dclr = float((clr[i].cpu() - clri.cpu()).abs().max())
+            assert pt <= 1e-4, (tag, i, pt)
+            assert every <= LIDAR_FUZZ_ALL_ATOL, (tag, i, every)
+            assert torch.equal(gidx[i].cpu(), gi.cpu()), (tag, i)
+            assert dclr <= 1e-2, (tag, i, dclr)
+            worst_pt, worst_clr = max(worst_pt, pt), max(worst_clr, dclr)
+            apart.append(every)
+        return worst_pt, worst_clr, ", ".join(f"{a:.1e}" for a in apart)
+
+    pt_1, clr_1, all_1 = hold("per seed", [(r[0], r[2], r[3]) for r in singles])
+    assert [bool(r[4]) for r in singles] == done.cpu().tolist()
+    pt_c, clr_c, all_c = hold("cpu", [(cpu_out[0][i], cpu_out[2][i], cpu_out[3][i])
+                                      for i in range(B)])
+    assert torch.equal(cpu_out[4], done.cpu())
+    log(f"phase 37 batched LiDAR loop (closed_loop_lidar_batched, single-obstacle fuzz fields "
+        f"seeds 0-{B - 1}, N={LS.LIDAR_N}, Nc={LS.LIDAR_CFG.Nc}, GN {LS.LIDAR_CFG.n_outer}x"
+        f"{LS.LIDAR_CFG.n_gn}, {S} steps): against the per-seed loop on the card, X_hist max "
+        f"|diff| {pt_1:.3e} over the held rows {LIDAR_FUZZ_HELD} (<= 1e-4), {all_1} over all "
+        f"rows a seed (<= {LIDAR_FUZZ_ALL_ATOL}), clearance within {clr_1:.3e} (<= 1e-2), goal "
+        f"index equal; against its own CPU run {pt_c:.3e}, {all_c} over all rows a seed, and "
+        f"{clr_c:.3e}; launches {counts} (the GN engine is plain PyTorch)")
+    log(f"phase 37 ms a step: B={B} p50 {pct(ms_b, 50):.1f}, p99 {pct(ms_b, 99):.1f}; B=1 "
+        f"(closed_loop_lidar, {B} seeds) p50 {pct(ms_1, 50):.1f}, p99 {pct(ms_1, 99):.1f}; "
+        f"{time.perf_counter() - t0:.1f} s with the CPU run {card}")
+
+
 def per_step(counts: dict, name: str, stamps) -> str:
     """Launches of a kernel a loop step (a solve run), as a string."""
     return f"{counts[name] / max(len(stamps), 1):.2f}"
@@ -3466,6 +3577,9 @@ def main() -> int:
     # ---- phase 36: the reference's tools: the latency graph, the ten-robot
     # fleet, the gate, the cascade arm -----------------------------------
     ref_tools_phase(dev, card)
+
+    # ---- phase 37: the batched LiDAR loop, per-scenario scans ------------
+    lidar_batch_phase(dev, card)
 
     def entry(name, source, where, launches, err, ms_, plain_ms, key):
         return {"name": name, "route": "cuda", "source": source, "replaces": where,

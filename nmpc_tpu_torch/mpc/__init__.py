@@ -9,4 +9,4 @@ from nmpc_tpu_torch.mpc.driver import (  # noqa: F401
     closed_loop_tracking,
     plan_then_replay,
 )
-from nmpc_tpu_torch.mpc.lidar import closed_loop_lidar  # noqa: F401
+from nmpc_tpu_torch.mpc.lidar import closed_loop_lidar, closed_loop_lidar_batched  # noqa: F401

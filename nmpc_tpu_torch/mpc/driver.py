@@ -281,10 +281,10 @@ def _bits(t):
 
 
 def _repeats(carry, new, done_idx) -> bool:
-    """True when the step that turned `carry` into `new` ended done and left
-    every carried tensor bit for bit unchanged: every later step repeats it
-    (one host sync)."""
-    same = [new[done_idx]] + [(_bits(a) == _bits(b)).all()
+    """True when the step that turned `carry` into `new` ended done (every
+    row of a batched done) and left every carried tensor bit for bit
+    unchanged: every later step repeats it (one host sync)."""
+    same = [new[done_idx].all()] + [(_bits(a) == _bits(b)).all()
                               for a, b in zip(_leaves(carry), _leaves(new))]
     return bool(torch.stack(same).all())
 

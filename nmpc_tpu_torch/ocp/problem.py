@@ -11,8 +11,9 @@ side at the kink: torch.where for |t| (+1 at 0) and torch.maximum for
 max(a, b) (1/2 each at a tie; torch.clamp gives 1).
 
 Batching: a batched OCP carries a leading [B] axis on x0 [B, nx], xref
-[B, N, nx] and, for per-element neighbour plans, mov_obs [B, N, n_mov, 2];
-every other field is shared. Every function below takes any number of
+[B, N, nx], for per-element neighbour plans on mov_obs [B, N, n_mov, 2],
+and for per-scenario LiDAR scans on p_obs [B, R, 2]; every other field is
+shared. Every function below takes any number of
 leading batch dimensions on its tensor arguments and broadcasts them against
 the OCP's fields (the JAX package vmaps instead).
 """
@@ -64,7 +65,7 @@ class OCP:
       u_lo/u_hi: [nu]                    x_lo/x_hi: [nx]
       dmin2: scalar (squared min inter-robot distance)
       obstacles: [n_obs, 3] rows (ox, oy, r)
-      p_obs: [num_rays, 2] frozen LiDAR obstacle points (augmented model)
+      p_obs: [(B,) num_rays, 2] frozen LiDAR obstacle points (augmented model)
       mov_obs: [(B,) N, n_mov, 2] per-stage moving obstacles
     """
 
@@ -332,8 +333,10 @@ def make_generic_ocp(
 
 def batch_fields(ocp: OCP) -> tuple:
     """The fields of a batched OCP that carry the batch axis: x0 and xref,
-    and mov_obs when it holds a schedule a scenario ([B, N, n_mov, 2])."""
-    return ("x0", "xref") + (("mov_obs",) if ocp.n_mov and ocp.mov_obs.dim() == 4 else ())
+    mov_obs when it holds a schedule a scenario ([B, N, n_mov, 2]), and
+    p_obs when it holds a scan a scenario ([B, R, 2])."""
+    return (("x0", "xref") + (("mov_obs",) if ocp.n_mov and ocp.mov_obs.dim() == 4 else ())
+            + (("p_obs",) if ocp.num_rays and ocp.p_obs.dim() == 3 else ()))
 
 
 def ocp_from_numpy(arrays: dict, device=DEVICE, **meta) -> OCP:
@@ -369,10 +372,15 @@ def _integrate_generic(f, x, u, dt, integrator: str, substeps: int):
     return x
 
 
-def step_dynamics(ocp: OCP, x: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+def step_dynamics(ocp: OCP, x: torch.Tensor, u: torch.Tensor,
+                  p_obs: torch.Tensor | None = None) -> torch.Tensor:
     """One discrete step of the (possibly LiDAR-augmented) model. A user
     model (dyn_fn) is written for one point: over leading batch dimensions
-    it runs under torch.func.vmap."""
+    it runs under torch.func.vmap.
+
+    p_obs: [..., R, 2] the frozen points of this call; defaults to
+    ocp.p_obs, which broadcasts against the leading dimensions of x (a
+    per-scenario p_obs [B, R, 2] against x [..., B, nx])."""
     if ocp.dyn_fn is not None:
         step = lambda xx, uu: _integrate_generic(  # noqa: E731
             ocp.dyn_fn, xx, uu, ocp.T, ocp.integrator, ocp.substeps)
@@ -388,7 +396,7 @@ def step_dynamics(ocp: OCP, x: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     # the 1-norm distance from the next position to the frozen point p_obs[m].
     pose = x[..., :3]
     pose_next = discrete_dynamics(pose, u, ocp.T, "euler")
-    delta = pose_next[..., None, :2] - ocp.p_obs  # [..., R, 2]
+    delta = pose_next[..., None, :2] - (ocp.p_obs if p_obs is None else p_obs)  # [..., R, 2]
     # |t| with derivative +1 at t = 0, as JAX differentiates abs (torch.abs
     # has 0 there): a ray whose point sits on the pose's axis is the cold
     # start's normal case

@@ -151,9 +151,17 @@ def _stage_jacobians(ocp: OCP, x, u):
     """(A, B) of the discrete step: analytic for the plain Euler model,
     torch.func.jacfwd for RK4, LiDAR-augmented and user (dyn_fn) models
     (the reference's jax.jacfwd; problem.step_dynamics differentiates its
-    kinks as JAX does). x [..., nx], u [..., nu]."""
+    kinks as JAX does). x [..., nx], u [..., nu]; with a per-scenario
+    p_obs [B, R, 2], x and u lead with that batch axis ([B, ..., n])."""
     if ocp.integrator == "euler" and ocp.num_rays == 0 and ocp.dyn_fn is None:
         return euler_jacobians(x, u, ocp.T)
+    if "p_obs" in P.batch_fields(ocp):
+        # each point takes its scenario's frozen points, flattened to one
+        # trailing axis beside x and u (the reference's vmap closes over them)
+        R = ocp.num_rays
+        p = ocp.p_obs.reshape(ocp.p_obs.shape[0], *([1] * (x.dim() - 2)), 2 * R)
+        G = lambda xx, uu, pp: P.step_dynamics(ocp, xx, uu, pp.reshape(R, 2))  # noqa: E731
+        return _vmap_flat(torch.func.jacfwd(G, argnums=(0, 1)), x, u, p)
     F = lambda xx, uu: P.step_dynamics(ocp, xx, uu)  # noqa: E731
     return _vmap_flat(torch.func.jacfwd(F, argnums=(0, 1)), x, u)
 

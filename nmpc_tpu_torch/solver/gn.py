@@ -127,9 +127,13 @@ def _normal_scan(ocp: OCP, U_blk, lam, mu, Nc: int):
     accumulates H = sum_k J_k' J_k, g = sum_k J_k' r_k stagewise, where
     J_k = dr_k/dx . S_k + dr_k/du . E_k (E_k puts dr_k/du into the columns
     of block min(k, Nc-1)); J itself is never materialized. Batched: ocp
-    with x0 [B, nx], xref [B, N, nx], U_blk [B, Nc, nu], lam [B, N, n_con],
-    mu [B] -> (H [B, nz, nz], g [B, nz]); unbatched (x0 [nx]) without the
-    leading axis."""
+    with x0 [B, nx], xref [B, N, nx] (and a per-scenario p_obs [B, R, 2]),
+    U_blk [B, Nc, nu], lam [B, N, n_con], mu [B] -> (H [B, nz, nz], g [B,
+    nz]); unbatched (x0 [nx]) without the leading axis. The B N points
+    take their scenario's xref, duals, mask and schedule through the flat
+    vmap, and their scenario's p_obs through _stage_jacobians (a stage's
+    residual rows do not read p_obs: the rays' points enter only through
+    the dynamics)."""
     if ocp.x0.dim() == 1:
         ocp_b = dataclasses.replace(ocp, x0=ocp.x0[None], xref=ocp.xref[None])
         H, g = _normal_scan(ocp_b, U_blk[None], lam[None], _mu(mu, U_blk)[None], Nc)
@@ -276,8 +280,9 @@ def solve(ocp: OCP, warm: WarmStart | None = None, cfg: GNConfig = GNConfig()) -
 def solve_batched(ocp_b: OCP, warm: WarmStart | None = None,
                   cfg: GNConfig = GNConfig()) -> SolveResult:
     """Batched condensed GN-AL over the batch fields of ocp_b (x0 [B, nx],
-    xref [B, N, nx], and a per-scenario mov_obs [B, N, n_mov, 2] if
-    present); warm [B, ...] or None. The family-I (LiDAR v4) fleet engine:
+    xref [B, N, nx], and a per-scenario mov_obs [B, N, n_mov, 2] or LiDAR
+    scan p_obs [B, R, 2] if present: the reference's jax.vmap of `solve`
+    with those on the batch axis); warm [B, ...] or None. The family-I (LiDAR v4) fleet engine:
     per GN iteration one batched [B, Nc nu, Nc nu] Cholesky plus the
     batched residuals and sensitivities."""
     return _solve_scenarios(ocp_b, warm, cfg)

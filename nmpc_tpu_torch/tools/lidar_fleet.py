@@ -14,9 +14,14 @@ clock with a synchronize at both ends.
 
     python -m nmpc_tpu_torch.tools.lidar_fleet [B] [iters] [normal]
     python -m nmpc_tpu_torch.tools.lidar_fleet tour [max_steps]
+    python -m nmpc_tpu_torch.tools.lidar_fleet fuzz [B] [steps]
 
 `tour` runs the lidar_v4 closed loop at B=1 instead (`tour`): steps to
-arrival, the smallest clearance, per-step latency.
+arrival, the smallest clearance, per-step latency. `fuzz` times the batched
+loop of the LiDAR fuzz (`fuzz_steps`: closed_loop_lidar_batched over the
+single-obstacle fields of seeds 0..B-1 at the fuzz's N=40 and GN config,
+tools/loop_suite.py) at B (default 10) and at B=1 (seed 0), in turns, a
+few steps each (default 10): ms a step p50/p99 of each and their ratio.
 
 It runs on the card and refuses to time without one; `fixture`, `scanned`
 (a scenario's ray states from one raycast, the hybrid route's family-I
@@ -96,39 +101,83 @@ def timed(base: OCP, B: int, iters: int, generator: torch.Generator,
 
 
 # the CL_PARITY fixture of the lidar_v4 tour (tools/gen_cl_parity.py:251):
-# one circle on the straight first leg, with the fleet recipe
+# one circle dead on the straight line from the start to the first goal
 TOUR_OBSTACLES = ((0.5, 0.25, 0.1),)
 
 
-def tour(device, max_steps: int = 300, cfg: gn.GNConfig = CFG) -> dict:
-    """The lidar_v4 closed loop at the published config (N=100, Nc=50) on
-    the CL_PARITY fixture, B=1 through mpc/lidar.closed_loop_lidar: its
-    histories, the steps to arrival (max_steps if it does not arrive), the
-    smallest realized clearance over them, and each step's ms on the host
-    clock (stamped after a device sync as each solve starts)."""
+def tour_cfg(sc) -> gn.GNConfig:
+    """The tour's engine config on scenario sc: the fleet recipe (CFG,
+    10x4, tol_con 1e-3; tools/gen_cl_parity.py:259) at sc's Nc."""
+    return dataclasses.replace(CFG, Nc=sc.Nc)
+
+
+def tour(device, max_steps: int = 300, sc=None, move=None, solve_fn=None) -> dict:
+    """The lidar_v4 closed loop of CL_PARITY (tools/gen_cl_parity.py:254-272):
+    mpc/lidar.closed_loop_lidar at B=1 on the TOUR_OBSTACLES world through
+    the condensed GN engine at tour_cfg(sc). sc is the scenario (default
+    lidar_v4 at its published N=100, Nc=50; CL_PARITY's first leg passes its
+    cut), move(x0) its start (default the scenario's). solve_fn(ocp, warm)
+    stands in for the engine (a caller's wrapper around gn.solve at
+    tour_cfg(sc)); by default each solve is stamped on the host clock,
+    after a device sync, as it starts. Returns the histories, the steps to
+    the last waypoint (max_steps if it does not arrive), reached, the
+    smallest realized clearance over those steps, the final pose error,
+    and with the default engine each step's ms."""
+    import functools
+
+    import numpy as np
+
     from nmpc_tpu_torch.mpc.lidar import closed_loop_lidar
     from nmpc_tpu_torch.scenarios import get
+    from nmpc_tpu_torch.tools.loop_suite import StepClock
 
-    sc = get("lidar_v4")
+    sc = sc or get("lidar_v4")
+    cfg = tour_cfg(sc)
+    ocp = sc.make(device=device)
+    if move is not None:
+        ocp = dataclasses.replace(ocp, x0=move(ocp.x0))
+    clock = None
+    if solve_fn is None:
+        clock = solve_fn = StepClock(functools.partial(gn.solve, cfg=cfg), device)
+    wps = sc.waypoint_array.to(device)
+    X, U, clr, gidx, done = closed_loop_lidar(
+        ocp, torch.tensor(TOUR_OBSTACLES, device=device), wps, cfg=cfg, max_steps=max_steps,
+        solve_fn=solve_fn)
+    fin = torch.nonzero(gidx >= wps.shape[0]).flatten()
+    steps = int(fin[0]) if fin.numel() else max_steps
+    out = dict(X=X, U=U, clearance=clr, goal_idx=gidx, reached=bool(done), steps=steps,
+               min_clearance=float(clr[:steps + 1].min()),
+               final_err=float(np.linalg.norm(X[steps].double().cpu().numpy()
+                                              - np.array(sc.waypoints[-1], float))))
+    if clock is not None:
+        clock.stop()
+        out["step_ms"] = [1e3 * t for t in clock.seconds()]
+    return out
+
+
+def fuzz_steps(device, B: int, steps: int) -> tuple:
+    """`steps` steps of the batched LiDAR fuzz loop over the single-obstacle
+    fields of seeds 0..B-1 (tools/loop_suite.py: N=40, LIDAR_CFG) on
+    `device`: (the loop's outputs, each step's ms on the host clock, stamped
+    after a device sync as each solve starts)."""
+    from nmpc_tpu_torch.mpc.lidar import closed_loop_lidar_batched
+    from nmpc_tpu_torch.scenarios import get
+    from nmpc_tpu_torch.tools import loop_suite as LS
+    from nmpc_tpu_torch.utils.timing import sync
+
+    obstacles, goals = LS.lidar_fields(tuple(range(B)), 1)
     stamps = []
 
     def solve_fn(o, w):
-        if o.device.type == "cuda":
-            torch.cuda.synchronize()
+        sync(o.device)
         stamps.append(time.perf_counter())
-        return gn.solve(o, w, cfg)
+        return gn.solve_batched(o, w, LS.LIDAR_CFG)
 
-    X, U, clr, gidx, done = closed_loop_lidar(
-        sc.make(device=device), torch.tensor(TOUR_OBSTACLES, device=device),
-        sc.waypoint_array.to(device), cfg=cfg, max_steps=max_steps, solve_fn=solve_fn)
-    if X.device.type == "cuda":
-        torch.cuda.synchronize()
+    out = closed_loop_lidar_batched(get("lidar_v4").make(N=LS.LIDAR_N, device=device), obstacles,
+                                    goals, LS.LIDAR_CFG, steps, solve_fn=solve_fn)
+    sync(torch.device(device))
     end = time.perf_counter()
-    fin = torch.nonzero(gidx >= sc.waypoint_array.shape[0])
-    steps = int(fin[0]) if len(fin) else max_steps
-    return dict(X=X, U=U, clearance=clr, goal_idx=gidx, reached=bool(done), steps=steps,
-                min_clearance=float(clr[:steps + 1].min()),
-                step_ms=[1e3 * (b - a) for a, b in zip(stamps, stamps[1:] + [end])])
+    return out, [1e3 * (b - a) for a, b in zip(stamps, stamps[1:] + [end])]
 
 
 def main(argv=None) -> int:
@@ -145,6 +194,24 @@ def main(argv=None) -> int:
               f"{torch.cuda.get_device_name(0)} [{card()}]: arrived {r['reached']} in "
               f"{r['steps']} steps, min clearance {r['min_clearance']:.4f}; {len(ms)} solves, "
               f"step p50 {np.percentile(ms, 50):.1f} ms, p99 {np.percentile(ms, 99):.1f} ms")
+        return 0
+    if argv[:1] == ["fuzz"]:
+        import numpy as np
+
+        require_card("lidar_fleet fuzz")
+        B = int(argv[1]) if len(argv) > 1 else 10
+        steps = int(argv[2]) if len(argv) > 2 else 10
+        dev = torch.device("cuda", 0)
+        ms = {B: [], 1: []}
+        for b in (B, 1, 1, B):       # in turns
+            ms[b].append(fuzz_steps(dev, b, steps)[1])
+        p50 = {b: float(np.percentile(np.concatenate(v), 50)) for b, v in ms.items()}
+        for b, v in ms.items():
+            v = np.concatenate(v)
+            print(f"LiDAR fuzz loop (N=40, Nc=20, GN 6x10) B={b}: {len(v)} steps, p50 "
+                  f"{np.percentile(v, 50):.1f} ms, p99 {np.percentile(v, 99):.1f} ms a step")
+        print(f"B={B} against B=1, p50: {p50[B] / p50[1]:.3f}x the time for {B}x the rows on "
+              f"{torch.cuda.get_device_name(0)} [{card()}]")
         return 0
     B = int(argv[0]) if len(argv) > 0 else 1024
     iters = int(argv[1]) if len(argv) > 1 else 4

@@ -22,6 +22,15 @@ seed's arithmetic. The noisy cases draw the plant's noise from a
 torch.Generator seeded per seed (the reference draws from JAX keys), so
 their noise is not the reference's: they are held to the same bounds.
 
+The family-I cases (the LiDAR fuzz, tests/test_lidar_fuzz.py, and
+CL_PARITY's LiDAR first leg, tests/test_cl_parity.py:240) run the
+condensed GN engine, which is plain PyTorch as the reference's is XLA
+only: no hand kernel runs there by design (`Case.kernels` False, Run
+engine "gn"). Each fuzz class is one `closed_loop_lidar_batched` over its
+seeds, the reference's `jax.vmap(closed_loop_lidar)`. Instead of the launch
+check these cases require every tensor of the loop's result on the run's
+device, and record their K1/K2 counts beside the reason (`GN_NO_KERNEL`).
+
     python -m nmpc_tpu_torch.tools.loop_suite [names...] [--device cuda|cpu] [--engine fused|ilqr]
         [--dx0-seed S]
 
@@ -46,10 +55,12 @@ import torch
 
 from nmpc_tpu_torch.mpc.driver import (MPCConfig, MPCResult, closed_loop, closed_loop_waypoints,
                                        rt_closed_loop, steady_warm)
+from nmpc_tpu_torch.mpc.lidar import closed_loop_lidar_batched
 from nmpc_tpu_torch.ocp.problem import make_ocp
 from nmpc_tpu_torch.ops import cuda_build
 from nmpc_tpu_torch.scenarios import get
 from nmpc_tpu_torch.sim.plant import PlantConfig
+from nmpc_tpu_torch.solver import gn
 from nmpc_tpu_torch.solver.alilqr import ALILQRConfig, solve
 from nmpc_tpu_torch.solver.alilqr_batched import solve_one
 from nmpc_tpu_torch.utils.timing import latency_stats, sync
@@ -82,6 +93,78 @@ FUZZ_SEEDS = {
     "noisy": {4: (30, 31, 32)},
     "decentralized": {2: (0, 1, 2), 4: (10, 11, 12), 6: (20, 21, 22)},
 }
+
+
+# the LiDAR fuzz (tests/test_lidar_fuzz.py:55-58,118-131): N, the GN
+# config, the step budget, the disabled obstacle slot, each class's seeds
+# and completion floor by its obstacle count
+LIDAR_N = 40
+LIDAR_CFG = gn.GNConfig(Nc=20, n_gn=10, n_outer=6, tol_con=1e-3)
+LIDAR_MAX_STEPS = 600
+LIDAR_FAR = np.array([50.0, 50.0, 0.01], np.float32)
+LIDAR_SEEDS = {1: tuple(range(10)), 2: (0, 1, 2, 3, 4, 5)}
+LIDAR_FLOORS = {1: 6, 2: 1}
+# why the family-I cases count no kernel launch
+GN_NO_KERNEL = ("none by design: the condensed GN engine (solver/gn.py) is plain PyTorch, as "
+                "the reference's nmpc_tpu/solver/gn.py reaches no pl.pallas_call")
+
+
+def lidar_field(seed: int, n_obs: int):
+    """A goal and n_obs circles near the straight path from the origin (a
+    copy of tests/test_lidar_fuzz.py:60-76 on numpy: the same float32
+    arrays): the goal 1.0-1.3 m away at a uniform bearing, each circle
+    (r in [0.08, 0.14]) at 35-65% of the line with a perpendicular offset
+    in +- 0.18; the unused of two slots is LIDAR_FAR. Returns (goal [3],
+    obstacles [2, 3])."""
+    rng = np.random.default_rng(seed)
+    bearing = rng.uniform(-np.pi, np.pi)
+    dist = rng.uniform(1.0, 1.3)
+    goal = np.array([dist * np.cos(bearing), dist * np.sin(bearing), 0.0])
+    perp = np.array([-goal[1], goal[0]]) / dist
+    obs = []
+    for frac in rng.uniform(0.35, 0.65, n_obs):
+        off = rng.uniform(-0.18, 0.18)
+        c = frac * goal[:2] + off * perp
+        obs.append([c[0], c[1], rng.uniform(0.08, 0.14)])
+    while len(obs) < 2:
+        obs.append(LIDAR_FAR)
+    return goal.astype(np.float32), np.asarray(obs, np.float32)
+
+
+def lidar_fields(seeds, n_obs: int):
+    """The fields of `seeds` stacked as closed_loop_lidar_batched takes
+    them: (obstacles [B, 2, 3], waypoints [B, 1, 3]) float32 numpy."""
+    geoms = [lidar_field(s, n_obs) for s in seeds]
+    return np.stack([g[1] for g in geoms]), np.stack([g[0][None] for g in geoms])
+
+
+def lidar_fuzz_check(seeds, X, U, clr, done, min_complete: int) -> tuple[list, list]:
+    """tests/test_lidar_fuzz.py:91-116 on a batched loop's histories (X [B,
+    S+1, 3], U [B, S, 2], clr [B, S], done [B]): at least min_complete
+    tours complete; every seed's true clearance >= 0.10, |v| <= 0.15 +
+    1e-3, |omega| <= 1.5 + 1e-3; an incomplete seed that moved <= 5 cm
+    over the last 100 steps (a stationary standoff) sits at clearance >=
+    0.15. Returns (each seed's outcome, the failures)."""
+    X, U, clr, done = (torch.as_tensor(a).detach().cpu() for a in (X, U, clr, done))
+    outs, fails = [], []
+    n_done = int(done.sum())
+    if n_done < min_complete:
+        fails.append(f"only {n_done}/{len(seeds)} tours completed (floor {min_complete})")
+    for i, s in enumerate(seeds):
+        mc = float(clr[i].min())
+        vmax, wmax = float(U[i, :, 0].abs().max()), float(U[i, :, 1].abs().max())
+        drift = float(torch.hypot(*(X[i, -1, :2] - X[i, -100, :2])))
+        out = {"seed": s, "done": bool(done[i]), "min_clearance": mc, "final_clearance":
+               float(clr[i, -1]), "drift_last_100": drift, "v_max": vmax, "omega_max": wmax}
+        outs.append(out)
+        if not mc >= 0.10:
+            fails.append(f"seed {s}: surface clearance {mc:.3f}")
+        if not (vmax <= 0.15 + 1e-3 and wmax <= 1.5 + 1e-3):
+            fails.append(f"seed {s}: control outside the box (|v| {vmax:.4f}, |w| {wmax:.4f})")
+        if not out["done"] and drift <= 0.05 and not out["final_clearance"] >= 0.15:
+            fails.append(f"seed {s}: stationary stall INSIDE the keep-out "
+                         f"({out['final_clearance']:.3f})")
+    return outs, fails
 
 
 def random_geometry(m: int, seed: int):
@@ -176,16 +259,16 @@ def k1_design(m: int) -> str:
     return "team" if m in cuda_build.TEAM_ROBOTS else "warp"
 
 
-def launches(device, m: int, tag, steps: int) -> tuple[dict, list]:
+def launches(device, m: int, tag, steps: int, check: bool = True) -> tuple[dict, list]:
     """K1 and K2 launches since the last reset (per step too), and on a CUDA
-    device the failures: K1 not launched, launched in another design than
-    m's, or K2 not launched."""
+    device with `check` the failures: K1 not launched, launched in another
+    design than m's, or K2 not launched."""
     c, d = cuda_build.launch_counts, cuda_build.k1_designs
     k1, k2 = c["inner_solve_fused"], c["al_update_lanes"]
     out = {"K1": k1, "K2": k2, "K1_team": d["team"], "K1_warp": d["warp"],
            "K1_per_step": k1 / max(steps, 1), "K2_per_step": k2 / max(steps, 1)}
     fails = []
-    if torch.device(device).type == "cuda":
+    if check and torch.device(device).type == "cuda":
         want = k1_design(m)
         if not (k1 > 0 and d[want] == k1):
             fails.append(f"{tag}: K1's {want} design did not run the loop ({out})")
@@ -197,7 +280,9 @@ def launches(device, m: int, tag, steps: int) -> tuple[dict, list]:
 @dataclasses.dataclass
 class Run:
     """One case's run: the device, the engine ("fused": solve_one; "ilqr":
-    the per-scenario solve, CPU only), each loop's record, the failures."""
+    the per-scenario solve, CPU only; "gn": the condensed GN engine that the
+    family-I cases call themselves, no hand kernel), each loop's record,
+    the failures."""
 
     device: torch.device
     engine: str = "fused"
@@ -228,12 +313,22 @@ class Run:
         if not ok:
             self.fails.append(msg)
 
-    def drive(self, tag, m: int, call, cfg: ALILQRConfig | None = None):
+    def on_device(self, tag, tensors) -> None:
+        """Require every tensor of a loop's result on the run's device (the
+        check that stands for the launch check where no hand kernel runs)."""
+        where = sorted({str(t.device) for t in tensors})
+        self.require(all(t.device.type == self.device.type for t in tensors),
+                     f"{tag}: the loop's result lives on {where}, not {self.device.type}")
+
+    def drive(self, tag, m: int, call, cfg: ALILQRConfig | None = None, solve_fn=None):
         """Run one loop, call(solve_fn), with the launch counts set to 0
-        just before and read just after; with cfg, solve_fn is the engine
-        at cfg with a StepClock around it (else call(None)). Returns
-        call's result; records the loop."""
-        clock = StepClock(self.solver(cfg), self.device) if cfg is not None else None
+        just before and read just after; solve_fn is the given one, or with
+        cfg the engine at cfg, with a StepClock around it (else
+        call(None)). On engine "gn" the loop runs no hand kernel by design:
+        its counts are recorded beside the reason (GN_NO_KERNEL) and not
+        checked. Returns call's result; records the loop."""
+        fn = solve_fn if solve_fn is not None else (self.solver(cfg) if cfg is not None else None)
+        clock = StepClock(fn, self.device) if fn is not None else None
         if self.device.type == "cuda" and self.engine == "fused":
             cuda_build.load(m)            # built before the clock starts, not in a step
         sync(self.device)
@@ -246,8 +341,10 @@ class Run:
             clock.stop()
             record.update(solves=len(clock.stamps), **latency_stats(clock.seconds()))
         steps = record.get("solves", 1)
-        counts, fails = launches(self.device, m, tag, steps)
+        counts, fails = launches(self.device, m, tag, steps, check=self.engine != "gn")
         record.update(counts)
+        if self.engine == "gn":
+            record["kernels"] = GN_NO_KERNEL
         self.fails.extend(fails)
         self.loops.append(record)
         return out
@@ -688,6 +785,57 @@ def _cl_parity_case(name, max_steps, escape):
     return case
 
 
+def _lidar_fuzz_case(n_obs: int):
+    """The LiDAR fuzz class with n_obs circles (tests/test_lidar_fuzz.py:
+    120, 128): lidar_v4 at N=40, LIDAR_CFG, 600 steps, one
+    closed_loop_lidar_batched over the class's seeds (B = 10 or 6) through
+    gn.solve_batched: lidar_fuzz_check with the class's completion floor."""
+    def case(run: Run):
+        seeds = LIDAR_SEEDS[n_obs]
+        ocp = get("lidar_v4").make(N=LIDAR_N, device=run.device)
+        ocp = dataclasses.replace(ocp, x0=run.moved(ocp.x0))
+        obstacles, goals = lidar_fields(seeds, n_obs)
+        tag = f"lidar fuzz n_obs={n_obs}, B={len(seeds)}"
+        res = run.drive(tag, 1, lambda fn: closed_loop_lidar_batched(
+            ocp, obstacles, goals, LIDAR_CFG, LIDAR_MAX_STEPS, solve_fn=fn),
+            solve_fn=lambda o, w: gn.solve_batched(o, w, LIDAR_CFG))
+        run.on_device(tag, res)
+        X, U, clr, gidx, done = res
+        outs, fails = lidar_fuzz_check(seeds, X, U, clr, done, LIDAR_FLOORS[n_obs])
+        # a row's arrival step: the first at which its goal index passes the tour
+        arrive = [int(torch.nonzero(g >= 1).flatten()[0]) if bool(d) else None
+                  for g, d in zip(gidx.cpu(), done.cpu())]
+        for o, a in zip(outs, arrive):
+            o["steps"] = a
+        run.loops[-1].update(completed=int(done.sum()), seeds=outs,
+                             min_dist=min(o["min_clearance"] for o in outs))
+        run.fails.extend(fails)
+    return case
+
+
+def cl_parity_lidar_first_leg(run: Run):
+    """CL_PARITY's LiDAR first leg (tests/test_cl_parity.py:240-261):
+    lidar_v4 at N=40, Nc=20, the first waypoint only, 400 steps; the
+    engine loop (cl_parity.lidar_engine_loop, the fleet GN recipe) on the
+    run's device, the f64 oracle replica (cl_parity.lidar_oracle_loop,
+    maxiter 100) on the CPU: both reach, both keep min clearance >= 0.15 -
+    1e-2, steps max <= 2 min + 20."""
+    from nmpc_tpu_torch.tools import cl_parity as CP
+
+    sc = get("lidar_v4")
+    sc = dataclasses.replace(sc, N=40, Nc=20, waypoints=(sc.waypoints[0],))
+    e = CP.lidar_engine_loop(sc, 400, run)
+    o = CP.lidar_oracle_loop(sc, 400, maxiter=100)
+    run.loops.append({"tag": "f64 oracle (CPU, maxiter 100)", "wall_s": o["wall_s"],
+                      **{k: o[k] for k in ("reached", "steps", "min_dist", "final_err")}})
+    for tag, r in (("engine", e), ("oracle", o)):
+        run.require(r["reached"], f"{tag}: not reached in {r['steps']} steps")
+        run.require(r["min_dist"] >= 0.15 - 1e-2, f"{tag}: min clearance {r['min_dist']:.4f} < "
+                                                  "0.15 - 1e-2")
+    hi, lo = max(e["steps"], o["steps"]), min(e["steps"], o["steps"])
+    run.require(hi <= 2 * lo + 20, f"steps {e['steps']} (engine) against {o['steps']} (oracle)")
+
+
 def f64_solve(run: Run):
     """The per-scenario solve in float64 on the CPU
     (tests/test_f64_validation.py:13-29): U is f64 and the violation is far
@@ -706,10 +854,13 @@ def f64_solve(run: Run):
 
 class Case(NamedTuple):
     """One reference test (`ref`, file:line) and the function that runs its
-    port (`run(Run)`; its docstring says what the case runs and asserts)."""
+    port (`run(Run)`; its docstring says what the case runs and asserts).
+    `kernels` False: the case runs the condensed GN engine (Run engine
+    "gn"), which launches no hand kernel."""
 
     ref: str
     run: Callable
+    kernels: bool = True
 
 
 CASES: dict[str, Case] = {
@@ -768,6 +919,12 @@ CASES: dict[str, Case] = {
                                           _cl_parity_case("six_robot_antipodal", 220, True)),
     "cl_parity_eight_robot_standoff": Case("tests/test_cl_parity.py:55",
                                            _cl_parity_case("eight_robot", 300, False)),
+    "lidar_fuzz_single_obstacle": Case("tests/test_lidar_fuzz.py:120", _lidar_fuzz_case(1),
+                                       kernels=False),
+    "lidar_fuzz_two_obstacle_gauntlet": Case("tests/test_lidar_fuzz.py:128", _lidar_fuzz_case(2),
+                                             kernels=False),
+    "cl_parity_lidar_first_leg": Case("tests/test_cl_parity.py:240", cl_parity_lidar_first_leg,
+                                      kernels=False),
     "f64_solve": Case("tests/test_f64_validation.py:35", f64_solve),
 }
 
@@ -777,8 +934,9 @@ CPU_CASES = ("f64_solve",)
 
 def run_case(name: str, device=None, engine: str = "fused", dx0_seed: int | None = None) -> dict:
     """Run CASES[name] on `device` (default the card; f64_solve always on
-    the CPU) through `engine` ("fused", or "ilqr" on the CPU), from starts
-    moved as `dx0_seed` says (Run.dx0_seed). Returns the
+    the CPU) through `engine` ("fused", or "ilqr" on the CPU; a case
+    without kernels runs "gn" whatever engine says), from starts moved as
+    `dx0_seed` says (Run.dx0_seed). Returns the
     outcome {"name", "ref", "ok", "loops", "wall_s"}; raises AssertionError
     with the failures and the outcome if a bound or a launch check fails."""
     from nmpc_tpu_torch.device import DEVICE
@@ -786,11 +944,11 @@ def run_case(name: str, device=None, engine: str = "fused", dx0_seed: int | None
     if engine not in ("fused", "ilqr"):
         raise ValueError(f"unknown engine {engine!r}")
     device = torch.device("cpu") if name in CPU_CASES else torch.device(device or DEVICE)
-    if engine == "ilqr" and device.type == "cuda":
+    case = CASES[name]
+    if engine == "ilqr" and device.type == "cuda" and case.kernels:
         raise ValueError("the per-scenario engine runs no hand kernel: on the card the loops "
                          "run engine 'fused'")
-    case = CASES[name]
-    run = Run(device, engine, dx0_seed=dx0_seed)
+    run = Run(device, engine if case.kernels else "gn", dx0_seed=dx0_seed)
     t0 = time.perf_counter()
     case.run(run)
     out = {"name": name, "ref": case.ref, "ok": not run.fails, "loops": run.loops,

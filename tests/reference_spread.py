@@ -22,7 +22,18 @@ how often the six_robot_impl loops miss their bounds from starts moved by
 `latency`: the latency chunk of tests/test_torch_latency.py, ~1 min;
 `obstacles`: only the port's megakernel route on chip_smoke.py path (b)'s
 problem, ~4 min; `gn`: only the cases of tests/test_torch_hybrid.py,
-tests/test_torch_gn.py and tests/test_torch_lidar.py, ~1 min.)
+tests/test_torch_gn.py and tests/test_torch_lidar.py, ~1 min;
+`lidar_fuzz`: the batched LiDAR fuzz loops (`jax.vmap(closed_loop_lidar)`
+over tests/test_lidar_fuzz.py's fields) at tests/test_torch_lidar.py's
+size and chip_smoke.py phase 37's, per row and step, ~2 min;
+`lidar_fuzz classes [DRAWS]`: the fuzz's two classes at their full size
+from the start and DRAWS starts moved by 1e-7, each seed's outcome, the
+bounds of tests/test_lidar_fuzz.py::_check, ~15 min a draw;
+`tally RUN.jsonl [K/N ...]`: the port's side of `rates`, read from a saved
+`python -m nmpc_tpu_torch.tools.loop_diff CASE --every 0 --spread S` run:
+per loop the starts that missed arrival, and with one K/N a loop (the
+reference's misses of N starts, from `rates`) the two-sided Fisher exact p
+of the port's count against it, instant.)
 """
 
 import dataclasses
@@ -400,7 +411,98 @@ def latency():
                   f" final state {dx:.3e}", flush=True)
 
 
+def lidar_fuzz(which="rows", draws=2):
+    """The reference's batched LiDAR fuzz loop from its start and from the
+    start pose moved by 1e-7 (the template's x0, shared by every row).
+    "rows": at tests/test_torch_lidar.py's size (single-obstacle seeds 0-2,
+    N=10, Nc=5, 15 steps) and at chip_smoke.py phase 37's (seeds 0-3, N=40,
+    Nc=20, 8 steps), the largest move of each row's X_hist at each step.
+    "classes": both classes of tests/test_lidar_fuzz.py at full size (N=40,
+    600 steps), each seed's completion, min clearance and failed bounds per
+    start."""
+    from nmpc_tpu.mpc.lidar import closed_loop_lidar
+    from nmpc_tpu.scenarios import get as get_sc
+    from nmpc_tpu.solver import gn as JG
+    from test_lidar_fuzz import CFG, MAX_STEPS, N, _random_field
+
+    def run_fn(o, n_obs, seeds, cfg, steps):
+        geoms = [_random_field(s, n_obs) for s in seeds]
+        goals = jnp.stack([jnp.asarray(g[0])[None] for g in geoms])
+        obst = jnp.stack([jnp.asarray(g[1]) for g in geoms])
+        return jax.jit(jax.vmap(lambda ob, wps: closed_loop_lidar(
+            o, sim_obstacles=ob, waypoints=wps, cfg=cfg, max_steps=steps)))(obst, goals)
+
+    if which == "rows":
+        for tag, n, seeds, cfg, steps in (
+                ("tier-1 (test_torch_lidar.py)", 10, (0, 1, 2),
+                 JG.GNConfig(Nc=5, n_gn=10, n_outer=6, tol_con=1e-3), 15),
+                ("chip_smoke phase 37", N, (0, 1, 2, 3), CFG, 8)):
+            o = get_sc("lidar_v4").make(N=n)
+            a = run_fn(o, 1, seeds, cfg, steps)
+            rows = np.zeros((len(seeds), steps + 1))
+            for b in (run_fn(ob, 1, seeds, cfg, steps) for ob in moved(o, draws)):
+                rows = np.maximum(rows, np.abs(np.asarray(a[0] - b[0])).max(axis=-1))
+            for i, s in enumerate(seeds):
+                print(f"lidar fuzz {tag} N={n} seed {s}: X_hist by step "
+                      + ", ".join(f"{r:.1e}" for r in rows[i]), flush=True)
+        return
+    for n_obs, seeds in ((1, tuple(range(10))), (2, (0, 1, 2, 3, 4, 5))):
+        o = get_sc("lidar_v4").make(N=N)
+        for tag, oo in [("start", o)] + [(f"moved {i}", b) for i, b in enumerate(moved(o, draws))]:
+            X, U, clr, gidx, done = (np.asarray(a) for a in run_fn(oo, n_obs, seeds, CFG,
+                                                                    MAX_STEPS))
+            outs = []
+            for i, s in enumerate(seeds):
+                bad = []
+                if clr[i].min() < 0.10:
+                    bad.append("clearance")
+                if np.abs(U[i, :, 0]).max() > 0.15 + 1e-3 or np.abs(U[i, :, 1]).max() > 1.5 + 1e-3:
+                    bad.append("box")
+                drift = float(np.hypot(*(X[i, -1, :2] - X[i, -100, :2])))
+                if not done[i] and drift <= 0.05 and clr[i, -1] < 0.15:
+                    bad.append("stall inside")
+                outs.append(f"{s}:{'done' if done[i] else 'open'} {clr[i].min():.3f}"
+                            + (f" FAILS {'+'.join(bad)}" if bad else ""))
+            print(f"lidar fuzz n_obs={n_obs} {tag}: {int(done.sum())}/{len(seeds)} complete; "
+                  + ", ".join(outs), flush=True)
+
+
+def tally(path, *versus):
+    """Per loop tag, in the loops' order, the starts run and the starts that
+    missed arrival over the JSON lines of a loop_diff run saved at `path`;
+    with versus K/N (one a loop) the two-sided Fisher exact p against it."""
+    import json
+
+    from scipy.stats import fisher_exact
+
+    tags, starts, missed = [], {}, {}
+    with open(path) as f:
+        for line in f:
+            if not line.startswith("{"):
+                continue
+            for rec in json.loads(line)["loops"]:
+                tag = str(rec["tag"])
+                if tag not in starts:
+                    tags.append(tag)
+                    starts[tag] = missed[tag] = 0
+                starts[tag] += 1
+                missed[tag] += not rec["reached"]
+    for i, tag in enumerate(tags):
+        row = f"{tag}: missed {missed[tag]} of {starts[tag]} starts"
+        if i < len(versus):
+            k, n = (int(v) for v in versus[i].split("/"))
+            _, p = fisher_exact([[missed[tag], starts[tag] - missed[tag]], [k, n - k]])
+            row += f", the reference {k} of {n}: Fisher exact p {p:.3f}"
+        print(row, flush=True)
+
+
 def main():
+    if sys.argv[1:2] == ["tally"]:
+        tally(*sys.argv[2:])
+        return
+    if sys.argv[1:2] == ["lidar_fuzz"]:
+        lidar_fuzz(*(sys.argv[2:3] or ["rows"]), *[int(a) for a in sys.argv[3:4]])
+        return
     if sys.argv[1:] == ["latency"]:
         latency()
         return

@@ -208,3 +208,102 @@ def test_gn_closed_loop_waypoints_matches_reference():
     np.testing.assert_allclose(tr.X_hist[:41].numpy(), np.asarray(jr.X_hist)[:41], atol=2e-3)
     assert int(tr.goal_idx_hist[-1]) >= 1 and int(jr.goal_idx_hist[-1]) >= 1
     assert int(tr.goal_idx_hist[-1]) == int(jr.goal_idx_hist[-1])
+
+
+# ---------------------------------------------------------------------------
+# per-scenario scans: p_obs on the batch axis
+# ---------------------------------------------------------------------------
+
+# three fields of the LiDAR fuzz (tests/test_lidar_fuzz.py::_random_field),
+# (seed, obstacles): two of the single-obstacle class, one of the gauntlet.
+# Under x0 moved by 1e-7 the reference's own vmapped solve moves U by 2.3e-6,
+# 4.9e-4 and 4.9e-5 on these three (the port parts by 1.9e-3, 1.0e-3 and
+# 1.3e-3 at most); on (7, 1) the reference alone moves U by 8.6e-3 and on
+# (0, 1) the two stop one GN iteration apart at equal cost (rel 2.4e-6), so
+# U is not resolved to 5e-3 there and those fields are held by cost only
+# (tests/test_torch_gn.py's single-problem cases)
+SCAN_FIELDS = ((2, 1), (5, 1), (5, 2))
+SCAN_CFG = dict(Nc=5, n_gn=10, n_outer=6, tol_con=1e-3)
+
+
+def scanned_batch(N=10):
+    """B=3 lidar_v4 problems at N: each its own field's goal and its ray
+    states and frozen points from one raycast of its field at the registry
+    start (x0, xref and p_obs on the batch axis): the reference's OCP."""
+    from nmpc_tpu.sim.lidar import raycast
+    from test_lidar_fuzz import _random_field
+
+    o = jax_get("lidar_v4").make(N=N)
+    angles = ray_angles(10, jnp.float32)
+    pose = o.x0[:3]
+    x0s, xrefs, pts = [], [], []
+    for seed, n_obs in SCAN_FIELDS:
+        goal, obs = _random_field(seed, n_obs)
+        scan = raycast(pose, jnp.asarray(obs), angles)
+        x0s.append(jnp.concatenate([pose, scan]))
+        xrefs.append(jnp.tile(jnp.concatenate([jnp.asarray(goal), jnp.zeros(10)])[None], (N, 1)))
+        pts.append(obstacle_points(pose, scan, angles))
+    return dataclasses.replace(o, x0=jnp.stack(x0s), xref=jnp.stack(xrefs), p_obs=jnp.stack(pts))
+
+
+def jax_vmap_solve(ob, cfg):
+    """The reference's jax.vmap of gn.solve with x0, xref and p_obs on the
+    batch axis (its solve_batched maps only x0, xref and mov_obs)."""
+    axes = dataclasses.replace(ob, **{f.name: (0 if f.name in ("x0", "xref", "p_obs") else None)
+                                      for f in dataclasses.fields(ob)
+                                      if f.name not in JP.OCP_META})
+    return jax.jit(jax.vmap(functools.partial(JG.solve, cfg=cfg), in_axes=(axes,)))(ob)
+
+
+@pytest.mark.parametrize("normal", ["scan", "dense"])
+def test_per_scenario_scans_match_reference_vmap(normal):
+    """solve_batched with p_obs [B, R, 2] against the reference's vmap of
+    gn.solve (tests/test_batched_solver.py:30-34's tolerances: cost rtol
+    1e-4, U atol 5e-3) and against the port's per-scenario solve of each
+    row (the batched-vs-element tolerances of test_batched_matches_per_
+    scenario_and_reference: cost rtol 1e-5, U atol 1e-4; for the dense form
+    U at 5e-3, as the reference: at B=3 its g = J'r rounds otherwise than at
+    B=1, H bit for bit, and the gauntlet row's U parts by 1.3e-3 at equal
+    cost); rows with different fields part."""
+    ob = scanned_batch()
+    assert ob.p_obs.shape == (3, 10, 2)
+    jr = jax_vmap_solve(ob, JG.GNConfig(**SCAN_CFG, normal=normal))
+    tb = port_ocp(ob)
+    assert TP.batch_fields(tb) == ("x0", "xref", "p_obs")
+    cfg = gn.GNConfig(**SCAN_CFG, normal=normal)
+    rb = gn.solve_batched(tb, cfg=cfg)
+    np.testing.assert_allclose(rb.cost.numpy(), np.asarray(jr.cost), rtol=1e-4)
+    np.testing.assert_allclose(rb.U.numpy(), np.asarray(jr.U), atol=5e-3)
+    np.testing.assert_array_equal(rb.converged.numpy(), np.asarray(jr.converged))
+    for i in range(3):
+        one = dataclasses.replace(tb, x0=tb.x0[i], xref=tb.xref[i], p_obs=tb.p_obs[i])
+        r = gn.solve(one, cfg=cfg)
+        torch.testing.assert_close(rb.cost[i], r.cost, rtol=1e-5, atol=0.0)
+        torch.testing.assert_close(rb.U[i], r.U, rtol=0.0, atol=1e-4 if normal == "scan" else 5e-3)
+    # each row solved with its own points: the rows' plans part by far more
+    # than the tolerances above
+    assert float((rb.U[0] - rb.U[1]).abs().max()) > 1e-2
+    assert float((rb.U[1] - rb.U[2]).abs().max()) > 1e-2
+
+
+@pytest.mark.parametrize("normal", ["scan", "dense"])
+def test_repeated_scan_solves_as_the_shared_one(normal):
+    """A per-scenario p_obs that repeats one scan gives bit for bit what the
+    shared p_obs [R, 2] gives (the per-point Jacobians and the broadcast
+    rollouts compute the same numbers), and so does the hybrid route's
+    stage Jacobians."""
+    from nmpc_tpu_torch.solver import alilqr as TS
+
+    ob = port_ocp(scanned_batch())
+    shared = dataclasses.replace(ob, p_obs=ob.p_obs[1])
+    rep = dataclasses.replace(ob, p_obs=ob.p_obs[1].expand(3, 10, 2).contiguous())
+    cfg = gn.GNConfig(**SCAN_CFG, normal=normal)
+    a, b = gn.solve_batched(shared, cfg=cfg), gn.solve_batched(rep, cfg=cfg)
+    for f in dataclasses.fields(a):
+        assert torch.equal(getattr(a, f.name), getattr(b, f.name)), f.name
+    U = 0.1 * torch.randn(3, ob.N, ob.nu, generator=torch.Generator().manual_seed(0))
+    X = TP.rollout(shared, U)
+    assert torch.equal(X, TP.rollout(rep, U))
+    Xs = X[:, :-1]
+    for ja, jb in zip(TS._stage_jacobians(shared, Xs, U), TS._stage_jacobians(rep, Xs, U)):
+        assert torch.equal(ja, jb)

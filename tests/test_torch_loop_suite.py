@@ -98,7 +98,141 @@ def test_suite_covers_its_geometry():
                                                  ("delay", "escape_fuzz_delay_m"),
                                                  ("decentralized", "decentralized_fuzz_m"))
              for m in LS.FUZZ_SEEDS[kind]} | {"escape_fuzz_noisy"}
+    # and the LiDAR fuzz's two classes (tests/test_lidar_fuzz.py:120, 128)
+    names |= {"lidar_fuzz_single_obstacle", "lidar_fuzz_two_obstacle_gauntlet"}
     assert names == {n for n in LS.CASES if "fuzz" in n}
+
+
+def _lidar_class(name):
+    """A LiDAR fuzz test's seeds and completion floor, read from its body
+    (tests/test_lidar_fuzz.py:118-131: `seeds = ...`, `min_complete=`)."""
+    import ast
+    import inspect
+
+    import test_lidar_fuzz
+
+    tree = ast.parse(inspect.getsource(getattr(test_lidar_fuzz, name)))
+    seeds = next(n.value for n in ast.walk(tree) if isinstance(n, ast.Assign)
+                 and getattr(n.targets[0], "id", None) == "seeds")
+    floor = next(k.value for n in ast.walk(tree) if isinstance(n, ast.Call)
+                 for k in n.keywords if k.arg == "min_complete")
+    n_obs = next(k.value for n in ast.walk(tree) if isinstance(n, ast.Call)
+                 for k in n.keywords if k.arg == "n_obs")
+    return (eval(ast.unparse(seeds), {"range": range, "tuple": tuple}),
+            ast.literal_eval(floor), ast.literal_eval(n_obs))
+
+
+@pytest.mark.parametrize("n_obs", [1, 2])
+def test_lidar_field_matches_reference(n_obs):
+    from test_lidar_fuzz import _random_field
+
+    for seed in LS.LIDAR_SEEDS[n_obs]:
+        for got, want in zip(LS.lidar_field(seed, n_obs), _random_field(seed, n_obs)):
+            assert got.dtype == want.dtype == np.float32
+            np.testing.assert_array_equal(got, want)
+    obs, goals = LS.lidar_fields(LS.LIDAR_SEEDS[n_obs], n_obs)
+    assert obs.shape == (len(LS.LIDAR_SEEDS[n_obs]), 2, 3) and goals.shape[1:] == (1, 3)
+
+
+def test_lidar_cases_carry_the_reference_constants():
+    """The LiDAR cases' N, GN config, step budget, far slot, seeds and
+    floors are tests/test_lidar_fuzz.py's, and the first leg's is
+    tests/test_cl_parity.py:240-261's."""
+    import inspect
+
+    import test_cl_parity
+    import test_lidar_fuzz
+
+    assert LS.LIDAR_N == test_lidar_fuzz.N and LS.LIDAR_MAX_STEPS == test_lidar_fuzz.MAX_STEPS
+    assert dataclasses.asdict(LS.LIDAR_CFG) == dataclasses.asdict(test_lidar_fuzz.CFG)
+    np.testing.assert_array_equal(LS.LIDAR_FAR, test_lidar_fuzz.FAR)
+    for name, case in (("test_lidar_fuzz_single_obstacle", "lidar_fuzz_single_obstacle"),
+                       ("test_lidar_fuzz_two_obstacle_gauntlet",
+                        "lidar_fuzz_two_obstacle_gauntlet")):
+        seeds, floor, n_obs = _lidar_class(name)
+        assert LS.LIDAR_SEEDS[n_obs] == seeds and LS.LIDAR_FLOORS[n_obs] == floor
+        with open(test_lidar_fuzz.__file__) as f:
+            line = next(i + 1 for i, text in enumerate(f) if text.startswith(f"def {name}("))
+        assert LS.CASES[case].ref == f"tests/test_lidar_fuzz.py:{line}"
+    src = inspect.getsource(test_cl_parity.test_cl_parity_lidar_first_leg)
+    assert "N=40, Nc=20, waypoints=(sc.waypoints[0],)" in src and "max_steps=400" in src
+    assert "maxiter=100" in src and "0.15 - 1e-2" in src and "2 * lo + 20" in src
+    mine = inspect.getsource(LS.cl_parity_lidar_first_leg)
+    assert "N=40, Nc=20, waypoints=(sc.waypoints[0],)" in mine and "400" in mine
+    assert "maxiter=100" in mine and "0.15 - 1e-2" in mine and "2 * lo + 20" in mine
+
+
+def _lidar_history(B=2, S=150, done=(True, False), clr=0.2, v=0.15, stall=False):
+    """Batched LiDAR histories: row 0 completes, row 1 is en route (or, with
+    stall, stationary for its last 100 steps at clearance `clr`)."""
+    X = torch.zeros(B, S + 1, 3)
+    X[:, :, 0] = torch.linspace(0, 1, S + 1)
+    if stall:
+        X[1, -120:, 0] = X[1, -120, 0]
+    U = torch.zeros(B, S, 2)
+    U[:, :, 0] = v
+    return X, U, torch.full((B, S), clr), torch.tensor(done)
+
+
+@pytest.mark.parametrize("doctor,match", [
+    (None, None),
+    (dict(done=(False, False)), "only 0/2"),
+    (dict(clr=0.099), "surface clearance"),
+    (dict(v=0.1511), "outside the box"),
+    (dict(stall=True, clr=0.149), "INSIDE the keep-out"),
+    (dict(stall=True, clr=0.15), None),
+])
+def test_lidar_fuzz_check_has_teeth(doctor, match):
+    """tests/test_lidar_fuzz.py::_check's bounds on the port: a healthy
+    history passes, a doctored one fails the bound it breaks, and a
+    stationary stall at the ray bound is a legitimate outcome."""
+    outs, fails = LS.lidar_fuzz_check((0, 1), *_lidar_history(**(doctor or {})), min_complete=1)
+    assert [o["seed"] for o in outs] == [0, 1]
+    if match is None:
+        assert fails == []
+    else:
+        assert fails and all(match in f for f in fails), fails
+
+
+def test_gn_cases_are_not_refused_and_record_no_kernel(monkeypatch, one_thread):
+    """The family-I cases (Case.kernels False) run engine "gn" whatever the
+    engine flag says (the card's refusal of the plain engine skips them;
+    a case with kernels is refused), and a LiDAR loop through
+    cl_parity.lidar_engine_loop records K1/K2 at 0 beside the reason, its
+    result on the run's device."""
+    assert [n for n, c in LS.CASES.items() if not c.kernels] == [
+        "lidar_fuzz_single_obstacle", "lidar_fuzz_two_obstacle_gauntlet",
+        "cl_parity_lidar_first_leg"]
+    seen = []
+    monkeypatch.setitem(LS.CASES, "lidar_fuzz_single_obstacle",
+                        LS.Case("tests/test_lidar_fuzz.py", lambda run: seen.append(run),
+                                kernels=False))
+    LS.run_case("lidar_fuzz_single_obstacle", "cuda", engine="ilqr")
+    assert seen[0].device.type == "cuda" and seen[0].engine == "gn"
+    with pytest.raises(ValueError, match="no hand kernel"):
+        LS.run_case("single_robot_reference_config", "cuda", engine="ilqr")
+    assert CP.row_engine("lidar_v4") == "gn" and CP.row_engine("eight_robot") == "fused"
+    sc = dataclasses.replace(CP.get("lidar_v4"), N=8, Nc=4)
+    run = LS.Run(torch.device("cpu"), "gn")
+    out = CP.lidar_engine_loop(sc, 3, run)
+    rec = out["record"]
+    assert rec["K1"] == rec["K2"] == 0 and rec["kernels"] == LS.GN_NO_KERNEL
+    assert rec["solves"] == 3 and out["X"].shape == (4, 3) and not run.fails
+    run.on_device("t", (torch.zeros(1),))
+    assert not run.fails
+    LS.Run(torch.device("cuda")).on_device("t", (torch.zeros(1),))
+    bad = LS.Run(torch.device("cuda"))
+    bad.on_device("t", (torch.zeros(1),))
+    assert "lives on ['cpu']" in bad.fails[0]
+
+
+def test_lidar_oracle_loop_reaches_the_oracle():
+    """The replica with its own solver (tests/oracle.py's f64 SLSQP) at a
+    tiny size: three steps toward the first goal."""
+    sc = dataclasses.replace(CP.get("lidar_v4"), N=6, Nc=3)
+    o = CP.lidar_oracle_loop(sc, 3, maxiter=20)
+    assert o["steps"] == 3 and o["X"].shape == (4, 3) and np.isfinite(o["X"]).all()
+    assert o["X"][-1, 0] > 0 and o["min_dist"] > 0.15
 
 
 def _history(m=2, steps=20, reached=True, dip=0.0, wind=0.0):
