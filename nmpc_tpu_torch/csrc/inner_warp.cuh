@@ -36,9 +36,17 @@
 //  * Lanes split the work: the expansion's box rows by row, its pair rows by
 //    pair, its dynamics by robot; Qux, Qxx and Quu by 3x3 block (r, q) of
 //    Vxx; the Cholesky by row within each column; the substitutions one lane
-//    per right-hand side (kff and the n columns of Qux: n + 1 <= 31 lanes),
-//    each in registers; the value update by column of Vxx, from the lane's
-//    own column of K.
+//    per right-hand side (kff and the n columns of Qux), each in registers;
+//    the value update by column of Vxx, from the lane's own column of K.
+//  * Where a block has more rows than the warp has lanes, lane i owns rows
+//    i, i + 32, ... (kOwn below): the state rows and the n + 1 right-hand
+//    sides at m >= 11 (n = 3m > 31), the pair rows at m >= 12. Lane i takes
+//    its first row where it always did and its further rows after it, in
+//    blocks that compile only where a lane owns them (`if constexpr`), so
+//    the code at m <= 10 is what it was (tools/sass_diff.py shows K1's and
+//    K2's machine code unchanged at m = 6 and 10). Controls (nu = 2m <= 32)
+//    and the Cholesky's rows stay one a lane, which caps the design at
+//    m = 16.
 //  * Rollouts: controls by row, the Euler step by robot, the merit by
 //    constraint row, summed over the warp once per rollout; the accepted
 //    step is the trajectory its candidate rollout stored (no third rollout).
@@ -100,6 +108,20 @@
 namespace nmpc {
 
 constexpr int kWarp = 32;
+
+// The rows of a block of M rows that one lane owns (lane i: rows i, i + 32,
+// ...): 1 up to M = 32.
+template <int M>
+constexpr int kOwn = (M + kWarp - 1) / kWarp;
+
+// The most robots K1 and K2 take: a control row and a row of Quu's factor a
+// lane (nu = 2m <= 32).
+constexpr int kMaxRobots = 16;
+
+// The pair rows a lane owns: two up to m = 11 (np <= 64), as the design had
+// them before lanes owned more rows.
+template <int NR>
+constexpr int kPairRows = NR * (NR - 1) / 2 <= 2 * kWarp ? 2 : kOwn<NR * (NR - 1) / 2>;
 
 #ifndef NMPC_HOST_WARP
 // the warp primitives; a host rehearsal of this header defines its own
@@ -312,7 +334,7 @@ struct Lanes {
   const float *x0, *xref, *lam, *Uin;
   float *kff, *Kfb;
   float *Xc, *Uc, *Xb, *Ub, *Xt, *Ut;
-  int pa[2], pb[2];  // robots of this lane's pair rows lane, lane + 32
+  int pa[kPairRows<NR>], pb[kPairRows<NR>];  // robots of this lane's pair rows lane, lane + 32, ...
   // the obstacle variant only: obstacle rows R, their counts, the obstacle
   // entries of the parameter block, the scenario's schedule [N, n_mov, 2]
   // and the slot's table of the rows' terms
@@ -361,10 +383,20 @@ NMPC_DEV float obstacle_row(const float* x, const float* obs, const float* mov_k
 // a stage ahead measured no faster, and costs registers): the nominal state
 // row xb and control row ub with its gains (kff, row i of K),
 // and for the merit the reference row and the duals of the lane's rows.
-template <int NR>
+template <int NR, bool kWide = (kOwn<3 * NR> > 1)>
 struct StageRows {
   float xb, ub, kf, xr, K[3 * NR];
   float lx[2], lu[2], lp[2];  // duals: x_lo, x_hi of row i; u_lo, u_hi; pairs i, i + 32
+};
+
+// ... and where a lane owns kX > 1 state rows (m >= 11), its further rows
+// i + 32 q (q = 1 .. kX - 1) in xb2, xr2, lx2, and pairs i, i + 32, ...
+template <int NR>
+struct StageRows<NR, true> {
+  static constexpr int kX = kOwn<3 * NR>;
+  float xb, ub, kf, xr, K[3 * NR];
+  float lx[2], lu[2], lp[kPairRows<NR>];
+  float xb2[kX - 1], xr2[kX - 1], lx2[kX - 1][2];
 };
 
 // Stage k's rows of the nominal (Xn, Un) and, with `feedback`, of the gains
@@ -383,6 +415,18 @@ NMPC_DEV void fetch_stage(const Lanes<NR>& w, const float* Xn, const float* Un, 
     f.lx[0] = lam[row_x + i];
     f.lx[1] = lam[row_x + n + i];
   }
+  if constexpr (kOwn<n> > 1) {
+#pragma unroll
+    for (int q = 1; q < kOwn<n>; ++q) {
+      const int r = i + q * kWarp;
+      if (r < n) {
+        f.xb2[q - 1] = feedback ? Xn[(size_t)k * n + r] : 0.f;
+        f.xr2[q - 1] = w.xref[(size_t)k * n + r];
+        f.lx2[q - 1][0] = lam[row_x + r];
+        f.lx2[q - 1][1] = lam[row_x + n + r];
+      }
+    }
+  }
   if (i < nu) {
     const size_t at = (size_t)k * nu + i;
     f.ub = Un[at];
@@ -397,15 +441,16 @@ NMPC_DEV void fetch_stage(const Lanes<NR>& w, const float* Xn, const float* Un, 
   }
   if (np > 0 && w.pairs) {
 #pragma unroll
-    for (int q = 0; q < 2; ++q)
+    for (int q = 0; q < kPairRows<NR>; ++q)
       if (i + q * kWarp < np) f.lp[q] = lam[i + q * kWarp];
   }
 }
 
 // This lane's share of stage k's AL merit at the slot's (x, u): tracking
 // terms into `track`, squared PHR activations into `pen`. Lane i takes state
-// row i (tracking, x_lo, x_hi), control row i (tracking, u_lo, u_hi) and the
-// pair rows i, i + 32 (and the obstacle rows i, i + 32, ...). At stage 0
+// row i (tracking, x_lo, x_hi; then its further state rows i + 32, ...),
+// control row i (tracking, u_lo, u_hi) and the pair rows i, i + 32, ... (and
+// the obstacle rows i, i + 32, ...), in that order. At stage 0
 // the state, pair and obstacle rows are masked by selection: a non-finite
 // activation there must not leak into the merit.
 template <int NR, bool kObs>
@@ -430,6 +475,23 @@ NMPC_DEV void merit_terms(const Lanes<NR>& w, int k, const StageRows<NR>& f, flo
     pen += lo * lo;
     pen += hi * hi;
   }
+  if constexpr (kOwn<n> > 1) {
+#pragma unroll
+    for (int q = 1; q < kOwn<n>; ++q) {
+      const int r = i + q * kWarp;
+      if (r < n) {
+        const float xi = x[r];
+        const float d = xi - f.xr2[q - 1];
+        track += sp[D::q + r] * d * d;
+        float lo = relu(al_step(f.lx2[q - 1][0], w.mu, xi - sp[D::x_lo + r]));
+        float hi = relu(al_step(f.lx2[q - 1][1], w.mu, sp[D::x_hi + r] - xi));
+        lo = gate ? lo : 0.f;
+        hi = gate ? hi : 0.f;
+        pen += lo * lo;
+        pen += hi * hi;
+      }
+    }
+  }
   if (i < nu) {
     const float ui = u[i];
     track += sp[D::r + i] * ui * ui;
@@ -440,7 +502,7 @@ NMPC_DEV void merit_terms(const Lanes<NR>& w, int k, const StageRows<NR>& f, flo
   }
   if (np > 0 && w.pairs) {
 #pragma unroll
-    for (int q = 0; q < 2; ++q) {
+    for (int q = 0; q < kPairRows<NR>; ++q) {
       if (i + q * kWarp >= np) break;
       const int a = w.pa[q], b = w.pb[q];
       const float c = pair_c(x[3 * a] - x[3 * b], x[3 * a + 1] - x[3 * b + 1], sp[D::dmin2]);
@@ -508,6 +570,11 @@ NMPC_DEV float rollout_warp(const Lanes<NR>& w, const float* Xn, const float* Un
   const int i = w.lane;
   StageRows<NR> cur{};
   if (i < n) x[i] = w.x0[i];
+  if constexpr (kOwn<n> > 1) {
+#pragma unroll
+    for (int q = 1; q < kOwn<n>; ++q)
+      if (i + q * kWarp < n) x[i + q * kWarp] = w.x0[i + q * kWarp];
+  }
   warp_sync();
   float track = 0.f, pen = 0.f;
   for (int k = 0; k < w.N; ++k) {
@@ -516,6 +583,17 @@ NMPC_DEV float rollout_warp(const Lanes<NR>& w, const float* Xn, const float* Un
       const float xi = x[i];
       dx[i] = xi - cur.xb;
       Xo[(size_t)k * n + i] = xi;
+    }
+    if constexpr (kOwn<n> > 1) {
+#pragma unroll
+      for (int q = 1; q < kOwn<n>; ++q) {
+        const int r = i + q * kWarp;
+        if (r < n) {
+          const float xi = x[r];
+          dx[r] = xi - cur.xb2[q - 1];
+          Xo[(size_t)k * n + r] = xi;
+        }
+      }
     }
     warp_sync();
     if (i < nu) {
@@ -565,6 +643,8 @@ NMPC_DEV float backward_sweep_warp(const Lanes<NR>& w, float reg) {
   static_assert(!kDense || kPhase == Phase::full, "K9's layouts run the full iteration");
   constexpr int C = kVec<nu>;                       // chunk of a factor row
   constexpr int kLam = (np + 2 * nu + 2 * n + kWarp - 1) / kWarp;  // duals per lane
+  constexpr int kX = kOwn<n>;         // state rows a lane owns
+  constexpr int kRhs = kOwn<n + 1>;   // right-hand sides a lane owns (kff, K's n columns)
   const float* sp = w.sp;
   float* s = w.s;
   const int lane = w.lane;
@@ -603,6 +683,11 @@ NMPC_DEV float backward_sweep_warp(const Lanes<NR>& w, float reg) {
   fetch(w.N - 1);
   for (int e = lane; e < n * n; e += kWarp) V[e] = 0.f;
   if (lane < n) s[S::Vx + lane] = 0.f;
+  if constexpr (kX > 1) {
+#pragma unroll
+    for (int q = 1; q < kX; ++q)
+      if (lane + q * kWarp < n) s[S::Vx + lane + q * kWarp] = 0.f;
+  }
   float dV1 = 0.f;  // lane 0's
   NMPC_PROBE_START(w.clk);
   for (int k = w.N - 1; k >= 0; --k) {
@@ -611,6 +696,16 @@ NMPC_DEV float backward_sweep_warp(const Lanes<NR>& w, float reg) {
     if (lane < n) {
       s[S::x + lane] = fx;
       s[S::xr + lane] = fxr;
+    }
+    if constexpr (kX > 1) {   // a lane's further rows, read when the stage starts
+#pragma unroll
+      for (int q = 1; q < kX; ++q) {
+        const int r = lane + q * kWarp;
+        if (r < n) {
+          s[S::x + r] = w.Xc[(size_t)k * n + r];
+          s[S::xr + r] = w.xref[(size_t)k * n + r];
+        }
+      }
     }
     if (lane < nu) s[S::u + lane] = fu;
     if constexpr (kObs) {
@@ -625,7 +720,8 @@ NMPC_DEV float backward_sweep_warp(const Lanes<NR>& w, float reg) {
     warp_sync();
 
     NMPC_PROBE(0);
-    // ---- expansion, box rows: lane i takes state row i and control row i
+    // ---- expansion, box rows: lane i takes state row i (and its further
+    // rows i + 32, ... where it owns them) and control row i
     // (Phase::no_expcon: the tracking terms and 2Q, 2R alone)
     if (lane < n) {
       const int i = lane;
@@ -641,6 +737,22 @@ NMPC_DEV float backward_sweep_warp(const Lanes<NR>& w, float reg) {
       } else {
         s[S::lx + i] = g;
         s[S::lxx + i] = 2.f * sp[D::q + i];
+      }
+    }
+    if constexpr (kX > 1) {
+      static_assert(kCon, "the tools' variants take m <= 10");
+#pragma unroll
+      for (int q = 1; q < kX; ++q) {
+        const int i = lane + q * kWarp;
+        if (i >= n) break;
+        const float xi = x[i];
+        const float g = 2.f * sp[D::q + i] * (xi - s[S::xr + i]);
+        float alo = relu(al_step(lam[row_x + i], mu, xi - sp[D::x_lo + i]));
+        float ahi = relu(al_step(lam[row_x + n + i], mu, sp[D::x_hi + i] - xi));
+        alo = gate ? alo : 0.f;
+        ahi = gate ? ahi : 0.f;
+        s[S::lx + i] = g - alo + ahi;
+        s[S::lxx + i] = 2.f * sp[D::q + i] + mu * ((alo > 0.f ? 1.f : 0.f) + (ahi > 0.f ? 1.f : 0.f));
       }
     }
     if (lane < nu) {
@@ -660,13 +772,13 @@ NMPC_DEV float backward_sweep_warp(const Lanes<NR>& w, float reg) {
     warp_sync();
 
     NMPC_PROBE(1);
-    // ---- expansion, pair rows: pair p (robots a < b) on lane p (and p + 32):
-    // its Gauss-Newton weights and gradient terms into both entries (a, b)
-    // and (b, a) of the slot's pair table (Phase::no_expcon: none, the table
-    // stays 0)
+    // ---- expansion, pair rows: pair p (robots a < b) on lane p (and p + 32,
+    // ...): its Gauss-Newton weights and gradient terms into both entries
+    // (a, b) and (b, a) of the slot's pair table (Phase::no_expcon: none, the
+    // table stays 0)
     if (kCon && np > 0 && pairs) {
 #pragma unroll
-      for (int q = 0; q < 2; ++q) {
+      for (int q = 0; q < kPairRows<NR>; ++q) {
         const int p = lane + q * kWarp;
         if (p >= np) break;
         const int a = w.pa[q], b = w.pb[q];
@@ -1042,6 +1154,57 @@ NMPC_DEV float backward_sweep_warp(const Lanes<NR>& w, float reg) {
       for (int i = 1; i < nu; ++i) acc = acc + q[i] * y[i];
       if (lane <= n) dst[a * step] = src[a * step] + acc;
     }
+    // ---- a lane's further right-hand sides lane + 32 q (q >= 1, m >= 11):
+    // the substitutions, gains and value update above, column rhs - 1 of K
+    if constexpr (kRhs > 1) {
+      static_assert(kPhase == Phase::full, "the tools' variants take m <= 10");
+#pragma unroll
+      for (int h = 1; h < kRhs; ++h) {
+        const int rhs = lane + h * kWarp;
+        if (rhs > n) break;
+        float iv[nu], y2[nu];
+        load_vec<nu>(inv, iv);
+        load_vec<nu>(QuxT + (rhs - 1) * nu, y2);
+#pragma unroll
+        for (int i = 0; i < nu; ++i) {
+          float acc = y2[i];
+#pragma unroll
+          for (int k0 = 0; k0 < i; k0 += C) {
+            float c[C];
+            load_chunk<C>(Lm + i * nu + k0, c);
+#pragma unroll
+            for (int t = 0; t < C; ++t)
+              if (k0 + t < i) acc = acc - c[t] * y2[k0 + t];
+          }
+          y2[i] = acc * iv[i];
+        }
+#pragma unroll
+        for (int i = nu - 1; i >= 0; --i) {
+          float acc = y2[i];
+#pragma unroll
+          for (int k0 = (i + 1) / C * C; k0 < nu; k0 += C) {
+            float c[C];
+            load_chunk<C>(LT + i * nu + k0, c);
+#pragma unroll
+            for (int t = 0; t < C; ++t)
+              if (k0 + t > i) acc = acc - c[t] * y2[k0 + t];
+          }
+          y2[i] = acc * iv[i];
+        }
+#pragma unroll
+        for (int i = 0; i < nu; ++i) y2[i] = -y2[i];
+        store_vec<nu>(w.Kfb + ((size_t)k * n + rhs - 1) * nu, y2);
+#pragma unroll 1
+        for (int a = 0; a < n; ++a) {
+          float q[nu];
+          load_vec<nu>(QuxT + a * nu, q);
+          float acc = q[0] * y2[0];
+#pragma unroll
+          for (int i = 1; i < nu; ++i) acc = acc + q[i] * y2[i];
+          Q[a * n + rhs - 1] = Q[a * n + rhs - 1] + acc;
+        }
+      }
+    }
     NMPC_PROBE(7);
     warp_sync();
     float* t = V;
@@ -1080,6 +1243,7 @@ NMPC_DEV void inner_solve_warp(const WarpArgs& a, const float* sp, float* slot, 
                                int lane) {
   static_assert(!kObs || (kPhase == Phase::full && kEarlyExit && !kDense),
                 "the variants are pair-only");
+  static_assert(NR <= kMaxRobots, "a control row and a factor row a lane: m <= 16");
   using D = Dims<NR>;
   constexpr int n = D::n, nu = D::nu;
   const size_t N = a.N;
@@ -1115,7 +1279,7 @@ NMPC_DEV void inner_solve_warp(const WarpArgs& a, const float* sp, float* slot, 
   w.kff = a.kff + (size_t)b * N * nu;
   w.Kfb = a.Kfb + (size_t)b * N * n * nu;
 #pragma unroll
-  for (int q = 0; q < 2; ++q) {
+  for (int q = 0; q < kPairRows<NR>; ++q) {
     w.pa[q] = w.pb[q] = 0;
     if (lane + q * kWarp < D::np) pair_robots<NR>(lane + q * kWarp, w.pa[q], w.pb[q]);
   }

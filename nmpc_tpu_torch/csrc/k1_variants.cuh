@@ -27,13 +27,16 @@ constexpr int kMaxWarps = 4;   // K1: scenarios (warps) per block, at most
 // registers must allow (65,536 / (128 x this) registers a thread): more
 // resident warps hide more of a scenario's serial latency, until the spills
 // cost more. Picked per m by `python -m nmpc_tpu_torch.tools.k1_launch`
-// (PERF.md); -DNMPC_K1_MIN_BLOCKS=<c> overrides it for that sweep only.
+// (PERF.md: the fastest at K1_WARPS = 2 warps a block; where two caps tie,
+// as at m = 9 and 11, the one that leaves more warps resident);
+// -DNMPC_K1_MIN_BLOCKS=<c> overrides it for that sweep only.
 #ifdef NMPC_K1_MIN_BLOCKS
 template <int NR>
 constexpr int kK1MinBlocks = NMPC_K1_MIN_BLOCKS;
 #else
 template <int NR>
-constexpr int kK1MinBlocks = NR <= 2 ? 8 : NR == 3 ? 6 : NR <= 6 ? 5 : NR == 8 ? 4 : 1;
+constexpr int kK1MinBlocks =
+    NR <= 2 ? 8 : NR == 3 ? 6 : NR <= 7 ? 5 : NR <= 9 || NR == 11 || NR == 13 ? 4 : 1;
 #endif
 
 }  // namespace nmpc

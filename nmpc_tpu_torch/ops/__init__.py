@@ -4,4 +4,5 @@ from nmpc_tpu_torch.ops.megasolve import (  # noqa: F401
     cuda_unsupported,
     inner_solve_fused,
     inner_solve_plain,
+    mega_fits,
 )

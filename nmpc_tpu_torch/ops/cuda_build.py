@@ -4,10 +4,12 @@ shares: the launch counters, argument checks, pointers and the lane-major
 layout.
 
 The solver's kernels: one library per robot count m, `csrc/megasolve.cu`
-(K1, K2; device code in `csrc/inner_warp.cuh`) and `csrc/staged.cu`
-(K3-K6; K3's and K5's device code in `csrc/staged_tiles.cuh`), each compiled
-by its own nvcc process with -DNMPC_NR=m (staged.cu also with K3's and K5's
-launch geometry from ops/staged_tiles.py), linked together (`load`). K3's
+(K1, K2; device code in `csrc/inner_warp.cuh`) and, at m <= STAGED_MAX_ROBOTS,
+`csrc/staged.cu` (K3-K6; K3's and K5's device code in
+`csrc/staged_tiles.cuh`), each compiled by its own nvcc process with
+-DNMPC_NR=m (staged.cu also with K3's and K5's launch geometry from
+ops/staged_tiles.py), linked together (`load`, any 1 <= m <= MAX_ROBOTS;
+`load_all` builds the registry's ROBOT_COUNTS ahead). K3's
 and K5's first designs (`csrc/staged_first.cu`, the A/B baselines of
 tools/staged_launch.py) are a library of their own per m (`load_first`),
 and so is staged.cu at another geometry (`load_staged_variant`, the sweep's).
@@ -59,8 +61,17 @@ TOOLS_PARTS = ("K7", "K8 full, early exit", "K8 full", "K8 inv_solve", "K8 no_ls
                "K8 warp no_solve", "K8 warp no_expcon", "K8 warp sweep_only", "K9 warp dense")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-# robot counts of the scenario registry; one library each
+# robot counts of the scenario registry: the solver libraries load_all
+# builds ahead (any other m up to MAX_ROBOTS is built at its first use)
 ROBOT_COUNTS = (1, 2, 3, 4, 5, 6, 8, 10)
+# the most robots K1 and K2 take (csrc/inner_warp.cuh: a control row and a
+# row of Quu's factor a lane, nu = 2m <= 32; lanes own several state rows and
+# right-hand sides past m = 10)
+MAX_ROBOTS = 16
+# the most robots K3-K6 take (K3's stage tile up to (30, 20),
+# staged_tiles.K3_MAX_N); the solver library of a larger m holds K1 and K2
+# alone
+STAGED_MAX_ROBOTS = 10
 # robot count of the main path (six_robot_antipodal): the tools library
 # that load_all builds
 BENCH_ROBOTS = 6
@@ -79,9 +90,8 @@ launch_counts = {"inner_solve_fused": 0, "al_update_lanes": 0,
 # launch_counts.
 k1_designs = {"team": 0, "warp": 0}
 
-_locks = {(kind, m): threading.Lock() for kind in ("solver", "tools", "first")
-          for m in ROBOT_COUNTS}
-_locks_guard = threading.Lock()   # creates the lock of a new K3 shape
+_locks: dict[tuple, threading.Lock] = {}
+_locks_guard = threading.Lock()   # creates the lock of a new library
 _libs: dict[tuple[str, int], ctypes.CDLL] = {}
 # per m: {"path", "seconds" (0.0 when reused), "ptxas" (compiler report)}
 build_info: dict[int, dict] = {}
@@ -189,10 +199,6 @@ def _bind_staged(lib: ctypes.CDLL) -> ctypes.CDLL:
     return lib
 
 
-def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
-    return _bind_staged(_bind_mega(lib))
-
-
 def _bind_first(lib: ctypes.CDLL) -> ctypes.CDLL:
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     _bind_errors(lib)
@@ -270,6 +276,18 @@ def _build(stem: str, jobs: list, what: str) -> tuple:
     return path, seconds, [log.read_text() if log.exists() else "" for log in logs]
 
 
+def _lock(kind: str, key) -> threading.Lock:
+    """The lock of library (kind, key), made at its first use."""
+    with _locks_guard:
+        return _locks.setdefault((kind, key), threading.Lock())
+
+
+def _require_robots(m: int, top: int, what: str) -> None:
+    """Raise NotImplementedError unless 1 <= m <= top."""
+    if not 1 <= m <= top:
+        raise NotImplementedError(f"{what} are built for 1 <= m <= {top} robots, not m={m}")
+
+
 def _check_robots(lib: ctypes.CDLL, path, m: int) -> None:
     if lib.nmpc_robots() != m:
         raise RuntimeError(f"{path} was built for m={lib.nmpc_robots()}, not {m}")
@@ -328,25 +346,28 @@ def _check_geometry(lib: ctypes.CDLL, path, m: int, k3, k5, k4, k6) -> None:
 
 
 def load(m: int) -> ctypes.CDLL:
-    """The solver's kernel library (K1-K6) for m robots, built first if
-    needed."""
-    if m not in ROBOT_COUNTS:
-        raise NotImplementedError(
-            f"CUDA kernels are instantiated for m in {ROBOT_COUNTS}, not m={m}")
-    with _locks["solver", m]:
+    """The solver's kernel library for m robots, built first if needed: K1
+    and K2 at any 1 <= m <= MAX_ROBOTS, with K3-K6 at m <= STAGED_MAX_ROBOTS."""
+    _require_robots(m, MAX_ROBOTS, "K1 and K2")
+    with _lock("solver", m):
         if ("solver", m) in _libs:
             return _libs["solver", m]
-        geom = staged_tiles.nvcc_flags(m)
-        path, seconds, texts = _build(
-            f"libnmpc_m{m}_{_key(SOURCES, m, tuple(geom))}",
-            [("megasolve.cu", [f"-DNMPC_NR={m}"]), ("staged.cu", [f"-DNMPC_NR={m}", *geom])],
-            f"m={m}")
-        lib = _bind(ctypes.CDLL(str(path)))
+        staged = m <= STAGED_MAX_ROBOTS
+        geom = staged_tiles.nvcc_flags(m) if staged else []
+        jobs = [("megasolve.cu", [f"-DNMPC_NR={m}"])]
+        if staged:
+            jobs.append(("staged.cu", [f"-DNMPC_NR={m}", *geom]))
+        path, seconds, texts = _build(f"libnmpc_m{m}_{_key(SOURCES, m, tuple(geom))}", jobs,
+                                      f"m={m}")
+        lib = _bind_mega(ctypes.CDLL(str(path)))
         if m in TEAM_ROBOTS:
             _bind_team(lib)
         _check_robots(lib, path, m)
-        _check_geometry(lib, path, m, staged_tiles.k3_geometry(m), staged_tiles.K5_GEOMETRY[m],
-                        staged_tiles.K4_GEOMETRY[m], staged_tiles.K6_GEOMETRY[m])
+        if staged:
+            _bind_staged(lib)
+            _check_geometry(lib, path, m, staged_tiles.k3_geometry(m),
+                            staged_tiles.K5_GEOMETRY[m], staged_tiles.K4_GEOMETRY[m],
+                            staged_tiles.K6_GEOMETRY[m])
         build_info[m] = {"path": str(path), "seconds": seconds, "ptxas": "".join(texts)}
         _libs["solver", m] = lib
         return lib
@@ -359,9 +380,7 @@ def load_k3_shape(n: int, nu: int) -> ctypes.CDLL:
     n <= staged_tiles.K3_MAX_N and nu <= K3_MAX_NU; others raise."""
     shape = (n, nu)
     g = staged_tiles.k3_geometry(shape)   # raises outside the range
-    with _locks_guard:
-        lock = _locks.setdefault(("k3", shape), threading.Lock())
-    with lock:
+    with _lock("k3", shape):
         if ("k3", shape) in _libs:
             return _libs["k3", shape]
         flags = staged_tiles.k3_shape_flags(shape)
@@ -395,7 +414,7 @@ def load_k3(n: int, nu: int) -> ctypes.CDLL:
     """The library whose nmpc_riccati takes stage blocks of (n, nu): the
     solver library of m robots at (3m, 2m), else K3's at that shape."""
     m = n // 3
-    if n == 3 * m and nu == 2 * m and m in ROBOT_COUNTS:
+    if n == 3 * m and nu == 2 * m and 1 <= m <= STAGED_MAX_ROBOTS:
         return load(m)
     return load_k3_shape(n, nu)
 
@@ -403,11 +422,11 @@ def load_k3(n: int, nu: int) -> ctypes.CDLL:
 def load_tools(m: int) -> ctypes.CDLL:
     """The roofline tools' kernel library (K7-K9) for m robots, built first
     if needed: the parts of csrc/tools.cu (TOOLS_PARTS), one nvcc process
-    each."""
+    each. m in ROBOT_COUNTS (the tools ablate the registry's fleets)."""
     if m not in ROBOT_COUNTS:
         raise NotImplementedError(
-            f"CUDA kernels are instantiated for m in {ROBOT_COUNTS}, not m={m}")
-    with _locks["tools", m]:
+            f"the roofline tools' kernels are built for m in {ROBOT_COUNTS}, not m={m}")
+    with _lock("tools", m):
         if ("tools", m) in _libs:
             return _libs["tools", m]
         path, seconds, texts = _build(
@@ -424,11 +443,9 @@ def load_tools(m: int) -> ctypes.CDLL:
 
 def load_first(m: int) -> ctypes.CDLL:
     """The library of the staged kernels' first designs (csrc/staged_first.cu)
-    for m robots, built first if needed."""
-    if m not in ROBOT_COUNTS:
-        raise NotImplementedError(
-            f"CUDA kernels are instantiated for m in {ROBOT_COUNTS}, not m={m}")
-    with _locks["first", m]:
+    for m robots (m <= STAGED_MAX_ROBOTS), built first if needed."""
+    _require_robots(m, STAGED_MAX_ROBOTS, "K3-K6")
+    with _lock("first", m):
         if ("first", m) in _libs:
             return _libs["first", m]
         path, seconds, texts = _build(f"libnmpc_first_m{m}_{_key(FIRST_SOURCES, m)}",
@@ -444,9 +461,7 @@ def load_staged_variant(m: int, k3=None, k5=None, k4=None, k6=None) -> tuple:
     """staged.cu alone for m robots at K3-K6 geometries k3, k5, k4, k6
     (staged_tiles.K3Geometry, ...; the solver's pick where None; the sweep of
     tools/staged_launch.py). Returns (library, compiler report)."""
-    if m not in ROBOT_COUNTS:
-        raise NotImplementedError(
-            f"CUDA kernels are instantiated for m in {ROBOT_COUNTS}, not m={m}")
+    _require_robots(m, STAGED_MAX_ROBOTS, "K3-K6")
     k3 = staged_tiles.k3_geometry(m) if k3 is None else k3
     k5 = staged_tiles.K5_GEOMETRY[m] if k5 is None else k5
     k4 = staged_tiles.K4_GEOMETRY[m] if k4 is None else k4
@@ -476,9 +491,7 @@ def load_k1_variant(m: int, min_blocks: int | None = None, probes: bool = False,
     settings `team` ({"T": 4, "D": 2, ...}, keys of TEAM_SETTINGS; m in
     TEAM_ROBOTS) and/or with K1's phase probes (-DNMPC_K1_PROBES, which adds
     `nmpc_phases`; tools/k1_phases.py). Returns (library, compiler report)."""
-    if m not in ROBOT_COUNTS:
-        raise NotImplementedError(
-            f"CUDA kernels are instantiated for m in {ROBOT_COUNTS}, not m={m}")
+    _require_robots(m, MAX_ROBOTS, "K1 and K2")
     flags = [f"-DNMPC_NR={m}"]
     tag = ""
     if min_blocks is not None:

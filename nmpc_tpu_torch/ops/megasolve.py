@@ -37,12 +37,17 @@ is launched by `inner_launch` for the roofline tools only (their
 default variants of K8 and K9 are the warp design's own, launched by
 `warp_launch` with an `entry` of the tools library.
 
-Admission (replaces the TPU's VMEM estimate `mega_fits`): the CUDA kernels
-are built for m in cuda_build.ROBOT_COUNTS robots, any N, pair,
-static-obstacle, moving-obstacle and box rows, Euler dynamics, any number of
-alphas (K1 keeps its parameter block after the warps' slots in dynamic
-shared memory) while a block's shared memory stays within the H100's 227 KB;
-see `cuda_unsupported` and `warp_launch`.
+Admission: the CUDA kernels take any 1 <= m <= cuda_build.MAX_ROBOTS (16;
+lanes own several state rows and right-hand sides past m = 10; a library
+per m, built at its first use), any N, pair, static-obstacle,
+moving-obstacle and box rows, Euler dynamics, any number of alphas (K1 keeps
+its parameter block after the warps' slots in dynamic shared memory) while a
+block's shared memory stays within the H100's 227 KB; see `cuda_unsupported`
+and `warp_launch`. The route's admission is `mega_fits`, the card's
+counterpart of the reference's VMEM estimate of the same name: K1's block
+computed from the shapes alone (`k1_block_bytes`, a mirror of the
+library's slot sizes), so that the route is the same on the CPU and the
+card.
 
 Rounding of the static-obstacle rows: both kernels and their plain versions
 take c = sqrt(max(d2, 1e-12)) - keepout with keepout = r_obs + r_rob +
@@ -61,7 +66,7 @@ from nmpc_tpu_torch.ocp import problem as P
 from nmpc_tpu_torch.ocp.problem import OCP
 from nmpc_tpu_torch.ops import cuda_build, rollout
 from nmpc_tpu_torch.ops.cuda_build import check_arg, lane, ptr, std
-from nmpc_tpu_torch.ops.staged_tiles import SMEM_BLOCK_MAX
+from nmpc_tpu_torch.ops.staged_tiles import SMEM_BLOCK_MAX, al4
 from nmpc_tpu_torch.solver.alilqr import ALILQRConfig, _backward_pass
 
 # K1's scenarios (warps) per block, picked with the register cap by
@@ -74,15 +79,17 @@ K1_TEAM_WARPS = 2
 
 
 def cuda_unsupported(ocp: OCP, cfg: ALILQRConfig | None = None) -> str | None:
-    """Why K1 and K2 cannot take this problem/config, or None: the staged
-    kernels' rule (rollout.unsupported: LiDAR rays, dynamics other than the
-    Euler unicycle, m outside cuda_build.ROBOT_COUNTS), and of cfg's
-    settings sweep='scan' (K1 runs its own sequential sweep) and an unknown
-    line search. cfg.compact is the route's (a permutation of the batch
-    between outer steps, solver/alilqr_batched._solve_mega), not K1's."""
-    why = rollout.unsupported(ocp)
-    if why is not None:
-        return why
+    """Why K1 and K2 cannot take this problem/config, or None: outside the
+    fused kernels' class (rollout.supports: LiDAR rays, dynamics other than
+    the Euler unicycle), m past cuda_build.MAX_ROBOTS, and of cfg's settings
+    sweep='scan' (K1 runs its own sequential sweep) and an unknown line
+    search. cfg.compact is the route's (a permutation of the batch between
+    outer steps, solver/alilqr_batched._solve_mega), not K1's."""
+    if not rollout.supports(ocp):
+        return rollout.unsupported(ocp)
+    if not 1 <= ocp.m <= cuda_build.MAX_ROBOTS:
+        return (f"m={ocp.m} robots (K1 and K2 are built for m <= {cuda_build.MAX_ROBOTS}: a "
+                f"control row and a row of Quu's factor a lane)")
     if cfg is not None:
         if cfg.sweep == "scan":
             return "sweep='scan'"
@@ -95,6 +102,68 @@ def _require_cuda(ocp: OCP, cfg: ALILQRConfig | None, what: str) -> None:
     why = cuda_unsupported(ocp, cfg)
     if why is not None:
         raise NotImplementedError(f"{what}: the CUDA kernel does not cover {why}")
+
+
+def slot_bytes(m: int, rows: int = 0) -> int:
+    """Shared bytes of K1's per-warp slot at m robots and `rows` obstacle
+    rows, from the shapes alone: a mirror of csrc/inner_warp.cuh::
+    Slot<m>::floats_obs (the library's nmpc_k1_slot_bytes), every block on a
+    16-byte boundary."""
+    n, nu = 3 * m, 2 * m
+    at = 0
+    # V0, V1, QuxT, L, LT, inv, Vx, Qx, Qu, lx, lu, lxx, luu, E, Dg, PW, x,
+    # u, dx, xr; then the stage's duals
+    for width in (n * n, n * n, n * nu, nu * nu, nu * nu, nu, n, n, nu, n, nu, n, nu, 4 * m,
+                  3 * m, 5 * m * m, n, nu, n, n):
+        at = al4(at + width)
+    at = al4(at + m * (m - 1) // 2 + rows + 2 * nu + 2 * n)
+    return 4 * (at if rows == 0 else al4(at + 5 * rows))
+
+
+# K1's team design as megasolve.cu builds it by default (csrc/inner_team.cuh:
+# NMPC_K1_TEAM, NMPC_K1_TEAM_RING): (lanes a team T, ring depth D) per m
+TEAM_DEFAULTS = {1: (8, 3), 2: (4, 3)}
+
+
+def team_ring_bytes(m: int, rows: int, n_mov: int, pairs: bool) -> int:
+    """Shared bytes of a team's ring of K1's team design (m in
+    cuda_build.TEAM_ROBOTS, its default T and D) from the shapes alone: a
+    mirror of inner_team.cuh::TeamSlot<m>::ring_floats (the library's
+    nmpc_k1_team_ring_bytes)."""
+    n, nu = 3 * m, 2 * m
+    T, D = TEAM_DEFAULTS[m]
+    nc = (m * (m - 1) // 2 if pairs else 0) + 2 * nu + 2 * n + rows
+    floats = 2 * n + 2 * nu + nu * n + nc + 2 * n_mov
+    return 4 * ((D * floats + 31) // 32 * 32 + T % 32)
+
+
+def k1_block_bytes(ocp: OCP, cfg: ALILQRConfig) -> tuple:
+    """(dynamic shared bytes of one block of the route's K1, its design) for
+    this problem and config, from the shapes alone: the team design
+    (K1_TEAM_WARPS warps of team rings) at m in cuda_build.TEAM_ROBOTS, else
+    the warp design (K1_WARPS slots), then the parameter block. The launch
+    refuses a block above staged_tiles.SMEM_BLOCK_MAX (the H100's 227 KB)."""
+    if ocp.m in cuda_build.TEAM_ROBOTS:
+        T = TEAM_DEFAULTS[ocp.m][0]
+        ring = team_ring_bytes(ocp.m, obstacle_rows(ocp), ocp.n_mov, ocp.n_pairs > 0)
+        return K1_TEAM_WARPS * 32 // T * ring + _prm_bytes(ocp, cfg), "team"
+    return K1_WARPS * slot_bytes(ocp.m, obstacle_rows(ocp)) + _prm_bytes(ocp, cfg), "warp"
+
+
+def mega_fits(ocp: OCP, cfg: ALILQRConfig | None = None) -> bool:
+    """Does the megakernel route take this problem on the card: K1 and K2
+    cover it (`cuda_unsupported` without cfg) and one block of K1 (its slots,
+    or its team rings, and the parameter block at cfg's alphas, the default
+    config's where None) fits the H100's SMEM_BLOCK_MAX. The route's
+    admission (solver/alilqr_batched.route), the same on the CPU and the
+    card. The reference's `mega_fits` estimates a TPU core's 16 MiB of VMEM,
+    which grows with N; K1 keeps the N-long arrays in device memory, so this
+    one does not, and the two part: pair-only at N=10 the reference admits m
+    <= 13 and this m <= 16 (above, the reference takes the staged route)."""
+    if cuda_unsupported(ocp) is not None:
+        return False
+    need, _ = k1_block_bytes(ocp, ALILQRConfig() if cfg is None else cfg)
+    return need <= SMEM_BLOCK_MAX
 
 
 def obstacle_rows(ocp: OCP) -> int:
@@ -206,13 +275,13 @@ def _fma(a, b, c):
 
 def al_merit_warp_order(o: OCP, X, U, lam, mu):
     """`al_merit` summed in K1's order (csrc/inner_warp.cuh::merit_terms,
-    rollout_warp): lane i adds, stage after stage, state row i's tracking
-    term and squared activations, control row i's, pair rows i and i + 32
-    and obstacle rows i, i + 32, ..., each by one fused multiply-add (lam -
-    mu c too); then a butterfly over the 32 lanes. The terms of `al_merit`;
-    at N = 100 this order alone moves the merit by ~1e-6 relative and its
-    solves as far from f64 as K1's (PERF.md §6). For holding K1 against
-    plain at long horizons."""
+    rollout_warp): lane i adds, stage after stage, state rows i, i + 32,
+    ...'s tracking terms and squared activations, control row i's, pair rows
+    i, i + 32, ... and obstacle rows i, i + 32, ..., each by one fused
+    multiply-add (lam - mu c too); then a butterfly over the 32 lanes. The
+    terms of `al_merit`; at N = 100 this order alone moves the merit by ~1e-6
+    relative and its solves as far from f64 as K1's (PERF.md §6). For holding
+    K1 against plain at long horizons."""
     B, N, n, nu, npr = X.shape[0], o.N, o.nx, o.nu, o.n_pairs
     mask = P.constraint_mask(o) > 0
     c = P.trajectory_constraints(o, X, U)
@@ -221,18 +290,24 @@ def al_merit_warp_order(o: OCP, X, U, lam, mu):
     R = o.m * (o.n_obs + o.n_mov)
     i_ulo = npr + R
     i_xlo = i_ulo + 2 * nu
-    rows = [(i_xlo, n), (i_xlo + n, n), (i_ulo, nu), (i_ulo + nu, nu)]
-    rows += [(i, min(32, npr - i)) for i in range(0, npr, 32)]
-    rows += [(npr + e, min(32, R - e)) for e in range(0, R, 32)]
+
+    def chunks(i0, count):   # (first row, lanes) of rows i0 + e, e = lane + 32 q
+        return [(i0 + e, min(32, count - e)) for e in range(0, count, 32)]
+
+    # each lane's penalty rows in its order: x_lo and x_hi of each state row,
+    # u_lo, u_hi, the pair rows, the obstacle rows
+    rows = [r for e, w in chunks(0, n) for r in ((i_xlo + e, w), (i_xlo + n + e, w))]
+    rows += [(i_ulo, nu), (i_ulo + nu, nu)] + chunks(0, npr) + chunks(npr, R)
     track = X.new_zeros((B, 32))
     pen = X.new_zeros((B, 32))
     d = X[:, :-1] - o.xref.expand(B, N, n)
     for k in range(N):
         a = act[:, k]
-        track[:, :n] = _fma(o.Qdiag * d[:, k], d[:, k], track[:, :n])
-        for j, (i0, w) in enumerate(rows):
-            if j == 2:
-                track[:, :nu] = _fma(o.Rdiag * U[:, k], U[:, k], track[:, :nu])
+        for e, w in chunks(0, n):
+            track[:, :w] = _fma(o.Qdiag[e:e + w] * d[:, k, e:e + w], d[:, k, e:e + w],
+                                track[:, :w])
+        track[:, :nu] = _fma(o.Rdiag * U[:, k], U[:, k], track[:, :nu])
+        for i0, w in rows:
             pen[:, :w] = _fma(a[:, i0:i0 + w], a[:, i0:i0 + w], pen[:, :w])
     lanes = torch.arange(32, device=X.device)
     for v in (track, pen):
@@ -400,18 +475,6 @@ def _team_smem(lib, ocp: OCP, cfg: ALILQRConfig, warps: int) -> tuple:
     teams = warps * 32 // cuda_build.team_geometry(lib)["T"]
     ring = lib.nmpc_k1_team_ring_bytes(obstacle_rows(ocp), ocp.n_mov, int(ocp.n_pairs > 0))
     return teams, teams * ring + _prm_bytes(ocp, cfg)
-
-
-def k1_block_bytes(ocp: OCP, cfg: ALILQRConfig) -> tuple:
-    """(dynamic shared bytes of one block of the route's K1, its design) for
-    this problem and config: the team design (K1_TEAM_WARPS warps) at m in
-    cuda_build.TEAM_ROBOTS, else the warp design (K1_WARPS slots); the
-    solver library of ocp.m is built at first use. The launch refuses a
-    block above staged_tiles.SMEM_BLOCK_MAX (the H100's 227 KB)."""
-    lib = cuda_build.load(ocp.m)
-    if ocp.m in cuda_build.TEAM_ROBOTS:
-        return _team_smem(lib, ocp, cfg, K1_TEAM_WARPS)[1], "team"
-    return K1_WARPS * lib.nmpc_k1_slot_bytes(obstacle_rows(ocp)) + _prm_bytes(ocp, cfg), "warp"
 
 
 def team_launch(ocp: OCP, x0, xref, lam, mu, U, cfg: ALILQRConfig, what: str, load,

@@ -26,8 +26,9 @@ Layout: `riccati_lanes` takes and returns the lane-major layout of the
 staged path: A [N, n, n, B], B [N, n, nu, B], lx [N, n, B], lu [N, nu, B],
 lxx [N, n, n, B], luu [N, nu, nu, B], lux [N, nu, n, B] -> kff [N, nu, B],
 Kfb [N, nu, n, B], dV1 [B]. `riccati_fused` is the standard-layout wrapper.
-The kernels are built for n = 3m, nu = 2m with m in cuda_build.ROBOT_COUNTS
-(in the solver library of m robots) and for any other stage shape up to
+The kernels are built for n = 3m, nu = 2m with m <=
+cuda_build.STAGED_MAX_ROBOTS (in the solver library of m robots) and for any
+other stage shape up to
 n = staged_tiles.K3_MAX_N, nu = K3_MAX_NU (csrc/riccati_shape.cu, a library
 per shape at its first use: the ray-augmented stage of family I, n = 13,
 nu = 2, and the user models of make_generic_ocp, which the hybrid route of

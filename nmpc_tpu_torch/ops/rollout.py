@@ -46,17 +46,28 @@ from nmpc_tpu_torch.ops import cuda_build, staged_tiles
 from nmpc_tpu_torch.ops.cuda_build import check_arg, lane, ptr, std
 
 
+def supports(ocp: OCP) -> bool:
+    """The problem class of the fused kernels, the reference's rule
+    (rollout_pallas.py::supports): stacked Euler unicycles with pair,
+    static-obstacle, moving-obstacle and box rows, no LiDAR rays, no
+    user-supplied dynamics, any robot count. The routes read it
+    (solver/alilqr_batched.route); what the card's kernels are built for is
+    `unsupported`'s and megasolve.cuda_unsupported's."""
+    return ocp.num_rays == 0 and ocp.integrator == "euler" and ocp.dyn_fn is None
+
+
 def unsupported(ocp: OCP) -> str | None:
-    """Why the staged kernels (K3-K6) cannot take this problem, or None.
-    They cover NR stacked Euler unicycles (no LiDAR rays, no user-supplied
-    dynamics) with pair, static-obstacle, moving-obstacle and box rows, for
-    m in cuda_build.ROBOT_COUNTS."""
+    """Why the staged kernels (K3-K6) cannot take this problem on the card,
+    or None. They cover `supports`' class at 1 <= m <=
+    cuda_build.STAGED_MAX_ROBOTS."""
     if ocp.dyn_fn is not None or ocp.integrator != "euler":
         return "dynamics other than the Euler unicycle (dyn_fn or rk4)"
     if ocp.num_rays:
         return "LiDAR ray states (num_rays > 0)"
-    if ocp.m not in cuda_build.ROBOT_COUNTS:
-        return f"m={ocp.m} robots (kernels are built for m in {cuda_build.ROBOT_COUNTS})"
+    if not 1 <= ocp.m <= cuda_build.STAGED_MAX_ROBOTS:
+        return (f"m={ocp.m} robots: K3-K6 are built for m <= {cuda_build.STAGED_MAX_ROBOTS} "
+                f"(K3 past its (30, 20) stage tile, and K4, K5 and K6 past ten robots, are "
+                f"not ported yet)")
     return None
 
 

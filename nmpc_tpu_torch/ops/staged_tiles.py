@@ -69,15 +69,15 @@ class K6Geometry:
 
 
 # K3's picks as the sweep recorded them per robot count (tools/staged_launch.py,
-# PERF.md), and at the stage shape of one robot with 10 LiDAR rays (n = 13,
-# nu = 2; the registry's family I), picked by its shared memory as m=4's
-# (n = 12). Builds take `k3_geometry` (`k3_rule`); the tests hold the rule
-# to these picks.
+# PERF.md; at m = 7 and 9 the rule's, which the sweep kept), and at the stage
+# shape of one robot with 10 LiDAR rays (n = 13, nu = 2; the registry's
+# family I), picked by its shared memory as m=4's (n = 12). Builds take
+# `k3_geometry` (`k3_rule`); the tests hold the rule to these picks.
 K3_GEOMETRY = {
     1: K3Geometry(128, 2, 1, 128), 2: K3Geometry(128, 2, 1, 128), 3: K3Geometry(16, 2, 16, 17),
     4: K3Geometry(8, 2, 16, 9), 5: K3Geometry(8, 2, 16, 9), 6: K3Geometry(8, 2, 32, 9),
-    8: K3Geometry(8, 2, 32, 8), 10: K3Geometry(8, 2, 32, 8, spill=True),
-    (13, 2): K3Geometry(8, 2, 16, 9),
+    7: K3Geometry(8, 2, 32, 8), 8: K3Geometry(8, 2, 32, 8), 9: K3Geometry(8, 2, 32, 8, spill=True),
+    10: K3Geometry(8, 2, 32, 8, spill=True), (13, 2): K3Geometry(8, 2, 16, 9),
 }
 # the stage shapes K3 takes: any (n, nu) up to the largest robot stack's
 K3_MAX_N, K3_MAX_NU = 30, 20
@@ -100,17 +100,22 @@ K3_SHAPES = ((13, 2), (2, 1), (1, 1))
 K3_SWEEP_SHAPES = ((5, 3), (7, 1), (9, 5), (10, 6), (12, 10), (14, 3), (15, 20), (16, 1),
                    (19, 7), (20, 3), (29, 20), (30, 20))
 # the K3 blocks that reside per SM by shared memory and threads at the picks
-K3_BLOCKS_PER_SM = {1: 5, 2: 1, 3: 3, 4: 3, 5: 2, 6: 1, 8: 1, 10: 1, (13, 2): 4, (2, 1): 12,
-                    (1, 1): 16}
+K3_BLOCKS_PER_SM = {1: 5, 2: 1, 3: 3, 4: 3, 5: 2, 6: 1, 7: 1, 8: 1, 9: 1, 10: 1, (13, 2): 4,
+                    (2, 1): 12, (1, 1): 16}
+# K5's, K4's and K6's picks per robot count (tools/staged_launch.py, PERF.md):
+# their keys are the robot counts K3-K6 are built for
 K5_GEOMETRY = {1: K5Geometry(32, 2), 2: K5Geometry(32, 2), 3: K5Geometry(32, 2),
                4: K5Geometry(16, 2), 5: K5Geometry(16, 2), 6: K5Geometry(32, 2),
-               8: K5Geometry(16, 2), 10: K5Geometry(8, 2)}
+               7: K5Geometry(16, 2), 8: K5Geometry(16, 2), 9: K5Geometry(16, 2),
+               10: K5Geometry(8, 2)}
 K4_GEOMETRY = {1: K4Geometry(128, 4), 2: K4Geometry(64, 2), 3: K4Geometry(64, 4),
                4: K4Geometry(64, 8), 5: K4Geometry(64, 4), 6: K4Geometry(64, 4),
-               8: K4Geometry(32, 2), 10: K4Geometry(32, 4)}
+               7: K4Geometry(64, 4), 8: K4Geometry(32, 2), 9: K4Geometry(32, 4),
+               10: K4Geometry(32, 4)}
 K6_GEOMETRY = {1: K6Geometry(32, 4, 1), 2: K6Geometry(32, 4, 1), 3: K6Geometry(32, 2, 2),
                4: K6Geometry(32, 2, 2), 5: K6Geometry(32, 2, 2), 6: K6Geometry(32, 2, 1),
-               8: K6Geometry(16, 2, 4), 10: K6Geometry(8, 2, 4)}
+               7: K6Geometry(16, 2, 4), 8: K6Geometry(16, 2, 4), 9: K6Geometry(16, 2, 4),
+               10: K6Geometry(8, 2, 4)}
 
 
 def k3_rule(n: int, nu: int) -> K3Geometry:

@@ -7,26 +7,29 @@ Three routes, chosen as the reference chooses them, from cfg.mega, cfg.sweep
 and the problem's static shape before any launch, the same on CPU and CUDA
 tensors:
 
-* `_solve_mega` (cfg.mega, sweep "seq" and K1 admits the problem: pair,
-  static-obstacle, moving-obstacle and box rows): each AL outer step is two
+* `_solve_mega` (cfg.mega, sweep "seq", a problem of the fused kernels'
+  class (ops/rollout.supports: pair, static-obstacle, moving-obstacle and
+  box rows of Euler unicycles) and K1's block fits the card
+  (ops/megasolve.mega_fits, m <= 16)): each AL outer step is two
   kernel launches over the whole batch, K1 (ops/megasolve.inner_solve_fused)
   running the inner iLQR solve of every scenario and K2
   (ops/megasolve.al_update_lanes) updating the multipliers and measuring the
   violation. With cfg.compact the unconverged scenarios are permuted to the
   front of the batch between outer steps (results bit for bit those
   without).
-* `_solve_lanes` (cfg.mega=False, sweep "seq", a problem the staged kernels
-  take): the staged path. Each inner iteration is four launches, K4
+* `_solve_lanes` (sweep "seq" on the same class where cfg.mega=False or
+  mega_fits refuses): the staged path; on the card K3-K6 take m <= 10 and
+  raise NotImplementedError above. Each inner iteration is four launches, K4
   expansions, K3 Riccati sweep, K5 line-search merits and K6 accepted
   rollout, on lane-major data ([N, rows, B]) with no transposes inside the
   inner loop; the AL update between outer steps runs in plain PyTorch.
 * `_solve_hybrid` (everything else: LiDAR rays, RK4, user dynamics
-  (dyn_fn), sweep="scan", robot counts outside cuda_build.ROBOT_COUNTS): the
-  reference's hybrid. Stage expansions in plain PyTorch (dynamics Jacobians
+  (dyn_fn), sweep="scan"): the reference's hybrid. Stage expansions in
+  plain PyTorch (dynamics Jacobians
   by torch.func.jacfwd where they are not analytic), then K3 through
   `riccati_fused` at the problem's own stage shape (or the associative-scan
   LQR of ops/assoc_lqr.py under sweep="scan"), then the line-search
-  cascade: K5 and K6 where the staged kernels take the problem, plain
+  cascade: K5 and K6 on the fused kernels' class (rollout.supports), plain
   PyTorch rollouts of every candidate elsewhere.
 
 Per-scenario convergence masks, inner and outer iteration counts and warm
@@ -49,7 +52,8 @@ from nmpc_tpu_torch.ocp.problem import OCP
 from nmpc_tpu_torch.ops import rollout
 from nmpc_tpu_torch.ops.cuda_build import lane, std
 from nmpc_tpu_torch.ops.expansions import expansions_fused
-from nmpc_tpu_torch.ops.megasolve import al_update_lanes, cuda_unsupported, inner_solve_fused
+from nmpc_tpu_torch.ops.megasolve import (al_update_lanes, cuda_unsupported, inner_solve_fused,
+                                          mega_fits)
 from nmpc_tpu_torch.ops.riccati import riccati_fused, riccati_lanes
 from nmpc_tpu_torch.solver.alilqr import (ALILQRConfig, SolveResult, WarmStart, _forward_rollout,
                                           _stage_expansion, _stage_jacobians, one_scenario,
@@ -282,7 +286,7 @@ def _solve_hybrid(ocp_b: OCP, U, lam, mu, cfg: ALILQRConfig, sweep: str) -> Solv
     scenario not yet done, done |= ~accepted | (rel < tol_cost)."""
     B = ocp_b.x0.shape[0]
     kw = dict(dtype=ocp_b.x0.dtype, device=ocp_b.device)
-    staged = rollout.unsupported(ocp_b) is None
+    staged = rollout.supports(ocp_b)
     alphas = torch.tensor(cfg.alphas, **kw)
     ls_alphas = (0.0,) + tuple(cfg.alphas)   # row 0 = current-iterate merit
     reg_I = cfg.reg * torch.eye(ocp_b.nu, **kw)
@@ -375,11 +379,16 @@ def _polar_seed(ocp_b: OCP) -> torch.Tensor:
 
 def route(ocp_b: OCP, cfg: ALILQRConfig) -> str:
     """The route `solve_batched` takes for this batch and config, from its
-    static shape and cfg alone: "mega" (the megakernel route, K1 and K2),
-    "staged" (K4, K3, K5, K6) or "hybrid". An unknown cfg.sweep raises
-    ValueError."""
-    if rollout.unsupported(ocp_b) is None and resolve_sweep(cfg, ocp_b.N) == "seq":
-        return "mega" if cfg.mega and cuda_unsupported(ocp_b) is None else "staged"
+    static shape and cfg alone, by the reference's rule
+    (alilqr_batched.py:492-500): "mega" (the megakernel route, K1 and K2)
+    where the fused kernels take the problem (rollout.supports), the sweep is
+    "seq", cfg.mega and K1's block fits (megasolve.mega_fits); else "staged"
+    (K4, K3, K5, K6) on the same class with sweep "seq"; else "hybrid". An
+    unknown cfg.sweep raises ValueError. mega_fits is the card's admission,
+    not the reference's TPU VMEM estimate: pair-only at N=10, m = 14-16 take
+    the megakernel route here and the staged route in the reference."""
+    if rollout.supports(ocp_b) and resolve_sweep(cfg, ocp_b.N) == "seq":
+        return "mega" if cfg.mega and mega_fits(ocp_b, cfg) else "staged"
     return "hybrid"
 
 
@@ -412,10 +421,10 @@ def solve_batched(ocp_b: OCP, warm: WarmStart | None = None,
     """Solve a batch of OCPs (batch axis on x0 [B, nx] and xref [B, N, nx];
     mov_obs [B, N, n_mov, 2] for per-scenario moving-obstacle schedules).
 
-    Route (the reference's, `route`): with sweep "seq" on a problem the
-    staged kernels take, `_solve_mega` if cfg.mega and K1 admits the
-    problem's shape (megasolve.cuda_unsupported), else the staged
-    `_solve_lanes`; everything else `_solve_hybrid`. No other setting of cfg
+    Route (the reference's, `route`): with sweep "seq" on a problem of the
+    fused kernels' class (rollout.supports), `_solve_mega` if cfg.mega and
+    K1's block fits (megasolve.mega_fits), else the staged `_solve_lanes`;
+    everything else `_solve_hybrid`. No other setting of cfg
     picks the route: an unknown cfg.ls, cfg.sweep or cfg.cold_seed raises
     ValueError. On CUDA tensors every kernel of the route runs its hand
     kernel or raises; on CPU tensors the plain PyTorch versions run."""

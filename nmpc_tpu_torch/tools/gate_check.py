@@ -4,7 +4,7 @@ it. Port of tools/gate_check.py (the reference checks its VMEM gate,
 
 For the scenario at its registry size: the route `solve_batched` takes
 (`alilqr_batched.route`), and on the card K1's dynamic shared bytes a
-block and its design (`megasolve.k1_block_bytes`) against the H100's 227
+block and its design (`megasolve.k1_block_bytes`, from the shapes) against the H100's 227
 KB (staged_tiles.SMEM_BLOCK_MAX); then one solve at B=1 through that route
 with ALILQRConfig(n_outer=2, n_inner=4, tol_con=1e-3), its cost finite,
 and on the card K1 and K2 launched.

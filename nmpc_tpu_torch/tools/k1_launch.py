@@ -4,7 +4,8 @@
     python -m nmpc_tpu_torch.tools.k1_launch team [M,...]
     python -m nmpc_tpu_torch.tools.k1_launch loops
 
-For each robot count M (default: every one of SCENARIOS) builds
+For each robot count M (default: every one of SCENARIOS; any 3 <= M <= 16,
+past the registry's at scenarios/robot_counts.py's problem of M) builds
 csrc/megasolve.cu once per register cap in CAPS (the blocks of 128 threads
 per SM that the
 registers must allow: 65,536 / (128 c) registers a thread) and times K1 at
@@ -151,14 +152,22 @@ def batch_size(m: int) -> int:
     return 32768 if m <= 6 else 16384
 
 
-def first_step(m: int, cfg: ALILQRConfig, seed: int = 0) -> tuple:
-    """(ocp_b, lam, mu, U): the scenario of m robots at N=10 on the card,
-    batch_size(m) starts jittered by numpy from `seed`, and the first outer
-    step's inputs."""
-    from nmpc_tpu_torch.parallel import batch_ocp
-    from nmpc_tpu_torch.scenarios import get
+def problem_name(m: int) -> str:
+    """SCENARIOS[m], or past the registry scenarios/robot_counts.py's
+    builder and m."""
+    from nmpc_tpu_torch.scenarios import robot_counts
 
-    base = get(SCENARIOS[m]).make(N=10)
+    return SCENARIOS[m] if m in SCENARIOS else robot_counts.name(m)
+
+
+def first_step(m: int, cfg: ALILQRConfig, seed: int = 0) -> tuple:
+    """(ocp_b, lam, mu, U): the scenario of m robots at N=10 on the card
+    (SCENARIOS[m], else scenarios/robot_counts.py's), batch_size(m) starts
+    jittered by numpy from `seed`, and the first outer step's inputs."""
+    from nmpc_tpu_torch.parallel import batch_ocp
+    from nmpc_tpu_torch.scenarios import get, robot_counts
+
+    base = get(SCENARIOS[m]).make(N=10) if m in SCENARIOS else robot_counts.make(m, N=10)
     B = batch_size(m)
     noise = 0.1 * np.random.default_rng(seed).standard_normal((B, base.nx))
     ob = batch_ocp(base, base.x0[None] + torch.from_numpy(noise.astype(np.float32)).to(base.device))
@@ -214,7 +223,7 @@ def main(argv=None) -> int:
         for c in CAPS:
             print(f"m={m} min blocks {c}: {k1_ptxas(built[m, c][1])}")
         times, same = sweep(m, {c: built[m, c][0] for c in CAPS}, cfg)
-        print(f"m={m} {SCENARIOS[m]} N=10 B={batch_size(m)}, first-step inputs; every variant "
+        print(f"m={m} {problem_name(m)} N=10 B={batch_size(m)}, first-step inputs; every variant "
               f"bit for bit the same: {'yes' if same else 'NO'}")
         for (c, w), (lo, med) in sorted(summarize(times).items(), key=lambda kv: kv[1][1]):
             print(f"  min blocks {c}, {w} warps per block: min {lo:.2f} ms, median {med:.2f} ms")

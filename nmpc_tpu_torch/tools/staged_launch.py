@@ -3,12 +3,13 @@ designs.
 
     python -m nmpc_tpu_torch.tools.staged_launch [M,...] [k35|k46]
 
-For each robot count M (default: every one of SCENARIOS) builds
+For each robot count M (default: every one of CANDIDATES) builds
 csrc/staged.cu once per geometry of a candidate list and the first designs
 (csrc/staged_first.cu), and times the kernels of every variant and of the
 first designs at the stage inputs of `inputs(M)`: a random mid-solve state
 of SCENARIOS[M] (obstacle_scenario_3 at N=100 for one robot, path (b); N=10
-otherwise) at B=32768 (16384 from m=8). `k35` (CANDIDATES: K3's S, D, T, P
+otherwise; at M = 7 and 9, past the registry, scenarios/robot_counts.py's
+circle) at B=32768 (16384 from m=7). `k35` (CANDIDATES: K3's S, D, T, P
 and spill with K5's S and D, ops/staged_tiles.py) times K3 on K4's
 expansions there and K5 on K3's gains with the solver's line-search grid;
 `k46` (CANDIDATES46: K4's S and W with K6's S, D and T) times K4 on the
@@ -64,6 +65,9 @@ CANDIDATES = {
     8: [(G3(8, 2, 32, 8), G5(16, 2)), (G3(8, 2, 16, 8), G5(32, 2)),
         (G3(8, 2, 32, 8, True), G5(8, 2))],
     10: [(G3(8, 2, 32, 8, True), G5(8, 2)), (G3(8, 2, 16, 8, True), G5(16, 2))],
+    7: [(G3(8, 2, 32, 8), G5(16, 2)), (G3(8, 2, 16, 8), G5(32, 2)),
+        (G3(8, 2, 32, 8, True), G5(8, 2))],
+    9: [(G3(8, 2, 32, 8, True), G5(16, 2)), (G3(8, 2, 16, 8, True), G5(8, 2))],
 }
 # (K4, K6) geometries per m, the solver's pick first
 CANDIDATES46 = {
@@ -83,6 +87,10 @@ CANDIDATES46 = {
         (G4(64, 4), G6(16, 2, 1))],
     10: [(G4(32, 4), G6(8, 2, 4)), (G4(16, 2), G6(16, 2, 2)), (G4(32, 2), G6(8, 2, 2)),
          (G4(16, 1), G6(16, 2, 1))],
+    7: [(G4(64, 4), G6(16, 2, 4)), (G4(32, 2), G6(16, 2, 2)), (G4(16, 2), G6(16, 2, 1)),
+        (G4(32, 4), G6(32, 2, 1))],
+    9: [(G4(32, 4), G6(16, 2, 4)), (G4(32, 2), G6(8, 2, 4)), (G4(16, 2), G6(16, 2, 2)),
+        (G4(32, 2), G6(8, 2, 2))],
 }
 
 
@@ -122,8 +130,19 @@ def batch_size(m: int) -> int:
     return 32768 if m <= 6 else 16384
 
 
+def problem(m: int):
+    """The problem the sweep times at m: SCENARIOS[m] (obstacle_scenario_3
+    at N=100 for one robot, N=10 otherwise) or, past the registry,
+    scenarios/robot_counts.py's at N=10; and its name."""
+    from nmpc_tpu_torch.scenarios import get, robot_counts
+
+    if m in SCENARIOS:
+        return get(SCENARIOS[m]).make(**({} if m == 1 else {"N": 10})), SCENARIOS[m]
+    return robot_counts.make(m, N=10), robot_counts.name(m)
+
+
 def inputs(m: int, seed: int = 0) -> dict:
-    """Stage inputs of SCENARIOS[m] on the card at batch_size(m): starts
+    """Stage inputs of `problem(m)` on the card at batch_size(m): starts
     jittered by 0.05 N(0, 1), stage states 0.3 N(0, 1) about the start,
     controls 0.05 N(0, 1), duals |0.5 N(0, 1)| (zero on the masked rows), mu
     in {10, 100}; K4's arguments (`k4`) and expansions there (`exp`), K3's
@@ -132,11 +151,10 @@ def inputs(m: int, seed: int = 0) -> dict:
     from nmpc_tpu_torch.ocp import problem as P
     from nmpc_tpu_torch.ops.expansions import expansions_fused
     from nmpc_tpu_torch.parallel import batch_ocp
-    from nmpc_tpu_torch.scenarios import get
     from nmpc_tpu_torch.solver.alilqr import ALILQRConfig
     from nmpc_tpu_torch.solver.alilqr_batched import _mov_lanes
 
-    base = get(SCENARIOS[m]).make(**({} if m == 1 else {"N": 10}))
+    base = problem(m)[0]
     B, dev = batch_size(m), base.device
     g = torch.Generator(device=dev).manual_seed(seed)
     rnd = lambda *s: torch.randn(s, generator=g, device=dev)  # noqa: E731
@@ -222,7 +240,7 @@ def main(argv=None) -> int:
     args = sys.argv[1:] if argv is None else argv
     families = [a for a in args if a in ("k35", "k46")] or ["k35", "k46"]
     args = [a for a in args if a not in ("k35", "k46")]
-    robots = [int(a) for a in args[0].split(",")] if args else sorted(SCENARIOS)
+    robots = [int(a) for a in args[0].split(",")] if args else sorted(CANDIDATES)
     alphas = (0.0,) + tuple(ALILQRConfig().alphas)
 
     def variant(m, fam, i):
@@ -261,7 +279,7 @@ def main(argv=None) -> int:
                 print(f"m={m} {fam} variant {i}: {what}; ptxas {ptx}")
             times, same = sweep(m, [built[m, fam, i][0] for i in range(len(cands[fam][m]))],
                                 alphas, kernels)
-            print(f"m={m} {SCENARIOS[m]} B={batch_size(m)} {fam}: every variant bit for bit the "
+            print(f"m={m} {problem(m)[1]} B={batch_size(m)} {fam}: every variant bit for bit the "
                   f"first design: {'yes' if same else 'NO'}")
             rows = sorted(summarize(times).items(), key=lambda kv: (kv[0][0], kv[1][1]))
             for (k, v), (lo, med) in rows:

@@ -126,7 +126,7 @@ int host_warp_slot_bytes(int dense) {
 // and box rows only: mode = nmpc::Phase (0 full, 1 inv_solve, 2 no_ls,
 // 3 no_solve, 4 no_expcon, 5 sweep_only); early_exit = 1 (mode 0 only) is
 // K1; dense = 1 (mode 0, no early exit) K9's dense layout. Returns 0, or -1
-// for a combination no variant takes.
+// for a combination no variant takes (every one past m = 10).
 int host_phase_ablation(int mode, int early_exit, int dense, const float* prm, const float* x0,
                         const float* xref, const float* lam, const float* mu, const float* Uin,
                         float* Xs, float* U, float* cost, int* iters, float* kff, float* Kfb,
@@ -135,6 +135,9 @@ int host_phase_ablation(int mode, int early_exit, int dense, const float* prm, c
                         float tol_cost, float ls_beta, float ls_grow, float ls_trial_min) {
   using nmpc::Phase;
   if ((early_exit && (mode != 0 || dense)) || (dense && mode != 0)) return -1;
+#if NMPC_NR > 10
+  return -1;  // the tools' variants are built at m <= 10 (inner_warp.cuh)
+#else
   const nmpc::WarpArgs a{prm, x0, xref, lam, mu, Uin, Xs, U, cost, iters, kff, Kfb, Xw, Uw,
                          B, N, n_inner, adaptive, n_alphas, ls_rounds, pairs,
                          host_warp_slot_bytes(dense) / 4, reg, armijo, tol_cost,
@@ -152,6 +155,7 @@ int host_phase_ablation(int mode, int early_exit, int dense, const float* prm, c
     case 5: k1<false, Phase::sweep_only, false>(a); return 0;
     default: return -1;
   }
+#endif
 }
 
 // K2 with the arguments of megasolve.cu::nmpc_al_update (no stream)

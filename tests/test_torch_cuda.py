@@ -262,6 +262,53 @@ def test_k1_slot_fits_the_block(dev):
             assert megasolve.K1_WARPS * slot <= 227 * 1024
 
 
+@pytest.mark.parametrize("m", [7, 9, 12, 16])
+def test_k1_and_k2_past_the_registry_match_plain(dev, m):
+    """K1 and K2 at robot counts past the registry's (scenarios/
+    robot_counts.py's problems at N=10; lanes own two state rows and two
+    right-hand sides at m = 12 and 16), B=65 (a ragged last block), at the
+    tolerances above; the library's slot is the route's mirror
+    (megasolve.slot_bytes) and K1_WARPS slots fit the block."""
+    from nmpc_tpu_torch.scenarios import robot_counts
+
+    g = torch.Generator(device=dev).manual_seed(m)
+    base = robot_counts.make(m, device=dev, N=10)
+    B = 65
+    ob = batch_ocp(base, base.x0[None] + 0.1 * torch.randn((B, base.nx), generator=g, device=dev))
+    U = 0.05 * torch.randn((B, base.N, base.nu), generator=g, device=dev)
+    lam = 0.5 * torch.randn((B, base.N, base.n_con), generator=g, device=dev).abs()
+    lam = lam * (P.constraint_mask(base) > 0)
+    mu = torch.tensor([10.0, 100.0, 1e3, 1e4], device=dev)[
+        torch.randint(0, 4, (B,), generator=g, device=dev)]
+    cfg = ALILQRConfig(n_inner=4, ls="adaptive")
+    got = megasolve.inner_solve_fused(ob, ob.x0, ob.xref, lam, mu, U, cfg)
+    _hold_k1(got, megasolve.inner_solve_plain(ob, ob.x0, ob.xref, lam, mu, U, cfg), B)
+    g2 = megasolve.al_update_lanes(ob, got[0], got[1], lam, mu, 1e6)
+    w2 = megasolve.al_update_plain(ob, got[0], got[1], lam, mu, 1e6)
+    torch.testing.assert_close(g2[0], w2[0], rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(g2[1], w2[1], rtol=1e-6, atol=1e-6)
+    lib = cuda_build.load(m)
+    for R in (0, m, 15 * m):
+        assert lib.nmpc_k1_slot_bytes(R) == megasolve.slot_bytes(m, R)
+    assert megasolve.k1_block_bytes(base, cfg) == (
+        megasolve.K1_WARPS * lib.nmpc_k1_slot_bytes(0) + megasolve._prm_bytes(base, cfg), "warp")
+
+
+def test_staged_route_past_ten_robots_raises(dev):
+    """At m = 12 the staged route (mega=False) raises NotImplementedError
+    naming the kernels it lacks; past 16 so does K1."""
+    from nmpc_tpu_torch.scenarios import robot_counts
+
+    base = robot_counts.make(12, device=dev, N=10)
+    ob = batch_ocp(base, base.x0[None].repeat(4, 1))
+    with pytest.raises(NotImplementedError, match="K3-K6"):
+        solve_batched(ob, cfg=ALILQRConfig(n_outer=1, n_inner=2, mega=False))
+    o17 = robot_counts.make(17, device=dev, N=10)
+    ob17 = batch_ocp(o17, o17.x0[None].repeat(4, 1))
+    with pytest.raises(NotImplementedError, match="m=17"):
+        solve_batched(ob17, cfg=ALILQRConfig(n_outer=1, n_inner=2))
+
+
 def test_k1_phase_probes_count_every_phase(dev):
     """K1 built with its phase probes (tools/k1_phases.py) still agrees with
     the plain version, and every phase it runs gets cycles."""
@@ -326,9 +373,9 @@ def test_wrappers_refuse_what_the_kernels_do_not_cover(dev):
         megasolve.inner_solve_fused(ob, ob.x0.double(), ob.xref, lam, mu, U, cfg)
     with pytest.raises(ValueError):
         megasolve.inner_solve_fused(ob, ob.x0, ob.xref, lam[:, :5], mu, U, cfg)
-    seven = dataclasses.replace(ob, m=7)
-    with pytest.raises(NotImplementedError, match="m=7"):
-        megasolve.inner_solve_fused(seven, ob.x0, ob.xref, lam, mu, U, cfg)
+    seventeen = dataclasses.replace(ob, m=17)
+    with pytest.raises(NotImplementedError, match="m=17"):
+        megasolve.inner_solve_fused(seventeen, ob.x0, ob.xref, lam, mu, U, cfg)
     with pytest.raises(NotImplementedError, match="scan"):
         megasolve.inner_solve_fused(ob, ob.x0, ob.xref, lam, mu, U,
                                     dataclasses.replace(cfg, sweep="scan"))
@@ -472,9 +519,9 @@ def test_staged_wrappers_refuse_what_the_kernels_do_not_cover(dev):
                               L["alpha"])
     with pytest.raises(ValueError):
         expansions_fused(ocp, L["X"], L["U"], L["xref"], L["lam"][:, :3], L["mu"])
-    seven = dataclasses.replace(ocp, m=7)
-    with pytest.raises(NotImplementedError, match="m=7"):
-        R.linesearch_costs_lanes(seven, L["x0"], L["X"], L["U"], L["kff"], L["Kfb"],
+    seventeen = dataclasses.replace(ocp, m=17)
+    with pytest.raises(NotImplementedError, match="m=17"):
+        R.linesearch_costs_lanes(seventeen, L["x0"], L["X"], L["U"], L["kff"], L["Kfb"],
                                  L["xref"], L["lam"], L["mu"], (0.0, 1.0))
     # K3 takes any stage shape up to the largest robot stack's (30, 20)
     bad = tuple(torch.zeros(s, device=dev) for s in (

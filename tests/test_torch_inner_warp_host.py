@@ -3,7 +3,11 @@ scenario) compiled as host C++ (tests/inner_warp_host.cpp: a warp's lanes
 are 32 std::threads with a std::barrier for __syncwarp, a shuffle an
 exchange through memory), against the plain PyTorch versions, in both
 instantiations: the pair-only kernels of the main path
-(six_robot_antipodal) and the obstacle variant at the problems of
+(six_robot_antipodal) and of robot counts past the registry's
+(scenarios/robot_counts.py at N=10: the circle at m=7, one state row a
+lane; the widened crossing at m=12 and 16, where a lane owns two state rows
+and two right-hand sides, and three and four pair rows), and the obstacle
+variant at the problems of
 tests/obstacle_cases.py (static obstacles, per-scenario moving-obstacle
 schedules, and pairs, obstacles and a shared schedule together). The slot
 starts as NaN, so an entry read before the kernel writes it shows.
@@ -39,13 +43,13 @@ from nmpc_tpu_torch.ocp import problem as P
 from nmpc_tpu_torch.ops import megasolve, rollout
 from nmpc_tpu_torch.ops.cuda_build import SRC_DIR
 from nmpc_tpu_torch.parallel import batch_ocp
-from nmpc_tpu_torch.scenarios import get
+from nmpc_tpu_torch.scenarios import get, robot_counts
 from nmpc_tpu_torch.solver import ALILQRConfig
 from nmpc_tpu_torch.tools import exp_blocked_expansions as K9
 from nmpc_tpu_torch.tools import exp_mega_phases as K8
 
 HOST = Path(__file__).resolve().parent / "inner_warp_host.cpp"
-HOST_ROBOTS = (1, 2, 6)
+HOST_ROBOTS = (1, 2, 6, 7, 12, 16)
 B = 16
 
 
@@ -123,11 +127,20 @@ def host_k2(lib, ocp, Xs, U, lam, mu, lam_max):
     return lam_new, viol
 
 
+# the robot counts past the registry's: (builder of scenarios/robot_counts.py, m)
+WIDE = {"circle7": (robot_counts.circle, 7), "crossing12": (robot_counts.crossing, 12),
+        "crossing16": (robot_counts.crossing, 16)}
+
+
 def _case(name):
-    if name != "six_robot_antipodal":
+    if name != "six_robot_antipodal" and name not in WIDE:
         return OC.port_case(name, B, seed=5)
     g = torch.Generator().manual_seed(5)
-    base = get(name).make(N=10, device="cpu")
+    if name in WIDE:
+        build, m = WIDE[name]
+        base = P.make_ocp(**build(m, N=10), device="cpu")
+    else:
+        base = get(name).make(N=10, device="cpu")
     ob = batch_ocp(base, base.x0[None] + 0.1 * torch.randn((B, base.nx), generator=g))
     U = 0.05 * torch.randn((B, base.N, base.nu), generator=g)
     lam = 0.5 * torch.randn((B, base.N, base.n_con), generator=g).abs()
@@ -136,7 +149,7 @@ def _case(name):
     return ob, U, lam, mu
 
 
-CASES = ("six_robot_antipodal",) + OC.CASES
+CASES = ("six_robot_antipodal", *WIDE) + OC.CASES
 
 
 @pytest.mark.parametrize("ls", ["adaptive", "cascade"])

@@ -140,8 +140,8 @@ def test_cpu_wrappers_take_the_plain_versions():
 
 def test_cuda_admission_rule():
     """K1 and K2 take pair, static-obstacle, moving-obstacle and box rows at
-    every robot count of the library; they refuse LiDAR rays, robot counts
-    the library is not built for and sweep='scan'; compact is the route's
+    every robot count up to 16; they refuse LiDAR rays, robot counts past
+    16 and sweep='scan'; compact is the route's
     permutation of the batch, not K1's, and admitted."""
     cfg = ALILQRConfig(ls="adaptive")
     assert megasolve.cuda_unsupported(get("six_robot_antipodal").make(N=10, device="cpu"), cfg) is None
@@ -153,8 +153,8 @@ def test_cuda_admission_rule():
     six = get("six_robot_antipodal").make(N=10, device="cpu")
     assert megasolve.cuda_unsupported(six, dataclasses.replace(cfg, compact=True)) is None
     assert "scan" in megasolve.cuda_unsupported(six, dataclasses.replace(cfg, sweep="scan"))
-    seven = dataclasses.replace(six, m=7)
-    assert "m=7" in megasolve.cuda_unsupported(seven, cfg)
+    seventeen = dataclasses.replace(six, m=17)
+    assert "m=17" in megasolve.cuda_unsupported(seventeen, cfg)
     mov = dataclasses.replace(six, n_mov=1, mov_obs=torch.zeros((10, 1, 2)))
     assert megasolve.cuda_unsupported(mov, cfg) is None
     assert megasolve.obstacle_rows(mov) == 6 and megasolve.obstacle_rows(six) == 0

@@ -38,17 +38,17 @@ from nmpc_tpu_torch.ops import rollout as R
 from nmpc_tpu_torch.ops import staged_tiles as ST
 from nmpc_tpu_torch.ops.cuda_build import ROBOT_COUNTS, SRC_DIR
 from nmpc_tpu_torch.ops.riccati import riccati_plain
-from nmpc_tpu_torch.scenarios import get
+from nmpc_tpu_torch.scenarios import get, robot_counts
 
 HOST = Path(__file__).resolve().parent / "staged_tiles_host.cpp"
-HOST_ROBOTS = (1, 2, 6)
+HOST_ROBOTS = (1, 2, 6, 7)
 RAY_SHAPE = (13, 2)   # one robot with the registry's 10 LiDAR rays (ST.K3_SHAPES)
 # the reference's user models: Van der Pol (2, 1), the first-order process (1, 1)
 USER_SHAPES = ((2, 1), (1, 1))
 ALPHAS = (0.0, 1.0, 0.5, 0.25, 0.1, 0.03, 0.01, 0.003, 0.001)   # the solver's grid
 
 
-@pytest.mark.parametrize("m", ROBOT_COUNTS)
+@pytest.mark.parametrize("m", sorted(ST.K4_GEOMETRY))
 def test_geometry_fits_the_card(m):
     g3, g5 = ST.K3_GEOMETRY[m], ST.K5_GEOMETRY[m]
     for S in (g3.S, g5.S):
@@ -285,11 +285,13 @@ def test_host_riccati_tiles_match_pallas_kernel(host_libs):
 def _cost_problem(m, N):
     """An OCP of m robots whose rows the merits exercise: m=1 at
     obstacle_scenario_3 (six static obstacles) or with two moving-obstacle
-    slots; m >= 2 with pair rows."""
+    slots; m >= 2 with pair rows (m=7: scenarios/robot_counts.py's circle)."""
     if m == 1:
         return [get("obstacle_scenario_3").make(N=N, device="cpu"),
                 P.make_ocp(m=1, N=N, T=0.1, x0=[0.0, 0.0, 0.0], x_goal=[0.6, 0.0, 0.0], dmin=0.3,
                            mov_obs=torch.zeros((N, 2, 2)), device="cpu")]
+    if m == 7:
+        return [robot_counts.make(7, device="cpu", N=N)]
     return [get({2: "two_robot_swap", 6: "six_robot_antipodal"}[m]).make(N=N, device="cpu")]
 
 
@@ -404,7 +406,8 @@ def test_staged_launch_sweeps_the_picks_and_reads_the_report():
     report parser finds K3's and K5's lines; without a card it refuses."""
     from nmpc_tpu_torch.tools import staged_launch as SL
 
-    assert set(SL.CANDIDATES) == set(SL.CANDIDATES46) == set(SL.SCENARIOS) == set(ROBOT_COUNTS)
+    assert set(SL.CANDIDATES) == set(SL.CANDIDATES46) == set(ST.K4_GEOMETRY)
+    assert set(SL.SCENARIOS) == set(ROBOT_COUNTS) and set(ST.K4_GEOMETRY) - set(ROBOT_COUNTS) == {7, 9}
     for m, cands in SL.CANDIDATES.items():
         assert cands[0] == (ST.K3_GEOMETRY[m], ST.K5_GEOMETRY[m])
         for k3, k5 in cands:
