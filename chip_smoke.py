@@ -95,7 +95,12 @@ and holding each against its plain PyTorch version on the card:
   circle) and 12 and 16 (ten_robot widened by columns; K1's lanes own two
   state rows and two right-hand sides), each library built at its first
   use, B=4096 at the bench config through K1 and K2, each held against
-  plain; the staged route at m = 7 and 9 through K3-K6, held against plain.
+  plain, and at m=12 K1's and K2's obstacle variant; the staged route
+  (mega=False) at m = 7, 9, 12 and 16 through K3-K6 (K3's block design
+  past ten robots: a block of eight warps a scenario), held against plain;
+  the hybrid route (sweep="scan") at m=12 through K5 and K6; K3's block
+  design at stage shapes past (30, 20) up to its limit (80, 32), against
+  plain.
 
 Phases:
 
@@ -201,9 +206,15 @@ Phases:
                                    38 m = 7, 9, 12, 16: the libraries'
                                       ptxas lines and slot sizes; bench-
                                       config solves B=4096 (quality, ms);
-                                      K1/K2 vs plain, their ms against
-                                      plain and the bound; at 7 and 9 the
-                                      staged route, K3-K6 vs plain, timed
+                                      K1/K2 vs plain (at 12 also their
+                                      obstacle variant), their ms against
+                                      plain and the bound; the staged
+                                      route, K3-K6 vs plain, timed
+                                   39 the hybrid route at m=12 (scan, K5
+                                      and K6), B=1024; K3's block design
+                                      at (36, 24), (41, 7), (50, 13),
+                                      (64, 32) and (80, 32): ptxas, vs
+                                      plain, timed against the bound
 
 Phases 5, 7, 8, 9, 20, 22, 25, 30 and 31 re-solve the first scenarios with the plain path on
 the CPU; phase 37 reruns its loop there. Any failed check raises, so the exit code is
@@ -815,7 +826,8 @@ def closed_loop_phases(dev, base, card: str) -> None:
     # reference's own two engines part by 1.66e-2 in cost. Over the first two
     # outer steps (2x10, mu <= 100) the same move changes the cost by 1.1e-7
     # (tests/reference_spread.py). So the card is held against the CPU and
-    # against solve_one there; the full solve's gap to solve_one is printed
+    # against solve_one there; the gap to solve_one over 5 outer steps of
+    # 15x25's inner budget is printed
     short = ALILQRConfig(n_outer=2, n_inner=10)
     r16, r16c = solve(head, cfg=short), solve(head.to(cpu), cfg=short)
     cuda_build.reset_launch_counts()
@@ -831,9 +843,13 @@ def closed_loop_phases(dev, base, card: str) -> None:
     assert r16.U.device.type == "cuda" and torch.isfinite(r16.X).all()
     assert rel <= 1e-4 and du <= 5e-2, (rel, du)
     assert c1["inner_solve_fused"] > 0 and rel1 <= 5e-3, (c1, rel1)
-    r16, t16 = timed(lambda: solve(head, cfg=strong))
-    r1 = solve_one(head, cfg=strong)
-    log(f"phase 16 solve {strong.n_outer}x{strong.n_inner} on the card: cost {float(r16.cost):.4f}, "
+    # the engine's time an iteration over the first 5 of the 15 outer steps
+    # (cut from all 15, 24.4 s on an H100 80GB HBM3 at 700 W; phase 17's
+    # default engine times a whole 15x25 solve as its step 0)
+    timing16 = dataclasses.replace(strong, n_outer=5)
+    r16, t16 = timed(lambda: solve(head, cfg=timing16))
+    r1 = solve_one(head, cfg=timing16)
+    log(f"phase 16 solve {timing16.n_outer}x{timing16.n_inner} on the card: cost {float(r16.cost):.4f}, "
         f"viol {float(r16.viol):.3e}, {int(r16.inner_iters)} inner / {int(r16.outer_iters)} outer "
         f"iterations, {t16 * 1e3:.1f} ms ({t16 * 1e3 / max(int(r16.inner_iters), 1):.2f} ms an "
         f"iteration) {card}; engine line (not held: path-sensitive, above): solve_one cost "
@@ -892,15 +908,15 @@ def closed_loop_phases(dev, base, card: str) -> None:
     hold_at_loop_shape("phase 17", *seen[1], strong)
 
     # the default engine (solve_fn=None: the per-scenario solve, plain
-    # PyTorch) on the card: the headline's first 2 steps at its config,
-    # timed (cut from 10: a step takes ~10 s there; step 0 is phase 16's
-    # solve; not held against the CPU: a 1e-7 move of x0 moves row 1 of
-    # X_hist by 0.37 at 15x25); then its first 3 steps at phase 16's 2x10
+    # PyTorch) on the card: the headline's first step at its config, timed
+    # (cut from 10, then 2: a step takes ~20 s there; not held against the
+    # CPU: a 1e-7 move of x0 moves row 1 of X_hist by 0.37 at 15x25); then
+    # its first 3 steps at phase 16's 2x10
     # on the card against the CPU, X_hist atol 5e-3 (the same move changes
     # rows 0-3 by at most 1.4e-4 there and row 4 by up to 0.11;
     # tests/reference_spread.py)
     fn, stamps, _ = step_clock(lambda o, w: solve(o, w, strong))
-    rd = closed_loop(head, strong, dataclasses.replace(mpc17, max_steps=2), solve_fn=fn)
+    rd = closed_loop(head, strong, dataclasses.replace(mpc17, max_steps=1), solve_fn=fn)
     torch.cuda.synchronize()
     msd = step_ms(stamps, time.perf_counter())
     its = int(rd.iter_hist.sum())
@@ -912,8 +928,8 @@ def closed_loop_phases(dev, base, card: str) -> None:
     t_cpu = time.perf_counter() - t0
     dx = float((ra.X_hist.cpu() - rc.X_hist).abs().max())
     its3 = int(ra.iter_hist.sum())
-    log(f"phase 17 default engine: headline at {strong.n_outer}x{strong.n_inner}, first 2 steps "
-        f"(cut from 10) on the card, " + ", ".join(f"{t:.1f}" for t in msd) + f" ms a step "
+    log(f"phase 17 default engine: headline at {strong.n_outer}x{strong.n_inner}, first step "
+        f"(cut from 10, then 2) on the card, " + ", ".join(f"{t:.1f}" for t in msd) + f" ms a step "
         f"({sum(msd) / max(its, 1):.2f} ms an inner iteration, {its} iterations) {card}; at "
         f"{short.n_outer}x{short.n_inner}, first 3 steps ({its3} iterations): card "
         f"{t_card * 1e3 / 3:.1f} ms a step ({t_card * 1e3 / its3:.2f} ms an iteration), CPU "
@@ -2643,12 +2659,22 @@ def lidar_batch_phase(dev, card: str) -> None:
 # phase 38: robot counts past the registry's. The megakernel route at m = 7
 # and 9 (K1's warp design as at m <= 10) and 12 and 16 (lanes that own two
 # state rows and two right-hand sides, three and four pair rows), each
-# library built from csrc at its first use; the staged route at m = 7 and 9.
-# The problems are scenarios/robot_counts.py's: the antipodal circle at 7
-# and 9 (N=10, T=0.2), ten_robot widened by columns at 12 and 16 (N=20).
+# library built from csrc at its first use; the staged route at every one
+# (K3's block design at 12 and 16). The problems are
+# scenarios/robot_counts.py's: the antipodal circle at 7 and 9 (N=10,
+# T=0.2), ten_robot widened by columns at 12 and 16 (N=20). Phase 39: the
+# hybrid route at m=12 (B=WIDE_HYBRID_B) and K3 at WIDE_K3_SHAPES, stage
+# shapes past the team design's (30, 20) that no robot stack has, up to the
+# block design's limit.
 WIDE_ROBOTS = (7, 9, 12, 16)
 WIDE_B = 4096
 WIDE_HOLD_B = 256
+WIDE_HYBRID_B = 1024
+WIDE_K3_SHAPES = ((36, 24), (41, 7), (50, 13), (64, 32), (80, 32))
+# a static obstacle (ox, oy, r) ahead of the start of the m=12 crossing's
+# third column, where its rows bind (~5% of the entries on the CPU at N=10):
+# K1's and K2's obstacle variant there (phase 38 (b))
+WIDE_OBSTACLE = (-0.5, -0.7, 0.15)
 # the share of K5's and K6's units whose f64 rollout may leave the arena
 # (kernel_check's DIVERGED) in phase 38 (c): 5%, where phase 10 allows 1% on
 # paths (a)-(c). At the circle's staged last iterate, m=7, B=4096, its own
@@ -2659,8 +2685,9 @@ WIDE_HOLD_B = 256
 # the plain version is; K5's merit above its alpha-0 merit where f64's is).
 WIDE_DIVERGED = 0.05
 # K1's and K2's `-Xptxas -v` lines at the new m (regs, stack, spill stores,
-# spill loads), both instantiations, as PERF.md records them; K3-K6's at m =
-# 7 and 9 with the dynamic shared bytes of a block, as STAGED_PTXAS has them
+# spill loads), both instantiations, as PERF.md records them; K3-K6's at
+# each m (K3's block design at 12 and 16) and K3's at WIDE_K3_SHAPES with
+# the dynamic shared bytes of a block, as STAGED_PTXAS has them
 WIDE_PTXAS = {7: {"K1": (96, 0, 0, 0), "K1 obs": (96, 32, 0, 0), "K2": (28, 0, 0, 0),
                   "K2 obs": (30, 0, 0, 0)},
               9: {"K1": (124, 104, 0, 0), "K1 obs": (124, 104, 0, 0), "K2": (28, 0, 0, 0),
@@ -2674,36 +2701,58 @@ WIDE_STAGED_PTXAS = {
         "K6": (123, 32, 0, 0, 44800)},
     9: {"K3": (253, 0, 0, 0, 179136), "K4": (255, 32, 0, 0, 81328), "K5": (107, 248, 0, 0, 90448),
         "K6": (128, 32, 0, 0, 71424)},
+    12: {"K3": (40, 0, 0, 0, 59808), "K4": (254, 32, 0, 0, 64928), "K5": (127, 272, 0, 0, 75648),
+         "K6": (126, 32, 0, 0, 61440)},
+    16: {"K3": (58, 0, 0, 0, 105856), "K4": (254, 32, 0, 0, 104976),
+         "K5": (128, 352, 0, 0, 127472), "K6": (141, 32, 0, 0, 106496)},
+    (36, 24): {"K3": (40, 0, 0, 0, 59808)}, (41, 7): {"K3": (40, 0, 0, 0, 48720)},
+    (50, 13): {"K3": (48, 0, 0, 0, 78768)}, (64, 32): {"K3": (32, 0, 0, 0, 161408)},
+    (80, 32): {"K3": (32, 0, 0, 0, 229248)},
 }
 
 
-def wide_build(card: str) -> dict:
-    """Phase 38 (a): the solver libraries at WIDE_ROBOTS, each part its own
-    nvcc process, all started together; every K1 slot size against its
-    mirror (megasolve.slot_bytes, the route's admission) and K1's block
-    within 227 KB. Returns {m: {kernel: ptxas line}} (K3-K6 with their
-    dynamic shared bytes)."""
+def start_wide_builds() -> list:
+    """Phase 38's libraries, the solver libraries at WIDE_ROBOTS and K3 at
+    WIDE_K3_SHAPES, each part its own nvcc process, all started now (right
+    after phase 1's builds) in the background: phases 2-37 leave the host's
+    cores mostly to them, and phase 38 finds them built (49.4 s of nvcc wall
+    time on the H100 machine's host when phase 38 started them itself).
+    Returns the futures, which wide_build reads."""
+    from nmpc_tpu_torch.ops import cuda_build
+
+    pool = ThreadPoolExecutor(max_workers=len(WIDE_ROBOTS) + len(WIDE_K3_SHAPES))
+    futures = [pool.submit(cuda_build.load, m) for m in WIDE_ROBOTS]
+    futures += [pool.submit(cuda_build.load_k3_shape, *shape) for shape in WIDE_K3_SHAPES]
+    pool.shutdown(wait=False)
+    return futures
+
+
+def wide_build(card: str, pending: list) -> dict:
+    """Phase 38 (a): the libraries start_wide_builds started (waited for
+    here); every K1 slot size against its mirror (megasolve.slot_bytes, the
+    route's admission) and K1's block within 227 KB. Returns {m: {kernel:
+    ptxas line}} (K3-K6 with their dynamic shared bytes) and {shape: {"K3":
+    its line}}."""
     from nmpc_tpu_torch.ops import cuda_build, megasolve, staged_tiles
     from nmpc_tpu_torch.ops import rollout as R
     from nmpc_tpu_torch.solver import ALILQRConfig
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=len(WIDE_ROBOTS)) as pool:
-        libs = dict(zip(WIDE_ROBOTS, pool.map(cuda_build.load, WIDE_ROBOTS)))
+    for f in pending:   # a build that failed raises here
+        f.result()
+    libs = {m: cuda_build.load(m) for m in WIDE_ROBOTS}
     lines = {}
     for m, lib in libs.items():
         text = cuda_build.build_info[m]["ptxas"]
         got = ptxas(text)
-        want = {"K1", "K2", "K1 obs", "K2 obs"}
-        if m <= cuda_build.STAGED_MAX_ROBOTS:
-            want |= {"K3", "K4", "K5", "K6"}
-            k4 = cuda_build.k4_geometry(lib, staged_tiles.k4_rows(m, True, 0, 0),
-                                        R._P(3 * m, 2 * m, 0).size)["smem_bytes"]
-            k5 = cuda_build.k5_geometry(lib, staged_tiles.k5_rows(m, True, 0, 0),
-                                        R._P(3 * m, 2 * m, 9).size)["smem_bytes"]
-            smem = {"K3": cuda_build.k3_geometry(lib)["smem_bytes"], "K4": k4, "K5": k5,
-                    "K6": cuda_build.k6_geometry(lib)["smem_bytes"]}
-            got.update({k: (*got[k], smem[k]) for k in smem})
+        want = {"K1", "K2", "K1 obs", "K2 obs", "K3", "K4", "K5", "K6"}
+        k4 = cuda_build.k4_geometry(lib, staged_tiles.k4_rows(m, True, 0, 0),
+                                    R._P(3 * m, 2 * m, 0).size)["smem_bytes"]
+        k5 = cuda_build.k5_geometry(lib, staged_tiles.k5_rows(m, True, 0, 0),
+                                    R._P(3 * m, 2 * m, 9).size)["smem_bytes"]
+        smem = {"K3": cuda_build.k3_geometry(lib)["smem_bytes"], "K4": k4, "K5": k5,
+                "K6": cuda_build.k6_geometry(lib)["smem_bytes"]}
+        got.update({k: (*got[k], smem[k]) for k in smem})
         assert set(got) == want, (m, sorted(got))
         for rows in (0, m, 5 * m, 47):
             assert lib.nmpc_k1_slot_bytes(rows) == megasolve.slot_bytes(m, rows), (m, rows)
@@ -2715,8 +2764,16 @@ def wide_build(card: str) -> dict:
             f"{lib.nmpc_k1_slot_bytes(0)} B slot + parameters = {block} B a block (the slot "
             f"mirror of the route's admission agrees at 0, m, 5m and 47 obstacle rows); built in "
             f"{cuda_build.build_info[m]['seconds']:.1f} s")
-    log(f"phase 38 (a) built m in {WIDE_ROBOTS} in {time.perf_counter() - t0:.1f} s wall "
-        f"(parallel nvcc) {card}")
+    for shape in WIDE_K3_SHAPES:
+        info = cuda_build.k3_shape_build_info[shape]
+        lines[shape] = {"K3": (*ptxas(info["ptxas"])["K3"],
+                               staged_tiles.k3_layout(shape)["smem_bytes"])}
+        log(f"phase 38 (a) ptxas K3 at {shape} (the block design, {staged_tiles.k3_geometry(shape)}):"
+            f" {ptxas_summary(info['ptxas'])}, dynamic shared {lines[shape]['K3'][-1]} B; built in "
+            f"{info['seconds']:.1f} s")
+    log(f"phase 38 (a) built m in {WIDE_ROBOTS} and K3 at {WIDE_K3_SHAPES} in the background "
+        f"since phase 1 (parallel nvcc); phase 38 waited {time.perf_counter() - t0:.1f} s for "
+        f"them {card}")
     return lines
 
 
@@ -2732,17 +2789,20 @@ def wide_solves(dev, card: str) -> list:
     converged state beside the plain version's and the bound
     (tools/roofline.py::kernel_work on the iterations and candidates the
     plain version needed), K2's beside its plain version's and bound.
-    (c) at m = 7 and 9 the staged route (mega=False) on the same starts,
-    then K3-K6 against plain on its last iterate at the tolerances of phase
-    10 (kernel_check's rule, at fresh and at the solve's own multipliers),
-    with at most WIDE_DIVERGED of the units left out as diverged, each
-    timed beside its plain version and bound.
+    At m=12 also K1's and K2's obstacle variant against plain, with a
+    static obstacle (WIDE_OBSTACLE) on the same starts.
+    (c) the staged route (mega=False) on the same starts (K3's block design
+    at 12 and 16), then K3-K6 against plain on its last iterate at the
+    tolerances of phase 10 (kernel_check's rule, at fresh and at the solve's
+    own multipliers), with at most WIDE_DIVERGED of the units left out as
+    diverged, each timed beside its plain version and bound.
     Returns the kernel rows of the record."""
     import torch
 
     from nmpc_tpu_torch.bench import fleet, jittered, quality
     from nmpc_tpu_torch.ocp import problem as P
     from nmpc_tpu_torch.ops import cuda_build, megasolve
+    from nmpc_tpu_torch.parallel import batch_ocp
     from nmpc_tpu_torch.scenarios import robot_counts
     from nmpc_tpu_torch.solver import ALILQRConfig, solve_batched
     from nmpc_tpu_torch.solver.alilqr_batched import route
@@ -2820,6 +2880,26 @@ def wide_solves(dev, card: str) -> list:
         b2, by2 = row(f"al_update_lanes m={m}", "nmpc_tpu_torch/csrc/inner_warp.cuh",
                       "nmpc_tpu/ops/megasolve_pallas.py:870", k2_n, k2_err, k2_ms, k2_plain,
                       RL.kernel_work("K2", base, WIDE_B))
+        if m == 12:   # K1's and K2's obstacle variant, the route's K1 for any obstacle problem
+            obase = P.make_ocp(**robot_counts.crossing(m), obstacles=[list(WIDE_OBSTACLE)],
+                               device=dev)
+            osub = batch_ocp(obase, sub.x0)
+            lam_o = 0.5 * torch.randn((WIDE_HOLD_B, obase.N, obase.n_con), generator=g,
+                                      device=dev).abs() * (P.constraint_mask(obase) > 0)
+            oerrs = []
+            got_o = hold_k1(f"phase 38 (b) K1's obstacle variant vs plain m={m} (a static "
+                            f"obstacle {WIDE_OBSTACLE}, {megasolve.obstacle_rows(obase)} rows) "
+                            f"B={WIDE_HOLD_B} n_inner=4", osub, U, lam_o, mu, c4, oerrs)
+            k2o = hold_k2(f"phase 38 (b) K2's obstacle variant vs plain m={m} on K1's output",
+                          osub, got_o[0], got_o[1], lam_o, mu, cfg.lam_max)
+            lam_new = megasolve.al_update_plain(osub, got_o[0], got_o[1], lam_o, mu,
+                                                cfg.lam_max)[0]
+            i0 = obase.n_pairs
+            bind = float((lam_new[:, 1:, i0:i0 + m] > 0).float().mean())
+            log(f"phase 38 (b) m={m} obstacle rows with a positive multiplier after K2: "
+                f"{100 * bind:.2f}% (the rows bind); K1 U max |err| {oerrs[0]:.3e}, K2 {k2o:.3e}")
+            assert bind > 0.01, bind
+            errs[0] = max(errs[0], oerrs[0])
         log(f"phase 38 (b) m={m} B={WIDE_B} K1: first step {ms0:.2f} ms (plain {plain0:.1f} ms, "
             f"{k1['first step'][3]:.2f} iterations and {k1['first step'][4]:.2f} candidates a "
             f"scenario, bound {b0:.4f} ms by {by0}, {100 * b0 / ms0:.2f}%), converged "
@@ -2828,61 +2908,145 @@ def wide_solves(dev, card: str) -> list:
             f"{b1:.4f} ms by {by1}, {100 * b1 / k1['converged'][0]:.2f}%); K2 {k2_ms:.3f} ms "
             f"(plain {k2_plain:.3f} ms, bound {b2:.4f} ms by {by2}, {100 * b2 / k2_ms:.2f}%) {card}")
 
-        if m <= cuda_build.STAGED_MAX_ROBOTS:
-            scfg = dataclasses.replace(cfg, mega=False)
-            assert route(base, scfg) == "staged"
-            cuda_build.reset_launch_counts()
-            res, t_s = timed(lambda: solve_batched(ob, cfg=scfg))
-            sc = dict(cuda_build.launch_counts)
-            check_staged(f"phase 38 (c) m={m}", sc, res, scfg)
-            log(f"phase 38 (c) {robot_counts.name(m)} m={m} B={WIDE_B} staged route: launches "
-                f"{sc}; {summary(res)}; {t_s * 1e3:.1f} ms {card}")
-            held = hold_staged_kernels(f"phase 38 (c) K3-K6 vs plain m={m}", ob, res, scfg,
-                                       torch.Generator(device=dev).manual_seed(380 + m),
-                                       first=False, diverged=WIDE_DIVERGED)
-            _, v, calls, _ = held[1]   # state (ii): the solve's own multipliers
-            names = {"K3": "riccati_lanes", "K4": "expansions_fused",
-                     "K5": "linesearch_costs_lanes", "K6": "rollout_alpha_lanes"}
-            srcs = {"K3": "staged_tiles.cuh", "K4": "expansions_rollout_tiles.cuh",
-                    "K5": "staged_tiles.cuh", "K6": "expansions_rollout_tiles.cuh"}
-            where = {"K3": "nmpc_tpu/ops/riccati_pallas.py:311",
-                     "K4": "nmpc_tpu/ops/expansions_pallas.py:212",
-                     "K5": "nmpc_tpu/ops/rollout_pallas.py:287",
-                     "K6": "nmpc_tpu/ops/rollout_pallas.py:360"}
-            parts = []
-            for k in ("K3", "K4", "K5", "K6"):
-                k_ms, p_ms = cuda_ms(calls[k][0], 5), cuda_ms(calls[k][1], 1)
-                err = max(x.err for _, vs, _, _ in held for key, x in vs.items() if key == k)
-                b, by = row(f"{names[k]} m={m}", "nmpc_tpu_torch/csrc/" + srcs[k], where[k],
-                            sc[names[k]], err, k_ms, p_ms,
-                            RL.kernel_work(k, base, WIDE_B, n_alphas=len(scfg.alphas) + 1))
-                parts.append(f"{k} {k_ms:.3f} ms (plain {p_ms:.3f} ms, bound {b:.4f} ms by {by}, "
-                             f"{100 * b / k_ms:.2f}%)")
-            log(f"phase 38 (c) m={m} B={WIDE_B} kernels at the staged solve's last iterate: "
-                + "; ".join(parts) + f" {card}")
+        scfg = dataclasses.replace(cfg, mega=False)
+        assert route(base, scfg) == "staged"
+        cuda_build.reset_launch_counts()
+        res, t_s = timed(lambda: solve_batched(ob, cfg=scfg))
+        sc = dict(cuda_build.launch_counts)
+        check_staged(f"phase 38 (c) m={m}", sc, res, scfg)
+        log(f"phase 38 (c) {robot_counts.name(m)} m={m} B={WIDE_B} staged route: launches "
+            f"{sc}; {summary(res)}; {t_s * 1e3:.1f} ms a solve; the megakernel route on the "
+            f"same starts (b): converged {q['conv']:.4f}, mean inner {q['mean_inner']:.2f} {card}")
+        held = hold_staged_kernels(f"phase 38 (c) K3-K6 vs plain m={m}", ob, res, scfg,
+                                   torch.Generator(device=dev).manual_seed(380 + m),
+                                   first=False, diverged=WIDE_DIVERGED)
+        _, v, calls, _ = held[1]   # state (ii): the solve's own multipliers
+        names = {"K3": "riccati_lanes", "K4": "expansions_fused",
+                 "K5": "linesearch_costs_lanes", "K6": "rollout_alpha_lanes"}
+        srcs = {"K3": "staged_tiles.cuh", "K4": "expansions_rollout_tiles.cuh",
+                "K5": "staged_tiles.cuh", "K6": "expansions_rollout_tiles.cuh"}
+        where = {"K3": "nmpc_tpu/ops/riccati_pallas.py:311",
+                 "K4": "nmpc_tpu/ops/expansions_pallas.py:212",
+                 "K5": "nmpc_tpu/ops/rollout_pallas.py:287",
+                 "K6": "nmpc_tpu/ops/rollout_pallas.py:360"}
+        parts = []
+        for k in ("K3", "K4", "K5", "K6"):
+            k_ms, p_ms = cuda_ms(calls[k][0], 5), cuda_ms(calls[k][1], 1)
+            err = max(x.err for _, vs, _, _ in held for key, x in vs.items() if key == k)
+            b, by = row(f"{names[k]} m={m}", "nmpc_tpu_torch/csrc/" + srcs[k], where[k],
+                        sc[names[k]], err, k_ms, p_ms,
+                        RL.kernel_work(k, base, WIDE_B, n_alphas=len(scfg.alphas) + 1))
+            parts.append(f"{k} {k_ms:.3f} ms (plain {p_ms:.3f} ms, bound {b:.4f} ms by {by}, "
+                         f"{100 * b / k_ms:.2f}%)")
+        log(f"phase 38 (c) m={m} B={WIDE_B} kernels at the staged solve's last iterate: "
+            + "; ".join(parts) + f" {card}")
         log(f"phase 38 m={m} took {time.perf_counter() - t0:.1f} s")
     return rows
 
 
-def robot_counts_phase(dev, card: str) -> list:
-    """Phase 38: robot counts past the registry's (wide_build, wide_solves),
-    the ptxas lines held to WIDE_PTXAS and WIDE_STAGED_PTXAS. Returns the
-    kernel rows of the record."""
+def robot_counts_phase(dev, card: str, pending: list) -> list:
+    """Phase 38: robot counts past the registry's (wide_build on the builds
+    `pending`, wide_solves), the ptxas lines held to WIDE_PTXAS and
+    WIDE_STAGED_PTXAS. Returns the kernel rows of the record."""
     t0 = time.perf_counter()
-    lines = wide_build(card)
-    for m, got in lines.items():
+    lines = wide_build(card, pending)
+    for m in WIDE_ROBOTS:
+        got = lines[m]
         k1k2 = {k: v for k, v in got.items() if k in ("K1", "K2", "K1 obs", "K2 obs")}
         staged = {k: v for k, v in got.items() if k not in k1k2}
         log(f"phase 38 (a) m={m}: K1/K2 {k1k2} (as recorded in PERF.md: "
-            f"{'yes' if k1k2 == WIDE_PTXAS[m] else 'NO'})"
-            + (f"; K3-K6 {staged} (as recorded: "
-               f"{'yes' if staged == WIDE_STAGED_PTXAS[m] else 'NO'})" if staged else ""))
-    for m, got in lines.items():
-        assert {k: v for k, v in got.items() if k in WIDE_PTXAS[m]} == WIDE_PTXAS[m], (m, got)
-        assert {k: v for k, v in got.items() if k not in WIDE_PTXAS[m]} == \
-            WIDE_STAGED_PTXAS.get(m, {}), (m, got)
+            f"{'yes' if k1k2 == WIDE_PTXAS[m] else 'NO'}); K3-K6 {staged} (as recorded: "
+            f"{'yes' if staged == WIDE_STAGED_PTXAS[m] else 'NO'})")
+    for shape in WIDE_K3_SHAPES:
+        log(f"phase 38 (a) K3 at {shape}: {lines[shape]['K3']} (as recorded in PERF.md: "
+            f"{'yes' if lines[shape] == WIDE_STAGED_PTXAS[shape] else 'NO'})")
+    for key, got in lines.items():   # every line logged before any is held
+        if key in WIDE_PTXAS:
+            assert {k: v for k, v in got.items() if k in WIDE_PTXAS[key]} == WIDE_PTXAS[key], \
+                (key, got)
+        assert {k: v for k, v in got.items() if k not in WIDE_PTXAS.get(key, {})} == \
+            WIDE_STAGED_PTXAS[key], (key, got)
     rows = wide_solves(dev, card)
     log(f"phase 38 took {time.perf_counter() - t0:.1f} s")
+    return rows
+
+
+def wide_stage_shapes_phase(dev, card: str) -> list:
+    """Phase 39: (a) the hybrid route (sweep="scan": plain expansions, the
+    associative-scan LQR, K5 for the line-search merits and K6 for the
+    accepted rollout) at m=12 on WIDE_HYBRID_B starts of phase 38's crossing
+    at the bench config, with the launch counts set to 0 just before and
+    read just after (K5 and K6 once an inner iteration, no K3 or K4),
+    beside the staged route on the same starts; (b) K3's block
+    design at WIDE_K3_SHAPES (its riccati_shape.cu libraries, built in phase
+    38 (a)) against plain on random well-posed stage blocks at B = 33 and
+    256, N=20, timed at 256 beside plain and the bound. Returns the kernel
+    rows of the record."""
+    import types
+
+    import torch
+
+    from nmpc_tpu_torch.bench import jittered
+    from nmpc_tpu_torch.ops import cuda_build
+    from nmpc_tpu_torch.ops import kernel_check as KC
+    from nmpc_tpu_torch.ops import riccati as RIC
+    from nmpc_tpu_torch.scenarios import robot_counts
+    from nmpc_tpu_torch.solver import ALILQRConfig, solve_batched
+    from nmpc_tpu_torch.solver.alilqr_batched import route
+    from nmpc_tpu_torch.tools import roofline as RL
+    from nmpc_tpu_torch.utils.timing import cuda_ms
+
+    t0 = time.perf_counter()
+    cfg = ALILQRConfig(n_outer=6, n_inner=12, tol_con=1e-3, ls="adaptive")
+    m = 12
+    ob = jittered(robot_counts.make(m, device=dev), WIDE_HYBRID_B,
+                  torch.Generator(device=dev).manual_seed(39))
+    out = {}
+    for way, c in (("hybrid", dataclasses.replace(cfg, sweep="scan")),
+                   ("staged", dataclasses.replace(cfg, mega=False))):
+        assert route(ob, c) == way, way
+        cuda_build.reset_launch_counts()
+        res, t_s = timed(lambda: solve_batched(ob, cfg=c))
+        out[way] = (res, dict(cuda_build.launch_counts), t_s)
+    res, hc, t_h = out["hybrid"]
+    it = hc["linesearch_costs_lanes"]
+    assert it > 0 and hc["rollout_alpha_lanes"] == it, hc
+    assert hc["riccati_lanes"] == hc["expansions_fused"] == hc["inner_solve_fused"] == 0, hc
+    for name in ("X", "U", "cost", "viol", "lam"):
+        assert torch.isfinite(getattr(res, name)).all(), name
+    assert float(res.converged.float().mean()) > 0.5, summary(res)
+    log(f"phase 39 (a) hybrid route (sweep='scan') {robot_counts.name(m)} m={m} N={ob.N} "
+        f"B={WIDE_HYBRID_B} bench config: launches K5 {it}, K6 {hc['rollout_alpha_lanes']} (no K3, "
+        f"K4, K1); {summary(res)}; {t_h * 1e3:.1f} ms a solve; the staged route on the same "
+        f"starts: {summary(out['staged'][0])}, {out['staged'][2] * 1e3:.1f} ms {card}")
+    rows = []
+    gen = torch.Generator(device=dev).manual_seed(39)
+    for shape in WIDE_K3_SHAPES:
+        err = 0.0
+        for B in (33, 256):
+            exp = KC.k3_inputs(*shape, B, 20, gen)
+            got = RIC.riccati_lanes(exp, cfg.reg)
+            torch.cuda.synchronize()
+            v = KC.Verdict()
+            for i, (a, w, atol) in enumerate(zip(got, RIC.riccati_plain(exp, cfg.reg),
+                                                 KC.K3_ATOL)):
+                KC.hold(v, f"K3 {shape} output {i} B={B}", a, w, atol)
+            assert v.units == B and v.n_widened == 0 and v.n_diverged == 0, (shape, B, v)
+            err = max(err, v.err)
+        ms_ = cuda_ms(lambda: RIC.riccati_lanes(exp, cfg.reg), 5)
+        plain_ms = cuda_ms(lambda: RIC.riccati_plain(exp, cfg.reg), 1, warmup=0)
+        dims = types.SimpleNamespace(m=0, nx=shape[0], nu=shape[1], n_pairs=0, n_con=0, N=20,
+                                     n_obs=0, n_mov=0)
+        b_ms, by = RL.bound(*RL.kernel_work("K3", dims, 256))
+        log(f"phase 39 (b) K3's block design at {shape} vs plain (B = 33 and 256, N=20): max "
+            f"|err| {err:.3e} (kernel_check's rule); {ms_:.4f} ms a launch at B=256, plain "
+            f"{plain_ms:.1f} ms, bound {b_ms:.5f} ms ({by}), {100 * b_ms / ms_:.2f}% {card}")
+        rows.append({"name": f"riccati_lanes {shape}", "route": "cuda",
+                     "source": "nmpc_tpu_torch/csrc/riccati_shape.cu",
+                     "replaces": "nmpc_tpu/ops/riccati_pallas.py:311", "launches": 0,
+                     "max_abs_err": err, "ms": ms_, "plain_ms": plain_ms, "bound_ms": b_ms,
+                     "bound_by": by, "library_ms": None})
+    log(f"phase 39 took {time.perf_counter() - t0:.1f} s")
     return rows
 
 
@@ -2944,6 +3108,7 @@ def main() -> int:
         cuda_build.load_all(staged_tiles.K3_SHAPES + staged_tiles.K3_SWEEP_SHAPES)
         probe_lib = probes.result()[0]
     wall = time.perf_counter() - t0
+    wide_builds = start_wide_builds()
     per_m = ", ".join(f"m={m} {cuda_build.build_info[m]['seconds']:.1f}s"
                       for m in cuda_build.ROBOT_COUNTS)
     tools = cuda_build.tools_build_info[cuda_build.BENCH_ROBOTS]
@@ -3844,8 +4009,12 @@ def main() -> int:
     lidar_batch_phase(dev, card)
 
     # ---- phase 38: robot counts past the registry's: the megakernel route
-    # at m = 7, 9, 12 and 16, the staged route at 7 and 9 ------------------
-    wide_rows = robot_counts_phase(dev, card)
+    # and the staged route at m = 7, 9, 12 and 16 --------------------------
+    wide_rows = robot_counts_phase(dev, card, wide_builds)
+
+    # ---- phase 39: the hybrid route at m=12; K3 at stage shapes past
+    # (30, 20) ---------------------------------------------------------------
+    wide_rows += wide_stage_shapes_phase(dev, card)
 
     def entry(name, source, where, launches, err, ms_, plain_ms, key):
         return {"name": name, "route": "cuda", "source": source, "replaces": where,

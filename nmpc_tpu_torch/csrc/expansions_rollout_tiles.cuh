@@ -53,7 +53,10 @@
 // K6 reaches 58-69% at m=6; at m=1 29-54%: N=100 dependent stages of a few
 // dozen instructions on ~8 warps an SM, and a launch short enough for the
 // wrapper's host work to show. From m=8 K4's compute threads take 254-255
-// registers, which caps its blocks an SM. S, W (K4) and S, D, T (K6)
+// registers, which caps its blocks an SM; past m = 10 they keep lx and lu in
+// the output tile and recompute the x-box activations where read
+// (expansion_column_wide), and K6 runs teams of 16 (27-44% of the bounds at
+// m = 12 and 16). S, W (K4) and S, D, T (K6)
 // per m are compile-time constants, picked by `python -m
 // nmpc_tpu_torch.tools.staged_launch` and passed by ops/cuda_build.py from
 // ops/staged_tiles.py (-DNMPC_K4_S, ...).
@@ -305,6 +308,154 @@ NMPC_DEV void expansion_column(const ExpArgs& a, const K4Rows<NR>& R, const floa
   for (int i = 0; i < nu; ++i) o[(Q::lu + i) * P] = lu[i];
 }
 
+// expansion_column past ten robots: the same arithmetic in the same order,
+// with lx and lu summed in their rows of the output tile and the x-box
+// activations computed again where they are read (the same values), so that
+// a thread holds only x and u (at m=16 expansion_column's arrays alone would
+// take 256 registers). Kept apart from expansion_column, whose machine code
+// at m <= 10 stays as it was.
+template <int NR, int P>
+NMPC_DEV void expansion_column_wide(const ExpArgs& a, const K4Rows<NR>& R, const float* sp,
+                                    const float* t, float* o, int k) {
+  using D = Dims<NR>;
+  using Q = K4Rows<NR>;
+  constexpr int n = D::n, nu = D::nu, np = Q::np;
+  const bool pairs = a.pairs != 0;
+  const int nc = R.nc;
+  const float dt = sp[D::dt];
+  const float mu = t[R.mu * P];
+  const bool gate = k > 0;
+  const float* lam = t + R.lam * P;
+  float* Hc = o + Q::Hc * P;
+  auto H = [&](int i, int j) -> float& { return Hc[(Q::pos(i) * np + Q::pos(j)) * P]; };
+  float x[n], u[nu];
+#pragma unroll
+  for (int i = 0; i < n; ++i) x[i] = t[(Q::X + i) * P];
+#pragma unroll
+  for (int i = 0; i < nu; ++i) u[i] = t[(Q::U + i) * P];
+
+  // dynamics Jacobians (Euler unicycle, closed form): A's and B's entries
+#pragma unroll
+  for (int r = 0; r < NR; ++r) {
+    float s, c;
+    sincosf(x[3 * r + 2], &s, &c);
+    const float v = u[2 * r];
+    o[(Q::e1 + r) * P] = -dt * v * s;
+    o[(Q::e2 + r) * P] = dt * v * c;
+    o[(Q::bc + r) * P] = dt * c;
+    o[(Q::bs + r) * P] = dt * s;
+  }
+
+  auto lx = [&](int i) -> float& { return o[(Q::lx + i) * P]; };
+  auto lu = [&](int i) -> float& { return o[(Q::lu + i) * P]; };
+#pragma unroll
+  for (int i = 0; i < n; ++i) lx(i) = mul_rn(2.f * sp[D::q + i], x[i] - t[(Q::xref + i) * P]);
+#pragma unroll
+  for (int i = 0; i < nu; ++i) lu(i) = mul_rn(2.f * sp[D::r + i], u[i]);
+  const int row_u = nc - 2 * nu - 2 * n, row_x = nc - 2 * n;
+  auto box = [&](int i, bool hi) {
+    const float c = hi ? sp[D::x_hi + i] - x[i] : x[i] - sp[D::x_lo + i];
+    const float v = relu(al_step(lam[(row_x + (hi ? n : 0) + i) * P], mu, c));
+    return gate ? v : 0.f;
+  };
+  auto xlo = [&](int i) { return box(i, false); };
+  auto xhi = [&](int i) { return box(i, true); };
+  // the diagonal base (the position block was zero-filled)
+#pragma unroll
+  for (int i = 0; i < n; ++i) {
+    const float d = 2.f * sp[D::q + i] + mu * ((xlo(i) > 0.f ? 1.f : 0.f) + (xhi(i) > 0.f ? 1.f : 0.f));
+    if (Q::pos(i) >= 0)
+      H(i, i) = d;
+    else
+      o[(Q::hth + i / 3) * P] = d;
+  }
+
+  int row = 0;
+  if (pairs) {
+#pragma unroll
+    for (int i = 0; i < NR; ++i) {
+#pragma unroll
+      for (int j = i + 1; j < NR; ++j) {
+        const float dx = x[3 * i] - x[3 * j];
+        const float dy = x[3 * i + 1] - x[3 * j + 1];
+        float act = relu(al_step(lam[row * P], mu, pair_c(dx, dy, sp[D::dmin2])));
+        act = gate ? act : 0.f;
+        const float w = act > 0.f ? mu : 0.f;
+        const float gx = 2.f * dx, gy = 2.f * dy;
+        lx(3 * i) = lx(3 * i) - gx * act;
+        lx(3 * i + 1) = lx(3 * i + 1) - gy * act;
+        lx(3 * j) = lx(3 * j) + gx * act;
+        lx(3 * j + 1) = lx(3 * j + 1) + gy * act;
+        const float wxx = w * gx * gx, wyy = w * gy * gy, wxy = w * gx * gy;
+        const int xi = 3 * i, yi = 3 * i + 1, xj = 3 * j, yj = 3 * j + 1;
+        H(xi, xi) += wxx; H(yi, yi) += wyy;
+        H(xj, xj) += wxx; H(yj, yj) += wyy;
+        H(xi, yi) += wxy; H(yi, xi) += wxy;
+        H(xj, yj) += wxy; H(yj, xj) += wxy;
+        H(xi, xj) += -wxx; H(xj, xi) += -wxx;
+        H(yi, yj) += -wyy; H(yj, yi) += -wyy;
+        H(xi, yj) += -wxy; H(yj, xi) += -wxy;
+        H(yi, xj) += -wxy; H(xj, yi) += -wxy;
+        ++row;
+      }
+    }
+  }
+  const float* obs = sp + D::alphas;
+#pragma unroll
+  for (int i = 0; i < NR; ++i) {
+    for (int ob = 0; ob < a.n_obs; ++ob) {
+      const float dx = x[3 * i] - obs[3 * ob];
+      const float dy = x[3 * i + 1] - obs[3 * ob + 1];
+      float dist;
+      const float c = obs_c(dx, dy, obs[3 * ob + 2], &dist);
+      float act = relu(al_step(lam[row * P], mu, c));
+      act = gate ? act : 0.f;
+      const float w = act > 0.f ? mu : 0.f;
+      const float ux = dx / dist, uy = dy / dist;
+      lx(3 * i) = lx(3 * i) - ux * act;
+      lx(3 * i + 1) = lx(3 * i + 1) - uy * act;
+      const int xi = 3 * i, yi = 3 * i + 1;
+      H(xi, xi) += w * ux * ux;
+      H(yi, yi) += w * uy * uy;
+      H(xi, yi) += w * ux * uy;
+      H(yi, xi) += w * ux * uy;
+      ++row;
+    }
+  }
+  if (a.n_mov) {
+    const float* mov = t + R.mov * P;
+#pragma unroll
+    for (int i = 0; i < NR; ++i) {
+      for (int ob = 0; ob < a.n_mov; ++ob) {
+        const float dx = x[3 * i] - mov[(2 * ob) * P];
+        const float dy = x[3 * i + 1] - mov[(2 * ob + 1) * P];
+        float act = relu(al_step(lam[row * P], mu, pair_c(dx, dy, sp[D::dmin2])));
+        act = gate ? act : 0.f;
+        const float w = act > 0.f ? mu : 0.f;
+        const float gx = 2.f * dx, gy = 2.f * dy;
+        lx(3 * i) = lx(3 * i) - gx * act;
+        lx(3 * i + 1) = lx(3 * i + 1) - gy * act;
+        const int xi = 3 * i, yi = 3 * i + 1;
+        H(xi, xi) += w * gx * gx;
+        H(yi, yi) += w * gy * gy;
+        H(xi, yi) += w * gx * gy;
+        H(yi, xi) += w * gx * gy;
+        ++row;
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < nu; ++i) {
+    const float alo = relu(al_step(lam[(row_u + i) * P], mu, u[i] - sp[D::u_lo + i]));
+    const float ahi = relu(al_step(lam[(row_u + nu + i) * P], mu, sp[D::u_hi + i] - u[i]));
+    lu(i) = lu(i) - alo + ahi;
+    o[(Q::luu + i) * P] = 2.f * sp[D::r + i] + mu * ((alo > 0.f ? 1.f : 0.f) + (ahi > 0.f ? 1.f : 0.f));
+  }
+#pragma unroll
+  for (int i = 0; i < n; ++i) o[(Q::lx + i) * P] = lx(i) - xlo(i) + xhi(i);
+}
+
 // K4 for stage k of the block's tile `blk`: sp, the parameter block in
 // shared memory; tiles, the input and output tiles after it.
 template <int NR, class G>
@@ -329,7 +480,12 @@ NMPC_DEV void expansion_tiles(const ExpArgs& a, const float* sp, float* tiles, i
   for (int i = tid; i < np * np * S; i += nt) tout[Q::Hc * S + i] = 0.f;
   cp_wait<0>();
   block_sync();
-  for (int s = tid; s < S; s += nt) expansion_column<NR, S>(a, R, sp, tin + s, tout + s, k);
+  for (int s = tid; s < S; s += nt) {
+    if constexpr (NR > 10)
+      expansion_column_wide<NR, S>(a, R, sp, tin + s, tout + s, k);
+    else
+      expansion_column<NR, S>(a, R, sp, tin + s, tout + s, k);
+  }
   block_sync();
 
   const float dt = sp[Dims<NR>::dt];

@@ -1,10 +1,11 @@
 // K3 (the staged path's backward Riccati sweep) at a stage shape other than
-// the robot stacks' n = 3m, nu = 2m, with a plain C interface for ctypes: the
-// ray-augmented stage of one robot with R LiDAR rays (n = 3 + R, nu = 2),
-// which the hybrid route of solve_batched sends through K3 as the reference
-// sends it through riccati_pallas.py::riccati_lanes at the problem's own
-// shape. Built by nmpc_tpu_torch/ops/cuda_build.py (load_k3_shape) as a
-// library of its own per shape:
+// the robot stacks' n = 3m, nu = 2m (any up to (80, 32)), with a plain C
+// interface for ctypes: the ray-augmented stage of one robot with R LiDAR
+// rays (n = 3 + R, nu = 2) and the user models' stages, which the hybrid
+// route of solve_batched sends through K3 as the reference sends them
+// through riccati_pallas.py::riccati_lanes at the problem's own shape.
+// Built by nmpc_tpu_torch/ops/cuda_build.py (load_k3_shape) as a library of
+// its own per shape:
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //        -DNMPC_K3_N=<n> -DNMPC_K3_NU=<nu> -DNMPC_K3_S=... (ops/staged_tiles.py)
 // The device code is staged_tiles.cuh::riccati_tiles, the same that the
@@ -56,9 +57,10 @@ void nmpc_k3_geometry(int* out) {
   for (int i = 0; i < 8; ++i) out[i] = g[i];
 }
 
-// K3: one block per tile of S scenarios; the arguments of staged.cu's
-// nmpc_riccati, on stage blocks of this library's (n, nu). Returns the CUDA
-// error of the launch (0 = launched; a refused shared-memory opt-in too).
+// K3: one block per tile of S scenarios (one a scenario in the block
+// design); the arguments of staged.cu's nmpc_riccati, on stage blocks of
+// this library's (n, nu). Returns the CUDA error of the launch (0 =
+// launched; a refused shared-memory opt-in too).
 int nmpc_riccati(const float* A, const float* Bm, const float* lx, const float* lu,
                  const float* lxx, const float* luu, const float* lux, float* kff,
                  float* Kfb, float* dV1, float* scratch, int B, int N, float reg, void* stream) {

@@ -44,6 +44,21 @@
 //    16-byte copies; the sweep picks per m. At m=10 two stage tiles fill the
 //    shared memory, and the slots and the output tile go to a per-block
 //    device-memory scratch (kSpill).
+//  * K3 past (30, 20) (m >= 11, and the wider ray and user-model stages):
+//    the block design, S = 1. Eight scenarios' stage tiles no longer fit a
+//    block (at m=16 a ring of two alone would take 549 KB), so one block of
+//    W warps runs one scenario: a ring of two of its stage tiles (4-byte
+//    copies of its column of each lane-major row) and its K3BlockSlot (the
+//    Riccati blocks) in shared memory, 103 KB at m=16, 157 KB at (64, 32).
+//    Every product's entries are spread over the block's threads,
+//    consecutive threads on consecutive columns, each summed over l in
+//    riccati_thread's order (as the team design), so the outputs are the
+//    first design's; the Cholesky runs in warp 0, lane j on row j (the
+//    column's rows side by side, chol_unrolled's sums), and the 1 + n
+//    substitutions one a thread, rolled in place in the slot: no block of
+//    the scenario lives in registers, so nothing spills. kff and Kfb go
+//    straight to device memory. The largest shape a block holds at a ring
+//    of two is (80, 32) (nu <= 32: one warp's Cholesky).
 //  * K5: one block runs all A candidates of its S scenarios (A S threads,
 //    thread (ai, s) at ai S + s); each stage tile is fetched from device
 //    memory once and read by all A candidates (a broadcast), so device
@@ -55,8 +70,11 @@
 // K3 at m=1 reaches 75% of its bytes bound; from m=5 one block of eight
 // teams fills an SM's shared memory, and the serial Cholesky and the
 // dependent dot chains between block barriers hold K3 near 18% of its
-// bound at m=6. K5 at 15-30%: its merit code's instructions and two block
-// barriers a stage.
+// bound at m=6; the block design reaches ~5% at m = 12 and 16, held by the
+// Cholesky's and the substitutions' dependent chains a stage (one warp,
+// one thread a right-hand side). K5 at 15-30%: its merit code's
+// instructions and two block barriers a stage; past ten robots (kThreads
+// 256, its per-stage rows read from the tile where they are used) ~20-26%.
 // S, D, T, P and the spill per m are compile-time constants, picked by
 // `python -m nmpc_tpu_torch.tools.staged_launch` and passed by
 // ops/cuda_build.py from ops/staged_tiles.py (-DNMPC_K3_S, ...).
@@ -262,22 +280,53 @@ struct K3Slot {
   static constexpr int floats = al4(inv + nu);
 };
 
+// The block design's slot (one scenario, all of a block's threads), in
+// floats: Vxx [n, n] (Qxx from phase 2 on), Vxx A [n, n], Vxx B [n, nu]
+// (then Kfb [nu, n]), Qux [nu, n], Quu [nu, nu] (then its factor), Vx, Qx
+// [n], Qu, kff and the factor's reciprocal diagonal [nu]. The blocks are kept
+// as they are produced, row-major: a warp's consecutive threads take
+// consecutive columns, so every product reads one operand as a broadcast
+// and the other along a row.
+template <int n_, int nu_>
+struct K3BlockSlot {
+  static constexpr int n = n_, nu = nu_;
+  static constexpr int V = 0;
+  static constexpr int VA = V + al4(n * n);
+  static constexpr int W = VA + al4(n * n);
+  static constexpr int Qux = W + al4(n * nu);
+  static constexpr int Quu = Qux + al4(nu * n);
+  static constexpr int Vx = Quu + al4(nu * nu);
+  static constexpr int Qx = Vx + al4(n);
+  static constexpr int Qu = Qx + al4(n);
+  static constexpr int kf = Qu + al4(nu);
+  static constexpr int inv = kf + al4(nu);
+  static constexpr int floats = inv + al4(nu);  // 54,144 B at (64, 32)
+};
+
 // K3's launch geometry: S scenarios a block, D stage tiles in the ring, T
 // lanes a scenario, tile pitch P (S, or S + 1 where lanes read down a
 // column), kSpill: the output tile and the slots in a device-memory scratch
 // of the wrapper's (per block, so L2 holds the resident blocks') where they
 // do not fit beside the ring.
+//
+// S = 1 is the block design (stage shapes past (30, 20)): one block of T =
+// 32 W threads for one scenario, P = 1, the scenario's K3BlockSlot beside
+// the ring, kff and Kfb stored straight from the substitutions (no output
+// tile).
 template <int n_, int nu_, int S_, int D_, int T_, int P_, bool kSpill_>
 struct K3Geom {
   static constexpr int n = n_, nu = nu_;
   static constexpr int S = S_, D = D_, T = T_, P = P_, threads = S * T;
-  static constexpr bool kSpill = kSpill_;
-  static_assert(S >= 8 && (S & (S - 1)) == 0, "S: a power of two >= 8");
-  static_assert(T == 1 || (T <= 32 && 32 % T == 0), "a team within one warp");
-  static_assert(P == S || P == S + 1, "pitch");
+  static constexpr bool kSpill = kSpill_, kBlock = S == 1;
+  static_assert(kBlock || (S >= 8 && (S & (S - 1)) == 0), "S: a power of two >= 8, or 1");
+  static_assert(kBlock || T == 1 || (T <= 32 && 32 % T == 0), "a team within one warp");
+  static_assert(!kBlock || (T % 32 == 0 && T <= 1024 && P == 1 && !kSpill && nu <= 32),
+                "the block design: whole warps, pitch 1, nu <= 32 (its Cholesky is one warp's)");
+  static_assert(kBlock || P == S || P == S + 1, "pitch");
   static constexpr int tile = al4(K3Rows<n, nu>::rows * P);
-  static constexpr int out = al4(K3Rows<n, nu>::out * P);
-  static constexpr int priv = out + (T > 1 ? S * K3Slot<n, nu>::floats : 0);
+  static constexpr int out = kBlock ? 0 : al4(K3Rows<n, nu>::out * P);
+  static constexpr int priv = kBlock ? K3BlockSlot<n, nu>::floats
+                                     : out + (T > 1 ? S * K3Slot<n, nu>::floats : 0);
   static constexpr int smem_floats = D * tile + (kSpill ? 0 : priv);
   static constexpr int scratch_floats = kSpill ? priv : 0;  // per block
 };
@@ -573,12 +622,185 @@ NMPC_DEV void riccati_team_stage(const float* t, float* o, float* sl, int lane, 
   }
 }
 
-// K3 for the block of tile `blk` at the stage shape of G (n, nu): S
-// scenarios, S T threads (thread tid is
+// The block design's warp barrier: its Cholesky runs in warp 0 alone (the
+// host rehearsal provides warp0_sync, a barrier of that warp's threads).
+#ifndef NMPC_HOST_BLOCK
+NMPC_DEV void warp0_sync() { __syncwarp(); }
+#endif
+
+// The block design, one stage of the block's scenario: t, its stage tile
+// (P = 1); sl, its slot; tid of nt threads. Every entry is summed over l in
+// riccati_thread's order (as the team design's), each phase's entries
+// spread over the block's threads with consecutive threads on consecutive
+// columns; block barriers between the phases. kff and Kfb go straight to
+// device memory (b: the scenario, k: the stage). Thread 0 carries dV1.
+template <int n_, int nu_>
+NMPC_DEV void riccati_block_stage(const RiccatiArgs& a, const float* t, float* sl, int k,
+                                  size_t b, int tid, int nt, float& dV1) {
+  using R = K3Rows<n_, nu_>;
+  using L = K3BlockSlot<n_, nu_>;
+  constexpr int n = L::n, nu = L::nu;
+  const size_t B = a.B;
+  // 1: Vxx A [n, n], Vxx B [n, nu], Qx = lx + A'Vx, Qu = lu + B'Vx
+  for (int e = tid; e < (n + nu) * n + n + nu; e += nt) {
+    const float* v;    // a row of Vxx, or Vx (stride 1)
+    const float* col;  // a column of A or B (stride w)
+    int w;
+    float* dst;
+    float base = 0.f;
+    bool lin = false;
+    if (e < n * n) {
+      v = sl + L::V + (e / n) * n, col = t + R::A + e % n, w = n, dst = sl + L::VA + e;
+    } else if (e < (n + nu) * n) {
+      const int f = e - n * n;
+      v = sl + L::V + (f / nu) * n, col = t + R::Bm + f % nu, w = nu, dst = sl + L::W + f;
+    } else if (e < (n + nu) * n + n) {
+      const int j = e - (n + nu) * n;
+      v = sl + L::Vx, col = t + R::A + j, w = n, dst = sl + L::Qx + j;
+      base = t[R::lx + j], lin = true;
+    } else {
+      const int c = e - (n + nu) * n - n;
+      v = sl + L::Vx, col = t + R::Bm + c, w = nu, dst = sl + L::Qu + c;
+      base = t[R::lu + c], lin = true;
+    }
+    float s = v[0] * col[0];
+    for (int l = 1; l < n; ++l) s = s + v[l] * col[l * w];
+    *dst = lin ? base + s : s;
+  }
+  block_sync();
+  // 2: Qxx = lxx + A'(Vxx A) into Vxx, Qux = lux + B'(Vxx A), Quu = luu +
+  //    B'(Vxx B)
+  for (int e = tid; e < n * n + nu * n + nu * nu; e += nt) {
+    const float* col;  // a column of A or B (stride w)
+    const float* m;    // a column of Vxx A or Vxx B (stride ldm)
+    int w, ldm, at, in;
+    if (e < n * n) {
+      col = t + R::A + e / n, w = n, m = sl + L::VA + e % n, ldm = n;
+      at = L::V + e, in = R::lxx + e;
+    } else if (e < n * n + nu * n) {
+      const int f = e - n * n;
+      col = t + R::Bm + f / n, w = nu, m = sl + L::VA + f % n, ldm = n;
+      at = L::Qux + f, in = R::lux + f;
+    } else {
+      const int f = e - n * n - nu * n;
+      col = t + R::Bm + f / nu, w = nu, m = sl + L::W + f % nu, ldm = nu;
+      at = L::Quu + f, in = R::luu + f;
+    }
+    float s = col[0] * m[0];
+    for (int l = 1; l < n; ++l) s = s + col[l * w] * m[l * ldm];
+    sl[at] = t[in] + s;
+  }
+  block_sync();
+  // 3: the Cholesky factor of Quu + reg I in warp 0, lane j on row j:
+  //    chol_unrolled's sums, the column's rows side by side
+  if (tid < 32) {
+    float* Q = sl + L::Quu;
+    const int j = tid;
+#pragma unroll 1
+    for (int i = 0; i < nu; ++i) {
+      float v = 0.f;
+      if (j >= i && j < nu) {
+        v = Q[j * nu + i];
+        for (int q = 0; q < i; ++q) v = v - Q[j * nu + q] * Q[i * nu + q];
+        if (j == i) {
+          const float d = sqrtf(v + a.reg);
+          sl[L::inv + i] = 1.f / d;
+          Q[i * nu + i] = d;
+        }
+      }
+      warp0_sync();
+      if (j > i && j < nu) Q[j * nu + i] = v * sl[L::inv + i];
+      warp0_sync();
+    }
+  }
+  block_sync();
+  // 4: the 1 + n substitutions, one right-hand side a thread, each in place
+  //    in the slot (chol_solve_unrolled's sums, rolled, so that no thread
+  //    holds a column in registers): kff over a copy of Qu, column c of Kfb
+  //    [nu, n] (over Vxx B) over a copy of column c of Qux
+  for (int c = tid; c <= n; c += nt) {
+    const int ys = c == 0 ? 1 : n;  // the column's stride
+    float* y = c == 0 ? sl + L::kf : sl + L::W + c - 1;
+    const float* rhs = c == 0 ? sl + L::Qu : sl + L::Qux + c - 1;
+    const float* F = sl + L::Quu;
+    const float* inv = sl + L::inv;
+    for (int i = 0; i < nu; ++i) y[i * ys] = rhs[i * ys];
+    for (int i = 0; i < nu; ++i) {
+      float s = y[i * ys];
+      for (int q = 0; q < i; ++q) s = s - F[i * nu + q] * y[q * ys];
+      y[i * ys] = s * inv[i];
+    }
+    for (int i = nu - 1; i >= 0; --i) {
+      float s = y[i * ys];
+      for (int q = i + 1; q < nu; ++q) s = s - F[q * nu + i] * y[q * ys];
+      y[i * ys] = s * inv[i];
+    }
+    for (int i = 0; i < nu; ++i) {
+      const float g = -y[i * ys];
+      y[i * ys] = g;
+      if (c == 0)
+        a.kff[((size_t)k * nu + i) * B + b] = g;
+      else
+        a.Kfb[(((size_t)k * nu + i) * n + c - 1) * B + b] = g;
+    }
+  }
+  block_sync();
+  // 5: Vxx(a, c) = Qxx(a, c) + Qux(:, a)' Kfb(:, c), Vx(a) = Qx(a) + Qux(:,
+  //    a)' kff; thread 0 also dV1 += kff . Qu
+  for (int e = tid; e < n * n + n; e += nt) {
+    const int r = e < n * n ? e / n : e - n * n;
+    const float* kr = e < n * n ? sl + L::W + e % n : sl + L::kf;  // stride n or 1
+    const int ks = e < n * n ? n : 1;
+    float acc = sl[L::Qux + r] * kr[0];
+    for (int q = 1; q < nu; ++q) acc = acc + sl[L::Qux + q * n + r] * kr[q * ks];
+    const int at = e < n * n ? L::V + e : L::Vx + r;
+    sl[at] = sl[e < n * n ? at : L::Qx + r] + acc;
+  }
+  if (tid == 0) {
+    float s = 0.f;
+#pragma unroll
+    for (int i = 0; i < nu; ++i) s += sl[L::kf + i] * sl[L::Qu + i];
+    dV1 = dV1 + s;
+  }
+}
+
+// K3's block design for the scenario of block `blk`: its stage tile copied
+// by the block's threads as 4-byte copies (one scenario's column of each
+// lane-major row), through stream_stages' ring of G::D tiles.
+template <class G>
+NMPC_DEV void riccati_block(const RiccatiArgs& a, float* smem, int blk, int tid) {
+  using R = K3Rows<G::n, G::nu>;
+  using L = K3BlockSlot<G::n, G::nu>;
+  constexpr int n = R::n, nu = R::nu, nt = G::threads;
+  const size_t B = a.B, b = blk;
+  float* sl = smem + G::D * G::tile;
+  auto col = [&](float* dst, const float* src, size_t row0, int rows) {
+    for (int e = tid; e < rows; e += nt) cp_async4(dst + e, src + (row0 + e) * B + b, true);
+  };
+  auto issue = [&](int k, float* t) {
+    col(t + R::A, a.A, (size_t)k * n * n, n * n);
+    col(t + R::Bm, a.Bm, (size_t)k * n * nu, n * nu);
+    col(t + R::lx, a.lx, (size_t)k * n, n);
+    col(t + R::lu, a.lu, (size_t)k * nu, nu);
+    col(t + R::lxx, a.lxx, (size_t)k * n * n, n * n);
+    col(t + R::luu, a.luu, (size_t)k * nu * nu, nu * nu);
+    col(t + R::lux, a.lux, (size_t)k * nu * n, nu * n);
+  };
+  for (int i = tid; i < n * n; i += nt) sl[L::V + i] = 0.f;
+  for (int i = tid; i < n; i += nt) sl[L::Vx + i] = 0.f;
+  float dV1 = 0.f;
+  stream_stages<G::D>(a.N, true, smem, G::tile, issue, [&](int k, const float* t) {
+    riccati_block_stage<n, nu>(a, t, sl, k, b, tid, nt, dV1);
+  });
+  if (tid == 0) a.dV1[b] = dV1;
+}
+
+// K3's team design for the block of tile `blk` at the stage shape of G (n,
+// nu): S scenarios, S T threads (thread tid is
 // lane tid % T of scenario tid / T). smem: G::smem_floats of dynamic shared
 // memory; scratch: G::scratch_floats per block of device memory (kSpill).
 template <class G>
-NMPC_DEV void riccati_tiles(const RiccatiArgs& a, float* smem, float* scratch, int blk,
+NMPC_DEV void riccati_team_tiles(const RiccatiArgs& a, float* smem, float* scratch, int blk,
                             bool vec, int tid) {
   using R = K3Rows<G::n, G::nu>;
   using L = K3Slot<G::n, G::nu>;
@@ -623,6 +845,17 @@ NMPC_DEV void riccati_tiles(const RiccatiArgs& a, float* smem, float* scratch, i
   if (lane == 0 && s < span.width) a.dV1[span.b0 + s] = dV1;
 }
 
+// K3 for block `blk`: the block design past (30, 20) (S = 1), else the team
+// design.
+template <class G>
+NMPC_DEV void riccati_tiles(const RiccatiArgs& a, float* smem, float* scratch, int blk,
+                            bool vec, int tid) {
+  if constexpr (G::kBlock)
+    riccati_block<G>(a, smem, blk, tid);
+  else
+    riccati_team_tiles<G>(a, smem, scratch, blk, vec, tid);
+}
+
 // ---------------------------------------------------------------------------
 // K5: the line-search merits
 // ---------------------------------------------------------------------------
@@ -644,10 +877,11 @@ struct K5Rows {
 
 // K5's launch geometry: S scenarios a block (its rows are read by whole
 // warps of consecutive scenarios, so P = S), D stage tiles in the ring; a
-// block of A S threads, at most kThreads.
+// block of A S threads, at most kThreads: 512, and 256 past ten robots,
+// where a thread's state, deviation and controls take ~130 registers.
 template <int NR, int S_, int D_>
 struct K5Geom {
-  static constexpr int S = S_, D = D_, kThreads = 512;
+  static constexpr int S = S_, D = D_, kThreads = NR > 10 ? 256 : 512;
   static_assert(S >= 8 && (S & (S - 1)) == 0, "S: a power of two >= 8");
   static_assert(D >= 2, "a ring of at least two stage tiles");
   static constexpr int max_alphas = kThreads / S;
@@ -698,14 +932,30 @@ NMPC_DEV void linesearch_tiles(const CostArgs& a, const float* sp, float* ring, 
   };
   stream_stages<G::D>(a.N, false, ring, tile, issue, [&](int k, const float* t) {
     const float* ts = t + s;
+    if constexpr (NR > 10) {
+      // feedback_u's sums with xbar, ubar and kff read from the tile where
+      // they are used, not held in registers
+      float dx[n];
 #pragma unroll
-    for (int i = 0; i < n; ++i) xb[i] = ts[(R.Xs + i) * P];
+      for (int j = 0; j < n; ++j) dx[j] = x[j] - ts[(R.Xs + j) * P];
+      const float* K = ts + R.Kfb * P;
+#pragma unroll 1
+      for (int i = 0; i < nu; ++i) {
+        float acc = ts[(R.U + i) * P] + alpha * ts[(R.kff + i) * P];
 #pragma unroll
-    for (int i = 0; i < nu; ++i) {
-      ub[i] = ts[(R.U + i) * P];
-      kf[i] = ts[(R.kff + i) * P];
+        for (int j = 0; j < n; ++j) acc = acc + K[(i * n + j) * P] * dx[j];
+        u[i] = acc;
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < n; ++i) xb[i] = ts[(R.Xs + i) * P];
+#pragma unroll
+      for (int i = 0; i < nu; ++i) {
+        ub[i] = ts[(R.U + i) * P];
+        kf[i] = ts[(R.kff + i) * P];
+      }
+      feedback_u<NR>(x, xb, ub, kf, ts + R.Kfb * P, P, alpha, u);
     }
-    feedback_u<NR>(x, xb, ub, kf, ts + R.Kfb * P, P, alpha, u);
     if (a.n_mov) ob.mov = ts + R.mov * P;
     cost = cost + stage_merit<NR, true>(sp, k > 0, pairs, x, u, ts + R.xref * P,
                                         ts + R.lam * P, P, mu, ob);

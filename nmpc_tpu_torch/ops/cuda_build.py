@@ -4,9 +4,9 @@ shares: the launch counters, argument checks, pointers and the lane-major
 layout.
 
 The solver's kernels: one library per robot count m, `csrc/megasolve.cu`
-(K1, K2; device code in `csrc/inner_warp.cuh`) and, at m <= STAGED_MAX_ROBOTS,
-`csrc/staged.cu` (K3-K6; K3's and K5's device code in
-`csrc/staged_tiles.cuh`), each compiled by its own nvcc process with
+(K1, K2; device code in `csrc/inner_warp.cuh`) and `csrc/staged.cu` (K3-K6;
+K3's and K5's device code in `csrc/staged_tiles.cuh`), each compiled by its
+own nvcc process with
 -DNMPC_NR=m (staged.cu also with K3's and K5's launch geometry from
 ops/staged_tiles.py), linked together (`load`, any 1 <= m <= MAX_ROBOTS;
 `load_all` builds the registry's ROBOT_COUNTS ahead). K3's
@@ -64,14 +64,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # robot counts of the scenario registry: the solver libraries load_all
 # builds ahead (any other m up to MAX_ROBOTS is built at its first use)
 ROBOT_COUNTS = (1, 2, 3, 4, 5, 6, 8, 10)
-# the most robots K1 and K2 take (csrc/inner_warp.cuh: a control row and a
-# row of Quu's factor a lane, nu = 2m <= 32; lanes own several state rows and
-# right-hand sides past m = 10)
+# the most robots the solver's kernels take: K1 and K2 (csrc/inner_warp.cuh:
+# a control row and a row of Quu's factor a lane, nu = 2m <= 32; lanes own
+# several state rows and right-hand sides past m = 10) and K3-K6 (K3's block
+# design past m = 10, its Cholesky one warp's)
 MAX_ROBOTS = 16
-# the most robots K3-K6 take (K3's stage tile up to (30, 20),
-# staged_tiles.K3_MAX_N); the solver library of a larger m holds K1 and K2
-# alone
-STAGED_MAX_ROBOTS = 10
 # robot count of the main path (six_robot_antipodal): the tools library
 # that load_all builds
 BENCH_ROBOTS = 6
@@ -331,7 +328,7 @@ def _check_geometry(lib: ctypes.CDLL, path, m: int, k3, k5, k4, k6) -> None:
                    "threads": lay["threads"], "smem_bytes": lay["smem_bytes"],
                    "scratch_floats": lay["scratch_floats"]}}
     rows = staged_tiles.k5_rows(m, True, 1, 1)
-    want["K5"] = {"S": k5.S, "D": k5.D, "max_alphas": staged_tiles.K5_THREADS // k5.S,
+    want["K5"] = {"S": k5.S, "D": k5.D, "max_alphas": staged_tiles.k5_threads(m) // k5.S,
                   "smem_bytes": staged_tiles.k5_layout(m, rows, 100, 1, k5)["smem_bytes"]}
     rows4 = staged_tiles.k4_rows(m, True, 1, 1)
     lay4, lay6 = staged_tiles.k4_layout(m, rows4, 100, k4), staged_tiles.k6_layout(m, k6)
@@ -346,28 +343,22 @@ def _check_geometry(lib: ctypes.CDLL, path, m: int, k3, k5, k4, k6) -> None:
 
 
 def load(m: int) -> ctypes.CDLL:
-    """The solver's kernel library for m robots, built first if needed: K1
-    and K2 at any 1 <= m <= MAX_ROBOTS, with K3-K6 at m <= STAGED_MAX_ROBOTS."""
-    _require_robots(m, MAX_ROBOTS, "K1 and K2")
+    """The solver's kernel library for m robots (K1-K6, any 1 <= m <=
+    MAX_ROBOTS), built first if needed."""
+    _require_robots(m, MAX_ROBOTS, "K1-K6")
     with _lock("solver", m):
         if ("solver", m) in _libs:
             return _libs["solver", m]
-        staged = m <= STAGED_MAX_ROBOTS
-        geom = staged_tiles.nvcc_flags(m) if staged else []
-        jobs = [("megasolve.cu", [f"-DNMPC_NR={m}"])]
-        if staged:
-            jobs.append(("staged.cu", [f"-DNMPC_NR={m}", *geom]))
+        geom = staged_tiles.nvcc_flags(m)
+        jobs = [("megasolve.cu", [f"-DNMPC_NR={m}"]), ("staged.cu", [f"-DNMPC_NR={m}", *geom])]
         path, seconds, texts = _build(f"libnmpc_m{m}_{_key(SOURCES, m, tuple(geom))}", jobs,
                                       f"m={m}")
-        lib = _bind_mega(ctypes.CDLL(str(path)))
+        lib = _bind_staged(_bind_mega(ctypes.CDLL(str(path))))
         if m in TEAM_ROBOTS:
             _bind_team(lib)
         _check_robots(lib, path, m)
-        if staged:
-            _bind_staged(lib)
-            _check_geometry(lib, path, m, staged_tiles.k3_geometry(m),
-                            staged_tiles.K5_GEOMETRY[m], staged_tiles.K4_GEOMETRY[m],
-                            staged_tiles.K6_GEOMETRY[m])
+        _check_geometry(lib, path, m, staged_tiles.k3_geometry(m), staged_tiles.K5_GEOMETRY[m],
+                        staged_tiles.K4_GEOMETRY[m], staged_tiles.K6_GEOMETRY[m])
         build_info[m] = {"path": str(path), "seconds": seconds, "ptxas": "".join(texts)}
         _libs["solver", m] = lib
         return lib
@@ -414,7 +405,7 @@ def load_k3(n: int, nu: int) -> ctypes.CDLL:
     """The library whose nmpc_riccati takes stage blocks of (n, nu): the
     solver library of m robots at (3m, 2m), else K3's at that shape."""
     m = n // 3
-    if n == 3 * m and nu == 2 * m and 1 <= m <= STAGED_MAX_ROBOTS:
+    if n == 3 * m and nu == 2 * m and 1 <= m <= MAX_ROBOTS:
         return load(m)
     return load_k3_shape(n, nu)
 
@@ -443,8 +434,8 @@ def load_tools(m: int) -> ctypes.CDLL:
 
 def load_first(m: int) -> ctypes.CDLL:
     """The library of the staged kernels' first designs (csrc/staged_first.cu)
-    for m robots (m <= STAGED_MAX_ROBOTS), built first if needed."""
-    _require_robots(m, STAGED_MAX_ROBOTS, "K3-K6")
+    for m robots (m <= MAX_ROBOTS), built first if needed."""
+    _require_robots(m, MAX_ROBOTS, "K3-K6")
     with _lock("first", m):
         if ("first", m) in _libs:
             return _libs["first", m]
@@ -461,7 +452,7 @@ def load_staged_variant(m: int, k3=None, k5=None, k4=None, k6=None) -> tuple:
     """staged.cu alone for m robots at K3-K6 geometries k3, k5, k4, k6
     (staged_tiles.K3Geometry, ...; the solver's pick where None; the sweep of
     tools/staged_launch.py). Returns (library, compiler report)."""
-    _require_robots(m, STAGED_MAX_ROBOTS, "K3-K6")
+    _require_robots(m, MAX_ROBOTS, "K3-K6")
     k3 = staged_tiles.k3_geometry(m) if k3 is None else k3
     k5 = staged_tiles.K5_GEOMETRY[m] if k5 is None else k5
     k4 = staged_tiles.K4_GEOMETRY[m] if k4 is None else k4

@@ -18,21 +18,23 @@ scenarios streaming the stages backwards through a ring of stage tiles in
 shared memory, a team of T lanes per scenario (geometry per m:
 ops/staged_tiles.py); bit for bit its first design, csrc/staged.cuh::
 riccati_thread (one thread per scenario), which tools/staged_launch.py
-launches as the A/B baseline. Replaces riccati_pallas.py::_make_kernel /
-riccati_lanes (its horizon chunking exists only to fit VMEM and does not
-carry over).
+launches as the A/B baseline. Past (30, 20) (m >= 11 and the wider stage
+shapes) the block design: a block of eight warps a scenario, its slot in
+shared memory, every entry summed in riccati_thread's order, the Cholesky
+in one warp. Replaces riccati_pallas.py::_make_kernel / riccati_lanes (its
+horizon chunking exists only to fit VMEM and does not carry over).
 
 Layout: `riccati_lanes` takes and returns the lane-major layout of the
 staged path: A [N, n, n, B], B [N, n, nu, B], lx [N, n, B], lu [N, nu, B],
 lxx [N, n, n, B], luu [N, nu, nu, B], lux [N, nu, n, B] -> kff [N, nu, B],
 Kfb [N, nu, n, B], dV1 [B]. `riccati_fused` is the standard-layout wrapper.
 The kernels are built for n = 3m, nu = 2m with m <=
-cuda_build.STAGED_MAX_ROBOTS (in the solver library of m robots) and for any
+cuda_build.MAX_ROBOTS (in the solver library of m robots) and for any
 other stage shape up to
-n = staged_tiles.K3_MAX_N, nu = K3_MAX_NU (csrc/riccati_shape.cu, a library
-per shape at its first use: the ray-augmented stage of family I, n = 13,
-nu = 2, and the user models of make_generic_ocp, which the hybrid route of
-solver/alilqr_batched.py sends here); a larger CUDA shape raises.
+n = staged_tiles.K3_MAX_N, nu = K3_MAX_NU, (80, 32) (csrc/riccati_shape.cu,
+a library per shape at its first use: the ray-augmented stage of family I,
+n = 13, nu = 2, and the user models of make_generic_ocp, which the hybrid
+route of solver/alilqr_batched.py sends here); a larger CUDA shape raises.
 """
 
 from __future__ import annotations

@@ -59,15 +59,14 @@ def supports(ocp: OCP) -> bool:
 def unsupported(ocp: OCP) -> str | None:
     """Why the staged kernels (K3-K6) cannot take this problem on the card,
     or None. They cover `supports`' class at 1 <= m <=
-    cuda_build.STAGED_MAX_ROBOTS."""
+    cuda_build.MAX_ROBOTS."""
     if ocp.dyn_fn is not None or ocp.integrator != "euler":
         return "dynamics other than the Euler unicycle (dyn_fn or rk4)"
     if ocp.num_rays:
         return "LiDAR ray states (num_rays > 0)"
-    if not 1 <= ocp.m <= cuda_build.STAGED_MAX_ROBOTS:
-        return (f"m={ocp.m} robots: K3-K6 are built for m <= {cuda_build.STAGED_MAX_ROBOTS} "
-                f"(K3 past its (30, 20) stage tile, and K4, K5 and K6 past ten robots, are "
-                f"not ported yet)")
+    if not 1 <= ocp.m <= cuda_build.MAX_ROBOTS:
+        return (f"m={ocp.m} robots: K3-K6 are built for m <= {cuda_build.MAX_ROBOTS} "
+                f"(nu = 2m <= 32: K3's Cholesky is one warp's)")
     return None
 
 

@@ -10,14 +10,19 @@ horizon through a ring of D stage tiles in shared memory.
       or S + 1 where a team's lanes read down a column), and `spill`: the
       output tile and the per-team slots in a device-memory scratch of the
       wrapper's where they do not fit in shared memory beside the ring.
-  K5: A x S threads a block (A candidates), at most K5_THREADS; more
+      Past (K3_TILE_N, K3_TILE_NU) = (30, 20) the block design: S = 1, one
+      block of T = 32 K3_BLOCK_WARPS threads a scenario, P = 1, the
+      scenario's slot (K3BlockSlot) in shared memory beside the ring.
+  K5: A x S threads a block (A candidates), at most k5_threads(m); more
       candidates go as several launches (rollout.linesearch_costs_lanes).
   K4: one stage of the tile a block, W warps a block.
   K6: a team of T threads per scenario, S T threads a block.
 K3 also takes other stage shapes (n, nu) than the robot stacks' (3m, 2m),
-any n <= K3_MAX_N and nu <= K3_MAX_NU (the range of the robot stacks): the
-ray-augmented stage of family I and the user models of make_generic_ocp,
-each built from csrc/riccati_shape.cu with `k3_shape_flags`. K3's geometry
+any n <= K3_MAX_N and nu <= K3_MAX_NU (the block design's limit: its
+Cholesky is one warp's, nu <= 32, and its block at (K3_MAX_N, 32) the
+largest that fits 227 KB at a ring of two): the ray-augmented stage of
+family I and the user models of make_generic_ocp, each built from
+csrc/riccati_shape.cu with `k3_shape_flags`. K3's geometry
 at every shape, the robot stacks' included, is `k3_rule`'s, which gives the
 picks `python -m nmpc_tpu_torch.tools.staged_launch` recorded per robot
 count (K3_GEOMETRY, PERF.md). ops/cuda_build.py passes them to nvcc, and
@@ -37,7 +42,13 @@ SMEM_SM = 233472
 SMEM_RESERVED = 1024
 THREADS_SM = 2048
 BLOCKS_SM = 32
+# the most threads of a K5 block (K5Geom::kThreads): 512, and 256 past ten
+# robots (k5_threads)
 K5_THREADS = 512
+# the team design's stage shapes (the robot stacks' up to m=10); past them
+# K3's block design, with K3_BLOCK_WARPS warps a block
+K3_TILE_N, K3_TILE_NU = 30, 20
+K3_BLOCK_WARPS = 8
 
 
 @dataclasses.dataclass(frozen=True)
@@ -69,18 +80,19 @@ class K6Geometry:
 
 
 # K3's picks as the sweep recorded them per robot count (tools/staged_launch.py,
-# PERF.md; at m = 7 and 9 the rule's, which the sweep kept), and at the stage
-# shape of one robot with 10 LiDAR rays (n = 13, nu = 2; the registry's
-# family I), picked by its shared memory as m=4's (n = 12). Builds take
-# `k3_geometry` (`k3_rule`); the tests hold the rule to these picks.
+# PERF.md; at m = 7 and 9 the rule's, which the sweep kept; at m = 11-16 the
+# block design, W = K3_BLOCK_WARPS), and at the stage shape of one robot with
+# 10 LiDAR rays (n = 13, nu = 2; the registry's family I), picked by its
+# shared memory as m=4's (n = 12). Builds take `k3_geometry` (`k3_rule`);
+# the tests hold the rule to these picks.
+_K3_BLOCK = K3Geometry(1, 2, 32 * K3_BLOCK_WARPS, 1)
 K3_GEOMETRY = {
     1: K3Geometry(128, 2, 1, 128), 2: K3Geometry(128, 2, 1, 128), 3: K3Geometry(16, 2, 16, 17),
     4: K3Geometry(8, 2, 16, 9), 5: K3Geometry(8, 2, 16, 9), 6: K3Geometry(8, 2, 32, 9),
     7: K3Geometry(8, 2, 32, 8), 8: K3Geometry(8, 2, 32, 8), 9: K3Geometry(8, 2, 32, 8, spill=True),
     10: K3Geometry(8, 2, 32, 8, spill=True), (13, 2): K3Geometry(8, 2, 16, 9),
+    **{m: _K3_BLOCK for m in range(11, 17)},
 }
-# the stage shapes K3 takes: any (n, nu) up to the largest robot stack's
-K3_MAX_N, K3_MAX_NU = 30, 20
 # the stage shapes (n, nu) besides (3m, 2m) of the problems the repository
 # ships, built ahead by cuda_build.load_all: family I's ray stage, and the
 # reference's two user models, Van der Pol (2, 1) and the first-order
@@ -100,22 +112,24 @@ K3_SHAPES = ((13, 2), (2, 1), (1, 1))
 K3_SWEEP_SHAPES = ((5, 3), (7, 1), (9, 5), (10, 6), (12, 10), (14, 3), (15, 20), (16, 1),
                    (19, 7), (20, 3), (29, 20), (30, 20))
 # the K3 blocks that reside per SM by shared memory and threads at the picks
-K3_BLOCKS_PER_SM = {1: 5, 2: 1, 3: 3, 4: 3, 5: 2, 6: 1, 7: 1, 8: 1, 9: 1, 10: 1, (13, 2): 4,
-                    (2, 1): 12, (1, 1): 16}
-# K5's, K4's and K6's picks per robot count (tools/staged_launch.py, PERF.md):
-# their keys are the robot counts K3-K6 are built for
+K3_BLOCKS_PER_SM = {1: 5, 2: 1, 3: 3, 4: 3, 5: 2, 6: 1, 7: 1, 8: 1, 9: 1, 10: 1, 11: 4,
+                    12: 3, 13: 3, 14: 2, 15: 2, 16: 2, (13, 2): 4, (2, 1): 12, (1, 1): 16}
+# K5's, K4's and K6's picks per robot count (tools/staged_launch.py, PERF.md;
+# past ten robots the smallest tiles, S = 8 (K5, K6) and 16 (K4), that fit
+# the widest rows, and a K6 team of 16): their keys are the robot counts
+# K3-K6 are built for
 K5_GEOMETRY = {1: K5Geometry(32, 2), 2: K5Geometry(32, 2), 3: K5Geometry(32, 2),
                4: K5Geometry(16, 2), 5: K5Geometry(16, 2), 6: K5Geometry(32, 2),
                7: K5Geometry(16, 2), 8: K5Geometry(16, 2), 9: K5Geometry(16, 2),
-               10: K5Geometry(8, 2)}
+               10: K5Geometry(8, 2), **{m: K5Geometry(8, 2) for m in range(11, 17)}}
 K4_GEOMETRY = {1: K4Geometry(128, 4), 2: K4Geometry(64, 2), 3: K4Geometry(64, 4),
                4: K4Geometry(64, 8), 5: K4Geometry(64, 4), 6: K4Geometry(64, 4),
                7: K4Geometry(64, 4), 8: K4Geometry(32, 2), 9: K4Geometry(32, 4),
-               10: K4Geometry(32, 4)}
+               10: K4Geometry(32, 4), **{m: K4Geometry(16, 4) for m in range(11, 17)}}
 K6_GEOMETRY = {1: K6Geometry(32, 4, 1), 2: K6Geometry(32, 4, 1), 3: K6Geometry(32, 2, 2),
                4: K6Geometry(32, 2, 2), 5: K6Geometry(32, 2, 2), 6: K6Geometry(32, 2, 1),
                7: K6Geometry(16, 2, 4), 8: K6Geometry(16, 2, 4), 9: K6Geometry(16, 2, 4),
-               10: K6Geometry(8, 2, 4)}
+               10: K6Geometry(8, 2, 4), **{m: K6Geometry(8, 2, 16) for m in range(11, 17)}}
 
 
 def k3_rule(n: int, nu: int) -> K3Geometry:
@@ -125,10 +139,15 @@ def k3_rule(n: int, nu: int) -> K3Geometry:
     scenarios up to n = 9 and 8 beyond, the odd pitch S + 1 up to n = 18
     (bank conflicts of a team reading down a column) and S beyond (16-byte
     copies of the larger tiles), and the slots in device memory (spill)
-    where the ring and the slots overflow a block's shared memory."""
+    where the ring and the slots overflow a block's shared memory; past
+    (K3_TILE_N, K3_TILE_NU) the block design."""
     if not (1 <= n <= K3_MAX_N and 1 <= nu <= K3_MAX_NU):
         raise NotImplementedError(
-            f"K3 takes stage shapes up to n={K3_MAX_N}, nu={K3_MAX_NU}, not n={n}, nu={nu}")
+            f"K3 takes stage shapes up to n={K3_MAX_N}, nu={K3_MAX_NU} (its block design's "
+            f"block at a ring of two within {SMEM_BLOCK_MAX} B of shared memory, its Cholesky in "
+            f"one warp), not n={n}, nu={nu}")
+    if n > K3_TILE_N or nu > K3_TILE_NU:
+        return _K3_BLOCK
     if n <= 6 and nu <= 4:
         return K3Geometry(128, 2, 1, 128)
     S = 16 if n <= 9 else 8
@@ -176,8 +195,23 @@ def k3_slot_floats(key) -> int:
     return at
 
 
+def k3_block_slot_floats(key) -> int:
+    """Floats of the block design's slot (K3BlockSlot): Vxx, Vxx A [n, n],
+    Vxx B [n, nu] (later Kfb), Qux [nu, n], Quu, Vx, Qx, Qu, kff and the
+    factor's reciprocal diagonal, each from a 16-byte boundary."""
+    n, nu = k3_dims(key)
+    return sum(al4(w) for w in (n * n, n * n, n * nu, nu * n, nu * nu, n, n, nu, nu, nu))
+
+
 def check_k3(m, g: K3Geometry) -> None:
     """Raise unless g is a geometry K3Geom takes (m: a K3 key)."""
+    if g.S == 1:   # the block design
+        if g.T % 32 or not 32 <= g.T <= 1024 or g.P != 1 or g.D < 2 or g.spill:
+            raise ValueError(f"K3's block design at m={m}: T={g.T}, P={g.P}, D={g.D}, "
+                             f"spill={g.spill}")
+        if k3_dims(m)[1] > 32:
+            raise ValueError(f"K3's block design at m={m}: nu > 32 (a warp's Cholesky)")
+        return
     if g.S < 8 or g.S & (g.S - 1):
         raise ValueError(f"K3 at m={m}: S={g.S} is not a power of two >= 8")
     if not (g.T == 1 or (g.T <= 32 and 32 % g.T == 0)):
@@ -195,8 +229,11 @@ def k3_layout(m, g: K3Geometry | None = None) -> dict:
     check_k3(m, g)
     n, nu = k3_dims(m)
     tile = al4(k3_rows(m) * g.P)
-    out = al4((nu + nu * n) * g.P)
-    priv = out + (g.S * k3_slot_floats(m) if g.T > 1 else 0)
+    if g.S == 1:
+        out, priv = 0, k3_block_slot_floats(m)
+    else:
+        out = al4((nu + nu * n) * g.P)
+        priv = out + (g.S * k3_slot_floats(m) if g.T > 1 else 0)
     smem = 4 * (g.D * tile + (0 if g.spill else priv))
     threads = g.S * g.T
     blocks = min(SMEM_SM // (smem + SMEM_RESERVED), THREADS_SM // threads, BLOCKS_SM)
@@ -211,9 +248,14 @@ def k5_rows(m: int, pairs: bool, n_obs: int, n_mov: int) -> int:
     return 2 * n + 2 * nu + nu * n + nc_rows(m, pairs, n_obs, n_mov) + 2 * n_mov
 
 
+def k5_threads(m: int) -> int:
+    """The most threads of a K5 block at m robots (K5Geom::kThreads)."""
+    return K5_THREADS if m <= 10 else K5_THREADS // 2
+
+
 def k5_max_alphas(m: int) -> int:
     """The most line-search candidates one K5 launch takes."""
-    return K5_THREADS // K5_GEOMETRY[m].S
+    return k5_threads(m) // K5_GEOMETRY[m].S
 
 
 def k5_layout(m: int, rows: int, prm_size: int, n_alphas: int,
@@ -315,3 +357,17 @@ def nvcc_flags(m: int, k3: K3Geometry | None = None, k5: K5Geometry | None = Non
             f"-DNMPC_K5_S={k5.S}", f"-DNMPC_K5_D={k5.D}", f"-DNMPC_K4_S={k4.S}",
             f"-DNMPC_K4_W={k4.W}", f"-DNMPC_K6_S={k6.S}", f"-DNMPC_K6_D={k6.D}",
             f"-DNMPC_K6_T={k6.T}"]
+
+
+def _k3_max_n(nu: int) -> int:
+    """The largest n whose block-design block at (n, nu) fits a block's
+    shared memory."""
+    n = K3_TILE_N
+    while k3_layout((n + 1, nu), _K3_BLOCK)["smem_bytes"] <= SMEM_BLOCK_MAX:
+        n += 1
+    return n
+
+
+# the stage shapes K3 takes: any (n, nu) up to (80, 32)
+K3_MAX_NU = 32
+K3_MAX_N = _k3_max_n(K3_MAX_NU)

@@ -18,11 +18,12 @@ tensors:
   front of the batch between outer steps (results bit for bit those
   without).
 * `_solve_lanes` (sweep "seq" on the same class where cfg.mega=False or
-  mega_fits refuses): the staged path; on the card K3-K6 take m <= 10 and
-  raise NotImplementedError above. Each inner iteration is four launches, K4
-  expansions, K3 Riccati sweep, K5 line-search merits and K6 accepted
-  rollout, on lane-major data ([N, rows, B]) with no transposes inside the
-  inner loop; the AL update between outer steps runs in plain PyTorch.
+  mega_fits refuses): the staged path; on the card K3-K6 take m <= 16
+  (cuda_build.MAX_ROBOTS) and raise NotImplementedError above. Each inner
+  iteration is four launches, K4 expansions, K3 Riccati sweep, K5
+  line-search merits and K6 accepted rollout, on lane-major data ([N, rows,
+  B]) with no transposes inside the inner loop; the AL update between outer
+  steps runs in plain PyTorch.
 * `_solve_hybrid` (everything else: LiDAR rays, RK4, user dynamics
   (dyn_fn), sweep="scan"): the reference's hybrid. Stage expansions in
   plain PyTorch (dynamics Jacobians

@@ -191,26 +191,33 @@ def phase_ablation_plain(ocp, x0, xref, lam, mu, U, cfg: ALILQRConfig, mode: str
     return X[:, :-1].contiguous(), U, cost, iters
 
 
-def f64_witness(ocp, x0, xref, lam, mu, U, cfg: ALILQRConfig, mode: str, n_iter: int,
-                got) -> dict:
-    """Where `mode`'s undamped steps diverge, any two f32 runs part by chance.
-    This shows it instead of assuming it: `mode`'s plain version in f32 and
-    in f64 at these inputs, and the kernel's result `got` (Xs, U, cost,
-    iters), each held against the f64 run per scenario. A scenario is
-    diverged where the f64 run takes a position or control beyond
-    kernel_check.DIVERGED; each of the rest is missed by a result whose U
-    parts from f64 by more than 5e-3 (phase 3's tolerance). Returns the
-    counts (scenarios, diverged, plain_missed, kernel_missed) and max |dU|
-    over the scenarios not diverged (kernel_vs_plain, plain_vs_f64,
-    kernel_vs_f64)."""
-    from nmpc_tpu_torch.ops.kernel_check import DIVERGED
-
+def f64_runs(ocp, x0, xref, lam, mu, U, cfg: ALILQRConfig, mode: str, n_iter: int) -> tuple:
+    """`mode`'s plain version at these inputs in f32 and in f64."""
     f64 = dataclasses.replace(ocp, **{
         f.name: getattr(ocp, f.name).double() for f in dataclasses.fields(ocp)
         if isinstance(getattr(ocp, f.name), torch.Tensor) and getattr(ocp, f.name).is_floating_point()})
     want = phase_ablation_plain(ocp, x0, xref, lam, mu, U, cfg, mode, n_iter)
     exact = phase_ablation_plain(f64, x0.double(), xref.double(), lam.double(), mu.double(),
                                  U.double(), cfg, mode, n_iter)
+    return want, exact
+
+
+def f64_witness(ocp, x0, xref, lam, mu, U, cfg: ALILQRConfig, mode: str, n_iter: int,
+                got, runs=None) -> dict:
+    """Where `mode`'s undamped steps diverge, any two f32 runs part by chance.
+    This shows it instead of assuming it: `mode`'s plain version in f32 and
+    in f64 at these inputs (`f64_runs`, or `runs` where the caller has
+    them), and the kernel's result `got` (Xs, U, cost, iters), each held
+    against the f64 run per scenario. A scenario is diverged where the f64
+    run takes a position or control beyond kernel_check.DIVERGED; each of the
+    rest is missed by a result whose U parts from f64 by more than 5e-3
+    (phase 3's tolerance). Returns the counts (scenarios, diverged,
+    plain_missed, kernel_missed) and max |dU| over the scenarios not
+    diverged (kernel_vs_plain, plain_vs_f64, kernel_vs_f64)."""
+    from nmpc_tpu_torch.ops.kernel_check import DIVERGED
+
+    want, exact = (f64_runs(ocp, x0, xref, lam, mu, U, cfg, mode, n_iter) if runs is None
+                   else runs)
     pos = torch.cat([exact[0][..., 0::3], exact[0][..., 1::3]], dim=-1)
     diverged = (pos.abs().amax(dim=(1, 2)) > DIVERGED) | (exact[1].abs().amax(dim=(1, 2)) > DIVERGED)
     held = ~diverged

@@ -8,8 +8,9 @@ csrc/staged.cu once per geometry of a candidate list and the first designs
 (csrc/staged_first.cu), and times the kernels of every variant and of the
 first designs at the stage inputs of `inputs(M)`: a random mid-solve state
 of SCENARIOS[M] (obstacle_scenario_3 at N=100 for one robot, path (b); N=10
-otherwise; at M = 7 and 9, past the registry, scenarios/robot_counts.py's
-circle) at B=32768 (16384 from m=7). `k35` (CANDIDATES: K3's S, D, T, P
+otherwise; past the registry, scenarios/robot_counts.py's problem: the
+circle at M = 7 and 9, the widened crossing from 11) at B=32768 (16384 from
+m=7). `k35` (CANDIDATES: K3's S, D, T, P
 and spill with K5's S and D, ops/staged_tiles.py) times K3 on K4's
 expansions there and K5 on K3's gains with the solver's line-search grid;
 `k46` (CANDIDATES46: K4's S and W with K6's S, D and T) times K4 on the
@@ -68,6 +69,13 @@ CANDIDATES = {
     7: [(G3(8, 2, 32, 8), G5(16, 2)), (G3(8, 2, 16, 8), G5(32, 2)),
         (G3(8, 2, 32, 8, True), G5(8, 2))],
     9: [(G3(8, 2, 32, 8, True), G5(16, 2)), (G3(8, 2, 16, 8, True), G5(8, 2))],
+    # past ten robots K3's block design (S = 1, T = 32 W threads); swept at
+    # 12 and 16, the rule's pick elsewhere
+    12: [(G3(1, 2, 256, 1), G5(8, 2)), (G3(1, 2, 128, 1), G5(16, 2)),
+         (G3(1, 2, 512, 1), G5(8, 2))],
+    16: [(G3(1, 2, 256, 1), G5(8, 2)), (G3(1, 2, 128, 1), G5(8, 2)),
+         (G3(1, 2, 512, 1), G5(8, 2))],
+    **{m: [(G3(1, 2, 256, 1), G5(8, 2))] for m in (11, 13, 14, 15)},
 }
 # (K4, K6) geometries per m, the solver's pick first
 CANDIDATES46 = {
@@ -91,6 +99,11 @@ CANDIDATES46 = {
         (G4(32, 4), G6(32, 2, 1))],
     9: [(G4(32, 4), G6(16, 2, 4)), (G4(32, 2), G6(8, 2, 4)), (G4(16, 2), G6(16, 2, 2)),
         (G4(32, 2), G6(8, 2, 2))],
+    12: [(G4(16, 4), G6(8, 2, 16)), (G4(16, 8), G6(8, 2, 8)), (G4(32, 4), G6(16, 2, 8)),
+         (G4(8, 4), G6(8, 2, 24))],
+    16: [(G4(16, 4), G6(8, 2, 16)), (G4(16, 8), G6(8, 2, 8)), (G4(8, 4), G6(8, 2, 32)),
+         (G4(8, 2), G6(8, 3, 16))],
+    **{m: [(G4(16, 4), G6(8, 2, 16))] for m in (11, 13, 14, 15)},
 }
 
 

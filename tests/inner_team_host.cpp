@@ -3,20 +3,21 @@
 //   g++ -std=c++20 -O1 -shared -fPIC -pthread -ffp-contract=off
 //       -fno-strict-aliasing -DNMPC_NR=<m> [-DNMPC_K1_TEAM=<T> ...]
 //       -I<csrc> inner_team_host.cpp
-// A scenario's team runs as T std::threads with a std::barrier for
-// __syncwarp; a width-T shuffle is a store to an exchange array between two
-// barriers; a ring copy (cp.async on the card) is a plain copy, its commit
-// and wait no-ops. Each scenario's ring is filled with NaN first, so a read
-// of an entry no fetch wrote shows in the result. The parameter block is
-// copied as the kernel copies it into shared memory.
+// A scenario's team runs as T lanes (tests/host_lanes.h: coroutines in the
+// calling thread) with a barrier for __syncwarp; a width-T shuffle is a
+// store to an exchange array between two barriers; a ring copy (cp.async on
+// the card) is a plain copy, its commit and wait no-ops. Each scenario's
+// ring is filled with NaN first, so a read of an entry no fetch wrote shows
+// in the result. The parameter block is copied as the kernel copies it into
+// shared memory.
 #define NMPC_DEV inline
 #define NMPC_HOST_WARP
 
-#include <barrier>
 #include <cmath>
 #include <limits>
-#include <thread>
 #include <vector>
+
+#include "host_lanes.h"
 
 struct float2 {
   float x, y;
@@ -28,18 +29,17 @@ inline float2 make_float2(float a, float b) { return {a, b}; }
 inline float4 make_float4(float a, float b, float c, float d) { return {a, b, c, d}; }
 
 namespace nmpc {
-thread_local std::barrier<>* g_team = nullptr;
+thread_local host_lanes::Barrier* g_team = nullptr;
 thread_local float* g_exch = nullptr;
-thread_local int g_lane = 0;
-inline void warp_sync() { g_team->arrive_and_wait(); }
+inline void warp_sync() { host_lanes::wait(*g_team); }
 inline float shfl(float v, int src) {
-  g_exch[g_lane] = v;
+  g_exch[host_lanes::lane()] = v;
   warp_sync();
   const float out = g_exch[src];
   warp_sync();
   return out;
 }
-inline float shfl_xor(float v, int m) { return shfl(v, g_lane ^ m); }
+inline float shfl_xor(float v, int m) { return shfl(v, host_lanes::lane() ^ m); }
 inline void team_sync(unsigned) { warp_sync(); }
 inline float team_shfl(float v, int src, unsigned) { return shfl(v, src); }
 inline float team_shfl_xor(float v, int m, unsigned) { return shfl_xor(v, m); }
@@ -62,17 +62,13 @@ void k1(const nmpc::WarpArgs& a) {
   std::vector<float> ring(a.slot_floats);
   for (int b = 0; b < a.B; ++b) {
     for (auto& v : ring) v = std::numeric_limits<float>::quiet_NaN();
-    std::barrier<> bar(nmpc::kTeam);
+    host_lanes::Barrier bar(nmpc::kTeam);
     float exch[nmpc::kTeam];
-    std::vector<std::thread> pool;
-    for (int tl = 0; tl < nmpc::kTeam; ++tl)
-      pool.emplace_back([&, tl] {
-        nmpc::g_team = &bar;
-        nmpc::g_exch = exch;
-        nmpc::g_lane = tl;
-        nmpc::inner_solve_team<NMPC_NR, kObs>(a, sp.data(), ring.data(), b, tl, ~0u);
-      });
-    for (auto& t : pool) t.join();
+    nmpc::g_team = &bar;
+    nmpc::g_exch = exch;
+    host_lanes::run(nmpc::kTeam, [&](int tl) {
+      nmpc::inner_solve_team<NMPC_NR, kObs>(a, sp.data(), ring.data(), b, tl, ~0u);
+    });
   }
 }
 

@@ -4,19 +4,20 @@
 // Compiled by g++:
 //   g++ -std=c++20 -O1 -shared -fPIC -pthread -ffp-contract=off
 //       -fno-strict-aliasing -DNMPC_NR=<m> -I<csrc> inner_warp_host.cpp
-// A scenario's warp runs as 32 std::threads with a std::barrier for
-// __syncwarp; a shuffle is a store to an exchange array between two
-// barriers. Each scenario gets its own slot, filled with NaN first, so a
-// read of an entry the kernel did not write shows in the result. The
-// parameter block is copied as the kernels copy it into shared memory.
+// A scenario's warp runs as 32 lanes (tests/host_lanes.h: coroutines in
+// the calling thread) with a barrier for __syncwarp; a shuffle is a store to
+// an exchange array between two barriers. Each scenario gets its own slot,
+// filled with NaN first, so a read of an entry the kernel did not write
+// shows in the result. The parameter block is copied as the kernels copy it
+// into shared memory.
 #define NMPC_DEV inline
 #define NMPC_HOST_WARP
 
-#include <barrier>
 #include <cmath>
 #include <limits>
-#include <thread>
 #include <vector>
+
+#include "host_lanes.h"
 
 struct float2 {
   float x, y;
@@ -28,18 +29,17 @@ inline float2 make_float2(float a, float b) { return {a, b}; }
 inline float4 make_float4(float a, float b, float c, float d) { return {a, b, c, d}; }
 
 namespace nmpc {
-thread_local std::barrier<>* g_warp = nullptr;
+thread_local host_lanes::Barrier* g_warp = nullptr;
 thread_local float* g_exch = nullptr;
-thread_local int g_lane = 0;
-inline void warp_sync() { g_warp->arrive_and_wait(); }
+inline void warp_sync() { host_lanes::wait(*g_warp); }
 inline float shfl(float v, int src) {
-  g_exch[g_lane] = v;
+  g_exch[host_lanes::lane()] = v;
   warp_sync();
   const float out = g_exch[src];
   warp_sync();
   return out;
 }
-inline float shfl_xor(float v, int m) { return shfl(v, g_lane ^ m); }
+inline float shfl_xor(float v, int m) { return shfl(v, host_lanes::lane() ^ m); }
 }  // namespace nmpc
 
 #include "inner_warp.cuh"
@@ -49,17 +49,11 @@ namespace {
 // run body(lane) on the 32 lanes of one warp
 template <class F>
 void run_warp(F body) {
-  std::barrier<> bar(nmpc::kWarp);
+  host_lanes::Barrier bar(nmpc::kWarp);
   float exch[nmpc::kWarp];
-  std::vector<std::thread> pool;
-  for (int lane = 0; lane < nmpc::kWarp; ++lane)
-    pool.emplace_back([&, lane] {
-      nmpc::g_warp = &bar;
-      nmpc::g_exch = exch;
-      nmpc::g_lane = lane;
-      body(lane);
-    });
-  for (auto& t : pool) t.join();
+  nmpc::g_warp = &bar;
+  nmpc::g_exch = exch;
+  host_lanes::run(nmpc::kWarp, body);
 }
 
 template <bool kObs, nmpc::Phase kPhase = nmpc::Phase::full, bool kEarlyExit = true,

@@ -21,7 +21,8 @@ how often the six_robot_impl loops miss their bounds from starts moved by
 `hw_start`: the spread of those loops' first solve, ~1 min;
 `latency`: the latency chunk of tests/test_torch_latency.py, ~1 min;
 `obstacles`: only the port's megakernel route on chip_smoke.py path (b)'s
-problem, ~4 min; `gn`: only the cases of tests/test_torch_hybrid.py,
+problem, ~4 min; `staged_wide`: the staged and hybrid routes at m=12 of
+tests/test_torch_staged_wide.py, ~3 min; `gn`: only the cases of tests/test_torch_hybrid.py,
 tests/test_torch_gn.py and tests/test_torch_lidar.py, ~1 min;
 `lidar_fuzz`: the batched LiDAR fuzz loops (`jax.vmap(closed_loop_lidar)`
 over tests/test_lidar_fuzz.py's fields) at tests/test_torch_lidar.py's
@@ -496,6 +497,28 @@ def tally(path, *versus):
         print(row, flush=True)
 
 
+def staged_wide():
+    """The reference's staged and hybrid routes at m=12 of
+    tests/test_torch_staged_wide.py, from its starts and from starts moved
+    by 1e-7 (3 draws): cost, U and the iteration counts."""
+    from nmpc_tpu.solver.alilqr_batched import solve_batched as jax_solve_batched
+    from test_torch_staged_wide import ROUTES, SOLVE, batch
+
+    for way, kw in ROUTES.items():
+        run = jax.jit(functools.partial(jax_solve_batched, cfg=JaxConfig(**SOLVE, **kw)))
+        ob = batch()
+        a = run(ob)
+        rng = np.random.default_rng(0)
+        du = dc = di = 0.0
+        for _ in range(3):
+            b = run(batch(dx=1e-7 * rng.standard_normal(ob.x0.shape).astype(np.float32)))
+            du = max(du, float(jnp.abs(a.U - b.U).max()))
+            dc = max(dc, float((jnp.abs(a.cost - b.cost) / jnp.abs(a.cost)).max()))
+            di = max(di, float(jnp.abs(a.inner_iters - b.inner_iters).max()))
+        print(f"staged_wide {way} m=12: U {du:.3e}, cost rel {dc:.3e}, inner_iters {di:.0f}",
+              flush=True)
+
+
 def main():
     if sys.argv[1:2] == ["tally"]:
         tally(*sys.argv[2:])
@@ -508,6 +531,9 @@ def main():
         return
     if sys.argv[1:] == ["gn"]:
         gn_cases()
+        return
+    if sys.argv[1:] == ["staged_wide"]:
+        staged_wide()
         return
     if sys.argv[1:2] == ["loops"]:
         loop_outcomes(*(sys.argv[2:3] or ["all"]),

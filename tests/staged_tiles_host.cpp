@@ -6,20 +6,25 @@
 //       -DNMPC_NR=<m> -DNMPC_K3_S=... -I<csrc> staged_tiles_host.cpp
 // With -DNMPC_K3_N=<n> -DNMPC_K3_NU=<nu> (and K3's geometry at that shape,
 // staged_tiles.k3_shape_flags) K3 runs at that stage shape instead.
-// A block runs as S T (K3, K6), A S (K5) or 32 W (K4) std::threads with a
-// std::barrier for __syncthreads; the copies are plain loads (the header's
-// NMPC_HOST_BLOCK shim), so every stage is complete when it is read.
+// A block runs as S T (K3, K6), A S (K5) or 32 W (K4) lanes (tests/
+// host_lanes.h: coroutines in the calling thread) with a barrier for
+// __syncthreads (and one for warp 0's __syncwarp in K3's block design); the
+// copies are plain loads (the header's NMPC_HOST_BLOCK shim), so every stage
+// is complete when it is read.
 #define NMPC_DEV inline
 #define NMPC_HOST_BLOCK
 
-#include <barrier>
 #include <cstdint>
-#include <thread>
 #include <vector>
 
+#include "host_lanes.h"
+
 namespace nmpc {
-thread_local std::barrier<>* g_block = nullptr;
-inline void block_sync() { g_block->arrive_and_wait(); }
+thread_local host_lanes::Barrier* g_block = nullptr;
+thread_local host_lanes::Barrier* g_warp0 = nullptr;
+inline void block_sync() { host_lanes::wait(*g_block); }
+// __syncwarp of K3's block design, whose warp 0 alone calls it
+inline void warp0_sync() { host_lanes::wait(*g_warp0); }
 }  // namespace nmpc
 
 #include "expansions_rollout_tiles.cuh"
@@ -48,17 +53,14 @@ bool aligned(int B, std::initializer_list<const float*> ptrs) {
   return true;
 }
 
-// run body(tid) on `threads` threads sharing one barrier
+// run body(tid) on `threads` lanes sharing one barrier (and the first 32
+// another, warp 0's)
 template <class F>
 void run_block(int threads, F body) {
-  std::barrier<> bar(threads);
-  std::vector<std::thread> pool;
-  for (int tid = 0; tid < threads; ++tid)
-    pool.emplace_back([&, tid] {
-      nmpc::g_block = &bar;
-      body(tid);
-    });
-  for (auto& t : pool) t.join();
+  host_lanes::Barrier bar(threads), warp0(threads < 32 ? threads : 32);
+  nmpc::g_block = &bar;
+  nmpc::g_warp0 = &warp0;
+  host_lanes::run(threads, body);
 }
 
 }  // namespace

@@ -20,6 +20,16 @@ from nmpc_tpu_torch.solver import admm as TA
 XY_ATOL = 1e-4
 
 
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """One intra-op thread: the suite runs six workers on the CPU's cores,
+    where more threads a worker only wait on each other."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _t(a):
     return torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32))
 

@@ -19,6 +19,16 @@ from nmpc_tpu.ops import assoc_lqr as JA
 from nmpc_tpu_torch.ops import assoc_lqr as TA
 
 
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """One intra-op thread: the suite runs six workers on the CPU's cores,
+    where more threads a worker only wait on each other."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _rand_lqr(key, N, n, m, batch=()):
     """tests/test_ops.py's draw (numpy, f32), with optional batch axes
     after the horizon."""

@@ -267,26 +267,38 @@ def test_k1_and_k2_past_the_registry_match_plain(dev, m):
     """K1 and K2 at robot counts past the registry's (scenarios/
     robot_counts.py's problems at N=10; lanes own two state rows and two
     right-hand sides at m = 12 and 16), B=65 (a ragged last block), at the
-    tolerances above; the library's slot is the route's mirror
+    tolerances above, and at m=12 also their obstacle variant (the route's
+    K1 for any obstacle problem there) with a static obstacle on a column of
+    the crossing, ahead of its start (its rows bind on ~5% of the entries);
+    the library's slot is the route's mirror
     (megasolve.slot_bytes) and K1_WARPS slots fit the block."""
     from nmpc_tpu_torch.scenarios import robot_counts
 
-    g = torch.Generator(device=dev).manual_seed(m)
-    base = robot_counts.make(m, device=dev, N=10)
-    B = 65
-    ob = batch_ocp(base, base.x0[None] + 0.1 * torch.randn((B, base.nx), generator=g, device=dev))
-    U = 0.05 * torch.randn((B, base.N, base.nu), generator=g, device=dev)
-    lam = 0.5 * torch.randn((B, base.N, base.n_con), generator=g, device=dev).abs()
-    lam = lam * (P.constraint_mask(base) > 0)
-    mu = torch.tensor([10.0, 100.0, 1e3, 1e4], device=dev)[
-        torch.randint(0, 4, (B,), generator=g, device=dev)]
+    bases = [robot_counts.make(m, device=dev, N=10)]
+    if m == 12:
+        bases.append(P.make_ocp(**robot_counts.crossing(12, N=10), obstacles=[[-0.5, -0.7, 0.15]],
+                                device=dev))
     cfg = ALILQRConfig(n_inner=4, ls="adaptive")
-    got = megasolve.inner_solve_fused(ob, ob.x0, ob.xref, lam, mu, U, cfg)
-    _hold_k1(got, megasolve.inner_solve_plain(ob, ob.x0, ob.xref, lam, mu, U, cfg), B)
-    g2 = megasolve.al_update_lanes(ob, got[0], got[1], lam, mu, 1e6)
-    w2 = megasolve.al_update_plain(ob, got[0], got[1], lam, mu, 1e6)
-    torch.testing.assert_close(g2[0], w2[0], rtol=1e-6, atol=1e-6)
-    torch.testing.assert_close(g2[1], w2[1], rtol=1e-6, atol=1e-6)
+    B = 65
+    for base in bases:
+        g = torch.Generator(device=dev).manual_seed(m)
+        ob = batch_ocp(base, base.x0[None] + 0.1 * torch.randn((B, base.nx), generator=g,
+                                                              device=dev))
+        U = 0.05 * torch.randn((B, base.N, base.nu), generator=g, device=dev)
+        lam = 0.5 * torch.randn((B, base.N, base.n_con), generator=g, device=dev).abs()
+        lam = lam * (P.constraint_mask(base) > 0)
+        mu = torch.tensor([10.0, 100.0, 1e3, 1e4], device=dev)[
+            torch.randint(0, 4, (B,), generator=g, device=dev)]
+        got = megasolve.inner_solve_fused(ob, ob.x0, ob.xref, lam, mu, U, cfg)
+        _hold_k1(got, megasolve.inner_solve_plain(ob, ob.x0, ob.xref, lam, mu, U, cfg), B)
+        g2 = megasolve.al_update_lanes(ob, got[0], got[1], lam, mu, 1e6)
+        w2 = megasolve.al_update_plain(ob, got[0], got[1], lam, mu, 1e6)
+        torch.testing.assert_close(g2[0], w2[0], rtol=1e-6, atol=1e-6)
+        torch.testing.assert_close(g2[1], w2[1], rtol=1e-6, atol=1e-6)
+        if base.n_obs:   # the obstacle rows bind on some scenarios
+            i0 = base.n_pairs
+            assert (w2[0][:, 1:, i0:i0 + m] > 0).float().mean() > 0.01
+    base = bases[0]
     lib = cuda_build.load(m)
     for R in (0, m, 15 * m):
         assert lib.nmpc_k1_slot_bytes(R) == megasolve.slot_bytes(m, R)
@@ -295,18 +307,67 @@ def test_k1_and_k2_past_the_registry_match_plain(dev, m):
 
 
 def test_staged_route_past_ten_robots_raises(dev):
-    """At m = 12 the staged route (mega=False) raises NotImplementedError
-    naming the kernels it lacks; past 16 so does K1."""
+    """Past 16 robots the staged route (mega=False) raises
+    NotImplementedError naming the kernels it lacks and their ceiling, and
+    so does the default route (K1); at m = 12 and 16 the staged route runs
+    (test_staged_kernels_past_ten_robots_match_plain)."""
     from nmpc_tpu_torch.scenarios import robot_counts
 
-    base = robot_counts.make(12, device=dev, N=10)
-    ob = batch_ocp(base, base.x0[None].repeat(4, 1))
-    with pytest.raises(NotImplementedError, match="K3-K6"):
-        solve_batched(ob, cfg=ALILQRConfig(n_outer=1, n_inner=2, mega=False))
     o17 = robot_counts.make(17, device=dev, N=10)
     ob17 = batch_ocp(o17, o17.x0[None].repeat(4, 1))
+    with pytest.raises(NotImplementedError, match="K3-K6 are built for m <= 16"):
+        solve_batched(ob17, cfg=ALILQRConfig(n_outer=1, n_inner=2, mega=False))
     with pytest.raises(NotImplementedError, match="m=17"):
         solve_batched(ob17, cfg=ALILQRConfig(n_outer=1, n_inner=2))
+
+
+@pytest.mark.parametrize("m", [12, 16])
+def test_staged_kernels_past_ten_robots_match_plain(dev, m):
+    """K3 (its block design), K4, K5 and K6 at m = 12 and 16 (scenarios/
+    robot_counts.py's widened crossing, N=10, B=300: a ragged last tile)
+    against their plain versions as test_staged_kernels_match_plain holds
+    them, one launch each; and the staged route's solve through them (one
+    K4, K3 and K5 an inner iteration, K6 once more)."""
+    from nmpc_tpu_torch.scenarios import robot_counts
+
+    ocp = robot_counts.make(m, device=dev, N=10)
+    assert staged_tiles.k3_geometry(m).S == 1
+    L = _lanes(ocp, 300, dev)
+    cuda_build.reset_launch_counts()
+    verdicts, _ = staged_vs_plain(ocp, L["X"], L["U"], L["xref"], L["lam"], L["mu"], None,
+                                  (0.0, 1.0, 0.5, 0.25, 0.1), L["alpha"], 1e-6,
+                                  gains=(L["kff"], L["Kfb"]))
+    for k, v in verdicts.items():
+        assert v.units > 0 and v.n_diverged == 0 and v.n_widened == 0, k
+    c = cuda_build.launch_counts
+    assert (c["expansions_fused"], c["riccati_lanes"], c["linesearch_costs_lanes"],
+            c["rollout_alpha_lanes"]) == (1, 1, 1, 1)
+    g = torch.Generator(device=dev).manual_seed(m)
+    ob = batch_ocp(ocp, ocp.x0[None] + 0.05 * torch.randn((64, ocp.nx), generator=g, device=dev))
+    cuda_build.reset_launch_counts()
+    res = solve_batched(ob, cfg=ALILQRConfig(n_outer=2, n_inner=4, mega=False))
+    c = dict(cuda_build.launch_counts)
+    assert c["expansions_fused"] == c["riccati_lanes"] == c["linesearch_costs_lanes"] > 0
+    assert c["rollout_alpha_lanes"] == c["riccati_lanes"] + 1 and c["inner_solve_fused"] == 0
+    assert torch.isfinite(res.cost).all() and torch.isfinite(res.X).all()
+
+
+@pytest.mark.parametrize("shape", [(36, 24), (41, 7), (50, 13), (64, 32), (80, 32)])
+def test_riccati_block_design_at_wide_shapes_matches_plain(dev, shape):
+    """K3's block design at stage shapes past (30, 20) up to its limit,
+    each from its own riccati_shape.cu library, against plain on random
+    well-posed stage blocks (B = 33 and 256, N=5) at K3's tolerances."""
+    from nmpc_tpu_torch.ops import kernel_check as KC
+    from nmpc_tpu_torch.ops.riccati import riccati_plain
+
+    gen = torch.Generator(device=dev).manual_seed(sum(shape))
+    for B in (33, 256):
+        exp = KC.k3_inputs(*shape, B, 5, gen)
+        got = riccati_lanes(exp, 1e-6)
+        v = KC.Verdict()
+        for i, (a, w, atol) in enumerate(zip(got, riccati_plain(exp, 1e-6), KC.K3_ATOL)):
+            KC.hold(v, f"K3 {shape} output {i}", a, w, atol)
+        assert v.units == B and v.n_widened == 0 and v.n_diverged == 0
 
 
 def test_k1_phase_probes_count_every_phase(dev):
@@ -523,12 +584,13 @@ def test_staged_wrappers_refuse_what_the_kernels_do_not_cover(dev):
     with pytest.raises(NotImplementedError, match="m=17"):
         R.linesearch_costs_lanes(seventeen, L["x0"], L["X"], L["U"], L["kff"], L["Kfb"],
                                  L["xref"], L["lam"], L["mu"], (0.0, 1.0))
-    # K3 takes any stage shape up to the largest robot stack's (30, 20)
-    bad = tuple(torch.zeros(s, device=dev) for s in (
-        (5, 31, 31, 64), (5, 31, 4, 64), (5, 31, 64), (5, 4, 64), (5, 31, 31, 64),
-        (5, 4, 4, 64), (5, 4, 31, 64)))
-    with pytest.raises(NotImplementedError, match="up to n=30"):
-        riccati_lanes(bad)
+    # K3 takes any stage shape up to its block design's limit (80, 32)
+    for n, nu in ((81, 4), (4, 33)):
+        bad = tuple(torch.zeros(s, device=dev) for s in (
+            (5, n, n, 64), (5, n, nu, 64), (5, n, 64), (5, nu, 64), (5, n, n, 64),
+            (5, nu, nu, 64), (5, nu, n, 64)))
+        with pytest.raises(NotImplementedError, match="up to n=80, nu=32"):
+            riccati_lanes(bad)
 
 
 # ---------------------------------------------------------------------------

@@ -1,8 +1,8 @@
 """The device code of K1's team design (csrc/inner_team.cuh, a team of T
 lanes per scenario, the line-search candidates side by side) compiled as
-host C++ (tests/inner_team_host.cpp: a team's lanes are T std::threads with
-a std::barrier for __syncwarp, a width-T shuffle an exchange through
-memory, the ring of stage rows NaN-filled), against the plain PyTorch
+host C++ (tests/inner_team_host.cpp: a team's lanes are T coroutines of
+tests/host_lanes.h with a barrier for __syncwarp, a width-T shuffle an
+exchange through memory, the ring of stage rows NaN-filled), against the plain PyTorch
 version, at m=1 and m=2 in both instantiations: pair and box rows only
 (slsqp_pose, two_robot_swap) and the obstacle variant at the problems of
 tests/obstacle_cases.py (static obstacles, per-scenario moving-obstacle
@@ -21,19 +21,16 @@ Skipped where g++ is missing.
 """
 
 import ctypes
-import shutil
-import subprocess
-from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import pytest
 import torch
 
+import host_build
 import obstacle_cases as OC
 from nmpc_tpu_torch.ocp import problem as P
 from nmpc_tpu_torch.ops import megasolve, rollout
 from nmpc_tpu_torch.ops import cuda_build
-from nmpc_tpu_torch.ops.cuda_build import SRC_DIR
 from nmpc_tpu_torch.parallel import batch_ocp
 from nmpc_tpu_torch.scenarios import get
 from nmpc_tpu_torch.solver import ALILQRConfig
@@ -54,30 +51,18 @@ def _one_thread():
 
 
 @pytest.fixture(scope="module")
-def host_libs(tmp_path_factory):
+def host_libs():
     """{build name: the harness built at its robot count and settings}."""
-    gxx = shutil.which("g++")
-    if gxx is None:
-        pytest.skip("g++ is not installed: the host rehearsal cannot be built")
-    out = tmp_path_factory.mktemp("inner_team")
-
-    def build(item):
-        name, (m, flags) = item
-        so = out / f"inner_team_{name.replace(' ', '_').replace('=', '')}.so"
-        subprocess.run([gxx, "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread",
-                        "-ffp-contract=off", "-fno-strict-aliasing", f"-DNMPC_NR={m}",
-                        *(f"-D{k}={v}" for k, v in flags.items()), f"-I{SRC_DIR}", str(HOST),
-                        "-o", str(so)], check=True, capture_output=True, text=True)
-        lib = ctypes.CDLL(str(so))
-        V, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    libs = host_build.build_all(HOST.name, {
+        name: [f"-DNMPC_NR={m}", *(f"-D{k}={v}" for k, v in flags.items())]
+        for name, (m, flags) in BUILDS.items()})
+    V, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    for lib in libs.values():
         lib.host_k1_team_geometry.argtypes = [V]
         lib.host_k1_team_ring_bytes.argtypes = [I, I, I]
         lib.host_k1_team_ring_bytes.restype = I
         lib.host_inner_solve_team.argtypes = [V] * 14 + [I] * 7 + [F] * 6 + [V] + [I] * 3
-        return lib
-
-    with ThreadPoolExecutor(len(BUILDS)) as pool:
-        return dict(zip(BUILDS, pool.map(build, BUILDS.items())))
+    return libs
 
 
 def _p(t):

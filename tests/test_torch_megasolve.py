@@ -38,6 +38,16 @@ from nmpc_tpu_torch.tools.roofline import k1_executed
 B = 128
 
 
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """One intra-op thread: the suite runs six workers on the CPU's cores,
+    where more threads a worker only wait on each other."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def port_ocp(o):
     data = {f.name: np.asarray(getattr(o, f.name))
             for f in dataclasses.fields(o) if f.name not in JP.OCP_META}

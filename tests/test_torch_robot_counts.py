@@ -26,9 +26,6 @@ port by ocp_from_numpy.
 
 import ctypes
 import dataclasses
-import shutil
-import subprocess
-from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import jax
@@ -37,6 +34,7 @@ import numpy as np
 import pytest
 import torch
 
+import host_build
 from nmpc_tpu.ocp import problem as JP
 from nmpc_tpu.ops.megasolve_pallas import mega_fits as jax_mega_fits
 from nmpc_tpu.ops.rollout_pallas import supports as jax_supports
@@ -46,7 +44,6 @@ from nmpc_tpu.solver.alilqr import solve as jax_solve
 from nmpc_tpu.solver.alilqr_batched import _resolve_sweep
 from nmpc_tpu_torch.ocp import problem as TP
 from nmpc_tpu_torch.ops import cuda_build, megasolve, rollout
-from nmpc_tpu_torch.ops.cuda_build import SRC_DIR
 from nmpc_tpu_torch.parallel import batch_ocp
 from nmpc_tpu_torch.scenarios import REGISTRY, robot_counts
 from nmpc_tpu_torch.solver import ALILQRConfig
@@ -111,9 +108,11 @@ def test_route_at_robot_counts_past_the_registry(m):
 
 def test_nothing_past_the_ceiling():
     """m <= 16 takes the megakernel route and solves on the CPU; past 16
-    `load` raises naming the ceiling before it builds anything, K1 refuses
-    the problem and the route is the staged one (whose kernels raise on the
-    card; on the CPU the plain versions run)."""
+    `load` (and the staged kernels' first designs and sweep variants)
+    raises naming the ceiling before it builds anything, K1 refuses the
+    problem and the route is the staged one, whose kernels (K3-K6, which
+    take every m <= 16) refuse it on the card too; on the CPU the plain
+    versions run."""
     for m in range(1, 17):
         assert route(wide(m)[1], ALILQRConfig()) == "mega", m
     t = wide(16)[1]
@@ -125,14 +124,17 @@ def test_nothing_past_the_ceiling():
     for m in (0, 17):
         with pytest.raises(NotImplementedError, match="16"):
             cuda_build.load_k1_variant(m)
-    with pytest.raises(NotImplementedError, match="10"):
-        cuda_build.load_first(12)
+    with pytest.raises(NotImplementedError, match="16"):
+        cuda_build.load_first(17)
+    with pytest.raises(NotImplementedError, match="16"):
+        cuda_build.load_staged_variant(17)
     t17 = wide(17)[1]
     assert "m=17" in megasolve.cuda_unsupported(t17, ALILQRConfig())
     assert not megasolve.mega_fits(t17)
     assert route(t17, ALILQRConfig()) == "staged"
-    assert "K3-K6" in rollout.unsupported(wide(12)[1])
-    assert rollout.unsupported(wide(9)[1]) is None
+    assert "K3-K6" in rollout.unsupported(t17) and "m <= 16" in rollout.unsupported(t17)
+    for m in (9, 12, 16):
+        assert rollout.unsupported(wide(m)[1]) is None
 
 
 def _starts(o, B=8, seed=0):
@@ -183,29 +185,18 @@ HOSTS = {"inner_warp": (Path(__file__).resolve().parent / "inner_warp_host.cpp",
 
 
 @pytest.fixture(scope="module")
-def host_libs(tmp_path_factory):
-    """{(harness, m): the device code compiled on the host at m robots}."""
-    gxx = shutil.which("g++")
-    if gxx is None:
-        pytest.skip("g++ is not installed: the host rehearsal cannot be built")
-    out = tmp_path_factory.mktemp("robot_counts")
-    jobs = [(name, m) for name, (_, ms) in HOSTS.items() for m in ms]
-
-    def build(job):
-        name, m = job
-        so = out / f"{name}_m{m}.so"
-        subprocess.run([gxx, "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread",
-                        "-ffp-contract=off", "-fno-strict-aliasing", f"-DNMPC_NR={m}",
-                        f"-I{SRC_DIR}", str(HOSTS[name][0]), "-o", str(so)], check=True,
-                       capture_output=True, text=True)
-        lib = ctypes.CDLL(str(so))
-        fn = lib.host_k1_slot_bytes if name == "inner_warp" else lib.host_k1_team_ring_bytes
-        fn.argtypes = [ctypes.c_int] * (1 if name == "inner_warp" else 3)
-        fn.restype = ctypes.c_int
-        return lib
-
-    with ThreadPoolExecutor(len(jobs)) as pool:
-        return dict(zip(jobs, pool.map(build, jobs)))
+def host_libs():
+    """{(harness, m): the device code compiled on the host at m robots}
+    (tests/host_build.py)."""
+    libs = {}
+    for name, (path, ms) in HOSTS.items():
+        built = host_build.build_all(path.name, {m: [f"-DNMPC_NR={m}"] for m in ms})
+        for m, lib in built.items():
+            fn = lib.host_k1_slot_bytes if name == "inner_warp" else lib.host_k1_team_ring_bytes
+            fn.argtypes = [ctypes.c_int] * (1 if name == "inner_warp" else 3)
+            fn.restype = ctypes.c_int
+            libs[name, m] = lib
+    return libs
 
 
 def test_mega_fits_mirrors_the_built_slot_sizes(host_libs):

@@ -69,10 +69,15 @@ def make_inputs() -> dict:
         con_x0=con_x0.reshape(-1), con_goals=con_goals, con_N=12)
 
 
+# seconds a test waits for a world's results before it fails (the two
+# worlds take ~25 s together on an idle 8-core CPU)
+WORLD_SECONDS = 600
+
+
 @pytest.fixture(scope="module")
 def worlds(tmp_path_factory):
     """The 2- and 4-rank worlds, started at once in the background: their
-    results (a list over ranks each) come from .result()."""
+    results (a list over ranks each) come from .result(WORLD_SECONDS)."""
     inp = make_inputs()
     pool = ThreadPoolExecutor(2)
     two = pool.submit(dryrun.run_world, W.two_ranks, 2, "gloo", inp,
@@ -80,7 +85,7 @@ def worlds(tmp_path_factory):
     four = pool.submit(dryrun.run_world, W.four_ranks, 4, "gloo", inp,
                        workdir=str(tmp_path_factory.mktemp("world4")))
     yield inp, two, four
-    pool.shutdown(wait=True)
+    pool.shutdown(wait=False)
 
 
 def same_on_every_rank(outs, key):
@@ -110,7 +115,7 @@ def test_consensus_sharded_matches_reference_and_single_program(worlds):
         X, U, w, plans, v, d = run(jnp.asarray(inp["con_x0"]).reshape(m, 3),
                                    jnp.asarray(inp["con_goals"]))
         want[engine] = [np.asarray(a) for a in (X, U, v, d, w.lam, plans)]
-    outs = two.result()
+    outs = two.result(WORLD_SECONDS)
     for engine in ("xla", "fused"):
         got = same_on_every_rank(outs, f"con_{engine}")
         np.testing.assert_allclose(got["U"], got["U1"], atol=1e-4)
@@ -141,7 +146,7 @@ def test_decentralized_step_sharded_matches_reference(worlds):
     w = jax.vmap(lambda _: jax_cold_start(tpl))(jnp.arange(m))
     u, plans = step(*(jnp.asarray(inp[k]) for k in ("dec_poses", "dec_goals", "dec_plans")),
                     w.U, w.lam, w.mu)
-    got = same_on_every_rank(two.result(), "dec")
+    got = same_on_every_rank(two.result(WORLD_SECONDS), "dec")
     np.testing.assert_allclose(got["u"], got["u1"], atol=1e-4)
     np.testing.assert_allclose(got["plans"], got["plans1"], atol=1e-4)
     np.testing.assert_allclose(got["u"], np.asarray(u), atol=1e-2)
@@ -166,7 +171,7 @@ def test_data_parallel_step_matches_unsharded_and_reference(worlds, world):
         axis = ("hosts", "chips")
     res = jax.jit(functools.partial(jax_batched_solve, cfg=JaxConfig(**W.STEP_CFG)))(
         jax_shard_ocp_batch(ob, mesh, axis=axis))
-    outs = (two if world == 2 else four).result()
+    outs = (two if world == 2 else four).result(WORLD_SECONDS)
     got = same_on_every_rank(outs, "step")
     np.testing.assert_allclose(got["x_next"], got["x_next1"], atol=1e-4)
     np.testing.assert_allclose(got["U"], got["U1"], atol=1e-4)
@@ -184,14 +189,14 @@ def test_placements_rows_and_round_trips(worlds):
     and a rank outside a smaller mesh raise."""
     _, two, four = worlds
     x = np.arange(8 * 3, dtype=np.float32).reshape(8, 3)
-    for o in two.result():
+    for o in two.result(WORLD_SECONDS):
         r = o["rank"]
         assert o["placements"] and o["fresh"] and o["round_trip"]
         np.testing.assert_array_equal(o["rows"], x[4 * r:4 * r + 4])
         assert o["raise_rows"].startswith("ValueError: 7 rows do not divide over 2 shards")
         assert o["raise_n"].startswith("ValueError: data_mesh: 3 devices asked of a world of 2")
     x = np.arange(8 * 2, dtype=np.float32).reshape(8, 2)
-    for o in four.result():
+    for o in four.result(WORLD_SECONDS):
         r = o["rank"]
         assert o["index"] == r and o["round_trip"]
         assert o["placements"] and o["placements_chips"]
@@ -207,7 +212,7 @@ def test_shard_ocp_batch_rows_and_replicas(worlds):
     an indivisible B raises, and so does a call after the world is gone."""
     inp, two, four = worlds
     tpl = JD.robot_template(5, 0.1, 0.3, 3)
-    for o in two.result():
+    for o in two.result(WORLD_SECONDS):
         r = o["rank"]
         sl = slice(2 * r, 2 * r + 2)
         for name, key in (("x0", "ob_x0"), ("xref", "ob_xref"), ("mov_obs", "ob_mov")):
@@ -216,7 +221,7 @@ def test_shard_ocp_batch_rows_and_replicas(worlds):
             np.testing.assert_array_equal(o["ob"][name], np.asarray(getattr(tpl, name)), name)
         assert o["ob_shared"]
         assert o["raise_ob"].startswith("ValueError: 3 rows do not divide over 2 shards")
-    for o in four.result():
+    for o in four.result(WORLD_SECONDS):
         assert o["raise_no_world"].startswith("RuntimeError: no torch.distributed process group")
 
 
@@ -237,7 +242,7 @@ def test_dryrun_multichip_on_two_ranks(worlds):
     decentralized exchange, hosts x chips, consensus, the GN fleet, the
     ADMM fleet) passed its own assertion on every rank."""
     _, two, _ = worlds
-    outs = two.result()
+    outs = two.result(WORLD_SECONDS)
     for o in outs:
         assert set(o["dryrun"]) == {
             "data-parallel step, batched_solve", "data-parallel step, solve_batched",
@@ -254,7 +259,7 @@ def test_fleet_batch_example_shards_over_the_world(worlds):
     _, two, _ = worlds
     one = fleet_batch.run(4, "cpu", N=5)
     assert one["devices"] == 1
-    for o in two.result():
+    for o in two.result(WORLD_SECONDS):
         r = o["fleet"]
         assert r["devices"] == 2 and r["B"] == 4 and r["solves_per_s"] > 0
         assert (r["converged"], r["max_viol"]) == (one["converged"], one["max_viol"])

@@ -40,6 +40,16 @@ CFG = dict(n_outer=8, n_inner=15, tol_con=1e-4)                    # test_batche
 BENCH = dict(n_outer=6, n_inner=12, tol_con=1e-3, ls="adaptive")   # bench.py
 
 
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """One intra-op thread: the suite runs six workers on the CPU's cores,
+    where more threads a worker only wait on each other."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def port_ocp(o):
     data = {f.name: np.asarray(getattr(o, f.name))
             for f in dataclasses.fields(o) if f.name not in JP.OCP_META}

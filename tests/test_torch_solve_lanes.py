@@ -63,6 +63,16 @@ OBS = dict(n_outer=12, n_inner=25, tol_con=1e-3)
 OBS_X0 = (0.5, 0.6, 1.571)   # in the slalom: the obstacle rows are active at N=10
 
 
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """One intra-op thread: the suite runs six workers on the CPU's cores,
+    where more threads a worker only wait on each other."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def port_ocp(o):
     data = {f.name: np.asarray(getattr(o, f.name))
             for f in dataclasses.fields(o) if f.name not in JP.OCP_META}

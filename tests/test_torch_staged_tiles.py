@@ -6,8 +6,9 @@
   every block within the H100's 227 KB of shared memory, and the blocks
   each SM holds as the table records them (K3).
 * Their device code compiled as host C++ (tests/staged_tiles_host.cpp; a
-  block's threads are std::threads with a std::barrier for __syncthreads,
-  the copies plain loads), at the library's geometry for m in {1, 2, 6}:
+  block's threads are coroutines of tests/host_lanes.h with a barrier for
+  __syncthreads, the copies plain loads), at the library's geometry for m
+  in {1, 2, 6, 7} (past ten robots: tests/test_torch_staged_wide_host.py):
   K3-K6 against the plain PyTorch versions at the CPU tests' tolerances
   (those of tests/test_torch_staged_ops.py, by the rule of
   ops/kernel_check.py), against the first designs (staged.cuh, compiled
@@ -21,9 +22,6 @@
 """
 
 import ctypes
-import shutil
-import subprocess
-from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import jax.numpy as jnp
@@ -31,12 +29,13 @@ import numpy as np
 import pytest
 import torch
 
+import host_build
 from nmpc_tpu.ops.riccati_pallas import riccati_fused as jax_riccati
 from nmpc_tpu_torch.ocp import problem as P
 from nmpc_tpu_torch.ops import kernel_check as KC
 from nmpc_tpu_torch.ops import rollout as R
 from nmpc_tpu_torch.ops import staged_tiles as ST
-from nmpc_tpu_torch.ops.cuda_build import ROBOT_COUNTS, SRC_DIR
+from nmpc_tpu_torch.ops.cuda_build import ROBOT_COUNTS
 from nmpc_tpu_torch.ops.riccati import riccati_plain
 from nmpc_tpu_torch.scenarios import get, robot_counts
 
@@ -48,21 +47,37 @@ USER_SHAPES = ((2, 1), (1, 1))
 ALPHAS = (0.0, 1.0, 0.5, 0.25, 0.1, 0.03, 0.01, 0.003, 0.001)   # the solver's grid
 
 
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """One intra-op thread: the suite runs six workers on the CPU's cores,
+    where more threads a worker only wait on each other."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.mark.parametrize("m", sorted(ST.K4_GEOMETRY))
 def test_geometry_fits_the_card(m):
     g3, g5 = ST.K3_GEOMETRY[m], ST.K5_GEOMETRY[m]
-    for S in (g3.S, g5.S):
-        assert S >= 8 and S & (S - 1) == 0
+    assert g5.S >= 8 and g5.S & (g5.S - 1) == 0
+    if m <= 10:   # K3's team design: a tile of S scenarios
+        assert g3.S >= 8 and g3.S & (g3.S - 1) == 0
+    else:         # its block design: whole warps for one scenario
+        assert (g3.S, g3.P, g3.T % 32, g3.spill) == (1, 1, 0, False)
     lay = ST.k3_layout(m)
     assert lay["smem_bytes"] <= ST.SMEM_BLOCK_MAX and lay["threads"] <= 1024
     assert lay["blocks_per_sm"] == ST.K3_BLOCKS_PER_SM[m], lay
     assert lay["scratch_floats"] == 0 or g3.spill
     # K5 at the solver's grid, with pairs and at path (b)'s six obstacles
-    assert ST.k5_max_alphas(m) >= len(ALPHAS) and ST.k5_max_alphas(m) * g5.S <= ST.K5_THREADS
+    assert ST.k5_max_alphas(m) >= len(ALPHAS)
+    assert ST.k5_max_alphas(m) * g5.S <= ST.k5_threads(m) <= ST.K5_THREADS
     rows = ST.k5_rows(m, m > 1, 6, 0)
     lay5 = ST.k5_layout(m, rows, 12288, ST.k5_max_alphas(m))
-    assert lay5["threads"] <= ST.K5_THREADS and lay5["smem_bytes"] <= ST.SMEM_BLOCK_MAX
-    assert ST.k5_layout(m, rows, 200, len(ALPHAS))["blocks_per_sm"] >= 2
+    assert lay5["threads"] <= ST.k5_threads(m) and lay5["smem_bytes"] <= ST.SMEM_BLOCK_MAX
+    # two K5 blocks an SM; from m = 15 one: two stage tiles of the smallest
+    # tile (eight scenarios) take 112-127 KB there
+    assert ST.k5_layout(m, rows, 200, len(ALPHAS))["blocks_per_sm"] >= (2 if m < 15 else 1)
     # K4 at the largest input tile the registry gives (pairs, six obstacles,
     # five moving-obstacle slots) and the largest parameter block; K6
     lay4 = ST.k4_layout(m, ST.k4_rows(m, m > 1, 6, 5), 12288)
@@ -76,9 +91,14 @@ def test_geometry_fits_the_card(m):
 
 def test_geometry_refuses_what_the_kernels_do_not_take():
     for bad in (ST.K3Geometry(12, 2, 32, 13), ST.K3Geometry(8, 2, 24, 9),
-                ST.K3Geometry(8, 1, 32, 9), ST.K3Geometry(8, 2, 32, 12)):
+                ST.K3Geometry(8, 1, 32, 9), ST.K3Geometry(8, 2, 32, 12),
+                ST.K3Geometry(1, 2, 48, 1), ST.K3Geometry(1, 2, 256, 2),
+                ST.K3Geometry(1, 1, 256, 1), ST.K3Geometry(1, 2, 2048, 1),
+                ST.K3Geometry(1, 2, 256, 1, spill=True)):
         with pytest.raises(ValueError):
             ST.k3_layout(6, bad)
+    with pytest.raises(ValueError):   # the block design's Cholesky is one warp's
+        ST.k3_layout((40, 33), ST.K3_GEOMETRY[16])
     with pytest.raises(ValueError):
         ST.k5_layout(1, 32, 100, 9, ST.K5Geometry(24, 2))
     for bad in (ST.K4Geometry(12, 4), ST.K4Geometry(32, 0), ST.K4Geometry(32, 33)):
@@ -95,44 +115,43 @@ def test_geometry_refuses_what_the_kernels_do_not_take():
                                     f"-DNMPC_K6_T={g6.T}"]
 
 
+def host_flags(key) -> list:
+    """The harness's -D flags at a key: m robots with the library's geometry,
+    or a K3 stage shape (n, nu) with the rest at m=1."""
+    if isinstance(key, tuple):
+        return ["-DNMPC_NR=1", *(f for f in ST.nvcc_flags(1) if not f.startswith("-DNMPC_K3_")),
+                *ST.k3_shape_flags(key)]
+    return [f"-DNMPC_NR={key}", *ST.nvcc_flags(key)]
+
+
+def bind(lib):
+    """The harness's entry points' argument types."""
+    V, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.host_k3_geometry.argtypes = [V]
+    lib.host_k5_geometry.argtypes = [I, I, V]
+    lib.host_k5_rows.argtypes = [I, I, I]
+    lib.host_k5_rows.restype = I
+    lib.host_riccati.argtypes = [V] * 10 + [I, I, F, I]
+    lib.host_linesearch_costs.argtypes = [V, I] + [V] * 10 + [I] * 7
+    lib.host_k4_geometry.argtypes = [I, I, V]
+    lib.host_k4_rows.argtypes = [I, I, I]
+    lib.host_k4_rows.restype = I
+    lib.host_k6_geometry.argtypes = [V]
+    lib.host_expansions.argtypes = [V, I] + [V] * 13 + [I] * 6
+    lib.host_rollout_alpha.argtypes = [V] * 9 + [I] * 3
+    return lib
+
+
+def host_libs_at(keys) -> dict:
+    """{key: the harness built at host_flags(key)} (tests/host_build.py)."""
+    libs = host_build.build_all(HOST.name, {key: host_flags(key) for key in keys})
+    return {key: bind(lib) for key, lib in libs.items()}
+
+
 @pytest.fixture(scope="module")
-def host_libs(tmp_path_factory):
-    """{m: the harness built with the library's geometry for m}."""
-    gxx = shutil.which("g++")
-    if gxx is None:
-        pytest.skip("g++ is not installed: the host rehearsal cannot be built")
-    out = tmp_path_factory.mktemp("staged_tiles")
-
-    def build(m):
-        if isinstance(m, tuple):   # K3 at that stage shape, the rest at m=1
-            flags = [f"-DNMPC_NR=1", *(f for f in ST.nvcc_flags(1) if not f.startswith("-DNMPC_K3_")),
-                     *ST.k3_shape_flags(m)]
-        else:
-            flags = [f"-DNMPC_NR={m}", *ST.nvcc_flags(m)]
-        so = out / f"staged_tiles_{'_'.join(map(str, m)) if isinstance(m, tuple) else m}.so"
-        subprocess.run([gxx, "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread",
-                        "-ffp-contract=off", *flags,
-                        f"-I{SRC_DIR}", str(HOST), "-o", str(so)], check=True,
-                       capture_output=True, text=True)
-        lib = ctypes.CDLL(str(so))
-        V, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.host_k3_geometry.argtypes = [V]
-        lib.host_k5_geometry.argtypes = [I, I, V]
-        lib.host_k5_rows.argtypes = [I, I, I]
-        lib.host_k5_rows.restype = I
-        lib.host_riccati.argtypes = [V] * 10 + [I, I, F, I]
-        lib.host_linesearch_costs.argtypes = [V, I] + [V] * 10 + [I] * 7
-        lib.host_k4_geometry.argtypes = [I, I, V]
-        lib.host_k4_rows.argtypes = [I, I, I]
-        lib.host_k4_rows.restype = I
-        lib.host_k6_geometry.argtypes = [V]
-        lib.host_expansions.argtypes = [V, I] + [V] * 13 + [I] * 6
-        lib.host_rollout_alpha.argtypes = [V] * 9 + [I] * 3
-        return lib
-
-    keys = (*HOST_ROBOTS, *ST.K3_SHAPES, *ST.K3_SWEEP_SHAPES)
-    with ThreadPoolExecutor(len(keys)) as pool:
-        return dict(zip(keys, pool.map(build, keys)))
+def host_libs():
+    """{m or stage shape: the harness built with the library's geometry}."""
+    return host_libs_at((*HOST_ROBOTS, *ST.K3_SHAPES, *ST.K3_SWEEP_SHAPES))
 
 
 def _p(t):
@@ -256,20 +275,30 @@ def test_host_riccati_tiles_at_user_model_shapes_match_plain(host_libs, shape, B
 
 def test_k3_rule_gives_the_picks_and_bounds_the_shapes():
     """k3_rule reproduces every pick of K3_GEOMETRY (the sweep's, and the
-    ray shape's), fits every shape of its range in a block, and refuses
-    shapes beyond it."""
+    ray shape's), takes the team design up to (30, 20) and the block design
+    past it, fits every shape of its range in a block, and refuses shapes
+    beyond it, naming the limit: (80, 32), where the next n would overflow
+    the block at a ring of two and the next nu the one warp of the
+    Cholesky."""
     for key, g in ST.K3_GEOMETRY.items():
         assert ST.k3_rule(*ST.k3_dims(key)) == g, key
     for key in ST.K3_SHAPES:
         assert ST.k3_layout(key)["blocks_per_sm"] == ST.K3_BLOCKS_PER_SM[key], key
+    assert (ST.K3_MAX_N, ST.K3_MAX_NU) == (80, 32)
     for n in range(1, ST.K3_MAX_N + 1):
         for nu in range(1, ST.K3_MAX_NU + 1):
+            g = ST.k3_rule(n, nu)
+            assert (g.S == 1) == (n > ST.K3_TILE_N or nu > ST.K3_TILE_NU), (n, nu)
             lay = ST.k3_layout((n, nu))
             assert lay["smem_bytes"] <= ST.SMEM_BLOCK_MAX and lay["threads"] <= 1024, (n, nu)
+    g = ST.k3_rule(ST.K3_MAX_N, ST.K3_MAX_NU)
+    assert ST.k3_layout((ST.K3_MAX_N + 1, ST.K3_MAX_NU), g)["smem_bytes"] > ST.SMEM_BLOCK_MAX
     for bad in ((ST.K3_MAX_N + 1, 2), (3, ST.K3_MAX_NU + 1), (0, 1)):
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(NotImplementedError, match="up to n=80, nu=32"):
             ST.k3_rule(*bad)
     assert ST.k3_shape_flags((2, 1))[:2] == ["-DNMPC_K3_N=2", "-DNMPC_K3_NU=1"]
+    assert ST.k3_shape_flags((64, 32))[2:] == ["-DNMPC_K3_S=1", "-DNMPC_K3_D=2", "-DNMPC_K3_T=256",
+                                               "-DNMPC_K3_P=1", "-DNMPC_K3_SPILL=0"]
 
 
 def test_host_riccati_tiles_match_pallas_kernel(host_libs):
@@ -407,12 +436,13 @@ def test_staged_launch_sweeps_the_picks_and_reads_the_report():
     from nmpc_tpu_torch.tools import staged_launch as SL
 
     assert set(SL.CANDIDATES) == set(SL.CANDIDATES46) == set(ST.K4_GEOMETRY)
-    assert set(SL.SCENARIOS) == set(ROBOT_COUNTS) and set(ST.K4_GEOMETRY) - set(ROBOT_COUNTS) == {7, 9}
+    assert set(SL.SCENARIOS) == set(ROBOT_COUNTS)
+    assert set(ST.K4_GEOMETRY) - set(ROBOT_COUNTS) == {7, 9, *range(11, 17)}
     for m, cands in SL.CANDIDATES.items():
         assert cands[0] == (ST.K3_GEOMETRY[m], ST.K5_GEOMETRY[m])
         for k3, k5 in cands:
             assert ST.k3_layout(m, k3)["smem_bytes"] <= ST.SMEM_BLOCK_MAX
-            assert ST.k5_layout(m, 32, 100, len(ALPHAS), k5)["threads"] <= ST.K5_THREADS
+            assert ST.k5_layout(m, 32, 100, len(ALPHAS), k5)["threads"] <= ST.k5_threads(m)
     for m, cands in SL.CANDIDATES46.items():
         assert cands[0] == (ST.K4_GEOMETRY[m], ST.K6_GEOMETRY[m])
         assert len(set(cands)) == len(cands)

@@ -45,6 +45,16 @@ ROOT = Path(__file__).resolve().parent.parent
 B = 128
 
 
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """One intra-op thread: the suite runs six workers on the CPU's cores,
+    where more threads a worker only wait on each other."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _reference_tool(name):
     spec = importlib.util.spec_from_file_location(f"reference_{name}", ROOT / "tools" / f"{name}.py")
     mod = importlib.util.module_from_spec(spec)
@@ -190,13 +200,17 @@ def test_f64_witness_shows_the_undamped_modes_diverge():
     mu = torch.from_numpy(np.array([10.0, 100.0, 1e3, 1e4], np.float32)[rng.integers(0, 4, B)])
     cfg = ALILQRConfig(n_inner=4, ls="adaptive")
     for mode in ("inv_solve", "full"):
+        runs = K8.f64_runs(ob, ob.x0, ob.xref, lam, mu, U, cfg, mode, 4)   # plain f32, f64
         plain = K8.phase_ablation_plain(ob, ob.x0, ob.xref, lam, mu, U, cfg, mode, 4)
-        w = K8.f64_witness(ob, ob.x0, ob.xref, lam, mu, U, cfg, mode, 4, plain)
+        assert all(torch.equal(a, b) for a, b in zip(plain, runs[0]))
+        w = K8.f64_witness(ob, ob.x0, ob.xref, lam, mu, U, cfg, mode, 4, plain, runs=runs)
+        assert w == K8.f64_witness(ob, ob.x0, ob.xref, lam, mu, U, cfg, mode, 4, runs[0],
+                                   runs=runs)
         assert w["scenarios"] == B
         assert (w["diverged"] > B // 4) if mode == "inv_solve" else (w["diverged"] == 0), w
         assert w["kernel_missed"] == w["plain_missed"] and w["kernel_vs_plain"] == 0.0
         moved = (plain[0], plain[1] + 1e-2, *plain[2:])
-        m = K8.f64_witness(ob, ob.x0, ob.xref, lam, mu, U, cfg, mode, 4, moved)
+        m = K8.f64_witness(ob, ob.x0, ob.xref, lam, mu, U, cfg, mode, 4, moved, runs=runs)
         assert m["kernel_missed"] >= B - w["diverged"] - w["plain_missed"], (w, m)
 
 
