@@ -215,6 +215,21 @@ Phases:
                                       at (36, 24), (41, 7), (50, 13),
                                       (64, 32) and (80, 32): ptxas, vs
                                       plain, timed against the bound
+                                   40 m = 20, 24, 32, past K1's sixteen
+                                      robots: ptxas of K3's wide design
+                                      and K4-K6 on their smaller tiles;
+                                      bench-config solves on the default
+                                      config's (staged) route B=4096,
+                                      4096, 1024 (quality, ms, launches),
+                                      the same as mega=False bit for bit;
+                                      K3-K6 vs plain at B=256, timed
+                                      against the bound; the hybrid route
+                                      at m=20 (and K5/K6 reading device
+                                      memory, D = 0, bit for bit); K3 at
+                                      (81, 33), (96, 64), (120, 40), (150,
+                                      100) (nu > 32, a ring of one, the
+                                      slot in device memory) vs plain,
+                                      timed
 
 Phases 5, 7, 8, 9, 20, 22, 25, 30 and 31 re-solve the first scenarios with the plain path on
 the CPU; phase 37 reruns its loop there. Any failed check raises, so the exit code is
@@ -3050,6 +3065,304 @@ def wide_stage_shapes_phase(dev, card: str) -> list:
     return rows
 
 
+# phase 40: robot counts past the megakernel's sixteen, where the default
+# config takes the staged route (K1 and K2 stop at
+# cuda_build.MEGA_MAX_ROBOTS): K3's wide design (its Cholesky across the
+# block) and K4-K6 on the tiles of staged_tiles.k4_rule, k5_rule and k6_rule,
+# at m = 20, 24 and 32 on scenarios/robot_counts.py's crossing (N=20) at the
+# bench config; the hybrid route at m=20; K3's wide design at PAST_K3_SHAPES,
+# stage shapes that take each of its branches.
+PAST_ROBOTS = (20, 24, 32)
+PAST_B = {20: 4096, 24: 4096, 32: 1024}
+PAST_HOLD_B = 256
+PAST_HYBRID_B = 256
+PAST_K3_SHAPES = ((81, 33), (96, 64), (120, 40), (150, 100))
+PAST_K3_B = 256
+# K5 and K6 reading their stage rows from device memory (D = 0, the geometry
+# of m >= 64), built at PAST_ROBOTS[0] and held bit for bit to the solver's
+PAST_DIRECT = {"k5": (8, 0), "k6": (8, 0, 16)}
+# K3-K6's `-Xptxas -v` lines at PAST_ROBOTS (regs, stack, spill stores,
+# spill loads, dynamic shared bytes of a block) and K3's at PAST_K3_SHAPES,
+# as PERF.md records them
+PAST_STAGED_PTXAS = {
+    20: {"K3": (40, 0, 0, 0, 103360), "K4": (254, 32, 0, 0, 154240),
+         "K5": (176, 432, 0, 0, 192608), "K6": (166, 32, 0, 0, 163840)},
+    24: {"K3": (40, 0, 0, 0, 148608), "K4": (255, 128, 96, 192, 107088),
+         "K5": (254, 512, 0, 0, 136272), "K6": (179, 32, 0, 0, 116736)},
+    32: {"K3": (39, 0, 0, 0, 202240), "K4": (255, 552, 588, 1304, 179632),
+         "K5": (254, 672, 0, 0, 118448), "K6": (238, 32, 0, 0, 204800)},
+    (81, 33): {"K3": (32, 0, 0, 0, 153280)}, (96, 64): {"K3": (39, 0, 0, 0, 202240)},
+    (120, 40): {"K3": (62, 0, 0, 0, 153600)}, (150, 100): {"K3": (48, 0, 0, 0, 150000)},
+}
+
+
+def start_past_builds() -> list:
+    """Phase 40's libraries, the staged solver libraries at PAST_ROBOTS
+    (staged.cu alone) and K3 at PAST_K3_SHAPES, each its own nvcc process,
+    started in the background right after phase 1's builds, as
+    start_wide_builds' are. Returns the futures, which past_build reads."""
+    from nmpc_tpu_torch.ops import cuda_build
+
+    pool = ThreadPoolExecutor(max_workers=len(PAST_ROBOTS) + len(PAST_K3_SHAPES))
+    futures = [pool.submit(cuda_build.load, m) for m in PAST_ROBOTS]
+    futures += [pool.submit(cuda_build.load_k3_shape, *shape) for shape in PAST_K3_SHAPES]
+    futures.append(pool.submit(past_direct_lib))
+    pool.shutdown(wait=False)
+    return futures
+
+
+def past_direct_lib():
+    """staged.cu at PAST_ROBOTS[0] with K5 and K6 at PAST_DIRECT."""
+    from nmpc_tpu_torch.ops import cuda_build, staged_tiles
+
+    return cuda_build.load_staged_variant(
+        PAST_ROBOTS[0], k5=staged_tiles.K5Geometry(*PAST_DIRECT["k5"]),
+        k6=staged_tiles.K6Geometry(*PAST_DIRECT["k6"]))
+
+
+def direct_vs_ring(ob, r, cfg) -> tuple:
+    """K5 and K6 of past_direct_lib against the solver's at the staged
+    solve's last iterate r of ob (K4 there, K3 on K4's output): (merits that
+    differ, scenarios whose rollout differs)."""
+    import torch
+
+    from nmpc_tpu_torch.ops import rollout as R
+    from nmpc_tpu_torch.ops.cuda_build import lane
+    from nmpc_tpu_torch.ops.expansions import expansions_fused
+    from nmpc_tpu_torch.ops.riccati import riccati_lanes
+    from nmpc_tpu_torch.solver.alilqr_batched import _mov_lanes
+
+    lib = past_direct_lib()[0]
+    B = ob.x0.shape[0]
+    X_l, U_l, xref_l, lam_l = lane(r.X[:, :-1]), lane(r.U), lane(ob.xref), lane(r.lam)
+    mov_l, mu = _mov_lanes(ob, B), r.mu.contiguous()
+    kff, Kfb, _ = riccati_lanes(expansions_fused(ob, X_l, U_l, xref_l, lam_l, mu, mov_l), cfg.reg)
+    args = (X_l[0].contiguous(), X_l, U_l, kff, Kfb, xref_l, lam_l, mu)
+    alphas = (0.0,) + tuple(cfg.alphas)
+    ring5 = R.linesearch_costs_lanes(ob, *args, alphas, mov_l)
+    direct5 = R.costs_launch(ob, *args, alphas, mov_l, lib)
+    grid = torch.tensor(cfg.alphas, device=mu.device)
+    k6 = (*args[:5], grid[torch.arange(B, device=mu.device) % len(cfg.alphas)].contiguous())
+    ring6, direct6 = R.rollout_alpha_lanes(ob, *k6), R.rollout_launch(ob, *k6, lib)
+    off6 = torch.zeros(B, dtype=torch.bool, device=mu.device)
+    for a, b in zip(ring6, direct6):
+        off6 |= (a != b).reshape(-1, B).any(dim=0)
+    return int((ring5 != direct5).sum()), int(off6.sum())
+
+
+def past_build(card: str, pending: list) -> dict:
+    """Phase 40 (a): the libraries start_past_builds started (waited for
+    here): K1 and K2 absent, K3 in its wide design. Returns {m: {kernel:
+    ptxas line with its dynamic shared bytes}} and {shape: {"K3": ...}}."""
+    from nmpc_tpu_torch.ops import cuda_build, staged_tiles
+    from nmpc_tpu_torch.ops import rollout as R
+
+    t0 = time.perf_counter()
+    for f in pending:   # a build that failed raises here
+        f.result()
+    lines = {}
+    for m in PAST_ROBOTS:
+        lib = cuda_build.load(m)
+        assert not hasattr(lib, "nmpc_inner_solve") or m <= cuda_build.MEGA_MAX_ROBOTS, m
+        assert cuda_build.k3_geometry(lib)["wide"] == 1, m
+        text = cuda_build.build_info[m]["ptxas"]
+        got = ptxas(text)
+        k4 = cuda_build.k4_geometry(lib, staged_tiles.k4_rows(m, True, 0, 0),
+                                    R._P(3 * m, 2 * m, 0).size)["smem_bytes"]
+        k5 = cuda_build.k5_geometry(lib, staged_tiles.k5_rows(m, True, 0, 0),
+                                    R._P(3 * m, 2 * m, 9).size)["smem_bytes"]
+        smem = {"K3": cuda_build.k3_geometry(lib)["smem_bytes"], "K4": k4, "K5": k5,
+                "K6": cuda_build.k6_geometry(lib)["smem_bytes"]}
+        assert set(got) == set(smem), (m, sorted(got))
+        lines[m] = {k: (*got[k], smem[k]) for k in smem}
+        log(f"phase 40 (a) ptxas m={m} (staged.cu alone; K3 {staged_tiles.k3_geometry(m)}, K4 "
+            f"{staged_tiles.k4_geometry(m)}, K5 {staged_tiles.k5_geometry(m)}, K6 "
+            f"{staged_tiles.k6_geometry(m)}): {ptxas_summary(text)}; built in "
+            f"{cuda_build.build_info[m]['seconds']:.1f} s")
+    for shape in PAST_K3_SHAPES:
+        info = cuda_build.k3_shape_build_info[shape]
+        lines[shape] = {"K3": (*ptxas(info["ptxas"])["K3"],
+                               staged_tiles.k3_layout(shape)["smem_bytes"])}
+        log(f"phase 40 (a) ptxas K3 at {shape} ({staged_tiles.k3_geometry(shape)}): "
+            f"{ptxas_summary(info['ptxas'])}, dynamic shared {lines[shape]['K3'][-1]} B; built "
+            f"in {info['seconds']:.1f} s")
+    log(f"phase 40 (a) built m in {PAST_ROBOTS} and K3 at {PAST_K3_SHAPES} in the background "
+        f"since phase 1 (parallel nvcc); phase 40 waited {time.perf_counter() - t0:.1f} s for "
+        f"them {card}")
+    for key, got in lines.items():
+        log(f"phase 40 (a) {key}: {got} (as recorded in PERF.md: "
+            f"{'yes' if got == PAST_STAGED_PTXAS.get(key) else 'NO'})")
+    for key, got in lines.items():   # every line logged before any is held
+        assert got == PAST_STAGED_PTXAS[key], (key, got)
+    return lines
+
+
+def past_sixteen_phase(dev, card: str, pending: list) -> list:
+    """Phase 40 past the megakernel's sixteen robots, each solve driven with
+    the launch counts set to 0 just before it and read just after:
+    (a) past_build;
+    (b) at each m of PAST_ROBOTS, solve_batched on PAST_B[m] starts of the
+    crossing (bench.jittered) at the bench config, whose route is the
+    staged one there (K1 and K2 refuse m > 16): K4, K3, K5 and K6 launched,
+    no K1 or K2; the converged share at least 0.9 at m = 20 and 24 (m = 32
+    recorded); the default config and mega=False bit for bit on the first
+    PAST_HOLD_B starts; K3-K6 against plain on the solve's last iterate of
+    those starts (kernel_check's rule at fresh and at the solve's own
+    multipliers, as phase 38 (c)), each timed there beside its plain
+    version and the bound;
+    (c) the hybrid route (sweep="scan") at m=20 on PAST_HYBRID_B starts:
+    K5 and K6 once an inner iteration, no K3 or K4;
+    (d) K3's wide design at PAST_K3_SHAPES (each from its riccati_shape.cu
+    library: a lone K3 at a robot stack's shape past sixteen robots does
+    not build that robot count's K4-K6) against plain on random well-posed
+    stage blocks at B=256, N=20, timed beside plain and the bound: nu > 32
+    (a Cholesky across the block), a ring of one A-and-B tile, and the slot
+    in device memory each run at least once (A and B read straight from
+    device memory, D = 0, is held by tests/test_torch_cuda.py at (210,
+    100)).
+    Returns the kernel rows of the record."""
+    import types
+
+    import torch
+
+    from nmpc_tpu_torch.bench import jittered
+    from nmpc_tpu_torch.ops import cuda_build, megasolve, staged_tiles
+    from nmpc_tpu_torch.ops import kernel_check as KC
+    from nmpc_tpu_torch.ops import riccati as RIC
+    from nmpc_tpu_torch.parallel import batch_ocp
+    from nmpc_tpu_torch.scenarios import robot_counts
+    from nmpc_tpu_torch.solver import ALILQRConfig, solve_batched
+    from nmpc_tpu_torch.solver.alilqr_batched import route
+    from nmpc_tpu_torch.tools import roofline as RL
+    from nmpc_tpu_torch.utils.timing import cuda_ms
+
+    t0 = time.perf_counter()
+    past_build(card, pending)
+    cfg = ALILQRConfig(n_outer=6, n_inner=12, tol_con=1e-3, ls="adaptive")
+    scfg = dataclasses.replace(cfg, mega=False)
+    names = {"K3": "riccati_lanes", "K4": "expansions_fused", "K5": "linesearch_costs_lanes",
+             "K6": "rollout_alpha_lanes"}
+    srcs = {"K3": "staged_tiles.cuh", "K4": "expansions_rollout_tiles.cuh",
+            "K5": "staged_tiles.cuh", "K6": "expansions_rollout_tiles.cuh"}
+    where = {"K3": "nmpc_tpu/ops/riccati_pallas.py:311",
+             "K4": "nmpc_tpu/ops/expansions_pallas.py:212",
+             "K5": "nmpc_tpu/ops/rollout_pallas.py:287",
+             "K6": "nmpc_tpu/ops/rollout_pallas.py:360"}
+    rows = []
+
+    def row(name, src, at, launches, err, ms_, plain_ms, work):
+        b_ms, by = RL.bound(*work)
+        rows.append({"name": name, "route": "cuda", "source": src, "replaces": at,
+                     "launches": launches, "max_abs_err": err, "ms": ms_, "plain_ms": plain_ms,
+                     "bound_ms": b_ms, "bound_by": by, "library_ms": None})
+        return b_ms, by
+
+    for m in PAST_ROBOTS:
+        t1 = time.perf_counter()
+        base = robot_counts.make(m, device=dev)
+        assert route(base, cfg) == route(base, scfg) == "staged", m
+        assert f"m={m}" in megasolve.cuda_unsupported(base, cfg), m
+        B = PAST_B[m]
+        ob = jittered(base, B, torch.Generator(device=dev).manual_seed(40 + m))
+        cuda_build.reset_launch_counts()
+        res, t_s = timed(lambda: solve_batched(ob, cfg=cfg))
+        sc = dict(cuda_build.launch_counts)
+        check_staged(f"phase 40 (b) m={m}", sc, res, cfg)
+        conv = float(res.converged.float().mean())
+        log(f"phase 40 (b) {robot_counts.name(m)} m={m} N={base.N} B={B} bench config (the "
+            f"staged route): launches {sc}; {summary(res)}; {t_s * 1e3:.1f} ms a solve "
+            f"({B / t_s:.1f} solves/s) {card}")
+        if m < 32:
+            assert conv >= 0.9, (m, conv)
+        H = PAST_HOLD_B
+        sub = batch_ocp(base, ob.x0[:H])
+        got = {}
+        for what, c in (("default", cfg), ("mega=False", scfg)):
+            cuda_build.reset_launch_counts()
+            got[what] = solve_batched(sub, cfg=c)
+            check_staged(f"phase 40 (b) m={m} {what} B={H}", dict(cuda_build.launch_counts),
+                         got[what], c)
+        same = all(torch.equal(getattr(got["default"], k), getattr(got["mega=False"], k))
+                   for k in ("X", "U", "cost", "lam", "mu", "converged"))
+        log(f"phase 40 (b) m={m} B={H}: the default config and mega=False bit for bit: "
+            f"{'yes' if same else 'NO'}")
+        assert same, m
+        held = hold_staged_kernels(f"phase 40 (b) K3-K6 vs plain m={m}", sub, got["mega=False"],
+                                   scfg, torch.Generator(device=dev).manual_seed(400 + m),
+                                   first=False, diverged=WIDE_DIVERGED)
+        _, v, calls, _ = held[1]   # state (ii): the solve's own multipliers
+        parts = []
+        for k in ("K3", "K4", "K5", "K6"):
+            k_ms, p_ms = cuda_ms(calls[k][0], 3), cuda_ms(calls[k][1], 1)
+            err = max(x.err for _, vs, _, _ in held for key, x in vs.items() if key == k)
+            b, by = row(f"{names[k]} m={m}", "nmpc_tpu_torch/csrc/" + srcs[k], where[k],
+                        sc[names[k]], err, k_ms, p_ms,
+                        RL.kernel_work(k, base, H, n_alphas=len(scfg.alphas) + 1))
+            parts.append(f"{k} {k_ms:.3f} ms (plain {p_ms:.3f} ms, bound {b:.4f} ms by {by}, "
+                         f"{100 * b / k_ms:.2f}%)")
+        log(f"phase 40 (b) m={m} B={H} kernels at the staged solve's last iterate: "
+            + "; ".join(parts) + f" {card}")
+        if m == PAST_ROBOTS[0]:
+            off5, off6 = direct_vs_ring(sub, got["mega=False"], scfg)
+            log(f"phase 40 (b) m={m} B={H} K5 and K6 reading their stage rows from device "
+                f"memory ({PAST_DIRECT}, the geometry of m >= 64) against the solver's: merits "
+                f"that differ {off5}/{H * (len(scfg.alphas) + 1)}, rollouts {off6}/{H} (bit "
+                f"for bit: 0)")
+            assert off5 == off6 == 0, (off5, off6)
+        del res, got, held, calls
+        log(f"phase 40 m={m} took {time.perf_counter() - t1:.1f} s")
+
+    m = PAST_ROBOTS[0]
+    ob = jittered(robot_counts.make(m, device=dev), PAST_HYBRID_B,
+                  torch.Generator(device=dev).manual_seed(41))
+    c = dataclasses.replace(cfg, sweep="scan")
+    assert route(ob, c) == "hybrid"
+    cuda_build.reset_launch_counts()
+    res, t_h = timed(lambda: solve_batched(ob, cfg=c))
+    hc = dict(cuda_build.launch_counts)
+    it = hc["linesearch_costs_lanes"]
+    assert it > 0 and hc["rollout_alpha_lanes"] == it, hc
+    assert hc["riccati_lanes"] == hc["expansions_fused"] == hc["inner_solve_fused"] == 0, hc
+    for name in ("X", "U", "cost", "viol", "lam"):
+        assert torch.isfinite(getattr(res, name)).all(), name
+    log(f"phase 40 (c) hybrid route (sweep='scan') {robot_counts.name(m)} m={m} N={ob.N} "
+        f"B={PAST_HYBRID_B} bench config: launches K5 {it}, K6 {hc['rollout_alpha_lanes']} (no "
+        f"K3, K4, K1); {summary(res)}; {t_h * 1e3:.1f} ms a solve {card}")
+
+    gen = torch.Generator(device=dev).manual_seed(40)
+    branches = set()
+    for shape in PAST_K3_SHAPES:
+        g = staged_tiles.k3_geometry(shape)
+        assert g.wide, shape
+        branches |= {b for b, on in (("nu > 32", shape[1] > 32), ("ring of one or none", g.D < 2),
+                                     ("slot in device memory", g.spill)) if on}
+        exp = KC.k3_inputs(*shape, PAST_K3_B, 20, gen)
+        got = RIC.riccati_lanes(exp, cfg.reg)
+        torch.cuda.synchronize()
+        want, plain_ms = once(lambda: RIC.riccati_plain(exp, cfg.reg))
+        v = KC.Verdict()
+        for i, (a, w, atol) in enumerate(zip(got, want, KC.K3_ATOL)):
+            KC.hold(v, f"K3 {shape} output {i}", a, w, atol)
+        assert v.units == PAST_K3_B and v.n_widened == 0 and v.n_diverged == 0, (shape, v)
+        ms_ = cuda_ms(lambda: RIC.riccati_lanes(exp, cfg.reg), 2)
+        dims = types.SimpleNamespace(m=0, nx=shape[0], nu=shape[1], n_pairs=0, n_con=0, N=20,
+                                     n_obs=0, n_mov=0)
+        b_ms, by = RL.bound(*RL.kernel_work("K3", dims, PAST_K3_B))
+        log(f"phase 40 (d) K3's wide design at {shape} ({g}) vs plain (B={PAST_K3_B}, N=20): "
+            f"max |err| "
+            f"{v.err:.3e} (kernel_check's rule); {ms_:.4f} ms a launch, plain {plain_ms:.1f} ms, "
+            f"bound {b_ms:.5f} ms ({by}), {100 * b_ms / ms_:.2f}% {card}")
+        rows.append({"name": f"riccati_lanes {shape}", "route": "cuda",
+                     "source": "nmpc_tpu_torch/csrc/riccati_shape.cu",
+                     "replaces": "nmpc_tpu/ops/riccati_pallas.py:311", "launches": 0,
+                     "max_abs_err": v.err, "ms": ms_, "plain_ms": plain_ms, "bound_ms": b_ms,
+                     "bound_by": by, "library_ms": None})
+        del exp, got, want
+    assert branches == {"nu > 32", "ring of one or none", "slot in device memory"}, branches
+    log(f"phase 40 took {time.perf_counter() - t0:.1f} s")
+    return rows
+
+
 def per_step(counts: dict, name: str, stamps) -> str:
     """Launches of a kernel a loop step (a solve run), as a string."""
     return f"{counts[name] / max(len(stamps), 1):.2f}"
@@ -3109,6 +3422,7 @@ def main() -> int:
         probe_lib = probes.result()[0]
     wall = time.perf_counter() - t0
     wide_builds = start_wide_builds()
+    past_builds = start_past_builds()
     per_m = ", ".join(f"m={m} {cuda_build.build_info[m]['seconds']:.1f}s"
                       for m in cuda_build.ROBOT_COUNTS)
     tools = cuda_build.tools_build_info[cuda_build.BENCH_ROBOTS]
@@ -4015,6 +4329,10 @@ def main() -> int:
     # ---- phase 39: the hybrid route at m=12; K3 at stage shapes past
     # (30, 20) ---------------------------------------------------------------
     wide_rows += wide_stage_shapes_phase(dev, card)
+
+    # ---- phase 40: past the megakernel's sixteen robots: the staged route
+    # at m = 20, 24, 32, the hybrid route at 20, K3's wide design ---------
+    wide_rows += past_sixteen_phase(dev, card, past_builds)
 
     def entry(name, source, where, launches, err, ms_, plain_ms, key):
         return {"name": name, "route": "cuda", "source": source, "replaces": where,

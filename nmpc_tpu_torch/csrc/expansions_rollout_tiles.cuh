@@ -47,6 +47,11 @@
 //    euler_rows of rollout.cuh unchanged, so Xout and Uout are
 //    rollout_thread's bit for bit. Consecutive threads store consecutive
 //    scenarios of a row.
+//  * Past sixteen robots the tiles shrink to what fits a block (S = 16 down
+//    to 1; below 4 scenarios the rows go as 4-byte copies and stores), and
+//    past m = 63, where even a ring of two one-scenario tiles overflows,
+//    K6 (as K5) reads its stage rows from device memory (D = 0); K4's
+//    output tile bounds the robot count at 108.
 // What bounds them now (measured on an H100 80GB HBM3 at 700 W, PERF.md):
 // K4 its stores, 1,254 floats a (stage, scenario) at m=6, where it reaches
 // 74-78% of its bytes bound; at m=1 (N=100, a launch of ~0.35 ms) 59-69%.
@@ -99,13 +104,14 @@ NMPC_DEV void store4(float* dst, const RowSrc& v, int j) {
 
 // Store rows row0..row0+R-1 of a lane-major [*, B] output, columns b0..,
 // row r from src(r): as 16-byte stores of 4 scenarios where the rows are
-// aligned and the tile whole, else single floats, a ragged tile's missing
-// columns skipped. Consecutive threads store consecutive chunks of a row.
+// aligned and the tile whole (S a multiple of 4), else single floats, a
+// ragged tile's missing columns skipped. Consecutive threads store
+// consecutive chunks of a row.
 template <int S, class Src>
 NMPC_DEV void emit_rows(float* dst, size_t row0, int R, size_t B, const TileSpan& t, Src&& src,
                         int tid, int nt) {
-  if (t.vec && t.width == S) {
-    constexpr int Q = S / 4;
+  if (S % 4 == 0 && t.vec && t.width == S) {
+    constexpr int Q = S >= 4 ? S / 4 : 1;
     for (int c = tid; c < R * Q; c += nt) {
       const int r = c / Q, q = c % Q;
       store4(dst + (row0 + r) * B + t.b0 + 4 * q, src(r), 4 * q);
@@ -152,7 +158,7 @@ struct K4Rows {
 template <int NR, int S_, int W_>
 struct K4Geom {
   static constexpr int S = S_, W = W_, threads = 32 * W_;
-  static_assert(S >= 8 && (S & (S - 1)) == 0, "S: a power of two >= 8");
+  static_assert(S >= 1 && (S & (S - 1)) == 0, "S: a power of two");
   static_assert(W >= 1 && W <= 32, "W: 1 to 32 warps");
   // floats of dynamic shared memory: the parameter block, the input tile of
   // `rows` rows, the output tile
@@ -531,12 +537,14 @@ struct K6Rows {
 
 // K6's launch geometry: S scenarios a block (pitch S), D stage tiles in the
 // ring, a team of T threads a scenario (T > 1: a shared slot [nu, S] in
-// which the team swaps u); S T threads a block.
+// which the team swaps u); S T threads a block. D = 0 (teams, where a ring
+// of two one-scenario tiles overflows the block: m >= 64) reads every stage
+// row straight from device memory.
 template <int NR, int S_, int D_, int T_>
 struct K6Geom {
   static constexpr int S = S_, D = D_, T = T_, threads = S * T;
-  static_assert(S >= 8 && (S & (S - 1)) == 0, "S: a power of two >= 8");
-  static_assert(D >= 2, "a ring of at least two stage tiles");
+  static_assert(S >= 1 && (S & (S - 1)) == 0, "S: a power of two");
+  static_assert(D >= 2 || (D == 0 && T > 1), "a ring of at least two stage tiles, or none");
   static_assert(T >= 1 && T <= 2 * NR && threads <= 1024, "T: 1 to nu lanes a scenario");
   static constexpr int tile = al4(K6Rows<NR>::rows * S);
   static constexpr int slot = T > 1 ? al4(2 * NR * S) : 0;
@@ -566,42 +574,74 @@ NMPC_DEV void rollout_tiles(const RolloutArgs& a, float dt, float* smem, int blk
     copy_rows<S, S>(t + Q::kff * S, a.kff, (size_t)k * nu, nu, B, span, tid, nt);
     copy_rows<S, S>(t + Q::Kfb * S, a.Kfb, (size_t)k * nu * n, nu * n, B, span, tid, nt);
   };
-  stream_stages<G::D>(a.N, false, smem, G::tile, issue, [&](int k, const float* t) {
-    const float* ts = t + s;
-#pragma unroll
-    for (int i = 0; i < n; ++i) xb[i] = ts[(Q::Xs + i) * S];
-    if constexpr (T == 1) {
-      float ub[nu], kf[nu];
-#pragma unroll
-      for (int i = 0; i < nu; ++i) {
-        ub[i] = ts[(Q::U + i) * S];
-        kf[i] = ts[(Q::kff + i) * S];
-      }
-      feedback_u<NR>(x, xb, ub, kf, ts + Q::Kfb * S, S, alpha, u);
-    } else {
-      // feedback_u's entries, u_i on lane i % T, each summed in its order
+  if constexpr (G::D == 0) {
+    // the stage rows straight from the lane-major arrays (stride B): the
+    // team body below with its reads moved from the tile, a block barrier
+    // after each stage as the ring's
+    for (int k = 0; k < a.N; ++k) {
+      const float* Xs = a.Xs + (size_t)k * n * B + b;
+      const float* U = a.U + (size_t)k * nu * B + b;
+      const float* kff = a.kff + (size_t)k * nu * B + b;
+      const float* K = a.Kfb + (size_t)k * nu * n * B + b;
       float dx[n];
 #pragma unroll
-      for (int j = 0; j < n; ++j) dx[j] = x[j] - xb[j];
+      for (int j = 0; j < n; ++j) dx[j] = x[j] - Xs[(size_t)j * B];
       for (int i = lane; i < nu; i += T) {
-        const float* K = ts + Q::Kfb * S;
-        float acc = ts[(Q::U + i) * S] + alpha * ts[(Q::kff + i) * S];
+        float acc = U[(size_t)i * B] + alpha * kff[(size_t)i * B];
 #pragma unroll
-        for (int j = 0; j < n; ++j) acc = acc + K[(i * n + j) * S] * dx[j];
+        for (int j = 0; j < n; ++j) acc = acc + K[(size_t)(i * n + j) * B] * dx[j];
         us[i * S + s] = acc;
       }
       block_sync();
 #pragma unroll
       for (int i = 0; i < nu; ++i) u[i] = us[i * S + s];
+#pragma unroll
+      for (int i = 0; i < nu; ++i)
+        if (live && i % T == lane) a.Uout[(size_t)(k * nu + i) * B + b] = u[i];
+      euler_rows<NR>(x, u, dt, x);
+#pragma unroll
+      for (int i = 0; i < n; ++i)
+        if (live && i % T == lane) a.Xout[(size_t)(k * n + i) * B + b] = x[i];
+      block_sync();
     }
+  } else {
+    stream_stages<G::D>(a.N, false, smem, G::tile, issue, [&](int k, const float* t) {
+      const float* ts = t + s;
 #pragma unroll
-    for (int i = 0; i < nu; ++i)
-      if (live && i % T == lane) a.Uout[(size_t)(k * nu + i) * B + b] = u[i];
-    euler_rows<NR>(x, u, dt, x);
+      for (int i = 0; i < n; ++i) xb[i] = ts[(Q::Xs + i) * S];
+      if constexpr (T == 1) {
+        float ub[nu], kf[nu];
 #pragma unroll
-    for (int i = 0; i < n; ++i)
-      if (live && i % T == lane) a.Xout[(size_t)(k * n + i) * B + b] = x[i];
-  });
+        for (int i = 0; i < nu; ++i) {
+          ub[i] = ts[(Q::U + i) * S];
+          kf[i] = ts[(Q::kff + i) * S];
+        }
+        feedback_u<NR>(x, xb, ub, kf, ts + Q::Kfb * S, S, alpha, u);
+      } else {
+        // feedback_u's entries, u_i on lane i % T, each summed in its order
+        float dx[n];
+#pragma unroll
+        for (int j = 0; j < n; ++j) dx[j] = x[j] - xb[j];
+        for (int i = lane; i < nu; i += T) {
+          const float* K = ts + Q::Kfb * S;
+          float acc = ts[(Q::U + i) * S] + alpha * ts[(Q::kff + i) * S];
+#pragma unroll
+          for (int j = 0; j < n; ++j) acc = acc + K[(i * n + j) * S] * dx[j];
+          us[i * S + s] = acc;
+        }
+        block_sync();
+#pragma unroll
+        for (int i = 0; i < nu; ++i) u[i] = us[i * S + s];
+      }
+#pragma unroll
+      for (int i = 0; i < nu; ++i)
+        if (live && i % T == lane) a.Uout[(size_t)(k * nu + i) * B + b] = u[i];
+      euler_rows<NR>(x, u, dt, x);
+#pragma unroll
+      for (int i = 0; i < n; ++i)
+        if (live && i % T == lane) a.Xout[(size_t)(k * n + i) * B + b] = x[i];
+    });
+  }
 }
 
 }  // namespace nmpc

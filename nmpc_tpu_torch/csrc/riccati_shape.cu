@@ -1,5 +1,5 @@
 // K3 (the staged path's backward Riccati sweep) at a stage shape other than
-// the robot stacks' n = 3m, nu = 2m (any up to (80, 32)), with a plain C
+// the robot stacks' n = 3m, nu = 2m (any), with a plain C
 // interface for ctypes: the ray-augmented stage of one robot with R LiDAR
 // rays (n = 3 + R, nu = 2) and the user models' stages, which the hybrid
 // route of solve_batched sends through K3 as the reference sends them
@@ -20,11 +20,15 @@
     !defined(NMPC_K3_D) || !defined(NMPC_K3_T) || !defined(NMPC_K3_P) || !defined(NMPC_K3_SPILL)
 #error "compile with the stage shape and K3's geometry, -DNMPC_K3_N=... (ops/staged_tiles.py)"
 #endif
+// K3's wide design (ops/staged_tiles.py passes -DNMPC_K3_WIDE=1 where it picks it)
+#ifndef NMPC_K3_WIDE
+#define NMPC_K3_WIDE 0
+#endif
 
 namespace nmpc {
 
 using K3X = K3Geom<NMPC_K3_N, NMPC_K3_NU, NMPC_K3_S, NMPC_K3_D, NMPC_K3_T, NMPC_K3_P,
-                   NMPC_K3_SPILL != 0>;
+                   NMPC_K3_SPILL != 0, NMPC_K3_WIDE != 0>;
 
 template <int n, int nu>
 __global__ void __launch_bounds__(K3X::threads)
@@ -57,8 +61,11 @@ void nmpc_k3_geometry(int* out) {
   for (int i = 0; i < 8; ++i) out[i] = g[i];
 }
 
+// whether K3 is built in its wide design (staged_tiles.cuh::riccati_wide)
+int nmpc_k3_wide() { return nmpc::K3X::kWide; }
+
 // K3: one block per tile of S scenarios (one a scenario in the block
-// design); the arguments of staged.cu's nmpc_riccati, on stage blocks of
+// and wide designs); the arguments of staged.cu's nmpc_riccati, on stage blocks of
 // this library's (n, nu). Returns the CUDA error of the launch (0 =
 // launched; a refused shared-memory opt-in too).
 int nmpc_riccati(const float* A, const float* Bm, const float* lx, const float* lu,

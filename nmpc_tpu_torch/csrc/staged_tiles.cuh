@@ -59,20 +59,38 @@
 //    the scenario lives in registers, so nothing spills. kff and Kfb go
 //    straight to device memory. The largest shape a block holds at a ring
 //    of two is (80, 32) (nu <= 32: one warp's Cholesky).
+//  * K3 past the block design's shapes (nu > 32, every m >= 17, or a ring
+//    of two stage tiles beside the slot over 227 KB): the wide design,
+//    riccati_wide. At m = 32 the slot alone is 140 KB and a stage tile 140
+//    KB, and nu = 64 is past one warp. The same block of threads a
+//    scenario, with three changes: the Cholesky runs across the block, a
+//    column at a time (the rows of the column side by side, two block
+//    barriers a column, chol_unrolled's sums); the ring holds only a
+//    stage's A and B (the operands read n times a stage), D = 2 or 1 of
+//    them, or none (D = 0, read from device memory where used), while lx,
+//    lu, lxx, luu and lux, each read once a stage, come from device memory
+//    where they are used; and the slot goes to a device-memory scratch of
+//    the wrapper's (kSpill) where it does not fit beside the ring. Every sum
+//    keeps riccati_thread's order (the host rehearsal holds it bit for bit
+//    to the first design at m = 17 and 24), so K3 takes any stage shape.
 //  * K5: one block runs all A candidates of its S scenarios (A S threads,
 //    thread (ai, s) at ai S + s); each stage tile is fetched from device
 //    memory once and read by all A candidates (a broadcast), so device
 //    traffic falls to what the bound counts. Each thread runs feedback_u,
 //    stage_merit and euler_rows of rollout.cuh unchanged, on the tile with
 //    stride P: each merit is summed in the first design's order, bit for
-//    bit.
+//    bit. Past sixteen robots its tile shrinks to what fits (8 down to 1
+//    scenario), and past m = 63 it reads its stage rows from device memory
+//    (D = 0), the same sums.
 // What bounds them now (measured on an H100 80GB HBM3 at 700 W, PERF.md):
 // K3 at m=1 reaches 75% of its bytes bound; from m=5 one block of eight
 // teams fills an SM's shared memory, and the serial Cholesky and the
 // dependent dot chains between block barriers hold K3 near 18% of its
 // bound at m=6; the block design reaches ~5% at m = 12 and 16, held by the
 // Cholesky's and the substitutions' dependent chains a stage (one warp,
-// one thread a right-hand side). K5 at 15-30%: its merit code's
+// one thread a right-hand side); the wide design the same chains, 2 nu
+// block barriers a stage and uncoalesced 4-byte reads of one scenario's
+// column of the cost blocks (PERF.md, PR 19). K5 at 15-30%: its merit code's
 // instructions and two block barriers a stage; past ten robots (kThreads
 // 256, its per-stage rows read from the tile where they are used) ~20-26%.
 // S, D, T, P and the spill per m are compile-time constants, picked by
@@ -161,13 +179,13 @@ struct TileSpan {
 
 // Copy rows row0..row0+R-1 of a lane-major [*, B] array, columns b0.., into
 // the tile rows dst[r P + j]. Threads tid, tid + nt, ... share the work:
-// 16-byte chunks where the rows are aligned and the tile whole (P = S),
-// else single floats, zero-filled past a ragged tile's edge.
+// 16-byte chunks where the rows are aligned and the tile whole (P = S, S a
+// multiple of 4), else single floats, zero-filled past a ragged tile's edge.
 template <int S, int P>
 NMPC_DEV void copy_rows(float* dst, const float* src, size_t row0, int R, size_t B,
                         const TileSpan& t, int tid, int nt) {
-  if (P == S && t.vec && t.width == S) {
-    constexpr int Q = S / 4;  // 16-byte chunks per row
+  if (S % 4 == 0 && P == S && t.vec && t.width == S) {
+    constexpr int Q = S >= 4 ? S / 4 : 1;  // 16-byte chunks per row
     for (int c = tid; c < R * Q; c += nt) {
       const int r = c / Q, q = c % Q;
       cp_async16(dst + r * P + 4 * q, src + (row0 + r) * B + t.b0 + 4 * q);
@@ -184,11 +202,12 @@ NMPC_DEV void copy_rows(float* dst, const float* src, size_t row0, int R, size_t
 // The ring: D tiles of `tile` floats each. issue(k, slot) starts the copies
 // of stage k into a slot; body(k, slot) computes stage k from it. Stages run
 // forward (K5) or backward (K3); every thread of the block calls this with
-// the same N, so the barriers are uniform.
+// the same N, so the barriers are uniform. D = 1 (K3's wide design where two
+// tiles do not fit) copies each stage after the previous one is done.
 template <int D, class Issue, class Body>
 NMPC_DEV void stream_stages(int N, bool backward, float* ring, int tile, Issue&& issue,
                             Body&& body) {
-  static_assert(D >= 2, "a ring of at least two stage tiles");
+  static_assert(D >= 1, "a ring of at least one stage tile");
   auto stage = [&](int i) { return backward ? N - 1 - i : i; };
   for (int i = 0; i < D - 1; ++i) {
     if (i < N) issue(stage(i), ring + (i % D) * tile);
@@ -312,21 +331,27 @@ struct K3BlockSlot {
 // S = 1 is the block design (stage shapes past (30, 20)): one block of T =
 // 32 W threads for one scenario, P = 1, the scenario's K3BlockSlot beside
 // the ring, kff and Kfb stored straight from the substitutions (no output
-// tile).
-template <int n_, int nu_, int S_, int D_, int T_, int P_, bool kSpill_>
+// tile). kWide (S = 1 too) is the wide design past the block design's
+// shapes (nu > 32, or a ring of two full stage tiles beside the slot over
+// the block's shared memory): its tile holds a stage's A and B alone, D of
+// them (0: A and B read straight from device memory), and kSpill puts its
+// K3BlockSlot in the scratch.
+template <int n_, int nu_, int S_, int D_, int T_, int P_, bool kSpill_, bool kWide_ = false>
 struct K3Geom {
   static constexpr int n = n_, nu = nu_;
   static constexpr int S = S_, D = D_, T = T_, P = P_, threads = S * T;
-  static constexpr bool kSpill = kSpill_, kBlock = S == 1;
-  static_assert(kBlock || (S >= 8 && (S & (S - 1)) == 0), "S: a power of two >= 8, or 1");
-  static_assert(kBlock || T == 1 || (T <= 32 && 32 % T == 0), "a team within one warp");
+  static constexpr bool kSpill = kSpill_, kWide = kWide_, kBlock = S == 1 && !kWide_;
+  static_assert(kBlock || kWide || (S >= 8 && (S & (S - 1)) == 0), "S: a power of two >= 8, or 1");
+  static_assert(kBlock || kWide || T == 1 || (T <= 32 && 32 % T == 0), "a team within one warp");
   static_assert(!kBlock || (T % 32 == 0 && T <= 1024 && P == 1 && !kSpill && nu <= 32),
                 "the block design: whole warps, pitch 1, nu <= 32 (its Cholesky is one warp's)");
-  static_assert(kBlock || P == S || P == S + 1, "pitch");
-  static constexpr int tile = al4(K3Rows<n, nu>::rows * P);
-  static constexpr int out = kBlock ? 0 : al4(K3Rows<n, nu>::out * P);
-  static constexpr int priv = kBlock ? K3BlockSlot<n, nu>::floats
-                                     : out + (T > 1 ? S * K3Slot<n, nu>::floats : 0);
+  static_assert(!kWide || (S == 1 && T % 32 == 0 && T <= 1024 && P == 1 && D >= 0 && D <= 2),
+                "the wide design: one scenario, whole warps, pitch 1, a ring of 0 to 2 tiles");
+  static_assert(kBlock || kWide || P == S || P == S + 1, "pitch");
+  static constexpr int tile = kWide ? al4(n * (n + nu)) : al4(K3Rows<n, nu>::rows * P);
+  static constexpr int out = kBlock || kWide ? 0 : al4(K3Rows<n, nu>::out * P);
+  static constexpr int priv = kBlock || kWide ? K3BlockSlot<n, nu>::floats
+                                              : out + (T > 1 ? S * K3Slot<n, nu>::floats : 0);
   static constexpr int smem_floats = D * tile + (kSpill ? 0 : priv);
   static constexpr int scratch_floats = kSpill ? priv : 0;  // per block
 };
@@ -845,12 +870,183 @@ NMPC_DEV void riccati_team_tiles(const RiccatiArgs& a, float* smem, float* scrat
   if (lane == 0 && s < span.width) a.dV1[span.b0 + s] = dV1;
 }
 
-// K3 for block `blk`: the block design past (30, 20) (S = 1), else the team
-// design.
+// The wide design, one stage of the block's scenario b: Ak, Bk, the stage's
+// A [n, n] and B [n, nu] from the ring's tile (ld 1) or straight from the
+// lane-major arrays (kDirect: ld B); lx, lu, lxx, luu and lux read straight
+// from device memory where they are used, once each; sl, the slot (shared
+// memory, or the block's scratch with kSpill). Phases 1, 2, 4 and 5 are the
+// block design's, every entry summed over l in riccati_thread's order; the
+// Cholesky runs across the block, a column at a time: the rows j >= i of
+// column i side by side (chol_unrolled's sums, each row's in its order),
+// then the pivot's reciprocal, then the column scaled, a block barrier
+// after each, so that nu is bounded by nothing but the slot.
+template <int n_, int nu_, bool kDirect>
+NMPC_DEV void riccati_wide_stage(const RiccatiArgs& a, const float* Ak, const float* Bk,
+                                 float* sl, int k, size_t b, int tid, int nt, float& dV1) {
+  using L = K3BlockSlot<n_, nu_>;
+  constexpr int n = L::n, nu = L::nu;
+  const size_t B = a.B, ld = kDirect ? B : 1;
+  // entry r of stage k's block of a lane-major input X [N, R, B]
+  auto in = [&](const float* X, int R, int r) { return X[((size_t)k * R + r) * B + b]; };
+  // 1: Vxx A [n, n], Vxx B [n, nu], Qx = lx + A'Vx, Qu = lu + B'Vx
+  for (int e = tid; e < (n + nu) * n + n + nu; e += nt) {
+    const float* v;    // a row of Vxx, or Vx (stride 1)
+    const float* col;  // a column of A or B (stride cs)
+    size_t cs;
+    float* dst;
+    float base = 0.f;
+    bool lin = false;
+    if (e < n * n) {
+      v = sl + L::V + (e / n) * n, col = Ak + (e % n) * ld, cs = n * ld, dst = sl + L::VA + e;
+    } else if (e < (n + nu) * n) {
+      const int f = e - n * n;
+      v = sl + L::V + (f / nu) * n, col = Bk + (f % nu) * ld, cs = nu * ld, dst = sl + L::W + f;
+    } else if (e < (n + nu) * n + n) {
+      const int j = e - (n + nu) * n;
+      v = sl + L::Vx, col = Ak + j * ld, cs = n * ld, dst = sl + L::Qx + j;
+      base = in(a.lx, n, j), lin = true;
+    } else {
+      const int c = e - (n + nu) * n - n;
+      v = sl + L::Vx, col = Bk + c * ld, cs = nu * ld, dst = sl + L::Qu + c;
+      base = in(a.lu, nu, c), lin = true;
+    }
+    float s = v[0] * col[0];
+    for (int l = 1; l < n; ++l) s = s + v[l] * col[l * cs];
+    *dst = lin ? base + s : s;
+  }
+  block_sync();
+  // 2: Qxx = lxx + A'(Vxx A) into Vxx, Qux = lux + B'(Vxx A), Quu = luu +
+  //    B'(Vxx B)
+  for (int e = tid; e < n * n + nu * n + nu * nu; e += nt) {
+    const float* col;  // a column of A or B (stride cs)
+    const float* m;    // a column of Vxx A or Vxx B (stride ldm)
+    size_t cs;
+    int ldm, at;
+    float base;
+    if (e < n * n) {
+      col = Ak + (e / n) * ld, cs = n * ld, m = sl + L::VA + e % n, ldm = n;
+      at = L::V + e, base = in(a.lxx, n * n, e);
+    } else if (e < n * n + nu * n) {
+      const int f = e - n * n;
+      col = Bk + (f / n) * ld, cs = nu * ld, m = sl + L::VA + f % n, ldm = n;
+      at = L::Qux + f, base = in(a.lux, nu * n, f);
+    } else {
+      const int f = e - n * n - nu * n;
+      col = Bk + (f / nu) * ld, cs = nu * ld, m = sl + L::W + f % nu, ldm = nu;
+      at = L::Quu + f, base = in(a.luu, nu * nu, f);
+    }
+    float s = col[0] * m[0];
+    for (int l = 1; l < n; ++l) s = s + col[l * cs] * m[l * ldm];
+    sl[at] = base + s;
+  }
+  block_sync();
+  // 3: the Cholesky factor of Quu + reg I across the block
+  float* Q = sl + L::Quu;
+  for (int i = 0; i < nu; ++i) {
+    for (int j = i + tid; j < nu; j += nt) {
+      float v = Q[j * nu + i];
+      for (int q = 0; q < i; ++q) v = v - Q[j * nu + q] * Q[i * nu + q];
+      if (j == i) {
+        const float d = sqrtf(v + a.reg);
+        sl[L::inv + i] = 1.f / d;
+        Q[i * nu + i] = d;
+      } else {
+        Q[j * nu + i] = v;
+      }
+    }
+    block_sync();
+    for (int j = i + 1 + tid; j < nu; j += nt) Q[j * nu + i] = Q[j * nu + i] * sl[L::inv + i];
+    block_sync();
+  }
+  // 4: the 1 + n substitutions, one right-hand side a thread, in place in
+  //    the slot (the block design's)
+  for (int c = tid; c <= n; c += nt) {
+    const int ys = c == 0 ? 1 : n;  // the column's stride
+    float* y = c == 0 ? sl + L::kf : sl + L::W + c - 1;
+    const float* rhs = c == 0 ? sl + L::Qu : sl + L::Qux + c - 1;
+    const float* inv = sl + L::inv;
+    for (int i = 0; i < nu; ++i) y[i * ys] = rhs[i * ys];
+    for (int i = 0; i < nu; ++i) {
+      float s = y[i * ys];
+      for (int q = 0; q < i; ++q) s = s - Q[i * nu + q] * y[q * ys];
+      y[i * ys] = s * inv[i];
+    }
+    for (int i = nu - 1; i >= 0; --i) {
+      float s = y[i * ys];
+      for (int q = i + 1; q < nu; ++q) s = s - Q[q * nu + i] * y[q * ys];
+      y[i * ys] = s * inv[i];
+    }
+    for (int i = 0; i < nu; ++i) {
+      const float g = -y[i * ys];
+      y[i * ys] = g;
+      if (c == 0)
+        a.kff[((size_t)k * nu + i) * B + b] = g;
+      else
+        a.Kfb[(((size_t)k * nu + i) * n + c - 1) * B + b] = g;
+    }
+  }
+  block_sync();
+  // 5: Vxx(a, c) = Qxx(a, c) + Qux(:, a)' Kfb(:, c), Vx(a) = Qx(a) + Qux(:,
+  //    a)' kff; thread 0 also dV1 += kff . Qu
+  for (int e = tid; e < n * n + n; e += nt) {
+    const int r = e < n * n ? e / n : e - n * n;
+    const float* kr = e < n * n ? sl + L::W + e % n : sl + L::kf;  // stride n or 1
+    const int ks = e < n * n ? n : 1;
+    float acc = sl[L::Qux + r] * kr[0];
+    for (int q = 1; q < nu; ++q) acc = acc + sl[L::Qux + q * n + r] * kr[q * ks];
+    const int at = e < n * n ? L::V + e : L::Vx + r;
+    sl[at] = sl[e < n * n ? at : L::Qx + r] + acc;
+  }
+  if (tid == 0) {
+    float s = 0.f;
+    for (int i = 0; i < nu; ++i) s += sl[L::kf + i] * sl[L::Qu + i];
+    dV1 = dV1 + s;
+  }
+}
+
+// K3's wide design for the scenario of block `blk`: A and B of each stage
+// through stream_stages' ring of G::D tiles (4-byte copies of the
+// scenario's column of each lane-major row), or with G::D = 0 read where
+// they are used; the slot in shared memory after the ring, or in the
+// block's G::scratch_floats of device memory (kSpill).
+template <class G>
+NMPC_DEV void riccati_wide(const RiccatiArgs& a, float* smem, float* scratch, int blk, int tid) {
+  using L = K3BlockSlot<G::n, G::nu>;
+  constexpr int n = G::n, nu = G::nu, nt = G::threads;
+  const size_t B = a.B, b = blk;
+  float* sl = G::kSpill ? scratch + (size_t)blk * G::scratch_floats : smem + G::D * G::tile;
+  for (int i = tid; i < n * n; i += nt) sl[L::V + i] = 0.f;
+  for (int i = tid; i < n; i += nt) sl[L::Vx + i] = 0.f;
+  float dV1 = 0.f;
+  if constexpr (G::D == 0) {
+    block_sync();
+    for (int k = a.N - 1; k >= 0; --k) {
+      riccati_wide_stage<n, nu, true>(a, a.A + (size_t)k * n * n * B + b,
+                                      a.Bm + (size_t)k * n * nu * B + b, sl, k, b, tid, nt, dV1);
+      block_sync();
+    }
+  } else {
+    auto issue = [&](int k, float* t) {
+      for (int e = tid; e < n * n; e += nt)
+        cp_async4(t + e, a.A + ((size_t)k * n * n + e) * B + b, true);
+      for (int e = tid; e < n * nu; e += nt)
+        cp_async4(t + n * n + e, a.Bm + ((size_t)k * n * nu + e) * B + b, true);
+    };
+    stream_stages<G::D>(a.N, true, smem, G::tile, issue, [&](int k, const float* t) {
+      riccati_wide_stage<n, nu, false>(a, t, t + n * n, sl, k, b, tid, nt, dV1);
+    });
+  }
+  if (tid == 0) a.dV1[b] = dV1;
+}
+
+// K3 for block `blk`: the wide design past the block design's shapes, the
+// block design past (30, 20) (S = 1), else the team design.
 template <class G>
 NMPC_DEV void riccati_tiles(const RiccatiArgs& a, float* smem, float* scratch, int blk,
                             bool vec, int tid) {
-  if constexpr (G::kBlock)
+  if constexpr (G::kWide)
+    riccati_wide<G>(a, smem, scratch, blk, tid);
+  else if constexpr (G::kBlock)
     riccati_block<G>(a, smem, blk, tid);
   else
     riccati_team_tiles<G>(a, smem, scratch, blk, vec, tid);
@@ -878,12 +1074,14 @@ struct K5Rows {
 // K5's launch geometry: S scenarios a block (its rows are read by whole
 // warps of consecutive scenarios, so P = S), D stage tiles in the ring; a
 // block of A S threads, at most kThreads: 512, and 256 past ten robots,
-// where a thread's state, deviation and controls take ~130 registers.
+// where a thread's state, deviation and controls take ~130 registers. D = 0
+// (past ten robots, where a ring of two one-scenario tiles overflows the
+// block: m >= 64) reads every stage row straight from device memory.
 template <int NR, int S_, int D_>
 struct K5Geom {
   static constexpr int S = S_, D = D_, kThreads = NR > 10 ? 256 : 512;
-  static_assert(S >= 8 && (S & (S - 1)) == 0, "S: a power of two >= 8");
-  static_assert(D >= 2, "a ring of at least two stage tiles");
+  static_assert(S >= 1 && (S & (S - 1)) == 0, "S: a power of two");
+  static_assert(D >= 2 || (D == 0 && NR > 10), "a ring of at least two stage tiles, or none");
   static constexpr int max_alphas = kThreads / S;
   // floats of dynamic shared memory: the parameter block, then the ring
   NMPC_HD static int smem_floats(int rows, int prm_size) {
@@ -930,37 +1128,62 @@ NMPC_DEV void linesearch_tiles(const CostArgs& a, const float* sp, float* ring, 
       copy_rows<S, P>(t + R.mov * P, a.mov, (size_t)k * 2 * a.n_mov, 2 * a.n_mov, B, span, tid,
                       nt);
   };
-  stream_stages<G::D>(a.N, false, ring, tile, issue, [&](int k, const float* t) {
-    const float* ts = t + s;
-    if constexpr (NR > 10) {
-      // feedback_u's sums with xbar, ubar and kff read from the tile where
-      // they are used, not held in registers
+  if constexpr (G::D == 0) {
+    // the stage rows straight from the lane-major arrays (stride B): the
+    // NR > 10 body below with its reads moved from the tile
+    for (int k = 0; k < a.N; ++k) {
+      const float* Xs = a.Xs + (size_t)k * n * B + b;
+      const float* U = a.U + (size_t)k * nu * B + b;
+      const float* kff = a.kff + (size_t)k * nu * B + b;
+      const float* K = a.Kfb + (size_t)k * nu * n * B + b;
       float dx[n];
 #pragma unroll
-      for (int j = 0; j < n; ++j) dx[j] = x[j] - ts[(R.Xs + j) * P];
-      const float* K = ts + R.Kfb * P;
+      for (int j = 0; j < n; ++j) dx[j] = x[j] - Xs[(size_t)j * B];
 #pragma unroll 1
       for (int i = 0; i < nu; ++i) {
-        float acc = ts[(R.U + i) * P] + alpha * ts[(R.kff + i) * P];
+        float acc = U[(size_t)i * B] + alpha * kff[(size_t)i * B];
 #pragma unroll
-        for (int j = 0; j < n; ++j) acc = acc + K[(i * n + j) * P] * dx[j];
+        for (int j = 0; j < n; ++j) acc = acc + K[(size_t)(i * n + j) * B] * dx[j];
         u[i] = acc;
       }
-    } else {
-#pragma unroll
-      for (int i = 0; i < n; ++i) xb[i] = ts[(R.Xs + i) * P];
-#pragma unroll
-      for (int i = 0; i < nu; ++i) {
-        ub[i] = ts[(R.U + i) * P];
-        kf[i] = ts[(R.kff + i) * P];
-      }
-      feedback_u<NR>(x, xb, ub, kf, ts + R.Kfb * P, P, alpha, u);
+      if (a.n_mov) ob.mov = a.mov + (size_t)k * 2 * a.n_mov * B + b;
+      cost = cost + stage_merit<NR, true>(sp, k > 0, pairs, x, u, a.xref + (size_t)k * n * B + b,
+                                          a.lam + (size_t)k * nc * B + b, B, mu, ob);
+      euler_rows<NR>(x, u, dt, x);
     }
-    if (a.n_mov) ob.mov = ts + R.mov * P;
-    cost = cost + stage_merit<NR, true>(sp, k > 0, pairs, x, u, ts + R.xref * P,
-                                        ts + R.lam * P, P, mu, ob);
-    euler_rows<NR>(x, u, dt, x);
-  });
+  } else {
+    stream_stages<G::D>(a.N, false, ring, tile, issue, [&](int k, const float* t) {
+      const float* ts = t + s;
+      if constexpr (NR > 10) {
+        // feedback_u's sums with xbar, ubar and kff read from the tile where
+        // they are used, not held in registers
+        float dx[n];
+#pragma unroll
+        for (int j = 0; j < n; ++j) dx[j] = x[j] - ts[(R.Xs + j) * P];
+        const float* K = ts + R.Kfb * P;
+#pragma unroll 1
+        for (int i = 0; i < nu; ++i) {
+          float acc = ts[(R.U + i) * P] + alpha * ts[(R.kff + i) * P];
+#pragma unroll
+          for (int j = 0; j < n; ++j) acc = acc + K[(i * n + j) * P] * dx[j];
+          u[i] = acc;
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < n; ++i) xb[i] = ts[(R.Xs + i) * P];
+#pragma unroll
+        for (int i = 0; i < nu; ++i) {
+          ub[i] = ts[(R.U + i) * P];
+          kf[i] = ts[(R.kff + i) * P];
+        }
+        feedback_u<NR>(x, xb, ub, kf, ts + R.Kfb * P, P, alpha, u);
+      }
+      if (a.n_mov) ob.mov = ts + R.mov * P;
+      cost = cost + stage_merit<NR, true>(sp, k > 0, pairs, x, u, ts + R.xref * P,
+                                          ts + R.lam * P, P, mu, ob);
+      euler_rows<NR>(x, u, dt, x);
+    });
+  }
   if (live) a.costs[(size_t)ai * B + b] = cost;
 }
 

@@ -8,7 +8,8 @@ The solver's kernels: one library per robot count m, `csrc/megasolve.cu`
 K3's and K5's device code in `csrc/staged_tiles.cuh`), each compiled by its
 own nvcc process with
 -DNMPC_NR=m (staged.cu also with K3's and K5's launch geometry from
-ops/staged_tiles.py), linked together (`load`, any 1 <= m <= MAX_ROBOTS;
+ops/staged_tiles.py), linked together (`load`, any m >= 1: past
+MEGA_MAX_ROBOTS staged.cu alone, as K1 and K2 stop there;
 `load_all` builds the registry's ROBOT_COUNTS ahead). K3's
 and K5's first designs (`csrc/staged_first.cu`, the A/B baselines of
 tools/staged_launch.py) are a library of their own per m (`load_first`),
@@ -62,13 +63,15 @@ TOOLS_PARTS = ("K7", "K8 full, early exit", "K8 full", "K8 inv_solve", "K8 no_ls
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # robot counts of the scenario registry: the solver libraries load_all
-# builds ahead (any other m up to MAX_ROBOTS is built at its first use)
+# builds ahead (any other m is built at its first use)
 ROBOT_COUNTS = (1, 2, 3, 4, 5, 6, 8, 10)
-# the most robots the solver's kernels take: K1 and K2 (csrc/inner_warp.cuh:
-# a control row and a row of Quu's factor a lane, nu = 2m <= 32; lanes own
-# several state rows and right-hand sides past m = 10) and K3-K6 (K3's block
-# design past m = 10, its Cholesky one warp's)
-MAX_ROBOTS = 16
+# the most robots K1 and K2 take (csrc/inner_warp.cuh: a control row and a
+# row of Quu's factor a lane, nu = 2m <= 32; lanes own several state rows
+# and right-hand sides past m = 10), and the staged kernels' first designs
+# (csrc/staged_first.cu, the A/B baselines). K3-K6 take any m: past it the
+# solver library is staged.cu alone (K3's wide design, K4-K6 on the tiles of
+# staged_tiles.k4_rule, ...).
+MEGA_MAX_ROBOTS = 16
 # robot count of the main path (six_robot_antipodal): the tools library
 # that load_all builds
 BENCH_ROBOTS = 6
@@ -181,6 +184,8 @@ def _bind_staged(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.nmpc_expansions.restype = I
     lib.nmpc_k3_geometry.argtypes = [P]
     lib.nmpc_k3_geometry.restype = None
+    lib.nmpc_k3_wide.argtypes = []
+    lib.nmpc_k3_wide.restype = I
     lib.nmpc_k5_geometry.argtypes = [I, I, P]
     lib.nmpc_k5_geometry.restype = None
     lib.nmpc_k4_geometry.argtypes = [I, I, P]
@@ -279,10 +284,11 @@ def _lock(kind: str, key) -> threading.Lock:
         return _locks.setdefault((kind, key), threading.Lock())
 
 
-def _require_robots(m: int, top: int, what: str) -> None:
-    """Raise NotImplementedError unless 1 <= m <= top."""
-    if not 1 <= m <= top:
-        raise NotImplementedError(f"{what} are built for 1 <= m <= {top} robots, not m={m}")
+def _require_robots(m: int, top: int | None, what: str) -> None:
+    """Raise NotImplementedError unless 1 <= m (<= top, where given)."""
+    if m < 1 or (top is not None and m > top):
+        span = f"1 <= m <= {top}" if top is not None else "m >= 1"
+        raise NotImplementedError(f"{what} are built for {span} robots, not m={m}")
 
 
 def _check_robots(lib: ctypes.CDLL, path, m: int) -> None:
@@ -291,10 +297,21 @@ def _check_robots(lib: ctypes.CDLL, path, m: int) -> None:
 
 
 def k3_geometry(lib: ctypes.CDLL) -> dict:
-    """K3's geometry as a library was built with (nmpc_k3_geometry)."""
+    """K3's geometry as a library was built with (nmpc_k3_geometry,
+    nmpc_k3_wide)."""
     g = (ctypes.c_int * 8)()
     lib.nmpc_k3_geometry(g)
-    return dict(zip(("S", "D", "T", "P", "spill", "threads", "smem_bytes", "scratch_floats"), g))
+    keys = ("S", "D", "T", "P", "spill", "threads", "smem_bytes", "scratch_floats")
+    return {**dict(zip(keys, g)), "wide": lib.nmpc_k3_wide()}
+
+
+def _k3_want(key, g) -> dict:
+    """k3_geometry's dict as ops/staged_tiles.py computes it for K3 key
+    `key` at geometry g."""
+    lay = staged_tiles.k3_layout(key, g)
+    return {"S": g.S, "D": g.D, "T": g.T, "P": g.P, "spill": int(g.spill),
+            "threads": lay["threads"], "smem_bytes": lay["smem_bytes"],
+            "scratch_floats": lay["scratch_floats"], "wide": int(g.wide)}
 
 
 def k5_geometry(lib: ctypes.CDLL, rows: int, prm_size: int) -> dict:
@@ -323,10 +340,7 @@ def k6_geometry(lib: ctypes.CDLL) -> dict:
 def _check_geometry(lib: ctypes.CDLL, path, m: int, k3, k5, k4, k6) -> None:
     """Raise unless the library's K3-K6 constants are the ones
     ops/staged_tiles.py asked for and sizes."""
-    lay = staged_tiles.k3_layout(m, k3)
-    want = {"K3": {"S": k3.S, "D": k3.D, "T": k3.T, "P": k3.P, "spill": int(k3.spill),
-                   "threads": lay["threads"], "smem_bytes": lay["smem_bytes"],
-                   "scratch_floats": lay["scratch_floats"]}}
+    want = {"K3": _k3_want(m, k3)}
     rows = staged_tiles.k5_rows(m, True, 1, 1)
     want["K5"] = {"S": k5.S, "D": k5.D, "max_alphas": staged_tiles.k5_threads(m) // k5.S,
                   "smem_bytes": staged_tiles.k5_layout(m, rows, 100, 1, k5)["smem_bytes"]}
@@ -343,22 +357,28 @@ def _check_geometry(lib: ctypes.CDLL, path, m: int, k3, k5, k4, k6) -> None:
 
 
 def load(m: int) -> ctypes.CDLL:
-    """The solver's kernel library for m robots (K1-K6, any 1 <= m <=
-    MAX_ROBOTS), built first if needed."""
-    _require_robots(m, MAX_ROBOTS, "K1-K6")
+    """The solver's kernel library for m robots, built first if needed:
+    K1-K6 up to MEGA_MAX_ROBOTS, past it K3-K6 alone (staged.cu built with
+    -DNMPC_STAGED_ALONE; megasolve.cuda_unsupported refuses K1 and K2
+    there). Raises NotImplementedError for m < 1, and where K4's block of
+    one scenario overflows the card's shared memory (m >= 109)."""
+    _require_robots(m, None, "the solver's kernels")
     with _lock("solver", m):
         if ("solver", m) in _libs:
             return _libs["solver", m]
         geom = staged_tiles.nvcc_flags(m)
-        jobs = [("megasolve.cu", [f"-DNMPC_NR={m}"]), ("staged.cu", [f"-DNMPC_NR={m}", *geom])]
+        mega = m <= MEGA_MAX_ROBOTS
+        jobs = ([("megasolve.cu", [f"-DNMPC_NR={m}"]), ("staged.cu", [f"-DNMPC_NR={m}", *geom])]
+                if mega else [("staged.cu", [f"-DNMPC_NR={m}", "-DNMPC_STAGED_ALONE", *geom])])
         path, seconds, texts = _build(f"libnmpc_m{m}_{_key(SOURCES, m, tuple(geom))}", jobs,
                                       f"m={m}")
-        lib = _bind_staged(_bind_mega(ctypes.CDLL(str(path))))
+        lib = ctypes.CDLL(str(path))
+        lib = _bind_staged(_bind_mega(lib) if mega else _bind_errors(lib))
         if m in TEAM_ROBOTS:
             _bind_team(lib)
         _check_robots(lib, path, m)
-        _check_geometry(lib, path, m, staged_tiles.k3_geometry(m), staged_tiles.K5_GEOMETRY[m],
-                        staged_tiles.K4_GEOMETRY[m], staged_tiles.K6_GEOMETRY[m])
+        _check_geometry(lib, path, m, staged_tiles.k3_geometry(m), staged_tiles.k5_geometry(m),
+                        staged_tiles.k4_geometry(m), staged_tiles.k6_geometry(m))
         build_info[m] = {"path": str(path), "seconds": seconds, "ptxas": "".join(texts)}
         _libs["solver", m] = lib
         return lib
@@ -368,7 +388,7 @@ def load_k3_shape(n: int, nu: int) -> ctypes.CDLL:
     """K3's library at the stage shape (n, nu) (csrc/riccati_shape.cu at
     staged_tiles.k3_geometry's pick; the entry points nmpc_riccati and
     nmpc_k3_geometry as the solver library's), built first if needed. Any
-    n <= staged_tiles.K3_MAX_N and nu <= K3_MAX_NU; others raise."""
+    n, nu >= 1 (others raise)."""
     shape = (n, nu)
     g = staged_tiles.k3_geometry(shape)   # raises outside the range
     with _lock("k3", shape):
@@ -385,14 +405,13 @@ def load_k3_shape(n: int, nu: int) -> ctypes.CDLL:
         lib.nmpc_k3_shape.restype = None
         lib.nmpc_k3_geometry.argtypes = [P]
         lib.nmpc_k3_geometry.restype = None
+        lib.nmpc_k3_wide.argtypes = []
+        lib.nmpc_k3_wide.restype = I
         lib.nmpc_riccati.argtypes = [P] * 11 + [I] * 2 + [F] + [P]
         lib.nmpc_riccati.restype = I
         got = (ctypes.c_int * 2)()
         lib.nmpc_k3_shape(got)
-        lay = staged_tiles.k3_layout(shape)
-        want = {"S": g.S, "D": g.D, "T": g.T, "P": g.P, "spill": int(g.spill),
-                "threads": lay["threads"], "smem_bytes": lay["smem_bytes"],
-                "scratch_floats": lay["scratch_floats"]}
+        want = _k3_want(shape, g)
         if tuple(got) != shape or k3_geometry(lib) != want:
             raise RuntimeError(f"{path}: built for {tuple(got)} with {k3_geometry(lib)}, "
                                f"expected {shape} with {want}")
@@ -403,9 +422,12 @@ def load_k3_shape(n: int, nu: int) -> ctypes.CDLL:
 
 def load_k3(n: int, nu: int) -> ctypes.CDLL:
     """The library whose nmpc_riccati takes stage blocks of (n, nu): the
-    solver library of m robots at (3m, 2m), else K3's at that shape."""
+    solver library of m robots at (3m, 2m) (past MEGA_MAX_ROBOTS where it is
+    loaded already, as the staged route's K4 loads it), else K3's at that
+    shape: a K3 alone at a wide robot stack's shape does not build K4-K6,
+    whose pair rows take minutes to compile there."""
     m = n // 3
-    if n == 3 * m and nu == 2 * m and 1 <= m <= MAX_ROBOTS:
+    if n == 3 * m and nu == 2 * m and (1 <= m <= MEGA_MAX_ROBOTS or ("solver", m) in _libs):
         return load(m)
     return load_k3_shape(n, nu)
 
@@ -434,8 +456,9 @@ def load_tools(m: int) -> ctypes.CDLL:
 
 def load_first(m: int) -> ctypes.CDLL:
     """The library of the staged kernels' first designs (csrc/staged_first.cu)
-    for m robots (m <= MAX_ROBOTS), built first if needed."""
-    _require_robots(m, MAX_ROBOTS, "K3-K6")
+    for m robots (m <= MEGA_MAX_ROBOTS: the A/B baselines of the robot
+    counts the megakernel route takes), built first if needed."""
+    _require_robots(m, MEGA_MAX_ROBOTS, "the staged kernels' first designs")
     with _lock("first", m):
         if ("first", m) in _libs:
             return _libs["first", m]
@@ -451,12 +474,12 @@ def load_first(m: int) -> ctypes.CDLL:
 def load_staged_variant(m: int, k3=None, k5=None, k4=None, k6=None) -> tuple:
     """staged.cu alone for m robots at K3-K6 geometries k3, k5, k4, k6
     (staged_tiles.K3Geometry, ...; the solver's pick where None; the sweep of
-    tools/staged_launch.py). Returns (library, compiler report)."""
-    _require_robots(m, MAX_ROBOTS, "K3-K6")
+    tools/staged_launch.py; any m >= 1). Returns (library, compiler report)."""
+    _require_robots(m, None, "K3-K6")
     k3 = staged_tiles.k3_geometry(m) if k3 is None else k3
-    k5 = staged_tiles.K5_GEOMETRY[m] if k5 is None else k5
-    k4 = staged_tiles.K4_GEOMETRY[m] if k4 is None else k4
-    k6 = staged_tiles.K6_GEOMETRY[m] if k6 is None else k6
+    k5 = staged_tiles.k5_geometry(m) if k5 is None else k5
+    k4 = staged_tiles.k4_geometry(m) if k4 is None else k4
+    k6 = staged_tiles.k6_geometry(m) if k6 is None else k6
     flags = [f"-DNMPC_NR={m}", "-DNMPC_STAGED_ALONE",
              *staged_tiles.nvcc_flags(m, k3, k5, k4, k6)]
     tag = "_".join(f.split("=")[1] for f in flags[2:])
@@ -482,7 +505,7 @@ def load_k1_variant(m: int, min_blocks: int | None = None, probes: bool = False,
     settings `team` ({"T": 4, "D": 2, ...}, keys of TEAM_SETTINGS; m in
     TEAM_ROBOTS) and/or with K1's phase probes (-DNMPC_K1_PROBES, which adds
     `nmpc_phases`; tools/k1_phases.py). Returns (library, compiler report)."""
-    _require_robots(m, MAX_ROBOTS, "K1 and K2")
+    _require_robots(m, MEGA_MAX_ROBOTS, "K1 and K2")
     flags = [f"-DNMPC_NR={m}"]
     tag = ""
     if min_blocks is not None:

@@ -131,20 +131,38 @@ def k3_inputs(n: int, nu: int, B: int, N: int, gen: torch.Generator) -> tuple:
         0.2 * r * torch.randn((N, nu, n, B), **kw)))
 
 
+# the most units f32_spread stacks into one call of a plain version
+SPREAD_UNITS = 2048
+
+
 def f32_spread(fn, inputs, draws: int = 4, seed: int = 0) -> list:
     """Per output of fn (a plain version), per unit (scenario): the largest
     change of fn's f64 result over `draws` runs with every input element
-    scaled by (1 + 2^-20 z), z ~ N(0, 1): 16 units of f32 roundoff."""
+    scaled by (1 + 2^-20 z), z ~ N(0, 1): 16 units of f32 roundoff. Every
+    input and output of fn has the units on its last dimension, and fn
+    treats them apart, so the unmoved run and the draws go as few calls as
+    SPREAD_UNITS allows on the inputs stacked along it: a plain version that
+    is bound by its launches (K3's column recursions) pays them once at a
+    small batch, and a large batch takes no more memory than one run."""
     x64 = [t.double() for t in inputs]
-    ref = fn(x64)
     g = torch.Generator(device=x64[0].device).manual_seed(seed)
-    out = [torch.zeros(r.shape[-1], dtype=torch.float64, device=r.device) for r in ref]
-    for _ in range(draws):
-        pert = [t * (1.0 + 2.0 ** -20 * torch.randn(t.shape, generator=g, device=t.device,
-                                                     dtype=torch.float64)) for t in x64]
-        for i, (r, q) in enumerate(zip(ref, fn(pert))):
-            d = (q - r).abs()
-            out[i] = torch.maximum(out[i], d.amax(dim=tuple(range(d.dim() - 1))) if d.dim() > 1 else d)
+    runs = [x64] + [[t * (1.0 + 2.0 ** -20 * torch.randn(t.shape, generator=g, device=t.device,
+                                                          dtype=torch.float64)) for t in x64]
+                    for _ in range(draws)]
+    B = x64[0].shape[-1]
+    per = max(1, SPREAD_UNITS // max(B, 1))
+    results = []
+    for i in range(0, len(runs), per):
+        outs = fn([torch.cat(ts, dim=-1) for ts in zip(*runs[i:i + per])])
+        results += list(zip(*(r.split(B, dim=-1) for r in outs)))
+    ref, moved = results[0], results[1:]
+    out = []
+    for k, r in enumerate(ref):
+        s = torch.zeros(B, dtype=torch.float64, device=r.device)
+        for q in moved:
+            d = (q[k] - r).abs()
+            s = torch.maximum(s, d.amax(dim=tuple(range(d.dim() - 1))) if d.dim() > 1 else d)
+        out.append(s)
     return out
 
 

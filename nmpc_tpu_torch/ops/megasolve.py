@@ -37,7 +37,7 @@ is launched by `inner_launch` for the roofline tools only (their
 default variants of K8 and K9 are the warp design's own, launched by
 `warp_launch` with an `entry` of the tools library.
 
-Admission: the CUDA kernels take any 1 <= m <= cuda_build.MAX_ROBOTS (16;
+Admission: the CUDA kernels take any 1 <= m <= cuda_build.MEGA_MAX_ROBOTS (16;
 lanes own several state rows and right-hand sides past m = 10; a library
 per m, built at its first use), any N, pair, static-obstacle,
 moving-obstacle and box rows, Euler dynamics, any number of alphas (K1 keeps
@@ -81,15 +81,15 @@ K1_TEAM_WARPS = 2
 def cuda_unsupported(ocp: OCP, cfg: ALILQRConfig | None = None) -> str | None:
     """Why K1 and K2 cannot take this problem/config, or None: outside the
     fused kernels' class (rollout.supports: LiDAR rays, dynamics other than
-    the Euler unicycle), m past cuda_build.MAX_ROBOTS, and of cfg's settings
+    the Euler unicycle), m past cuda_build.MEGA_MAX_ROBOTS, and of cfg's settings
     sweep='scan' (K1 runs its own sequential sweep) and an unknown line
     search. cfg.compact is the route's (a permutation of the batch between
     outer steps, solver/alilqr_batched._solve_mega), not K1's."""
     if not rollout.supports(ocp):
         return rollout.unsupported(ocp)
-    if not 1 <= ocp.m <= cuda_build.MAX_ROBOTS:
-        return (f"m={ocp.m} robots (K1 and K2 are built for m <= {cuda_build.MAX_ROBOTS}: a "
-                f"control row and a row of Quu's factor a lane)")
+    if not 1 <= ocp.m <= cuda_build.MEGA_MAX_ROBOTS:
+        return (f"m={ocp.m} robots (K1 and K2 are built for m <= {cuda_build.MEGA_MAX_ROBOTS}: "
+                f"a control row and a row of Quu's factor a lane)")
     if cfg is not None:
         if cfg.sweep == "scan":
             return "sweep='scan'"

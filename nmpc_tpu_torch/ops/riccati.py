@@ -21,20 +21,25 @@ riccati_thread (one thread per scenario), which tools/staged_launch.py
 launches as the A/B baseline. Past (30, 20) (m >= 11 and the wider stage
 shapes) the block design: a block of eight warps a scenario, its slot in
 shared memory, every entry summed in riccati_thread's order, the Cholesky
-in one warp. Replaces riccati_pallas.py::_make_kernel / riccati_lanes (its
-horizon chunking exists only to fit VMEM and does not carry over).
+in one warp. Past nu = 32, or where its ring of two stage tiles beside the
+slot overflows the block (n > 80 at nu = 32; m >= 17), the wide design: the
+same block, its Cholesky across the block, a ring of A-and-B tiles (or A
+and B straight from device memory) with the cost blocks read from device
+memory, and the slot in a device-memory scratch where it does not fit
+(ops/staged_tiles.py::k3_rule). Replaces riccati_pallas.py::_make_kernel /
+riccati_lanes (its horizon chunking exists only to fit VMEM and does not
+carry over).
 
 Layout: `riccati_lanes` takes and returns the lane-major layout of the
 staged path: A [N, n, n, B], B [N, n, nu, B], lx [N, n, B], lu [N, nu, B],
 lxx [N, n, n, B], luu [N, nu, nu, B], lux [N, nu, n, B] -> kff [N, nu, B],
 Kfb [N, nu, n, B], dV1 [B]. `riccati_fused` is the standard-layout wrapper.
-The kernels are built for n = 3m, nu = 2m with m <=
-cuda_build.MAX_ROBOTS (in the solver library of m robots) and for any
-other stage shape up to
-n = staged_tiles.K3_MAX_N, nu = K3_MAX_NU, (80, 32) (csrc/riccati_shape.cu,
-a library per shape at its first use: the ray-augmented stage of family I,
+The kernels are built for n = 3m, nu = 2m at any m (in the solver library
+of m robots) and for any other stage shape (csrc/riccati_shape.cu, a
+library per shape at its first use: the ray-augmented stage of family I,
 n = 13, nu = 2, and the user models of make_generic_ocp, which the hybrid
-route of solver/alilqr_batched.py sends here); a larger CUDA shape raises.
+route of solver/alilqr_batched.py sends here): device memory bounds them,
+through the inputs and the wide design's scratch.
 """
 
 from __future__ import annotations
@@ -123,10 +128,7 @@ def check_lanes(exp) -> tuple:
     N, n, _, B = A.shape
     nu = exp[1].shape[2]
     m = n // 3
-    if not (1 <= n <= staged_tiles.K3_MAX_N and 1 <= nu <= staged_tiles.K3_MAX_NU):
-        raise NotImplementedError(
-            f"riccati_lanes: the CUDA kernel covers stage shapes up to n="
-            f"{staged_tiles.K3_MAX_N}, nu={staged_tiles.K3_MAX_NU}, not n={n}, nu={nu}")
+    staged_tiles.k3_rule(n, nu)   # raises for a shape no geometry takes
     for name, t, shape in zip(("A", "B", "lx", "lu", "lxx", "luu", "lux"), exp, (
             (N, n, n, B), (N, n, nu, B), (N, n, B), (N, nu, B), (N, n, n, B),
             (N, nu, nu, B), (N, nu, n, B))):

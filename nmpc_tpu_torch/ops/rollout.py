@@ -58,15 +58,20 @@ def supports(ocp: OCP) -> bool:
 
 def unsupported(ocp: OCP) -> str | None:
     """Why the staged kernels (K3-K6) cannot take this problem on the card,
-    or None. They cover `supports`' class at 1 <= m <=
-    cuda_build.MAX_ROBOTS."""
+    or None. They cover `supports`' class at any robot count whose K4
+    block of one scenario fits the card's shared memory (staged_tiles.
+    k4_rule: m <= 108); K3 takes any stage shape, and K5 and K6 read their
+    stage rows from device memory where their rings do not fit."""
     if ocp.dyn_fn is not None or ocp.integrator != "euler":
         return "dynamics other than the Euler unicycle (dyn_fn or rk4)"
     if ocp.num_rays:
         return "LiDAR ray states (num_rays > 0)"
-    if not 1 <= ocp.m <= cuda_build.MAX_ROBOTS:
-        return (f"m={ocp.m} robots: K3-K6 are built for m <= {cuda_build.MAX_ROBOTS} "
-                f"(nu = 2m <= 32: K3's Cholesky is one warp's)")
+    try:
+        for geometry in (staged_tiles.k4_geometry, staged_tiles.k5_geometry,
+                         staged_tiles.k6_geometry):
+            geometry(ocp.m)
+    except NotImplementedError as e:
+        return str(e)
     return None
 
 

@@ -12,28 +12,38 @@ horizon through a ring of D stage tiles in shared memory.
       wrapper's where they do not fit in shared memory beside the ring.
       Past (K3_TILE_N, K3_TILE_NU) = (30, 20) the block design: S = 1, one
       block of T = 32 K3_BLOCK_WARPS threads a scenario, P = 1, the
-      scenario's slot (K3BlockSlot) in shared memory beside the ring.
+      scenario's slot (K3BlockSlot) in shared memory beside the ring, up to
+      nu = K3_BLOCK_MAX_NU (its Cholesky is one warp's) and n =
+      k3_block_max_n(nu) (the ring of two beside the slot within a block).
+      Past those the wide design (`wide`): the same block of threads, its
+      Cholesky across the block, a ring of D = 2 or 1 tiles that hold a
+      stage's A and B alone (the cost blocks read from device memory where
+      they are used), or D = 0 (A and B read from device memory too), and
+      the slot in the scratch (`spill`) where it does not fit beside them:
+      any stage shape, bounded by device memory.
   K5: A x S threads a block (A candidates), at most k5_threads(m); more
       candidates go as several launches (rollout.linesearch_costs_lanes).
   K4: one stage of the tile a block, W warps a block.
   K6: a team of T threads per scenario, S T threads a block.
-K3 also takes other stage shapes (n, nu) than the robot stacks' (3m, 2m),
-any n <= K3_MAX_N and nu <= K3_MAX_NU (the block design's limit: its
-Cholesky is one warp's, nu <= 32, and its block at (K3_MAX_N, 32) the
-largest that fits 227 KB at a ring of two): the ray-augmented stage of
-family I and the user models of make_generic_ocp, each built from
-csrc/riccati_shape.cu with `k3_shape_flags`. K3's geometry
-at every shape, the robot stacks' included, is `k3_rule`'s, which gives the
-picks `python -m nmpc_tpu_torch.tools.staged_launch` recorded per robot
-count (K3_GEOMETRY, PERF.md). ops/cuda_build.py passes them to nvcc, and
-the library reports them back (`nmpc_k3_geometry`, ...) for cuda_build to
-check. The sizes here mirror K3Rows, K3Slot, K3Geom, K5Geom,
-K4Rows, K4Geom, K6Rows and K6Geom of the headers.
+K3 takes other stage shapes (n, nu) than the robot stacks' (3m, 2m) too:
+the ray-augmented stage of family I and the user models of
+make_generic_ocp, each built from csrc/riccati_shape.cu with
+`k3_shape_flags`. K3's geometry at every shape, the robot stacks' included,
+is `k3_rule`'s, which gives the picks `python -m
+nmpc_tpu_torch.tools.staged_launch` recorded per robot count (K3_GEOMETRY,
+PERF.md). K4's, K5's and K6's are `k4_geometry`, `k5_geometry` and
+`k6_geometry`: the sweep's picks up to sixteen robots (K4_GEOMETRY, ...),
+past them a rule of m, the largest tile that fits a block (`k4_rule`, ...).
+ops/cuda_build.py passes them to nvcc, and the library reports them back
+(`nmpc_k3_geometry`, ...) for cuda_build to check. The sizes here mirror
+K3Rows, K3Slot, K3BlockSlot, K3Geom, K5Geom, K4Rows, K4Geom, K6Rows and
+K6Geom of the headers.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 # the H100's shared memory: at most 227 KB a block, 228 KB an SM, 1 KB of
 # which each resident block reserves; 2,048 threads and 32 blocks an SM
@@ -46,9 +56,18 @@ BLOCKS_SM = 32
 # robots (k5_threads)
 K5_THREADS = 512
 # the team design's stage shapes (the robot stacks' up to m=10); past them
-# K3's block design, with K3_BLOCK_WARPS warps a block
+# K3's block design, with K3_BLOCK_WARPS warps a block, up to nu =
+# K3_BLOCK_MAX_NU (its Cholesky is one warp's); past that the wide design,
+# the same block
 K3_TILE_N, K3_TILE_NU = 30, 20
 K3_BLOCK_WARPS = 8
+K3_BLOCK_MAX_NU = 32
+# what the rules of K4's and K5's tiles past sixteen robots size a block
+# for: pair rows, RULE_OBS static and RULE_MOV moving obstacles a robot, a
+# parameter block of RULE_PRM floats (path (b)'s six obstacles, the
+# registry's most moving ones, the alphas and obstacles many times over);
+# a larger problem raises in the wrapper, naming the shared bytes
+RULE_OBS, RULE_MOV, RULE_PRM = 6, 5, 1024
 
 
 @dataclasses.dataclass(frozen=True)
@@ -58,6 +77,7 @@ class K3Geometry:
     T: int
     P: int
     spill: bool = False
+    wide: bool = False
 
 
 @dataclasses.dataclass(frozen=True)
@@ -116,8 +136,8 @@ K3_BLOCKS_PER_SM = {1: 5, 2: 1, 3: 3, 4: 3, 5: 2, 6: 1, 7: 1, 8: 1, 9: 1, 10: 1,
                     12: 3, 13: 3, 14: 2, 15: 2, 16: 2, (13, 2): 4, (2, 1): 12, (1, 1): 16}
 # K5's, K4's and K6's picks per robot count (tools/staged_launch.py, PERF.md;
 # past ten robots the smallest tiles, S = 8 (K5, K6) and 16 (K4), that fit
-# the widest rows, and a K6 team of 16): their keys are the robot counts
-# K3-K6 are built for
+# the widest rows, and a K6 team of 16) up to sixteen robots; past them
+# k5_rule, k4_rule and k6_rule
 K5_GEOMETRY = {1: K5Geometry(32, 2), 2: K5Geometry(32, 2), 3: K5Geometry(32, 2),
                4: K5Geometry(16, 2), 5: K5Geometry(16, 2), 6: K5Geometry(32, 2),
                7: K5Geometry(16, 2), 8: K5Geometry(16, 2), 9: K5Geometry(16, 2),
@@ -132,6 +152,7 @@ K6_GEOMETRY = {1: K6Geometry(32, 4, 1), 2: K6Geometry(32, 4, 1), 3: K6Geometry(3
                10: K6Geometry(8, 2, 4), **{m: K6Geometry(8, 2, 16) for m in range(11, 17)}}
 
 
+@functools.lru_cache(maxsize=None)
 def k3_rule(n: int, nu: int) -> K3Geometry:
     """K3's geometry at stage shape (n, nu) by the rule the sweep's picks
     follow: a thread a scenario with every block in registers up to m=2's
@@ -140,21 +161,31 @@ def k3_rule(n: int, nu: int) -> K3Geometry:
     (bank conflicts of a team reading down a column) and S beyond (16-byte
     copies of the larger tiles), and the slots in device memory (spill)
     where the ring and the slots overflow a block's shared memory; past
-    (K3_TILE_N, K3_TILE_NU) the block design."""
-    if not (1 <= n <= K3_MAX_N and 1 <= nu <= K3_MAX_NU):
-        raise NotImplementedError(
-            f"K3 takes stage shapes up to n={K3_MAX_N}, nu={K3_MAX_NU} (its block design's "
-            f"block at a ring of two within {SMEM_BLOCK_MAX} B of shared memory, its Cholesky in "
-            f"one warp), not n={n}, nu={nu}")
+    (K3_TILE_N, K3_TILE_NU) the block design while nu <= K3_BLOCK_MAX_NU
+    and its block fits, else the wide design at the first of its
+    geometries that fits: a ring of two A-and-B tiles beside the slot, of
+    one, two with the slot spilled, one, none."""
+    if n < 1 or nu < 1:
+        raise NotImplementedError(f"K3 takes stage shapes with n >= 1 and nu >= 1, not n={n}, "
+                                  f"nu={nu}")
     if n > K3_TILE_N or nu > K3_TILE_NU:
-        return _K3_BLOCK
+        if nu <= K3_BLOCK_MAX_NU and _fits((n, nu), _K3_BLOCK):
+            return _K3_BLOCK
+        for D, spill in ((2, False), (1, False), (2, True), (1, True), (0, True)):
+            g = K3Geometry(1, D, 32 * K3_BLOCK_WARPS, 1, spill, wide=True)
+            if _fits((n, nu), g):
+                return g
     if n <= 6 and nu <= 4:
         return K3Geometry(128, 2, 1, 128)
     S = 16 if n <= 9 else 8
     g = K3Geometry(S, 2, 16 if n <= 15 else 32, S + 1 if n <= 18 else S)
-    if k3_layout((n, nu), g)["smem_bytes"] > SMEM_BLOCK_MAX:
+    if not _fits((n, nu), g):
         g = dataclasses.replace(g, spill=True)
     return g
+
+
+def _fits(key, g: K3Geometry) -> bool:
+    return k3_layout(key, g)["smem_bytes"] <= SMEM_BLOCK_MAX
 
 
 def k3_geometry(key) -> K3Geometry:
@@ -205,12 +236,17 @@ def k3_block_slot_floats(key) -> int:
 
 def check_k3(m, g: K3Geometry) -> None:
     """Raise unless g is a geometry K3Geom takes (m: a K3 key)."""
+    if g.wide:     # the wide design
+        if g.S != 1 or g.T % 32 or not 32 <= g.T <= 1024 or g.P != 1 or not 0 <= g.D <= 2:
+            raise ValueError(f"K3's wide design at m={m}: S={g.S}, T={g.T}, P={g.P}, D={g.D}")
+        return
     if g.S == 1:   # the block design
         if g.T % 32 or not 32 <= g.T <= 1024 or g.P != 1 or g.D < 2 or g.spill:
             raise ValueError(f"K3's block design at m={m}: T={g.T}, P={g.P}, D={g.D}, "
                              f"spill={g.spill}")
-        if k3_dims(m)[1] > 32:
-            raise ValueError(f"K3's block design at m={m}: nu > 32 (a warp's Cholesky)")
+        if k3_dims(m)[1] > K3_BLOCK_MAX_NU:
+            raise ValueError(f"K3's block design at m={m}: nu > {K3_BLOCK_MAX_NU} (a warp's "
+                             f"Cholesky)")
         return
     if g.S < 8 or g.S & (g.S - 1):
         raise ValueError(f"K3 at m={m}: S={g.S} is not a power of two >= 8")
@@ -228,10 +264,12 @@ def k3_layout(m, g: K3Geometry | None = None) -> dict:
     g = k3_geometry(m) if g is None else g
     check_k3(m, g)
     n, nu = k3_dims(m)
-    tile = al4(k3_rows(m) * g.P)
-    if g.S == 1:
-        out, priv = 0, k3_block_slot_floats(m)
+    if g.wide:     # a tile of A and B
+        tile, out, priv = al4(n * (n + nu)), 0, k3_block_slot_floats(m)
+    elif g.S == 1:
+        tile, out, priv = al4(k3_rows(m)), 0, k3_block_slot_floats(m)
     else:
+        tile = al4(k3_rows(m) * g.P)
         out = al4((nu + nu * n) * g.P)
         priv = out + (g.S * k3_slot_floats(m) if g.T > 1 else 0)
     smem = 4 * (g.D * tile + (0 if g.spill else priv))
@@ -255,15 +293,47 @@ def k5_threads(m: int) -> int:
 
 def k5_max_alphas(m: int) -> int:
     """The most line-search candidates one K5 launch takes."""
-    return k5_threads(m) // K5_GEOMETRY[m].S
+    return k5_threads(m) // k5_geometry(m).S
+
+
+def _pow2(S: int) -> bool:
+    return S >= 1 and S & (S - 1) == 0
+
+
+def _rule(kernel: str, m: int, tiles, smem) -> object:
+    """The first geometry of `tiles` whose block takes at most the card's
+    shared bytes (smem(g)); raises NotImplementedError naming the limit
+    where none does."""
+    for g in tiles:
+        if smem(g) <= SMEM_BLOCK_MAX:
+            return g
+    raise NotImplementedError(
+        f"{kernel} at m={m}: its smallest block takes {smem(g)} B of shared memory, more than "
+        f"the card's {SMEM_BLOCK_MAX}")
+
+
+@functools.lru_cache(maxsize=None)
+def k5_rule(m: int) -> K5Geometry:
+    """K5 past the sweep's robot counts: the largest tile of 8, 4, 2 or 1
+    scenarios (a ring of two) whose block fits at the RULE_ rows, else (m >=
+    64) tiles of 8 that read their stage rows from device memory (D = 0)."""
+    rows = k5_rows(m, True, RULE_OBS, RULE_MOV)
+    return _rule("K5", m, [*(K5Geometry(S, 2) for S in (8, 4, 2, 1)), K5Geometry(8, 0)],
+                 lambda g: k5_layout(m, rows, RULE_PRM, 1, g)["smem_bytes"])
+
+
+def k5_geometry(m: int) -> K5Geometry:
+    """K5's geometry at m robots: the sweep's pick (K5_GEOMETRY), else
+    k5_rule's."""
+    return K5_GEOMETRY[m] if m in K5_GEOMETRY else k5_rule(m)
 
 
 def k5_layout(m: int, rows: int, prm_size: int, n_alphas: int,
               g: K5Geometry | None = None) -> dict:
     """What one K5 block takes at `rows` stage rows, a parameter block of
     prm_size floats and n_alphas candidates."""
-    g = K5_GEOMETRY[m] if g is None else g
-    if g.S < 8 or g.S & (g.S - 1) or g.D < 2:
+    g = k5_geometry(m) if g is None else g
+    if not _pow2(g.S) or not (g.D >= 2 or (g.D == 0 and m > 10)):
         raise ValueError(f"K5 at m={m}: S={g.S}, D={g.D}")
     smem = 4 * (al4(prm_size) + g.D * al4(rows * g.S))
     threads = n_alphas * g.S
@@ -291,14 +361,30 @@ def k4_out_rows(m: int) -> int:
 
 def check_k4(m: int, g: K4Geometry) -> None:
     """Raise unless g is a geometry K4Geom takes."""
-    if g.S < 8 or g.S & (g.S - 1) or not 1 <= g.W <= 32:
+    if not _pow2(g.S) or not 1 <= g.W <= 32:
         raise ValueError(f"K4 at m={m}: S={g.S}, W={g.W}")
+
+
+@functools.lru_cache(maxsize=None)
+def k4_rule(m: int) -> K4Geometry:
+    """K4 past the sweep's robot counts: the largest tile of 16, 8, 4, 2 or
+    1 scenarios whose block fits at the RULE_ rows, four warps (the picks
+    at m = 11-16)."""
+    rows = k4_rows(m, True, RULE_OBS, RULE_MOV)
+    return _rule("K4", m, [K4Geometry(S, 4) for S in (16, 8, 4, 2, 1)],
+                 lambda g: k4_layout(m, rows, RULE_PRM, g)["smem_bytes"])
+
+
+def k4_geometry(m: int) -> K4Geometry:
+    """K4's geometry at m robots: the sweep's pick (K4_GEOMETRY), else
+    k4_rule's."""
+    return K4_GEOMETRY[m] if m in K4_GEOMETRY else k4_rule(m)
 
 
 def k4_layout(m: int, rows: int, prm_size: int, g: K4Geometry | None = None) -> dict:
     """What one K4 block takes at `rows` input rows and a parameter block of
     prm_size floats."""
-    g = K4_GEOMETRY[m] if g is None else g
+    g = k4_geometry(m) if g is None else g
     check_k4(m, g)
     smem = 4 * (al4(prm_size) + al4(rows * g.S) + al4(k4_out_rows(m) * g.S))
     threads = 32 * g.W
@@ -314,14 +400,32 @@ def k6_rows(m: int) -> int:
 
 def check_k6(m: int, g: K6Geometry) -> None:
     """Raise unless g is a geometry K6Geom takes."""
-    if g.S < 8 or g.S & (g.S - 1) or g.D < 2 or not 1 <= g.T <= 2 * m or g.S * g.T > 1024:
+    if (not _pow2(g.S) or not (g.D >= 2 or (g.D == 0 and g.T > 1)) or not 1 <= g.T <= 2 * m
+            or g.S * g.T > 1024):
         raise ValueError(f"K6 at m={m}: S={g.S}, D={g.D}, T={g.T}")
+
+
+@functools.lru_cache(maxsize=None)
+def k6_rule(m: int) -> K6Geometry:
+    """K6 past the sweep's robot counts: the largest tile of 8, 4, 2 or 1
+    scenarios (a ring of two) whose block fits, teams of 16 (the picks at
+    m = 11-16), else (m >= 64) tiles of 8 that read their stage rows from
+    device memory (D = 0)."""
+    return _rule("K6", m, [*(K6Geometry(S, 2, 16) for S in (8, 4, 2, 1)),
+                           K6Geometry(8, 0, 16)],
+                 lambda g: k6_layout(m, g)["smem_bytes"])
+
+
+def k6_geometry(m: int) -> K6Geometry:
+    """K6's geometry at m robots: the sweep's pick (K6_GEOMETRY), else
+    k6_rule's."""
+    return K6_GEOMETRY[m] if m in K6_GEOMETRY else k6_rule(m)
 
 
 def k6_layout(m: int, g: K6Geometry | None = None) -> dict:
     """What one K6 block takes: threads, floats of a stage tile, shared
     bytes (the ring and, for T > 1, the team's slot for u)."""
-    g = K6_GEOMETRY[m] if g is None else g
+    g = k6_geometry(m) if g is None else g
     check_k6(m, g)
     tile = al4(k6_rows(m) * g.S)
     smem = 4 * (g.D * tile + (al4(2 * m * g.S) if g.T > 1 else 0))
@@ -331,14 +435,18 @@ def k6_layout(m: int, g: K6Geometry | None = None) -> dict:
             "warps_per_sm": blocks * ((threads + 31) // 32)}
 
 
+def _k3_flags(g: K3Geometry) -> list:
+    return [f"-DNMPC_K3_S={g.S}", f"-DNMPC_K3_D={g.D}", f"-DNMPC_K3_T={g.T}",
+            f"-DNMPC_K3_P={g.P}", f"-DNMPC_K3_SPILL={int(g.spill)}",
+            *(["-DNMPC_K3_WIDE=1"] if g.wide else [])]
+
+
 def k3_shape_flags(shape: tuple, g: K3Geometry | None = None) -> list:
     """The -D flags of csrc/riccati_shape.cu: the stage shape (n, nu) and
     K3's geometry there (`k3_geometry` where not given)."""
     g = k3_geometry(shape) if g is None else g
     check_k3(shape, g)
-    return [f"-DNMPC_K3_N={shape[0]}", f"-DNMPC_K3_NU={shape[1]}", f"-DNMPC_K3_S={g.S}",
-            f"-DNMPC_K3_D={g.D}", f"-DNMPC_K3_T={g.T}", f"-DNMPC_K3_P={g.P}",
-            f"-DNMPC_K3_SPILL={int(g.spill)}"]
+    return [f"-DNMPC_K3_N={shape[0]}", f"-DNMPC_K3_NU={shape[1]}", *_k3_flags(g)]
 
 
 def nvcc_flags(m: int, k3: K3Geometry | None = None, k5: K5Geometry | None = None,
@@ -346,28 +454,22 @@ def nvcc_flags(m: int, k3: K3Geometry | None = None, k5: K5Geometry | None = Non
     """The -D flags that set the staged kernels' geometry in csrc/staged.cu
     (the solver's picks where not given)."""
     k3 = k3_geometry(m) if k3 is None else k3
-    k5 = K5_GEOMETRY[m] if k5 is None else k5
-    k4 = K4_GEOMETRY[m] if k4 is None else k4
-    k6 = K6_GEOMETRY[m] if k6 is None else k6
+    k5 = k5_geometry(m) if k5 is None else k5
+    k4 = k4_geometry(m) if k4 is None else k4
+    k6 = k6_geometry(m) if k6 is None else k6
     check_k3(m, k3)
     check_k4(m, k4)
     check_k6(m, k6)
-    return [f"-DNMPC_K3_S={k3.S}", f"-DNMPC_K3_D={k3.D}", f"-DNMPC_K3_T={k3.T}",
-            f"-DNMPC_K3_P={k3.P}", f"-DNMPC_K3_SPILL={int(k3.spill)}",
-            f"-DNMPC_K5_S={k5.S}", f"-DNMPC_K5_D={k5.D}", f"-DNMPC_K4_S={k4.S}",
-            f"-DNMPC_K4_W={k4.W}", f"-DNMPC_K6_S={k6.S}", f"-DNMPC_K6_D={k6.D}",
-            f"-DNMPC_K6_T={k6.T}"]
+    return [*_k3_flags(k3), f"-DNMPC_K5_S={k5.S}", f"-DNMPC_K5_D={k5.D}",
+            f"-DNMPC_K4_S={k4.S}", f"-DNMPC_K4_W={k4.W}", f"-DNMPC_K6_S={k6.S}",
+            f"-DNMPC_K6_D={k6.D}", f"-DNMPC_K6_T={k6.T}"]
 
 
-def _k3_max_n(nu: int) -> int:
+def k3_block_max_n(nu: int) -> int:
     """The largest n whose block-design block at (n, nu) fits a block's
-    shared memory."""
+    shared memory (the ring of two beside the slot); past it, or past nu =
+    K3_BLOCK_MAX_NU, k3_rule takes the wide design."""
     n = K3_TILE_N
-    while k3_layout((n + 1, nu), _K3_BLOCK)["smem_bytes"] <= SMEM_BLOCK_MAX:
+    while _fits((n + 1, nu), _K3_BLOCK):
         n += 1
     return n
-
-
-# the stage shapes K3 takes: any (n, nu) up to (80, 32)
-K3_MAX_NU = 32
-K3_MAX_N = _k3_max_n(K3_MAX_NU)

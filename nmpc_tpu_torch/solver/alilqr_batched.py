@@ -18,8 +18,10 @@ tensors:
   front of the batch between outer steps (results bit for bit those
   without).
 * `_solve_lanes` (sweep "seq" on the same class where cfg.mega=False or
-  mega_fits refuses): the staged path; on the card K3-K6 take m <= 16
-  (cuda_build.MAX_ROBOTS) and raise NotImplementedError above. Each inner
+  mega_fits refuses, as it does at every m > 16): the staged path; on the
+  card K3-K6 take any m whose K4 block of one scenario fits the card's
+  shared memory (m <= 108, ops/rollout.unsupported; K3 takes any stage
+  shape) and raise NotImplementedError beyond. Each inner
   iteration is four launches, K4 expansions, K3 Riccati sweep, K5
   line-search merits and K6 accepted rollout, on lane-major data ([N, rows,
   B]) with no transposes inside the inner loop; the AL update between outer

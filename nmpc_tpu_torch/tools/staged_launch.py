@@ -5,12 +5,15 @@ designs.
 
 For each robot count M (default: every one of CANDIDATES) builds
 csrc/staged.cu once per geometry of a candidate list and the first designs
-(csrc/staged_first.cu), and times the kernels of every variant and of the
-first designs at the stage inputs of `inputs(M)`: a random mid-solve state
-of SCENARIOS[M] (obstacle_scenario_3 at N=100 for one robot, path (b); N=10
-otherwise; past the registry, scenarios/robot_counts.py's problem: the
-circle at M = 7 and 9, the widened crossing from 11) at B=32768 (16384 from
-m=7). `k35` (CANDIDATES: K3's S, D, T, P
+(csrc/staged_first.cu, up to sixteen robots), and times the kernels of
+every variant and of the first designs at the stage inputs of `inputs(M)`:
+a random mid-solve state of SCENARIOS[M] (obstacle_scenario_3 at N=100 for
+one robot, path (b); N=10 otherwise; past the registry,
+scenarios/robot_counts.py's problem: the circle at M = 7 and 9, the widened
+crossing from 11) at B=32768 (16384 from m=7, 4096 past sixteen robots).
+Past sixteen robots, where no first design is built, every variant is held
+bit for bit to the rule's pick (variant 0): the variants differ in tiles
+and threads, never in a sum's order. `k35` (CANDIDATES: K3's S, D, T, P
 and spill with K5's S and D, ops/staged_tiles.py) times K3 on K4's
 expansions there and K5 on K3's gains with the solver's line-search grid;
 `k46` (CANDIDATES46: K4's S and W with K6's S, D and T) times K4 on the
@@ -76,6 +79,15 @@ CANDIDATES = {
     16: [(G3(1, 2, 256, 1), G5(8, 2)), (G3(1, 2, 128, 1), G5(8, 2)),
          (G3(1, 2, 512, 1), G5(8, 2))],
     **{m: [(G3(1, 2, 256, 1), G5(8, 2))] for m in (11, 13, 14, 15)},
+    # past sixteen robots K3's wide design (ops/staged_tiles.py::k3_rule)
+    # and K5's tile by k5_rule, first; a ring of one, other block sizes and
+    # the spilled slot beside them
+    20: [(G3(1, 2, 256, 1, wide=True), G5(8, 2)), (G3(1, 1, 256, 1, wide=True), G5(4, 2)),
+         (G3(1, 2, 128, 1, wide=True), G5(8, 2)), (G3(1, 2, 512, 1, wide=True), G5(8, 2))],
+    24: [(G3(1, 2, 256, 1, wide=True), G5(4, 2)), (G3(1, 1, 256, 1, wide=True), G5(2, 2)),
+         (G3(1, 2, 512, 1, wide=True), G5(4, 2))],
+    32: [(G3(1, 1, 256, 1, wide=True), G5(2, 2)), (G3(1, 2, 256, 1, True, wide=True), G5(1, 2)),
+         (G3(1, 1, 512, 1, wide=True), G5(2, 2))],
 }
 # (K4, K6) geometries per m, the solver's pick first
 CANDIDATES46 = {
@@ -104,6 +116,9 @@ CANDIDATES46 = {
     16: [(G4(16, 4), G6(8, 2, 16)), (G4(16, 8), G6(8, 2, 8)), (G4(8, 4), G6(8, 2, 32)),
          (G4(8, 2), G6(8, 3, 16))],
     **{m: [(G4(16, 4), G6(8, 2, 16))] for m in (11, 13, 14, 15)},
+    20: [(G4(16, 4), G6(8, 2, 16)), (G4(8, 4), G6(8, 2, 32)), (G4(16, 8), G6(4, 2, 16))],
+    24: [(G4(8, 4), G6(4, 2, 16)), (G4(8, 8), G6(4, 2, 32)), (G4(4, 4), G6(2, 2, 32))],
+    32: [(G4(8, 4), G6(4, 2, 16)), (G4(8, 8), G6(4, 2, 32)), (G4(4, 4), G6(2, 2, 32))],
 }
 
 
@@ -140,7 +155,7 @@ def linesearch_costs_first(ocp, x0_l, X_l, U_l, kff_l, Kfb_l, xref_l, lam_l, mu,
 
 
 def batch_size(m: int) -> int:
-    return 32768 if m <= 6 else 16384
+    return 32768 if m <= 6 else 16384 if m <= cuda_build.MEGA_MAX_ROBOTS else 4096
 
 
 def problem(m: int):
@@ -218,20 +233,22 @@ def _launches(d: dict, alphas) -> dict:
 
 def sweep(m: int, libs: list, alphas, kernels=("K3", "K5")) -> tuple:
     """({(kernel, variant): [ms, ms]}, every variant bit for bit the first
-    design) at inputs(m); libs: the variants' libraries, in candidate
-    order."""
+    design, or past sixteen robots variant 0) at inputs(m); libs: the
+    variants' libraries, in candidate order."""
     from nmpc_tpu_torch.tools.exp_mega_phases import time_in_turns
 
     launch = _launches(inputs(m), alphas)
-    first = cuda_build.load_first(m)
-    runs = {(k, "first"): functools.partial(launch[k], first, True) for k in kernels}
+    runs, ref = {}, 0
+    if m <= cuda_build.MEGA_MAX_ROBOTS:
+        first, ref = cuda_build.load_first(m), "first"
+        runs = {(k, "first"): functools.partial(launch[k], first, True) for k in kernels}
     for i, lib in enumerate(libs):
         for k in kernels:
             runs[k, i] = functools.partial(launch[k], lib)
     outs = {k: f() for k, f in runs.items()}
     tup = lambda o: o if isinstance(o, tuple) else (o,)  # noqa: E731
     same = all(torch.equal(a, b) for (kern, _), o in outs.items()
-               for a, b in zip(tup(o), tup(outs[kern, "first"])))
+               for a, b in zip(tup(o), tup(outs[kern, ref])))
     del outs
     order = list(runs) + list(runs)[::-1]
     repeated = {k: functools.partial(_repeat, f) for k, f in runs.items()}
@@ -267,13 +284,16 @@ def main(argv=None) -> int:
     keys = [(m, fam, i) for m in robots for fam in families for i in range(len(cands[fam][m]))]
     with ThreadPoolExecutor(max_workers=len(keys) + len(robots)) as pool:
         built = {key: pool.submit(variant, *key) for key in keys}
-        firsts = [pool.submit(cuda_build.load_first, m) for m in robots]
+        firsts = [pool.submit(cuda_build.load_first, m) for m in robots
+                  if m <= cuda_build.MEGA_MAX_ROBOTS]
         built = {key: f.result() for key, f in built.items()}
         for f in firsts:
             f.result()
     print(f"{torch.cuda.get_device_name(0)} [{card()}]")
     for m in robots:
-        print(f"m={m} first design ptxas {staged_ptxas(cuda_build.first_build_info[m]['ptxas'])}")
+        if m in cuda_build.first_build_info:
+            print(f"m={m} first design ptxas "
+                  f"{staged_ptxas(cuda_build.first_build_info[m]['ptxas'])}")
         for fam in families:
             kernels = ("K3", "K5") if fam == "k35" else ("K4", "K6")
             for i, geoms in enumerate(cands[fam][m]):
@@ -292,8 +312,9 @@ def main(argv=None) -> int:
                 print(f"m={m} {fam} variant {i}: {what}; ptxas {ptx}")
             times, same = sweep(m, [built[m, fam, i][0] for i in range(len(cands[fam][m]))],
                                 alphas, kernels)
-            print(f"m={m} {problem(m)[1]} B={batch_size(m)} {fam}: every variant bit for bit the "
-                  f"first design: {'yes' if same else 'NO'}")
+            ref = "the first design" if m <= cuda_build.MEGA_MAX_ROBOTS else "variant 0"
+            print(f"m={m} {problem(m)[1]} B={batch_size(m)} {fam}: every variant bit for bit "
+                  f"{ref}: {'yes' if same else 'NO'}")
             rows = sorted(summarize(times).items(), key=lambda kv: (kv[0][0], kv[1][1]))
             for (k, v), (lo, med) in rows:
                 print(f"  {k} variant {v}: min {lo:.3f} ms, median {med:.3f} ms")

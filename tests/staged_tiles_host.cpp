@@ -5,7 +5,9 @@
 //   g++ -std=c++20 -O1 -shared -fPIC -pthread -ffp-contract=off
 //       -DNMPC_NR=<m> -DNMPC_K3_S=... -I<csrc> staged_tiles_host.cpp
 // With -DNMPC_K3_N=<n> -DNMPC_K3_NU=<nu> (and K3's geometry at that shape,
-// staged_tiles.k3_shape_flags) K3 runs at that stage shape instead.
+// staged_tiles.k3_shape_flags) K3 runs at that stage shape instead;
+// -DNMPC_K3_WIDE=1 builds K3's wide design (its ring of D tiles of A and B,
+// D = 0 reading them from the arrays, the slot in `scratch` with spill).
 // A block runs as S T (K3, K6), A S (K5) or 32 W (K4) lanes (tests/
 // host_lanes.h: coroutines in the calling thread) with a barrier for
 // __syncthreads (and one for warp 0's __syncwarp in K3's block design); the
@@ -40,8 +42,11 @@ constexpr bool kK3First = false;
 constexpr int kK3n = 3 * NMPC_NR, kK3nu = 2 * NMPC_NR;
 constexpr bool kK3First = true;
 #endif
+#ifndef NMPC_K3_WIDE
+#define NMPC_K3_WIDE 0
+#endif
 using K3G = nmpc::K3Geom<kK3n, kK3nu, NMPC_K3_S, NMPC_K3_D, NMPC_K3_T, NMPC_K3_P,
-                         NMPC_K3_SPILL != 0>;
+                         NMPC_K3_SPILL != 0, NMPC_K3_WIDE != 0>;
 using K5G = nmpc::K5Geom<NMPC_NR, NMPC_K5_S, NMPC_K5_D>;
 using K4G = nmpc::K4Geom<NMPC_NR, NMPC_K4_S, NMPC_K4_W>;
 using K6G = nmpc::K6Geom<NMPC_NR, NMPC_K6_S, NMPC_K6_D, NMPC_K6_T>;
@@ -72,6 +77,8 @@ void host_k3_geometry(int* out) {
                     static_cast<int>(K3G::smem_floats * sizeof(float)), K3G::scratch_floats};
   for (int i = 0; i < 8; ++i) out[i] = g[i];
 }
+
+int host_k3_wide() { return K3G::kWide; }
 
 void host_k5_geometry(int rows, int prm_size, int* out) {
   out[0] = K5G::S;

@@ -307,18 +307,28 @@ def test_k1_and_k2_past_the_registry_match_plain(dev, m):
 
 
 def test_staged_route_past_ten_robots_raises(dev):
-    """Past 16 robots the staged route (mega=False) raises
-    NotImplementedError naming the kernels it lacks and their ceiling, and
-    so does the default route (K1); at m = 12 and 16 the staged route runs
-    (test_staged_kernels_past_ten_robots_match_plain)."""
+    """K1 and K2 refuse m = 17 (their ceiling, cuda_build.MEGA_MAX_ROBOTS),
+    and the default route takes the staged route there; the staged route
+    raises NotImplementedError, naming the shared bytes, only where K4's
+    block of one scenario overflows the card (m = 109: the Hessian's
+    position block of its output tile), before it builds anything. At m =
+    20, 24 and 32 it runs (test_staged_kernels_past_sixteen_robots_match_plain)."""
     from nmpc_tpu_torch.scenarios import robot_counts
+    from nmpc_tpu_torch.solver.alilqr_batched import route
 
+    cfg = ALILQRConfig(n_outer=1, n_inner=2)
     o17 = robot_counts.make(17, device=dev, N=10)
     ob17 = batch_ocp(o17, o17.x0[None].repeat(4, 1))
-    with pytest.raises(NotImplementedError, match="K3-K6 are built for m <= 16"):
-        solve_batched(ob17, cfg=ALILQRConfig(n_outer=1, n_inner=2, mega=False))
+    assert route(ob17, cfg) == "staged"
+    kw = dict(dtype=torch.float32, device=dev)
     with pytest.raises(NotImplementedError, match="m=17"):
-        solve_batched(ob17, cfg=ALILQRConfig(n_outer=1, n_inner=2))
+        megasolve.inner_solve_fused(ob17, ob17.x0, ob17.xref, torch.zeros((4, 10, o17.n_con), **kw),
+                                    torch.full((4,), 10.0, **kw),
+                                    torch.zeros((4, 10, o17.nu), **kw), cfg)
+    o109 = robot_counts.make(109, device=dev, N=2)
+    ob109 = batch_ocp(o109, o109.x0[None].repeat(2, 1))
+    with pytest.raises(NotImplementedError, match="K4 at m=109"):
+        solve_batched(ob109, cfg=dataclasses.replace(cfg, mega=False))
 
 
 @pytest.mark.parametrize("m", [12, 16])
@@ -368,6 +378,92 @@ def test_riccati_block_design_at_wide_shapes_matches_plain(dev, shape):
         for i, (a, w, atol) in enumerate(zip(got, riccati_plain(exp, 1e-6), KC.K3_ATOL)):
             KC.hold(v, f"K3 {shape} output {i}", a, w, atol)
         assert v.units == B and v.n_widened == 0 and v.n_diverged == 0
+
+
+@pytest.mark.parametrize("m", [20, 24, 32])
+def test_staged_kernels_past_sixteen_robots_match_plain(dev, m):
+    """K3 (its wide design), K4, K5 and K6 at m = 20, 24 and 32 (the
+    antipodal circle, N=5, B=37: a ragged last tile of every tile size; its
+    robots stay well inside the arena, so no rollout diverges) against their
+    plain versions as test_staged_kernels_past_ten_robots_match_plain holds
+    them, one launch each; and the staged route's solve through them on the
+    default config (which takes the staged route past sixteen robots), no
+    K1 or K2 launched."""
+    from nmpc_tpu_torch.scenarios import robot_counts
+    from nmpc_tpu_torch.solver.alilqr_batched import route
+
+    ocp = P.make_ocp(**robot_counts.circle(m, N=5), device=dev)
+    assert staged_tiles.k3_geometry(m).wide
+    L = _lanes(ocp, 37, dev)
+    cuda_build.reset_launch_counts()
+    verdicts, _ = staged_vs_plain(ocp, L["X"], L["U"], L["xref"], L["lam"], L["mu"], None,
+                                  (0.0, 1.0, 0.5, 0.25, 0.1), L["alpha"], 1e-6,
+                                  gains=(L["kff"], L["Kfb"]))
+    for k, v in verdicts.items():
+        assert v.units > 0 and v.n_diverged == 0 and v.n_widened == 0, k
+    c = cuda_build.launch_counts
+    assert (c["expansions_fused"], c["riccati_lanes"], c["linesearch_costs_lanes"],
+            c["rollout_alpha_lanes"]) == (1, 1, 1, 1)
+    g = torch.Generator(device=dev).manual_seed(m)
+    ob = batch_ocp(ocp, ocp.x0[None] + 0.05 * torch.randn((16, ocp.nx), generator=g, device=dev))
+    cfg = ALILQRConfig(n_outer=2, n_inner=4)
+    assert route(ob, cfg) == "staged"
+    cuda_build.reset_launch_counts()
+    res = solve_batched(ob, cfg=cfg)
+    c = dict(cuda_build.launch_counts)
+    assert c["expansions_fused"] == c["riccati_lanes"] == c["linesearch_costs_lanes"] > 0
+    assert c["rollout_alpha_lanes"] == c["riccati_lanes"] + 1
+    assert c["inner_solve_fused"] == c["al_update_lanes"] == 0
+    assert torch.isfinite(res.cost).all() and torch.isfinite(res.X).all()
+
+
+def test_k5_k6_direct_reads_are_the_ring_design(dev):
+    """K5 and K6 reading their stage rows straight from device memory (D =
+    0, the geometry of m >= 64), built at m = 20 (cuda_build.
+    load_staged_variant), against the solver library's K5 and K6 (rings of
+    two tiles of 8 scenarios) bit for bit on the same inputs (B = 37), and
+    against plain."""
+    from nmpc_tpu_torch.scenarios import robot_counts
+
+    m = 20
+    ocp = P.make_ocp(**robot_counts.circle(m, N=5), device=dev)
+    L = _lanes(ocp, 37, dev)
+    lib = cuda_build.load_staged_variant(m, k5=staged_tiles.K5Geometry(8, 0),
+                                         k6=staged_tiles.K6Geometry(8, 0, 16))[0]
+    args = (L["x0"], L["X"], L["U"], L["kff"], L["Kfb"], L["xref"], L["lam"], L["mu"])
+    alphas = (0.0, 1.0, 0.5, 0.25, 0.1)
+    got5 = R.costs_launch(ocp, *args, alphas, None, lib)
+    assert torch.equal(got5, R.linesearch_costs_lanes(ocp, *args, alphas))
+    torch.testing.assert_close(got5, R.linesearch_costs_plain(ocp, *args, alphas),
+                               rtol=1e-4, atol=1e-3)
+    k6 = (*args[:5], L["alpha"])
+    got6 = R.rollout_launch(ocp, *k6, lib)
+    assert all(torch.equal(a, b) for a, b in zip(got6, R.rollout_alpha_lanes(ocp, *k6)))
+    assert all(torch.isfinite(t).all() for t in got6)
+
+
+@pytest.mark.parametrize("shape", [(81, 33), (96, 64), (120, 40), (150, 100), (210, 100)])
+def test_riccati_wide_design_matches_plain(dev, shape):
+    """K3's wide design at chip_smoke.py phase 40's stage shapes: nu > 32
+    (a Cholesky across the block) with a ring of two A-and-B tiles (81, 33)
+    and of one (96, 64), the slot in device memory (120, 40), (150, 100),
+    and A and B read from device memory (210, 100), each from its own
+    riccati_shape.cu library, against plain on random well-posed stage
+    blocks (B = 33, N=3) at K3's tolerances."""
+    from nmpc_tpu_torch.ops import kernel_check as KC
+    from nmpc_tpu_torch.ops.riccati import riccati_plain
+
+    g3 = staged_tiles.k3_geometry(shape)
+    assert g3.wide
+    exp = KC.k3_inputs(*shape, 33, 3, torch.Generator(device=dev).manual_seed(sum(shape)))
+    got = riccati_lanes(exp, 1e-6)
+    v = KC.Verdict()
+    for i, (a, w, atol) in enumerate(zip(got, riccati_plain(exp, 1e-6), KC.K3_ATOL)):
+        KC.hold(v, f"K3 {shape} output {i}", a, w, atol)
+    assert v.units == 33 and v.n_widened == 0 and v.n_diverged == 0
+    lib = cuda_build.load_k3_shape(*shape)
+    assert cuda_build.k3_geometry(lib)["wide"] == 1
+    assert cuda_build.k3_geometry(lib)["D"] == g3.D
 
 
 def test_k1_phase_probes_count_every_phase(dev):
@@ -580,16 +676,18 @@ def test_staged_wrappers_refuse_what_the_kernels_do_not_cover(dev):
                               L["alpha"])
     with pytest.raises(ValueError):
         expansions_fused(ocp, L["X"], L["U"], L["xref"], L["lam"][:, :3], L["mu"])
-    seventeen = dataclasses.replace(ocp, m=17)
-    with pytest.raises(NotImplementedError, match="m=17"):
-        R.linesearch_costs_lanes(seventeen, L["x0"], L["X"], L["U"], L["kff"], L["Kfb"],
+    # K4's block of one scenario overflows the card's shared memory at m=109
+    too_many = dataclasses.replace(ocp, m=109)
+    with pytest.raises(NotImplementedError, match="m=109"):
+        R.linesearch_costs_lanes(too_many, L["x0"], L["X"], L["U"], L["kff"], L["Kfb"],
                                  L["xref"], L["lam"], L["mu"], (0.0, 1.0))
-    # K3 takes any stage shape up to its block design's limit (80, 32)
-    for n, nu in ((81, 4), (4, 33)):
+    # K3 takes every stage shape with n, nu >= 1 (its wide design past the
+    # block design's); an empty one raises
+    for n, nu in ((0, 4), (4, 0)):
         bad = tuple(torch.zeros(s, device=dev) for s in (
             (5, n, n, 64), (5, n, nu, 64), (5, n, 64), (5, nu, 64), (5, n, n, 64),
             (5, nu, nu, 64), (5, nu, n, 64)))
-        with pytest.raises(NotImplementedError, match="up to n=80, nu=32"):
+        with pytest.raises(NotImplementedError, match="n >= 1 and nu >= 1"):
             riccati_lanes(bad)
 
 
@@ -935,10 +1033,10 @@ def test_hybrid_route_on_the_card_launches_k3(dev):
     ref = solve_batched(ob.to("cpu"), cfg=cfg)
     assert abs(float(res.cost.mean().cpu() / ref.cost.mean()) - 1.0) <= 1e-3
     assert torch.equal(res.converged.cpu(), ref.converged)
-    with pytest.raises(NotImplementedError, match="up to n=30"):
+    with pytest.raises(NotImplementedError, match="n >= 1 and nu >= 1"):
         riccati_lanes(tuple(torch.zeros(s, device=dev) for s in (
-            (5, 14, 14, 8), (5, 14, 21, 8), (5, 14, 8), (5, 21, 8), (5, 14, 14, 8),
-            (5, 21, 21, 8), (5, 21, 14, 8))))
+            (5, 14, 14, 8), (5, 14, 0, 8), (5, 14, 8), (5, 0, 8), (5, 14, 14, 8),
+            (5, 0, 0, 8), (5, 0, 14, 8))))
 
 
 # ---------------------------------------------------------------------------

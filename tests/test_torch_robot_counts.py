@@ -107,34 +107,37 @@ def test_route_at_robot_counts_past_the_registry(m):
 
 
 def test_nothing_past_the_ceiling():
-    """m <= 16 takes the megakernel route and solves on the CPU; past 16
-    `load` (and the staged kernels' first designs and sweep variants)
-    raises naming the ceiling before it builds anything, K1 refuses the
-    problem and the route is the staged one, whose kernels (K3-K6, which
-    take every m <= 16) refuse it on the card too; on the CPU the plain
-    versions run."""
+    """m <= 16 takes the megakernel route and solves on the CPU; past 16 K1
+    and K2 refuse the problem (cuda_build.MEGA_MAX_ROBOTS), and so do K1's
+    variants and the staged kernels' first designs (the A/B baselines),
+    raising naming the ceiling before they build anything; the route is the
+    staged one, whose kernels (K3-K6) take the problem on the card up to
+    the robot count whose K4 block of one scenario overflows the card's
+    shared memory (m = 109: its Hessian's position block alone is 4 m^2
+    floats), naming the bytes; on the CPU the plain versions run."""
     for m in range(1, 17):
         assert route(wide(m)[1], ALILQRConfig()) == "mega", m
     t = wide(16)[1]
     ob = batch_ocp(t, t.x0[None].repeat(2, 1))
     res = solve_batched(ob, cfg=ALILQRConfig(n_outer=1, n_inner=2))
     assert torch.isfinite(res.cost).all() and res.U.shape == (2, 10, 32)
-    with pytest.raises(NotImplementedError, match="16"):
-        cuda_build.load(17)
+    assert cuda_build.MEGA_MAX_ROBOTS == 16
     for m in (0, 17):
         with pytest.raises(NotImplementedError, match="16"):
             cuda_build.load_k1_variant(m)
     with pytest.raises(NotImplementedError, match="16"):
         cuda_build.load_first(17)
-    with pytest.raises(NotImplementedError, match="16"):
-        cuda_build.load_staged_variant(17)
+    for load in (cuda_build.load, cuda_build.load_staged_variant):
+        with pytest.raises(NotImplementedError, match="m >= 1"):
+            load(0)
     t17 = wide(17)[1]
     assert "m=17" in megasolve.cuda_unsupported(t17, ALILQRConfig())
     assert not megasolve.mega_fits(t17)
     assert route(t17, ALILQRConfig()) == "staged"
-    assert "K3-K6" in rollout.unsupported(t17) and "m <= 16" in rollout.unsupported(t17)
-    for m in (9, 12, 16):
-        assert rollout.unsupported(wide(m)[1]) is None
+    for m in (9, 12, 16, 17, 20, 24, 32, 63, 64, 108):
+        assert rollout.unsupported(robot_counts.make(m, device="cpu", N=2)) is None, m
+    why = rollout.unsupported(robot_counts.make(109, device="cpu", N=2))
+    assert "K4 at m=109" in why and "shared memory" in why
 
 
 def _starts(o, B=8, seed=0):

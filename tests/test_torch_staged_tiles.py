@@ -275,26 +275,38 @@ def test_host_riccati_tiles_at_user_model_shapes_match_plain(host_libs, shape, B
 
 def test_k3_rule_gives_the_picks_and_bounds_the_shapes():
     """k3_rule reproduces every pick of K3_GEOMETRY (the sweep's, and the
-    ray shape's), takes the team design up to (30, 20) and the block design
-    past it, fits every shape of its range in a block, and refuses shapes
-    beyond it, naming the limit: (80, 32), where the next n would overflow
-    the block at a ring of two and the next nu the one warp of the
-    Cholesky."""
+    ray shape's), takes the team design up to (30, 20), the block design
+    past it up to nu = 32 and n = 80 there (k3_block_max_n: the next n
+    would overflow the block at a ring of two), and the wide design past
+    those, whose block fits at every shape (its ring of two, one or no
+    A-and-B tiles, its slot spilled where it does not fit); it refuses only
+    empty shapes."""
     for key, g in ST.K3_GEOMETRY.items():
         assert ST.k3_rule(*ST.k3_dims(key)) == g, key
     for key in ST.K3_SHAPES:
         assert ST.k3_layout(key)["blocks_per_sm"] == ST.K3_BLOCKS_PER_SM[key], key
-    assert (ST.K3_MAX_N, ST.K3_MAX_NU) == (80, 32)
-    for n in range(1, ST.K3_MAX_N + 1):
-        for nu in range(1, ST.K3_MAX_NU + 1):
+    assert (ST.k3_block_max_n(ST.K3_BLOCK_MAX_NU), ST.K3_BLOCK_MAX_NU) == (80, 32)
+    for n in range(1, 81):
+        for nu in range(1, 33):
             g = ST.k3_rule(n, nu)
             assert (g.S == 1) == (n > ST.K3_TILE_N or nu > ST.K3_TILE_NU), (n, nu)
+            assert not g.wide, (n, nu)
             lay = ST.k3_layout((n, nu))
             assert lay["smem_bytes"] <= ST.SMEM_BLOCK_MAX and lay["threads"] <= 1024, (n, nu)
-    g = ST.k3_rule(ST.K3_MAX_N, ST.K3_MAX_NU)
-    assert ST.k3_layout((ST.K3_MAX_N + 1, ST.K3_MAX_NU), g)["smem_bytes"] > ST.SMEM_BLOCK_MAX
-    for bad in ((ST.K3_MAX_N + 1, 2), (3, ST.K3_MAX_NU + 1), (0, 1)):
-        with pytest.raises(NotImplementedError, match="up to n=80, nu=32"):
+    g = ST.k3_rule(80, 32)
+    assert ST.k3_layout((81, 32), g)["smem_bytes"] > ST.SMEM_BLOCK_MAX
+    picks = {}
+    for n, nu in ((81, 32), (40, 33), (81, 33), (96, 64), (120, 40), (150, 100), (210, 100),
+                  (400, 300)):
+        g = ST.k3_rule(n, nu)
+        assert g.wide and (g.S, g.T, g.P) == (1, 256, 1), (n, nu)
+        assert ST.k3_layout((n, nu))["smem_bytes"] <= ST.SMEM_BLOCK_MAX, (n, nu)
+        picks[n, nu] = (g.D, g.spill)
+    assert picks == {(81, 32): (2, False), (40, 33): (2, False), (81, 33): (2, False),
+                     (96, 64): (1, False), (120, 40): (2, True), (150, 100): (1, True),
+                     (210, 100): (0, True), (400, 300): (0, True)}
+    for bad in ((0, 2), (3, 0), (0, 1)):
+        with pytest.raises(NotImplementedError, match="n >= 1 and nu >= 1"):
             ST.k3_rule(*bad)
     assert ST.k3_shape_flags((2, 1))[:2] == ["-DNMPC_K3_N=2", "-DNMPC_K3_NU=1"]
     assert ST.k3_shape_flags((64, 32))[2:] == ["-DNMPC_K3_S=1", "-DNMPC_K3_D=2", "-DNMPC_K3_T=256",
@@ -435,16 +447,16 @@ def test_staged_launch_sweeps_the_picks_and_reads_the_report():
     report parser finds K3's and K5's lines; without a card it refuses."""
     from nmpc_tpu_torch.tools import staged_launch as SL
 
-    assert set(SL.CANDIDATES) == set(SL.CANDIDATES46) == set(ST.K4_GEOMETRY)
+    assert set(SL.CANDIDATES) == set(SL.CANDIDATES46) == set(ST.K4_GEOMETRY) | {20, 24, 32}
     assert set(SL.SCENARIOS) == set(ROBOT_COUNTS)
     assert set(ST.K4_GEOMETRY) - set(ROBOT_COUNTS) == {7, 9, *range(11, 17)}
     for m, cands in SL.CANDIDATES.items():
-        assert cands[0] == (ST.K3_GEOMETRY[m], ST.K5_GEOMETRY[m])
+        assert cands[0] == (ST.k3_geometry(m), ST.k5_geometry(m))
         for k3, k5 in cands:
             assert ST.k3_layout(m, k3)["smem_bytes"] <= ST.SMEM_BLOCK_MAX
             assert ST.k5_layout(m, 32, 100, len(ALPHAS), k5)["threads"] <= ST.k5_threads(m)
     for m, cands in SL.CANDIDATES46.items():
-        assert cands[0] == (ST.K4_GEOMETRY[m], ST.K6_GEOMETRY[m])
+        assert cands[0] == (ST.k4_geometry(m), ST.k6_geometry(m))
         assert len(set(cands)) == len(cands)
         for k4, k6 in cands:
             assert ST.k4_layout(m, ST.k4_rows(m, m > 1, 6, 0), 200, k4)["smem_bytes"] <= ST.SMEM_BLOCK_MAX
