@@ -230,6 +230,19 @@ Phases:
                                       100) (nu > 32, a ring of one, the
                                       slot in device memory) vs plain,
                                       timed
+                                   41 no shared-memory ceiling: m = 112's
+                                      library (K4's and K5's device-memory
+                                      forms alone) and every library's
+                                      device-memory forms (ptxas); the
+                                      m = 112 crossing B=64, 16 robots
+                                      among 200 pillars B=1024, 20 among
+                                      64 on the hybrid route B=256, one
+                                      robot with 150 moving obstacles
+                                      B=1024: the forms launched, the
+                                      converged share, K3-K6 vs plain
+                                      (B <= 64, 8 at m = 112), timed
+                                      against the bound; both forms bit
+                                      for bit where both take a problem
 
 Phases 5, 7, 8, 9, 20, 22, 25, 30 and 31 re-solve the first scenarios with the plain path on
 the CPU; phase 37 reruns its loop there. Any failed check raises, so the exit code is
@@ -269,7 +282,9 @@ MOV_B = 4096
 # loop's steps in phase 28
 LIDAR_B = 4096
 LIDAR_CROSS_B = 8
-LIDAR_STEPS = 15
+LIDAR_STEPS = 8
+# phase 16's batch held scenario by scenario against the per-scenario solve
+PER_SCENARIO_B = 32
 # K3 at the stage shapes other than (3m, 2m) (csrc/riccati_shape.cu), as
 # PERF.md records its line (regs, stack, spill stores, spill loads, dynamic
 # shared bytes a block)
@@ -339,10 +354,12 @@ FIRST_STAGED_PTXAS = {1: {"K3": (32, 176, 0, 0), "K4": (64, 80, 0, 0), "K5": (72
 K1_TEAM_PTXAS = {1: {"K1 team": (101, 32, 0, 0), "K1 team obs": (128, 48, 12, 12)},
                  2: {"K1 team": (128, 64, 56, 64), "K1 team obs": (128, 200, 312, 328)}}
 KERNELS = {"inner_solve": "K1", "inner_team": "K1 team", "al_update": "K2", "riccati": "K3",
+           "expansions_device": "K4 device", "linesearch_costs_device": "K5 device",
            "expansions": "K4", "linesearch_costs": "K5", "rollout_alpha": "K6"}
-# the solver library's kernels: K1-K6, and K1's and K2's obstacle variant
-# (the instantiations with the template flag kObs = true); at m <= 2 also
-# K1's team design in both instantiations
+# the solver library's kernels: K1-K6, K1's and K2's obstacle variant (the
+# instantiations with the template flag kObs = true), K4's and K5's
+# device-memory forms; at m <= 2 also K1's team design in both
+# instantiations
 SOLVER_KERNELS = (set(KERNELS.values()) - {"K1 team"}) | {"K1 obs", "K2 obs"}
 TEAM_KERNELS = {"K1 team", "K1 team obs"}
 
@@ -350,7 +367,8 @@ TEAM_KERNELS = {"K1 team", "K1 team obs"}
 def kernel_name(line: str) -> str:
     """The kernel of a ptxas 'Compiling entry function' line: K1-K6, 'K1
     team' (K1's team design), 'K1 obs' / 'K2 obs' / 'K1 team obs' for the
-    obstacle variant, else '?'."""
+    obstacle variant, 'K4 device' / 'K5 device' for K4's and K5's
+    device-memory forms, else '?'."""
     name = next((k for key, k in KERNELS.items() if key in line), "?")
     return f"{name} obs" if name in ("K1", "K2", "K1 team") and "Lb1E" in line else name
 
@@ -582,7 +600,7 @@ def hold_at_loop_shape(tag: str, o, w, cfg) -> None:
 
 
 def hold_staged_kernels(tag: str, ocp_b, r, cfg, gen, first: bool = True,
-                        diverged: float = 0.01) -> list:
+                        diverged: float = 0.01, states=("i", "ii"), plain_ms=None) -> list:
     """K3-K6 against their plain versions (staged_vs_plain) and, with
     `first`, their first designs (first_vs_tiles) on the last iterate r of a
     staged solve of ocp_b: (i) with fresh multipliers of the CPU tests' kind
@@ -591,8 +609,10 @@ def hold_staged_kernels(tag: str, ocp_b, r, cfg, gen, first: bool = True,
     the solve's own multipliers and penalty weights (mu up to 1e4), where K3
     and K6 may need it. At most a share `diverged` of the units (1%; their
     f64 rollouts leave the arena, kernel_check's rule) may diverge at
-    either; the first designs bit for bit. Returns [(state, verdicts,
-    calls, first-design calls or None)]."""
+    either; the first designs bit for bit. `states`: which of (i) and (ii)
+    run; plain_ms, a dict: each plain version's ms of its call at state
+    (ii) (kernel_check.staged_vs_plain). Returns [(state, verdicts, calls,
+    first-design calls or None)]."""
     import torch
 
     from nmpc_tpu_torch.ocp import problem as P
@@ -605,7 +625,10 @@ def hold_staged_kernels(tag: str, ocp_b, r, cfg, gen, first: bool = True,
         torch.randint(0, 2, (Bp,), generator=gen, device=dev)]
     out = []
     for state, lam_s, mu_s in (("i", lam_i, mu_i), ("ii", r.lam, r.mu)):
-        v, calls = staged_vs_plain(ocp_b, r.X, r.U, lam_s, mu_s, cfg)
+        if state not in states:
+            continue
+        v, calls = staged_vs_plain(ocp_b, r.X, r.U, lam_s, mu_s, cfg,
+                                   plain_ms if state == "ii" else None)
         off, ab = (first_vs_tiles(ocp_b, r.X, r.U, lam_s, mu_s, cfg) if first
                    else ({"K3": 0, "K4": 0, "K5": 0, "K6": 0}, None))
         log(f"{tag} B={Bp} N={ocp_b.N}, state ({state}): "
@@ -679,7 +702,7 @@ def decentralized_round(make_ocp, dev, gen, B: int):
                                mov_obs=plans.contiguous())
 
 
-def staged_vs_plain(ocp_b, X, U, lam, mu, cfg):
+def staged_vs_plain(ocp_b, X, U, lam, mu, cfg, plain_ms=None):
     """K4, K3, K5 and K6 on the card against their plain versions at the
     state (X [B, N+1, n], U, lam, mu): K4 on it, K3 on K4's output, K5 (the
     merits of cfg's alpha grid) and K6 (one alpha of the grid per scenario)
@@ -698,7 +721,8 @@ def staged_vs_plain(ocp_b, X, U, lam, mu, cfg):
     grid = torch.tensor(cfg.alphas, device=mu.device)
     alpha = grid[torch.arange(B, device=mu.device) % len(cfg.alphas)]
     return check(ocp_b, lane(X[:, :-1]), lane(U), lane(ocp_b.xref), lane(lam), mu.contiguous(),
-                 _mov_lanes(ocp_b, B), (0.0,) + tuple(cfg.alphas), alpha, cfg.reg)
+                 _mov_lanes(ocp_b, B), (0.0,) + tuple(cfg.alphas), alpha, cfg.reg,
+                 plain_ms=plain_ms)
 
 
 def first_vs_tiles(ocp_b, X, U, lam, mu, cfg):
@@ -870,21 +894,22 @@ def closed_loop_phases(dev, base, card: str) -> None:
         f"iteration) {card}; engine line (not held: path-sensitive, above): solve_one cost "
         f"{float(r1.cost):.4f}, rel {abs(float(r1.cost) - float(r16.cost)) / abs(float(r16.cost)):.3e}")
     g16 = torch.Generator(device=dev).manual_seed(16)
-    x64 = base.x0[None] + 0.1 * torch.randn((64, base.nx), generator=g16, device=dev)
+    x64 = base.x0[None] + 0.1 * torch.randn((PER_SCENARIO_B, base.nx), generator=g16, device=dev)
     cfg16 = FL.SEED_CFG
     rb = batched_solve(batch_ocp(base, x64), cfg16)
     worst = (0.0, 0.0)
     same = 0
     t0 = time.perf_counter()
-    for i in range(64):    # scenario by scenario
+    for i in range(PER_SCENARIO_B):    # scenario by scenario
         ri = solve(dataclasses.replace(base, x0=x64[i]), cfg=cfg16)
         worst = (max(worst[0], abs(float(rb.cost[i]) - float(ri.cost)) / abs(float(ri.cost))),
                  max(worst[1], float((rb.U[i] - ri.U).abs().max())))
         same += int(rb.inner_iters[i]) == int(ri.inner_iters)
-    log(f"phase 16 batched_solve B=64 six_robot_antipodal N=10 ({cfg16.n_outer}x{cfg16.n_inner}) "
-        f"against solve on each of its 64 scenarios ({time.perf_counter() - t0:.1f} s): cost rel "
-        f"max {worst[0]:.3e} (rtol 1e-4), U max |err| {worst[1]:.3e} (atol 5e-2), inner counts "
-        f"equal on {same}/64; converged {float(rb.converged.float().mean()):.4f}")
+    log(f"phase 16 batched_solve B={PER_SCENARIO_B} six_robot_antipodal N=10 ({cfg16.n_outer}x"
+        f"{cfg16.n_inner}) against solve on each of its {PER_SCENARIO_B} scenarios "
+        f"({time.perf_counter() - t0:.1f} s): cost rel max {worst[0]:.3e} (rtol 1e-4), U max "
+        f"|err| {worst[1]:.3e} (atol 5e-2), inner counts equal on {same}/{PER_SCENARIO_B}; "
+        f"converged {float(rb.converged.float().mean()):.4f}")
     assert worst[0] <= 1e-4 and worst[1] <= 5e-2, worst
 
     # ---- phase 17: the headline closed loop through solve_one ---------------
@@ -923,19 +948,11 @@ def closed_loop_phases(dev, base, card: str) -> None:
     hold_at_loop_shape("phase 17", *seen[1], strong)
 
     # the default engine (solve_fn=None: the per-scenario solve, plain
-    # PyTorch) on the card: the headline's first step at its config, timed
-    # (cut from 10, then 2: a step takes ~20 s there; not held against the
-    # CPU: a 1e-7 move of x0 moves row 1 of X_hist by 0.37 at 15x25); then
-    # its first 3 steps at phase 16's 2x10
-    # on the card against the CPU, X_hist atol 5e-3 (the same move changes
-    # rows 0-3 by at most 1.4e-4 there and row 4 by up to 0.11;
-    # tests/reference_spread.py)
-    fn, stamps, _ = step_clock(lambda o, w: solve(o, w, strong))
-    rd = closed_loop(head, strong, dataclasses.replace(mpc17, max_steps=1), solve_fn=fn)
-    torch.cuda.synchronize()
-    msd = step_ms(stamps, time.perf_counter())
-    its = int(rd.iter_hist.sum())
-    assert torch.isfinite(rd.X_hist).all()
+    # PyTorch) on the card: its first 3 steps at phase 16's 2x10 against the
+    # CPU, X_hist atol 5e-3 (a 1e-7 move of x0 changes rows 0-3 by at most
+    # 1.4e-4 there and row 4 by up to 0.11; tests/reference_spread.py). Its
+    # step at the headline's 15x25 (~18-20 s, host-bound; not held: the same
+    # move moves row 1 of X_hist by 0.37 there) is no longer timed here
     mpc3 = dataclasses.replace(mpc17, max_steps=3)
     ra, t_card = timed(lambda: closed_loop(head, short, mpc3))
     t0 = time.perf_counter()
@@ -943,10 +960,8 @@ def closed_loop_phases(dev, base, card: str) -> None:
     t_cpu = time.perf_counter() - t0
     dx = float((ra.X_hist.cpu() - rc.X_hist).abs().max())
     its3 = int(ra.iter_hist.sum())
-    log(f"phase 17 default engine: headline at {strong.n_outer}x{strong.n_inner}, first step "
-        f"(cut from 10, then 2) on the card, " + ", ".join(f"{t:.1f}" for t in msd) + f" ms a step "
-        f"({sum(msd) / max(its, 1):.2f} ms an inner iteration, {its} iterations) {card}; at "
-        f"{short.n_outer}x{short.n_inner}, first 3 steps ({its3} iterations): card "
+    log(f"phase 17 default engine at {short.n_outer}x{short.n_inner}, first 3 steps ({its3} "
+        f"iterations): card "
         f"{t_card * 1e3 / 3:.1f} ms a step ({t_card * 1e3 / its3:.2f} ms an iteration), CPU "
         f"{t_cpu * 1e3 / 3:.1f} ms a step, X_hist max |err| {dx:.3e} (atol 5e-3)")
     assert dx <= 5e-3, dx
@@ -2760,15 +2775,17 @@ def wide_build(card: str, pending: list) -> dict:
     for m, lib in libs.items():
         text = cuda_build.build_info[m]["ptxas"]
         got = ptxas(text)
-        want = {"K1", "K2", "K1 obs", "K2 obs", "K3", "K4", "K5", "K6"}
+        want = {"K1", "K2", "K1 obs", "K2 obs", "K3", "K4", "K5", "K6", "K4 device", "K5 device"}
         k4 = cuda_build.k4_geometry(lib, staged_tiles.k4_rows(m, True, 0, 0),
                                     R._P(3 * m, 2 * m, 0).size)["smem_bytes"]
         k5 = cuda_build.k5_geometry(lib, staged_tiles.k5_rows(m, True, 0, 0),
                                     R._P(3 * m, 2 * m, 9).size)["smem_bytes"]
         smem = {"K3": cuda_build.k3_geometry(lib)["smem_bytes"], "K4": k4, "K5": k5,
                 "K6": cuda_build.k6_geometry(lib)["smem_bytes"]}
-        got.update({k: (*got[k], smem[k]) for k in smem})
         assert set(got) == want, (m, sorted(got))
+        got.update({k: (*got[k], smem[k]) for k in smem})
+        for k in ("K4 device", "K5 device"):   # phase 41 holds them
+            got.pop(k)
         for rows in (0, m, 5 * m, 47):
             assert lib.nmpc_k1_slot_bytes(rows) == megasolve.slot_bytes(m, rows), (m, rows)
         block = megasolve.K1_WARPS * lib.nmpc_k1_slot_bytes(0) + 4 * R._P(
@@ -3173,7 +3190,7 @@ def past_build(card: str, pending: list) -> dict:
                                     R._P(3 * m, 2 * m, 9).size)["smem_bytes"]
         smem = {"K3": cuda_build.k3_geometry(lib)["smem_bytes"], "K4": k4, "K5": k5,
                 "K6": cuda_build.k6_geometry(lib)["smem_bytes"]}
-        assert set(got) == set(smem), (m, sorted(got))
+        assert set(got) == set(smem) | {"K4 device", "K5 device"}, (m, sorted(got))
         lines[m] = {k: (*got[k], smem[k]) for k in smem}
         log(f"phase 40 (a) ptxas m={m} (staged.cu alone; K3 {staged_tiles.k3_geometry(m)}, K4 "
             f"{staged_tiles.k4_geometry(m)}, K5 {staged_tiles.k5_geometry(m)}, K6 "
@@ -3287,13 +3304,14 @@ def past_sixteen_phase(dev, card: str, pending: list) -> list:
         log(f"phase 40 (b) m={m} B={H}: the default config and mega=False bit for bit: "
             f"{'yes' if same else 'NO'}")
         assert same, m
+        plain = {}
         held = hold_staged_kernels(f"phase 40 (b) K3-K6 vs plain m={m}", sub, got["mega=False"],
                                    scfg, torch.Generator(device=dev).manual_seed(400 + m),
-                                   first=False, diverged=WIDE_DIVERGED)
+                                   first=False, diverged=WIDE_DIVERGED, plain_ms=plain)
         _, v, calls, _ = held[1]   # state (ii): the solve's own multipliers
         parts = []
         for k in ("K3", "K4", "K5", "K6"):
-            k_ms, p_ms = cuda_ms(calls[k][0], 3), cuda_ms(calls[k][1], 1)
+            k_ms, p_ms = cuda_ms(calls[k][0], 3), plain[k]   # plain: its one call in the hold
             err = max(x.err for _, vs, _, _ in held for key, x in vs.items() if key == k)
             b, by = row(f"{names[k]} m={m}", "nmpc_tpu_torch/csrc/" + srcs[k], where[k],
                         sc[names[k]], err, k_ms, p_ms,
@@ -3363,6 +3381,258 @@ def past_sixteen_phase(dev, card: str, pending: list) -> list:
     return rows
 
 
+# Phase 41, no shared-memory ceiling: problems whose rows overflow K4's or
+# K5's tile take their device-memory forms (staged_tiles.k4_form, k5_form),
+# at full width, each with the counts set to 0 just before its solve:
+# (a) the crossing at ANY_M = 112 robots (N=10), past the last robot count
+#     whose K4 tile holds one scenario: K4's device-memory form, K3's wide
+#     design at (336, 224), K5's and K6's direct reads;
+# (b) the crossing of 16 robots among 200 pillars (N=20; K1's block
+#     overflows too, so the default route is the staged one): K4 and K5 on
+#     their device-memory forms;
+# (c) the crossing of 20 among 64 pillars on the hybrid route (sweep="scan"):
+#     K5's device-memory form beside the scan LQR;
+# (d) one robot with 150 moving obstacles (mega=False), the subproblem of a
+#     151-robot decentralized fleet on a circle (robot_counts.
+#     fleet_subproblem, N=30): K4's device-memory form, K5's tile.
+ANY_M = 112
+ANY_B = {"a": 64, "b": 1024, "c": 256, "d": 1024}
+ANY_HOLD_B = {"a": 8, "b": 64, "c": 64, "d": 64}
+ANY_SHARE = {"a": 0.99, "b": 0.9, "c": 0.9, "d": 0.9}
+# the holds' states (hold_staged_kernels): at m = 112 the solve's last
+# iterate alone, (ii), where a plain K3 at (336, 224) takes ~22 s a call
+ANY_STATES = {"a": ("ii",), "b": ("i", "ii"), "c": ("i", "ii"), "d": ("i", "ii")}
+ANY_FORMS = {"a": {"K4": "device", "K5": "device"}, "b": {"K4": "device", "K5": "device"},
+             "c": {"K5": "device"}, "d": {"K4": "device", "K5": "tile"}}
+# where both forms take the problem: the crossing of 20 robots among 16
+# pillars, N=20, held bit for bit at these batches (a ragged tile; whole
+# tiles of 16-byte rows)
+ANY_BITS_B = (37, 256)
+# the `-Xptxas -v` lines of K4's and K5's device-memory forms (regs, stack,
+# spill stores, spill loads) in every solver library the script builds, and
+# K3-K6's at ANY_M (K5's tile geometry there is its device-memory form, and
+# its library holds no K4 tile), as PERF.md records them
+DEVICE_PTXAS = {
+    1: {"K4 device": (128, 40, 8, 8), "K5 device": (52, 40, 0, 0)},
+    2: {"K4 device": (128, 64, 28, 28), "K5 device": (64, 48, 0, 0)},
+    3: {"K4 device": (168, 32, 0, 0), "K5 device": (64, 56, 0, 0)},
+    4: {"K4 device": (168, 32, 0, 0), "K5 device": (64, 64, 0, 0)},
+    5: {"K4 device": (230, 32, 0, 0), "K5 device": (64, 72, 0, 0)},
+    6: {"K4 device": (254, 32, 0, 0), "K5 device": (94, 80, 0, 0)},
+    7: {"K4 device": (255, 72, 36, 36), "K5 device": (107, 88, 0, 0)},
+    8: {"K4 device": (255, 40, 4, 4), "K5 device": (107, 96, 0, 0)},
+    9: {"K4 device": (255, 32, 0, 0), "K5 device": (105, 208, 0, 0)},
+    10: {"K4 device": (255, 72, 36, 36), "K5 device": (106, 240, 0, 0)},
+    12: {"K4 device": (254, 32, 0, 0), "K5 device": (128, 272, 0, 0)},
+    16: {"K4 device": (255, 32, 0, 0), "K5 device": (128, 352, 0, 0)},
+    20: {"K4 device": (255, 208, 176, 720), "K5 device": (185, 432, 0, 0)},
+    24: {"K4 device": (255, 328, 288, 1036), "K5 device": (255, 560, 40, 36)},
+    32: {"K4 device": (255, 416, 0, 0), "K5 device": (255, 720, 56, 112)},
+    112: {"K4 device": (168, 3552, 2208, 6080), "K5 device": (128, 8704, 14920, 19048)},
+}
+ANY_PTXAS = {ANY_M: {"K3": (48, 0, 0, 0), "K4 device": (168, 3552, 2208, 6080),
+                     "K5 device": (128, 8704, 14920, 19048), "K6": (168, 2880, 5768, 8764)}}
+
+
+def start_any_rows_build() -> list:
+    """Phase 41's library, the staged solver library at ANY_M (staged.cu
+    alone: K3's wide design, K4's device-memory form, K5's and K6's direct
+    reads), started in the background right after phase 1's builds, as
+    start_past_builds' are. Returns the future, which any_rows_phase reads."""
+    from nmpc_tpu_torch.ops import cuda_build
+
+    pool = ThreadPoolExecutor(max_workers=1)
+    futures = [pool.submit(cuda_build.load, ANY_M)]
+    pool.shutdown(wait=False)
+    return futures
+
+
+def any_rows_problem(case: str, dev, gen):
+    """Phase 41's problem (a)-(d): (batched OCP at ANY_B[case] starts,
+    config)."""
+    from nmpc_tpu_torch.bench import jittered
+    from nmpc_tpu_torch.ocp import problem as P
+    from nmpc_tpu_torch.scenarios import robot_counts
+    from nmpc_tpu_torch.solver import ALILQRConfig
+
+    cfg = ALILQRConfig(n_outer=6, n_inner=12, tol_con=1e-3, ls="adaptive")
+    B = ANY_B[case]
+    if case == "a":
+        return jittered(robot_counts.make(ANY_M, device=dev, N=10), B, gen), cfg
+    if case in ("b", "c"):
+        m, n_obs = (16, 200) if case == "b" else (20, 64)
+        ob = jittered(P.make_ocp(**robot_counts.pillars(m, n_obs), device=dev), B, gen)
+        return ob, (cfg if case == "b" else dataclasses.replace(cfg, sweep="scan"))
+    return (jittered(P.make_ocp(**robot_counts.fleet_subproblem(150), device=dev), B, gen),
+            dataclasses.replace(cfg, mega=False))
+
+
+def device_vs_tile(dev, gen) -> tuple:
+    """K4's and K5's device-memory forms against their tile forms on the
+    same inputs where both take the problem: the crossing of 20 robots among
+    16 pillars (N=20) at ANY_BITS_B, states around the starts, duals |N(0,
+    0.5)|, mu in {10, 100}, random gains. Returns (K4 outputs that differ,
+    K5 merits that differ, units)."""
+    import torch
+
+    from nmpc_tpu_torch.ocp import problem as P
+    from nmpc_tpu_torch.ops import cuda_build, expansions, staged_tiles
+    from nmpc_tpu_torch.ops import rollout as R
+    from nmpc_tpu_torch.scenarios import robot_counts
+    from nmpc_tpu_torch.solver import ALILQRConfig
+
+    ocp = P.make_ocp(**robot_counts.pillars(20, 16), device=dev)
+    assert not expansions.form(ocp).device, expansions.form(ocp)
+    alphas = (0.0,) + tuple(ALILQRConfig().alphas)
+    assert R.costs_form(ocp, len(alphas)) != staged_tiles.K5_DEVICE
+    lib = cuda_build.load(ocp.m)
+    off4 = off5 = units = 0
+    for B in ANY_BITS_B:
+        rnd = lambda *s: torch.randn(s, generator=gen, device=dev)  # noqa: E731
+        N, n, nu = ocp.N, ocp.nx, ocp.nu
+        X = (ocp.x0[None, None] + 0.4 * rnd(B, N, n)).movedim(0, -1).contiguous()
+        lam = (0.5 * rnd(B, N, ocp.n_con).abs() * (P.constraint_mask(ocp) > 0))
+        lam = lam.movedim(0, -1).contiguous()
+        U = (0.1 * rnd(B, N, nu)).movedim(0, -1).contiguous()
+        kff = (0.1 * rnd(B, N, nu)).movedim(0, -1).contiguous()
+        Kfb = (0.1 * rnd(B, N, nu, n)).movedim(0, -1).contiguous()
+        xref = ocp.xref[..., None].expand(N, n, B).contiguous()
+        mu = torch.tensor([10.0, 100.0], device=dev)[
+            torch.randint(0, 2, (B,), generator=gen, device=dev)]
+        ins = (X, U, xref, lam, mu, None)
+        tile = expansions.launch(ocp, *ins, lib)
+        device = expansions.launch(ocp, *ins, lib, device=True)
+        off4 += sum(int((a != b).reshape(-1, B).any(dim=0).sum()) for a, b in zip(tile, device))
+        args = (X[0].contiguous(), X, U, kff, Kfb, xref, lam, mu)
+        t5 = R.costs_launch(ocp, *args, alphas, None, lib)
+        d5 = R.costs_launch(ocp, *args, alphas, None, lib, device=True)
+        off5 += int((t5 != d5).sum())
+        units += B
+    return off4, off5, units
+
+
+def any_rows_phase(dev, card: str, pending: list) -> list:
+    """Phase 41, no shared-memory ceiling (the cases above ANY_M): the
+    library at ANY_M (waited for here) and every library's device-memory
+    forms against their recorded ptxas lines; each case's solve through
+    the route's kernels in the forms ANY_FORMS names (the launch counts and
+    the form counts), its converged share at least ANY_SHARE; K3-K6 against
+    plain at the solve's last iterate of its first ANY_HOLD_B starts
+    (kernel_check's rule at fresh and at the solve's own multipliers, as
+    phase 40), each timed there beside its plain version and the bound; the
+    device-memory forms against the tile forms bit for bit. Returns the
+    kernel rows of the record."""
+    import types
+
+    import torch
+
+    from nmpc_tpu_torch.ocp import problem as P
+    from nmpc_tpu_torch.ops import cuda_build, staged_tiles
+    from nmpc_tpu_torch.solver import solve_batched
+    from nmpc_tpu_torch.solver.alilqr_batched import route
+    from nmpc_tpu_torch.tools import roofline as RL
+    from nmpc_tpu_torch.utils.timing import cuda_ms
+
+    t0 = time.perf_counter()
+    for f in pending:   # a build that failed raises here
+        f.result()
+    info = cuda_build.build_info[ANY_M]
+    lib = cuda_build.load(ANY_M)
+    assert not hasattr(lib, "nmpc_inner_solve") and cuda_build.k3_geometry(lib)["wide"] == 1
+    assert staged_tiles.k4_geometry(ANY_M) is None
+    assert staged_tiles.k5_geometry(ANY_M) == staged_tiles.K5_DEVICE
+    any_lines = {ANY_M: ptxas(info["ptxas"])}
+    log(f"phase 41 (a) ptxas m={ANY_M} (staged.cu alone; K3 {staged_tiles.k3_geometry(ANY_M)}, "
+        f"K4 {staged_tiles.K4_DEVICE} alone, K5 {staged_tiles.K5_DEVICE}, K6 "
+        f"{staged_tiles.k6_geometry(ANY_M)}): {ptxas_summary(info['ptxas'])}; built in "
+        f"{info['seconds']:.1f} s in the background since phase 1; phase 41 waited "
+        f"{time.perf_counter() - t0:.1f} s for it {card}")
+    device_lines = {}
+    for m in sorted(cuda_build.build_info):
+        got = ptxas(cuda_build.build_info[m]["ptxas"])
+        device_lines[m] = {k: got[k] for k in ("K4 device", "K5 device") if k in got}
+        log(f"phase 41 ptxas m={m}: K4's device-memory form {device_lines[m].get('K4 device')}, "
+            f"K5's {device_lines[m].get('K5 device')} (regs, stack, spill stores, spill loads; as "
+            f"recorded in PERF.md: "
+            f"{'yes' if device_lines[m] == DEVICE_PTXAS.get(m) else 'NO'})")
+    log(f"phase 41 ptxas m={ANY_M}: {any_lines[ANY_M]} (as recorded in PERF.md: "
+        f"{'yes' if any_lines[ANY_M] == ANY_PTXAS.get(ANY_M) else 'NO'})")
+    for m, got in device_lines.items():   # every line logged before any is held
+        assert set(got) == {"K4 device", "K5 device"}, (m, got)
+        assert got == DEVICE_PTXAS[m], (m, got)
+    assert any_lines[ANY_M] == ANY_PTXAS[ANY_M], any_lines
+
+    names = {"K3": "riccati_lanes", "K4": "expansions_fused", "K5": "linesearch_costs_lanes",
+             "K6": "rollout_alpha_lanes"}
+    srcs = {"K3": "staged_tiles.cuh", "K4": "expansions_rollout_tiles.cuh",
+            "K5": "staged_tiles.cuh", "K6": "expansions_rollout_tiles.cuh"}
+    where = {"K3": "nmpc_tpu/ops/riccati_pallas.py:311",
+             "K4": "nmpc_tpu/ops/expansions_pallas.py:212",
+             "K5": "nmpc_tpu/ops/rollout_pallas.py:287",
+             "K6": "nmpc_tpu/ops/rollout_pallas.py:360"}
+    rows = []
+    gen = torch.Generator(device=dev).manual_seed(41)
+    for case in "abcd":
+        t1 = time.perf_counter()
+        ob, cfg = any_rows_problem(case, dev, gen)
+        way = route(ob, cfg)
+        assert way == ("hybrid" if case == "c" else "staged"), (case, way)
+        B = ob.x0.shape[0]
+        cuda_build.reset_launch_counts()
+        res, t_s = timed(lambda: solve_batched(ob, cfg=cfg))
+        c, f = dict(cuda_build.launch_counts), dict(cuda_build.staged_forms)
+        it = c["linesearch_costs_lanes"]
+        if way == "staged":
+            check_staged(f"phase 41 ({case})", c, res, cfg)
+        else:
+            assert it > 0 and c["rollout_alpha_lanes"] == it, c
+            assert c["riccati_lanes"] == c["expansions_fused"] == c["inner_solve_fused"] == 0, c
+            for name in ("X", "U", "cost", "viol", "lam"):
+                assert torch.isfinite(getattr(res, name)).all(), name
+        assert c["inner_solve_fused"] == c["al_update_lanes"] == 0, c
+        for k, form in ANY_FORMS[case].items():
+            other = "tile" if form == "device" else "device"
+            n_k = c[names[k]]
+            assert f[f"{k} {form}"] == n_k > 0 and f[f"{k} {other}"] == 0, (case, k, f)
+        conv = float(res.converged.float().mean())
+        log(f"phase 41 ({case}) m={ob.m} N={ob.N} B={B} n_obs={ob.n_obs} n_mov={ob.n_mov} "
+            f"({way} route, {cfg.sweep}, mega={cfg.mega}): launches {c}; forms {f}; "
+            f"{summary(res)}; {t_s * 1e3:.1f} ms a solve ({B / t_s:.1f} solves/s) {card}")
+        assert conv >= ANY_SHARE[case], (case, conv)
+        H = ANY_HOLD_B[case]
+        sub = dataclasses.replace(ob, **{k: getattr(ob, k)[:H] for k in P.batch_fields(ob)})
+        r = types.SimpleNamespace(X=res.X[:H], U=res.U[:H], lam=res.lam[:H], mu=res.mu[:H])
+        plain = {}
+        held = hold_staged_kernels(f"phase 41 ({case}) K3-K6 vs plain m={ob.m}", sub, r, cfg,
+                                   gen, first=False, diverged=WIDE_DIVERGED,
+                                   states=ANY_STATES[case], plain_ms=plain)
+        _, v, calls, _ = held[-1]   # state (ii): the solve's own multipliers
+        parts = []
+        for k in ("K3", "K4", "K5", "K6"):
+            k_ms, p_ms = cuda_ms(calls[k][0], 2), plain[k]   # plain: its one call in the hold
+            err = max(x.err for _, vs, _, _ in held for key, x in vs.items() if key == k)
+            form = ANY_FORMS[case].get(k, "")
+            b_ms, by = RL.bound(*RL.kernel_work(k, sub, H, n_alphas=len(cfg.alphas) + 1))
+            rows.append({"name": f"{names[k]} {form} ({case}) m={ob.m}".replace("  ", " "),
+                         "route": "cuda", "source": "nmpc_tpu_torch/csrc/" + srcs[k],
+                         "replaces": where[k], "launches": c[names[k]], "max_abs_err": err,
+                         "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": by,
+                         "library_ms": None})
+            parts.append(f"{k}{' ' + form if form else ''} {k_ms:.3f} ms (plain {p_ms:.3f} ms, "
+                         f"bound {b_ms:.4f} ms by {by}, {100 * b_ms / k_ms:.2f}%)")
+        log(f"phase 41 ({case}) B={H} kernels at the solve's last iterate: " + "; ".join(parts)
+            + f" {card}")
+        del res, held, calls, r, sub, ob
+        log(f"phase 41 ({case}) took {time.perf_counter() - t1:.1f} s")
+    off4, off5, units = device_vs_tile(dev, gen)
+    log(f"phase 41 device-memory forms against the tile forms (the crossing of 20 robots among "
+        f"16 pillars, B in {ANY_BITS_B}): K4 scenarios that differ {off4}/{units}, K5 merits "
+        f"{off5}/{units * 9} (bit for bit: 0)")
+    assert off4 == off5 == 0, (off4, off5)
+    log(f"phase 41 took {time.perf_counter() - t0:.1f} s")
+    return rows
+
+
 def per_step(counts: dict, name: str, stamps) -> str:
     """Launches of a kernel a loop step (a solve run), as a string."""
     return f"{counts[name] / max(len(stamps), 1):.2f}"
@@ -3423,6 +3693,7 @@ def main() -> int:
     wall = time.perf_counter() - t0
     wide_builds = start_wide_builds()
     past_builds = start_past_builds()
+    any_builds = start_any_rows_build()
     per_m = ", ".join(f"m={m} {cuda_build.build_info[m]['seconds']:.1f}s"
                       for m in cuda_build.ROBOT_COUNTS)
     tools = cuda_build.tools_build_info[cuda_build.BENCH_ROBOTS]
@@ -4333,6 +4604,10 @@ def main() -> int:
     # ---- phase 40: past the megakernel's sixteen robots: the staged route
     # at m = 20, 24, 32, the hybrid route at 20, K3's wide design ---------
     wide_rows += past_sixteen_phase(dev, card, past_builds)
+
+    # ---- phase 41: no shared-memory ceiling: K4's and K5's device-memory
+    # forms at m = 112, among 200 and 64 pillars, with 150 moving obstacles
+    wide_rows += any_rows_phase(dev, card, any_builds)
 
     def entry(name, source, where, launches, err, ms_, plain_ms, key):
         return {"name": name, "route": "cuda", "source": source, "replaces": where,

@@ -50,8 +50,17 @@
 //  * Past sixteen robots the tiles shrink to what fits a block (S = 16 down
 //    to 1; below 4 scenarios the rows go as 4-byte copies and stores), and
 //    past m = 63, where even a ring of two one-scenario tiles overflows,
-//    K6 (as K5) reads its stage rows from device memory (D = 0); K4's
-//    output tile bounds the robot count at 108.
+//    K6 (as K5) reads its stage rows from device memory (D = 0).
+//  * K4's device-memory form (K4Device, expansion_tiles<..., kDevice>):
+//    where a problem's rows overflow the tile (many obstacle rows; past m =
+//    108 the output tile alone does), the same code runs with the input and
+//    output tiles of 16 scenarios in a slot of a device-memory scratch of
+//    the wrapper's (plain copies in, the column's sums and the 16-byte row
+//    stores out of it; L1 and L2 hold the slot) and the parameter block read
+//    from device memory, so its outputs are the tile form's bit for bit and
+//    no robot or obstacle count is refused. A block takes (tile, stage) work
+//    items in turn, so the scratch is the resident blocks' slots, not the
+//    batch's.
 // What bounds them now (measured on an H100 80GB HBM3 at 700 W, PERF.md):
 // K4 its stores, 1,254 floats a (stage, scenario) at m=6, where it reaches
 // 74-78% of its bytes bound; at m=1 (N=100, a launch of ~0.35 ms) 59-69%.
@@ -165,7 +174,17 @@ struct K4Geom {
   NMPC_HD static int smem_floats(int rows, int prm_size) {
     return al4(prm_size) + al4(rows * S) + al4(K4Rows<NR>::out * S);
   }
+  // floats of a block's slot of the device-memory form's scratch: the input
+  // tile and the output tile
+  NMPC_HD static int scratch_floats(int rows) { return al4(rows * S) + al4(K4Rows<NR>::out * S); }
 };
+
+// K4's device-memory form, which every library holds beside its tile form
+// (ops/staged_tiles.py::K4_DEVICE): the input and output tiles of 16
+// scenarios in a slot of the wrapper's scratch, the parameter block read
+// from device memory
+template <int NR>
+using K4Device = K4Geom<NR, 16, 4>;
 
 // expansion_thread (staged.cuh) for the scenario of tile column t (input
 // tile, rows P apart) into column o of the output tile: the same arithmetic
@@ -463,8 +482,11 @@ NMPC_DEV void expansion_column_wide(const ExpArgs& a, const K4Rows<NR>& R, const
 }
 
 // K4 for stage k of the block's tile `blk`: sp, the parameter block in
-// shared memory; tiles, the input and output tiles after it.
-template <int NR, class G>
+// shared memory; tiles, the input and output tiles after it. With kDevice
+// (the device-memory form) sp is the parameter block in device memory and
+// tiles the block's slot of the scratch, filled by plain copies; the rest is
+// the same code, so the outputs are the tile form's bit for bit.
+template <int NR, class G, bool kDevice = false>
 NMPC_DEV void expansion_tiles(const ExpArgs& a, const float* sp, float* tiles, int blk, int k,
                               bool vec, int tid) {
   using Q = K4Rows<NR>;
@@ -474,17 +496,28 @@ NMPC_DEV void expansion_tiles(const ExpArgs& a, const float* sp, float* tiles, i
   const K4Rows<NR> R(a.pairs != 0, a.n_obs, a.n_mov);
   float* tin = tiles;
   float* tout = tiles + al4(R.in * S);
-  copy_rows<S, S>(tin + Q::X * S, a.Xs, (size_t)k * n, n, B, span, tid, nt);
-  copy_rows<S, S>(tin + Q::U * S, a.U, (size_t)k * nu, nu, B, span, tid, nt);
-  copy_rows<S, S>(tin + Q::xref * S, a.xref, (size_t)k * n, n, B, span, tid, nt);
-  copy_rows<S, S>(tin + Q::lam * S, a.lam, (size_t)k * R.nc, R.nc, B, span, tid, nt);
-  if (a.n_mov)
-    copy_rows<S, S>(tin + R.mov * S, a.mov, (size_t)k * 2 * a.n_mov, 2 * a.n_mov, B, span, tid,
-                    nt);
-  copy_rows<S, S>(tin + R.mu * S, a.mu, 0, 1, B, span, tid, nt);
-  cp_commit();
+  if constexpr (kDevice) {
+    copy_rows_plain<S>(tin + Q::X * S, a.Xs, (size_t)k * n, n, B, span, tid, nt);
+    copy_rows_plain<S>(tin + Q::U * S, a.U, (size_t)k * nu, nu, B, span, tid, nt);
+    copy_rows_plain<S>(tin + Q::xref * S, a.xref, (size_t)k * n, n, B, span, tid, nt);
+    copy_rows_plain<S>(tin + Q::lam * S, a.lam, (size_t)k * R.nc, R.nc, B, span, tid, nt);
+    if (a.n_mov)
+      copy_rows_plain<S>(tin + R.mov * S, a.mov, (size_t)k * 2 * a.n_mov, 2 * a.n_mov, B, span,
+                         tid, nt);
+    copy_rows_plain<S>(tin + R.mu * S, a.mu, 0, 1, B, span, tid, nt);
+  } else {
+    copy_rows<S, S>(tin + Q::X * S, a.Xs, (size_t)k * n, n, B, span, tid, nt);
+    copy_rows<S, S>(tin + Q::U * S, a.U, (size_t)k * nu, nu, B, span, tid, nt);
+    copy_rows<S, S>(tin + Q::xref * S, a.xref, (size_t)k * n, n, B, span, tid, nt);
+    copy_rows<S, S>(tin + Q::lam * S, a.lam, (size_t)k * R.nc, R.nc, B, span, tid, nt);
+    if (a.n_mov)
+      copy_rows<S, S>(tin + R.mov * S, a.mov, (size_t)k * 2 * a.n_mov, 2 * a.n_mov, B, span, tid,
+                      nt);
+    copy_rows<S, S>(tin + R.mu * S, a.mu, 0, 1, B, span, tid, nt);
+    cp_commit();
+  }
   for (int i = tid; i < np * np * S; i += nt) tout[Q::Hc * S + i] = 0.f;
-  cp_wait<0>();
+  if constexpr (!kDevice) cp_wait<0>();
   block_sync();
   for (int s = tid; s < S; s += nt) {
     if constexpr (NR > 10)

@@ -13,7 +13,14 @@
 // with its rows in shared memory: K4 one stage of it, K3, K5 and K6 the
 // whole horizon, streamed through a ring of stage tiles (csrc/
 // staged_tiles.cuh for K3 and K5, csrc/expansions_rollout_tiles.cuh for K4
-// and K6, whose notes say why). What bounds them on an H100: K4 writes the
+// and K6, whose notes say why). Beside the tile forms every library holds
+// K4's and K5's device-memory forms (K4Device, K5Device), which keep nothing
+// in shared memory, for the problems whose rows overflow the tiles: the
+// wrapper picks one by ops/staged_tiles.py's k4_form and k5_form. A library
+// whose K4 tile cannot fit even one scenario (-DNMPC_K4_S=0, m >= 109) holds
+// K4's device-memory form alone, and where K5's geometry is its
+// device-memory form (-DNMPC_K5_D=0, m >= 64) K5's tile entry launches that.
+// What bounds them on an H100: K4 writes the
 // dense stage blocks (at six robots ~1,250 floats per stage and scenario,
 // ~1.6 GB at N=10, B=32768) and K3 reads them back, so the pair is bound by
 // device-memory bytes. The lane-major layout keeps every global access of a
@@ -49,9 +56,15 @@ __device__ __forceinline__ void load_params(const float* prm, int size, float* s
 
 using K3G = K3Geom<3 * NMPC_NR, 2 * NMPC_NR, NMPC_K3_S, NMPC_K3_D, NMPC_K3_T, NMPC_K3_P,
                    NMPC_K3_SPILL != 0, NMPC_K3_WIDE != 0>;
-using K4G = K4Geom<NMPC_NR, NMPC_K4_S, NMPC_K4_W>;
 using K5G = K5Geom<NMPC_NR, NMPC_K5_S, NMPC_K5_D>;
 using K6G = K6Geom<NMPC_NR, NMPC_K6_S, NMPC_K6_D, NMPC_K6_T>;
+using K4DM = K4Device<NMPC_NR>;
+using K5DM = K5Device<NMPC_NR>;
+static_assert(NMPC_K5_D != 0 || (NMPC_K5_S == K5DM::S),
+              "K5's geometry without a ring is its device-memory form");
+
+#if NMPC_K4_S > 0
+using K4G = K4Geom<NMPC_NR, NMPC_K4_S, NMPC_K4_W>;
 
 // K4: block (tile, stage)
 template <int NR>
@@ -63,6 +76,23 @@ __global__ void __launch_bounds__(K4G::threads) expansions_kernel(ExpArgs a, int
   expansion_tiles<NR, K4G>(a, sp, sp + al4(prm_size), blockIdx.x, blockIdx.y, vec != 0,
                            threadIdx.x);
 }
+#endif
+
+// K4's device-memory form: block i owns slot i of the scratch (block_floats
+// each) and takes the work items (tile, stage) i, i + grid, ...
+template <int NR>
+__global__ void __launch_bounds__(K4DM::threads) expansions_device_kernel(ExpArgs a,
+                                                                          float* scratch,
+                                                                          int block_floats,
+                                                                          int vec) {
+  const int tiles = (a.B + K4DM::S - 1) / K4DM::S;
+  float* slot = scratch + (size_t)blockIdx.x * block_floats;
+  for (long long w = blockIdx.x; w < (long long)tiles * a.N; w += gridDim.x) {
+    expansion_tiles<NR, K4DM, true>(a, a.prm, slot, static_cast<int>(w % tiles),
+                                    static_cast<int>(w / tiles), vec != 0, threadIdx.x);
+    __syncthreads();   // the next work item rewrites the slot
+  }
+}
 
 template <int NR>
 __global__ void __launch_bounds__(K3G::threads) riccati_kernel(RiccatiArgs a, float* scratch, int vec) {
@@ -71,6 +101,7 @@ __global__ void __launch_bounds__(K3G::threads) riccati_kernel(RiccatiArgs a, fl
                          threadIdx.x);
 }
 
+#if NMPC_K5_D > 0
 template <int NR>
 __global__ void __launch_bounds__(K5G::kThreads) linesearch_costs_kernel(CostArgs a, int prm_size,
                                                                        int vec) {
@@ -79,6 +110,14 @@ __global__ void __launch_bounds__(K5G::kThreads) linesearch_costs_kernel(CostArg
   load_params(a.prm, prm_size, sp);
   linesearch_tiles<NR, K5G>(a, sp, sp + al4(prm_size), blockIdx.x, vec != 0, threadIdx.x,
                             blockDim.x);
+}
+#endif
+
+// K5's device-memory form: the parameter block and every stage row read
+// from device memory, no shared memory
+template <int NR>
+__global__ void __launch_bounds__(K5DM::kThreads) linesearch_costs_device_kernel(CostArgs a) {
+  linesearch_tiles<NR, K5DM>(a, a.prm, nullptr, blockIdx.x, false, threadIdx.x, blockDim.x);
 }
 
 template <int NR>
@@ -103,12 +142,14 @@ const char* nmpc_error_string(int err) {
 #endif
 
 // K4: one block per (tile of S scenarios, stage). Returns the CUDA error of
-// the launch (0 = launched; a refused shared-memory opt-in too).
+// the launch (0 = launched; a refused shared-memory opt-in too; invalid
+// value where the library holds no K4 tile form).
 int nmpc_expansions(const float* prm, int prm_size, const float* Xs, const float* U,
                     const float* xref, const float* lam, const float* mu,
                     const float* mov, float* A, float* Bm, float* lx, float* lu,
                     float* lxx, float* luu, float* lux, int B, int N, int pairs,
                     int n_obs, int n_mov, void* stream) {
+#if NMPC_K4_S > 0
   using G = nmpc::K4G;
   if (B <= 0 || N <= 0 || N > 65535 || n_obs < 0 || n_mov < 0 ||
       (n_mov > 0 && mov == nullptr) || prm_size > 12288)
@@ -125,17 +166,57 @@ int nmpc_expansions(const float* prm, int prm_size, const float* Xs, const float
   nmpc::expansions_kernel<NMPC_NR>
       <<<grid, G::threads, smem, static_cast<cudaStream_t>(stream)>>>(a, prm_size, vec);
   return static_cast<int>(cudaGetLastError());
+#else
+  return static_cast<int>(cudaErrorInvalidValue);
+#endif
+}
+
+// K4's device-memory form: `slots` blocks, block i with slot i of `scratch`
+// (slots x nmpc_k4_device_geometry's floats), taking the (tile, stage) work
+// items in turn. Returns the CUDA error of the launch.
+int nmpc_expansions_device(const float* prm, const float* Xs, const float* U,
+                           const float* xref, const float* lam, const float* mu,
+                           const float* mov, float* A, float* Bm, float* lx, float* lu,
+                           float* lxx, float* luu, float* lux, float* scratch, int slots, int B,
+                           int N, int pairs, int n_obs, int n_mov, void* stream) {
+  using G = nmpc::K4DM;
+  if (B <= 0 || N <= 0 || slots <= 0 || scratch == nullptr || n_obs < 0 || n_mov < 0 ||
+      (n_mov > 0 && mov == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  nmpc::ExpArgs a{prm, Xs, U, xref, lam, mu, mov, A, Bm, lx, lu, lxx, luu, lux,
+                  B, N, pairs, n_obs, n_mov};
+  const nmpc::K4Rows<NMPC_NR> rows(pairs != 0, n_obs, n_mov);
+  const int vec = nmpc::rows_aligned(
+      B, {Xs, U, xref, lam, mu, n_mov ? mov : Xs, A, Bm, lx, lu, lxx, luu, lux, scratch});
+  nmpc::expansions_device_kernel<NMPC_NR>
+      <<<slots, G::threads, 0, static_cast<cudaStream_t>(stream)>>>(
+          a, scratch, G::scratch_floats(rows.in), vec);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // K4's geometry: {S, W, threads, shared bytes a block for `rows` input rows
-// and a parameter block of prm_size floats}; ops/staged_tiles.py computes the
-// same.
+// and a parameter block of prm_size floats} (zeros where the library holds
+// no K4 tile form); ops/staged_tiles.py computes the same.
 void nmpc_k4_geometry(int rows, int prm_size, int* out) {
+#if NMPC_K4_S > 0
   using G = nmpc::K4G;
   out[0] = G::S;
   out[1] = G::W;
   out[2] = G::threads;
   out[3] = static_cast<int>(G::smem_floats(rows, prm_size) * sizeof(float));
+#else
+  for (int i = 0; i < 4; ++i) out[i] = 0;
+#endif
+}
+
+// K4's device-memory form: {S, W, threads, floats of a block's slot of the
+// scratch for `rows` input rows}
+void nmpc_k4_device_geometry(int rows, int* out) {
+  using G = nmpc::K4DM;
+  out[0] = G::S;
+  out[1] = G::W;
+  out[2] = G::threads;
+  out[3] = G::scratch_floats(rows);
 }
 
 // K6's geometry: {S, D, T, threads, shared bytes a block}
@@ -168,6 +249,16 @@ void nmpc_k5_geometry(int rows, int prm_size, int* out) {
   out[3] = static_cast<int>(G::smem_floats(rows, prm_size) * sizeof(float));
 }
 
+// K5's device-memory form: {S, D, largest number of alphas a block takes,
+// shared bytes a block (none)}
+void nmpc_k5_device_geometry(int* out) {
+  using G = nmpc::K5DM;
+  out[0] = G::S;
+  out[1] = G::D;
+  out[2] = G::max_alphas;
+  out[3] = static_cast<int>(G::smem_floats(0, 0) * sizeof(float));
+}
+
 // K3: one block per tile of S scenarios; scratch: K3's device-memory
 // scratch, grid x scratch floats (null unless it spills). Returns the CUDA
 // error of the launch (0 = launched; a refused shared-memory opt-in too).
@@ -187,15 +278,39 @@ int nmpc_riccati(const float* A, const float* Bm, const float* lx, const float* 
   return static_cast<int>(cudaGetLastError());
 }
 
+// K5's device-memory form: one row of costs per alpha of the parameter block
+// (in device memory); one block of n_alphas x S threads per tile of S
+// scenarios, no shared memory. Returns the CUDA error of the launch.
+int nmpc_linesearch_costs_device(const float* prm, int prm_size, const float* x0,
+                                 const float* Xs, const float* U, const float* kff,
+                                 const float* Kfb, const float* xref, const float* lam,
+                                 const float* mu, const float* mov, float* costs, int B, int N,
+                                 int n_alphas, int pairs, int n_obs, int n_mov, void* stream) {
+  using G = nmpc::K5DM;
+  if (B <= 0 || N <= 0 || n_alphas <= 0 || n_alphas > G::max_alphas || n_obs < 0 ||
+      n_mov < 0 || (n_mov > 0 && mov == nullptr) ||
+      prm_size != nmpc::Dims<NMPC_NR>::alphas + 3 * n_obs + n_alphas)
+    return static_cast<int>(cudaErrorInvalidValue);
+  nmpc::CostArgs a{prm, x0, Xs, U, kff, Kfb, xref, lam, mu, mov, costs,
+                   B, N, n_alphas, pairs, n_obs, n_mov};
+  nmpc::linesearch_costs_device_kernel<NMPC_NR>
+      <<<(B + G::S - 1) / G::S, n_alphas * G::S, 0, static_cast<cudaStream_t>(stream)>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // K5: one row of costs per alpha of the parameter block; one block of
-// n_alphas x S threads per tile of S scenarios. Returns the CUDA error of the
-// launch (0 = launched).
+// n_alphas x S threads per tile of S scenarios (with -DNMPC_K5_D=0 the
+// device-memory form). Returns the CUDA error of the launch (0 = launched).
 int nmpc_linesearch_costs(const float* prm, int prm_size, const float* x0,
                           const float* Xs, const float* U, const float* kff,
                           const float* Kfb, const float* xref, const float* lam,
                           const float* mu, const float* mov, float* costs, int B,
                           int N, int n_alphas, int pairs, int n_obs, int n_mov,
                           void* stream) {
+#if NMPC_K5_D == 0
+  return nmpc_linesearch_costs_device(prm, prm_size, x0, Xs, U, kff, Kfb, xref, lam, mu, mov,
+                                      costs, B, N, n_alphas, pairs, n_obs, n_mov, stream);
+#else
   using G = nmpc::K5G;
   if (B <= 0 || N <= 0 || n_alphas <= 0 || n_alphas > G::max_alphas || n_obs < 0 ||
       n_mov < 0 || (n_mov > 0 && mov == nullptr) || prm_size > 12288)
@@ -211,6 +326,7 @@ int nmpc_linesearch_costs(const float* prm, int prm_size, const float* x0,
       <<<(B + G::S - 1) / G::S, n_alphas * G::S, smem, static_cast<cudaStream_t>(stream)>>>(
           a, prm_size, vec);
   return static_cast<int>(cudaGetLastError());
+#endif
 }
 
 // K6: one block per tile of S scenarios. Returns the CUDA error of the

@@ -81,7 +81,10 @@
 //    stride P: each merit is summed in the first design's order, bit for
 //    bit. Past sixteen robots its tile shrinks to what fits (8 down to 1
 //    scenario), and past m = 63 it reads its stage rows from device memory
-//    (D = 0), the same sums.
+//    (D = 0), the same sums. That form, with the parameter block read from
+//    device memory too, is K5's device-memory form (K5Device) at every m:
+//    it takes the problems whose rows overflow the tile (many obstacle
+//    rows), with no shared memory at all.
 // What bounds them now (measured on an H100 80GB HBM3 at 700 W, PERF.md):
 // K3 at m=1 reaches 75% of its bytes bound; from m=5 one block of eight
 // teams fills an SM's shared memory, and the serial Cholesky and the
@@ -196,6 +199,18 @@ NMPC_DEV void copy_rows(float* dst, const float* src, size_t row0, int R, size_t
       const bool ok = j < t.width;
       cp_async4(dst + r * P + j, src + (row0 + r) * B + t.b0 + (ok ? j : 0), ok);
     }
+  }
+}
+
+// copy_rows into a tile in device memory (the device-memory forms'
+// scratch), as plain loads and stores, zero-filled past a ragged tile's
+// edge; the block's barrier after it makes the tile visible to its threads.
+template <int S>
+NMPC_DEV void copy_rows_plain(float* dst, const float* src, size_t row0, int R, size_t B,
+                              const TileSpan& t, int tid, int nt) {
+  for (int e = tid; e < R * S; e += nt) {
+    const int r = e / S, j = e % S;
+    dst[r * S + j] = j < t.width ? src[(row0 + r) * B + t.b0 + j] : 0.f;
   }
 }
 
@@ -1075,23 +1090,32 @@ struct K5Rows {
 // warps of consecutive scenarios, so P = S), D stage tiles in the ring; a
 // block of A S threads, at most kThreads: 512, and 256 past ten robots,
 // where a thread's state, deviation and controls take ~130 registers. D = 0
-// (past ten robots, where a ring of two one-scenario tiles overflows the
-// block: m >= 64) reads every stage row straight from device memory.
+// is the device-memory form (K5Device): every stage row and the parameter
+// block read straight from device memory, no shared memory, at any m and
+// any number of obstacle rows (the form of m >= 64, where a ring of two
+// one-scenario tiles overflows the block, and of any problem whose rows
+// overflow the tile).
 template <int NR, int S_, int D_>
 struct K5Geom {
   static constexpr int S = S_, D = D_, kThreads = NR > 10 ? 256 : 512;
   static_assert(S >= 1 && (S & (S - 1)) == 0, "S: a power of two");
-  static_assert(D >= 2 || (D == 0 && NR > 10), "a ring of at least two stage tiles, or none");
+  static_assert(D >= 2 || D == 0, "a ring of at least two stage tiles, or none");
   static constexpr int max_alphas = kThreads / S;
   // floats of dynamic shared memory: the parameter block, then the ring
   NMPC_HD static int smem_floats(int rows, int prm_size) {
-    return al4(prm_size) + D * al4(rows * S);
+    return D ? al4(prm_size) + D * al4(rows * S) : 0;
   }
 };
 
+// K5's device-memory form, which every library holds beside its tile form
+// (ops/staged_tiles.py::K5_DEVICE)
+template <int NR>
+using K5Device = K5Geom<NR, 8, 0>;
+
 // K5 for the block of tile `blk`: thread tid is candidate tid / S of
-// scenario tid % S; sp: the parameter block in shared memory, ring after it.
-// Each thread runs linesearch_cost_thread's loop on the tile (stride S).
+// scenario tid % S; sp: the parameter block (in shared memory, or with D =
+// 0 in device memory), ring after it (D > 0). Each thread runs
+// linesearch_cost_thread's loop on the tile (stride S).
 template <int NR, class G>
 NMPC_DEV void linesearch_tiles(const CostArgs& a, const float* sp, float* ring, int blk,
                                bool vec, int tid, int nt) {
@@ -1130,7 +1154,8 @@ NMPC_DEV void linesearch_tiles(const CostArgs& a, const float* sp, float* ring, 
   };
   if constexpr (G::D == 0) {
     // the stage rows straight from the lane-major arrays (stride B): the
-    // NR > 10 body below with its reads moved from the tile
+    // NR > 10 body below with its reads moved from the tile (at NR <= 10
+    // feedback_u's sums in its order, as the same body)
     for (int k = 0; k < a.N; ++k) {
       const float* Xs = a.Xs + (size_t)k * n * B + b;
       const float* U = a.U + (size_t)k * nu * B + b;

@@ -29,6 +29,7 @@ import time.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -70,7 +71,7 @@ ROBOT_COUNTS = (1, 2, 3, 4, 5, 6, 8, 10)
 # and right-hand sides past m = 10), and the staged kernels' first designs
 # (csrc/staged_first.cu, the A/B baselines). K3-K6 take any m: past it the
 # solver library is staged.cu alone (K3's wide design, K4-K6 on the tiles of
-# staged_tiles.k4_rule, ...).
+# staged_tiles.k4_rule, ..., and K4's and K5's device-memory forms).
 MEGA_MAX_ROBOTS = 16
 # robot count of the main path (six_robot_antipodal): the tools library
 # that load_all builds
@@ -89,6 +90,10 @@ launch_counts = {"inner_solve_fused": 0, "al_update_lanes": 0,
 # team design at m in TEAM_ROBOTS, the warp design elsewhere. Reset with
 # launch_counts.
 k1_designs = {"team": 0, "warp": 0}
+# K4's and K5's launches (`expansions_fused`, `linesearch_costs_lanes`) by
+# form: the tile form, or the device-memory form (staged_tiles.k4_form,
+# k5_form). Reset with launch_counts.
+staged_forms = {"K4 tile": 0, "K4 device": 0, "K5 tile": 0, "K5 device": 0}
 
 _locks: dict[tuple, threading.Lock] = {}
 _locks_guard = threading.Lock()   # creates the lock of a new library
@@ -104,7 +109,7 @@ k3_shape_build_info: dict[tuple, dict] = {}
 
 
 def reset_launch_counts() -> None:
-    for counts in (launch_counts, k1_designs):
+    for counts in (launch_counts, k1_designs, staged_forms):
         for k in counts:
             counts[k] = 0
 
@@ -182,6 +187,12 @@ def _bind_staged(lib: ctypes.CDLL) -> ctypes.CDLL:
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.nmpc_expansions.argtypes = [P, I] + [P] * 13 + [I] * 5 + [P]
     lib.nmpc_expansions.restype = I
+    lib.nmpc_expansions_device.argtypes = [P] * 15 + [I] * 6 + [P]
+    lib.nmpc_expansions_device.restype = I
+    lib.nmpc_k4_device_geometry.argtypes = [I, P]
+    lib.nmpc_k4_device_geometry.restype = None
+    lib.nmpc_k5_device_geometry.argtypes = [P]
+    lib.nmpc_k5_device_geometry.restype = None
     lib.nmpc_k3_geometry.argtypes = [P]
     lib.nmpc_k3_geometry.restype = None
     lib.nmpc_k3_wide.argtypes = []
@@ -196,6 +207,8 @@ def _bind_staged(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.nmpc_riccati.restype = I
     lib.nmpc_linesearch_costs.argtypes = [P, I] + [P] * 10 + [I] * 6 + [P]
     lib.nmpc_linesearch_costs.restype = I
+    lib.nmpc_linesearch_costs_device.argtypes = [P, I] + [P] * 10 + [I] * 6 + [P]
+    lib.nmpc_linesearch_costs_device.restype = I
     lib.nmpc_rollout_alpha.argtypes = [P] * 9 + [I] * 2 + [P]
     lib.nmpc_rollout_alpha.restype = I
     return lib
@@ -314,20 +327,39 @@ def _k3_want(key, g) -> dict:
             "scratch_floats": lay["scratch_floats"], "wide": int(g.wide)}
 
 
-def k5_geometry(lib: ctypes.CDLL, rows: int, prm_size: int) -> dict:
-    """K5's geometry as a library was built with, and its shared bytes at
-    `rows` stage rows and a parameter block of prm_size floats."""
+def k5_geometry(lib: ctypes.CDLL, rows: int, prm_size: int, device: bool = False) -> dict:
+    """K5's geometry as a library was built with (device: its device-memory
+    form's), and its shared bytes at `rows` stage rows and a parameter block
+    of prm_size floats."""
     g = (ctypes.c_int * 4)()
-    lib.nmpc_k5_geometry(rows, prm_size, g)
+    if device:
+        lib.nmpc_k5_device_geometry(g)
+    else:
+        lib.nmpc_k5_geometry(rows, prm_size, g)
     return dict(zip(("S", "D", "max_alphas", "smem_bytes"), g))
 
 
 def k4_geometry(lib: ctypes.CDLL, rows: int, prm_size: int) -> dict:
     """K4's geometry as a library was built with, and its shared bytes at
-    `rows` input rows and a parameter block of prm_size floats."""
+    `rows` input rows and a parameter block of prm_size floats (zeros: the
+    library holds no K4 tile form)."""
     g = (ctypes.c_int * 4)()
     lib.nmpc_k4_geometry(rows, prm_size, g)
     return dict(zip(("S", "W", "threads", "smem_bytes"), g))
+
+
+def k4_device_geometry(lib: ctypes.CDLL, rows: int) -> dict:
+    """K4's device-memory form as a library was built with, and the floats
+    of a block's slot of its scratch at `rows` input rows."""
+    g = (ctypes.c_int * 4)()
+    lib.nmpc_k4_device_geometry(rows, g)
+    return dict(zip(("S", "W", "threads", "scratch_floats"), g))
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device) -> int:
+    """The streaming multiprocessors of a CUDA device."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def k6_geometry(lib: ctypes.CDLL) -> dict:
@@ -342,16 +374,23 @@ def _check_geometry(lib: ctypes.CDLL, path, m: int, k3, k5, k4, k6) -> None:
     ops/staged_tiles.py asked for and sizes."""
     want = {"K3": _k3_want(m, k3)}
     rows = staged_tiles.k5_rows(m, True, 1, 1)
-    want["K5"] = {"S": k5.S, "D": k5.D, "max_alphas": staged_tiles.k5_threads(m) // k5.S,
-                  "smem_bytes": staged_tiles.k5_layout(m, rows, 100, 1, k5)["smem_bytes"]}
+    for key, g in (("K5", k5), ("K5 device", staged_tiles.K5_DEVICE)):
+        want[key] = {"S": g.S, "D": g.D, "max_alphas": staged_tiles.k5_max_alphas(m, g),
+                     "smem_bytes": staged_tiles.k5_layout(m, rows, 100, 1, g)["smem_bytes"]}
     rows4 = staged_tiles.k4_rows(m, True, 1, 1)
-    lay4, lay6 = staged_tiles.k4_layout(m, rows4, 100, k4), staged_tiles.k6_layout(m, k6)
-    want["K4"] = {"S": k4.S, "W": k4.W, "threads": lay4["threads"],
+    lay4, lay6 = (staged_tiles.k4_layout(m, rows4, 100, k4) if k4 is not None
+                  else {"threads": 0, "smem_bytes": 0}), staged_tiles.k6_layout(m, k6)
+    want["K4"] = {"S": k4.S if k4 else 0, "W": k4.W if k4 else 0, "threads": lay4["threads"],
                   "smem_bytes": lay4["smem_bytes"]}
+    dm = staged_tiles.K4_DEVICE
+    want["K4 device"] = {"S": dm.S, "W": dm.W, "threads": 32 * dm.W,
+                         "scratch_floats": staged_tiles.k4_scratch_floats(m, rows4, dm)}
     want["K6"] = {"S": k6.S, "D": k6.D, "T": k6.T, "threads": lay6["threads"],
                   "smem_bytes": lay6["smem_bytes"]}
     got = {"K3": k3_geometry(lib), "K5": k5_geometry(lib, rows, 100),
-           "K4": k4_geometry(lib, rows4, 100), "K6": k6_geometry(lib)}
+           "K5 device": k5_geometry(lib, rows, 100, device=True),
+           "K4": k4_geometry(lib, rows4, 100), "K4 device": k4_device_geometry(lib, rows4),
+           "K6": k6_geometry(lib)}
     if got != want:
         raise RuntimeError(f"{path}: staged kernels' geometry {got}, expected {want}")
 
@@ -360,8 +399,9 @@ def load(m: int) -> ctypes.CDLL:
     """The solver's kernel library for m robots, built first if needed:
     K1-K6 up to MEGA_MAX_ROBOTS, past it K3-K6 alone (staged.cu built with
     -DNMPC_STAGED_ALONE; megasolve.cuda_unsupported refuses K1 and K2
-    there). Raises NotImplementedError for m < 1, and where K4's block of
-    one scenario overflows the card's shared memory (m >= 109)."""
+    there); K4 and K5 in their tile and device-memory forms (K4's device-
+    memory form alone where its tile cannot hold one scenario, m >= 109).
+    Raises NotImplementedError for m < 1."""
     _require_robots(m, None, "the solver's kernels")
     with _lock("solver", m):
         if ("solver", m) in _libs:

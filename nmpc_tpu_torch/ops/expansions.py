@@ -13,9 +13,16 @@ memory, each scenario's thread adding its Hessian terms into a shared tile,
 then every output row stored as 16-byte chunks of the tile (its structure
 from constants); bit for bit its first design, csrc/staged.cuh::
 expansion_thread (one thread per (stage, scenario), the A/B baseline of
-tools/staged_launch.py). Stages are independent, so the TPU kernel's horizon
-chunking (there only to bound VMEM) does not carry over. Replaces
-expansions_pallas.py::_make_expansion_kernel / expansions_fused.
+tools/staged_launch.py). Where a problem's rows overflow that block's
+shared memory (staged_tiles.k4_form: many obstacle rows, or m >= 109,
+where the Hessian's position block alone does), the device-memory form runs
+the same code with both tiles in a slot of a scratch the wrapper allocates
+(staged_tiles.k4_device_slots blocks, each taking (tile, stage) work items
+in turn) and the parameter block read from device memory: bit for bit the
+tile form, bounded by device memory alone. Stages are independent, so the
+TPU kernel's horizon chunking (there only to bound VMEM) does not carry
+over. Replaces expansions_pallas.py::_make_expansion_kernel /
+expansions_fused.
 
 Layout (lane-major, batch innermost, as the staged path keeps it): X_l
 [N, n, B] stage states, U_l [N, nu, B], xref_l [N, n, B], lam_l [N, nc, B],
@@ -170,10 +177,18 @@ def check_lanes(ocp: OCP, X_l, U_l, xref_l, lam_l, mu, mov_l=None) -> None:
         check_arg(name, t, shape, X_l.device)
 
 
-def launch(ocp: OCP, X_l, U_l, xref_l, lam_l, mu, mov_l, lib, first: bool = False) -> tuple:
+def form(ocp: OCP) -> staged_tiles.K4Geometry:
+    """The K4 form this problem launches (staged_tiles.k4_form on its rows):
+    the library's tile, or staged_tiles.K4_DEVICE."""
+    return staged_tiles.k4_form(ocp.m, ocp.n_pairs > 0, ocp.n_obs, ocp.n_mov,
+                                _P(ocp.nx, ocp.nu, 0, ocp.n_obs).size)
+
+
+def launch(ocp: OCP, X_l, U_l, xref_l, lam_l, mu, mov_l, lib, first: bool = False,
+           device: bool = False) -> tuple:
     """K4 from library `lib` on checked inputs (`check_lanes`): the tile
-    design, or with first=True the first design of a `cuda_build.load_first`
-    library."""
+    design, with device=True its device-memory form, or with first=True the
+    first design of a `cuda_build.load_first` library."""
     N, n, nu, B, dev = ocp.N, ocp.nx, ocp.nu, X_l.shape[-1], X_l.device
     outs = [torch.empty(s, dtype=torch.float32, device=dev) for s in (
         (N, n, n, B), (N, n, nu, B), (N, n, B), (N, nu, B), (N, n, n, B), (N, nu, nu, B),
@@ -181,27 +196,32 @@ def launch(ocp: OCP, X_l, U_l, xref_l, lam_l, mu, mov_l, lib, first: bool = Fals
     if B == 0:
         return tuple(outs)
     prm = params(ocp, (), dev)
-    entry = lib.nmpc_expansions_first if first else lib.nmpc_expansions
-    err = entry(ptr(prm), prm.numel(), ptr(X_l), ptr(U_l), ptr(xref_l), ptr(lam_l), ptr(mu),
-                ptr(mov_l if ocp.n_mov else None), *map(ptr, outs), B, N, int(ocp.n_pairs > 0),
-                ocp.n_obs, ocp.n_mov, cuda_build.stream(dev))
+    ins = (ptr(X_l), ptr(U_l), ptr(xref_l), ptr(lam_l), ptr(mu), ptr(mov_l if ocp.n_mov else None))
+    tail = (B, N, int(ocp.n_pairs > 0), ocp.n_obs, ocp.n_mov, cuda_build.stream(dev))
+    if device:
+        rows = staged_tiles.k4_rows(ocp.m, ocp.n_pairs > 0, ocp.n_obs, ocp.n_mov)
+        slots = staged_tiles.k4_device_slots(B, N, cuda_build.sm_count(dev))
+        scratch = torch.empty(slots * staged_tiles.k4_scratch_floats(
+            ocp.m, rows, staged_tiles.K4_DEVICE), dtype=torch.float32, device=dev)
+        err = lib.nmpc_expansions_device(ptr(prm), *ins, *map(ptr, outs), ptr(scratch), slots,
+                                         *tail)
+    else:
+        entry = lib.nmpc_expansions_first if first else lib.nmpc_expansions
+        err = entry(ptr(prm), prm.numel(), *ins, *map(ptr, outs), *tail)
     cuda_build.check(lib, err, "expansions_fused")
     return tuple(outs)
 
 
 def expansions_fused(ocp: OCP, X_l, U_l, xref_l, lam_l, mu, mov_l=None):
-    """K4 wrapper: the CUDA kernel for CUDA tensors, the plain version for
-    CPU tensors (see the module docstring for the layout)."""
+    """K4 wrapper: the CUDA kernel for CUDA tensors, in the form `form`
+    picks, the plain version for CPU tensors (see the module docstring for
+    the layout)."""
     if X_l.device.type == "cpu":
         return expansions_plain(ocp, X_l, U_l, xref_l, lam_l, mu, mov_l)
     check_lanes(ocp, X_l, U_l, xref_l, lam_l, mu, mov_l)
-    rows = staged_tiles.k4_rows(ocp.m, ocp.n_pairs > 0, ocp.n_obs, ocp.n_mov)
-    smem = staged_tiles.k4_layout(ocp.m, rows, _P(ocp.nx, ocp.nu, 0, ocp.n_obs).size)["smem_bytes"]
-    if smem > staged_tiles.SMEM_BLOCK_MAX:
-        raise NotImplementedError(
-            f"expansions_fused: a block's tiles and parameters take {smem} B of shared memory, "
-            f"more than the card's {staged_tiles.SMEM_BLOCK_MAX}")
-    outs = launch(ocp, X_l, U_l, xref_l, lam_l, mu, mov_l, cuda_build.load(ocp.m))
+    device = form(ocp).device
+    outs = launch(ocp, X_l, U_l, xref_l, lam_l, mu, mov_l, cuda_build.load(ocp.m), device=device)
     if X_l.shape[-1]:
         cuda_build.launch_counts["expansions_fused"] += 1
+        cuda_build.staged_forms["K4 device" if device else "K4 tile"] += 1
     return outs

@@ -29,7 +29,9 @@ multipliers.
 Diverged (K5, K6): the closed-loop rollout of the unit's scenario and alpha,
 run in f64 on the same inputs, takes a robot's position or a control beyond
 DIVERGED = 10 (m, m/s, rad/s; the arenas span a few metres and the control
-boxes are below 1); see `diverged_rollouts`. Past that, f32 rollouts part
+boxes are below 1), a position beyond the problem's own position box where
+that is wider (a fleet whose row spans more than 20 m); see
+`diverged_rollouts`. Past that, f32 rollouts part
 from f64 (on the H100, at obstacle_scenario_3 N=100, B=32768, the plain
 version missed f64 on 9 to 83 of 294,912 merits, all of them beyond the
 bound, and on none within it). Diverged units are not compared with the
@@ -169,26 +171,46 @@ def f32_spread(fn, inputs, draws: int = 4, seed: int = 0) -> list:
 def diverged_rollouts(ocp, x0_l, X_l, U_l, kff_l, Kfb_l, alphas) -> torch.Tensor:
     """[len(alphas), B]: whether the closed-loop rollout of each alpha (a
     float, or one per scenario [B]) from these inputs, the rollout of K5 and
-    K6, run in f64, takes a position (x, y of any robot) or a control beyond
+    K6, run in f64, takes a position (x, y of any robot) beyond DIVERGED or
+    the problem's position box, whichever is wider, or a control beyond
     DIVERGED at some stage."""
     args = [t.double() for t in (x0_l, X_l, U_l, kff_l, Kfb_l)]
     B = x0_l.shape[-1]
+    box = torch.cat([ocp.x_lo[0:3 * ocp.m:3], ocp.x_lo[1:3 * ocp.m:3],
+                     ocp.x_hi[0:3 * ocp.m:3], ocp.x_hi[1:3 * ocp.m:3]]).abs().max()
+    far = max(DIVERGED, float(box))
     out = []
     for a in alphas:
         a = torch.as_tensor(a, dtype=torch.float64, device=x0_l.device).expand(B)
         Xt, Ut = R.rollout_alpha_plain(ocp, *args, a)
         pos = torch.cat([Xt[:, 0::3], Xt[:, 1::3]], dim=1)
-        inside = (pos.abs().amax(dim=(0, 1)) <= DIVERGED) & (Ut.abs().amax(dim=(0, 1)) <= DIVERGED)
+        inside = (pos.abs().amax(dim=(0, 1)) <= far) & (Ut.abs().amax(dim=(0, 1)) <= DIVERGED)
         out.append(~inside)
     return torch.stack(out)
 
 
+def _plain(key, fn, plain_ms):
+    """fn(), timed into plain_ms[key] by CUDA events where plain_ms is a
+    dict (the plain versions' times at the held inputs, for the callers'
+    tables, without running them again)."""
+    if plain_ms is None:
+        return fn()
+    t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0.record()
+    out = fn()
+    t1.record()
+    t1.synchronize()
+    plain_ms[key] = t0.elapsed_time(t1)
+    return out
+
+
 def staged_vs_plain(ocp_b, X_l, U_l, xref_l, lam_l, mu, mov_l, alphas, alpha, reg,
-                    gains=None):
+                    gains=None, plain_ms=None):
     """K4 at the state (X_l [N, n, B] stage states, U_l, xref_l, lam_l, mu,
     mov_l), K3 on K4's output, K5 (the merits of `alphas`) and K6 (the
     rollout of alpha [B]) on K3's gains, or on gains = (kff_l, Kfb_l) when
-    given, each against its plain version by the module's rule. Returns
+    given, each against its plain version by the module's rule; with a dict
+    plain_ms (CUDA inputs), each plain version's ms of that one call. Returns
     ({'K4': Verdict, ...}, {'K4': (kernel call, plain call), ...} for
     timing)."""
     v = {k: Verdict() for k in ("K4", "K3", "K5", "K6")}
@@ -196,19 +218,20 @@ def staged_vs_plain(ocp_b, X_l, U_l, xref_l, lam_l, mu, mov_l, alphas, alpha, re
     calls = {"K4": (lambda: expansions_fused(ocp_b, X_l, U_l, xref_l, lam_l, mu, mov_l),
                     lambda: expansions_plain(ocp_b, X_l, U_l, xref_l, lam_l, mu, mov_l))}
     exp = calls["K4"][0]()
-    for i, (g, w, a) in enumerate(zip(exp, calls["K4"][1](), K4_ATOL)):
+    for i, (g, w, a) in enumerate(zip(exp, _plain("K4", calls["K4"][1], plain_ms), K4_ATOL)):
         hold(v["K4"], f"K4 output {i}", g, w, a)
     calls["K3"] = (lambda: riccati_lanes(exp, reg), lambda: riccati_plain(exp, reg))
     got3 = calls["K3"][0]()
     spread3 = f32_spread(lambda e: riccati_plain(tuple(e), reg), exp)
-    for i, (g, w, sp, a) in enumerate(zip(got3, calls["K3"][1](), spread3, K3_ATOL)):
+    for i, (g, w, sp, a) in enumerate(zip(got3, _plain("K3", calls["K3"][1], plain_ms), spread3,
+                                          K3_ATOL)):
         hold(v["K3"], f"K3 output {i}", g, w, a, spread=sp)
     kff_l, Kfb_l = gains if gains is not None else got3[:2]
     x0_l = X_l[0]
     args5 = (x0_l, X_l, U_l, kff_l, Kfb_l, xref_l, lam_l, mu)
     calls["K5"] = (lambda: R.linesearch_costs_lanes(ocp_b, *args5, alphas, mov_l),
                    lambda: R.linesearch_costs_plain(ocp_b, *args5, alphas, mov_l))
-    got5, want5 = calls["K5"][0](), calls["K5"][1]()
+    got5, want5 = calls["K5"][0](), _plain("K5", calls["K5"][1], plain_ms)
     exact5 = R.linesearch_costs_plain(ocp_b, *f64(*args5), alphas, *f64(mov_l))
     div5 = diverged_rollouts(ocp_b, x0_l, X_l, U_l, kff_l, Kfb_l, alphas)
     hold(v["K5"], "K5", got5, want5, K5_ATOL, K5_RTOL, diverged=div5, per_element=True)
@@ -221,6 +244,6 @@ def staged_vs_plain(ocp_b, X_l, U_l, xref_l, lam_l, mu, mov_l, alphas, alpha, re
     got6 = calls["K6"][0]()
     div6 = diverged_rollouts(ocp_b, x0_l, X_l, U_l, kff_l, Kfb_l, [alpha])[0]
     spread6 = f32_spread(lambda a: R.rollout_alpha_plain(ocp_b, *a), args6)
-    for i, (g, w, sp) in enumerate(zip(got6, calls["K6"][1](), spread6)):
+    for i, (g, w, sp) in enumerate(zip(got6, _plain("K6", calls["K6"][1], plain_ms), spread6)):
         hold(v["K6"], f"K6 output {i}", g, w, K6_ATOL, spread=sp, diverged=div6)
     return v, calls

@@ -8,7 +8,11 @@ each with its plain PyTorch version. Port of nmpc_tpu/ops/rollout_pallas.py.
      a block per tile of S scenarios running its candidates (one thread per
      (alpha, scenario)) on stage tiles fetched once through a ring in shared
      memory; any number of candidates, as launches of at most
-     staged_tiles.k5_max_alphas(m) each. Bit for bit its first design,
+     staged_tiles.k5_max_alphas(m, form) each. Where the problem's rows
+     overflow that block's shared memory (staged_tiles.k5_form), and at m
+     >= 64, the device-memory form reads every stage row and the parameter
+     block from device memory (D = 0), the same sums. Bit for bit its first
+     design,
      csrc/staged.cuh::linesearch_cost_thread (one thread per (alpha,
      scenario) reading device memory, the A/B baseline of
      tools/staged_launch.py). Replaces rollout_pallas.py::_make_cost_kernel /
@@ -58,20 +62,16 @@ def supports(ocp: OCP) -> bool:
 
 def unsupported(ocp: OCP) -> str | None:
     """Why the staged kernels (K3-K6) cannot take this problem on the card,
-    or None. They cover `supports`' class at any robot count whose K4
-    block of one scenario fits the card's shared memory (staged_tiles.
-    k4_rule: m <= 108); K3 takes any stage shape, and K5 and K6 read their
-    stage rows from device memory where their rings do not fit."""
+    or None. They cover `supports`' class at any robot count and any number
+    of obstacle rows: K3 takes any stage shape, K4 and K5 take their
+    device-memory forms where the problem's rows overflow their tiles
+    (staged_tiles.k4_form, k5_form), and K6 reads its stage rows from
+    device memory where its ring does not fit; device memory is the only
+    bound."""
     if ocp.dyn_fn is not None or ocp.integrator != "euler":
         return "dynamics other than the Euler unicycle (dyn_fn or rk4)"
     if ocp.num_rays:
         return "LiDAR ray states (num_rays > 0)"
-    try:
-        for geometry in (staged_tiles.k4_geometry, staged_tiles.k5_geometry,
-                         staged_tiles.k6_geometry):
-            geometry(ocp.m)
-    except NotImplementedError as e:
-        return str(e)
     return None
 
 
@@ -273,17 +273,26 @@ def check_costs(ocp: OCP, x0_l, X_l, U_l, kff_l, Kfb_l, xref_l, lam_l, mu, mov_l
         check_arg(name, t, shape, x0_l.device)
 
 
+def costs_form(ocp: OCP, n_alphas: int) -> staged_tiles.K5Geometry:
+    """The K5 form this problem launches at n_alphas candidates
+    (staged_tiles.k5_form on its rows): the library's tile, or
+    staged_tiles.K5_DEVICE."""
+    return staged_tiles.k5_form(ocp.m, ocp.n_pairs > 0, ocp.n_obs, ocp.n_mov,
+                                _P(ocp.nx, ocp.nu, 0, ocp.n_obs).size, n_alphas)
+
+
 def costs_launch(ocp: OCP, x0_l, X_l, U_l, kff_l, Kfb_l, xref_l, lam_l, mu, alphas, mov_l,
-                 lib, first: bool = False):
+                 lib, first: bool = False, device: bool = False):
     """K5 from library `lib` on checked inputs (`check_costs`): the tile
-    design, or with first=True the first design of a `cuda_build.load_first`
-    library."""
+    design, with device=True its device-memory form, or with first=True the
+    first design of a `cuda_build.load_first` library."""
     B, dev = x0_l.shape[-1], x0_l.device
     costs = torch.empty((len(alphas), B), dtype=torch.float32, device=dev)
     if B == 0 or not len(alphas):
         return costs
     prm = params(ocp, alphas, dev)
-    entry = lib.nmpc_linesearch_costs_first if first else lib.nmpc_linesearch_costs
+    entry = (lib.nmpc_linesearch_costs_first if first else
+             lib.nmpc_linesearch_costs_device if device else lib.nmpc_linesearch_costs)
     err = entry(ptr(prm), prm.numel(), ptr(x0_l), ptr(X_l), ptr(U_l), ptr(kff_l), ptr(Kfb_l),
                 ptr(xref_l), ptr(lam_l), ptr(mu), ptr(mov_l if ocp.n_mov else None), ptr(costs),
                 B, ocp.N, len(alphas), int(ocp.n_pairs > 0), ocp.n_obs, ocp.n_mov,
@@ -294,37 +303,32 @@ def costs_launch(ocp: OCP, x0_l, X_l, U_l, kff_l, Kfb_l, xref_l, lam_l, mu, alph
 
 def linesearch_costs_lanes(ocp: OCP, x0_l, X_l, U_l, kff_l, Kfb_l, xref_l,
                            lam_l, mu, alphas, mov_l=None):
-    """K5 wrapper: the CUDA kernel for CUDA tensors, the plain version for
-    CPU tensors. Same arguments and result as `linesearch_costs_plain`. One
-    block runs at most staged_tiles.k5_max_alphas(m) candidates of its
-    scenarios, so a longer grid goes as consecutive slices of that many, one
-    launch each with its own parameter block, and their rows are stacked:
-    each merit is one thread's own sum, so the result does not depend on the
-    slicing."""
+    """K5 wrapper: the CUDA kernel for CUDA tensors, in the form
+    `costs_form` picks, the plain version for CPU tensors. Same arguments
+    and result as `linesearch_costs_plain`. One block runs at most
+    staged_tiles.k5_max_alphas(m, form) candidates of its scenarios, so a
+    longer grid goes as consecutive slices of that many, one launch each
+    with its own parameter block, and their rows are stacked: each merit is
+    one thread's own sum, so the result does not depend on the slicing or
+    the form."""
     if x0_l.device.type == "cpu":
         return linesearch_costs_plain(ocp, x0_l, X_l, U_l, kff_l, Kfb_l, xref_l,
                                       lam_l, mu, alphas, mov_l)
     check_costs(ocp, x0_l, X_l, U_l, kff_l, Kfb_l, xref_l, lam_l, mu, mov_l)
     alphas = tuple(float(a) for a in alphas)
-    top = staged_tiles.k5_max_alphas(ocp.m)
-    slices = [alphas[i:i + top] for i in range(0, len(alphas), top)]
-    rows = staged_tiles.k5_rows(ocp.m, ocp.n_pairs > 0, ocp.n_obs, ocp.n_mov)
-    for sl in slices:
-        smem = staged_tiles.k5_layout(ocp.m, rows, _P(ocp.nx, ocp.nu, len(sl), ocp.n_obs).size,
-                                      len(sl))["smem_bytes"]
-        if smem > staged_tiles.SMEM_BLOCK_MAX:
-            raise NotImplementedError(
-                f"linesearch_costs_lanes: a block's stage tiles and parameters take {smem} B of "
-                f"shared memory, more than the card's {staged_tiles.SMEM_BLOCK_MAX}")
-    if not slices:
+    if not alphas:
         return torch.empty((0, x0_l.shape[-1]), dtype=torch.float32, device=x0_l.device)
+    g = costs_form(ocp, len(alphas))
+    device = g == staged_tiles.K5_DEVICE
+    top = staged_tiles.k5_max_alphas(ocp.m, g)
     lib = cuda_build.load(ocp.m)
     parts = []
-    for sl in slices:
-        parts.append(costs_launch(ocp, x0_l, X_l, U_l, kff_l, Kfb_l, xref_l, lam_l, mu, sl,
-                                  mov_l, lib))
+    for i in range(0, len(alphas), top):
+        parts.append(costs_launch(ocp, x0_l, X_l, U_l, kff_l, Kfb_l, xref_l, lam_l, mu,
+                                  alphas[i:i + top], mov_l, lib, device=device))
         if x0_l.shape[-1]:
             cuda_build.launch_counts["linesearch_costs_lanes"] += 1
+            cuda_build.staged_forms["K5 device" if device else "K5 tile"] += 1
     return parts[0] if len(parts) == 1 else torch.cat(parts)
 
 

@@ -38,6 +38,15 @@ ops/cuda_build.py passes them to nvcc, and the library reports them back
 (`nmpc_k3_geometry`, ...) for cuda_build to check. The sizes here mirror
 K3Rows, K3Slot, K3BlockSlot, K3Geom, K5Geom, K4Rows, K4Geom, K6Rows and
 K6Geom of the headers.
+
+Beside its tile form every library holds K4's and K5's device-memory
+forms (K4_DEVICE, K5_DEVICE), which keep nothing in shared memory: K4's
+input and output tiles in a device-memory scratch of the wrapper's, K5's
+stage rows (D = 0) and both kernels' parameter block read from device
+memory. `k4_form` and `k5_form` pick one from the problem's own rows
+(robot count, pair rows, static and moving obstacles, parameter floats,
+candidates): the tile form wherever its block fits a block's shared memory,
+else the device-memory form, so device memory is the only bound.
 """
 
 from __future__ import annotations
@@ -62,12 +71,13 @@ K5_THREADS = 512
 K3_TILE_N, K3_TILE_NU = 30, 20
 K3_BLOCK_WARPS = 8
 K3_BLOCK_MAX_NU = 32
-# what the rules of K4's and K5's tiles past sixteen robots size a block
-# for: pair rows, RULE_OBS static and RULE_MOV moving obstacles a robot, a
-# parameter block of RULE_PRM floats (path (b)'s six obstacles, the
-# registry's most moving ones, the alphas and obstacles many times over);
-# a larger problem raises in the wrapper, naming the shared bytes
-RULE_OBS, RULE_MOV, RULE_PRM = 6, 5, 1024
+# the rows that the tiles the libraries past sixteen robots are built with
+# (k4_rule, k5_rule) are sized for: pair rows, TILE_OBS static and TILE_MOV
+# moving obstacles a robot, a parameter block of TILE_PRM floats (path
+# (b)'s six obstacles, the registry's most moving ones, the alphas and
+# obstacles many times over). Which form a launch takes is k4_form's and
+# k5_form's, from the problem's own rows.
+TILE_OBS, TILE_MOV, TILE_PRM = 6, 5, 1024
 
 
 @dataclasses.dataclass(frozen=True)
@@ -83,13 +93,14 @@ class K3Geometry:
 @dataclasses.dataclass(frozen=True)
 class K5Geometry:
     S: int
-    D: int
+    D: int    # 0: the device-memory form (K5_DEVICE)
 
 
 @dataclasses.dataclass(frozen=True)
 class K4Geometry:
     S: int
     W: int
+    device: bool = False   # the device-memory form (K4_DEVICE)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -146,6 +157,14 @@ K4_GEOMETRY = {1: K4Geometry(128, 4), 2: K4Geometry(64, 2), 3: K4Geometry(64, 4)
                4: K4Geometry(64, 8), 5: K4Geometry(64, 4), 6: K4Geometry(64, 4),
                7: K4Geometry(64, 4), 8: K4Geometry(32, 2), 9: K4Geometry(32, 4),
                10: K4Geometry(32, 4), **{m: K4Geometry(16, 4) for m in range(11, 17)}}
+# the device-memory forms every library holds beside its tile form
+# (csrc/expansions_rollout_tiles.cuh::K4Device, csrc/staged_tiles.cuh::
+# K5Device): K4 on tiles of 16 scenarios, four warps, its input and output
+# tiles in the wrapper's scratch; K5 on tiles of 8, its stage rows read
+# from device memory (D = 0); both read the parameter block from device
+# memory. K5's tile geometry past m = 63 (k5_rule) is this form.
+K4_DEVICE = K4Geometry(16, 4, device=True)
+K5_DEVICE = K5Geometry(8, 0)
 K6_GEOMETRY = {1: K6Geometry(32, 4, 1), 2: K6Geometry(32, 4, 1), 3: K6Geometry(32, 2, 2),
                4: K6Geometry(32, 2, 2), 5: K6Geometry(32, 2, 2), 6: K6Geometry(32, 2, 1),
                7: K6Geometry(16, 2, 4), 8: K6Geometry(16, 2, 4), 9: K6Geometry(16, 2, 4),
@@ -291,35 +310,30 @@ def k5_threads(m: int) -> int:
     return K5_THREADS if m <= 10 else K5_THREADS // 2
 
 
-def k5_max_alphas(m: int) -> int:
-    """The most line-search candidates one K5 launch takes."""
-    return k5_threads(m) // k5_geometry(m).S
+def k5_max_alphas(m: int, g: K5Geometry | None = None) -> int:
+    """The most line-search candidates one K5 launch of geometry g (the
+    library's tile, k5_geometry, where not given) takes."""
+    return k5_threads(m) // (k5_geometry(m) if g is None else g).S
 
 
 def _pow2(S: int) -> bool:
     return S >= 1 and S & (S - 1) == 0
 
 
-def _rule(kernel: str, m: int, tiles, smem) -> object:
+def _rule(tiles, smem) -> object:
     """The first geometry of `tiles` whose block takes at most the card's
-    shared bytes (smem(g)); raises NotImplementedError naming the limit
-    where none does."""
-    for g in tiles:
-        if smem(g) <= SMEM_BLOCK_MAX:
-            return g
-    raise NotImplementedError(
-        f"{kernel} at m={m}: its smallest block takes {smem(g)} B of shared memory, more than "
-        f"the card's {SMEM_BLOCK_MAX}")
+    shared bytes (smem(g)), else None."""
+    return next((g for g in tiles if smem(g) <= SMEM_BLOCK_MAX), None)
 
 
 @functools.lru_cache(maxsize=None)
 def k5_rule(m: int) -> K5Geometry:
     """K5 past the sweep's robot counts: the largest tile of 8, 4, 2 or 1
-    scenarios (a ring of two) whose block fits at the RULE_ rows, else (m >=
-    64) tiles of 8 that read their stage rows from device memory (D = 0)."""
-    rows = k5_rows(m, True, RULE_OBS, RULE_MOV)
-    return _rule("K5", m, [*(K5Geometry(S, 2) for S in (8, 4, 2, 1)), K5Geometry(8, 0)],
-                 lambda g: k5_layout(m, rows, RULE_PRM, 1, g)["smem_bytes"])
+    scenarios (a ring of two) whose block fits at the TILE_ rows, else (m >=
+    64) the device-memory form, K5_DEVICE."""
+    rows = k5_rows(m, True, TILE_OBS, TILE_MOV)
+    return _rule([*(K5Geometry(S, 2) for S in (8, 4, 2, 1)), K5_DEVICE],
+                 lambda g: k5_layout(m, rows, TILE_PRM, 1, g)["smem_bytes"])
 
 
 def k5_geometry(m: int) -> K5Geometry:
@@ -331,15 +345,22 @@ def k5_geometry(m: int) -> K5Geometry:
 def k5_layout(m: int, rows: int, prm_size: int, n_alphas: int,
               g: K5Geometry | None = None) -> dict:
     """What one K5 block takes at `rows` stage rows, a parameter block of
-    prm_size floats and n_alphas candidates."""
+    prm_size floats and n_alphas candidates (the device-memory form, D = 0:
+    no shared memory)."""
     g = k5_geometry(m) if g is None else g
-    if not _pow2(g.S) or not (g.D >= 2 or (g.D == 0 and m > 10)):
-        raise ValueError(f"K5 at m={m}: S={g.S}, D={g.D}")
-    smem = 4 * (al4(prm_size) + g.D * al4(rows * g.S))
+    check_k5(m, g)
+    smem = 4 * (al4(prm_size) + g.D * al4(rows * g.S)) if g.D else 0
     threads = n_alphas * g.S
     blocks = min(SMEM_SM // (smem + SMEM_RESERVED), THREADS_SM // threads, BLOCKS_SM)
     return {"threads": threads, "smem_bytes": smem, "blocks_per_sm": blocks,
             "warps_per_sm": blocks * ((threads + 31) // 32)}
+
+
+def check_k5(m: int, g: K5Geometry) -> None:
+    """Raise unless g is a geometry K5Geom takes: a ring of at least two
+    stage tiles, or none (K5_DEVICE)."""
+    if not _pow2(g.S) or not (g.D >= 2 or g == K5_DEVICE):
+        raise ValueError(f"K5 at m={m}: S={g.S}, D={g.D}")
 
 
 def nc_rows(m: int, pairs: bool, n_obs: int, n_mov: int) -> int:
@@ -360,37 +381,86 @@ def k4_out_rows(m: int) -> int:
 
 
 def check_k4(m: int, g: K4Geometry) -> None:
-    """Raise unless g is a geometry K4Geom takes."""
-    if not _pow2(g.S) or not 1 <= g.W <= 32:
-        raise ValueError(f"K4 at m={m}: S={g.S}, W={g.W}")
+    """Raise unless g is a geometry K4Geom takes (its device-memory form:
+    K4_DEVICE)."""
+    if not _pow2(g.S) or not 1 <= g.W <= 32 or (g.device and g != K4_DEVICE):
+        raise ValueError(f"K4 at m={m}: S={g.S}, W={g.W}, device={g.device}")
 
 
 @functools.lru_cache(maxsize=None)
-def k4_rule(m: int) -> K4Geometry:
-    """K4 past the sweep's robot counts: the largest tile of 16, 8, 4, 2 or
-    1 scenarios whose block fits at the RULE_ rows, four warps (the picks
-    at m = 11-16)."""
-    rows = k4_rows(m, True, RULE_OBS, RULE_MOV)
-    return _rule("K4", m, [K4Geometry(S, 4) for S in (16, 8, 4, 2, 1)],
-                 lambda g: k4_layout(m, rows, RULE_PRM, g)["smem_bytes"])
+def k4_rule(m: int) -> K4Geometry | None:
+    """K4's tile past the sweep's robot counts: the largest tile of 16, 8,
+    4, 2 or 1 scenarios whose block fits at the TILE_ rows, four warps (the
+    picks at m = 11-16); None where even one scenario's does not (m >=
+    109: its Hessian's position block alone is 4 m^2 floats), whose library
+    holds K4's device-memory form alone."""
+    rows = k4_rows(m, True, TILE_OBS, TILE_MOV)
+    return _rule([K4Geometry(S, 4) for S in (16, 8, 4, 2, 1)],
+                 lambda g: k4_layout(m, rows, TILE_PRM, g)["smem_bytes"])
 
 
-def k4_geometry(m: int) -> K4Geometry:
-    """K4's geometry at m robots: the sweep's pick (K4_GEOMETRY), else
-    k4_rule's."""
+def k4_geometry(m: int) -> K4Geometry | None:
+    """K4's tile geometry at m robots: the sweep's pick (K4_GEOMETRY), else
+    k4_rule's (None: no tile form)."""
     return K4_GEOMETRY[m] if m in K4_GEOMETRY else k4_rule(m)
+
+
+def k4_scratch_floats(m: int, rows: int, g: K4Geometry) -> int:
+    """Floats of one block's slot of the device-memory form's scratch: its
+    input tile of `rows` rows and its output tile."""
+    return al4(rows * g.S) + al4(k4_out_rows(m) * g.S)
 
 
 def k4_layout(m: int, rows: int, prm_size: int, g: K4Geometry | None = None) -> dict:
     """What one K4 block takes at `rows` input rows and a parameter block of
-    prm_size floats."""
+    prm_size floats: threads, shared bytes, and (the device-memory form) the
+    floats of its slot of the scratch."""
     g = k4_geometry(m) if g is None else g
     check_k4(m, g)
-    smem = 4 * (al4(prm_size) + al4(rows * g.S) + al4(k4_out_rows(m) * g.S))
+    tiles = k4_scratch_floats(m, rows, g)
+    smem = 0 if g.device else 4 * (al4(prm_size) + tiles)
     threads = 32 * g.W
     blocks = min(SMEM_SM // (smem + SMEM_RESERVED), THREADS_SM // threads, BLOCKS_SM)
     return {"threads": threads, "smem_bytes": smem, "blocks_per_sm": blocks,
-            "warps_per_sm": blocks * g.W}
+            "warps_per_sm": blocks * g.W, "scratch_floats": tiles if g.device else 0}
+
+
+def k4_form(m: int, pairs: bool, n_obs: int, n_mov: int, prm_size: int) -> K4Geometry:
+    """The K4 form a problem launches, from its own rows (m robots, pair
+    rows or not, n_obs static and n_mov moving obstacles, a parameter block
+    of prm_size floats): the library's tile (k4_geometry) where its block
+    fits the card's shared memory, else K4_DEVICE. The same on the CPU and
+    the card."""
+    g = k4_geometry(m)
+    if g is not None and k4_layout(m, k4_rows(m, pairs, n_obs, n_mov), prm_size,
+                                   g)["smem_bytes"] <= SMEM_BLOCK_MAX:
+        return g
+    return K4_DEVICE
+
+
+def k4_device_slots(B: int, N: int, sms: int) -> int:
+    """Blocks of K4's device-memory form, each with its slot of the
+    scratch: the work items (tiles x stages), at most as many as `sms` SMs
+    hold at once by threads; a block takes further work items in turn."""
+    g = K4_DEVICE
+    per_sm = min(THREADS_SM // (32 * g.W), BLOCKS_SM)
+    return max(1, min(-(-B // g.S) * N, sms * per_sm))
+
+
+def k5_form(m: int, pairs: bool, n_obs: int, n_mov: int, prm_size: int,
+            n_alphas: int) -> K5Geometry:
+    """The K5 form a problem launches, from its own rows (as k4_form;
+    prm_size: the parameter block without the alphas) and its n_alphas
+    candidates: the library's tile (k5_geometry) where its block, at the
+    longest slice of candidates one launch takes, fits the card's shared
+    memory, else K5_DEVICE (k5_geometry past m = 63)."""
+    g = k5_geometry(m)
+    if g.D:
+        top = min(max(n_alphas, 1), k5_max_alphas(m, g))
+        if k5_layout(m, k5_rows(m, pairs, n_obs, n_mov), prm_size + top, top,
+                     g)["smem_bytes"] <= SMEM_BLOCK_MAX:
+            return g
+    return K5_DEVICE
 
 
 def k6_rows(m: int) -> int:
@@ -411,8 +481,7 @@ def k6_rule(m: int) -> K6Geometry:
     scenarios (a ring of two) whose block fits, teams of 16 (the picks at
     m = 11-16), else (m >= 64) tiles of 8 that read their stage rows from
     device memory (D = 0)."""
-    return _rule("K6", m, [*(K6Geometry(S, 2, 16) for S in (8, 4, 2, 1)),
-                           K6Geometry(8, 0, 16)],
+    return _rule([*(K6Geometry(S, 2, 16) for S in (8, 4, 2, 1)), K6Geometry(8, 0, 16)],
                  lambda g: k6_layout(m, g)["smem_bytes"])
 
 
@@ -458,10 +527,15 @@ def nvcc_flags(m: int, k3: K3Geometry | None = None, k5: K5Geometry | None = Non
     k4 = k4_geometry(m) if k4 is None else k4
     k6 = k6_geometry(m) if k6 is None else k6
     check_k3(m, k3)
-    check_k4(m, k4)
+    if k4 is not None:
+        check_k4(m, k4)
+        if k4.device:
+            raise ValueError(f"K4 at m={m}: the device-memory form is built beside the tile")
+    check_k5(m, k5)
     check_k6(m, k6)
+    s4, w4 = (k4.S, k4.W) if k4 is not None else (0, 0)   # 0: no tile form
     return [*_k3_flags(k3), f"-DNMPC_K5_S={k5.S}", f"-DNMPC_K5_D={k5.D}",
-            f"-DNMPC_K4_S={k4.S}", f"-DNMPC_K4_W={k4.W}", f"-DNMPC_K6_S={k6.S}",
+            f"-DNMPC_K4_S={s4}", f"-DNMPC_K4_W={w4}", f"-DNMPC_K6_S={k6.S}",
             f"-DNMPC_K6_D={k6.D}", f"-DNMPC_K6_T={k6.T}"]
 
 

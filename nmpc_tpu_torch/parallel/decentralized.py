@@ -96,9 +96,10 @@ def solve_robots(template: OCP, poses, xref, mov, warms: WarmStart, cfg: ALILQRC
                  engine: str):
     """The robots' subproblems (x0 poses [m, 3], xref [m, N, 3], schedules
     mov [m, N, m-1, 2]) as one batch: `solve_batched` for engine "fused"
-    on a template the staged kernels take (the reference's rule; elsewhere
-    the reference gives way to the per-scenario engine, the port raises),
-    and the per-scenario engine for engine "xla"."""
+    on a template of the staged kernels' class, which they take at any
+    fleet size (the reference's rule; elsewhere the reference gives way to
+    the per-scenario engine, the port raises), and the per-scenario engine
+    for engine "xla"."""
     ocp_b = dataclasses.replace(template, x0=poses, xref=xref, mov_obs=mov.contiguous())
     if engine == "fused":
         why = rollout.unsupported(template)

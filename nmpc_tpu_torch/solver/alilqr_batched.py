@@ -19,9 +19,10 @@ tensors:
   without).
 * `_solve_lanes` (sweep "seq" on the same class where cfg.mega=False or
   mega_fits refuses, as it does at every m > 16): the staged path; on the
-  card K3-K6 take any m whose K4 block of one scenario fits the card's
-  shared memory (m <= 108, ops/rollout.unsupported; K3 takes any stage
-  shape) and raise NotImplementedError beyond. Each inner
+  card K3-K6 take every problem of the class at any m and any number of
+  obstacle rows (ops/rollout.unsupported: K3 takes any stage shape, K4 and
+  K5 their device-memory forms where the rows overflow their tiles), bound
+  by device memory alone. Each inner
   iteration is four launches, K4 expansions, K3 Riccati sweep, K5
   line-search merits and K6 accepted rollout, on lane-major data ([N, rows,
   B]) with no transposes inside the inner loop; the AL update between outer

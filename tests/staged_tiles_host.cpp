@@ -8,6 +8,8 @@
 // staged_tiles.k3_shape_flags) K3 runs at that stage shape instead;
 // -DNMPC_K3_WIDE=1 builds K3's wide design (its ring of D tiles of A and B,
 // D = 0 reading them from the arrays, the slot in `scratch` with spill).
+// K4's and K5's device-memory forms (K4Device, K5Device: nothing in shared
+// memory) run with `tiles` = 2.
 // A block runs as S T (K3, K6), A S (K5) or 32 W (K4) lanes (tests/
 // host_lanes.h: coroutines in the calling thread) with a barrier for
 // __syncthreads (and one for warp 0's __syncwarp in K3's block design); the
@@ -50,6 +52,11 @@ using K3G = nmpc::K3Geom<kK3n, kK3nu, NMPC_K3_S, NMPC_K3_D, NMPC_K3_T, NMPC_K3_P
 using K5G = nmpc::K5Geom<NMPC_NR, NMPC_K5_S, NMPC_K5_D>;
 using K4G = nmpc::K4Geom<NMPC_NR, NMPC_K4_S, NMPC_K4_W>;
 using K6G = nmpc::K6Geom<NMPC_NR, NMPC_K6_S, NMPC_K6_D, NMPC_K6_T>;
+using K4DM = nmpc::K4Device<NMPC_NR>;
+using K5DM = nmpc::K5Device<NMPC_NR>;
+// the device-memory form of K4 runs on this many slots of its scratch (fewer
+// than its work items where N > 1 or B > 16, so that blocks take turns)
+constexpr int kK4Slots = 3;
 
 bool aligned(int B, std::initializer_list<const float*> ptrs) {
   if (B % 4) return false;
@@ -102,13 +109,28 @@ int host_k4_rows(int pairs, int n_obs, int n_mov) {
   return nmpc::K4Rows<NMPC_NR>(pairs != 0, n_obs, n_mov).in;
 }
 
+void host_k4_device_geometry(int rows, int* out) {
+  out[0] = K4DM::S;
+  out[1] = K4DM::W;
+  out[2] = K4DM::threads;
+  out[3] = K4DM::scratch_floats(rows);
+}
+
+void host_k5_device_geometry(int* out) {
+  out[0] = K5DM::S;
+  out[1] = K5DM::D;
+  out[2] = K5DM::max_alphas;
+  out[3] = static_cast<int>(K5DM::smem_floats(0, 0) * sizeof(float));
+}
+
 void host_k6_geometry(int* out) {
   const int g[5] = {K6G::S, K6G::D, K6G::T, K6G::threads,
                     static_cast<int>(K6G::smem_floats * sizeof(float))};
   for (int i = 0; i < 5; ++i) out[i] = g[i];
 }
 
-// K4, tile design (tiles = 1) or first design (tiles = 0)
+// K4, tile design (tiles = 1), device-memory form (tiles = 2) or first
+// design (tiles = 0)
 void host_expansions(const float* prm, int prm_size, const float* Xs, const float* U,
                      const float* xref, const float* lam, const float* mu, const float* mov,
                      float* A, float* Bm, float* lx, float* lu, float* lxx, float* luu,
@@ -123,6 +145,21 @@ void host_expansions(const float* prm, int prm_size, const float* Xs, const floa
   const nmpc::K4Rows<NMPC_NR> rows(pairs != 0, n_obs, n_mov);
   const bool vec = aligned(B, {Xs, U, xref, lam, mu, n_mov ? mov : Xs, A, Bm, lx, lu, lxx, luu,
                                lux});
+  if (tiles == 2) {
+    // expansions_device_kernel: block i takes work items i, i + slots, ...
+    // in its slot of the scratch; the blocks run one after another
+    const int n_tiles = (B + K4DM::S - 1) / K4DM::S, work = n_tiles * N;
+    const int slots = work < kK4Slots ? work : kK4Slots, bf = K4DM::scratch_floats(rows.in);
+    std::vector<float> scratch((size_t)slots * bf + 4);
+    float* base = scratch.data() + (4 - reinterpret_cast<uintptr_t>(scratch.data()) / 4 % 4) % 4;
+    for (int blk = 0; blk < slots; ++blk)
+      for (int w = blk; w < work; w += slots)
+        run_block(K4DM::threads, [&](int tid) {
+          nmpc::expansion_tiles<NMPC_NR, K4DM, true>(a, prm, base + (size_t)blk * bf,
+                                                     w % n_tiles, w / n_tiles, vec, tid);
+        });
+    return;
+  }
   std::vector<float> smem(K4G::smem_floats(rows.in, prm_size));
   const int nt = K4G::threads;
   for (int k = 0; k < N; ++k)
@@ -172,7 +209,8 @@ void host_riccati(const float* A, const float* Bm, const float* lx, const float*
     });
 }
 
-// K5, tile design (tiles = 1) or first design (tiles = 0)
+// K5, tile design (tiles = 1), device-memory form (tiles = 2) or first
+// design (tiles = 0)
 void host_linesearch_costs(const float* prm, int prm_size, const float* x0, const float* Xs,
                            const float* U, const float* kff, const float* Kfb, const float* xref,
                            const float* lam, const float* mu, const float* mov, float* costs,
@@ -183,6 +221,14 @@ void host_linesearch_costs(const float* prm, int prm_size, const float* x0, cons
   if (!tiles) {
     for (int ai = 0; ai < n_alphas; ++ai)
       for (int b = 0; b < B; ++b) nmpc::linesearch_cost_thread<NMPC_NR>(a, prm, ai, b);
+    return;
+  }
+  if (tiles == 2 || K5G::D == 0) {   // a library whose K5 geometry is D = 0 launches this
+    const int nt = n_alphas * K5DM::S;
+    for (int blk = 0; blk < (B + K5DM::S - 1) / K5DM::S; ++blk)
+      run_block(nt, [&](int tid) {
+        nmpc::linesearch_tiles<NMPC_NR, K5DM>(a, prm, nullptr, blk, false, tid, nt);
+      });
     return;
   }
   const int rows = nmpc::K5Rows<NMPC_NR>(pairs != 0, n_obs, n_mov).rows;

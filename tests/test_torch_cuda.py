@@ -308,11 +308,14 @@ def test_k1_and_k2_past_the_registry_match_plain(dev, m):
 
 def test_staged_route_past_ten_robots_raises(dev):
     """K1 and K2 refuse m = 17 (their ceiling, cuda_build.MEGA_MAX_ROBOTS),
-    and the default route takes the staged route there; the staged route
-    raises NotImplementedError, naming the shared bytes, only where K4's
-    block of one scenario overflows the card (m = 109: the Hessian's
-    position block of its output tile), before it builds anything. At m =
-    20, 24 and 32 it runs (test_staged_kernels_past_sixteen_robots_match_plain)."""
+    raising, and the default route takes the staged route there. The staged
+    route takes every robot count: at m = 112 (the crossing, N=2, B=2),
+    past m = 108, where K4's tile no longer holds one scenario, it solves
+    on the card through K4's and K5's device-memory forms (counted as such)
+    and agrees with the CPU's plain versions as the CPU tests hold the
+    staged route to the reference (cost rtol 1e-4, violation atol 1e-4,
+    convergence, mean control gap below 1e-3); K3-K6 against plain at the
+    solve's last iterate."""
     from nmpc_tpu_torch.scenarios import robot_counts
     from nmpc_tpu_torch.solver.alilqr_batched import route
 
@@ -325,10 +328,57 @@ def test_staged_route_past_ten_robots_raises(dev):
         megasolve.inner_solve_fused(ob17, ob17.x0, ob17.xref, torch.zeros((4, 10, o17.n_con), **kw),
                                     torch.full((4,), 10.0, **kw),
                                     torch.zeros((4, 10, o17.nu), **kw), cfg)
-    o109 = robot_counts.make(109, device=dev, N=2)
-    ob109 = batch_ocp(o109, o109.x0[None].repeat(2, 1))
-    with pytest.raises(NotImplementedError, match="K4 at m=109"):
-        solve_batched(ob109, cfg=dataclasses.replace(cfg, mega=False))
+    _hold_any_rows(_jittered(robot_counts.make(112, device=dev, N=2), 2, dev), dev,
+                   dataclasses.replace(cfg, mega=False), {"K4": "device", "K5": "device"})
+
+
+def _jittered(base, B, dev, seed=0):
+    """base at B starts jittered by 0.01 N(0, 1)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return batch_ocp(base, base.x0[None] + 0.01 * torch.randn((B, base.nx), generator=g,
+                                                                device=dev))
+
+
+def _hold_any_rows(ob, dev, cfg, forms, share=None, hold_b=8):
+    """solve_batched of the batched problem ob on the card: the staged
+    route's launches (or the hybrid route's K5 and K6 alone), K4 and K5 in
+    `forms` ({"K4": "tile" or "device", ...}), every output finite; with
+    share, that converged share at least, else the solve against the CPU's
+    (plain versions) at the CPU tests' tolerances. Then K3-K6 against plain
+    at the solve's last iterate of its first hold_b scenarios. Returns the
+    result."""
+    from nmpc_tpu_torch.ops.cuda_build import lane
+    from nmpc_tpu_torch.solver.alilqr_batched import _mov_lanes, route
+
+    hybrid = route(ob, cfg) == "hybrid"
+    cuda_build.reset_launch_counts()
+    res = solve_batched(ob, cfg=cfg)
+    c, f = dict(cuda_build.launch_counts), dict(cuda_build.staged_forms)
+    it = c["linesearch_costs_lanes"]
+    assert it > 0 and c["inner_solve_fused"] == c["al_update_lanes"] == 0, c
+    assert c["rollout_alpha_lanes"] == it + (0 if hybrid else 1), c
+    assert c["expansions_fused"] == c["riccati_lanes"] == (0 if hybrid else it), c
+    for k, form in forms.items():
+        assert f[f"{k} {form}"] == (c["expansions_fused"] if k == "K4" else it) > 0, (k, f)
+    for name in ("X", "U", "cost", "viol", "lam"):
+        assert torch.isfinite(getattr(res, name)).all(), name
+    if share is not None:
+        assert float(res.converged.float().mean()) >= share
+    else:
+        want = solve_batched(ob.to("cpu"), cfg=cfg)
+        torch.testing.assert_close(res.cost.cpu(), want.cost, rtol=1e-4, atol=0)
+        torch.testing.assert_close(res.viol.cpu(), want.viol, rtol=0, atol=1e-4)
+        assert torch.equal(res.converged.cpu(), want.converged)
+        assert float((res.U.cpu() - want.U).abs().mean()) < 1e-3
+    H = min(hold_b, ob.x0.shape[0])
+    sub = dataclasses.replace(ob, **{k: getattr(ob, k)[:H] for k in P.batch_fields(ob)})
+    v, _ = staged_vs_plain(sub, lane(res.X[:H, :-1]), lane(res.U[:H]), lane(sub.xref),
+                           lane(res.lam[:H]), res.mu[:H].contiguous(), _mov_lanes(sub, H),
+                           (0.0,) + tuple(cfg.alphas), torch.full((H,), 0.5, device=dev),
+                           cfg.reg)
+    for k, x in v.items():
+        assert x.units > 0 and x.n_diverged == 0, (k, x)
+    return res
 
 
 @pytest.mark.parametrize("m", [12, 16])
@@ -440,6 +490,68 @@ def test_k5_k6_direct_reads_are_the_ring_design(dev):
     got6 = R.rollout_launch(ocp, *k6, lib)
     assert all(torch.equal(a, b) for a, b in zip(got6, R.rollout_alpha_lanes(ocp, *k6)))
     assert all(torch.isfinite(t).all() for t in got6)
+
+
+# chip_smoke.py phase 41's problems (b)-(d) at B = 64: the forms K4 and K5
+# take there by staged_tiles.k4_form / k5_form, and the config
+ANY_ROWS = {"pillars 16x200": ({"K4": "device", "K5": "device"}, {}),
+            "pillars 20x64 scan": ({"K5": "device"}, {"sweep": "scan"}),
+            "moving 150": ({"K4": "device", "K5": "tile"}, {"mega": False})}
+
+
+@pytest.mark.parametrize("case", sorted(ANY_ROWS))
+def test_device_memory_forms_on_the_route(dev, case):
+    """Problems whose rows overflow K4's or K5's tile on the card: the
+    crossing of m = 16 robots among 200 pillars (the default config, whose
+    route is the staged one: K1's block overflows too), of m = 20 among 64
+    on the hybrid route (sweep="scan"), and one robot with 150 moving
+    obstacles (mega=False; a 151-robot decentralized fleet's subproblem,
+    robot_counts.fleet_subproblem),
+    B = 64 at the bench config: the route's launches in the forms the rule
+    picks, the converged share at least 0.9, and K3-K6 against plain at the
+    solve's last iterate."""
+    from nmpc_tpu_torch.scenarios import robot_counts
+
+    forms, kw = ANY_ROWS[case]
+    if case.startswith("pillars"):
+        m, n_obs = (16, 200) if case.startswith("pillars 16") else (20, 64)
+        ob = _jittered(P.make_ocp(**robot_counts.pillars(m, n_obs), device=dev), 64, dev)
+    else:
+        ob = _jittered(P.make_ocp(**robot_counts.fleet_subproblem(150), device=dev), 64, dev)
+    cfg = ALILQRConfig(n_outer=6, n_inner=12, tol_con=1e-3, ls="adaptive", **kw)
+    _hold_any_rows(ob, dev, cfg, forms, share=0.9)
+
+
+@pytest.mark.parametrize("case", ["pillars 20x16", "moving 12", "all rows"])
+def test_device_memory_forms_are_the_tile_forms(dev, case):
+    """K4's and K5's device-memory forms against their tile forms bit for
+    bit on the same inputs (B = 37: a ragged last tile, 4-byte stores; B =
+    64: 16-byte stores), where both take the problem: the crossing of m =
+    20 among 16 pillars (N=5), one robot with 12 moving obstacles, two
+    robots with every row kind; both against plain."""
+    from nmpc_tpu_torch.ops import expansions as E
+    from nmpc_tpu_torch.scenarios import robot_counts
+
+    if case == "pillars 20x16":
+        ocp = P.make_ocp(**robot_counts.pillars(20, 16, N=5), device=dev)
+    elif case == "moving 12":
+        ocp = P.make_ocp(**robot_counts.fleet_subproblem(12, N=8), device=dev)
+    else:
+        ocp = _staged_problem("all rows", dev)
+    assert not E.form(ocp).device and R.costs_form(ocp, 9) != staged_tiles.K5_DEVICE
+    lib = cuda_build.load(ocp.m)
+    alphas = (0.0, 1.0, 0.5, 0.25, 0.1, 0.03, 0.01, 0.003, 0.001)
+    for B in (37, 64):
+        L = _lanes(ocp, B, dev, seed=B)
+        ins = (L["X"], L["U"], L["xref"], L["lam"], L["mu"], L.get("mov"))
+        tile = E.launch(ocp, *ins, lib)
+        device = E.launch(ocp, *ins, lib, device=True)
+        assert all(torch.equal(a, b) for a, b in zip(tile, device)), (case, B)
+        v, _ = staged_vs_plain(ocp, *ins, alphas, L["alpha"], 1e-6, gains=(L["kff"], L["Kfb"]))
+        assert v["K4"].n_widened == 0 and v["K5"].n_diverged == 0
+        args = (L["x0"], L["X"], L["U"], L["kff"], L["Kfb"], L["xref"], L["lam"], L["mu"])
+        got = R.costs_launch(ocp, *args, alphas, L.get("mov"), lib, device=True)
+        assert torch.equal(got, R.costs_launch(ocp, *args, alphas, L.get("mov"), lib)), (case, B)
 
 
 @pytest.mark.parametrize("shape", [(81, 33), (96, 64), (120, 40), (150, 100), (210, 100)])
@@ -676,11 +788,19 @@ def test_staged_wrappers_refuse_what_the_kernels_do_not_cover(dev):
                               L["alpha"])
     with pytest.raises(ValueError):
         expansions_fused(ocp, L["X"], L["U"], L["xref"], L["lam"][:, :3], L["mu"])
-    # K4's block of one scenario overflows the card's shared memory at m=109
-    too_many = dataclasses.replace(ocp, m=109)
-    with pytest.raises(NotImplementedError, match="m=109"):
-        R.linesearch_costs_lanes(too_many, L["x0"], L["X"], L["U"], L["kff"], L["Kfb"],
-                                 L["xref"], L["lam"], L["mu"], (0.0, 1.0))
+    # no robot count is refused for want of shared memory: at m = 112 (B=2,
+    # N=2) K4 and K5 launch their device-memory forms and agree with plain
+    from nmpc_tpu_torch.scenarios import robot_counts
+
+    wide = robot_counts.make(112, device=dev, N=2)
+    W = _lanes(wide, 2, dev)
+    cuda_build.reset_launch_counts()
+    v, _ = staged_vs_plain(wide, W["X"], W["U"], W["xref"], W["lam"], W["mu"], None,
+                           (0.0, 1.0, 0.5), W["alpha"], 1e-6, gains=(W["kff"], W["Kfb"]))
+    for k, x in v.items():
+        assert x.units > 0 and x.n_diverged == 0 and x.n_widened == 0, k
+    assert cuda_build.staged_forms == {"K4 tile": 0, "K4 device": 1, "K5 tile": 0,
+                                       "K5 device": 1}
     # K3 takes every stage shape with n, nu >= 1 (its wide design past the
     # block design's); an empty one raises
     for n, nu in ((0, 4), (4, 0)):

@@ -43,7 +43,7 @@ from nmpc_tpu.solver.alilqr import ALILQRConfig as JaxConfig
 from nmpc_tpu.solver.alilqr import solve as jax_solve
 from nmpc_tpu.solver.alilqr_batched import _resolve_sweep
 from nmpc_tpu_torch.ocp import problem as TP
-from nmpc_tpu_torch.ops import cuda_build, megasolve, rollout
+from nmpc_tpu_torch.ops import cuda_build, expansions, megasolve, rollout, staged_tiles
 from nmpc_tpu_torch.parallel import batch_ocp
 from nmpc_tpu_torch.scenarios import REGISTRY, robot_counts
 from nmpc_tpu_torch.solver import ALILQRConfig
@@ -111,10 +111,10 @@ def test_nothing_past_the_ceiling():
     and K2 refuse the problem (cuda_build.MEGA_MAX_ROBOTS), and so do K1's
     variants and the staged kernels' first designs (the A/B baselines),
     raising naming the ceiling before they build anything; the route is the
-    staged one, whose kernels (K3-K6) take the problem on the card up to
-    the robot count whose K4 block of one scenario overflows the card's
-    shared memory (m = 109: its Hessian's position block alone is 4 m^2
-    floats), naming the bytes; on the CPU the plain versions run."""
+    staged one, whose kernels (K3-K6) take the problem on the card at every
+    robot count: past m = 108, where K4's tile no longer holds one scenario
+    (its Hessian's position block alone is 4 m^2 floats), K4 takes its
+    device-memory form; on the CPU the plain versions run."""
     for m in range(1, 17):
         assert route(wide(m)[1], ALILQRConfig()) == "mega", m
     t = wide(16)[1]
@@ -134,10 +134,11 @@ def test_nothing_past_the_ceiling():
     assert "m=17" in megasolve.cuda_unsupported(t17, ALILQRConfig())
     assert not megasolve.mega_fits(t17)
     assert route(t17, ALILQRConfig()) == "staged"
-    for m in (9, 12, 16, 17, 20, 24, 32, 63, 64, 108):
+    for m in (9, 12, 16, 17, 20, 24, 32, 63, 64, 108, 109, 112):
         assert rollout.unsupported(robot_counts.make(m, device="cpu", N=2)) is None, m
-    why = rollout.unsupported(robot_counts.make(109, device="cpu", N=2))
-    assert "K4 at m=109" in why and "shared memory" in why
+    for m in (109, 112):
+        ocp = robot_counts.make(m, device="cpu", N=2)
+        assert staged_tiles.k4_geometry(m) is None and expansions.form(ocp).device, m
 
 
 def _starts(o, B=8, seed=0):
