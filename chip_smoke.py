@@ -96,10 +96,11 @@ and holding each against its plain PyTorch version on the card:
   state rows and two right-hand sides), each library built at its first
   use, B=4096 at the bench config through K1 and K2, each held against
   plain, and at m=12 K1's and K2's obstacle variant; the staged route
-  (mega=False) at m = 7, 9, 12 and 16 through K3-K6 (K3's block design
-  past ten robots: a block of eight warps a scenario), held against plain;
-  the hybrid route (sweep="scan") at m=12 through K5 and K6; K3's block
-  design at stage shapes past (30, 20) up to its limit (80, 32), against
+  (mega=False) at m = 7, 9, 12 and 16 through K3-K6 (K3's register-tile
+  design past ten robots: S scenarios a block, 4 x 4 register tiles of the
+  products, the factor as one elimination over the block), held against
+  plain; the hybrid route (sweep="scan") at m=12 through K5 and K6; K3's
+  register-tile design at stage shapes past (30, 20) up to (80, 32), against
   plain.
 
 Phases:
@@ -211,25 +212,28 @@ Phases:
                                       plain and the bound; the staged
                                       route, K3-K6 vs plain, timed
                                    39 the hybrid route at m=12 (scan, K5
-                                      and K6), B=1024; K3's block design
+                                      and K6), B=1024; K3's register-tile
+                                      design
                                       at (36, 24), (41, 7), (50, 13),
                                       (64, 32) and (80, 32): ptxas, vs
                                       plain, timed against the bound
                                    40 m = 20, 24, 32, past K1's sixteen
-                                      robots: ptxas of K3's wide design
-                                      and K4-K6 on their smaller tiles;
+                                      robots: ptxas of K3's register-tile
+                                      design and K4-K6 on their smaller
+                                      tiles;
                                       bench-config solves on the default
                                       config's (staged) route B=4096,
                                       4096, 1024 (quality, ms, launches),
                                       the same as mega=False bit for bit;
+                                      K3 timed at the solve's batch;
                                       K3-K6 vs plain at B=256, timed
                                       against the bound; the hybrid route
                                       at m=20 (and K5/K6 reading device
                                       memory, D = 0, bit for bit); K3 at
                                       (81, 33), (96, 64), (120, 40), (150,
                                       100) (nu > 32, a ring of one, the
-                                      slot in device memory) vs plain,
-                                      timed
+                                      slot spilled, its products staged)
+                                      vs plain, timed
                                    41 no shared-memory ceiling: m = 112's
                                       library (K4's and K5's device-memory
                                       forms alone) and every library's
@@ -264,6 +268,7 @@ import re
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -646,6 +651,28 @@ def hold_staged_kernels(tag: str, ocp_b, r, cfg, gen, first: bool = True,
             assert state == "ii" or x.n_widened == 0, (tag, state, k, x.n_widened)
         out.append((state, v, calls, ab))
     return out
+
+
+def k3_at_solve_batch(ob, r, cfg, reps: int = 2) -> tuple:
+    """K3's ms at a staged solve's own batch: its inputs K4's expansions at
+    the solve's last iterate r of ob, every scenario (the launches the
+    solve made at that batch), on CUDA events after a warm-up; with the
+    bound of that launch (tools/roofline.py::kernel_work). Returns (ms,
+    bound ms, bound by)."""
+    from nmpc_tpu_torch.ops.cuda_build import lane
+    from nmpc_tpu_torch.ops.expansions import expansions_fused
+    from nmpc_tpu_torch.ops.riccati import riccati_lanes
+    from nmpc_tpu_torch.solver.alilqr_batched import _mov_lanes
+    from nmpc_tpu_torch.tools import roofline as RL
+    from nmpc_tpu_torch.utils.timing import cuda_ms
+
+    B = ob.x0.shape[0]
+    exp = expansions_fused(ob, lane(r.X[:, :-1]), lane(r.U), lane(ob.xref), lane(r.lam),
+                           r.mu.contiguous(), _mov_lanes(ob, B))
+    ms_ = cuda_ms(lambda: riccati_lanes(exp, cfg.reg), reps)
+    b_ms, by = RL.bound(*RL.kernel_work("K3", ob, B))
+    del exp
+    return ms_, b_ms, by
 
 
 def summary(res) -> str:
@@ -2690,12 +2717,12 @@ def lidar_batch_phase(dev, card: str) -> None:
 # and 9 (K1's warp design as at m <= 10) and 12 and 16 (lanes that own two
 # state rows and two right-hand sides, three and four pair rows), each
 # library built from csrc at its first use; the staged route at every one
-# (K3's block design at 12 and 16). The problems are
+# (K3's register-tile design at 12 and 16). The problems are
 # scenarios/robot_counts.py's: the antipodal circle at 7 and 9 (N=10,
 # T=0.2), ten_robot widened by columns at 12 and 16 (N=20). Phase 39: the
 # hybrid route at m=12 (B=WIDE_HYBRID_B) and K3 at WIDE_K3_SHAPES, stage
-# shapes past the team design's (30, 20) that no robot stack has, up to the
-# block design's limit.
+# shapes past the team design's (30, 20) that no robot stack has, up to
+# (80, 32).
 WIDE_ROBOTS = (7, 9, 12, 16)
 WIDE_B = 4096
 WIDE_HOLD_B = 256
@@ -2716,7 +2743,7 @@ WIDE_OBSTACLE = (-0.5, -0.7, 0.15)
 WIDE_DIVERGED = 0.05
 # K1's and K2's `-Xptxas -v` lines at the new m (regs, stack, spill stores,
 # spill loads), both instantiations, as PERF.md records them; K3-K6's at
-# each m (K3's block design at 12 and 16) and K3's at WIDE_K3_SHAPES with
+# each m (K3's register-tile design at 12 and 16) and K3's at WIDE_K3_SHAPES with
 # the dynamic shared bytes of a block, as STAGED_PTXAS has them
 WIDE_PTXAS = {7: {"K1": (96, 0, 0, 0), "K1 obs": (96, 32, 0, 0), "K2": (28, 0, 0, 0),
                   "K2 obs": (30, 0, 0, 0)},
@@ -2731,14 +2758,29 @@ WIDE_STAGED_PTXAS = {
         "K6": (123, 32, 0, 0, 44800)},
     9: {"K3": (253, 0, 0, 0, 179136), "K4": (255, 32, 0, 0, 81328), "K5": (107, 248, 0, 0, 90448),
         "K6": (128, 32, 0, 0, 71424)},
-    12: {"K3": (40, 0, 0, 0, 59808), "K4": (254, 32, 0, 0, 64928), "K5": (127, 272, 0, 0, 75648),
+    12: {"K3": (77, 0, 0, 0, 59200), "K4": (254, 32, 0, 0, 64928), "K5": (127, 272, 0, 0, 75648),
          "K6": (126, 32, 0, 0, 61440)},
-    16: {"K3": (58, 0, 0, 0, 105856), "K4": (254, 32, 0, 0, 104976),
+    16: {"K3": (73, 0, 0, 0, 52000), "K4": (254, 32, 0, 0, 104976),
          "K5": (128, 352, 0, 0, 127472), "K6": (141, 32, 0, 0, 106496)},
-    (36, 24): {"K3": (40, 0, 0, 0, 59808)}, (41, 7): {"K3": (40, 0, 0, 0, 48720)},
-    (50, 13): {"K3": (48, 0, 0, 0, 78768)}, (64, 32): {"K3": (32, 0, 0, 0, 161408)},
-    (80, 32): {"K3": (32, 0, 0, 0, 229248)},
+    (36, 24): {"K3": (77, 0, 0, 0, 59200)}, (41, 7): {"K3": (79, 0, 0, 0, 49472)},
+    (50, 13): {"K3": (75, 0, 0, 0, 39968)}, (64, 32): {"K3": (71, 0, 0, 0, 79904)},
+    (80, 32): {"K3": (73, 0, 0, 0, 114080)},
 }
+
+
+# the nice value of the threads that build phases 38-41's libraries after
+# phase 1 (and of the nvcc processes they start): phases 2-22 run beside
+# these builds, and at equal priority their host-bound work shares the
+# host's 8 cores with ~15 nvcc processes; so the builds take the cores
+# those phases leave idle
+BACKGROUND_NICE = 19
+
+
+def background(fn, *args):
+    """fn(*args) on this pool thread at BACKGROUND_NICE (Linux keeps a nice
+    value a thread; the threads and processes it starts inherit it)."""
+    os.setpriority(os.PRIO_PROCESS, threading.get_native_id(), BACKGROUND_NICE)
+    return fn(*args)
 
 
 def start_wide_builds() -> list:
@@ -2751,8 +2793,9 @@ def start_wide_builds() -> list:
     from nmpc_tpu_torch.ops import cuda_build
 
     pool = ThreadPoolExecutor(max_workers=len(WIDE_ROBOTS) + len(WIDE_K3_SHAPES))
-    futures = [pool.submit(cuda_build.load, m) for m in WIDE_ROBOTS]
-    futures += [pool.submit(cuda_build.load_k3_shape, *shape) for shape in WIDE_K3_SHAPES]
+    futures = [pool.submit(background, cuda_build.load, m) for m in WIDE_ROBOTS]
+    futures += [pool.submit(background, cuda_build.load_k3_shape, *shape)
+                for shape in WIDE_K3_SHAPES]
     pool.shutdown(wait=False)
     return futures
 
@@ -2800,7 +2843,8 @@ def wide_build(card: str, pending: list) -> dict:
         info = cuda_build.k3_shape_build_info[shape]
         lines[shape] = {"K3": (*ptxas(info["ptxas"])["K3"],
                                staged_tiles.k3_layout(shape)["smem_bytes"])}
-        log(f"phase 38 (a) ptxas K3 at {shape} (the block design, {staged_tiles.k3_geometry(shape)}):"
+        log(f"phase 38 (a) ptxas K3 at {shape} (the register-tile design, "
+            f"{staged_tiles.k3_geometry(shape)}):"
             f" {ptxas_summary(info['ptxas'])}, dynamic shared {lines[shape]['K3'][-1]} B; built in "
             f"{info['seconds']:.1f} s")
     log(f"phase 38 (a) built m in {WIDE_ROBOTS} and K3 at {WIDE_K3_SHAPES} in the background "
@@ -2823,7 +2867,7 @@ def wide_solves(dev, card: str) -> list:
     plain version needed), K2's beside its plain version's and bound.
     At m=12 also K1's and K2's obstacle variant against plain, with a
     static obstacle (WIDE_OBSTACLE) on the same starts.
-    (c) the staged route (mega=False) on the same starts (K3's block design
+    (c) the staged route (mega=False) on the same starts (K3's register-tile design
     at 12 and 16), then K3-K6 against plain on its last iterate at the
     tolerances of phase 10 (kernel_check's rule, at fresh and at the solve's
     own multipliers), with at most WIDE_DIVERGED of the units left out as
@@ -3070,7 +3114,7 @@ def wide_stage_shapes_phase(dev, card: str) -> list:
         dims = types.SimpleNamespace(m=0, nx=shape[0], nu=shape[1], n_pairs=0, n_con=0, N=20,
                                      n_obs=0, n_mov=0)
         b_ms, by = RL.bound(*RL.kernel_work("K3", dims, 256))
-        log(f"phase 39 (b) K3's block design at {shape} vs plain (B = 33 and 256, N=20): max "
+        log(f"phase 39 (b) K3's register-tile design at {shape} vs plain (B = 33 and 256, N=20): max "
             f"|err| {err:.3e} (kernel_check's rule); {ms_:.4f} ms a launch at B=256, plain "
             f"{plain_ms:.1f} ms, bound {b_ms:.5f} ms ({by}), {100 * b_ms / ms_:.2f}% {card}")
         rows.append({"name": f"riccati_lanes {shape}", "route": "cuda",
@@ -3084,11 +3128,11 @@ def wide_stage_shapes_phase(dev, card: str) -> list:
 
 # phase 40: robot counts past the megakernel's sixteen, where the default
 # config takes the staged route (K1 and K2 stop at
-# cuda_build.MEGA_MAX_ROBOTS): K3's wide design (its Cholesky across the
-# block) and K4-K6 on the tiles of staged_tiles.k4_rule, k5_rule and k6_rule,
-# at m = 20, 24 and 32 on scenarios/robot_counts.py's crossing (N=20) at the
-# bench config; the hybrid route at m=20; K3's wide design at PAST_K3_SHAPES,
-# stage shapes that take each of its branches.
+# cuda_build.MEGA_MAX_ROBOTS): K3's register-tile design and K4-K6 on the
+# tiles of staged_tiles.k4_rule, k5_rule and k6_rule, at m = 20, 24 and 32 on
+# scenarios/robot_counts.py's crossing (N=20) at the bench config; the
+# hybrid route at m=20; K3's register-tile design at PAST_K3_SHAPES, stage
+# shapes that take each of its branches past nu = 32.
 PAST_ROBOTS = (20, 24, 32)
 PAST_B = {20: 4096, 24: 4096, 32: 1024}
 PAST_HOLD_B = 256
@@ -3102,14 +3146,14 @@ PAST_DIRECT = {"k5": (8, 0), "k6": (8, 0, 16)}
 # spill loads, dynamic shared bytes of a block) and K3's at PAST_K3_SHAPES,
 # as PERF.md records them
 PAST_STAGED_PTXAS = {
-    20: {"K3": (40, 0, 0, 0, 103360), "K4": (254, 32, 0, 0, 154240),
+    20: {"K3": (71, 0, 0, 0, 80672), "K4": (254, 32, 0, 0, 154240),
          "K5": (176, 432, 0, 0, 192608), "K6": (166, 32, 0, 0, 163840)},
-    24: {"K3": (40, 0, 0, 0, 148608), "K4": (255, 128, 96, 192, 107088),
+    24: {"K3": (64, 8, 16, 12, 115616), "K4": (255, 128, 96, 192, 107088),
          "K5": (254, 512, 0, 0, 136272), "K6": (179, 32, 0, 0, 116736)},
-    32: {"K3": (39, 0, 0, 0, 202240), "K4": (255, 552, 588, 1304, 179632),
+    32: {"K3": (87, 0, 0, 0, 204192), "K4": (255, 552, 588, 1304, 179632),
          "K5": (254, 672, 0, 0, 118448), "K6": (238, 32, 0, 0, 204800)},
-    (81, 33): {"K3": (32, 0, 0, 0, 153280)}, (96, 64): {"K3": (39, 0, 0, 0, 202240)},
-    (120, 40): {"K3": (62, 0, 0, 0, 153600)}, (150, 100): {"K3": (48, 0, 0, 0, 150000)},
+    (81, 33): {"K3": (91, 0, 0, 0, 118944)}, (96, 64): {"K3": (87, 0, 0, 0, 204192)},
+    (120, 40): {"K3": (128, 16, 20, 24, 16384)}, (150, 100): {"K3": (128, 24, 28, 40, 16384)},
 }
 
 
@@ -3121,9 +3165,10 @@ def start_past_builds() -> list:
     from nmpc_tpu_torch.ops import cuda_build
 
     pool = ThreadPoolExecutor(max_workers=len(PAST_ROBOTS) + len(PAST_K3_SHAPES))
-    futures = [pool.submit(cuda_build.load, m) for m in PAST_ROBOTS]
-    futures += [pool.submit(cuda_build.load_k3_shape, *shape) for shape in PAST_K3_SHAPES]
-    futures.append(pool.submit(past_direct_lib))
+    futures = [pool.submit(background, cuda_build.load, m) for m in PAST_ROBOTS]
+    futures += [pool.submit(background, cuda_build.load_k3_shape, *shape)
+                for shape in PAST_K3_SHAPES]
+    futures.append(pool.submit(background, past_direct_lib))
     pool.shutdown(wait=False)
     return futures
 
@@ -3169,7 +3214,7 @@ def direct_vs_ring(ob, r, cfg) -> tuple:
 
 def past_build(card: str, pending: list) -> dict:
     """Phase 40 (a): the libraries start_past_builds started (waited for
-    here): K1 and K2 absent, K3 in its wide design. Returns {m: {kernel:
+    here): K1 and K2 absent, K3 in its register-tile design. Returns {m: {kernel:
     ptxas line with its dynamic shared bytes}} and {shape: {"K3": ...}}."""
     from nmpc_tpu_torch.ops import cuda_build, staged_tiles
     from nmpc_tpu_torch.ops import rollout as R
@@ -3181,7 +3226,7 @@ def past_build(card: str, pending: list) -> dict:
     for m in PAST_ROBOTS:
         lib = cuda_build.load(m)
         assert not hasattr(lib, "nmpc_inner_solve") or m <= cuda_build.MEGA_MAX_ROBOTS, m
-        assert cuda_build.k3_geometry(lib)["wide"] == 1, m
+        assert cuda_build.k3_geometry(lib)["rtile"] == 1, m
         text = cuda_build.build_info[m]["ptxas"]
         got = ptxas(text)
         k4 = cuda_build.k4_geometry(lib, staged_tiles.k4_rows(m, True, 0, 0),
@@ -3229,7 +3274,7 @@ def past_sixteen_phase(dev, card: str, pending: list) -> list:
     version and the bound;
     (c) the hybrid route (sweep="scan") at m=20 on PAST_HYBRID_B starts:
     K5 and K6 once an inner iteration, no K3 or K4;
-    (d) K3's wide design at PAST_K3_SHAPES (each from its riccati_shape.cu
+    (d) K3's register-tile design at PAST_K3_SHAPES (each from its riccati_shape.cu
     library: a lone K3 at a robot stack's shape past sixteen robots does
     not build that robot count's K4-K6) against plain on random well-posed
     stage blocks at B=256, N=20, timed beside plain and the bound: nu > 32
@@ -3291,6 +3336,9 @@ def past_sixteen_phase(dev, card: str, pending: list) -> list:
             f"({B / t_s:.1f} solves/s) {card}")
         if m < 32:
             assert conv >= 0.9, (m, conv)
+        k3_ms, k3_b, k3_by = k3_at_solve_batch(ob, res, cfg)
+        log(f"phase 40 (b) m={m} K3 at the solve's batch B={B}, its last iterate: {k3_ms:.3f} ms "
+            f"(bound {k3_b:.4f} ms by {k3_by}, {100 * k3_b / k3_ms:.2f}%) {card}")
         H = PAST_HOLD_B
         sub = batch_ocp(base, ob.x0[:H])
         got = {}
@@ -3351,9 +3399,9 @@ def past_sixteen_phase(dev, card: str, pending: list) -> list:
     branches = set()
     for shape in PAST_K3_SHAPES:
         g = staged_tiles.k3_geometry(shape)
-        assert g.wide, shape
-        branches |= {b for b, on in (("nu > 32", shape[1] > 32), ("ring of one or none", g.D < 2),
-                                     ("slot in device memory", g.spill)) if on}
+        assert g.rtile, shape
+        branches |= {b for b, on in (("nu > 32", shape[1] > 32), ("ring of one", g.D == 1),
+                                     ("slot spilled", g.spill)) if on}
         exp = KC.k3_inputs(*shape, PAST_K3_B, 20, gen)
         got = RIC.riccati_lanes(exp, cfg.reg)
         torch.cuda.synchronize()
@@ -3366,7 +3414,8 @@ def past_sixteen_phase(dev, card: str, pending: list) -> list:
         dims = types.SimpleNamespace(m=0, nx=shape[0], nu=shape[1], n_pairs=0, n_con=0, N=20,
                                      n_obs=0, n_mov=0)
         b_ms, by = RL.bound(*RL.kernel_work("K3", dims, PAST_K3_B))
-        log(f"phase 40 (d) K3's wide design at {shape} ({g}) vs plain (B={PAST_K3_B}, N=20): "
+        log(f"phase 40 (d) K3's register-tile design at {shape} ({g}) vs plain (B={PAST_K3_B}, "
+            f"N=20): "
             f"max |err| "
             f"{v.err:.3e} (kernel_check's rule); {ms_:.4f} ms a launch, plain {plain_ms:.1f} ms, "
             f"bound {b_ms:.5f} ms ({by}), {100 * b_ms / ms_:.2f}% {card}")
@@ -3376,7 +3425,7 @@ def past_sixteen_phase(dev, card: str, pending: list) -> list:
                      "max_abs_err": v.err, "ms": ms_, "plain_ms": plain_ms, "bound_ms": b_ms,
                      "bound_by": by, "library_ms": None})
         del exp, got, want
-    assert branches == {"nu > 32", "ring of one or none", "slot in device memory"}, branches
+    assert branches == {"nu > 32", "ring of one", "slot spilled"}, branches
     log(f"phase 40 took {time.perf_counter() - t0:.1f} s")
     return rows
 
@@ -3430,19 +3479,19 @@ DEVICE_PTXAS = {
     32: {"K4 device": (255, 416, 0, 0), "K5 device": (255, 720, 56, 112)},
     112: {"K4 device": (168, 3552, 2208, 6080), "K5 device": (128, 8704, 14920, 19048)},
 }
-ANY_PTXAS = {ANY_M: {"K3": (48, 0, 0, 0), "K4 device": (168, 3552, 2208, 6080),
+ANY_PTXAS = {ANY_M: {"K3": (128, 40, 44, 48), "K4 device": (168, 3552, 2208, 6080),
                      "K5 device": (128, 8704, 14920, 19048), "K6": (168, 2880, 5768, 8764)}}
 
 
 def start_any_rows_build() -> list:
     """Phase 41's library, the staged solver library at ANY_M (staged.cu
-    alone: K3's wide design, K4's device-memory form, K5's and K6's direct
+    alone: K3's register-tile design, K4's device-memory form, K5's and K6's direct
     reads), started in the background right after phase 1's builds, as
     start_past_builds' are. Returns the future, which any_rows_phase reads."""
     from nmpc_tpu_torch.ops import cuda_build
 
     pool = ThreadPoolExecutor(max_workers=1)
-    futures = [pool.submit(cuda_build.load, ANY_M)]
+    futures = [pool.submit(background, cuda_build.load, ANY_M)]
     pool.shutdown(wait=False)
     return futures
 
@@ -3538,7 +3587,7 @@ def any_rows_phase(dev, card: str, pending: list) -> list:
         f.result()
     info = cuda_build.build_info[ANY_M]
     lib = cuda_build.load(ANY_M)
-    assert not hasattr(lib, "nmpc_inner_solve") and cuda_build.k3_geometry(lib)["wide"] == 1
+    assert not hasattr(lib, "nmpc_inner_solve") and cuda_build.k3_geometry(lib)["rtile"] == 1
     assert staged_tiles.k4_geometry(ANY_M) is None
     assert staged_tiles.k5_geometry(ANY_M) == staged_tiles.K5_DEVICE
     any_lines = {ANY_M: ptxas(info["ptxas"])}
@@ -3599,6 +3648,10 @@ def any_rows_phase(dev, card: str, pending: list) -> list:
             f"({way} route, {cfg.sweep}, mega={cfg.mega}): launches {c}; forms {f}; "
             f"{summary(res)}; {t_s * 1e3:.1f} ms a solve ({B / t_s:.1f} solves/s) {card}")
         assert conv >= ANY_SHARE[case], (case, conv)
+        if case == "a":
+            k3_ms, k3_b, k3_by = k3_at_solve_batch(ob, res, cfg)
+            log(f"phase 41 (a) K3 at the solve's batch B={B}, its last iterate: {k3_ms:.3f} ms "
+                f"(bound {k3_b:.4f} ms by {k3_by}, {100 * k3_b / k3_ms:.2f}%) {card}")
         H = ANY_HOLD_B[case]
         sub = dataclasses.replace(ob, **{k: getattr(ob, k)[:H] for k in P.batch_fields(ob)})
         r = types.SimpleNamespace(X=res.X[:H], U=res.U[:H], lam=res.lam[:H], mu=res.mu[:H])
@@ -4602,7 +4655,7 @@ def main() -> int:
     wide_rows += wide_stage_shapes_phase(dev, card)
 
     # ---- phase 40: past the megakernel's sixteen robots: the staged route
-    # at m = 20, 24, 32, the hybrid route at 20, K3's wide design ---------
+    # at m = 20, 24, 32, the hybrid route at 20, K3 past nu = 32 ---------
     wide_rows += past_sixteen_phase(dev, card, past_builds)
 
     # ---- phase 41: no shared-memory ceiling: K4's and K5's device-memory

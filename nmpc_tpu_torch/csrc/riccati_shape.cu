@@ -20,15 +20,15 @@
     !defined(NMPC_K3_D) || !defined(NMPC_K3_T) || !defined(NMPC_K3_P) || !defined(NMPC_K3_SPILL)
 #error "compile with the stage shape and K3's geometry, -DNMPC_K3_N=... (ops/staged_tiles.py)"
 #endif
-// K3's wide design (ops/staged_tiles.py passes -DNMPC_K3_WIDE=1 where it picks it)
-#ifndef NMPC_K3_WIDE
-#define NMPC_K3_WIDE 0
+// K3's register-tile design (ops/staged_tiles.py passes -DNMPC_K3_RTILE=1 where it picks it)
+#ifndef NMPC_K3_RTILE
+#define NMPC_K3_RTILE 0
 #endif
 
 namespace nmpc {
 
 using K3X = K3Geom<NMPC_K3_N, NMPC_K3_NU, NMPC_K3_S, NMPC_K3_D, NMPC_K3_T, NMPC_K3_P,
-                   NMPC_K3_SPILL != 0, NMPC_K3_WIDE != 0>;
+                   NMPC_K3_SPILL != 0, NMPC_K3_RTILE != 0>;
 
 template <int n, int nu>
 __global__ void __launch_bounds__(K3X::threads)
@@ -61,11 +61,10 @@ void nmpc_k3_geometry(int* out) {
   for (int i = 0; i < 8; ++i) out[i] = g[i];
 }
 
-// whether K3 is built in its wide design (staged_tiles.cuh::riccati_wide)
-int nmpc_k3_wide() { return nmpc::K3X::kWide; }
+// whether K3 is built in its register-tile design (staged_tiles.cuh::riccati_rtile)
+int nmpc_k3_rtile() { return nmpc::K3X::kRtile; }
 
-// K3: one block per tile of S scenarios (one a scenario in the block
-// and wide designs); the arguments of staged.cu's nmpc_riccati, on stage blocks of
+// K3: one block per tile of S scenarios; the arguments of staged.cu's nmpc_riccati, on stage blocks of
 // this library's (n, nu). Returns the CUDA error of the launch (0 =
 // launched; a refused shared-memory opt-in too).
 int nmpc_riccati(const float* A, const float* Bm, const float* lx, const float* lu,
@@ -84,5 +83,17 @@ int nmpc_riccati(const float* A, const float* Bm, const float* lx, const float* 
       a, scratch, vec);
   return static_cast<int>(cudaGetLastError());
 }
+
+#ifdef NMPC_K3_PROBES
+// the phase probes' cycle sums (staged_tiles.cuh::g_k3_phase, 8 counters):
+// reset = 1 zeroes them, else out receives them; returns the CUDA error
+int nmpc_k3_phases(unsigned long long* out, int reset) {
+  if (reset) {
+    const unsigned long long zero[8] = {};
+    return static_cast<int>(cudaMemcpyToSymbol(nmpc::g_k3_phase, zero, sizeof zero));
+  }
+  return static_cast<int>(cudaMemcpyFromSymbol(out, nmpc::g_k3_phase, sizeof(nmpc::g_k3_phase)));
+}
+#endif
 
 }  // extern "C"

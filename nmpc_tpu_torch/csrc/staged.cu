@@ -35,9 +35,9 @@
 #ifndef NMPC_NR
 #error "compile with -DNMPC_NR=<robot count>"
 #endif
-// K3's wide design (ops/staged_tiles.py passes -DNMPC_K3_WIDE=1 where it picks it)
-#ifndef NMPC_K3_WIDE
-#define NMPC_K3_WIDE 0
+// K3's register-tile design (ops/staged_tiles.py passes -DNMPC_K3_RTILE=1 where it picks it)
+#ifndef NMPC_K3_RTILE
+#define NMPC_K3_RTILE 0
 #endif
 #if !defined(NMPC_K3_S) || !defined(NMPC_K3_D) || !defined(NMPC_K3_T) || \
     !defined(NMPC_K3_P) || !defined(NMPC_K3_SPILL) || !defined(NMPC_K5_S) || \
@@ -55,7 +55,7 @@ __device__ __forceinline__ void load_params(const float* prm, int size, float* s
 }
 
 using K3G = K3Geom<3 * NMPC_NR, 2 * NMPC_NR, NMPC_K3_S, NMPC_K3_D, NMPC_K3_T, NMPC_K3_P,
-                   NMPC_K3_SPILL != 0, NMPC_K3_WIDE != 0>;
+                   NMPC_K3_SPILL != 0, NMPC_K3_RTILE != 0>;
 using K5G = K5Geom<NMPC_NR, NMPC_K5_S, NMPC_K5_D>;
 using K6G = K6Geom<NMPC_NR, NMPC_K6_S, NMPC_K6_D, NMPC_K6_T>;
 using K4DM = K4Device<NMPC_NR>;
@@ -236,8 +236,8 @@ void nmpc_k3_geometry(int* out) {
   for (int i = 0; i < 8; ++i) out[i] = g[i];
 }
 
-// whether K3 is built in its wide design (staged_tiles.cuh::riccati_wide)
-int nmpc_k3_wide() { return nmpc::K3G::kWide; }
+// whether K3 is built in its register-tile design (staged_tiles.cuh::riccati_rtile)
+int nmpc_k3_rtile() { return nmpc::K3G::kRtile; }
 
 // K5's geometry: {S, D, largest number of alphas a block takes, shared bytes
 // a block for `rows` stage rows and a parameter block of prm_size floats}.

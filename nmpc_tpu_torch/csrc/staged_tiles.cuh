@@ -44,35 +44,49 @@
 //    16-byte copies; the sweep picks per m. At m=10 two stage tiles fill the
 //    shared memory, and the slots and the output tile go to a per-block
 //    device-memory scratch (kSpill).
-//  * K3 past (30, 20) (m >= 11, and the wider ray and user-model stages):
-//    the block design, S = 1. Eight scenarios' stage tiles no longer fit a
-//    block (at m=16 a ring of two alone would take 549 KB), so one block of
-//    W warps runs one scenario: a ring of two of its stage tiles (4-byte
-//    copies of its column of each lane-major row) and its K3BlockSlot (the
-//    Riccati blocks) in shared memory, 103 KB at m=16, 157 KB at (64, 32).
-//    Every product's entries are spread over the block's threads,
-//    consecutive threads on consecutive columns, each summed over l in
-//    riccati_thread's order (as the team design), so the outputs are the
-//    first design's; the Cholesky runs in warp 0, lane j on row j (the
-//    column's rows side by side, chol_unrolled's sums), and the 1 + n
-//    substitutions one a thread, rolled in place in the slot: no block of
-//    the scenario lives in registers, so nothing spills. kff and Kfb go
-//    straight to device memory. The largest shape a block holds at a ring
-//    of two is (80, 32) (nu <= 32: one warp's Cholesky).
-//  * K3 past the block design's shapes (nu > 32, every m >= 17, or a ring
-//    of two stage tiles beside the slot over 227 KB): the wide design,
-//    riccati_wide. At m = 32 the slot alone is 140 KB and a stage tile 140
-//    KB, and nu = 64 is past one warp. The same block of threads a
-//    scenario, with three changes: the Cholesky runs across the block, a
-//    column at a time (the rows of the column side by side, two block
-//    barriers a column, chol_unrolled's sums); the ring holds only a
-//    stage's A and B (the operands read n times a stage), D = 2 or 1 of
-//    them, or none (D = 0, read from device memory where used), while lx,
-//    lu, lxx, luu and lux, each read once a stage, come from device memory
-//    where they are used; and the slot goes to a device-memory scratch of
-//    the wrapper's (kSpill) where it does not fit beside the ring. Every sum
-//    keeps riccati_thread's order (the host rehearsal holds it bit for bit
-//    to the first design at m = 17 and 24), so K3 takes any stage shape.
+//  * K3 past (30, 20) (m >= 11, the wider ray and user-model stages, any
+//    shape): the register-tile design, riccati_rtile. It replaces the block
+//    design (a block of eight warps a scenario) and the wide design (the
+//    same with the Cholesky across the block), which reached
+//    2-6% of the bound (0.13% at (336, 224)): each thread summed one entry
+//    as a chain of n dependent FMAs with two shared loads each (~1/8 of the
+//    FMA rate), the Cholesky ran in one warp with two warp barriers a column
+//    (2 nu block barriers past nu = 32), the 1 + n substitutions one thread
+//    a right-hand side over ~nu^2 shared loads, the stage rows came as 4-byte
+//    reads of one scenario's column (4 useful bytes a 32-byte sector), one
+//    scenario a block of 256 threads, and the spilled shapes ran their dot
+//    loops over device memory. What this design does:
+//    - A block owns S consecutive scenarios (1-8; K3_GEOMETRY per m, k3_rule
+//      elsewhere), every phase spread over all its threads with the
+//      scenario fastest, so a warp's reads of a lane-major row and its stores
+//      of kff and Kfb are runs of consecutive floats.
+//    - The three products (phase 1: [Vxx; Vx'] [A | B], phase 2: [A | B]'
+//      [Vxx A | Vxx B], phase 5: Qux' [kff | Kfb]; nearly all of a stage's
+//      FLOPs) are X'Y over a common row index l with X and Y kept row-major
+//      in the slot (Vxx transposed, Quu transposed), so a thread takes a
+//      4 x 4 tile of outputs from two float4 loads a step (16 FMAs), each
+//      entry still riccati_thread's chain: the first product, then the rest
+//      in order of l, the base added last. f32 FMAs, no tensor cores.
+//    - The Cholesky and the forward substitution are one right-looking
+//      elimination of T = [Quu' | Qu | Qux] over the whole block, one block
+//      barrier a column: each entry takes its terms in order of k, as the
+//      left-looking chol and chol_solve take them.
+//    - The 1 + n backward substitutions keep chol_solve's left-looking order,
+//      one right-hand side a thread (up to nu = 32 in registers, unrolled),
+//      S (n + 1) threads at once.
+//    - A | B of the stage, read twice, goes through a ring of D tiles (one
+//      wherever k3_rule picks; 4-byte cp.async); lx, lu, lxx, luu and lux,
+//      read once each, come from device memory where used.
+//    - Where even one scenario's slot and tile overflow the block ((120, 40),
+//      (150, 100), (336, 224)), the slot and A | B live in the wrapper's
+//      device-memory scratch and the products stream 16-row slices of their
+//      operands under a 64 x 64 macro tile through two shared buffers
+//      (16-byte cp.async, the next slice in flight), so no product's dot
+//      loop reads device memory; the elimination and the backward
+//      substitutions there still work on the scratch (through L2).
+//    Every sum keeps riccati_thread's order: the host rehearsal holds the
+//    design bit for bit to the first design (m = 12, 16, 17, 24) and to the
+//    team design at (13, 2).
 //  * K5: one block runs all A candidates of its S scenarios (A S threads,
 //    thread (ai, s) at ai S + s); each stage tile is fetched from device
 //    memory once and read by all A candidates (a broadcast), so device
@@ -89,11 +103,9 @@
 // K3 at m=1 reaches 75% of its bytes bound; from m=5 one block of eight
 // teams fills an SM's shared memory, and the serial Cholesky and the
 // dependent dot chains between block barriers hold K3 near 18% of its
-// bound at m=6; the block design reaches ~5% at m = 12 and 16, held by the
-// Cholesky's and the substitutions' dependent chains a stage (one warp,
-// one thread a right-hand side); the wide design the same chains, 2 nu
-// block barriers a stage and uncoalesced 4-byte reads of one scenario's
-// column of the cost blocks (PERF.md, PR 19). K5 at 15-30%: its merit code's
+// bound at m=6; the register-tile design past (30, 20) by its FMAs, nu
+// block barriers and dependent backward substitutions a stage (PERF.md).
+// K5 at 15-30%: its merit code's
 // instructions and two block barriers a stage; past ten robots (kThreads
 // 256, its per-stage rows read from the tile where they are used) ~20-26%.
 // S, D, T, P and the spill per m are compile-time constants, picked by
@@ -217,8 +229,9 @@ NMPC_DEV void copy_rows_plain(float* dst, const float* src, size_t row0, int R, 
 // The ring: D tiles of `tile` floats each. issue(k, slot) starts the copies
 // of stage k into a slot; body(k, slot) computes stage k from it. Stages run
 // forward (K5) or backward (K3); every thread of the block calls this with
-// the same N, so the barriers are uniform. D = 1 (K3's wide design where two
-// tiles do not fit) copies each stage after the previous one is done.
+// the same N, so the barriers are uniform. D = 1 (K3's register-tile design
+// where two tiles do not fit) copies each stage after the previous one is
+// done.
 template <int D, class Issue, class Body>
 NMPC_DEV void stream_stages(int N, bool backward, float* ring, int tile, Issue&& issue,
                             Body&& body) {
@@ -314,60 +327,75 @@ struct K3Slot {
   static constexpr int floats = al4(inv + nu);
 };
 
-// The block design's slot (one scenario, all of a block's threads), in
-// floats: Vxx [n, n] (Qxx from phase 2 on), Vxx A [n, n], Vxx B [n, nu]
-// (then Kfb [nu, n]), Qux [nu, n], Quu [nu, nu] (then its factor), Vx, Qx
-// [n], Qu, kff and the factor's reciprocal diagonal [nu]. The blocks are kept
-// as they are produced, row-major: a warp's consecutive threads take
-// consecutive columns, so every product reads one operand as a broadcast
-// and the other along a row.
+// The register-tile design's slot of one scenario (stage shapes past (30,
+// 20)), in floats; every offset and leading dimension a multiple of 4, so
+// that every row starts on 16 bytes:
+//   V [n, ldv]: V(l, i) = Vxx(i, l) for i < n (Vxx transposed, as phase 1
+//     reads it), V(l, n) = Vx(l); from phase 2 Qxx transposed (its column n
+//     free), from phase 5 the next stage's Vxx and Vx, in place
+//   W [n, ldw]: phase 1's product, W(i, j) = (Vxx A)(i, j), (Vxx B)(i, j - n);
+//     from the copy after phase 2 its head holds Qux [nu, ldq]
+//   Wn [ldw]: phase 1's last row, Qx | Qu (past the Qux copy)
+//   T [nu, ldt]: the elimination's rows, Quu transposed in columns 0..nu-1
+//     (its lower triangle as T's upper), then from column r0 Qu and Qux [nu,
+//     n]: the right-hand sides; after it the factor's rows (T(i, j) = L(j,
+//     i) for j > i) and the gains [kff | Kfb]
+//   inv [nu]: the factor's reciprocal diagonal
+// pitch and tile_pitch (the stage's A | B, [n, ldab]) are the strides
+// between the scenarios of a block: = 4 mod 32 floats, so that the same
+// float4 of consecutive scenarios falls on other banks.
+NMPC_HD constexpr int rt_pitch(int v) { return v + (36 - v % 32) % 32; }
+
 template <int n_, int nu_>
-struct K3BlockSlot {
+struct K3RtSlot {
   static constexpr int n = n_, nu = nu_;
+  static constexpr int ldv = al4(n + 1), ldw = al4(n + nu), ldq = al4(n), ldab = al4(n + nu);
+  static constexpr int r0 = al4(nu), ldt = r0 + al4(n + 1);
   static constexpr int V = 0;
-  static constexpr int VA = V + al4(n * n);
-  static constexpr int W = VA + al4(n * n);
-  static constexpr int Qux = W + al4(n * nu);
-  static constexpr int Quu = Qux + al4(nu * n);
-  static constexpr int Vx = Quu + al4(nu * nu);
-  static constexpr int Qx = Vx + al4(n);
-  static constexpr int Qu = Qx + al4(n);
-  static constexpr int kf = Qu + al4(nu);
-  static constexpr int inv = kf + al4(nu);
-  static constexpr int floats = inv + al4(nu);  // 54,144 B at (64, 32)
+  static constexpr int W = V + n * ldv;
+  static constexpr int Wn = W + al4(n * ldw > nu * ldq ? n * ldw : nu * ldq);
+  static constexpr int T = Wn + ldw;
+  static constexpr int inv = T + nu * ldt;
+  static constexpr int floats = inv + al4(nu);  // 20,232 at m=16 (48, 32)
+  static constexpr int tile = n * ldab;         // the stage's A | B
+  static constexpr int pitch = rt_pitch(floats), tile_pitch = rt_pitch(tile);
 };
 
-// K3's launch geometry: S scenarios a block, D stage tiles in the ring, T
-// lanes a scenario, tile pitch P (S, or S + 1 where lanes read down a
-// column), kSpill: the output tile and the slots in a device-memory scratch
-// of the wrapper's (per block, so L2 holds the resident blocks') where they
-// do not fit beside the ring.
+// the spilled register-tile design's products: macro tiles of kRtMP x kRtMQ
+// outputs (256 threads, a 4 x 4 tile each), operands staged kRtLS rows at a
+// time, two buffers of both operands' rows in shared memory
+constexpr int kRtMP = 64, kRtMQ = 64, kRtLS = 16;
+constexpr int kRtStage = 2 * kRtLS * (kRtMP + kRtMQ);
+
+// K3's launch geometry. The team design (stage shapes up to (30, 20)): S
+// scenarios a block, D stage tiles in the ring, T lanes a scenario, tile
+// pitch P (S, or S + 1 where lanes read down a column), kSpill: the output
+// tile and the slots in a device-memory scratch of the wrapper's (per block,
+// so L2 holds the resident blocks') where they do not fit beside the ring.
 //
-// S = 1 is the block design (stage shapes past (30, 20)): one block of T =
-// 32 W threads for one scenario, P = 1, the scenario's K3BlockSlot beside
-// the ring, kff and Kfb stored straight from the substitutions (no output
-// tile). kWide (S = 1 too) is the wide design past the block design's
-// shapes (nu > 32, or a ring of two full stage tiles beside the slot over
-// the block's shared memory): its tile holds a stage's A and B alone, D of
-// them (0: A and B read straight from device memory), and kSpill puts its
-// K3BlockSlot in the scratch.
-template <int n_, int nu_, int S_, int D_, int T_, int P_, bool kSpill_, bool kWide_ = false>
+// kRtile: the register-tile design (past (30, 20)): S consecutive scenarios
+// a block of T threads (P = 1); a ring of D = 1 or 2 tiles of their stages'
+// A | B beside their slots (K3RtSlot) in shared memory, or, with kSpill (S =
+// 1, D = 0, 256 threads), the slot and the stage's A | B in the scratch and
+// the products' staging buffers in shared memory.
+template <int n_, int nu_, int S_, int D_, int T_, int P_, bool kSpill_, bool kRtile_ = false>
 struct K3Geom {
   static constexpr int n = n_, nu = nu_;
-  static constexpr int S = S_, D = D_, T = T_, P = P_, threads = S * T;
-  static constexpr bool kSpill = kSpill_, kWide = kWide_, kBlock = S == 1 && !kWide_;
-  static_assert(kBlock || kWide || (S >= 8 && (S & (S - 1)) == 0), "S: a power of two >= 8, or 1");
-  static_assert(kBlock || kWide || T == 1 || (T <= 32 && 32 % T == 0), "a team within one warp");
-  static_assert(!kBlock || (T % 32 == 0 && T <= 1024 && P == 1 && !kSpill && nu <= 32),
-                "the block design: whole warps, pitch 1, nu <= 32 (its Cholesky is one warp's)");
-  static_assert(!kWide || (S == 1 && T % 32 == 0 && T <= 1024 && P == 1 && D >= 0 && D <= 2),
-                "the wide design: one scenario, whole warps, pitch 1, a ring of 0 to 2 tiles");
-  static_assert(kBlock || kWide || P == S || P == S + 1, "pitch");
-  static constexpr int tile = kWide ? al4(n * (n + nu)) : al4(K3Rows<n, nu>::rows * P);
-  static constexpr int out = kBlock || kWide ? 0 : al4(K3Rows<n, nu>::out * P);
-  static constexpr int priv = kBlock || kWide ? K3BlockSlot<n, nu>::floats
-                                              : out + (T > 1 ? S * K3Slot<n, nu>::floats : 0);
-  static constexpr int smem_floats = D * tile + (kSpill ? 0 : priv);
+  static constexpr int S = S_, D = D_, T = T_, P = P_, threads = kRtile_ ? T : S * T;
+  static constexpr bool kSpill = kSpill_, kRtile = kRtile_;
+  static_assert(kRtile || (S >= 8 && (S & (S - 1)) == 0), "S: a power of two >= 8");
+  static_assert(kRtile || T == 1 || (T <= 32 && 32 % T == 0), "a team within one warp");
+  static_assert(kRtile || P == S || P == S + 1, "pitch");
+  static_assert(!kRtile || (S >= 1 && T % 32 == 0 && T >= 64 && T <= 1024 && P == 1 &&
+                            (kSpill ? S == 1 && D == 0 && T == 256 : D == 1 || D == 2)),
+                "the register-tile design: whole warps, pitch 1, a ring of 1 or 2 tiles, or "
+                "spilled: one scenario, 256 threads, no ring");
+  using Rt = K3RtSlot<n, nu>;
+  static constexpr int tile = kRtile ? S * Rt::tile_pitch : al4(K3Rows<n, nu>::rows * P);
+  static constexpr int out = kRtile ? 0 : al4(K3Rows<n, nu>::out * P);
+  static constexpr int priv = kRtile ? (kSpill ? Rt::floats + Rt::tile : S * Rt::pitch)
+                                     : out + (T > 1 ? S * K3Slot<n, nu>::floats : 0);
+  static constexpr int smem_floats = kRtile && kSpill ? kRtStage : D * tile + (kSpill ? 0 : priv);
   static constexpr int scratch_floats = kSpill ? priv : 0;  // per block
 };
 
@@ -662,179 +690,6 @@ NMPC_DEV void riccati_team_stage(const float* t, float* o, float* sl, int lane, 
   }
 }
 
-// The block design's warp barrier: its Cholesky runs in warp 0 alone (the
-// host rehearsal provides warp0_sync, a barrier of that warp's threads).
-#ifndef NMPC_HOST_BLOCK
-NMPC_DEV void warp0_sync() { __syncwarp(); }
-#endif
-
-// The block design, one stage of the block's scenario: t, its stage tile
-// (P = 1); sl, its slot; tid of nt threads. Every entry is summed over l in
-// riccati_thread's order (as the team design's), each phase's entries
-// spread over the block's threads with consecutive threads on consecutive
-// columns; block barriers between the phases. kff and Kfb go straight to
-// device memory (b: the scenario, k: the stage). Thread 0 carries dV1.
-template <int n_, int nu_>
-NMPC_DEV void riccati_block_stage(const RiccatiArgs& a, const float* t, float* sl, int k,
-                                  size_t b, int tid, int nt, float& dV1) {
-  using R = K3Rows<n_, nu_>;
-  using L = K3BlockSlot<n_, nu_>;
-  constexpr int n = L::n, nu = L::nu;
-  const size_t B = a.B;
-  // 1: Vxx A [n, n], Vxx B [n, nu], Qx = lx + A'Vx, Qu = lu + B'Vx
-  for (int e = tid; e < (n + nu) * n + n + nu; e += nt) {
-    const float* v;    // a row of Vxx, or Vx (stride 1)
-    const float* col;  // a column of A or B (stride w)
-    int w;
-    float* dst;
-    float base = 0.f;
-    bool lin = false;
-    if (e < n * n) {
-      v = sl + L::V + (e / n) * n, col = t + R::A + e % n, w = n, dst = sl + L::VA + e;
-    } else if (e < (n + nu) * n) {
-      const int f = e - n * n;
-      v = sl + L::V + (f / nu) * n, col = t + R::Bm + f % nu, w = nu, dst = sl + L::W + f;
-    } else if (e < (n + nu) * n + n) {
-      const int j = e - (n + nu) * n;
-      v = sl + L::Vx, col = t + R::A + j, w = n, dst = sl + L::Qx + j;
-      base = t[R::lx + j], lin = true;
-    } else {
-      const int c = e - (n + nu) * n - n;
-      v = sl + L::Vx, col = t + R::Bm + c, w = nu, dst = sl + L::Qu + c;
-      base = t[R::lu + c], lin = true;
-    }
-    float s = v[0] * col[0];
-    for (int l = 1; l < n; ++l) s = s + v[l] * col[l * w];
-    *dst = lin ? base + s : s;
-  }
-  block_sync();
-  // 2: Qxx = lxx + A'(Vxx A) into Vxx, Qux = lux + B'(Vxx A), Quu = luu +
-  //    B'(Vxx B)
-  for (int e = tid; e < n * n + nu * n + nu * nu; e += nt) {
-    const float* col;  // a column of A or B (stride w)
-    const float* m;    // a column of Vxx A or Vxx B (stride ldm)
-    int w, ldm, at, in;
-    if (e < n * n) {
-      col = t + R::A + e / n, w = n, m = sl + L::VA + e % n, ldm = n;
-      at = L::V + e, in = R::lxx + e;
-    } else if (e < n * n + nu * n) {
-      const int f = e - n * n;
-      col = t + R::Bm + f / n, w = nu, m = sl + L::VA + f % n, ldm = n;
-      at = L::Qux + f, in = R::lux + f;
-    } else {
-      const int f = e - n * n - nu * n;
-      col = t + R::Bm + f / nu, w = nu, m = sl + L::W + f % nu, ldm = nu;
-      at = L::Quu + f, in = R::luu + f;
-    }
-    float s = col[0] * m[0];
-    for (int l = 1; l < n; ++l) s = s + col[l * w] * m[l * ldm];
-    sl[at] = t[in] + s;
-  }
-  block_sync();
-  // 3: the Cholesky factor of Quu + reg I in warp 0, lane j on row j:
-  //    chol_unrolled's sums, the column's rows side by side
-  if (tid < 32) {
-    float* Q = sl + L::Quu;
-    const int j = tid;
-#pragma unroll 1
-    for (int i = 0; i < nu; ++i) {
-      float v = 0.f;
-      if (j >= i && j < nu) {
-        v = Q[j * nu + i];
-        for (int q = 0; q < i; ++q) v = v - Q[j * nu + q] * Q[i * nu + q];
-        if (j == i) {
-          const float d = sqrtf(v + a.reg);
-          sl[L::inv + i] = 1.f / d;
-          Q[i * nu + i] = d;
-        }
-      }
-      warp0_sync();
-      if (j > i && j < nu) Q[j * nu + i] = v * sl[L::inv + i];
-      warp0_sync();
-    }
-  }
-  block_sync();
-  // 4: the 1 + n substitutions, one right-hand side a thread, each in place
-  //    in the slot (chol_solve_unrolled's sums, rolled, so that no thread
-  //    holds a column in registers): kff over a copy of Qu, column c of Kfb
-  //    [nu, n] (over Vxx B) over a copy of column c of Qux
-  for (int c = tid; c <= n; c += nt) {
-    const int ys = c == 0 ? 1 : n;  // the column's stride
-    float* y = c == 0 ? sl + L::kf : sl + L::W + c - 1;
-    const float* rhs = c == 0 ? sl + L::Qu : sl + L::Qux + c - 1;
-    const float* F = sl + L::Quu;
-    const float* inv = sl + L::inv;
-    for (int i = 0; i < nu; ++i) y[i * ys] = rhs[i * ys];
-    for (int i = 0; i < nu; ++i) {
-      float s = y[i * ys];
-      for (int q = 0; q < i; ++q) s = s - F[i * nu + q] * y[q * ys];
-      y[i * ys] = s * inv[i];
-    }
-    for (int i = nu - 1; i >= 0; --i) {
-      float s = y[i * ys];
-      for (int q = i + 1; q < nu; ++q) s = s - F[q * nu + i] * y[q * ys];
-      y[i * ys] = s * inv[i];
-    }
-    for (int i = 0; i < nu; ++i) {
-      const float g = -y[i * ys];
-      y[i * ys] = g;
-      if (c == 0)
-        a.kff[((size_t)k * nu + i) * B + b] = g;
-      else
-        a.Kfb[(((size_t)k * nu + i) * n + c - 1) * B + b] = g;
-    }
-  }
-  block_sync();
-  // 5: Vxx(a, c) = Qxx(a, c) + Qux(:, a)' Kfb(:, c), Vx(a) = Qx(a) + Qux(:,
-  //    a)' kff; thread 0 also dV1 += kff . Qu
-  for (int e = tid; e < n * n + n; e += nt) {
-    const int r = e < n * n ? e / n : e - n * n;
-    const float* kr = e < n * n ? sl + L::W + e % n : sl + L::kf;  // stride n or 1
-    const int ks = e < n * n ? n : 1;
-    float acc = sl[L::Qux + r] * kr[0];
-    for (int q = 1; q < nu; ++q) acc = acc + sl[L::Qux + q * n + r] * kr[q * ks];
-    const int at = e < n * n ? L::V + e : L::Vx + r;
-    sl[at] = sl[e < n * n ? at : L::Qx + r] + acc;
-  }
-  if (tid == 0) {
-    float s = 0.f;
-#pragma unroll
-    for (int i = 0; i < nu; ++i) s += sl[L::kf + i] * sl[L::Qu + i];
-    dV1 = dV1 + s;
-  }
-}
-
-// K3's block design for the scenario of block `blk`: its stage tile copied
-// by the block's threads as 4-byte copies (one scenario's column of each
-// lane-major row), through stream_stages' ring of G::D tiles.
-template <class G>
-NMPC_DEV void riccati_block(const RiccatiArgs& a, float* smem, int blk, int tid) {
-  using R = K3Rows<G::n, G::nu>;
-  using L = K3BlockSlot<G::n, G::nu>;
-  constexpr int n = R::n, nu = R::nu, nt = G::threads;
-  const size_t B = a.B, b = blk;
-  float* sl = smem + G::D * G::tile;
-  auto col = [&](float* dst, const float* src, size_t row0, int rows) {
-    for (int e = tid; e < rows; e += nt) cp_async4(dst + e, src + (row0 + e) * B + b, true);
-  };
-  auto issue = [&](int k, float* t) {
-    col(t + R::A, a.A, (size_t)k * n * n, n * n);
-    col(t + R::Bm, a.Bm, (size_t)k * n * nu, n * nu);
-    col(t + R::lx, a.lx, (size_t)k * n, n);
-    col(t + R::lu, a.lu, (size_t)k * nu, nu);
-    col(t + R::lxx, a.lxx, (size_t)k * n * n, n * n);
-    col(t + R::luu, a.luu, (size_t)k * nu * nu, nu * nu);
-    col(t + R::lux, a.lux, (size_t)k * nu * n, nu * n);
-  };
-  for (int i = tid; i < n * n; i += nt) sl[L::V + i] = 0.f;
-  for (int i = tid; i < n; i += nt) sl[L::Vx + i] = 0.f;
-  float dV1 = 0.f;
-  stream_stages<G::D>(a.N, true, smem, G::tile, issue, [&](int k, const float* t) {
-    riccati_block_stage<n, nu>(a, t, sl, k, b, tid, nt, dV1);
-  });
-  if (tid == 0) a.dV1[b] = dV1;
-}
-
 // K3's team design for the block of tile `blk` at the stage shape of G (n,
 // nu): S scenarios, S T threads (thread tid is
 // lane tid % T of scenario tid / T). smem: G::smem_floats of dynamic shared
@@ -885,184 +740,479 @@ NMPC_DEV void riccati_team_tiles(const RiccatiArgs& a, float* smem, float* scrat
   if (lane == 0 && s < span.width) a.dV1[span.b0 + s] = dV1;
 }
 
-// The wide design, one stage of the block's scenario b: Ak, Bk, the stage's
-// A [n, n] and B [n, nu] from the ring's tile (ld 1) or straight from the
-// lane-major arrays (kDirect: ld B); lx, lu, lxx, luu and lux read straight
-// from device memory where they are used, once each; sl, the slot (shared
-// memory, or the block's scratch with kSpill). Phases 1, 2, 4 and 5 are the
-// block design's, every entry summed over l in riccati_thread's order; the
-// Cholesky runs across the block, a column at a time: the rows j >= i of
-// column i side by side (chol_unrolled's sums, each row's in its order),
-// then the pivot's reciprocal, then the column scaled, a block barrier
-// after each, so that nu is bounded by nothing but the slot.
-template <int n_, int nu_, bool kDirect>
-NMPC_DEV void riccati_wide_stage(const RiccatiArgs& a, const float* Ak, const float* Bk,
-                                 float* sl, int k, size_t b, int tid, int nt, float& dV1) {
-  using L = K3BlockSlot<n_, nu_>;
-  constexpr int n = L::n, nu = L::nu;
-  const size_t B = a.B, ld = kDirect ? B : 1;
-  // entry r of stage k's block of a lane-major input X [N, R, B]
-  auto in = [&](const float* X, int R, int r) { return X[((size_t)k * R + r) * B + b]; };
-  // 1: Vxx A [n, n], Vxx B [n, nu], Qx = lx + A'Vx, Qu = lu + B'Vx
-  for (int e = tid; e < (n + nu) * n + n + nu; e += nt) {
-    const float* v;    // a row of Vxx, or Vx (stride 1)
-    const float* col;  // a column of A or B (stride cs)
-    size_t cs;
-    float* dst;
-    float base = 0.f;
-    bool lin = false;
-    if (e < n * n) {
-      v = sl + L::V + (e / n) * n, col = Ak + (e % n) * ld, cs = n * ld, dst = sl + L::VA + e;
-    } else if (e < (n + nu) * n) {
-      const int f = e - n * n;
-      v = sl + L::V + (f / nu) * n, col = Bk + (f % nu) * ld, cs = nu * ld, dst = sl + L::W + f;
-    } else if (e < (n + nu) * n + n) {
-      const int j = e - (n + nu) * n;
-      v = sl + L::Vx, col = Ak + j * ld, cs = n * ld, dst = sl + L::Qx + j;
-      base = in(a.lx, n, j), lin = true;
-    } else {
-      const int c = e - (n + nu) * n - n;
-      v = sl + L::Vx, col = Bk + c * ld, cs = nu * ld, dst = sl + L::Qu + c;
-      base = in(a.lu, nu, c), lin = true;
-    }
-    float s = v[0] * col[0];
-    for (int l = 1; l < n; ++l) s = s + v[l] * col[l * cs];
-    *dst = lin ? base + s : s;
+// ---------------------------------------------------------------------------
+// K3 past (30, 20): the register-tile design
+// ---------------------------------------------------------------------------
+
+// Four consecutive floats to a 16-byte aligned address (shared or device
+// memory); load4<4> reads them.
+NMPC_DEV void st4(float* p, const float (&v)[4]) {
+#ifdef NMPC_HOST_BLOCK
+  for (int i = 0; i < 4; ++i) p[i] = v[i];
+#else
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+#endif
+}
+
+// The register-tile design's roundings, written out so that the compiler
+// contracts nothing on its own: on the card each is one instruction (mul,
+// add, fused multiply-add), as riccati_thread's unrolled chains come out of
+// nvcc's contraction (a chain x0 y0 + x1 y1 + ... as fma(x0, y0, x1 y1),
+// then fma(x_l, y_l, acc): the first product fused, the second rounded; a
+// lone `v - x y` as fma(-x, y, v)). The host rehearsal (g++
+// -ffp-contract=off) rounds each multiply and add apart, as riccati_thread
+// does there, so each form holds the first design bit for bit on its own
+// platform.
+#ifdef NMPC_HOST_BLOCK
+inline float rt_mul(float a, float b) { return a * b; }
+inline float rt_add(float a, float b) { return a + b; }
+inline float rt_fma(float a, float b, float c) { return a * b + c; }
+#else
+NMPC_DEV float rt_mul(float a, float b) { return __fmul_rn(a, b); }
+NMPC_DEV float rt_add(float a, float b) { return __fadd_rn(a, b); }
+NMPC_DEV float rt_fma(float a, float b, float c) { return fmaf(a, b, c); }
+#endif
+
+// A 4 x 4 tile of a product X'Y in riccati_thread's order: acc(i, j) =
+// x(0, i) y(0, j) + x(1, i) y(1, j) (the first product fused, rt_fma), then
+// + x(l, i) y(l, j) for l = 2..L-1 (x, y: 16-byte aligned rows ldx and ldy
+// floats apart; two float4 loads a step for 16 FMAs).
+template <int L, int ldx, int ldy>
+NMPC_DEV void rt_tile(const float* x, const float* y, float (&acc)[4][4]) {
+  float a[4], c[4];
+  load4<4>(x, a);
+  load4<4>(y, c);
+  if constexpr (L == 1) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = rt_mul(a[i], c[j]);
+  } else {
+    float a1[4], c1[4];
+    load4<4>(x + ldx, a1);
+    load4<4>(y + ldy, c1);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = rt_fma(a[i], c[j], rt_mul(a1[i], c1[j]));
   }
-  block_sync();
-  // 2: Qxx = lxx + A'(Vxx A) into Vxx, Qux = lux + B'(Vxx A), Quu = luu +
-  //    B'(Vxx B)
-  for (int e = tid; e < n * n + nu * n + nu * nu; e += nt) {
-    const float* col;  // a column of A or B (stride cs)
-    const float* m;    // a column of Vxx A or Vxx B (stride ldm)
-    size_t cs;
-    int ldm, at;
-    float base;
-    if (e < n * n) {
-      col = Ak + (e / n) * ld, cs = n * ld, m = sl + L::VA + e % n, ldm = n;
-      at = L::V + e, base = in(a.lxx, n * n, e);
-    } else if (e < n * n + nu * n) {
-      const int f = e - n * n;
-      col = Bk + (f / n) * ld, cs = nu * ld, m = sl + L::VA + f % n, ldm = n;
-      at = L::Qux + f, base = in(a.lux, nu * n, f);
-    } else {
-      const int f = e - n * n - nu * n;
-      col = Bk + (f / nu) * ld, cs = nu * ld, m = sl + L::W + f % nu, ldm = nu;
-      at = L::Quu + f, base = in(a.luu, nu * nu, f);
-    }
-    float s = col[0] * m[0];
-    for (int l = 1; l < n; ++l) s = s + col[l * cs] * m[l * ldm];
-    sl[at] = base + s;
-  }
-  block_sync();
-  // 3: the Cholesky factor of Quu + reg I across the block
-  float* Q = sl + L::Quu;
-  for (int i = 0; i < nu; ++i) {
-    for (int j = i + tid; j < nu; j += nt) {
-      float v = Q[j * nu + i];
-      for (int q = 0; q < i; ++q) v = v - Q[j * nu + q] * Q[i * nu + q];
-      if (j == i) {
-        const float d = sqrtf(v + a.reg);
-        sl[L::inv + i] = 1.f / d;
-        Q[i * nu + i] = d;
-      } else {
-        Q[j * nu + i] = v;
-      }
-    }
-    block_sync();
-    for (int j = i + 1 + tid; j < nu; j += nt) Q[j * nu + i] = Q[j * nu + i] * sl[L::inv + i];
-    block_sync();
-  }
-  // 4: the 1 + n substitutions, one right-hand side a thread, in place in
-  //    the slot (the block design's)
-  for (int c = tid; c <= n; c += nt) {
-    const int ys = c == 0 ? 1 : n;  // the column's stride
-    float* y = c == 0 ? sl + L::kf : sl + L::W + c - 1;
-    const float* rhs = c == 0 ? sl + L::Qu : sl + L::Qux + c - 1;
-    const float* inv = sl + L::inv;
-    for (int i = 0; i < nu; ++i) y[i * ys] = rhs[i * ys];
-    for (int i = 0; i < nu; ++i) {
-      float s = y[i * ys];
-      for (int q = 0; q < i; ++q) s = s - Q[i * nu + q] * y[q * ys];
-      y[i * ys] = s * inv[i];
-    }
-    for (int i = nu - 1; i >= 0; --i) {
-      float s = y[i * ys];
-      for (int q = i + 1; q < nu; ++q) s = s - Q[q * nu + i] * y[q * ys];
-      y[i * ys] = s * inv[i];
-    }
-    for (int i = 0; i < nu; ++i) {
-      const float g = -y[i * ys];
-      y[i * ys] = g;
-      if (c == 0)
-        a.kff[((size_t)k * nu + i) * B + b] = g;
-      else
-        a.Kfb[(((size_t)k * nu + i) * n + c - 1) * B + b] = g;
-    }
-  }
-  block_sync();
-  // 5: Vxx(a, c) = Qxx(a, c) + Qux(:, a)' Kfb(:, c), Vx(a) = Qx(a) + Qux(:,
-  //    a)' kff; thread 0 also dV1 += kff . Qu
-  for (int e = tid; e < n * n + n; e += nt) {
-    const int r = e < n * n ? e / n : e - n * n;
-    const float* kr = e < n * n ? sl + L::W + e % n : sl + L::kf;  // stride n or 1
-    const int ks = e < n * n ? n : 1;
-    float acc = sl[L::Qux + r] * kr[0];
-    for (int q = 1; q < nu; ++q) acc = acc + sl[L::Qux + q * n + r] * kr[q * ks];
-    const int at = e < n * n ? L::V + e : L::Vx + r;
-    sl[at] = sl[e < n * n ? at : L::Qx + r] + acc;
-  }
-  if (tid == 0) {
-    float s = 0.f;
-    for (int i = 0; i < nu; ++i) s += sl[L::kf + i] * sl[L::Qu + i];
-    dV1 = dV1 + s;
+#pragma unroll 4
+  for (int l = 2; l < L; ++l) {
+    load4<4>(x + l * ldx, a);
+    load4<4>(y + l * ldy, c);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = rt_fma(a[i], c[j], acc[i][j]);
   }
 }
 
-// K3's wide design for the scenario of block `blk`: A and B of each stage
-// through stream_stages' ring of G::D tiles (4-byte copies of the
-// scenario's column of each lane-major row), or with G::D = 0 read where
-// they are used; the slot in shared memory after the ring, or in the
-// block's G::scratch_floats of device memory (kSpill).
-template <class G>
-NMPC_DEV void riccati_wide(const RiccatiArgs& a, float* smem, float* scratch, int blk, int tid) {
-  using L = K3BlockSlot<G::n, G::nu>;
-  constexpr int n = G::n, nu = G::nu, nt = G::threads;
-  const size_t B = a.B, b = blk;
-  float* sl = G::kSpill ? scratch + (size_t)blk * G::scratch_floats : smem + G::D * G::tile;
-  for (int i = tid; i < n * n; i += nt) sl[L::V + i] = 0.f;
-  for (int i = tid; i < n; i += nt) sl[L::Vx + i] = 0.f;
-  float dV1 = 0.f;
-  if constexpr (G::D == 0) {
-    block_sync();
-    for (int k = a.N - 1; k >= 0; --k) {
-      riccati_wide_stage<n, nu, true>(a, a.A + (size_t)k * n * n * B + b,
-                                      a.Bm + (size_t)k * n * nu * B + b, sl, k, b, tid, nt, dV1);
+// C = X'Y, C(p, q) for p < P, q < Q, of the block's scenarios s < width
+// with X and Y in shared memory (scenario s's at X + s xs, Y + s ys): items
+// (s, 4 x 4 tile) over the block's threads, the scenario fastest, so that a
+// warp's consecutive threads take one tile of consecutive scenarios and
+// their reads of a lane-major input are consecutive floats; then the tiles
+// kRtGP rows of tiles at a time, row fastest, so that a warp's float4 loads
+// of X and of Y each fall on a few rows (a shared wavefront or two). A tile
+// with skip(p0, q0, 4, 4) is left out. Each entry's base(s, p, q) is read
+// before its tile's sums (a base in device memory arrives under them), and
+// emit(s, p, q, base, c) takes the entry.
+constexpr int kRtGP = 4;
+
+template <int L, int P, int Q, int ldx, int ldy, int S, class Skip, class Base, class Emit>
+NMPC_DEV void rt_product(const float* X, int xs, const float* Y, int ys, int width, int tid,
+                         int nt, Skip&& skip, Base&& base, Emit&& emit) {
+  constexpr int TP = (P + 3) / 4, TQ = (Q + 3) / 4, RB = (TP + kRtGP - 1) / kRtGP;
+  constexpr int items = S * RB * kRtGP * TQ;
+  for (int e = tid; e < items; e += nt) {
+    const int s = e % S, t = e / S, r = t % (kRtGP * TQ);
+    const int tp = (t / (kRtGP * TQ)) * kRtGP + r % kRtGP, p0 = 4 * tp, q0 = 4 * (r / kRtGP);
+    if (s >= width || tp >= TP || skip(p0, q0, 4, 4)) continue;
+    float acc[4][4], bv[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        bv[i][j] = p0 + i < P && q0 + j < Q ? base(s, p0 + i, q0 + j) : 0.f;
+    rt_tile<L, ldx, ldy>(X + s * xs + p0, Y + s * ys + q0, acc);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (p0 + i < P && q0 + j < Q) emit(s, p0 + i, q0 + j, bv[i][j], acc[i][j]);
+  }
+}
+
+// The same product for one scenario whose X and Y are in device memory (the
+// spilled slot): macro tiles of kRtMP x kRtMQ entries in turn, thread tid
+// the 4 x 4 tile (tid / 16, tid % 16) of each (256 threads); the rows of X
+// and Y under a macro tile streamed kRtLS at a time through two buffers of
+// `stage` (shared memory) by 16-byte cp.async, the next rows in flight while
+// the block reads the last; each entry summed in the same order as above.
+template <int L, int P, int Q, int ldx, int ldy, class Skip, class Base, class Emit>
+NMPC_DEV void rt_product_staged(const float* X, const float* Y, float* stage, int tid,
+                                Skip&& skip, Base&& base, Emit&& emit) {
+  constexpr int NP = (P + kRtMP - 1) / kRtMP, NQ = (Q + kRtMQ - 1) / kRtMQ;
+  constexpr int NS = (L + kRtLS - 1) / kRtLS, W = kRtMP + kRtMQ, buf = kRtLS * W;
+  const int tp = 4 * (tid / (kRtMQ / 4)), tq = 4 * (tid % (kRtMQ / 4));
+  for (int mt = 0; mt < NP * NQ; ++mt) {
+    const int mp = kRtMP * (mt / NQ), mq = kRtMQ * (mt % NQ);
+    if (skip(mp, mq, kRtMP, kRtMQ)) continue;  // the same for every thread
+    auto issue = [&](int sl, float* b) {
+      for (int c = tid; c < kRtLS * W / 4; c += 256) {
+        const int r = c / (W / 4), f = 4 * (c % (W / 4)), l = sl * kRtLS + r;
+        const bool isx = f < kRtMP;
+        const int col = isx ? mp + f : mq + f - kRtMP;
+        // rows past L are not read, columns past the operand's feed entries
+        // that are not emitted: both are left as they are
+        if (l < L && col < (isx ? al4(P) : al4(Q)))
+          cp_async16(b + r * W + f, isx ? X + (size_t)l * ldx + col : Y + (size_t)l * ldy + col);
+      }
+    };
+    float acc[4][4], bv[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        bv[i][j] = mp + tp + i < P && mq + tq + j < Q ? base(0, mp + tp + i, mq + tq + j) : 0.f;
+    issue(0, stage);
+    cp_commit();
+    for (int sl = 0; sl < NS; ++sl) {
+      if (sl + 1 < NS) {
+        issue(sl + 1, stage + ((sl + 1) & 1) * buf);
+        cp_commit();
+        cp_wait<1>();
+      } else {
+        cp_wait<0>();
+      }
       block_sync();
+      const float* b = stage + (sl & 1) * buf;
+      const int rows = L - sl * kRtLS < kRtLS ? L - sl * kRtLS : kRtLS;
+      float a[4], c[4];
+      int r = 0;
+      if (sl == 0) {  // rows 0 and 1 as rt_tile takes them
+        load4<4>(b + tp, a);
+        load4<4>(b + kRtMP + tq, c);
+        if constexpr (L == 1) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) acc[i][j] = rt_mul(a[i], c[j]);
+        } else {
+          float a1[4], c1[4];
+          load4<4>(b + W + tp, a1);
+          load4<4>(b + W + kRtMP + tq, c1);
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) acc[i][j] = rt_fma(a[i], c[j], rt_mul(a1[i], c1[j]));
+        }
+        r = 2;
+      }
+      for (; r < rows; ++r) {
+        load4<4>(b + r * W + tp, a);
+        load4<4>(b + r * W + kRtMP + tq, c);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) acc[i][j] = rt_fma(a[i], c[j], acc[i][j]);
+      }
+      block_sync();  // the buffer is refilled in the next step
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (mp + tp + i < P && mq + tq + j < Q)
+          emit(0, mp + tp + i, mq + tq + j, bv[i][j], acc[i][j]);
+  }
+}
+
+// K3's phase probes past (30, 20), compiled in only with -DNMPC_K3_PROBES on
+// the card (the builds of tools/k3_ab.py --phases): thread 0 of each block reads
+// clock64 at every NMPC_K3_PROBE(i) of a stage and adds the cycles since the
+// stage's start or its previous probe to g_k3_phase[i]. Without the flag they
+// are empty, and K3's code is the same as without them.
+#if defined(NMPC_K3_PROBES) && !defined(NMPC_HOST_BLOCK)
+__device__ unsigned long long g_k3_phase[8];
+#define NMPC_K3_PROBE_START() unsigned long long k3_probe_t0 = clock64()
+#define NMPC_K3_PROBE(i)                                   \
+  do {                                                     \
+    if (threadIdx.x == 0) {                                \
+      const unsigned long long k3_probe_t1 = clock64();    \
+      atomicAdd(&g_k3_phase[i], k3_probe_t1 - k3_probe_t0); \
+      k3_probe_t0 = k3_probe_t1;                           \
+    }                                                      \
+  } while (0)
+#else
+#define NMPC_K3_PROBE_START() ((void)0)
+#define NMPC_K3_PROBE(i) ((void)0)
+#endif
+
+// The register-tile design's products: from shared memory (the slots of S
+// scenarios), or staged from the spilled slot in device memory.
+template <class G, int L, int P, int Q, int ldx, int ldy, class Skip, class Base, class Emit>
+NMPC_DEV void rt_prod(const float* X, int xs, const float* Y, int ys, float* stage, int width,
+                      int tid, Skip&& skip, Base&& base, Emit&& emit) {
+  if constexpr (G::kSpill)
+    rt_product_staged<L, P, Q, ldx, ldy>(X, Y, stage, tid, skip, base, emit);
+  else
+    rt_product<L, P, Q, ldx, ldy, G::S>(X, xs, Y, ys, width, tid, G::threads, skip, base, emit);
+}
+
+// The Cholesky factor of Quu + reg I and the forward substitution of its 1
+// + n right-hand sides, as one right-looking elimination of the rows of T
+// (scenario s's at T + s pitch, its inv at inv + s pitch): at step k, with
+// d_k = sqrtf(T(k, k) + reg) and iv = 1 / d_k, every row i > k takes away
+// (T(k, i) iv) (T(k, j) iv) from T(i, j); row k - 1 is scaled by its iv then
+// (row k - 1 is read at step k - 1 alone). Each entry (i, j) so takes its
+// terms in order of k, as riccati_thread's left-looking chol and chol_solve
+// take them: the factor's (j, i) and the forward substitution's (i, c) bit
+// for bit. A thread owns a chunk of four columns of one scenario's rows
+// and every RS-th row (its index arithmetic outside the steps; row k's
+// chunk, scaled, read once a step); one block barrier a step. The entries
+// left of a row's diagonal and the rows' padding take garbage and are never
+// read.
+template <int nu, int ldt, int S, int NT>
+NMPC_DEV void rt_eliminate(float* T, float* inv, int pitch, int width, float reg, int tid) {
+  constexpr int C = ldt / 4, PAIRS = S * C, RS = NT >= PAIRS ? NT / PAIRS : 1;
+  for (int k = 0; k < nu; ++k) {
+    for (int w = tid; w < PAIRS * RS; w += NT) {
+      const int s = w % PAIRS % S, c = w % PAIRS / S, r = w / PAIRS;
+      if (s >= width) continue;
+      float* Ts = T + s * pitch;
+      if (4 * c + 3 > k) {  // the chunk holds a column past k
+        const float iv = 1.f / sqrtf(rt_add(Ts[k * ldt + k], reg));
+        float u[4];
+        load4<4>(Ts + k * ldt + 4 * c, u);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) u[q] = rt_mul(u[q], iv);  // U(k, j), y_k
+        for (int i = k + 1 + r; i < nu; i += RS) {
+          const float ui = rt_mul(Ts[k * ldt + i], iv);
+          float t[4];
+          load4<4>(Ts + i * ldt + 4 * c, t);
+#pragma unroll
+          for (int q = 0; q < 4; ++q) t[q] = rt_fma(-ui, u[q], t[q]);
+          st4(Ts + i * ldt + 4 * c, t);
+        }
+      }
+      if (k > 0 && r == 0 && 4 * c + 3 >= k) {  // row k - 1's chunks from column k - 1
+        float* row = Ts + (k - 1) * ldt + 4 * c;
+        const float iv = inv[s * pitch + k - 1];
+        float t[4];
+        load4<4>(row, t);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) t[q] = rt_mul(t[q], iv);
+        st4(row, t);
+      }
+    }
+    if (tid < width) inv[tid * pitch + k] = 1.f / sqrtf(rt_add(T[tid * pitch + k * ldt + k], reg));
+    block_sync();
+  }
+  for (int w = tid; w < PAIRS; w += NT) {  // row nu - 1
+    const int s = w % S, c = w / S;
+    if (s >= width || 4 * c + 3 < nu - 1) continue;
+    float* row = T + s * pitch + (nu - 1) * ldt + 4 * c;
+    const float iv = inv[s * pitch + nu - 1];
+    float t[4];
+    load4<4>(row, t);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) t[q] = rt_mul(t[q], iv);
+    st4(row, t);
+  }
+  block_sync();
+}
+
+// The backward substitution of right-hand side y (column of T, ldt floats
+// apart) over the factor's rows U = T (U(i, k) = L(k, i)): chol_solve's
+// left-looking order, y(i) = (y(i) - sum over k > i of U(i, k) y(k) in order
+// of k) inv(i), then the gains' sign; out(i, g) takes each. Up to nu = 32
+// the column in registers, fully unrolled.
+template <int nu, int ldt, class Out>
+NMPC_DEV void rt_backward(const float* U, const float* inv, float* y, Out&& out) {
+  if constexpr (nu <= 32) {
+    float v[nu];
+#pragma unroll
+    for (int i = 0; i < nu; ++i) v[i] = y[i * ldt];
+#pragma unroll
+    for (int i = nu - 1; i >= 0; --i) {
+      float s = v[i];
+#pragma unroll
+      for (int k = i + 1; k < nu; ++k) s = rt_fma(-U[i * ldt + k], v[k], s);
+      v[i] = rt_mul(s, inv[i]);
+    }
+#pragma unroll
+    for (int i = 0; i < nu; ++i) {
+      const float g = -v[i];
+      y[i * ldt] = g;
+      out(i, g);
+    }
+  } else {
+    for (int i = nu - 1; i >= 0; --i) {
+      float s = y[i * ldt];
+#pragma unroll 4
+      for (int k = i + 1; k < nu; ++k) s = rt_fma(-U[i * ldt + k], y[k * ldt], s);
+      y[i * ldt] = rt_mul(s, inv[i]);
+    }
+    for (int i = 0; i < nu; ++i) {
+      const float g = -y[i * ldt];
+      y[i * ldt] = g;
+      out(i, g);
+    }
+  }
+}
+
+// K3's register-tile design for block `blk`: its S consecutive scenarios
+// b0.. (the last block's may be fewer, `width`), their stages backwards,
+// each stage in five phases between block barriers:
+//  1. W = [Vxx; Vx'] [A | B] (a product over l of V and the stage's A | B),
+//     its last row + lx, lu: Qx | Qu;
+//  2. [A | B]' [Vxx A | Vxx B] + lxx, lux, luu: Qxx into V (transposed),
+//     Qux and Quu (transposed) into T, the block A'(Vxx B) left out;
+//     then Qux copied to W's head and Qu to T's first right-hand side;
+//  3. the elimination of T: the factor and the forward substitution;
+//  4. the 1 + n backward substitutions, one right-hand side a thread, and
+//     the gains stored to kff and Kfb (consecutive threads, consecutive
+//     scenarios);
+//  5. [Vx' ; Vxx'] = Qux' [kff | Kfb] + [Qx; Qxx] into V, dV1 += kff . Qu.
+// The ring (stream_stages, D tiles of the S scenarios' A | B, 4-byte
+// copies of the lane-major rows, consecutive threads on consecutive
+// scenarios) or, spilled, the stage's A | B copied into the scratch beside
+// the slot. lx, lu, lxx, luu and lux are read from device memory where they
+// are used, once each, consecutive threads on consecutive scenarios.
+template <class G>
+NMPC_DEV void riccati_rtile(const RiccatiArgs& a, float* smem, float* scratch, int blk, int tid) {
+  using L = K3RtSlot<G::n, G::nu>;
+  constexpr int n = G::n, nu = G::nu, S = G::S, nt = G::threads;
+  constexpr int ldv = L::ldv, ldw = L::ldw, ldq = L::ldq, ldt = L::ldt, ldab = L::ldab;
+  constexpr int r0 = L::r0, pitch = L::pitch;
+  const size_t B = a.B, b0 = (size_t)blk * S;
+  const int width = B - b0 < (size_t)S ? static_cast<int>(B - b0) : S;
+  float* slot = G::kSpill ? scratch + (size_t)blk * G::scratch_floats : smem + G::D * G::tile;
+  for (int e = tid; e < S * n * ldv; e += nt) slot[(e / (n * ldv)) * pitch + e % (n * ldv)] = 0.f;
+  float dV1 = 0.f;  // thread s < width: scenario s's
+  auto body = [&](int k, const float* ab) {
+    NMPC_K3_PROBE_START();
+    // entry r of stage k's block of a lane-major input X [N, R, B], scenario s
+    auto in = [&](const float* X, int R, int r, int s) {
+      return X[((size_t)k * R + r) * B + b0 + s];
+    };
+    auto none = [](int, int, int, int) { return false; };
+    rt_prod<G, n, n + 1, n + nu, ldv, ldab>(
+        slot + L::V, pitch, ab, L::tile_pitch, smem, width, tid, none,
+        [&](int s, int i, int j) {
+          return i < n ? 0.f : j < n ? in(a.lx, n, j, s) : in(a.lu, nu, j - n, s);
+        },
+        [&](int s, int i, int j, float base, float v) {
+          float* o = slot + s * pitch;
+          if (i < n)
+            o[L::W + i * ldw + j] = v;
+          else
+            o[L::Wn + j] = rt_add(base, v);
+        });
+    block_sync();
+    NMPC_K3_PROBE(1);
+    rt_prod<G, n, n + nu, n + nu, ldab, ldw>(
+        ab, L::tile_pitch, slot + L::W, pitch, smem, width, tid,
+        [](int p0, int q0, int np, int) { return p0 + np <= G::n && q0 >= G::n; },
+        [&](int s, int p, int q) {
+          return p < n ? (q < n ? in(a.lxx, n * n, p * n + q, s) : 0.f)
+                       : q < n ? in(a.lux, nu * n, (p - n) * n + q, s)
+                               : in(a.luu, nu * nu, (p - n) * nu + q - n, s);
+        },
+        [&](int s, int p, int q, float base, float v) {
+          float* o = slot + s * pitch;
+          const float e = rt_add(base, v);
+          if (p < n) {
+            if (q < n) o[L::V + q * ldv + p] = e;
+          } else if (q < n) {
+            o[L::T + (p - n) * ldt + r0 + 1 + q] = e;
+          } else {
+            o[L::T + (q - n) * ldt + p - n] = e;
+          }
+        });
+    block_sync();
+    NMPC_K3_PROBE(2);
+    for (int e = tid; e < S * nu * (n + 1); e += nt) {  // Qux to W's head, Qu to T
+      const int s = e % S, r = e / S / (n + 1), q = e / S % (n + 1);
+      if (s >= width) continue;
+      float* o = slot + s * pitch;
+      if (q == 0)
+        o[L::T + r * ldt + r0] = o[L::Wn + n + r];
+      else
+        o[L::W + r * ldq + q - 1] = o[L::T + r * ldt + r0 + q];
+    }
+    block_sync();
+    NMPC_K3_PROBE(3);
+    rt_eliminate<nu, ldt, S, nt>(slot + L::T, slot + L::inv, pitch, width, a.reg, tid);
+    NMPC_K3_PROBE(4);
+    for (int e = tid; e < S * (n + 1); e += nt) {
+      const int s = e % S, c = e / S;
+      if (s >= width) continue;
+      float* o = slot + s * pitch;
+      const size_t b = b0 + s;
+      rt_backward<nu, ldt>(o + L::T, o + L::inv, o + L::T + r0 + c, [&](int i, float g) {
+        if (c == 0)
+          a.kff[((size_t)k * nu + i) * B + b] = g;
+        else
+          a.Kfb[(((size_t)k * nu + i) * n + c - 1) * B + b] = g;
+      });
+    }
+    block_sync();
+    NMPC_K3_PROBE(5);
+    rt_prod<G, nu, n, n + 1, ldq, ldt>(
+        slot + L::W, pitch, slot + L::T + r0, pitch, smem, width, tid, none,
+        [&](int s, int p, int c) {
+          const float* o = slot + s * pitch;
+          return c == 0 ? o[L::Wn + p] : o[L::V + (c - 1) * ldv + p];
+        },
+        [&](int s, int p, int c, float base, float v) {
+          float* o = slot + s * pitch;
+          o[c == 0 ? L::V + p * ldv + n : L::V + (c - 1) * ldv + p] = rt_add(base, v);
+        });
+    if (tid < width) {
+      const float* o = slot + tid * pitch;
+      float s = 0.f;
+      for (int i = 0; i < nu; ++i) s = rt_fma(o[L::T + i * ldt + r0], o[L::Wn + n + i], s);
+      dV1 = rt_add(dV1, s);
+    }
+    NMPC_K3_PROBE(6);
+  };
+  if constexpr (G::kSpill) {
+    float* ab = slot + L::floats;
+    for (int k = a.N - 1; k >= 0; --k) {
+      block_sync();  // the last stage's reads of A | B (and the zeroed V) are done
+      for (int e = tid; e < n * (n + nu); e += nt) {
+        const int l = e / (n + nu), j = e % (n + nu);
+        ab[l * ldab + j] = j < n ? a.A[(((size_t)k * n + l) * n + j) * B + b0]
+                                 : a.Bm[(((size_t)k * n + l) * nu + j - n) * B + b0];
+      }
+      block_sync();
+      body(k, ab);
     }
   } else {
     auto issue = [&](int k, float* t) {
-      for (int e = tid; e < n * n; e += nt)
-        cp_async4(t + e, a.A + ((size_t)k * n * n + e) * B + b, true);
-      for (int e = tid; e < n * nu; e += nt)
-        cp_async4(t + n * n + e, a.Bm + ((size_t)k * n * nu + e) * B + b, true);
+      for (int e = tid; e < S * n * (n + nu); e += nt) {
+        const int s = e % S, r = e / S, l = r / (n + nu), j = r % (n + nu);
+        if (s >= width) continue;
+        const float* src = j < n ? a.A + (((size_t)k * n + l) * n + j) * B
+                                 : a.Bm + (((size_t)k * n + l) * nu + j - n) * B;
+        cp_async4(t + s * L::tile_pitch + l * ldab + j, src + b0 + s, true);
+      }
     };
-    stream_stages<G::D>(a.N, true, smem, G::tile, issue, [&](int k, const float* t) {
-      riccati_wide_stage<n, nu, false>(a, t, t + n * n, sl, k, b, tid, nt, dV1);
-    });
+    stream_stages<G::D>(a.N, true, smem, G::tile, issue,
+                        [&](int k, const float* t) { body(k, t); });
   }
-  if (tid == 0) a.dV1[b] = dV1;
+  if (tid < width) a.dV1[b0 + tid] = dV1;
 }
 
-// K3 for block `blk`: the wide design past the block design's shapes, the
-// block design past (30, 20) (S = 1), else the team design.
+// K3 for block `blk`: the register-tile design past (30, 20), else the
+// team design (vec: whether its rows take 16-byte copies).
 template <class G>
-NMPC_DEV void riccati_tiles(const RiccatiArgs& a, float* smem, float* scratch, int blk,
-                            bool vec, int tid) {
-  if constexpr (G::kWide)
-    riccati_wide<G>(a, smem, scratch, blk, tid);
-  else if constexpr (G::kBlock)
-    riccati_block<G>(a, smem, blk, tid);
+NMPC_DEV void riccati_tiles(const RiccatiArgs& a, float* smem, float* scratch, int blk, bool vec,
+                            int tid) {
+  if constexpr (G::kRtile)
+    riccati_rtile<G>(a, smem, scratch, blk, tid);
   else
     riccati_team_tiles<G>(a, smem, scratch, blk, vec, tid);
 }

@@ -70,7 +70,7 @@ ROBOT_COUNTS = (1, 2, 3, 4, 5, 6, 8, 10)
 # row of Quu's factor a lane, nu = 2m <= 32; lanes own several state rows
 # and right-hand sides past m = 10), and the staged kernels' first designs
 # (csrc/staged_first.cu, the A/B baselines). K3-K6 take any m: past it the
-# solver library is staged.cu alone (K3's wide design, K4-K6 on the tiles of
+# solver library is staged.cu alone (K3's register-tile design, K4-K6 on the tiles of
 # staged_tiles.k4_rule, ..., and K4's and K5's device-memory forms).
 MEGA_MAX_ROBOTS = 16
 # robot count of the main path (six_robot_antipodal): the tools library
@@ -127,11 +127,11 @@ def nvcc() -> str:
     return found
 
 
-def _key(sources: tuple, m: int, flags: tuple = ()) -> str:
+def _key(sources: tuple, m: int, flags: tuple = (), src: Path = SRC_DIR) -> str:
     h = hashlib.sha256()
     for name in sources:
         h.update(name.encode())
-        h.update((SRC_DIR / name).read_bytes())
+        h.update((src / name).read_bytes())
     h.update(" ".join((*NVCC_FLAGS, *flags)).encode())
     h.update(str(m).encode())
     return h.hexdigest()[:16]
@@ -195,8 +195,8 @@ def _bind_staged(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.nmpc_k5_device_geometry.restype = None
     lib.nmpc_k3_geometry.argtypes = [P]
     lib.nmpc_k3_geometry.restype = None
-    lib.nmpc_k3_wide.argtypes = []
-    lib.nmpc_k3_wide.restype = I
+    lib.nmpc_k3_rtile.argtypes = []
+    lib.nmpc_k3_rtile.restype = I
     lib.nmpc_k5_geometry.argtypes = [I, I, P]
     lib.nmpc_k5_geometry.restype = None
     lib.nmpc_k4_geometry.argtypes = [I, I, P]
@@ -256,11 +256,11 @@ def _run(cmd: list[str], what: str) -> str:
     return proc.stdout + proc.stderr
 
 
-def _build(stem: str, jobs: list, what: str) -> tuple:
-    """Compile each (source, extra nvcc flags) job in its own nvcc process,
-    all at once, and link the objects into BUILD_DIR/<stem>.so, unless that
-    exists. Returns (path, seconds (0.0 when reused), the compiler report of
-    each job)."""
+def _build(stem: str, jobs: list, what: str, src: Path = SRC_DIR) -> tuple:
+    """Compile each (source in `src`, extra nvcc flags) job in its own nvcc
+    process, all at once, and link the objects into BUILD_DIR/<stem>.so,
+    unless that exists. Returns (path, seconds (0.0 when reused), the
+    compiler report of each job)."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     path = BUILD_DIR / f"{stem}.so"
     logs = [BUILD_DIR / f"{stem}.{i}.log" for i in range(len(jobs))]
@@ -271,9 +271,9 @@ def _build(stem: str, jobs: list, what: str) -> tuple:
         t0 = time.perf_counter()
 
         def compile_one(obj, job):
-            src, flags = job
-            return _run([nvcc(), *NVCC_FLAGS, *flags, "-c", "-o", str(obj), str(SRC_DIR / src)],
-                        f"{src} {' '.join(flags)} ({what})")
+            name, flags = job
+            return _run([nvcc(), *NVCC_FLAGS, *flags, "-c", "-o", str(obj), str(src / name)],
+                        f"{name} {' '.join(flags)} ({what})")
 
         try:
             with ThreadPoolExecutor(max_workers=len(jobs)) as pool:
@@ -311,11 +311,11 @@ def _check_robots(lib: ctypes.CDLL, path, m: int) -> None:
 
 def k3_geometry(lib: ctypes.CDLL) -> dict:
     """K3's geometry as a library was built with (nmpc_k3_geometry,
-    nmpc_k3_wide)."""
+    nmpc_k3_rtile)."""
     g = (ctypes.c_int * 8)()
     lib.nmpc_k3_geometry(g)
     keys = ("S", "D", "T", "P", "spill", "threads", "smem_bytes", "scratch_floats")
-    return {**dict(zip(keys, g)), "wide": lib.nmpc_k3_wide()}
+    return {**dict(zip(keys, g)), "rtile": lib.nmpc_k3_rtile()}
 
 
 def _k3_want(key, g) -> dict:
@@ -324,7 +324,7 @@ def _k3_want(key, g) -> dict:
     lay = staged_tiles.k3_layout(key, g)
     return {"S": g.S, "D": g.D, "T": g.T, "P": g.P, "spill": int(g.spill),
             "threads": lay["threads"], "smem_bytes": lay["smem_bytes"],
-            "scratch_floats": lay["scratch_floats"], "wide": int(g.wide)}
+            "scratch_floats": lay["scratch_floats"], "rtile": int(g.rtile)}
 
 
 def k5_geometry(lib: ctypes.CDLL, rows: int, prm_size: int, device: bool = False) -> dict:
@@ -424,39 +424,63 @@ def load(m: int) -> ctypes.CDLL:
         return lib
 
 
-def load_k3_shape(n: int, nu: int) -> ctypes.CDLL:
+def bind_k3(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """The entry points of a csrc/riccati_shape.cu library: nmpc_riccati,
+    nmpc_k3_shape, nmpc_k3_geometry, and where built in nmpc_k3_rtile and
+    (-DNMPC_K3_PROBES) nmpc_k3_phases."""
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.nmpc_error_string.argtypes = [I]
+    lib.nmpc_error_string.restype = ctypes.c_char_p
+    lib.nmpc_k3_shape.argtypes = [P]
+    lib.nmpc_k3_shape.restype = None
+    lib.nmpc_k3_geometry.argtypes = [P]
+    lib.nmpc_k3_geometry.restype = None
+    lib.nmpc_riccati.argtypes = [P] * 11 + [I] * 2 + [F] + [P]
+    lib.nmpc_riccati.restype = I
+    if hasattr(lib, "nmpc_k3_rtile"):
+        lib.nmpc_k3_rtile.argtypes = []
+        lib.nmpc_k3_rtile.restype = I
+    if hasattr(lib, "nmpc_k3_phases"):
+        lib.nmpc_k3_phases.argtypes = [P, I]
+        lib.nmpc_k3_phases.restype = I
+    return lib
+
+
+def k3_library(shape: tuple, flags: list, src: Path = SRC_DIR) -> tuple:
+    """riccati_shape.cu of the source directory `src` (this package's csrc,
+    or another checkout's: tools/k3_ab.py) at the stage shape `shape` with
+    K3's -D flags `flags`, built into BUILD_DIR unless there (its name keyed
+    by those sources and flags) and bound. Returns (library, path, seconds,
+    compiler report)."""
+    n, nu = shape
+    stem = f"libnmpc_k3_n{n}_nu{nu}_{_key(K3_SHAPE_SOURCES, 0, tuple(flags), src)}"
+    path, seconds, texts = _build(stem, [("riccati_shape.cu", flags)], f"K3, n={n} nu={nu}", src)
+    return bind_k3(ctypes.CDLL(str(path))), path, seconds, texts[0]
+
+
+def load_k3_shape(n: int, nu: int, g=None) -> ctypes.CDLL:
     """K3's library at the stage shape (n, nu) (csrc/riccati_shape.cu at
-    staged_tiles.k3_geometry's pick; the entry points nmpc_riccati and
-    nmpc_k3_geometry as the solver library's), built first if needed. Any
-    n, nu >= 1 (others raise)."""
+    staged_tiles.k3_geometry's pick, or at the K3 geometry g: the K3 sweep
+    of tools/staged_launch.py; the entry points nmpc_riccati and
+    nmpc_k3_geometry as the solver library's), built first if needed; its
+    build in k3_shape_build_info[(n, nu)] (at another geometry than the
+    pick [(n, nu), g]). Any n, nu >= 1 (others raise)."""
     shape = (n, nu)
-    g = staged_tiles.k3_geometry(shape)   # raises outside the range
-    with _lock("k3", shape):
-        if ("k3", shape) in _libs:
-            return _libs["k3", shape]
-        flags = staged_tiles.k3_shape_flags(shape)
-        path, seconds, texts = _build(f"libnmpc_k3_n{n}_nu{nu}_{_key(K3_SHAPE_SOURCES, 0, tuple(flags))}",
-                                      [("riccati_shape.cu", flags)], f"K3, n={n} nu={nu}")
-        lib = ctypes.CDLL(str(path))
-        P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.nmpc_error_string.argtypes = [I]
-        lib.nmpc_error_string.restype = ctypes.c_char_p
-        lib.nmpc_k3_shape.argtypes = [P]
-        lib.nmpc_k3_shape.restype = None
-        lib.nmpc_k3_geometry.argtypes = [P]
-        lib.nmpc_k3_geometry.restype = None
-        lib.nmpc_k3_wide.argtypes = []
-        lib.nmpc_k3_wide.restype = I
-        lib.nmpc_riccati.argtypes = [P] * 11 + [I] * 2 + [F] + [P]
-        lib.nmpc_riccati.restype = I
+    pick = staged_tiles.k3_geometry(shape)   # raises outside the range
+    g = pick if g is None else g
+    key = shape if g == pick else (shape, g)
+    with _lock("k3", key):
+        if ("k3", key) in _libs:
+            return _libs["k3", key]
+        lib, path, seconds, text = k3_library(shape, staged_tiles.k3_shape_flags(shape, g))
         got = (ctypes.c_int * 2)()
         lib.nmpc_k3_shape(got)
         want = _k3_want(shape, g)
         if tuple(got) != shape or k3_geometry(lib) != want:
             raise RuntimeError(f"{path}: built for {tuple(got)} with {k3_geometry(lib)}, "
                                f"expected {shape} with {want}")
-        k3_shape_build_info[shape] = {"path": str(path), "seconds": seconds, "ptxas": texts[0]}
-        _libs["k3", shape] = lib
+        k3_shape_build_info[key] = {"path": str(path), "seconds": seconds, "ptxas": text}
+        _libs["k3", key] = lib
         return lib
 
 

@@ -19,16 +19,15 @@ shared memory, a team of T lanes per scenario (geometry per m:
 ops/staged_tiles.py); bit for bit its first design, csrc/staged.cuh::
 riccati_thread (one thread per scenario), which tools/staged_launch.py
 launches as the A/B baseline. Past (30, 20) (m >= 11 and the wider stage
-shapes) the block design: a block of eight warps a scenario, its slot in
-shared memory, every entry summed in riccati_thread's order, the Cholesky
-in one warp. Past nu = 32, or where its ring of two stage tiles beside the
-slot overflows the block (n > 80 at nu = 32; m >= 17), the wide design: the
-same block, its Cholesky across the block, a ring of A-and-B tiles (or A
-and B straight from device memory) with the cost blocks read from device
-memory, and the slot in a device-memory scratch where it does not fit
-(ops/staged_tiles.py::k3_rule). Replaces riccati_pallas.py::_make_kernel /
-riccati_lanes (its horizon chunking exists only to fit VMEM and does not
-carry over).
+shapes) the register-tile design: S consecutive scenarios a block, the
+three products as 4 x 4 register tiles over rows kept in shared memory, the
+factor and the forward substitution as one elimination over the block, the
+backward substitutions one right-hand side a thread, every sum in
+riccati_thread's order; where one scenario's slot does not fit a block, the
+slot in a device-memory scratch and the products staged through shared
+memory (ops/staged_tiles.py::k3_rule). Replaces riccati_pallas.py::
+_make_kernel / riccati_lanes (its horizon chunking exists only to fit VMEM
+and does not carry over).
 
 Layout: `riccati_lanes` takes and returns the lane-major layout of the
 staged path: A [N, n, n, B], B [N, n, nu, B], lx [N, n, B], lu [N, nu, B],
@@ -39,7 +38,7 @@ of m robots) and for any other stage shape (csrc/riccati_shape.cu, a
 library per shape at its first use: the ray-augmented stage of family I,
 n = 13, nu = 2, and the user models of make_generic_ocp, which the hybrid
 route of solver/alilqr_batched.py sends here): device memory bounds them,
-through the inputs and the wide design's scratch.
+through the inputs and the spilled slot's scratch.
 """
 
 from __future__ import annotations

@@ -10,17 +10,13 @@ horizon through a ring of D stage tiles in shared memory.
       or S + 1 where a team's lanes read down a column), and `spill`: the
       output tile and the per-team slots in a device-memory scratch of the
       wrapper's where they do not fit in shared memory beside the ring.
-      Past (K3_TILE_N, K3_TILE_NU) = (30, 20) the block design: S = 1, one
-      block of T = 32 K3_BLOCK_WARPS threads a scenario, P = 1, the
-      scenario's slot (K3BlockSlot) in shared memory beside the ring, up to
-      nu = K3_BLOCK_MAX_NU (its Cholesky is one warp's) and n =
-      k3_block_max_n(nu) (the ring of two beside the slot within a block).
-      Past those the wide design (`wide`): the same block of threads, its
-      Cholesky across the block, a ring of D = 2 or 1 tiles that hold a
-      stage's A and B alone (the cost blocks read from device memory where
-      they are used), or D = 0 (A and B read from device memory too), and
-      the slot in the scratch (`spill`) where it does not fit beside them:
-      any stage shape, bounded by device memory.
+      Past (K3_TILE_N, K3_TILE_NU) = (30, 20) the register-tile design
+      (`rtile`): S consecutive scenarios a block of T threads (P = 1), a
+      ring of D = 2 or 1 tiles of their stages' A | B beside their slots
+      (K3RtSlot) in shared memory; where one scenario's do not fit, `spill`:
+      S = 1, D = 0, 256 threads, the slot and A | B in the scratch and the
+      products' staging buffers (RT_STAGE_FLOATS) in shared memory. Any
+      stage shape, bounded by device memory.
   K5: A x S threads a block (A candidates), at most k5_threads(m); more
       candidates go as several launches (rollout.linesearch_costs_lanes).
   K4: one stage of the tile a block, W warps a block.
@@ -36,7 +32,7 @@ PERF.md). K4's, K5's and K6's are `k4_geometry`, `k5_geometry` and
 past them a rule of m, the largest tile that fits a block (`k4_rule`, ...).
 ops/cuda_build.py passes them to nvcc, and the library reports them back
 (`nmpc_k3_geometry`, ...) for cuda_build to check. The sizes here mirror
-K3Rows, K3Slot, K3BlockSlot, K3Geom, K5Geom, K4Rows, K4Geom, K6Rows and
+K3Rows, K3Slot, K3RtSlot, K3Geom, K5Geom, K4Rows, K4Geom, K6Rows and
 K6Geom of the headers.
 
 Beside its tile form every library holds K4's and K5's device-memory
@@ -65,12 +61,14 @@ BLOCKS_SM = 32
 # robots (k5_threads)
 K5_THREADS = 512
 # the team design's stage shapes (the robot stacks' up to m=10); past them
-# K3's block design, with K3_BLOCK_WARPS warps a block, up to nu =
-# K3_BLOCK_MAX_NU (its Cholesky is one warp's); past that the wide design,
-# the same block
+# K3's register-tile design, K3_RT_THREADS threads a block by default (the
+# spilled form's products take exactly that many: 256, a 4 x 4 tile each of
+# a 64 x 64 macro tile); the spilled form's shared memory, its staging
+# buffers (csrc/staged_tiles.cuh::kRtStage: two of 16 rows of both operands'
+# 64 columns)
 K3_TILE_N, K3_TILE_NU = 30, 20
-K3_BLOCK_WARPS = 8
-K3_BLOCK_MAX_NU = 32
+K3_RT_THREADS = 256
+RT_STAGE_FLOATS = 2 * 16 * (64 + 64)
 # the rows that the tiles the libraries past sixteen robots are built with
 # (k4_rule, k5_rule) are sized for: pair rows, TILE_OBS static and TILE_MOV
 # moving obstacles a robot, a parameter block of TILE_PRM floats (path
@@ -87,7 +85,7 @@ class K3Geometry:
     T: int
     P: int
     spill: bool = False
-    wide: bool = False
+    rtile: bool = False   # the register-tile design (shapes past (30, 20))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -111,18 +109,19 @@ class K6Geometry:
 
 
 # K3's picks as the sweep recorded them per robot count (tools/staged_launch.py,
-# PERF.md; at m = 7 and 9 the rule's, which the sweep kept; at m = 11-16 the
-# block design, W = K3_BLOCK_WARPS), and at the stage shape of one robot with
-# 10 LiDAR rays (n = 13, nu = 2; the registry's family I), picked by its
-# shared memory as m=4's (n = 12). Builds take `k3_geometry` (`k3_rule`);
-# the tests hold the rule to these picks.
-_K3_BLOCK = K3Geometry(1, 2, 32 * K3_BLOCK_WARPS, 1)
+# PERF.md; at m = 7 and 9 the rule's, which the sweep kept; past ten robots
+# the register-tile design, S scenarios a block of K3_RT_THREADS), and at the
+# stage shape of one robot with 10 LiDAR rays (n = 13, nu = 2; the
+# registry's family I), picked by its shared memory as m=4's (n = 12).
+# Builds take `k3_geometry` (`k3_rule`); the tests hold the rule to these
+# picks.
 K3_GEOMETRY = {
     1: K3Geometry(128, 2, 1, 128), 2: K3Geometry(128, 2, 1, 128), 3: K3Geometry(16, 2, 16, 17),
     4: K3Geometry(8, 2, 16, 9), 5: K3Geometry(8, 2, 16, 9), 6: K3Geometry(8, 2, 32, 9),
     7: K3Geometry(8, 2, 32, 8), 8: K3Geometry(8, 2, 32, 8), 9: K3Geometry(8, 2, 32, 8, spill=True),
     10: K3Geometry(8, 2, 32, 8, spill=True), (13, 2): K3Geometry(8, 2, 16, 9),
-    **{m: _K3_BLOCK for m in range(11, 17)},
+    **{m: K3Geometry(2, 1, 256, 1, rtile=True) for m in (11, 12, 13)},
+    **{m: K3Geometry(1, 1, 256, 1, rtile=True) for m in (14, 15, 16)},
 }
 # the stage shapes (n, nu) besides (3m, 2m) of the problems the repository
 # ships, built ahead by cuda_build.load_all: family I's ray stage, and the
@@ -144,7 +143,7 @@ K3_SWEEP_SHAPES = ((5, 3), (7, 1), (9, 5), (10, 6), (12, 10), (14, 3), (15, 20),
                    (19, 7), (20, 3), (29, 20), (30, 20))
 # the K3 blocks that reside per SM by shared memory and threads at the picks
 K3_BLOCKS_PER_SM = {1: 5, 2: 1, 3: 3, 4: 3, 5: 2, 6: 1, 7: 1, 8: 1, 9: 1, 10: 1, 11: 4,
-                    12: 3, 13: 3, 14: 2, 15: 2, 16: 2, (13, 2): 4, (2, 1): 12, (1, 1): 16}
+                    12: 3, 13: 3, 14: 5, 15: 4, 16: 4, (13, 2): 4, (2, 1): 12, (1, 1): 16}
 # K5's, K4's and K6's picks per robot count (tools/staged_launch.py, PERF.md;
 # past ten robots the smallest tiles, S = 8 (K5, K6) and 16 (K4), that fit
 # the widest rows, and a K6 team of 16) up to sixteen robots; past them
@@ -180,20 +179,12 @@ def k3_rule(n: int, nu: int) -> K3Geometry:
     (bank conflicts of a team reading down a column) and S beyond (16-byte
     copies of the larger tiles), and the slots in device memory (spill)
     where the ring and the slots overflow a block's shared memory; past
-    (K3_TILE_N, K3_TILE_NU) the block design while nu <= K3_BLOCK_MAX_NU
-    and its block fits, else the wide design at the first of its
-    geometries that fits: a ring of two A-and-B tiles beside the slot, of
-    one, two with the slot spilled, one, none."""
+    (K3_TILE_N, K3_TILE_NU) the register-tile design (`_k3_rtile_rule`)."""
     if n < 1 or nu < 1:
         raise NotImplementedError(f"K3 takes stage shapes with n >= 1 and nu >= 1, not n={n}, "
                                   f"nu={nu}")
     if n > K3_TILE_N or nu > K3_TILE_NU:
-        if nu <= K3_BLOCK_MAX_NU and _fits((n, nu), _K3_BLOCK):
-            return _K3_BLOCK
-        for D, spill in ((2, False), (1, False), (2, True), (1, True), (0, True)):
-            g = K3Geometry(1, D, 32 * K3_BLOCK_WARPS, 1, spill, wide=True)
-            if _fits((n, nu), g):
-                return g
+        return _k3_rtile_rule(n, nu)
     if n <= 6 and nu <= 4:
         return K3Geometry(128, 2, 1, 128)
     S = 16 if n <= 9 else 8
@@ -201,6 +192,30 @@ def k3_rule(n: int, nu: int) -> K3Geometry:
     if not _fits((n, nu), g):
         g = dataclasses.replace(g, spill=True)
     return g
+
+
+def _k3_rtile_rule(n: int, nu: int) -> K3Geometry:
+    """The register-tile design at (n, nu): the most scenarios a block of
+    K3_RT_THREADS (8, 4, 2; runs of consecutive scenarios) at a ring of one
+    stage tile with which three blocks still reside on an SM (one block's
+    barriers overlap the others' work); else one scenario a block where two
+    reside; else one scenario in a block of twice the threads, the SM's one
+    block, wherever it fits; else the slot spilled. The sweep
+    (tools/staged_launch.py `k3`, PERF.md) picked these at m = 12-32: at 12
+    two scenarios a block (three blocks an SM) before three (two) and one
+    (seven), at 16 one (four) before two (two); a ring of two was slower
+    wherever a ring of one kept as many blocks, and 512 threads faster where
+    one block fills the SM."""
+    shape = (n, nu)
+    for S in (8, 4, 2, 1):
+        g = K3Geometry(S, 1, K3_RT_THREADS, 1, rtile=True)
+        lay = k3_layout(shape, g)
+        if lay["smem_bytes"] <= SMEM_BLOCK_MAX and lay["blocks_per_sm"] >= (2 if S == 1 else 3):
+            return g
+    g = K3Geometry(1, 1, 2 * K3_RT_THREADS, 1, rtile=True)
+    if _fits(shape, g):
+        return g
+    return K3Geometry(1, 0, K3_RT_THREADS, 1, spill=True, rtile=True)
 
 
 def _fits(key, g: K3Geometry) -> bool:
@@ -245,27 +260,36 @@ def k3_slot_floats(key) -> int:
     return at
 
 
-def k3_block_slot_floats(key) -> int:
-    """Floats of the block design's slot (K3BlockSlot): Vxx, Vxx A [n, n],
-    Vxx B [n, nu] (later Kfb), Qux [nu, n], Quu, Vx, Qx, Qu, kff and the
-    factor's reciprocal diagonal, each from a 16-byte boundary."""
+def _rt_pitch(v: int) -> int:
+    """v rounded up to 4 mod 32 (csrc/staged_tiles.cuh::rt_pitch): the
+    stride between a block's scenarios, so that their float4 loads fall on
+    other banks."""
+    return v + (36 - v % 32) % 32
+
+
+def k3_rt_slot(key) -> dict:
+    """The register-tile design's slot of one scenario (K3RtSlot), in
+    floats: V [n, al4(n + 1)] (Vxx transposed, Vx), W [n, al4(n + nu)] and
+    its last row Wn (past the Qux copy [nu, al4(n)]), T [nu, al4(nu) +
+    al4(n + 1)], the reciprocal diagonal; `tile`, a stage's A | B [n,
+    al4(n + nu)]; `pitch` and `tile_pitch`, their strides in a block."""
     n, nu = k3_dims(key)
-    return sum(al4(w) for w in (n * n, n * n, n * nu, nu * n, nu * nu, n, n, nu, nu, nu))
+    ldv, ldw, ldq = al4(n + 1), al4(n + nu), al4(n)
+    ldt = al4(nu) + al4(n + 1)
+    wn = n * ldv + al4(max(n * ldw, nu * ldq))
+    floats = wn + ldw + nu * ldt + al4(nu)
+    tile = n * ldw
+    return {"floats": floats, "tile": tile, "pitch": _rt_pitch(floats),
+            "tile_pitch": _rt_pitch(tile)}
 
 
 def check_k3(m, g: K3Geometry) -> None:
     """Raise unless g is a geometry K3Geom takes (m: a K3 key)."""
-    if g.wide:     # the wide design
-        if g.S != 1 or g.T % 32 or not 32 <= g.T <= 1024 or g.P != 1 or not 0 <= g.D <= 2:
-            raise ValueError(f"K3's wide design at m={m}: S={g.S}, T={g.T}, P={g.P}, D={g.D}")
-        return
-    if g.S == 1:   # the block design
-        if g.T % 32 or not 32 <= g.T <= 1024 or g.P != 1 or g.D < 2 or g.spill:
-            raise ValueError(f"K3's block design at m={m}: T={g.T}, P={g.P}, D={g.D}, "
-                             f"spill={g.spill}")
-        if k3_dims(m)[1] > K3_BLOCK_MAX_NU:
-            raise ValueError(f"K3's block design at m={m}: nu > {K3_BLOCK_MAX_NU} (a warp's "
-                             f"Cholesky)")
+    if g.rtile:    # the register-tile design
+        if (g.S < 1 or g.T % 32 or not 64 <= g.T <= 1024 or g.P != 1
+                or not ((g.S, g.D, g.T) == (1, 0, 256) if g.spill else g.D in (1, 2))):
+            raise ValueError(f"K3's register-tile design at m={m}: S={g.S}, D={g.D}, T={g.T}, "
+                             f"P={g.P}, spill={g.spill}")
         return
     if g.S < 8 or g.S & (g.S - 1):
         raise ValueError(f"K3 at m={m}: S={g.S} is not a power of two >= 8")
@@ -276,23 +300,25 @@ def check_k3(m, g: K3Geometry) -> None:
 
 
 def k3_layout(m, g: K3Geometry | None = None) -> dict:
-    """What one K3 block takes: threads, floats of its stage tile, output
-    tile and slots, its shared bytes, its device-memory scratch (floats, with
-    spill), and the blocks and warps that reside per SM by shared memory and
-    threads (registers not counted). m: a K3 key."""
+    """What one K3 block takes: threads, floats of its stage tile (a ring
+    slot), output tile and slots, its shared bytes, its device-memory
+    scratch (floats, with spill), and the blocks and warps that reside per
+    SM by shared memory and threads (registers not counted). m: a K3 key."""
     g = k3_geometry(m) if g is None else g
     check_k3(m, g)
     n, nu = k3_dims(m)
-    if g.wide:     # a tile of A and B
-        tile, out, priv = al4(n * (n + nu)), 0, k3_block_slot_floats(m)
-    elif g.S == 1:
-        tile, out, priv = al4(k3_rows(m)), 0, k3_block_slot_floats(m)
+    if g.rtile:
+        sl = k3_rt_slot(m)
+        tile, out = g.S * sl["tile_pitch"], 0
+        priv = sl["floats"] + sl["tile"] if g.spill else g.S * sl["pitch"]
+        smem = 4 * (RT_STAGE_FLOATS if g.spill else g.D * tile + priv)
+        threads = g.T
     else:
         tile = al4(k3_rows(m) * g.P)
         out = al4((nu + nu * n) * g.P)
         priv = out + (g.S * k3_slot_floats(m) if g.T > 1 else 0)
-    smem = 4 * (g.D * tile + (0 if g.spill else priv))
-    threads = g.S * g.T
+        smem = 4 * (g.D * tile + (0 if g.spill else priv))
+        threads = g.S * g.T
     blocks = min(SMEM_SM // (smem + SMEM_RESERVED), THREADS_SM // threads, BLOCKS_SM)
     return {"threads": threads, "tile": tile, "out": out, "smem_bytes": smem,
             "scratch_floats": priv if g.spill else 0, "blocks_per_sm": blocks,
@@ -507,7 +533,7 @@ def k6_layout(m: int, g: K6Geometry | None = None) -> dict:
 def _k3_flags(g: K3Geometry) -> list:
     return [f"-DNMPC_K3_S={g.S}", f"-DNMPC_K3_D={g.D}", f"-DNMPC_K3_T={g.T}",
             f"-DNMPC_K3_P={g.P}", f"-DNMPC_K3_SPILL={int(g.spill)}",
-            *(["-DNMPC_K3_WIDE=1"] if g.wide else [])]
+            *(["-DNMPC_K3_RTILE=1"] if g.rtile else [])]
 
 
 def k3_shape_flags(shape: tuple, g: K3Geometry | None = None) -> list:
@@ -537,13 +563,3 @@ def nvcc_flags(m: int, k3: K3Geometry | None = None, k5: K5Geometry | None = Non
     return [*_k3_flags(k3), f"-DNMPC_K5_S={k5.S}", f"-DNMPC_K5_D={k5.D}",
             f"-DNMPC_K4_S={s4}", f"-DNMPC_K4_W={w4}", f"-DNMPC_K6_S={k6.S}",
             f"-DNMPC_K6_D={k6.D}", f"-DNMPC_K6_T={k6.T}"]
-
-
-def k3_block_max_n(nu: int) -> int:
-    """The largest n whose block-design block at (n, nu) fits a block's
-    shared memory (the ring of two beside the slot); past it, or past nu =
-    K3_BLOCK_MAX_NU, k3_rule takes the wide design."""
-    n = K3_TILE_N
-    while _fits((n + 1, nu), _K3_BLOCK):
-        n += 1
-    return n

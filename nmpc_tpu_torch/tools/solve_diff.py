@@ -10,7 +10,9 @@ config, megakernel route), path (a) (the same batch with mega=False), path
 (b) (obstacle_scenario_3 N=100 B=32768), path (c) (B=4096 moving-obstacle
 subproblems of one decentralized round), (b) and (c) on the staged route
 (mega=False) as chip_smoke.py phases 8 and 9 run them, and path (d)
-(lidar_v2 N=100 B=4096 on the hybrid route, K3 at (13, 2), as phase 25), in this checkout and in
+(lidar_v2 N=100 B=4096 on the hybrid route, K3 at (13, 2), as phase 25);
+and the staged route (mega=False) at m = 16 and 24 (scenarios/
+robot_counts.py's crossing, N=20, B=4096, the bench config), in this checkout and in
 OTHER_CHECKOUT, each in a subprocess with its own package and chip_smoke.py,
 and prints per batch and output how many entries differ (NaN equals NaN).
 A redesign that must keep the solver's bits (a kernel held bit for bit to
@@ -44,7 +46,7 @@ import dataclasses, sys, torch
 from chip_smoke import decentralized_round
 from nmpc_tpu_torch.ocp import problem as P
 from nmpc_tpu_torch.parallel import batch_ocp
-from nmpc_tpu_torch.scenarios import get
+from nmpc_tpu_torch.scenarios import get, robot_counts
 from nmpc_tpu_torch.solver import ALILQRConfig, solve_batched
 from nmpc_tpu_torch.tools import lidar_fleet as LF
 
@@ -61,6 +63,10 @@ runs = {"main path": (ob, cfg), "path (a)": (ob, dataclasses.replace(cfg, mega=F
                      ALILQRConfig(n_outer=6, n_inner=12, tol_con=1e-4, mega=False)),
         "path (d)": (LF.jittered(LF.scanned("lidar_v2", [[0.5, 0.25, 0.15]], dev, ray_lo=0.3),
                                  4096, g), ALILQRConfig(n_outer=10, n_inner=20, tol_con=1e-3))}
+for m in (16, 24):   # the staged route past ten and past sixteen robots
+    rb = robot_counts.make(m, device=dev)
+    runs[f"staged m={m}"] = (batch_ocp(rb, rb.x0[None] + 0.1 * torch.randn(
+        (4096, rb.nx), generator=g, device=dev)), dataclasses.replace(cfg, mega=False))
 out = {}
 for tag, (o, c) in runs.items():
     r = solve_batched(o, cfg=c)

@@ -1,7 +1,8 @@
 """The staged kernels' launch geometry on the card, against their first
 designs.
 
-    python -m nmpc_tpu_torch.tools.staged_launch [M,...] [k35|k46]
+    python -m nmpc_tpu_torch.tools.staged_launch [M,...] [k35|k46|k3]
+    python -m nmpc_tpu_torch.tools.staged_launch NxNU,... k3
 
 For each robot count M (default: every one of CANDIDATES) builds
 csrc/staged.cu once per geometry of a candidate list and the first designs
@@ -18,10 +19,17 @@ and spill with K5's S and D, ops/staged_tiles.py) times K3 on K4's
 expansions there and K5 on K3's gains with the solver's line-search grid;
 `k46` (CANDIDATES46: K4's S and W with K6's S, D and T) times K4 on the
 state and K6 on K3's gains with one alpha of the grid per scenario; both
-without the argument. The first pair of each list is the solver's pick, the
+without the argument. `k3` (CANDIDATES3, past ten robots: the register-tile
+design's scenarios a block, ring depth, threads and the spilled slot)
+builds K3 alone (csrc/riccati_shape.cu at (3M, 2M), a few seconds of nvcc a
+variant) and times it as k35 does; a key NxNU (a stage shape past (30, 20))
+takes k3_rule's pick and every other S of a ring of one and 256 threads
+that fits (shape_candidates), on kernel_check.k3_inputs at SHAPE_B
+scenarios and SHAPE_N stages (chip_smoke.py phase 39's). The first pair of each list is the solver's pick, the
 other kernels of a variant are at theirs. Prints each variant's shared
-bytes, resident warps per SM and ptxas lines, whether every variant gives
-the first design's bits, and the times in turns (forward, then backward; min
+bytes, resident warps per SM and ptxas lines, the output entries in which
+each variant differs from the first design (variant 0 where there is
+none), and the times in turns (forward, then backward; min
 and median of 2 samples, each the mean of REPEAT launches in a row), fastest
 first. The picks in ops/staged_tiles.py (K3_GEOMETRY, ..., K6_GEOMETRY) are
 read from this table. Needs a card.
@@ -72,23 +80,42 @@ CANDIDATES = {
     7: [(G3(8, 2, 32, 8), G5(16, 2)), (G3(8, 2, 16, 8), G5(32, 2)),
         (G3(8, 2, 32, 8, True), G5(8, 2))],
     9: [(G3(8, 2, 32, 8, True), G5(16, 2)), (G3(8, 2, 16, 8, True), G5(8, 2))],
-    # past ten robots K3's block design (S = 1, T = 32 W threads); swept at
-    # 12 and 16, the rule's pick elsewhere
-    12: [(G3(1, 2, 256, 1), G5(8, 2)), (G3(1, 2, 128, 1), G5(16, 2)),
-         (G3(1, 2, 512, 1), G5(8, 2))],
-    16: [(G3(1, 2, 256, 1), G5(8, 2)), (G3(1, 2, 128, 1), G5(8, 2)),
-         (G3(1, 2, 512, 1), G5(8, 2))],
-    **{m: [(G3(1, 2, 256, 1), G5(8, 2))] for m in (11, 13, 14, 15)},
-    # past sixteen robots K3's wide design (ops/staged_tiles.py::k3_rule)
-    # and K5's tile by k5_rule, first; a ring of one, other block sizes and
-    # the spilled slot beside them
-    20: [(G3(1, 2, 256, 1, wide=True), G5(8, 2)), (G3(1, 1, 256, 1, wide=True), G5(4, 2)),
-         (G3(1, 2, 128, 1, wide=True), G5(8, 2)), (G3(1, 2, 512, 1, wide=True), G5(8, 2))],
-    24: [(G3(1, 2, 256, 1, wide=True), G5(4, 2)), (G3(1, 1, 256, 1, wide=True), G5(2, 2)),
-         (G3(1, 2, 512, 1, wide=True), G5(4, 2))],
-    32: [(G3(1, 1, 256, 1, wide=True), G5(2, 2)), (G3(1, 2, 256, 1, True, wide=True), G5(1, 2)),
-         (G3(1, 1, 512, 1, wide=True), G5(2, 2))],
+    # past ten robots K3's register-tile design at k3_rule's pick (its own
+    # variants: CANDIDATES3, the `k3` family) with K5's tiles by k5_rule;
+    # other K5 tiles beside them at 12-32
+    12: [(ST.k3_geometry(12), G5(8, 2)), (ST.k3_geometry(12), G5(16, 2))],
+    16: [(ST.k3_geometry(16), G5(8, 2))],
+    **{m: [(ST.k3_geometry(m), G5(8, 2))] for m in (11, 13, 14, 15)},
+    20: [(ST.k3_geometry(20), G5(8, 2)), (ST.k3_geometry(20), G5(4, 2))],
+    24: [(ST.k3_geometry(24), G5(4, 2)), (ST.k3_geometry(24), G5(2, 2))],
+    32: [(ST.k3_geometry(32), G5(2, 2)), (ST.k3_geometry(32), G5(1, 2))],
 }
+# K3's register-tile design per m past ten robots, k3_rule's pick first:
+# scenarios a block (S), ring depth (D), threads a block (T), the slot
+# spilled (its products staged through shared memory)
+RT = functools.partial(G3, P=1, rtile=True)
+CANDIDATES3 = {
+    12: [RT(2, 1, 256), RT(1, 1, 256), RT(3, 1, 256), RT(2, 2, 256), RT(2, 1, 512)],
+    16: [RT(1, 1, 256), RT(2, 1, 256), RT(1, 2, 256), RT(1, 1, 128), RT(1, 1, 512)],
+    20: [RT(1, 1, 256), RT(1, 2, 256), RT(2, 1, 256), RT(1, 1, 128), RT(1, 1, 512)],
+    24: [RT(1, 1, 256), RT(1, 2, 256), RT(1, 1, 128), RT(1, 1, 512),
+         RT(1, 0, 256, spill=True)],
+    32: [RT(1, 1, 512), RT(1, 1, 256), RT(1, 1, 1024), RT(1, 0, 256, spill=True)],
+}
+# a stage shape's batch and horizon in the `k3` family
+SHAPE_B, SHAPE_N = 256, 20
+
+
+def shape_candidates(shape: tuple) -> list:
+    """K3 at a stage shape past (30, 20): k3_rule's pick, then every other
+    S (8, 4, 2, 1) that fits a block at a ring of one and 256 threads."""
+    pick = ST.k3_geometry(shape)
+    others = [RT(S, 1, 256) for S in (8, 4, 2, 1)
+              if RT(S, 1, 256) != pick and ST.k3_layout(shape, RT(S, 1, 256))["smem_bytes"]
+              <= ST.SMEM_BLOCK_MAX]
+    return [pick, *others]
+
+
 # (K4, K6) geometries per m, the solver's pick first
 CANDIDATES46 = {
     1: [(G4(128, 4), G6(32, 4, 1)), (G4(128, 8), G6(64, 4, 1)), (G4(64, 4), G6(32, 2, 1)),
@@ -231,15 +258,23 @@ def _launches(d: dict, alphas) -> dict:
             "K6": lambda lib, first=False: rollout.rollout_launch(ob, *d["k6"], lib, first)}
 
 
-def sweep(m: int, libs: list, alphas, kernels=("K3", "K5")) -> tuple:
-    """({(kernel, variant): [ms, ms]}, every variant bit for bit the first
-    design, or past sixteen robots variant 0) at inputs(m); libs: the
-    variants' libraries, in candidate order."""
+def sweep(m, libs: list, alphas, kernels=("K3", "K5")) -> tuple:
+    """({(kernel, variant): [ms, ms]}, {variant: output entries that differ
+    from the first design, or past sixteen robots and at a stage shape from
+    variant 0}) at inputs(m) (a stage shape m: K3 on kernel_check.k3_inputs
+    at SHAPE_B, SHAPE_N); libs: the variants' libraries, in candidate
+    order."""
+    from nmpc_tpu_torch.ops import kernel_check
     from nmpc_tpu_torch.tools.exp_mega_phases import time_in_turns
 
-    launch = _launches(inputs(m), alphas)
+    if isinstance(m, tuple):
+        gen = torch.Generator(device="cuda").manual_seed(sum(m))
+        exp = kernel_check.k3_inputs(*m, SHAPE_B, SHAPE_N, gen)
+        launch = {"K3": lambda lib, first=False: riccati.launch(exp, 1e-6, lib, first)}
+    else:
+        launch = _launches(inputs(m), alphas)
     runs, ref = {}, 0
-    if m <= cuda_build.MEGA_MAX_ROBOTS:
+    if isinstance(m, int) and m <= cuda_build.MEGA_MAX_ROBOTS:
         first, ref = cuda_build.load_first(m), "first"
         runs = {(k, "first"): functools.partial(launch[k], first, True) for k in kernels}
     for i, lib in enumerate(libs):
@@ -247,13 +282,15 @@ def sweep(m: int, libs: list, alphas, kernels=("K3", "K5")) -> tuple:
             runs[k, i] = functools.partial(launch[k], lib)
     outs = {k: f() for k, f in runs.items()}
     tup = lambda o: o if isinstance(o, tuple) else (o,)  # noqa: E731
-    same = all(torch.equal(a, b) for (kern, _), o in outs.items()
-               for a, b in zip(tup(o), tup(outs[kern, ref])))
+    differ = {}
+    for (kern, v), o in outs.items():
+        differ[v] = differ.get(v, 0) + sum(int((a != b).sum())
+                                           for a, b in zip(tup(o), tup(outs[kern, ref])))
     del outs
     order = list(runs) + list(runs)[::-1]
     repeated = {k: functools.partial(_repeat, f) for k, f in runs.items()}
     return {k: [t / REPEAT for t in v]
-            for k, v in time_in_turns(repeated, order, 1).items()}, same
+            for k, v in time_in_turns(repeated, order, 1).items()}, differ
 
 
 def _repeat(fn):
@@ -268,24 +305,36 @@ def main(argv=None) -> int:
 
     require_card("staged_launch")
     args = sys.argv[1:] if argv is None else argv
-    families = [a for a in args if a in ("k35", "k46")] or ["k35", "k46"]
-    args = [a for a in args if a not in ("k35", "k46")]
-    robots = [int(a) for a in args[0].split(",")] if args else sorted(CANDIDATES)
+    families = [a for a in args if a in ("k35", "k46", "k3")] or ["k35", "k46"]
+    args = [a for a in args if a not in ("k35", "k46", "k3")]
+    robots = ([tuple(map(int, a.split("x"))) if "x" in a else int(a) for a in args[0].split(",")]
+              if args else sorted(CANDIDATES))
+    if any(isinstance(m, tuple) for m in robots) and families != ["k3"]:
+        raise SystemExit("staged_launch: a stage shape NxNU takes the k3 family alone")
     alphas = (0.0,) + tuple(ALILQRConfig().alphas)
+    k3_cands = {**CANDIDATES3, **{m: shape_candidates(m) for m in robots if isinstance(m, tuple)}}
 
     def variant(m, fam, i):
+        if fam == "k3":
+            g = k3_cands[m][i]
+            shape = ST.k3_dims(m)
+            lib = cuda_build.load_k3_shape(*shape, g=g)
+            info = cuda_build.k3_shape_build_info[shape if g == ST.k3_geometry(shape)
+                                                  else (shape, g)]
+            return lib, info["ptxas"]
         if fam == "k35":
             k3, k5 = CANDIDATES[m][i]
             return cuda_build.load_staged_variant(m, k3=k3, k5=k5)
         k4, k6 = CANDIDATES46[m][i]
         return cuda_build.load_staged_variant(m, k4=k4, k6=k6)
 
-    cands = {"k35": CANDIDATES, "k46": CANDIDATES46}
+    cands = {"k35": CANDIDATES, "k46": CANDIDATES46,
+             "k3": {m: [(g,) for g in v] for m, v in k3_cands.items()}}
     keys = [(m, fam, i) for m in robots for fam in families for i in range(len(cands[fam][m]))]
     with ThreadPoolExecutor(max_workers=len(keys) + len(robots)) as pool:
         built = {key: pool.submit(variant, *key) for key in keys}
         firsts = [pool.submit(cuda_build.load_first, m) for m in robots
-                  if m <= cuda_build.MEGA_MAX_ROBOTS]
+                  if isinstance(m, int) and m <= cuda_build.MEGA_MAX_ROBOTS]
         built = {key: f.result() for key, f in built.items()}
         for f in firsts:
             f.result()
@@ -295,9 +344,13 @@ def main(argv=None) -> int:
             print(f"m={m} first design ptxas "
                   f"{staged_ptxas(cuda_build.first_build_info[m]['ptxas'])}")
         for fam in families:
-            kernels = ("K3", "K5") if fam == "k35" else ("K4", "K6")
+            kernels = {"k35": ("K3", "K5"), "k46": ("K4", "K6"), "k3": ("K3",)}[fam]
             for i, geoms in enumerate(cands[fam][m]):
-                if fam == "k35":
+                if fam == "k3":
+                    lay = ST.k3_layout(m, geoms[0])
+                    what = (f"K3 {geoms[0]} {lay['smem_bytes']} B shared, {lay['blocks_per_sm']} "
+                            f"blocks/SM by shared memory and threads")
+                elif fam == "k35":
                     lay = ST.k3_layout(m, geoms[0])
                     what = (f"K3 {geoms[0]} {lay['smem_bytes']} B shared, {lay['warps_per_sm']} "
                             f"warps/SM by shared memory; K5 {geoms[1]}")
@@ -308,13 +361,20 @@ def main(argv=None) -> int:
                     what = (f"K4 {geoms[0]} {lay4['smem_bytes']} B shared, {lay4['warps_per_sm']} "
                             f"warps/SM; K6 {geoms[1]} {lay6['smem_bytes']} B shared, "
                             f"{lay6['warps_per_sm']} warps/SM")
-                ptx = {k: v for k, v in staged_ptxas(built[m, fam, i][1]).items() if k in kernels}
+                report = built[m, fam, i][1]
+                ptx = ({"K3": "; ".join(x.strip() for x in report.splitlines()
+                                        if "registers" in x or "stack frame" in x)}
+                       if fam == "k3" else
+                       {k: v for k, v in staged_ptxas(report).items() if k in kernels})
                 print(f"m={m} {fam} variant {i}: {what}; ptxas {ptx}")
-            times, same = sweep(m, [built[m, fam, i][0] for i in range(len(cands[fam][m]))],
-                                alphas, kernels)
-            ref = "the first design" if m <= cuda_build.MEGA_MAX_ROBOTS else "variant 0"
-            print(f"m={m} {problem(m)[1]} B={batch_size(m)} {fam}: every variant bit for bit "
-                  f"{ref}: {'yes' if same else 'NO'}")
+            times, differ = sweep(m, [built[m, fam, i][0] for i in range(len(cands[fam][m]))],
+                                  alphas, kernels)
+            first = isinstance(m, int) and m <= cuda_build.MEGA_MAX_ROBOTS
+            what = (f"{problem(m)[1]} B={batch_size(m)}" if isinstance(m, int) else
+                    f"kernel_check.k3_inputs B={SHAPE_B} N={SHAPE_N}")
+            print(f"m={m} {what} {fam}: output entries that differ from "
+                  f"{'the first design' if first else 'variant 0'}: "
+                  + ", ".join(f"variant {v} {d}" for v, d in differ.items()))
             rows = sorted(summarize(times).items(), key=lambda kv: (kv[0][0], kv[1][1]))
             for (k, v), (lo, med) in rows:
                 print(f"  {k} variant {v}: min {lo:.3f} ms, median {med:.3f} ms")

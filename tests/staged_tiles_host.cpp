@@ -6,14 +6,14 @@
 //       -DNMPC_NR=<m> -DNMPC_K3_S=... -I<csrc> staged_tiles_host.cpp
 // With -DNMPC_K3_N=<n> -DNMPC_K3_NU=<nu> (and K3's geometry at that shape,
 // staged_tiles.k3_shape_flags) K3 runs at that stage shape instead;
-// -DNMPC_K3_WIDE=1 builds K3's wide design (its ring of D tiles of A and B,
-// D = 0 reading them from the arrays, the slot in `scratch` with spill).
+// -DNMPC_K3_RTILE=1 builds K3's register-tile design (S scenarios a block,
+// a ring of D tiles of their A | B; spilled, the slot and A | B in
+// `scratch` and the products' staging buffers in `smem`).
 // K4's and K5's device-memory forms (K4Device, K5Device: nothing in shared
 // memory) run with `tiles` = 2.
 // A block runs as S T (K3, K6), A S (K5) or 32 W (K4) lanes (tests/
 // host_lanes.h: coroutines in the calling thread) with a barrier for
-// __syncthreads (and one for warp 0's __syncwarp in K3's block design); the
-// copies are plain loads (the header's NMPC_HOST_BLOCK shim), so every stage
+// __syncthreads; the copies are plain loads (the header's NMPC_HOST_BLOCK shim), so every stage
 // is complete when it is read.
 #define NMPC_DEV inline
 #define NMPC_HOST_BLOCK
@@ -25,10 +25,7 @@
 
 namespace nmpc {
 thread_local host_lanes::Barrier* g_block = nullptr;
-thread_local host_lanes::Barrier* g_warp0 = nullptr;
 inline void block_sync() { host_lanes::wait(*g_block); }
-// __syncwarp of K3's block design, whose warp 0 alone calls it
-inline void warp0_sync() { host_lanes::wait(*g_warp0); }
 }  // namespace nmpc
 
 #include "expansions_rollout_tiles.cuh"
@@ -44,11 +41,11 @@ constexpr bool kK3First = false;
 constexpr int kK3n = 3 * NMPC_NR, kK3nu = 2 * NMPC_NR;
 constexpr bool kK3First = true;
 #endif
-#ifndef NMPC_K3_WIDE
-#define NMPC_K3_WIDE 0
+#ifndef NMPC_K3_RTILE
+#define NMPC_K3_RTILE 0
 #endif
 using K3G = nmpc::K3Geom<kK3n, kK3nu, NMPC_K3_S, NMPC_K3_D, NMPC_K3_T, NMPC_K3_P,
-                         NMPC_K3_SPILL != 0, NMPC_K3_WIDE != 0>;
+                         NMPC_K3_SPILL != 0, NMPC_K3_RTILE != 0>;
 using K5G = nmpc::K5Geom<NMPC_NR, NMPC_K5_S, NMPC_K5_D>;
 using K4G = nmpc::K4Geom<NMPC_NR, NMPC_K4_S, NMPC_K4_W>;
 using K6G = nmpc::K6Geom<NMPC_NR, NMPC_K6_S, NMPC_K6_D, NMPC_K6_T>;
@@ -65,13 +62,11 @@ bool aligned(int B, std::initializer_list<const float*> ptrs) {
   return true;
 }
 
-// run body(tid) on `threads` lanes sharing one barrier (and the first 32
-// another, warp 0's)
+// run body(tid) on `threads` lanes sharing one barrier
 template <class F>
 void run_block(int threads, F body) {
-  host_lanes::Barrier bar(threads), warp0(threads < 32 ? threads : 32);
+  host_lanes::Barrier bar(threads);
   nmpc::g_block = &bar;
-  nmpc::g_warp0 = &warp0;
   host_lanes::run(threads, body);
 }
 
@@ -85,7 +80,7 @@ void host_k3_geometry(int* out) {
   for (int i = 0; i < 8; ++i) out[i] = g[i];
 }
 
-int host_k3_wide() { return K3G::kWide; }
+int host_k3_rtile() { return K3G::kRtile; }
 
 void host_k5_geometry(int rows, int prm_size, int* out) {
   out[0] = K5G::S;

@@ -383,15 +383,16 @@ def _hold_any_rows(ob, dev, cfg, forms, share=None, hold_b=8):
 
 @pytest.mark.parametrize("m", [12, 16])
 def test_staged_kernels_past_ten_robots_match_plain(dev, m):
-    """K3 (its block design), K4, K5 and K6 at m = 12 and 16 (scenarios/
+    """K3 (its register-tile design), K4, K5 and K6 at m = 12 and 16 (scenarios/
     robot_counts.py's widened crossing, N=10, B=300: a ragged last tile)
     against their plain versions as test_staged_kernels_match_plain holds
-    them, one launch each; and the staged route's solve through them (one
-    K4, K3 and K5 an inner iteration, K6 once more)."""
+    them, one launch each, and K3 bit for bit its first design
+    (riccati_thread); and the staged route's solve through them (one K4, K3
+    and K5 an inner iteration, K6 once more)."""
     from nmpc_tpu_torch.scenarios import robot_counts
 
     ocp = robot_counts.make(m, device=dev, N=10)
-    assert staged_tiles.k3_geometry(m).S == 1
+    assert staged_tiles.k3_geometry(m).rtile
     L = _lanes(ocp, 300, dev)
     cuda_build.reset_launch_counts()
     verdicts, _ = staged_vs_plain(ocp, L["X"], L["U"], L["xref"], L["lam"], L["mu"], None,
@@ -402,6 +403,10 @@ def test_staged_kernels_past_ten_robots_match_plain(dev, m):
     c = cuda_build.launch_counts
     assert (c["expansions_fused"], c["riccati_lanes"], c["linesearch_costs_lanes"],
             c["rollout_alpha_lanes"]) == (1, 1, 1, 1)
+    from nmpc_tpu_torch.tools import staged_launch as SL
+    exp = expansions_fused(ocp, L["X"], L["U"], L["xref"], L["lam"], L["mu"], None)
+    assert all(torch.equal(a, b) for a, b in zip(riccati_lanes(exp, 1e-6),
+                                                 SL.riccati_first(exp, 1e-6)))
     g = torch.Generator(device=dev).manual_seed(m)
     ob = batch_ocp(ocp, ocp.x0[None] + 0.05 * torch.randn((64, ocp.nx), generator=g, device=dev))
     cuda_build.reset_launch_counts()
@@ -413,10 +418,12 @@ def test_staged_kernels_past_ten_robots_match_plain(dev, m):
 
 
 @pytest.mark.parametrize("shape", [(36, 24), (41, 7), (50, 13), (64, 32), (80, 32)])
-def test_riccati_block_design_at_wide_shapes_matches_plain(dev, shape):
-    """K3's block design at stage shapes past (30, 20) up to its limit,
-    each from its own riccati_shape.cu library, against plain on random
-    well-posed stage blocks (B = 33 and 256, N=5) at K3's tolerances."""
+def test_riccati_rtile_design_at_wide_shapes_matches_plain(dev, shape):
+    """K3's register-tile design at stage shapes past (30, 20) with nu <= 32
+    (several scenarios a block, rings of one and two stage tiles), each
+    from its own riccati_shape.cu library, against plain on random
+    well-posed stage blocks (B = 33, a ragged last block, and 256, N=5) at
+    K3's tolerances."""
     from nmpc_tpu_torch.ops import kernel_check as KC
     from nmpc_tpu_torch.ops.riccati import riccati_plain
 
@@ -432,7 +439,7 @@ def test_riccati_block_design_at_wide_shapes_matches_plain(dev, shape):
 
 @pytest.mark.parametrize("m", [20, 24, 32])
 def test_staged_kernels_past_sixteen_robots_match_plain(dev, m):
-    """K3 (its wide design), K4, K5 and K6 at m = 20, 24 and 32 (the
+    """K3 (its register-tile design), K4, K5 and K6 at m = 20, 24 and 32 (the
     antipodal circle, N=5, B=37: a ragged last tile of every tile size; its
     robots stay well inside the arena, so no rollout diverges) against their
     plain versions as test_staged_kernels_past_ten_robots_match_plain holds
@@ -443,7 +450,7 @@ def test_staged_kernels_past_sixteen_robots_match_plain(dev, m):
     from nmpc_tpu_torch.solver.alilqr_batched import route
 
     ocp = P.make_ocp(**robot_counts.circle(m, N=5), device=dev)
-    assert staged_tiles.k3_geometry(m).wide
+    assert staged_tiles.k3_geometry(m).rtile
     L = _lanes(ocp, 37, dev)
     cuda_build.reset_launch_counts()
     verdicts, _ = staged_vs_plain(ocp, L["X"], L["U"], L["xref"], L["lam"], L["mu"], None,
@@ -555,18 +562,19 @@ def test_device_memory_forms_are_the_tile_forms(dev, case):
 
 
 @pytest.mark.parametrize("shape", [(81, 33), (96, 64), (120, 40), (150, 100), (210, 100)])
-def test_riccati_wide_design_matches_plain(dev, shape):
-    """K3's wide design at chip_smoke.py phase 40's stage shapes: nu > 32
-    (a Cholesky across the block) with a ring of two A-and-B tiles (81, 33)
-    and of one (96, 64), the slot in device memory (120, 40), (150, 100),
-    and A and B read from device memory (210, 100), each from its own
-    riccati_shape.cu library, against plain on random well-posed stage
-    blocks (B = 33, N=3) at K3's tolerances."""
+def test_riccati_rtile_design_past_nu_32_matches_plain(dev, shape):
+    """K3's register-tile design at chip_smoke.py phase 40's stage shapes:
+    nu > 32 (the elimination over more than a warp's rows, the backward
+    substitutions from shared memory) with a ring of two A | B tiles (81,
+    33) and of one (96, 64), and the slot spilled to device memory, its
+    products staged through shared memory (120, 40), (150, 100), (210,
+    100), each from its own riccati_shape.cu library, against plain on
+    random well-posed stage blocks (B = 33, N=3) at K3's tolerances."""
     from nmpc_tpu_torch.ops import kernel_check as KC
     from nmpc_tpu_torch.ops.riccati import riccati_plain
 
     g3 = staged_tiles.k3_geometry(shape)
-    assert g3.wide
+    assert g3.rtile
     exp = KC.k3_inputs(*shape, 33, 3, torch.Generator(device=dev).manual_seed(sum(shape)))
     got = riccati_lanes(exp, 1e-6)
     v = KC.Verdict()
@@ -574,8 +582,31 @@ def test_riccati_wide_design_matches_plain(dev, shape):
         KC.hold(v, f"K3 {shape} output {i}", a, w, atol)
     assert v.units == 33 and v.n_widened == 0 and v.n_diverged == 0
     lib = cuda_build.load_k3_shape(*shape)
-    assert cuda_build.k3_geometry(lib)["wide"] == 1
+    assert cuda_build.k3_geometry(lib)["rtile"] == 1
     assert cuda_build.k3_geometry(lib)["D"] == g3.D
+
+
+def test_k3_phase_probes_count_every_phase(dev):
+    """K3's register-tile design built with its phase probes
+    (tools/k3_ab.py, -DNMPC_K3_PROBES) gives the bits of the build without
+    them, and every phase of a stage gets cycles."""
+    import ctypes
+
+    from nmpc_tpu_torch.ops import kernel_check as KC
+    from nmpc_tpu_torch.tools import k3_ab
+
+    shape = (48, 32)
+    k3_ab.OUT.mkdir(parents=True, exist_ok=True)
+    lib, _, g = k3_ab.build(k3_ab.ROOT, staged_tiles, shape, "this", probes=True)
+    exp = KC.k3_inputs(*shape, 64, 3, torch.Generator(device=dev).manual_seed(48))
+    cuda_build.check(lib, lib.nmpc_k3_phases(None, 1), "reset")
+    got = k3_ab.launch(lib, g, exp)
+    torch.cuda.synchronize()
+    c = (ctypes.c_ulonglong * 8)()
+    cuda_build.check(lib, lib.nmpc_k3_phases(c, 0), "read")
+    assert all(c[i] > 0 for i in k3_ab.PHASES), list(c)
+    want = riccati_lanes(exp, k3_ab.REG)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
 def test_k1_phase_probes_count_every_phase(dev):
@@ -801,8 +832,8 @@ def test_staged_wrappers_refuse_what_the_kernels_do_not_cover(dev):
         assert x.units > 0 and x.n_diverged == 0 and x.n_widened == 0, k
     assert cuda_build.staged_forms == {"K4 tile": 0, "K4 device": 1, "K5 tile": 0,
                                        "K5 device": 1}
-    # K3 takes every stage shape with n, nu >= 1 (its wide design past the
-    # block design's); an empty one raises
+    # K3 takes every stage shape with n, nu >= 1 (its register-tile design
+    # past (30, 20)); an empty one raises
     for n, nu in ((0, 4), (4, 0)):
         bad = tuple(torch.zeros(s, device=dev) for s in (
             (5, n, n, 64), (5, n, nu, 64), (5, n, 64), (5, nu, 64), (5, n, n, 64),

@@ -1,6 +1,6 @@
 """Robot counts past the megakernel's sixteen, on the CPU against the JAX
 package: the route, the staged route's solves and K3's plain version at
-stage shapes past nu = 32. On the card these run K3's wide design and K4-K6
+stage shapes past nu = 32. On the card these run K3's register-tile design and K4-K6
 on their smaller tiles (chip_smoke.py phase 40,
 tests/test_torch_cuda.py); here the plain versions, which the host
 rehearsal (tests/test_torch_staged_wide_host.py) and the card hold the

@@ -62,9 +62,9 @@ def test_geometry_fits_the_card(m):
     g3, g5 = ST.K3_GEOMETRY[m], ST.K5_GEOMETRY[m]
     assert g5.S >= 8 and g5.S & (g5.S - 1) == 0
     if m <= 10:   # K3's team design: a tile of S scenarios
-        assert g3.S >= 8 and g3.S & (g3.S - 1) == 0
-    else:         # its block design: whole warps for one scenario
-        assert (g3.S, g3.P, g3.T % 32, g3.spill) == (1, 1, 0, False)
+        assert g3.S >= 8 and g3.S & (g3.S - 1) == 0 and not g3.rtile
+    else:         # its register-tile design: whole warps for S scenarios
+        assert (g3.rtile, g3.P, g3.T % 32, g3.spill) == (True, 1, 0, False) and g3.S >= 1
     lay = ST.k3_layout(m)
     assert lay["smem_bytes"] <= ST.SMEM_BLOCK_MAX and lay["threads"] <= 1024
     assert lay["blocks_per_sm"] == ST.K3_BLOCKS_PER_SM[m], lay
@@ -97,8 +97,15 @@ def test_geometry_refuses_what_the_kernels_do_not_take():
                 ST.K3Geometry(1, 2, 256, 1, spill=True)):
         with pytest.raises(ValueError):
             ST.k3_layout(6, bad)
-    with pytest.raises(ValueError):   # the block design's Cholesky is one warp's
-        ST.k3_layout((40, 33), ST.K3_GEOMETRY[16])
+    # the register-tile design: whole warps of at least two, pitch 1, a ring
+    # of one or two tiles, or spilled: one scenario, 256 threads, no ring
+    for bad in (ST.K3Geometry(1, 0, 256, 1, rtile=True), ST.K3Geometry(1, 3, 256, 1, rtile=True),
+                ST.K3Geometry(2, 0, 256, 1, True, rtile=True),
+                ST.K3Geometry(1, 0, 128, 1, True, rtile=True),
+                ST.K3Geometry(1, 2, 48, 1, rtile=True), ST.K3Geometry(1, 2, 32, 1, rtile=True),
+                ST.K3Geometry(2, 2, 256, 2, rtile=True), ST.K3Geometry(0, 2, 256, 1, rtile=True)):
+        with pytest.raises(ValueError):
+            ST.k3_layout((40, 33), bad)
     with pytest.raises(ValueError):
         ST.k5_layout(1, 32, 100, 9, ST.K5Geometry(24, 2))
     for bad in (ST.K4Geometry(12, 4), ST.K4Geometry(32, 0), ST.K4Geometry(32, 33)):
@@ -275,42 +282,50 @@ def test_host_riccati_tiles_at_user_model_shapes_match_plain(host_libs, shape, B
 
 def test_k3_rule_gives_the_picks_and_bounds_the_shapes():
     """k3_rule reproduces every pick of K3_GEOMETRY (the sweep's, and the
-    ray shape's), takes the team design up to (30, 20), the block design
-    past it up to nu = 32 and n = 80 there (k3_block_max_n: the next n
-    would overflow the block at a ring of two), and the wide design past
-    those, whose block fits at every shape (its ring of two, one or no
-    A-and-B tiles, its slot spilled where it does not fit); it refuses only
-    empty shapes."""
+    ray shape's), takes the team design up to (30, 20) and the register-tile
+    design past it, whose block fits at every shape: the most scenarios a
+    block of 256 threads (8, 4, 2) at a ring of one with which three blocks
+    reside on an SM, else one scenario where two reside, else one scenario
+    in a block of 512 (no spill up to (96, 64)), else the slot spilled (one scenario, 256 threads, the
+    products' staging buffers in shared memory, the slot and A | B in the
+    scratch); it refuses only empty shapes."""
     for key, g in ST.K3_GEOMETRY.items():
         assert ST.k3_rule(*ST.k3_dims(key)) == g, key
     for key in ST.K3_SHAPES:
         assert ST.k3_layout(key)["blocks_per_sm"] == ST.K3_BLOCKS_PER_SM[key], key
-    assert (ST.k3_block_max_n(ST.K3_BLOCK_MAX_NU), ST.K3_BLOCK_MAX_NU) == (80, 32)
-    for n in range(1, 81):
-        for nu in range(1, 33):
+    for n in range(1, 97):
+        for nu in range(1, 65):
             g = ST.k3_rule(n, nu)
-            assert (g.S == 1) == (n > ST.K3_TILE_N or nu > ST.K3_TILE_NU), (n, nu)
-            assert not g.wide, (n, nu)
+            assert g.rtile == (n > ST.K3_TILE_N or nu > ST.K3_TILE_NU), (n, nu)
             lay = ST.k3_layout((n, nu))
             assert lay["smem_bytes"] <= ST.SMEM_BLOCK_MAX and lay["threads"] <= 1024, (n, nu)
-    g = ST.k3_rule(80, 32)
-    assert ST.k3_layout((81, 32), g)["smem_bytes"] > ST.SMEM_BLOCK_MAX
+            if g.rtile:
+                assert (g.D, g.P, g.spill) == (1, 1, False) and g.S in (1, 2, 4, 8), (n, nu)
+                two = lay["blocks_per_sm"] >= 2
+                assert g.T == (ST.K3_RT_THREADS if two else 2 * ST.K3_RT_THREADS), (n, nu)
+                assert lay["blocks_per_sm"] >= 3 or g.S == 1, (n, nu)
     picks = {}
-    for n, nu in ((81, 32), (40, 33), (81, 33), (96, 64), (120, 40), (150, 100), (210, 100),
-                  (400, 300)):
-        g = ST.k3_rule(n, nu)
-        assert g.wide and (g.S, g.T, g.P) == (1, 256, 1), (n, nu)
-        assert ST.k3_layout((n, nu))["smem_bytes"] <= ST.SMEM_BLOCK_MAX, (n, nu)
-        picks[n, nu] = (g.D, g.spill)
-    assert picks == {(81, 32): (2, False), (40, 33): (2, False), (81, 33): (2, False),
-                     (96, 64): (1, False), (120, 40): (2, True), (150, 100): (1, True),
-                     (210, 100): (0, True), (400, 300): (0, True)}
+    for n, nu in ((81, 32), (40, 33), (41, 7), (81, 33), (96, 64), (120, 40), (150, 100),
+                  (210, 100), (400, 300)):
+        g, lay = ST.k3_rule(n, nu), ST.k3_layout((n, nu))
+        assert g.rtile and lay["smem_bytes"] <= ST.SMEM_BLOCK_MAX, (n, nu)
+        if g.spill:
+            sl = ST.k3_rt_slot((n, nu))
+            assert lay["smem_bytes"] == 4 * ST.RT_STAGE_FLOATS
+            assert lay["scratch_floats"] == sl["floats"] + sl["tile"]
+        picks[n, nu] = (g.S, g.D, g.T, g.spill)
+    assert picks == {(81, 32): (1, 1, 512, False), (40, 33): (1, 1, 256, False),
+                     (41, 7): (2, 1, 256, False),
+                     (81, 33): (1, 1, 512, False), (96, 64): (1, 1, 512, False),
+                     (120, 40): (1, 0, 256, True), (150, 100): (1, 0, 256, True),
+                     (210, 100): (1, 0, 256, True), (400, 300): (1, 0, 256, True)}
     for bad in ((0, 2), (3, 0), (0, 1)):
         with pytest.raises(NotImplementedError, match="n >= 1 and nu >= 1"):
             ST.k3_rule(*bad)
     assert ST.k3_shape_flags((2, 1))[:2] == ["-DNMPC_K3_N=2", "-DNMPC_K3_NU=1"]
-    assert ST.k3_shape_flags((64, 32))[2:] == ["-DNMPC_K3_S=1", "-DNMPC_K3_D=2", "-DNMPC_K3_T=256",
-                                               "-DNMPC_K3_P=1", "-DNMPC_K3_SPILL=0"]
+    assert ST.k3_shape_flags((64, 32))[2:] == ["-DNMPC_K3_S=1", "-DNMPC_K3_D=1", "-DNMPC_K3_T=256",
+                                               "-DNMPC_K3_P=1", "-DNMPC_K3_SPILL=0",
+                                               "-DNMPC_K3_RTILE=1"]
 
 
 def test_host_riccati_tiles_match_pallas_kernel(host_libs):
@@ -442,9 +457,10 @@ def test_host_rollout_tiles_match_plain_and_first_design(host_libs, m, B, N):
 
 
 def test_staged_launch_sweeps_the_picks_and_reads_the_report():
-    """The sweep's first candidate per m is the solver's pick, every
-    candidate is a geometry the kernels take and that fits a block; its
-    report parser finds K3's and K5's lines; without a card it refuses."""
+    """The sweep's first candidate per m (and per stage shape of the `k3`
+    family) is the solver's pick, every candidate is a geometry the kernels
+    take and that fits a block; its report parser finds K3's and K5's
+    lines; without a card it refuses."""
     from nmpc_tpu_torch.tools import staged_launch as SL
 
     assert set(SL.CANDIDATES) == set(SL.CANDIDATES46) == set(ST.K4_GEOMETRY) | {20, 24, 32}
@@ -462,6 +478,10 @@ def test_staged_launch_sweeps_the_picks_and_reads_the_report():
             assert ST.k4_layout(m, ST.k4_rows(m, m > 1, 6, 0), 200, k4)["smem_bytes"] <= ST.SMEM_BLOCK_MAX
             assert ST.k6_layout(m, k6)["smem_bytes"] <= ST.SMEM_BLOCK_MAX
     assert all(get(name).make(device="cpu").m == m for m, name in SL.SCENARIOS.items())
+    for key, cands in [*SL.CANDIDATES3.items(), ((41, 7), SL.shape_candidates((41, 7)))]:
+        assert cands[0] == ST.k3_geometry(key) and len(set(cands)) == len(cands), key
+        assert all(ST.k3_layout(key, g)["smem_bytes"] <= ST.SMEM_BLOCK_MAX for g in cands), key
+    assert [g.S for g in SL.shape_candidates((41, 7))] == [2, 8, 4, 1]
     report = """ptxas info    : Compiling entry function '_ZN4nmpc14riccati_kernelILi6EEEvNS_11RiccatiArgsEPfi' for 'sm_90a'
 ptxas info    : Function properties for _ZN4nmpc14riccati_kernelILi6EEEvNS_11RiccatiArgsEPfi
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads

@@ -2,7 +2,7 @@
 twelve robots, past the registry's, against the reference's own routes,
 whose Pallas kernels run in interpret mode on the CPU; and K3's plain
 version at a stage shape past (30, 20) against the reference's Pallas
-kernel. On the card these routes run K3's block design and K4-K6 at m = 12
+kernel. On the card these routes run K3's register-tile design and K4-K6 at m = 12
 (chip_smoke.py phase 39); here the plain versions, which the host
 rehearsal (tests/test_torch_staged_wide_host.py) and the card hold the
 kernels to.

@@ -3,21 +3,21 @@ compiled as host C++ (tests/staged_tiles_host.cpp, the harness and helpers
 of tests/test_torch_staged_tiles.py; a block's threads as the lanes of
 tests/host_lanes.h), at the solver libraries' geometry:
 
-* K3's block design (csrc/staged_tiles.cuh::riccati_block: a block of eight
-  warps a scenario, its slot in shared memory, the Cholesky in warp 0) at
-  m = 12 and 16 against the plain version at K3's tolerances
-  (ops/kernel_check.py) and the first design (riccati_thread) bit for bit,
-  at the stage shapes no robot stack has, (36, 24), (41, 7), (50, 13),
-  (64, 32) and the limit (80, 32), against plain, and at the ray shape
-  (13, 2) built in the block design against the team design there bit for
-  bit: the same sums in the same order.
-* K3's wide design (riccati_wide: the Cholesky across the block, a ring of
-  A-and-B tiles or none, the slot in shared memory or in the scratch) at
-  m = 17 and 24 against plain and the first design bit for bit, at (54,
-  36) (nu > 32, a ring of two), (96, 64) (a ring of one) and (120, 40) (the
-  slot in the scratch) at k3_rule's geometry, at (54, 36) with A and B read
-  from the arrays (D = 0), against plain; and at (64, 32) against the block
-  design bit for bit.
+* K3's register-tile design (csrc/staged_tiles.cuh::riccati_rtile: S
+  scenarios a block, 4 x 4 register tiles of the products, the factor and
+  forward substitution as one elimination over the block, the backward
+  substitutions one right-hand side a thread) at m = 12, 16, 17 and 24
+  against the plain version at K3's tolerances (ops/kernel_check.py) and
+  the first design (riccati_thread) bit for bit; at the stage shapes no
+  robot stack has, (36, 24), (41, 7), (50, 13), (64, 32), (80, 32), (54,
+  36) and (96, 64) (nu > 32), and (120, 40) (the slot spilled to the
+  scratch, the products staged through shared memory), against plain; at
+  the edges of its tiles (nu = 1, n and nu odd, nu > 32 at one scenario a
+  block, n of 2, the most scenarios a block) against plain; at the ray
+  shape (13, 2) against the team design bit for bit; and at m = 12 built
+  at other geometries (one scenario a block, four at a ring of one, 128
+  and 512 threads, the slot spilled) against k3_rule's bit for bit: the
+  same sums in the same order.
 * K4, K5 and K6 at m = 12, 16, 17 and 24 (K4 with lx and lu summed in its
   output tile, K5 reading xbar, ubar and kff from its stage tile, K6 in
   teams of 16; past sixteen robots on k4_rule's, k5_rule's and k6_rule's
@@ -49,15 +49,23 @@ from test_torch_staged_tiles import (ALPHAS, HOST, _cost_inputs, _host_costs, _h
                                      host_flags, host_libs_at)
 
 WIDE_ROBOTS = (12, 16)
-WIDE_SHAPES = ((36, 24), (41, 7), (50, 13), (64, 32), (80, 32))
-RAY_SHAPE = (13, 2)
-# past sixteen robots, and K3's wide design at k3_rule's geometry; beside
-# them the wide design with A and B read from the arrays at (54, 36), and
-# at the block design's (64, 32)
 PAST_ROBOTS = (17, 24)
-PAST_SHAPES = ((54, 36), (96, 64), (120, 40))
-WIDE_D0 = ST.K3Geometry(1, 0, 256, 1, True, wide=True)
-WIDE_AT_BLOCK = ST.K3Geometry(1, 2, 256, 1, wide=True)
+# K3's register-tile design at stage shapes past (30, 20) that no robot
+# stack has (k3_rule's geometry: one to four scenarios a block, rings of one
+# and two, nu > 32, the slot spilled at (120, 40))
+WIDE_SHAPES = ((36, 24), (41, 7), (50, 13), (64, 32), (80, 32), (54, 36), (96, 64), (120, 40))
+# the edges of its tiles: nu = 1 at eight scenarios a block, n and nu odd,
+# nu > 32 past a warp's rows with n a multiple of 4, n = 2 under a wide nu,
+# n past 30 with nu = 3
+EDGE_SHAPES = ((31, 1), (33, 21), (80, 33), (2, 25), (45, 3))
+RAY_SHAPE = (13, 2)
+# m = 12 at other geometries than k3_rule's: one scenario a block, four at
+# a ring of one, 128 and 512 threads, the slot spilled (its products staged)
+OTHER_GEOMETRIES = {"S=1": ST.K3Geometry(1, 2, 256, 1, rtile=True),
+                    "S=4 D=1": ST.K3Geometry(4, 1, 256, 1, rtile=True),
+                    "T=128": ST.K3Geometry(2, 2, 128, 1, rtile=True),
+                    "T=512": ST.K3Geometry(2, 1, 512, 1, rtile=True),
+                    "spill": ST.K3Geometry(1, 0, 256, 1, True, rtile=True)}
 # K5 and K6 reading their stage rows from the arrays (the geometry of m >=
 # 64), built at m = 17
 DIRECT = (17, ST.K5Geometry(8, 0), ST.K6Geometry(8, 0, 16))
@@ -74,22 +82,23 @@ def _one_thread():
 
 @pytest.fixture(scope="module")
 def host_libs():
-    """{m or stage shape: the harness at the library's geometry}, and
-    "ray block": the ray shape built in the block design."""
-    libs = host_libs_at((*WIDE_ROBOTS, *WIDE_SHAPES, RAY_SHAPE, *PAST_ROBOTS, *PAST_SHAPES))
+    """{m or stage shape: the harness at the library's geometry}, "ray
+    rtile": the ray shape built in the register-tile design, the m = 12
+    builds at OTHER_GEOMETRIES by their names, and "direct"."""
+    libs = host_libs_at((*WIDE_ROBOTS, *PAST_ROBOTS, *WIDE_SHAPES, *EDGE_SHAPES, RAY_SHAPE))
 
     def at(shape, g):
         flags = [f for f in host_flags(shape) if not f.startswith("-DNMPC_K3_")]
         return bind(host_build.build(HOST.name, [*flags, *ST.k3_shape_flags(shape, g)]))
 
-    libs["ray block"] = at(RAY_SHAPE, ST.K3_GEOMETRY[16])
-    libs["D=0"] = at(PAST_SHAPES[0], WIDE_D0)
-    libs["wide at block"] = at((64, 32), WIDE_AT_BLOCK)
+    libs["ray rtile"] = at(RAY_SHAPE, ST.K3Geometry(8, 2, 256, 1, rtile=True))
+    for name, g in OTHER_GEOMETRIES.items():
+        libs[name] = at((36, 24), g)
     m, k5, k6 = DIRECT
     libs["direct"] = bind(host_build.build(HOST.name, [f"-DNMPC_NR={m}",
                                                        *ST.nvcc_flags(m, k5=k5, k6=k6)]))
     for lib in libs.values():
-        lib.host_k3_wide.restype = ctypes.c_int
+        lib.host_k3_rtile.restype = ctypes.c_int
     return libs
 
 
@@ -101,10 +110,24 @@ def _hold_k3(got, exp, tag):
     assert all(torch.isfinite(t).all() for t in got)
 
 
+def _geometry_of(lib) -> list:
+    got = (ctypes.c_int * 8)()
+    lib.host_k3_geometry(got)
+    return list(got)
+
+
+def _want_geometry(key, g) -> list:
+    lay = ST.k3_layout(key, g)
+    return [g.S, g.D, g.T, g.P, int(g.spill), lay["threads"], lay["smem_bytes"],
+            lay["scratch_floats"]]
+
+
 @pytest.mark.parametrize("B,N", SIZES)
-@pytest.mark.parametrize("m", WIDE_ROBOTS)
-def test_host_k3_block_design_matches_plain_and_first_design(host_libs, m, B, N):
-    assert ST.k3_geometry(m).S == 1
+@pytest.mark.parametrize("m", WIDE_ROBOTS + PAST_ROBOTS)
+def test_host_k3_rtile_design_matches_plain_and_first_design(host_libs, m, B, N):
+    g = ST.k3_geometry(m)
+    assert g.rtile and host_libs[m].host_k3_rtile() == 1
+    assert _geometry_of(host_libs[m]) == _want_geometry(m, g)
     exp = _riccati_inputs(m, B, N, seed=m + B + N)
     got = _host_riccati(host_libs[m], exp, tiles=True)
     first = _host_riccati(host_libs[m], exp, tiles=False)
@@ -114,51 +137,42 @@ def test_host_k3_block_design_matches_plain_and_first_design(host_libs, m, B, N)
 
 @pytest.mark.parametrize("B,N", SIZES[:2])
 @pytest.mark.parametrize("shape", WIDE_SHAPES)
-def test_host_k3_block_design_at_wide_shapes_matches_plain(host_libs, shape, B, N):
-    assert ST.k3_geometry(shape).S == 1
+def test_host_k3_rtile_design_at_wide_shapes_matches_plain(host_libs, shape, B, N):
+    g = ST.k3_geometry(shape)
+    assert g.rtile and g.spill == (shape == (120, 40))
+    assert _geometry_of(host_libs[shape]) == _want_geometry(shape, g)
+    exp = _riccati_inputs(shape, B, N, seed=sum(shape) + B + N)
+    _hold_k3(_host_riccati(host_libs[shape], exp, tiles=True), exp, str(shape))
+
+
+@pytest.mark.parametrize("B,N", SIZES[1:])
+@pytest.mark.parametrize("shape", EDGE_SHAPES)
+def test_host_k3_rtile_design_at_its_tiles_edges_matches_plain(host_libs, shape, B, N):
+    g = ST.k3_geometry(shape)
+    assert g.rtile and _geometry_of(host_libs[shape]) == _want_geometry(shape, g)
     exp = _riccati_inputs(shape, B, N, seed=sum(shape) + B + N)
     _hold_k3(_host_riccati(host_libs[shape], exp, tiles=True), exp, str(shape))
 
 
 @pytest.mark.parametrize("B,N", SIZES)
-def test_host_k3_block_design_is_the_team_design_at_the_ray_shape(host_libs, B, N):
+def test_host_k3_rtile_design_is_the_team_design_at_the_ray_shape(host_libs, B, N):
     exp = _riccati_inputs(RAY_SHAPE, B, N, seed=B + N)
-    block = _host_riccati(host_libs["ray block"], exp, tiles=True)
+    rtile = _host_riccati(host_libs["ray rtile"], exp, tiles=True)
     team = _host_riccati(host_libs[RAY_SHAPE], exp, tiles=True)
-    assert all(torch.equal(a, b) for a, b in zip(block, team))
+    assert host_libs["ray rtile"].host_k3_rtile() == 1 and host_libs[RAY_SHAPE].host_k3_rtile() == 0
+    assert all(torch.equal(a, b) for a, b in zip(rtile, team))
 
 
-@pytest.mark.parametrize("B,N", SIZES[:2])
-@pytest.mark.parametrize("m", PAST_ROBOTS)
-def test_host_k3_wide_design_matches_plain_and_first_design(host_libs, m, B, N):
-    assert ST.k3_geometry(m).wide and host_libs[m].host_k3_wide() == 1
-    exp = _riccati_inputs(m, B, N, seed=m + B + N)
-    got = _host_riccati(host_libs[m], exp, tiles=True)
-    first = _host_riccati(host_libs[m], exp, tiles=False)
-    assert all(torch.equal(a, b) for a, b in zip(got, first))   # no sum reordered
-    _hold_k3(got, exp, f"m={m}")
-
-
-@pytest.mark.parametrize("B,N", SIZES[:2])
-@pytest.mark.parametrize("key", [*PAST_SHAPES, "D=0"])
-def test_host_k3_wide_design_at_wide_shapes_matches_plain(host_libs, key, B, N):
-    shape, g = (PAST_SHAPES[0], WIDE_D0) if key == "D=0" else (key, ST.k3_geometry(key))
-    lib = host_libs[key]
-    got = (ctypes.c_int * 8)()
-    lib.host_k3_geometry(got)
-    lay = ST.k3_layout(shape, g)
-    assert list(got) == [g.S, g.D, g.T, g.P, int(g.spill), lay["threads"], lay["smem_bytes"],
-                         lay["scratch_floats"]] and lib.host_k3_wide() == 1
-    exp = _riccati_inputs(shape, B, N, seed=sum(shape) + B + N)
-    _hold_k3(_host_riccati(lib, exp, tiles=True), exp, f"{shape} {g}")
-
-
-@pytest.mark.parametrize("B,N", SIZES)
-def test_host_k3_wide_design_is_the_block_design(host_libs, B, N):
-    exp = _riccati_inputs((64, 32), B, N, seed=64 + B + N)
-    wide = _host_riccati(host_libs["wide at block"], exp, tiles=True)
-    block = _host_riccati(host_libs[(64, 32)], exp, tiles=True)
-    assert all(torch.equal(a, b) for a, b in zip(wide, block))
+@pytest.mark.parametrize("B,N", SIZES[1:])
+@pytest.mark.parametrize("name", sorted(OTHER_GEOMETRIES))
+def test_host_k3_rtile_geometries_give_the_same_bits(host_libs, name, B, N):
+    """m = 12's stage shape at other geometries, bit for bit k3_rule's."""
+    exp = _riccati_inputs((36, 24), B, N, seed=36 + B + N)
+    want = _host_riccati(host_libs[(36, 24)], exp, tiles=True)
+    lib, g = host_libs[name], OTHER_GEOMETRIES[name]
+    assert _geometry_of(lib) == _want_geometry((36, 24), g)
+    got = _host_riccati(lib, exp, tiles=True)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
 @pytest.mark.parametrize("B,N", SIZES)
